@@ -11,20 +11,31 @@ Phases, each of which fails the run with a non-zero exit:
 2. build every CUDA kernel from ``lambdipy_tpu_torch/csrc`` (one ``nvcc``
    per source, in parallel) and print the ptxas report;
 3. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes, and time kernel, plain version and a library call
-   that the port never uses (CUDA events, warmed, L2 defeated by rotating
-   input copies); then hold a small int8 model on the card against the
-   same model on the CPU, under each of the three paths' backends;
-4. the main path, three configurations of full-width ``llama3-8b`` (int8
-   weights, bf16, ``matmul_backend="pallas"``, seeded random weights),
-   each served in turn by the port's HTTP server from a fresh handler:
-   A ``attn_backend="blocked"`` (float KV), B ``blocked`` with
-   ``kv_quant="int8"``, C ``attn_backend="flash"``. B and C also serve a
-   ~4,000-token prompt. Around each path the kernels' launch counters are
-   set to 0 and must then equal what the path implies; the served logits
-   are held against the plain PyTorch model on the card, and one batch-1
-   request is traced with ``torch.profiler`` (device busy time by
-   kernel, idle share);
+   main path's shapes (the paged decode-attention kernel also bitwise
+   against the contiguous one on the K/V gathered through its tables),
+   and time kernel, plain version and a library call that the port
+   never uses (CUDA events, warmed, L2 defeated by rotating input
+   copies); then hold a small int8 model on the card against the same
+   model on the CPU, under each path's backends and through the paged
+   continuous engine;
+4. the main path: full-width ``llama3-8b`` (int8 weights, bf16,
+   ``matmul_backend="pallas"``, seeded random weights) served by the
+   port's HTTP server from a fresh handler per path. D first, timed
+   before any profiler session: the continuous engine over a paged KV
+   arena (``batch_mode="continuous"``, ``kv_paged=1``, 8 slots, segment
+   16) takes a burst of 8 concurrent requests (prompts of 16 to ~4,000
+   tokens; greedy, seeded, logprobs, streamed, eos) and 4 more that join
+   while it decodes; every row must equal solo generation, the same
+   traffic through a dense engine on the same weights must give the same
+   tokens and logprobs, the launch counters must equal the engine's
+   steps and forwards, and the pool must drain to 0 live pages. Then A
+   ``attn_backend="blocked"`` (float KV), B ``blocked`` with
+   ``kv_quant="int8"``, C ``attn_backend="flash"``, B and C with a
+   ~4,000-token prompt. Around each path the kernels' launch counters
+   are set to 0 and must then equal what the path implies; the served
+   logits of A-C are held against the plain PyTorch model on the card,
+   and one request (one engine burst for D) is traced with
+   ``torch.profiler`` (device busy time by kernel, idle share);
 5. print the kernels' JSON line and, last, the device line.
 
 Details go to ``chiprun_out/chip_smoke.json``. With no CUDA device, or
@@ -43,6 +54,7 @@ import time
 import urllib.request
 from pathlib import Path
 
+import numpy as np
 import torch
 
 BW = 3.35e12        # H100 SXM HBM3 bytes/s (data sheet)
@@ -102,9 +114,14 @@ def row_rel_err(out, ref) -> float:
 # ------------------------------------------------------------------ phase 3
 
 DECODE_HEADS = (32, 8, 128)  # h, kvh, d of llama3-8b
-# (b, t, active_len): PR 1's batch-4 shape (the line's shape) and the
-# long row of paths B and C (bucket 4096 + 32 decode steps)
-DECODE_SHAPES = ((4, 544, (1, 129, 300, 544)), (1, 4128, (4100,)))
+# path D's decode shape (both engines): 8 slots over an 8,192-position
+# window, slot 0 idle at active_len 1 (all-null table when paged), the
+# others at the last lengths of seven of its burst rows (prompt + new)
+ENGINE_SHAPE = (8, 8192, (1, 144, 164, 532, 1040, 2024, 4032, 180))
+# (b, t, active_len): a ragged batch of 4 (the kernels line's shape), the long
+# row of paths B and C (bucket 4096 + 32 decode steps) and path D's
+DECODE_SHAPES = ((4, 544, (1, 129, 300, 544)), (1, 4128, (4100,)),
+                 ENGINE_SHAPE)
 # limits on row_rel_err, kernel against plain. bf16: the two round the
 # probabilities to bf16 at other scales (the kernel before its final
 # division), and their outputs differ by up to one bf16 ulp, at most
@@ -176,10 +193,12 @@ def check_decode_attention(gen, quant: bool) -> dict:
             results[key] = {"max_abs_err": err, "row_rel_err": rel,
                             "row_rel_err_len0": rel0, "tolerance": tol}
 
-        # timing in bf16, K/V copies rotated past L2
+        # timing in bf16, K/V copies rotated past L2 (by the active K/V,
+        # the bytes the kernel reads)
         dtype = torch.bfloat16
-        kv_bytes = 2 * b * t * kvh * (d + 4 if quant else 2 * d)
-        n = copies_for(kv_bytes)
+        positions = int(alen.sum().item())
+        per_pos = kvh * (d + 4 if quant else 2 * d)  # K or V, with scale
+        n = copies_for(2 * positions * per_pos)
         q = torch.randn(b, 1, h, d, generator=gen, device=dev).to(dtype)
         kvs = [_decode_operands(gen, b, t, dtype, quant)[1]
                for _ in range(n)]
@@ -197,8 +216,6 @@ def check_decode_attention(gen, quant: bool) -> dict:
         library_ms = cuda_time(lambda i: F.scaled_dot_product_attention(
             qt, kts[i], vts[i], attn_mask=mask, enable_gqa=True), n)
         del deq, kts, vts
-        positions = int(alen.sum().item())
-        per_pos = kvh * (d + 4 if quant else 2 * d)  # K or V, with scale
         nbytes = 2 * q.numel() * 2 + 2 * positions * per_pos + b * 4
         bound_ms, bound_by = bound(nbytes, 4.0 * positions * h * d)
         shape = (f"b={b} h={h} kvh={kvh} d={d} t={t} "
@@ -233,6 +250,181 @@ def plain_kv(kv, dtype, quant):
         return kv["k"], kv["v"]
     return (dequantize_kv(kv["k"], kv["k_scale"], dtype),
             dequantize_kv(kv["v"], kv["v_scale"], dtype))
+
+
+PAGE = 32           # the engine's page (page_width(8192, 32))
+ARENA_PAGES = 4096  # phase 3's arena: a few thousand pages of garbage
+
+
+def idle_rows(b: int, t: int) -> tuple:
+    """Rows that stand for empty engine slots: slot 0 at path D's shape."""
+    return (0,) if (b, t) == ENGINE_SHAPE[:2] else ()
+
+
+def _paged_arena(gen, dtype, quant):
+    """An arena of ``ARENA_PAGES`` random pages in the engine's layout:
+    every page (the null page and the ones no table names included)
+    holds finite values, so a wrong page id reads a wrong number."""
+    from lambdipy_tpu_torch.models.llama import _kv_quantize
+
+    _, kvh, d = DECODE_HEADS
+    shape = (ARENA_PAGES, PAGE, kvh, d)
+    out = {}
+    for name in ("k", "v"):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        if quant:
+            out[name], out[f"{name}_scale"] = _kv_quantize(x)
+        else:
+            out[name] = x.to(dtype)
+        del x
+    return out
+
+
+def _paged_tables(rng, b, nb, active, idle=()):
+    """Shuffled non-identity block tables: each row's pages drawn from a
+    permutation of the arena, entries past its length the null page;
+    rows in ``idle`` (empty engine slots) all null."""
+    perm = torch.randperm(ARENA_PAGES - 1, generator=rng) + 1
+    tables = torch.zeros(b, nb, dtype=torch.int32)
+    for r, n in enumerate(active):
+        if r in idle:
+            continue
+        used = min(nb, -(-max(int(n), 1) // PAGE))
+        tables[r, :used] = perm[r * nb:r * nb + used].to(torch.int32)
+    return tables.cuda()
+
+
+def check_paged_decode_attention(gen) -> dict:
+    """Kernel 3, float and int8 pages, at kernel 1's shapes (page 32,
+    shuffled tables into an arena of ``ARENA_PAGES`` pages, null-padded
+    tails, garbage distractor pages; at path D's shape slot 0 is idle on
+    an all-null table): against its plain version
+    (gather + reference) with ``DECODE_TOL``, and BITWISE against kernel
+    1 / 1b run on the K/V gathered through the same tables; then timed
+    in bf16 with table copies rotated over the arena (past L2) beside the
+    plain version and SDPA on pre-gathered K/V."""
+    import torch.nn.functional as F
+
+    from lambdipy_tpu_torch.ops.decode_attention import (
+        blocked_decode_attention, gather_pages, paged_decode_attention,
+        paged_decode_attention_reference)
+
+    h, kvh, d = DECODE_HEADS
+    rng = torch.Generator().manual_seed(5)
+    result = {"checks": {}, "timings": []}
+    for quant in (False, True):
+        branch = "int8kv" if quant else "float"
+
+        def call(fn, q, arena, tables, alen):
+            scales = ({"k_scale_pages": arena["k_scale"],
+                       "v_scale_pages": arena["v_scale"]} if quant else {})
+            return fn(q, arena["k"], arena["v"], tables, alen, **scales)
+
+        def contiguous(q, arena, tables, alen):
+            g = {name: gather_pages(x, tables).contiguous()
+                 for name, x in arena.items()}
+            scales = ({"k_scale": g["k_scale"], "v_scale": g["v_scale"]}
+                      if quant else {})
+            return blocked_decode_attention(q, g["k"], g["v"], alen,
+                                            **scales)
+
+        for dtype in (torch.bfloat16, torch.float32):
+            arena = _paged_arena(gen, dtype, quant)
+            tol = DECODE_TOL[dtype]
+            for b, t, active in DECODE_SHAPES:
+                nb = t // PAGE
+                tables = _paged_tables(rng, b, nb, active, idle_rows(b, t))
+                alen = torch.tensor(active, dtype=torch.int32, device="cuda")
+                zero = alen.clone()
+                zero[0] = 0
+                q = torch.randn(b, 1, h, d, generator=gen,
+                                device="cuda").to(dtype)
+                outs = {key: (call(paged_decode_attention, q, arena, tables,
+                                   a),
+                              call(paged_decode_attention_reference, q,
+                                   arena, tables, a),
+                              contiguous(q, arena, tables, a))
+                        for key, a in (("", alen), ("len0", zero))}
+                torch.cuda.synchronize()
+                out, ref, cont = outs[""]
+                err = (out.float() - ref.float()).abs().max().item()
+                rel = row_rel_err(out, ref)
+                rel0 = row_rel_err(outs["len0"][0], outs["len0"][1])
+                same = all(torch.equal(o, c) for o, _, c in outs.values())
+                key = f"{branch} b={b} t={t} {dtype}"
+                log(f"paged_decode_attention {key}: max_abs_err {err:.3e}; "
+                    f"per row, max |diff| / rms {rel:.3e} (active_len 0 case "
+                    f"{rel0:.3e}), tolerance {tol}; bitwise equal to the "
+                    f"contiguous kernel on the gathered K/V: {same}")
+                if not (rel <= tol and rel0 <= tol and same):
+                    raise SystemExit(f"paged_decode_attention disagrees at "
+                                     f"{key}: {rel}, {rel0} > {tol} or "
+                                     f"bitwise {same}")
+                result["checks"][key] = {
+                    "max_abs_err": err, "row_rel_err": rel,
+                    "row_rel_err_len0": rel0, "tolerance": tol,
+                    "bitwise_contiguous": same}
+            if dtype == torch.float32:
+                del arena
+                torch.cuda.empty_cache()
+                continue
+            # timing in bf16: table copies rotated over the arena, so
+            # successive calls read other pages (past the 50 MB L2)
+            for b, t, active in DECODE_SHAPES:
+                nb = t // PAGE
+                alen = torch.tensor(active, dtype=torch.int32, device="cuda")
+                positions = int(alen.sum().item())
+                per_pos = kvh * (d + 4 if quant else 2 * d)  # K or V
+                n = copies_for(2 * positions * per_pos)
+                tabs = [_paged_tables(rng, b, nb, active, idle_rows(b, t))
+                        for _ in range(n)]
+                q = torch.randn(b, 1, h, d, generator=gen,
+                                device="cuda").to(dtype)
+                ms = cuda_time(lambda i: call(paged_decode_attention, q,
+                                              arena, tabs[i], alen), n)
+                plain_ms = cuda_time(
+                    lambda i: call(paged_decode_attention_reference, q,
+                                   arena, tabs[i], alen), n)
+                deq = [plain_kv({name: gather_pages(x, tb)
+                                 for name, x in arena.items()}, dtype, quant)
+                       for tb in tabs]
+                kts = [k.transpose(1, 2) for k, _ in deq]
+                vts = [v.transpose(1, 2) for _, v in deq]
+                del deq
+                mask = (torch.arange(t, device="cuda")[None, :]
+                        < alen[:, None])[:, None, None]
+                library_ms = cuda_time(
+                    lambda i: F.scaled_dot_product_attention(
+                        q.transpose(1, 2), kts[i], vts[i], attn_mask=mask,
+                        enable_gqa=True), n)
+                del kts, vts
+                # q and out, the active K/V (and scales), the table
+                nbytes = (2 * q.numel() * 2 + 2 * positions * per_pos
+                          + b * nb * 4 + b * 4)
+                bound_ms, bound_by = bound(nbytes, 4.0 * positions * h * d)
+                shape = (f"b={b} h={h} kvh={kvh} d={d} t={t} page={PAGE} "
+                         f"active_len={list(active)} bf16"
+                         + (" int8 K/V" if quant else ""))
+                log(f"paged_decode_attention {shape}: kernel {ms:.4f} ms, "
+                    f"plain {plain_ms:.4f} ms, sdpa (pre-gathered) "
+                    f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                    f"({bound_by})")
+                result["timings"].append(
+                    {"shape": shape, "branch": branch, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by})
+            del arena
+            torch.cuda.empty_cache()
+    line = result["timings"][0]  # float K/V, b=4, t=544
+    return {"name": "paged_decode_attention", "route": "cuda",
+            "source": "lambdipy_tpu_torch/csrc/decode_attention.cu",
+            "replaces": "lambdipy_tpu/ops/decode_attention.py:282",
+            "shape": line["shape"],
+            "max_abs_err": max(c["max_abs_err"]
+                               for c in result["checks"].values()),
+            "ms": line["ms"], "plain_ms": line["plain_ms"],
+            "bound_ms": line["bound_ms"], "bound_by": line["bound_by"],
+            "library_ms": line["library_ms"], **result}
 
 
 FLASH_HEADS = (32, 8, 128)  # h, kvh, d of llama3-8b
@@ -445,7 +637,65 @@ def check_small_model() -> dict:
             raise SystemExit(f"small model on the card disagrees with the "
                              f"CPU under path {path}")
         out[path] = {"tokens_equal": same, "logprob_max_abs_err": lp_err}
+    out["D"] = check_small_engine()
     return out
+
+
+def check_small_engine() -> dict:
+    """Path D's engine on a small f32 int8-weight model: three concurrent
+    greedy rows through the paged continuous engine on the card against
+    the same engine on the CPU (tokens equal, logprobs within 5e-3 as
+    above), and kernel 3 launched once per layer per engine step."""
+    import threading
+
+    from lambdipy_tpu_torch.models import registry
+    from lambdipy_tpu_torch.ops.decode_attention import paged_decode_attention
+    from lambdipy_tpu_torch.runtime.handlers import make_engine
+
+    extra = {"vocab_size": 512, "hidden": 256, "heads": 4, "kv_heads": 2,
+             "mlp": 512, "layers": 2, "max_len": 256,
+             "matmul_backend": "pallas", "attn_backend": "blocked"}
+    adapter = registry.get("llama-tiny").build(dtype="float32", quant="int8",
+                                               extra=extra)
+    sd = adapter.init_params(seed=3, device="cpu")
+    rows = [(list(range(1, 40)), 12), (list(range(5, 12)), 20),
+            (list(range(9, 150)), 9)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        engine = make_engine(adapter.make_server(sd, device=dev),
+                             {"batch_max": "4", "batch_segment": "4",
+                              "kv_paged": "1"})
+        launches = paged_decode_attention.launches
+        res = [None] * len(rows)
+
+        def run(i):
+            res[i] = engine.generate(rows[i][0], max_new_tokens=rows[i][1],
+                                     return_logprobs=True)
+
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(rows))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        outs[dev] = res
+        steps = engine.stats()["steps"]
+        if dev == "cuda" and (paged_decode_attention.launches - launches
+                              != 2 * steps):
+            raise SystemExit("small paged engine: kernel 3 launches "
+                             f"{paged_decode_attention.launches - launches}"
+                             f" != 2 x {steps} steps")
+    same = all(bool((c[0] == g[0]).all())
+               for c, g in zip(outs["cpu"], outs["cuda"]))
+    lp_err = max(float(abs(c[1] - g[1]).max())
+                 for c, g in zip(outs["cpu"], outs["cuda"]))
+    log(f"small int8 model, paged continuous engine, card vs CPU: greedy "
+        f"tokens equal {same}, logprob max_abs_err {lp_err:.3e} (tolerance "
+        f"5e-3, as above)")
+    if not same or lp_err > 5e-3:
+        raise SystemExit("small paged engine on the card disagrees with "
+                         "the CPU")
+    return {"tokens_equal": same, "logprob_max_abs_err": lp_err}
 
 
 # ------------------------------------------------------------------ phase 4
@@ -459,8 +709,9 @@ def http_json(url: str, payload=None, timeout: float = 900.0) -> dict:
 
 
 LONG_PROMPT = 4000  # bucket 4096; cache_len 4128 with 32 new tokens
-KERNELS = ("decode_attention", "decode_attention_int8kv", "int8_matmul",
-           "flash_attention")
+KERNELS = ("decode_attention", "decode_attention_int8kv",
+           "paged_decode_attention", "paged_decode_attention_int8kv",
+           "int8_matmul", "flash_attention")
 
 
 def path_spec(path: str) -> dict:
@@ -487,11 +738,13 @@ def implied_launches(path: str, layers: int, news) -> dict:
 
 def set_launches_to_zero() -> None:
     from lambdipy_tpu_torch.ops.attention import flash_attention
-    from lambdipy_tpu_torch.ops.decode_attention import blocked_decode_attention
+    from lambdipy_tpu_torch.ops.decode_attention import (
+        blocked_decode_attention, paged_decode_attention)
     from lambdipy_tpu_torch.ops.quant import int8_matmul
 
-    blocked_decode_attention.launches = 0
-    blocked_decode_attention.launches_int8kv = 0
+    for fn in (blocked_decode_attention, paged_decode_attention):
+        fn.launches = 0
+        fn.launches_int8kv = 0
     int8_matmul.launches = 0
     flash_attention.launches = 0
 
@@ -641,6 +894,338 @@ def serve_path(path: str, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# path D: the continuous engine over a paged KV arena
+ENGINE_EXTRA = {"attn_backend": "blocked", "matmul_backend": "pallas",
+                "batch_mode": "continuous", "kv_paged": "1",
+                "batch_max": "8", "batch_segment": "16"}
+# (prompt tokens, new tokens, kind): the burst of 8 concurrent requests,
+# then 4 that join while it decodes; (s, n) pairs are unique
+BURST = ((16, 128, "greedy"), (100, 64, "sampled"), (100, 48, "logprobs"),
+         (500, 32, "stream"), (1000, 40, "greedy"), (2000, 24, "greedy"),
+         (4000, 32, "logprobs"), (100, 80, "eos"))
+JOINERS = ((64, 48, "greedy"), (200, 16, "logprobs"),
+           (300, 32, "sampled2"), (50, 24, "greedy"))
+KNOBS = {"sampled": {"temperature": 0.8, "top_p": 0.9, "seed": 7},
+         "sampled2": {"temperature": 0.7, "top_k": 50, "seed": 3},
+         "eos": {"temperature": 1.0, "seed": 11}}
+
+
+def _post_stream(url: str, body: dict):
+    """``/invoke`` with ``"stream": true``: (records, seconds to the first
+    record)."""
+    req = urllib.request.Request(
+        url, data=json.dumps({**body, "stream": True}).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    records, first = [], None
+    with urllib.request.urlopen(req, timeout=900) as resp:
+        for line in resp:
+            if line.strip():
+                first = first if first is not None else time.perf_counter()
+                records.append(json.loads(line))
+    return records, first - t0
+
+
+def _drive(send, requests, joiners_at: float = 2.0):
+    """The burst: ``requests[:8]`` from threads 50 ms apart, the rest
+    from ``joiners_at`` seconds on, 50 ms apart; ``send(i)`` serves
+    request i. Returns (per-request wall seconds, burst wall seconds)."""
+    import threading
+
+    walls = [None] * len(requests)
+    errors = []
+
+    def run(i):
+        time.sleep(0.05 * i if i < 8 else joiners_at + 0.05 * (i - 8))
+        t1 = time.perf_counter()
+        try:
+            send(i)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+        walls[i] = time.perf_counter() - t1
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(requests))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    if errors or any(w is None for w in walls):
+        raise SystemExit(f"path D: a request failed: {errors!r}")
+    return walls, time.perf_counter() - t0
+
+
+def _as_served(lps) -> np.ndarray:
+    """Logprobs rounded as the handler serves them (5 decimals)."""
+    return np.asarray([[round(float(x), 5) for x in row] for row in lps])
+
+
+def held_peak(request_log) -> int:
+    """The most pages that logged rows held at once: each row holds its
+    ``n_pages`` from ``charged_at`` until ``released_at``."""
+    events = sorted([(r["charged_at"], r["n_pages"]) for r in request_log]
+                    + [(r["released_at"], -r["n_pages"])
+                       for r in request_log])
+    held = peak = 0
+    for _, delta in events:
+        held += delta
+        peak = max(peak, held)
+    return peak
+
+
+def serve_engine_path(card: str) -> dict:
+    """Phase 4, path D: llama3-8b through the continuous engine over a
+    paged KV arena, over HTTP, under concurrent traffic; checks (a) every
+    row equals solo generation, (b) a dense engine over the same weights
+    gives the same tokens and logprobs, (c) the launch counters equal the
+    engines' steps and forwards, (d) the pool drains to 0 live pages,
+    charged each request its pages, and its peak equals the most pages
+    the rows held at once."""
+    from lambdipy_tpu_torch.runtime.continuous import ContinuousBatcher
+    from lambdipy_tpu_torch.runtime.handlers import (HandlerContext,
+                                                     generate_handler,
+                                                     kernel_launches)
+    from lambdipy_tpu_torch.runtime.server import BundleServer
+
+    spec = {"model": "llama3-8b", "dtype": "bfloat16", "quant": "int8",
+            "extra": {**ENGINE_EXTRA, "max_new_tokens": "16"}}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = generate_handler(spec, HandlerContext(device="cuda"))
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    cfg, engine = state.server.model.cfg, state.engine
+    layers = cfg.layers
+    log(f"path D: {spec['model']} ({layers} layers, hidden {cfg.hidden}, "
+        f"{cfg.quant} weights, {cfg.attn_backend}, paged bf16 KV, "
+        f"{engine.slots} slots, segment {engine.segment}, page "
+        f"{engine.pool.page}, {engine.pool.capacity_pages} pages) built in "
+        f"{boot_s:.1f} s")
+    rng = torch.Generator().manual_seed(13)
+    reqs = []
+    for s_len, n, kind in BURST + JOINERS:
+        body = {"tokens": torch.randint(1, cfg.vocab_size, (s_len,),
+                                        generator=rng).tolist(),
+                "max_new_tokens": n, **KNOBS.get(kind, {})}
+        if kind in ("logprobs", "stream"):
+            body["logprobs"] = True
+        reqs.append((kind, body))
+    # the eos row's eos: a token its solo decode emits mid-way, first
+    # seen at or after a third of the row
+    kind, body = reqs[7]
+    solo = state.server.generate(body["tokens"], max_new_tokens=80,
+                                 **KNOBS["eos"])[0].tolist()
+    picks = [j for j in range(len(solo) // 3, len(solo))
+             if solo[j] not in solo[:j]]
+    body["eos_id"] = solo[picks[0]] if picks else solo[len(solo) // 2]
+    log(f"path D: eos row's eos_id {body['eos_id']} (solo emits it first "
+        f"at token {solo.index(body['eos_id'])} of 80)")
+
+    server = BundleServer(state, port=0).start_background()
+    url = server.url + "/invoke"
+    resp, ttft = [None] * len(reqs), [None] * len(reqs)
+
+    def send(i):
+        kind, body = reqs[i]
+        if kind == "stream":
+            records, ttft[i] = _post_stream(url, body)
+            if not records[-1].get("done"):
+                raise SystemExit(f"path D: stream ended badly: {records[-1]}")
+            resp[i] = {"ok": all(r.get("ok") for r in records),
+                       "tokens": [[t for r in records[:-1]
+                                   for t in r["tokens"][0]]],
+                       "logprobs": [[x for r in records[:-1]
+                                     for x in r["logprobs"][0]]]}
+        else:
+            resp[i] = http_json(url, body)
+
+    try:
+        health = http_json(server.url + "/healthz")
+        if not (health.get("ok") and health.get("kv_paged")):
+            raise SystemExit(f"path D: /healthz not ok: {health}")
+        set_launches_to_zero()  # counters to 0 just before the path
+        walls, burst_s = _drive(send, reqs)
+        launches = kernel_launches()
+        metrics = http_json(server.url + "/metrics")
+    finally:
+        server.stop()
+    stats = engine.stats()
+    pool = engine.pool
+    want = dict.fromkeys(KERNELS, 0)
+    want["paged_decode_attention"] = layers * stats["steps"]
+    want["int8_matmul"] = (7 * layers + 1) * stats["forwards"]
+    log(f"path D launch counters: {launches}, implied {want} "
+        f"({stats['steps']} engine steps, {stats['forwards']} forwards)")
+    if launches != want or metrics["handler"]["kernels"] != launches:
+        raise SystemExit(f"path D: launch counters {launches} != implied "
+                         f"{want}")
+    # (d) the pool drained; it charged each row ceil((s + n) / page)
+    # pages; its peak is the most pages rows held at once, from the rows'
+    # logged charge and release times
+    pool.check_invariants()
+    page_stats = pool.stats()
+    charges = [-(-(len(body["tokens"]) + body["max_new_tokens"]) // pool.page)
+               for _, body in reqs]
+    peak = held_peak(engine.request_log)
+    log(f"path D page pool after the drain: {page_stats['pages_live']} "
+        f"pages live, {page_stats['alloc_pages']} pages charged in all "
+        f"(the requests need {sum(charges)}), peak "
+        f"{page_stats['pages_live_peak']} (most pages rows held at once by "
+        f"their charge and release times: {peak}), invariants hold")
+    if (page_stats["pages_live"] != 0
+            or page_stats["alloc_pages"] != sum(charges)
+            or page_stats["pages_live_peak"] != peak):
+        raise SystemExit(f"path D: page pool did not drain, charged "
+                         f"{page_stats['alloc_pages']} != {sum(charges)}, or "
+                         f"its peak {page_stats['pages_live_peak']} != {peak}")
+
+    # (a) every row against solo generation of the same request
+    solo_out = []
+    lp_diff = 0.0
+    for (kind, body), r in zip(reqs, resp):
+        knobs = {k: body[k] for k in ("temperature", "top_k", "top_p",
+                                      "seed", "eos_id") if k in body}
+        toks, lps = state.server.generate(
+            body["tokens"], max_new_tokens=body["max_new_tokens"],
+            return_logprobs=True, **knobs)
+        solo_out.append((toks, lps))
+        if not r.get("ok") or r["tokens"] != toks.tolist():
+            raise SystemExit(f"path D: {kind} row ({len(body['tokens'])} "
+                             f"tokens) differs from solo generation")
+        if "logprobs" in r:
+            lp_diff = max(lp_diff, float(np.abs(
+                np.asarray(r["logprobs"]) - _as_served(lps)).max()))
+    log(f"path D (a): all {len(reqs)} rows equal solo generation; "
+        f"logprob max |diff| {lp_diff:.3e} (HTTP logprobs are rounded to 5 "
+        f"decimals, compared with solo's rounded alike)")
+
+    # (b) the same traffic through a dense engine on the same weights
+    dense = ContinuousBatcher(state.server, slots=engine.slots,
+                              segment=engine.segment)
+    dense_out = [None] * len(reqs)
+
+    def send_dense(i):
+        _, body = reqs[i]
+        knobs = {k: body[k] for k in ("temperature", "top_k", "top_p",
+                                      "seed", "eos_id") if k in body}
+        dense_out[i] = dense.generate(body["tokens"],
+                                      max_new_tokens=body["max_new_tokens"],
+                                      return_logprobs=True, **knobs)
+
+    set_launches_to_zero()
+    _drive(send_dense, reqs)
+    dense_launches = kernel_launches()
+    dstats = dense.stats()
+    dwant = dict.fromkeys(KERNELS, 0)
+    dwant["decode_attention"] = layers * dstats["steps"]
+    dwant["int8_matmul"] = (7 * layers + 1) * dstats["forwards"]
+    log(f"path D dense engine launch counters: {dense_launches}, implied "
+        f"{dwant}")
+    if dense_launches != dwant:
+        raise SystemExit("path D: dense engine launch counters differ from "
+                         "the implied counts")
+    dense_solo = max(float(np.abs(d[1] - s_[1]).max())
+                     for d, s_ in zip(dense_out, solo_out))
+    for r, d in zip(resp, dense_out):
+        same = r["tokens"] == d[0].tolist() and (
+            "logprobs" not in r
+            or np.array_equal(np.asarray(r["logprobs"]), _as_served(d[1])))
+        if not same:
+            raise SystemExit("path D (b): paged and dense engines differ")
+    log(f"path D (b): paged (HTTP) and dense (direct) engines give equal "
+        f"tokens and logprobs for every row; dense engine vs solo logprob "
+        f"max |diff| {dense_solo:.3e} (unrounded)")
+    dense._carry = None
+    del dense, dense_out
+
+    # numbers, all from the timed paged burst
+    log_by = {(e["s"], e["n"]): e for e in engine.request_log}
+    rows = []
+    for i, (kind, body) in enumerate(reqs):
+        e = log_by[(len(body["tokens"]), body["max_new_tokens"])]
+        rows.append({"kind": kind, "prompt": len(body["tokens"]),
+                     "new": body["max_new_tokens"], "wall_s": walls[i],
+                     "http_ttft_s": ttft[i], "engine_ttft_s": e["ttft_s"],
+                     "engine_wall_s": e["wall_s"]})
+        log(f"path D request {i} ({kind}, {len(body['tokens'])} + "
+            f"{body['max_new_tokens']} tokens): wall {walls[i]:.3f} s, TTFT "
+            f"{e['ttft_s']:.3f} s (engine, from admission)"
+            + (f", first streamed line {ttft[i]:.3f} s" if ttft[i] else "")
+            + f" [{card}]")
+    new_tokens = sum(body["max_new_tokens"] for _, body in reqs)
+    perf = {"burst_wall_s": burst_s, "new_tokens": new_tokens,
+            "decode_tok_s": new_tokens / burst_s,
+            "engine_steps": stats["steps"],
+            "mean_rows_per_step": stats["mean_rows_per_step"],
+            "arena_bytes": page_stats["bytes_total"],
+            "max_memory_allocated_gib": (torch.cuda.max_memory_allocated()
+                                         / 2**30)}
+    for key, val in perf.items():
+        log(f"path D {key}: {val} [{card}]")
+    trace = profile_engine(engine, [body["tokens"] for _, body in reqs[:8]],
+                           card)
+    out = {"spec": spec, "boot_s": boot_s, "launches": launches,
+           "implied": want, "dense_launches": dense_launches,
+           "engine": stats, "dense_engine": dstats, "page_pool": page_stats,
+           "peak_held_pages": peak, "logprob_diff_http_vs_solo": lp_diff,
+           "logprob_diff_dense_vs_solo": dense_solo, "perf": perf,
+           "requests": rows, "trace": trace, "card": card}
+    del state, engine, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_engine(engine, prompts, card: str, n_new: int = 16) -> dict:
+    """Where an engine burst's time goes: ``len(prompts)`` concurrent
+    requests (prompts cut to 100 tokens, ``n_new`` new tokens) under
+    ``torch.profiler``, after every timed run."""
+    import threading
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def burst():
+        threads = [threading.Thread(target=engine.generate, args=(p[:100],),
+                                    kwargs={"max_new_tokens": n_new})
+                   for p in prompts]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+
+    burst()  # warm
+    torch.cuda.synchronize()
+    steps0 = engine.stats()["steps"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        burst()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    steps = engine.stats()["steps"] - steps0
+    kernels = sorted(
+        ((e.key, e.self_device_time_total / 1e3, e.count)
+         for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+        key=lambda r: -r[1])
+    busy_ms = sum(ms for _, ms, _ in kernels) if kernels else None
+    if busy_ms is None:
+        log("profiler recorded no device kernels: device busy time not "
+            "measured")
+    else:
+        log(f"profiled engine burst ({len(prompts)} x 100-token prompts, "
+            f"{n_new} new, {steps} steps): wall {wall_ms:.2f} ms, device "
+            f"busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f} "
+            f"[{card}]")
+        for name, ms, count in kernels[:10]:
+            log(f"  {ms:9.3f} ms  {count:6d}x  {name[:100]}")
+    return {"wall_ms": wall_ms, "steps": steps, "device_busy_ms": busy_ms,
+            "idle_share": None if busy_ms is None else 1 - busy_ms / wall_ms,
+            "kernels": [{"name": n, "ms": ms, "count": c}
+                        for n, ms, c in kernels[:25]]}
 
 
 def profile_decode(server, rows, card: str, n_new: int = 16) -> dict:
@@ -798,12 +1383,16 @@ def main() -> int:
     kernels = {"decode_attention": check_decode_attention(gen, quant=False),
                "decode_attention_int8kv": check_decode_attention(gen,
                                                                  quant=True),
+               "paged_decode_attention": check_paged_decode_attention(gen),
                "int8_matmul": check_int8_matmul(gen),
                "flash_attention": check_flash_attention(gen)}
     small = check_small_model()
     log(f"kernel checks took {time.perf_counter() - t_phase:.1f} s")
 
-    paths = {}
+    # path D first: its times come before any profiler session
+    t_path = time.perf_counter()
+    paths = {"D": serve_engine_path(card)}
+    log(f"path D took {time.perf_counter() - t_path:.1f} s")
     for path in PATHS:
         t_path = time.perf_counter()
         paths[path] = serve_path(path, card)

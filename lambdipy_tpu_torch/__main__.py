@@ -7,7 +7,9 @@ port's kernels (``--device cpu`` runs their plain PyTorch versions
 instead) until interrupted. ``--extra`` overrides config fields, e.g.
 ``kv_quant=int8`` for the int8 KV cache, ``attn_backend=flash`` for
 flash prefill, ``attn_backend=dense,matmul_backend=xla`` for the plain
-reference model.
+reference model, ``batch_mode=continuous,kv_paged=1`` for the continuous
+engine over a paged KV arena (``batch_max``, ``batch_segment``,
+``kv_pages`` size it).
 """
 
 from __future__ import annotations

@@ -1,8 +1,12 @@
-// Length-aware GQA decode attention for Hopper (sm_90a).
+// Length-aware GQA decode attention for Hopper (sm_90a), over a
+// contiguous or a paged KV cache.
 //
-// Replaces the Pallas TPU kernel lambdipy_tpu/ops/decode_attention.py
+// Replaces two Pallas TPU kernels of lambdipy_tpu/ops/decode_attention.py:
 // ::_decode_kernel, both of its branches, reached through
-// blocked_decode_attention / decode_attention:
+// blocked_decode_attention / decode_attention (the contiguous addressing
+// below), and ::_paged_kernel, both of its branches, reached through
+// paged_blocked_decode_attention / paged_decode_attention (the paged
+// addressing below). Both branches of each:
 //
 // * float KV: k/v in q's dtype;
 // * int8 KV (kv_quant="int8"): k/v int8 with per-(position, kv head) f32
@@ -38,6 +42,22 @@
 // (contiguous, heads grouped, not pre-broadcast), scales [b, t, kvh, 1],
 // active_len [b] int32, out [b, 1, h, d]. Launches on the caller's
 // stream, allocates nothing.
+//
+// Paged addressing (kernel 3): K/V live in a page arena [P, page, kvh, d]
+// (scales [P, page, kvh, 1]) and row r's position p sits in page
+// tables[r, p / page] at offset p % page (tables [b, nb] int32, page a
+// power of two). The kernel is the same template: only the map from a
+// position to its storage slot differs, so on equal K/V values the paged
+// output is bitwise the contiguous one. Each 64-position tile first
+// copies the page ids it spans into shared memory (the table is read
+// once per page, never per element); a tile may span several pages, so
+// every position resolves its own page and any power-of-two page works.
+// Nothing past a row's active_len is read. At active_len <= 0 the
+// uniform mean runs over all nb * page table positions, null pages
+// included, as the gather reference gives. The TPU kernel's grid walks
+// one page per step in series with the table in scalar prefetch; here
+// the page lookup rides inside the tile loop and costs one shared-memory
+// read per position.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,13 +100,44 @@ __device__ __forceinline__ float kv_elem(const int8_t* p, size_t i,
   return to_f(from_f<T>((float)p[i] * sc));
 }
 
-// KV is T (float branch, k_scale/v_scale unused) or int8_t (int8 branch)
-template <typename T, typename KV>
+// Where position p of one (row, kv head) lives: `kv`, the offset in
+// elements of its d-vector in the K/V storage, and `sc`, the index of
+// its scale. Contiguous ([b, t, kvh, d]): affine in p from the
+// (row, head) origins kv0 and sc0, which keeps kernel 1's pointer
+// arithmetic (a slot index multiplied out per position made kernel 1 up
+// to 24% slower on an H100).
+// Paged ([P, page, kvh, d]): p's page from the tile's page ids pid_s
+// (entry page0 of the row's table first) plus p's offset in the page;
+// kv0 and sc0 are then the head's offsets within a slot.
+struct Slot {
+  size_t kv, sc;
+};
+
+template <bool PAGED>
+__device__ __forceinline__ Slot slot_of(int p, size_t kv0, size_t sc0,
+                                        size_t pos_stride, int kvh,
+                                        const int* pid_s, int page0,
+                                        int page_shift) {
+  if constexpr (PAGED) {
+    const size_t s = ((size_t)pid_s[(p >> page_shift) - page0]
+                      << page_shift) + (size_t)(p & ((1 << page_shift) - 1));
+    return {kv0 + s * pos_stride, sc0 + s * kvh};
+  } else {
+    return {kv0 + (size_t)p * pos_stride, sc0 + (size_t)p * kvh};
+  }
+}
+
+// KV is T (float branch, k_scale/v_scale unused) or int8_t (int8
+// branch). PAGED false: k/v are [b, t, kvh, d], tables unused. PAGED
+// true: k/v are the arena [P, 1 << page_shift, kvh, d], row r's block
+// table is tables[r * nb .. r * nb + nb), and t = nb << page_shift.
+template <typename T, typename KV, bool PAGED>
 __global__ void __launch_bounds__(THREADS) decode_attention_kernel(
     const T* __restrict__ q, const KV* __restrict__ k,
     const KV* __restrict__ v, const float* __restrict__ k_scale,
-    const float* __restrict__ v_scale, const int* __restrict__ active_len,
-    T* __restrict__ out, int t, int kvh, int group, int d, float scale) {
+    const float* __restrict__ v_scale, const int* __restrict__ tables,
+    const int* __restrict__ active_len, T* __restrict__ out, int t, int nb,
+    int page_shift, int kvh, int group, int d, float scale) {
   constexpr bool QUANT = sizeof(KV) == 1;
   const int row = blockIdx.x / kvh;
   const int head = blockIdx.x % kvh;
@@ -100,6 +151,7 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(
   __shared__ float m_s[GMAX];
   __shared__ float l_s[GMAX];
   __shared__ float alpha_s[GMAX];
+  __shared__ int pid_s[TILE];  // paged: the page ids of the current tile
 
   int alen = active_len[row];
   const bool uniform = alen <= 0;
@@ -122,20 +174,30 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(
   __syncthreads();
 
   const size_t pos_stride = (size_t)kvh * d;
-  const size_t base = (size_t)row * t * pos_stride + (size_t)head * d;
-  const KV* kbase = k + base;
-  const KV* vbase = v + base;
-  // scales [b, t, kvh, 1]: position p of this (row, head) at
-  // sbase + p * kvh
-  const size_t sbase = (size_t)row * t * kvh + head;
+  // contiguous: the (row, head) origins; paged: the head within a slot
+  const size_t kv0 = (PAGED ? 0 : (size_t)row * t * pos_stride) +
+                     (size_t)head * d;
+  const size_t sc0 = (PAGED ? 0 : (size_t)row * t * kvh) + head;
 
   for (int t0 = 0; t0 < alen; t0 += TILE) {
     const int n = min(TILE, alen - t0);
+    const int page0 = t0 >> page_shift;
+    if constexpr (PAGED) {
+      // the tile's page ids, one table read per page; the previous
+      // tile's closing __syncthreads guards the rewrite
+      const int pages = ((t0 + n - 1) >> page_shift) - page0 + 1;
+      for (int i = tid; i < pages; i += THREADS) {
+        pid_s[i] = tables[(size_t)row * nb + page0 + i];
+      }
+      __syncthreads();
+    }
     // scores: each warp takes positions warp, warp + WARPS, ...; lanes
     // split the head dim and reduce by shuffles
     for (int j = warp; j < n; j += WARPS) {
-      const KV* kp = kbase + (size_t)(t0 + j) * pos_stride;
-      const float ksc = QUANT ? k_scale[sbase + (size_t)(t0 + j) * kvh] : 0.f;
+      const Slot sl = slot_of<PAGED>(t0 + j, kv0, sc0, pos_stride, kvh,
+                                     pid_s, page0, page_shift);
+      const KV* kp = k + sl.kv;
+      const float ksc = QUANT ? k_scale[sl.sc] : 0.f;
       float part[GMAX];
 #pragma unroll
       for (int g = 0; g < GMAX; ++g) part[g] = 0.f;
@@ -196,12 +258,12 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(
         for (int g = 0; g < GMAX; ++g) {
           if (g < group) acc[g][jj] *= alpha_s[g];
         }
-        const KV* vp = vbase + (size_t)t0 * pos_stride + dd;
 #pragma unroll 8
         for (int j = 0; j < n; ++j) {
-          const float vsc =
-              QUANT ? v_scale[sbase + (size_t)(t0 + j) * kvh] : 0.f;
-          const float vv = kv_elem<T>(vp, (size_t)j * pos_stride, vsc);
+          const Slot sl = slot_of<PAGED>(t0 + j, kv0, sc0, pos_stride, kvh,
+                                         pid_s, page0, page_shift);
+          const float vsc = QUANT ? v_scale[sl.sc] : 0.f;
+          const float vv = kv_elem<T>(v, sl.kv + dd, vsc);
 #pragma unroll
           for (int g = 0; g < GMAX; ++g) {
             if (g < group) acc[g][jj] += ps[g][j] * vv;
@@ -228,18 +290,48 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(
   }
 }
 
-template <typename T, typename KV>
+template <typename T, typename KV, bool PAGED>
 int launch(const void* q, const void* k, const void* v, const void* k_scale,
-           const void* v_scale, const void* active_len, void* out, int b,
-           int t, int kvh, int group, int d, float scale,
-           cudaStream_t stream) {
-  decode_attention_kernel<T, KV><<<b * kvh, THREADS, 0, stream>>>(
+           const void* v_scale, const void* tables, const void* active_len,
+           void* out, int b, int t, int nb, int page_shift, int kvh,
+           int group, int d, float scale, cudaStream_t stream) {
+  decode_attention_kernel<T, KV, PAGED><<<b * kvh, THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(k),
       static_cast<const KV*>(v), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale),
-      static_cast<const int*>(active_len), static_cast<T*>(out), t, kvh,
-      group, d, scale);
+      static_cast<const float*>(v_scale), static_cast<const int*>(tables),
+      static_cast<const int*>(active_len), static_cast<T*>(out), t, nb,
+      page_shift, kvh, group, d, scale);
   return (int)cudaGetLastError();
+}
+
+// Picks the instantiation: dtype (of q and out) 0 = float32, 1 = bfloat16;
+// scales null = float K/V in q's dtype, else int8 K/V with f32 scales.
+template <bool PAGED>
+int dispatch(int dtype, const void* q, const void* k, const void* v,
+             const void* k_scale, const void* v_scale, const void* tables,
+             const void* active_len, void* out, int b, int t, int nb,
+             int page_shift, int kvh, int group, int d, float scale,
+             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool quant = k_scale != nullptr;
+  if (quant != (v_scale != nullptr)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    return quant ? launch<float, int8_t, PAGED>(
+                       q, k, v, k_scale, v_scale, tables, active_len, out,
+                       b, t, nb, page_shift, kvh, group, d, scale, s)
+                 : launch<float, float, PAGED>(
+                       q, k, v, k_scale, v_scale, tables, active_len, out,
+                       b, t, nb, page_shift, kvh, group, d, scale, s);
+  }
+  if (dtype == 1) {
+    return quant ? launch<__nv_bfloat16, int8_t, PAGED>(
+                       q, k, v, k_scale, v_scale, tables, active_len, out,
+                       b, t, nb, page_shift, kvh, group, d, scale, s)
+                 : launch<__nv_bfloat16, __nv_bfloat16, PAGED>(
+                       q, k, v, k_scale, v_scale, tables, active_len, out,
+                       b, t, nb, page_shift, kvh, group, d, scale, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -255,24 +347,21 @@ extern "C" int decode_attention_launch(int dtype, const void* q,
                                        const void* active_len, void* out,
                                        int b, int t, int kvh, int group,
                                        int d, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool quant = k_scale != nullptr;
-  if (quant != (v_scale != nullptr)) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) {
-    return quant ? launch<float, int8_t>(q, k, v, k_scale, v_scale,
-                                         active_len, out, b, t, kvh, group,
-                                         d, scale, s)
-                 : launch<float, float>(q, k, v, k_scale, v_scale,
-                                        active_len, out, b, t, kvh, group, d,
-                                        scale, s);
-  }
-  if (dtype == 1) {
-    return quant ? launch<__nv_bfloat16, int8_t>(q, k, v, k_scale, v_scale,
-                                                 active_len, out, b, t, kvh,
-                                                 group, d, scale, s)
-                 : launch<__nv_bfloat16, __nv_bfloat16>(
-                       q, k, v, k_scale, v_scale, active_len, out, b, t, kvh,
-                       group, d, scale, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(dtype, q, k, v, k_scale, v_scale, nullptr,
+                         active_len, out, b, t, 0, 0, kvh, group, d, scale,
+                         stream);
+}
+
+// The paged form: k/v (and scales) are arenas [P, 1 << page_shift, kvh,
+// d (or 1)], tables [b, nb] int32 page ids. The caller checks the shapes
+// above, page a power of two and every table entry in [0, P).
+extern "C" int paged_decode_attention_launch(
+    int dtype, const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scale_pages, const void* v_scale_pages, const void* tables,
+    const void* active_len, void* out, int b, int nb, int page_shift,
+    int kvh, int group, int d, float scale, void* stream) {
+  return dispatch<true>(dtype, q, k_pages, v_pages, k_scale_pages,
+                        v_scale_pages, tables, active_len, out, b,
+                        nb << page_shift, nb, page_shift, kvh, group, d,
+                        scale, stream);
 }

@@ -12,6 +12,11 @@ weights (``models/params.py from_jax_params``). Differences:
   programs see.
 - The KV cache is updated in place (the JAX cache is functional).
 - Only per-row ``[b]`` cache indices exist: the serving decode path.
+- The paged decode branch (a cache entry holding arena leaves and block
+  ``tables``) writes each step's K/V into the row's page and, under
+  ``blocked``, runs the paged decode-attention kernel on the arena where
+  the JAX engine gathers each row's pages into a contiguous cache first;
+  under ``dense`` it gathers and runs ``_attend``, as JAX does.
 - The kernel backends are the defaults: with ``matmul_backend="pallas"``
   every int8 projection runs the port's int8 kernel with the kernel's
   rounding at every shape (``ops/quant.py``); with
@@ -43,7 +48,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from lambdipy_tpu_torch.ops.attention import flash_attention
-from lambdipy_tpu_torch.ops.decode_attention import blocked_decode_attention
+from lambdipy_tpu_torch.ops.decode_attention import (blocked_decode_attention,
+                                                     gather_pages,
+                                                     paged_decode_attention)
 from lambdipy_tpu_torch.ops.quant import int8_matmul
 from lambdipy_tpu_torch.utils.platform import resolve_device
 
@@ -91,7 +98,14 @@ LLAMA_TINY = LlamaConfig(vocab_size=512, hidden=64, layers=2, heads=4,
 
 
 class RMSNorm(nn.Module):
-    """f32 math, f32 gain, result cast back to the input dtype."""
+    """f32 math, f32 gain, result cast back to the input dtype.
+
+    ``F.rms_norm`` reduces each row alone (one fused per-row kernel on
+    the card), so a row's result does not depend on how many rows share
+    the call: the continuous engine's 8-row decode then gives a row the
+    bits solo decode gives it. ``mean(-1)``'s reduction tiles the rows
+    by their count and differs in the last bit, now and then, between 1
+    and 8 rows."""
 
     def __init__(self, dim: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -100,8 +114,7 @@ class RMSNorm(nn.Module):
                                                  device=device))
 
     def forward(self, x):
-        x32 = x.float()
-        y = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + self.eps)
+        y = F.rms_norm(x.float(), (x.shape[-1],), eps=self.eps)
         return (y * self.scale).to(x.dtype)
 
 
@@ -270,12 +283,47 @@ class LlamaBlock(nn.Module):
         causal = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
         return _attend(q, k, v, mask[:, None, :] & causal[None])
 
+    def _paged_decode(self, q, k, v, cache):
+        """One decode step over a paged cache entry: the arena's
+        ``_kv_store`` leaves ``[P, page, kvh, d]``, block ``tables``
+        ``[b, nb]`` int32, the per-row ``index`` ``[b]`` and this step's
+        write address (:func:`set_decode_index`). Row r writes this
+        step's K/V there; then attention over positions ``<= index``: the
+        paged kernel under ``blocked``, a gather and ``_attend`` under
+        ``dense``."""
+        cfg = self.cfg
+        tables, idx = cache["tables"], cache["index"]
+        names = ("k_int8", "v_int8") if cfg.kv_quant == "int8" else ("k", "v")
+        page = cache[names[0]].shape[1]
+        nb = tables.shape[1]
+        pid, off = cache["write_page"], cache["write_off"]
+        for name, val in _kv_store(cfg, k, v).items():
+            cache[name][pid, off] = val[:, 0]
+        scales = ({"k_scale_pages": cache["k_scale"],
+                   "v_scale_pages": cache["v_scale"]}
+                  if cfg.kv_quant == "int8" else {})
+        ck, cv = cache[names[0]], cache[names[1]]
+        if cfg.attn_backend == "blocked":
+            return paged_decode_attention(q, ck, cv, tables, cache["active"],
+                                          **scales)
+        gathered = _gather_page_cache([cache], tables, nb * page, page,
+                                      idx)[0]
+        ck, cv = gathered[names[0]], gathered[names[1]]
+        if scales:
+            ck = _kv_dequantize(ck, gathered["k_scale"], cfg.dtype)
+            cv = _kv_dequantize(cv, gathered["v_scale"], cfg.dtype)
+        valid = (torch.arange(nb * page, device=q.device)[None, None, :]
+                 <= idx[:, None, None])  # [b, 1, t]
+        return _attend(q, ck, cv, valid)
+
     def forward(self, x, positions, mask, cache):
         """cache: None (prefill over all of x) or a decode-cache entry
-        (the ``_kv_store`` leaves and a per-row ``[b]`` index) for a
-        one-token decode step. Returns ``(y, new_cache_entry)``; a decode
-        step writes the cache in place. The prefill entry is float K/V;
-        ``prefill_into_cache`` stores it in the cache's layout."""
+        for a one-token decode step: the ``_kv_store`` leaves and a
+        per-row ``[b]`` index, or a paged entry (arena leaves, block
+        ``tables`` and the index; :meth:`_paged_decode`). Returns ``(y,
+        new_cache_entry)``; a decode step writes the cache in place. The
+        prefill entry is float K/V; ``prefill_into_cache`` stores it in
+        the cache's layout."""
         cfg = self.cfg
         d = cfg.head_dim
         h = self.attn_norm(x)
@@ -288,6 +336,12 @@ class LlamaBlock(nn.Module):
         if cache is None:
             out = self._prefill_attend(q, k, v, mask)
             new_cache = {"k": k, "v": v}
+        elif "tables" in cache:
+            if s != 1:
+                raise ValueError("the paged cache branch takes one-token "
+                                 f"decode steps, got {s} tokens")
+            out = self._paged_decode(q, k, v, cache)
+            new_cache = cache
         else:
             if s != 1:
                 raise ValueError("the per-row cache branch takes one-token "
@@ -424,6 +478,108 @@ def prefill_into_cache(cfg: LlamaConfig, prefill_cache, batch: int,
     return out
 
 
+NULL_PAGE = 0  # the arena's reserved page (runtime/pagepool.py)
+
+
+def init_page_arena(cfg: LlamaConfig, n_pages: int, page: int, device):
+    """The paged KV arena: per layer, the decode cache's store-layout
+    leaves page-major, ``[n_pages, page, kv_heads, head_dim]`` (int8
+    scales ``[..., 1]`` starting at 1e-8), with no ``index`` leaf: row
+    positions live in the block tables. Page 0 is the null page."""
+    device = resolve_device(device)
+    return [_empty_cache_entry(cfg, n_pages, page, device)
+            for _ in range(cfg.layers)]
+
+
+def page_kv_bytes(cfg: LlamaConfig, page: int) -> int:
+    """Exact stored bytes of ONE page across all layers and leaves."""
+    per_pos = cfg.kv_heads * cfg.head_dim
+    if cfg.kv_quant == "int8":
+        # int8 k + v values, f32 per-position-per-head scales
+        per_layer = page * (2 * per_pos + 2 * cfg.kv_heads * 4)
+    else:
+        itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+        per_layer = page * 2 * per_pos * itemsize
+    return int(cfg.layers * per_layer)
+
+
+# the non-leaf entries of a paged cache entry (:func:`set_decode_index`)
+PAGED_STEP_KEYS = ("tables", "index", "write_page", "write_off", "active")
+
+
+def set_decode_index(cache, pos) -> None:
+    """Point every layer's decode-cache entry at per-row positions
+    ``pos`` ``[b]``. A paged cache (entries holding block ``tables``)
+    also gets this step's write address, computed once for all layers:
+    page ``tables[r, pos // page]`` at offset ``pos % page``, or the null
+    page for a position past the table (the JAX scatter drops such a
+    write; nothing reads the null page unmasked), and the attention
+    length ``pos + 1``."""
+    step = {"index": pos}
+    first = cache[0]
+    if "tables" in first:
+        tables = first["tables"]
+        page = first["k_int8" if "k_int8" in first else "k"].shape[1]
+        nb = tables.shape[1]
+        blk = torch.div(pos, page, rounding_mode="floor").long()
+        pid = tables.gather(1, blk.clamp(max=nb - 1)[:, None])[:, 0].long()
+        step.update(write_page=torch.where(blk < nb, pid, NULL_PAGE),
+                    write_off=torch.remainder(pos, page).long(),
+                    active=(pos + 1).to(torch.int32))
+    for entry in cache:
+        entry.update(step)
+
+
+def _gather_page_cache(arena, tables, window: int, page: int, index):
+    """Each row's first ``window`` positions gathered from its block
+    table into a contiguous decode cache (one dict per layer, ``index``
+    attached; non-leaf entries such as ``tables`` are skipped). The
+    gathered values are bitwise the pages' values, null pages included."""
+    nb = window // page
+    out = []
+    for entry in arena:
+        e = {name: gather_pages(val, tables[:, :nb])
+             for name, val in entry.items() if name not in PAGED_STEP_KEYS}
+        e["index"] = index
+        out.append(e)
+    return out
+
+
+def _scatter_page_cache(arena, tables, cache, page: int):
+    """Write a contiguous per-row cache (width a multiple of ``page``)
+    back into its block-table pages, in place: the inverse of
+    :func:`_gather_page_cache`. Table entries that are the null page
+    take whatever lands there; nothing reads them unmasked."""
+    b = tables.shape[0]
+    for aentry, centry in zip(arena, cache):
+        for name, val in aentry.items():
+            c = centry[name]
+            nb = c.shape[1] // page
+            pages = c.reshape(b * nb, page, *c.shape[2:]).to(val.dtype)
+            val[tables[:, :nb].reshape(-1).long()] = pages
+    return arena
+
+
+def pack_prefill_into_pages(cfg: LlamaConfig, arena, table_row,
+                            prefill_cache, src: int) -> None:
+    """Store row ``src`` of a prefill cache (float entries ``[gb, sb,
+    kvh, d]``) in the arena through ``table_row`` ``[nb]`` (the row's
+    pages, null-padded), quantizing under ``cfg.kv_quant``. The prompt's
+    bucket is zero-padded to whole pages; positions past the row's pages
+    land in the null page."""
+    page = arena[0][next(iter(arena[0]))].shape[1]
+    sb = prefill_cache[0]["k"].shape[1]
+    width = -(-sb // page) * page
+    cache = []
+    for entry in prefill_cache:
+        k, v = entry["k"][src:src + 1], entry["v"][src:src + 1]
+        if width != sb:
+            pad = (0, 0, 0, 0, 0, width - sb)
+            k, v = F.pad(k, pad), F.pad(v, pad)
+        cache.append(_kv_store(cfg, k, v))
+    _scatter_page_cache(arena, table_row[None, :width // page], cache, page)
+
+
 # ---------------------------------------------------------------- generation
 
 def filter_logits_runtime(logits, top_k, top_p):
@@ -450,9 +606,10 @@ def filter_logits_runtime(logits, top_k, top_p):
 
 
 def _token_logprob(lg, tok):
-    """Raw model logprob of ``tok`` under f32 logits ``lg`` ``[b, v]``."""
-    return (lg.gather(-1, tok[:, None])[:, 0]
-            - torch.logsumexp(lg, dim=-1))
+    """Raw model logprob of ``tok`` under f32 logits ``lg`` ``[b, v]``.
+    ``log_softmax`` reduces each row alone, so the value does not depend
+    on the batch (``logsumexp``'s reduction does, in the last bit)."""
+    return F.log_softmax(lg, dim=-1).gather(-1, tok[:, None])[:, 0]
 
 
 def row_generators(seeds, device):
@@ -511,29 +668,39 @@ def _serve_prefill(model: LlamaModel, prompt, length, select, gens, eos_id,
 
 
 def _scan_decode(model: LlamaModel, select, first, lp0, cache, start, done0,
-                 gens, eos_id, decode_steps: int):
+                 gens, eos_id, decode_steps: int, return_carry: bool = False):
     """The decode loop: emits ``decode_steps`` tokens starting with
     ``first``. Rows latch at ``eos_id`` (``< 0`` = none): after eos a row
     emits eos with logprob 0. ``pos`` is per row. The JAX server scans a
     bucketed number of steps and drops the tokens past the request;
-    this loop runs exactly ``decode_steps - 1`` forwards. Returns ``(tokens, logprobs)``, each ``[b, decode_steps]``."""
+    this loop runs exactly ``decode_steps - 1`` forwards. Returns
+    ``(tokens, logprobs)``, each ``[b, decode_steps]``.
+
+    ``return_carry`` is the segment form: every step forwards the token
+    it emits (``decode_steps`` forwards, as the JAX scan) and the final
+    carry ``(tok, lp, cache, pos, done, gens)`` comes back too, so a
+    later segment continues the decode exactly where this one stopped."""
     has_eos = eos_id >= 0
     tok, lp, pos, done = first, lp0, start, done0
-    toks, lps = [tok], [lp]
-    for _ in range(decode_steps - 1):
+    toks, lps = [], []
+    for i in range(decode_steps):
+        toks.append(tok)
+        lps.append(lp)
+        if i == decode_steps - 1 and not return_carry:
+            break
         # the blocks write this step's K/V into the cache in place
+        set_decode_index(cache, pos)
         logits, _ = model(tok[:, None], positions=pos[:, None], cache=cache)
         pos = pos + 1
-        for entry in cache:
-            entry["index"] = pos
         nxt, nlp = select(logits[:, -1, :].float(), gens)
         nxt = torch.where(done, eos_id, nxt)
         nlp = torch.where(done, 0.0, nlp)
         done = done | (has_eos & (nxt == eos_id))
         tok, lp = nxt, nlp
-        toks.append(tok)
-        lps.append(lp)
-    return torch.stack(toks, dim=1), torch.stack(lps, dim=1)
+    for entry in cache:
+        entry["index"] = pos
+    out = (torch.stack(toks, dim=1), torch.stack(lps, dim=1))
+    return (out, (tok, lp, cache, pos, done, gens)) if return_carry else out
 
 
 MIN_BUCKET = 16  # smallest prompt and decode bucket, as in the JAX server
@@ -620,7 +787,6 @@ class LlamaServer:
         """prompt_tokens: ``[s]``, ``[b, s]`` or a ragged list of rows ->
         int32 numpy ``[b, max_new_tokens]`` (plus f32 logprobs when
         asked). Knobs may be scalars or per-row lists."""
-        cfg = self.model.cfg
         rows, lengths = self._normalize_prompts(prompt_tokens)
         b, s = len(rows), max(lengths)
         self._validate(s, max_new_tokens)
@@ -628,24 +794,81 @@ class LlamaServer:
             toks = np.zeros((b, 0), np.int32)
             return (toks, np.zeros((b, 0), np.float32)) if return_logprobs \
                 else toks
-        steps = min(_next_bucket(max_new_tokens, MIN_BUCKET), cfg.max_len - s)
-        sb = min(_next_bucket(s, MIN_BUCKET), cfg.max_len - steps)
-        bb = _next_bucket(b, 1)
-        cache_len = min(sb + steps, cfg.max_len)
         with self._lock, torch.inference_mode():
-            prompt, length = self._pad_rows(rows, lengths, bb, sb)
-            temp, tk, tp, gens, eos = self._knob_operands(
-                temperature, top_k, top_p, seed, eos_id, b=bb)
-            select = _serve_select(temp, tk, tp)
-            first, lp0, cache, pos, done = _serve_prefill(
-                self.model, prompt, length, select, gens, eos,
-                cache_len=cache_len)
-            toks, lps = _scan_decode(self.model, select, first, lp0, cache,
-                                     pos, done, gens, eos, max_new_tokens)
+            select, gens, eos, carry = self._prefill(
+                rows, lengths, max_new_tokens, temperature, top_k, top_p,
+                seed, eos_id)
+            toks, lps = _scan_decode(self.model, select, *carry, gens, eos,
+                                     max_new_tokens)
             toks = toks[:b].to(torch.int32).cpu().numpy()
             if return_logprobs:
                 return toks, lps[:b].float().cpu().numpy()
         return toks
+
+    def prompt_bucket(self, s: int, max_new_tokens: int) -> int:
+        """The padded prompt width ``generate`` prefills a prompt of ``s``
+        tokens at: the pow-2 bucket, shrunk toward ``s`` near
+        ``max_len``."""
+        max_len = self.model.cfg.max_len
+        steps = min(_next_bucket(max_new_tokens, MIN_BUCKET), max_len - s)
+        return min(_next_bucket(s, MIN_BUCKET), max_len - steps)
+
+    def _prefill(self, rows, lengths, max_new_tokens, temperature, top_k,
+                 top_p, seed, eos_id):
+        """The bucketed prefill shared by :meth:`generate` and
+        :meth:`generate_stream` (caller holds the lock, inference mode):
+        ``(select, gens, eos, (first, lp0, cache, pos, done))``."""
+        cfg = self.model.cfg
+        b, s = len(rows), max(lengths)
+        steps = min(_next_bucket(max_new_tokens, MIN_BUCKET), cfg.max_len - s)
+        sb = self.prompt_bucket(s, max_new_tokens)
+        bb = _next_bucket(b, 1)
+        cache_len = min(sb + steps, cfg.max_len)
+        prompt, length = self._pad_rows(rows, lengths, bb, sb)
+        temp, tk, tp, gens, eos = self._knob_operands(
+            temperature, top_k, top_p, seed, eos_id, b=bb)
+        select = _serve_select(temp, tk, tp)
+        carry = _serve_prefill(self.model, prompt, length, select, gens, eos,
+                               cache_len=cache_len)
+        return select, gens, eos, carry
+
+    def generate_stream(self, prompt_tokens, *, max_new_tokens: int,
+                        temperature: float = 0.0, top_k: int | None = None,
+                        top_p: float | None = None, seed: int = 0,
+                        eos_id: int | None = None, segment: int = 16,
+                        return_logprobs: bool = False):
+        """Streaming :meth:`generate`: yields int32 numpy ``[b, k]``
+        chunks (``k <= segment``; ``(tokens, logprobs)`` pairs when
+        asked) as they decode, stopping early once every row has latched
+        eos. Concatenated chunks are exactly :meth:`generate`'s output
+        prefix: the same prefill and cache, the same per-row generators
+        (segment boundaries do not change a row's draws). The lock is
+        held per segment, not across the yields."""
+        rows, lengths = self._normalize_prompts(prompt_tokens)
+        b, s = len(rows), max(lengths)
+        self._validate(s, max_new_tokens)
+        if max_new_tokens == 0:
+            return
+        segment = max(1, min(int(segment), max_new_tokens))
+        with self._lock, torch.inference_mode():
+            select, gens, eos, carry = self._prefill(
+                rows, lengths, max_new_tokens, temperature, top_k, top_p,
+                seed, eos_id)
+        tok, lp, cache, pos, done = carry
+        emitted = 0
+        while emitted < max_new_tokens:
+            k = min(segment, max_new_tokens - emitted)
+            with self._lock, torch.inference_mode():
+                (toks, lps), (tok, lp, cache, pos, done, gens) = \
+                    _scan_decode(self.model, select, tok, lp, cache, pos,
+                                 done, gens, eos, k, return_carry=True)
+                chunk = toks[:b].to(torch.int32).cpu().numpy()
+                lp_chunk = lps[:b].float().cpu().numpy()
+                latched = eos_id is not None and bool(done[:b].all())
+            emitted += k
+            yield (chunk, lp_chunk) if return_logprobs else chunk
+            if latched:
+                return
 
     @staticmethod
     def _normalize_prompts(prompt_tokens):

@@ -1,18 +1,22 @@
 """A small threaded HTTP server for a port handler: ``GET /healthz``,
-``POST /invoke`` and ``GET /metrics`` (request counters, latency and
-each kernel's launch counter). The port's counterpart of the invoke
-path of ``lambdipy_tpu/runtime/server.py``; scheduling, batching and
-the fleet surfaces are not ported yet."""
+``POST /invoke`` (``"stream": true`` answers chunked ndjson, one line per
+decode segment) and ``GET /metrics`` (request counters, each kernel's
+launch counter, the continuous engine and its page pool). The port's
+counterpart of the invoke path of ``lambdipy_tpu/runtime/server.py``; a
+full page arena is a priced 503 shed (reason ``kv_pages``) as there.
+Scheduling and the fleet surfaces are not ported yet."""
 
 from __future__ import annotations
 
 import json
+import math
 import threading
 import time
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from lambdipy_tpu_torch.runtime.handlers import HandlerState
+from lambdipy_tpu_torch.runtime.pagepool import PagesExhausted
 
 
 class _Stats:
@@ -21,6 +25,7 @@ class _Stats:
         self.requests = 0
         self.errors = 0
         self.busy_s = 0.0
+        self.sheds: dict[str, int] = {}
 
     def record(self, seconds: float, ok: bool) -> None:
         with self._lock:
@@ -28,10 +33,16 @@ class _Stats:
             self.errors += 0 if ok else 1
             self.busy_s += seconds
 
+    def record_shed(self, reason: str) -> None:
+        """A refused request (backpressure, not an error)."""
+        with self._lock:
+            self.requests += 1
+            self.sheds[reason] = self.sheds.get(reason, 0) + 1
+
     def report(self) -> dict:
         with self._lock:
             return {"requests": self.requests, "errors": self.errors,
-                    "busy_s": self.busy_s}
+                    "busy_s": self.busy_s, "sheds": dict(self.sheds)}
 
 
 class BundleServer:
@@ -59,13 +70,76 @@ class BundleServer:
             def log_message(self, fmt, *args):  # quiet access log
                 pass
 
-            def _send(self, code: int, payload: dict) -> None:
+            def _send(self, code: int, payload: dict,
+                      headers: dict | None = None) -> None:
                 body = json.dumps(payload).encode()
                 self.send_response(code)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(body)))
+                for key, val in (headers or {}).items():
+                    self.send_header(key, val)
                 self.end_headers()
                 self.wfile.write(body)
+
+            def _send_shed(self, reason: str, retry_after_s: float) -> None:
+                """503 + Retry-After (whole seconds; the body carries the
+                exact float), shaped as the JAX server's sheds."""
+                server.stats.record_shed(reason)
+                self._send(503, {"ok": False, "error": f"shed: {reason}",
+                                 "shed": reason,
+                                 "retry_after_s": round(retry_after_s, 3)},
+                           {"Retry-After":
+                            str(max(1, math.ceil(retry_after_s)))})
+
+            def _write_frame(self, body: bytes) -> bool:
+                """One chunked-transfer frame; False when the client went
+                away."""
+                try:
+                    self.wfile.write(f"{len(body):x}\r\n".encode()
+                                     + body + b"\r\n")
+                    return True
+                except OSError:
+                    self.close_connection = True
+                    return False
+
+            def _send_stream(self, request: dict, t0: float) -> None:
+                """Chunked ndjson, one line per decode segment. The first
+                record is taken before the headers go out, so a refused
+                admission is still a 503; a later error becomes a final
+                ``{"ok": false}`` line."""
+                records = server.state.invoke_stream(request)
+                try:
+                    first = next(records)
+                except PagesExhausted as e:
+                    self._send_shed("kv_pages", e.retry_after_s)
+                    return
+                except (ValueError, TypeError, KeyError) as e:
+                    server.stats.record(time.monotonic() - t0, False)
+                    self._send(400, {"ok": False, "error": str(e)})
+                    return
+                self.send_response(200)
+                self.send_header("Content-Type", "application/x-ndjson")
+                self.send_header("Transfer-Encoding", "chunked")
+                self.end_headers()
+                ok = first.get("ok", False)
+                try:
+                    if self._write_frame(json.dumps(first).encode() + b"\n"):
+                        for rec in records:
+                            if not self._write_frame(
+                                    json.dumps(rec).encode() + b"\n"):
+                                break
+                except Exception as e:  # noqa: BLE001 — headers are sent
+                    traceback.print_exc()
+                    ok = False
+                    self._write_frame(json.dumps(
+                        {"ok": False, "error": repr(e)}).encode() + b"\n")
+                finally:
+                    records.close()
+                try:
+                    self.wfile.write(b"0\r\n\r\n")
+                except OSError:
+                    self.close_connection = True
+                server.stats.record(time.monotonic() - t0, ok)
 
             def do_GET(self):
                 if self.path == "/healthz":
@@ -88,9 +162,17 @@ class BundleServer:
                     self._send(400, {"ok": False, "error": f"bad json: {e}"})
                     return
                 t0 = time.monotonic()
+                if request.get("stream"):
+                    self._send_stream(request, t0)
+                    return
                 try:
                     result = server.state.invoke(request)
                     code = 200 if result.get("ok") else 400
+                except PagesExhausted as e:
+                    # the paged KV arena is transiently full: priced
+                    # backpressure, not an error
+                    self._send_shed("kv_pages", e.retry_after_s)
+                    return
                 except (ValueError, TypeError, KeyError) as e:
                     result, code = {"ok": False, "error": str(e)}, 400
                 except Exception as e:  # noqa: BLE001 — report, keep serving

@@ -2,9 +2,11 @@
 against the JAX package's: the plain PyTorch version against
 ``decode_attention_reference`` and against the Pallas kernel in interpret
 mode, over ragged lengths, group sizes 1 and 4, f32 and bf16, for float
-K/V and for int8 K/V with per-position scales. The CUDA kernel itself is
-held against the plain version on the card in
-``tests/test_torch_kernels.py``."""
+K/V and for int8 K/V with per-position scales; and the paged form
+against ``paged_decode_attention_reference`` and the paged Pallas kernel
+in interpret mode, over shuffled block tables with null-padded tails and
+distractor pages. The CUDA kernels themselves are held against the plain
+versions on the card in ``tests/test_torch_kernels.py``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -123,7 +125,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         tda.blocked_decode_attention(q, k, v, alen)
 
 
-def test_int8_kv_branch_is_not_ported_yet():
+def test_int8_kv_branch_runs_plain_on_cpu():
     """The int8-KV branch is ported: the wrapper takes int8 K/V with
     their scales and, on CPU tensors, runs the plain int8-KV version
     without counting a launch."""
@@ -222,3 +224,167 @@ def test_int8_kv_wrapper_rejects_bad_operands(bad):
     with pytest.raises(ValueError):
         tda.blocked_decode_attention(q, k8, v8, torch.as_tensor(ALEN),
                                      **kwargs)
+
+
+# ------------------------------------------------------------------ paged
+
+PAGE, NB = 16, T // 16  # the paged cases cover the same T positions
+
+
+def _paged(kvh, seed, quant=False):
+    """A page arena whose every page holds finite garbage (page 0 and
+    unreferenced pages are distractors), shuffled block tables whose
+    entries past a row's length are the null page, and the arena's
+    float or int8 (+ f32 scale) pages."""
+    rng = np.random.default_rng(seed)
+    n_pages = B * NB + 5
+    shape = (n_pages, PAGE, kvh, D)
+    pages = []
+    for _ in range(2):
+        if quant:
+            x = rng.normal(size=shape).astype(np.float32)
+            scale = np.maximum(np.abs(x).max(-1, keepdims=True) / 127.0,
+                               1e-8).astype(np.float32)
+            pages += [np.round(x / scale).astype(np.int8), scale]
+        else:
+            pages.append(rng.normal(size=shape).astype(np.float32))
+    perm = rng.permutation(np.arange(1, n_pages))
+    tables = np.zeros((B, NB), np.int32)
+    for r, n in enumerate(ALEN):
+        used = -(-int(n) // PAGE)
+        tables[r, :used] = perm[r * NB:r * NB + used]
+    q = rng.normal(size=(B, 1, 4, D)).astype(np.float32)
+    return q, pages, tables
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kvh", [4, 1], ids=["group1", "group4"])
+def test_paged_plain_matches_jax_paged_reference(kvh, dtype):
+    q, (kp, vp), tables = _paged(kvh, seed=10)
+    want = jda.paged_decode_attention_reference(
+        _jax(q, dtype), _jax(kp, dtype), _jax(vp, dtype),
+        jnp.asarray(tables), jnp.asarray(ALEN))
+    got = tda.paged_decode_attention(
+        _torch(q, dtype), _torch(kp, dtype), _torch(vp, dtype),
+        torch.as_tensor(tables), torch.as_tensor(ALEN))
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_paged_plain_matches_paged_pallas_kernel_interpret(quant, dtype):
+    """The paged Pallas kernel in interpret mode, float and int8 pages:
+    its body dequantizes as int8 * f32 scale in f32, rounded to q's
+    dtype, as the port does. Tolerances as the contiguous kernel's
+    (online softmax, another summation order)."""
+    q, pages, tables = _paged(2, seed=11, quant=quant)
+    if quant:
+        k8, ks, v8, vs = pages
+        want = jda.paged_blocked_decode_attention(
+            _jax(q, dtype), jnp.asarray(k8), jnp.asarray(v8),
+            jnp.asarray(tables), jnp.asarray(ALEN),
+            k_scale_pages=jnp.asarray(ks), v_scale_pages=jnp.asarray(vs),
+            interpret=True)
+        got = tda.paged_decode_attention(
+            _torch(q, dtype), torch.as_tensor(k8), torch.as_tensor(v8),
+            torch.as_tensor(tables), torch.as_tensor(ALEN),
+            k_scale_pages=torch.as_tensor(ks),
+            v_scale_pages=torch.as_tensor(vs))
+    else:
+        kp, vp = pages
+        want = jda.paged_blocked_decode_attention(
+            _jax(q, dtype), _jax(kp, dtype), _jax(vp, dtype),
+            jnp.asarray(tables), jnp.asarray(ALEN), interpret=True)
+        got = tda.paged_decode_attention(
+            _torch(q, dtype), _torch(kp, dtype), _torch(vp, dtype),
+            torch.as_tensor(tables), torch.as_tensor(ALEN))
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0,
+                               atol=KERNEL_TOL[dtype])
+
+
+def test_paged_int8_rounds_like_the_kernel_not_like_the_jax_reference():
+    """The JAX paged reference rounds the gathered scale to q's dtype
+    before the product (``decode_attention.py:276-278``); the port, as
+    the TPU kernel body, multiplies in f32 and rounds once. In bf16 the
+    two differ, and the port equals the JAX reference run on the
+    kernel-rounded K/V."""
+    q, (k8, ks, v8, vs), tables = _paged(2, seed=12, quant=True)
+    got = tda.paged_decode_attention(
+        _torch(q, "bfloat16"), torch.as_tensor(k8), torch.as_tensor(v8),
+        torch.as_tensor(tables), torch.as_tensor(ALEN),
+        k_scale_pages=torch.as_tensor(ks), v_scale_pages=torch.as_tensor(vs))
+    jax_ref = jda.paged_decode_attention_reference(
+        _jax(q, "bfloat16"), jnp.asarray(k8), jnp.asarray(v8),
+        jnp.asarray(tables), jnp.asarray(ALEN),
+        k_scale_pages=jnp.asarray(ks), v_scale_pages=jnp.asarray(vs))
+    assert not np.array_equal(_np(got), _np(jax_ref))
+
+    def kernel_rounded(x8, sc):
+        return jnp.asarray(tda.dequantize_kv(
+            torch.as_tensor(x8), torch.as_tensor(sc), torch.bfloat16)
+            .float().numpy(), jnp.bfloat16)
+
+    want = jda.paged_decode_attention_reference(
+        _jax(q, "bfloat16"), kernel_rounded(k8, ks), kernel_rounded(v8, vs),
+        jnp.asarray(tables), jnp.asarray(ALEN))
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0,
+                               atol=TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_paged_plain_is_bitwise_contiguous_plain_on_gathered_values(quant,
+                                                                    dtype):
+    """Paged plain == contiguous plain on the K/V gathered through the
+    same tables, bitwise: shuffled tables, null-padded tails, distractor
+    pages, and a row at length 0 (uniform mean over every table
+    position, null pages included)."""
+    q, pages, tables = _paged(2, seed=13, quant=quant)
+    alen = torch.as_tensor(np.asarray([0, 5, PAGE + 1, T], np.int32))
+    qt, tt = _torch(q, dtype), torch.as_tensor(tables)
+    if quant:
+        k8, ks, v8, vs = (torch.as_tensor(x) for x in pages)
+        got = tda.paged_decode_attention(qt, k8, v8, tt, alen,
+                                         k_scale_pages=ks, v_scale_pages=vs)
+        want = tda.blocked_decode_attention(
+            qt, tda.gather_pages(k8, tt), tda.gather_pages(v8, tt), alen,
+            k_scale=tda.gather_pages(ks, tt), v_scale=tda.gather_pages(vs, tt))
+    else:
+        kp, vp = (_torch(x, dtype) for x in pages)
+        got = tda.paged_decode_attention(qt, kp, vp, tt, alen)
+        want = tda.blocked_decode_attention(
+            qt, tda.gather_pages(kp, tt), tda.gather_pages(vp, tt), alen)
+    assert torch.equal(got, want)
+
+
+def test_paged_wrapper_on_cpu_runs_plain_version_without_counting():
+    q, (kp, vp), tables = _paged(2, seed=14)
+    args = (torch.as_tensor(q), torch.as_tensor(kp), torch.as_tensor(vp),
+            torch.as_tensor(tables), torch.as_tensor(ALEN))
+    before = (tda.paged_decode_attention.launches,
+              tda.paged_decode_attention.launches_int8kv)
+    out = tda.paged_decode_attention(*args)
+    assert torch.equal(out, tda.paged_decode_attention_reference(*args))
+    assert (tda.paged_decode_attention.launches,
+            tda.paged_decode_attention.launches_int8kv) == before
+
+
+@pytest.mark.parametrize("bad", ["two_tokens", "page_not_pow2",
+                                 "int64_tables", "one_scale", "table_rows"])
+def test_paged_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    q, (kp, vp), tables = _paged(2, seed=15)
+    q, kp, vp = (torch.as_tensor(x) for x in (q, kp, vp))
+    tables, alen, kwargs = torch.as_tensor(tables), torch.as_tensor(ALEN), {}
+    if bad == "two_tokens":
+        q = torch.cat([q, q], dim=1)
+    elif bad == "page_not_pow2":
+        kp, vp = kp[:, :12], vp[:, :12]
+    elif bad == "int64_tables":
+        tables = tables.long()
+    elif bad == "one_scale":
+        kwargs["k_scale_pages"] = torch.ones(*kp.shape[:3], 1)
+    else:
+        tables = tables[:2]
+    with pytest.raises(ValueError):
+        tda.paged_decode_attention(q, kp, vp, tables, alen, **kwargs)

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from lambdipy_tpu_torch.models import registry
+from lambdipy_tpu_torch.models.llama import _kv_quantize
 from lambdipy_tpu_torch.ops import attention as tat
 from lambdipy_tpu_torch.ops import decode_attention as tda
 from lambdipy_tpu_torch.ops import quant as tq
@@ -230,3 +231,168 @@ def test_small_model_on_new_paths_matches_cpu(cuda_device, extra, counter):
     ran = (tda.blocked_decode_attention.launches_int8kv - before[0],
            tat.flash_attention.launches - before[1])
     assert ran == ((2 * 11, 0) if counter == "int8kv" else (0, 2))
+
+
+def _paged_case(rng, b, page, nb, kvh, d, quant, alen):
+    """An arena of random pages (page 0 and unreferenced pages are
+    distractors: every value is finite garbage), shuffled non-identity
+    block tables whose entries past a row's length are the null page,
+    and K/V as float or int8 with f32 scales."""
+    n_pages = b * nb + 7
+    shape = (n_pages, page, kvh, d)
+    pages = {}
+    for name in ("k", "v"):
+        if quant:
+            pages[name] = torch.as_tensor(
+                rng.integers(-127, 128, shape).astype(np.int8))
+            pages[f"{name}_scale"] = torch.as_tensor(
+                (rng.random(shape[:3] + (1,)) * 0.02 + 1e-3)
+                .astype(np.float32))
+        else:
+            pages[name] = torch.as_tensor(
+                rng.normal(size=shape).astype(np.float32))
+    perm = rng.permutation(np.arange(1, n_pages))
+    tables = np.zeros((b, nb), np.int32)
+    for r in range(b):
+        used = min(nb, -(-max(int(alen[r]), 1) // page))
+        tables[r, :used] = perm[r * nb:r * nb + used]
+    return pages, torch.as_tensor(tables)
+
+
+@DTYPES
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("page", [16, 32, 128])
+@pytest.mark.parametrize("h,kvh,d", [(4, 4, 32), (32, 8, 128), (8, 1, 64)],
+                         ids=["group1", "group4-d128", "group8"])
+def test_paged_decode_attention_kernel_matches_plain_and_contiguous(
+        cuda_device, dtype, quant, page, h, kvh, d):
+    """Kernel 3 against its plain version (per-row limits as the
+    contiguous kernel's), and BITWISE against the contiguous kernel on
+    the K/V gathered through the same tables: shuffled tables, null-padded
+    tails, distractor pages, lengths 0 (uniform mean over every table
+    position), 1, tile and page boundaries, the whole table."""
+    rng = np.random.default_rng(page + h + kvh + d + quant)
+    nb = max(2, 320 // page)
+    alen = np.asarray([0, 1, 63, 64, 65, nb * page], np.int32)
+    b = alen.size
+    pages, tables = _paged_case(rng, b, page, nb, kvh, d, quant, alen)
+    q = torch.as_tensor(rng.normal(size=(b, 1, h, d)).astype(np.float32))
+    q = q.to(dtype).to(cuda_device)
+    dev = {name: (x if quant else x.to(dtype)).to(cuda_device)
+           for name, x in pages.items()}
+    _check_paged(q, dev, tables.to(cuda_device),
+                 torch.as_tensor(alen, device=cuda_device), quant, dtype)
+
+
+def _check_paged(q, pages, tables, alen, quant, dtype):
+    """Kernel 3 launches once on its own counter, holds its plain version
+    within ``ATTN_TOL`` and equals the contiguous kernel bitwise on the
+    K/V gathered through ``tables``."""
+    scales = ({"k_scale_pages": pages["k_scale"],
+               "v_scale_pages": pages["v_scale"]} if quant else {})
+    before = (tda.paged_decode_attention.launches,
+              tda.paged_decode_attention.launches_int8kv)
+    out = tda.paged_decode_attention(q, pages["k"], pages["v"], tables, alen,
+                                     **scales)
+    ref = tda.paged_decode_attention_reference(q, pages["k"], pages["v"],
+                                               tables, alen, **scales)
+    gathered = {name: tda.gather_pages(x, tables).contiguous()
+                for name, x in pages.items()}
+    contiguous = tda.blocked_decode_attention(
+        q, gathered["k"], gathered["v"], alen,
+        **({"k_scale": gathered["k_scale"], "v_scale": gathered["v_scale"]}
+           if quant else {}))
+    torch.cuda.synchronize()
+    after = (tda.paged_decode_attention.launches,
+             tda.paged_decode_attention.launches_int8kv)
+    assert after == (before[0] + (not quant), before[1] + quant)
+    assert _row_rel_err(out, ref) <= ATTN_TOL[dtype]
+    assert torch.equal(out, contiguous)
+
+
+@DTYPES
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_paged_decode_attention_at_the_engine_shape(cuda_device, dtype,
+                                                    quant):
+    """Kernel 3 at the shape the continuous engine gives it for llama3-8b:
+    8 slots over an 8,192-position window (tables ``[8, 256]`` of
+    32-position pages into a 2,049-page arena), slot 0 idle at
+    active_len 1 on an all-null table, the others at burst lengths up to
+    4,032 positions."""
+    b, page, nb, h, kvh, d = 8, 32, 256, 32, 8, 128
+    alen = [1, 144, 164, 532, 1040, 2024, 4032, 180]
+    n_pages = b * nb + 1
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    pages = {}
+    for name in ("k", "v"):
+        x = torch.randn(n_pages, page, kvh, d, generator=gen,
+                        device=cuda_device)
+        if quant:
+            pages[name], pages[f"{name}_scale"] = _kv_quantize(x)
+        else:
+            pages[name] = x.to(dtype)
+    perm = torch.randperm(n_pages - 1,
+                          generator=torch.Generator().manual_seed(11)) + 1
+    tables = torch.zeros(b, nb, dtype=torch.int32)
+    for r in range(1, b):
+        used = -(-alen[r] // page)
+        tables[r, :used] = perm[r * nb:r * nb + used].to(torch.int32)
+    q = torch.randn(b, 1, h, d, generator=gen, device=cuda_device).to(dtype)
+    _check_paged(q, pages, tables.to(cuda_device),
+                 torch.tensor(alen, dtype=torch.int32, device=cuda_device),
+                 quant, dtype)
+
+
+def test_paged_wrapper_raises_on_cuda_for_unsupported_input(cuda_device):
+    q = torch.zeros(1, 1, 4, 32, device=cuda_device)
+    pages = torch.zeros(3, 24, 4, 32, device=cuda_device)  # page 24
+    with pytest.raises(ValueError, match="power of two"):
+        tda.paged_decode_attention(
+            q, pages, pages, torch.zeros(1, 2, dtype=torch.int32,
+                                         device=cuda_device),
+            torch.ones(1, dtype=torch.int32, device=cuda_device))
+
+
+def test_small_paged_engine_on_card_matches_cpu_and_dense(cuda_device):
+    """A small int8 model served by the continuous engine over a page
+    arena: greedy rows on the card equal the CPU's tokens (logprobs
+    within 5e-3, as above; a seeded row draws other noise on the card,
+    whose generators are not the CPU's); on the card the paged engine's
+    tokens and logprobs, seeded row included, are bitwise the dense
+    engine's; every decode step launched kernel 3 once per layer and
+    kernel 1 never."""
+    from lambdipy_tpu_torch.runtime.handlers import make_engine
+
+    extra = {"vocab_size": 512, "hidden": 256, "heads": 4, "kv_heads": 2,
+             "mlp": 512, "layers": 2, "max_len": 256,
+             "attn_backend": "blocked", "matmul_backend": "pallas"}
+    adapter = registry.get("llama-tiny").build(quant="int8", extra=extra)
+    sd = adapter.init_params(seed=3, device="cpu")
+    reqs = [(list(range(1, 40)), 12, {}),
+            (list(range(5, 12)), 20, {"temperature": 0.8, "top_p": 0.9,
+                                      "seed": 7}),
+            (list(range(9, 80)), 9, {})]
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        server = adapter.make_server(sd, device=dev)
+        for paged in ("1", "0"):
+            eng = make_engine(server, {"batch_max": "4", "batch_segment": "4",
+                                       "kv_paged": paged})
+            k1 = tda.blocked_decode_attention.launches
+            k3 = tda.paged_decode_attention.launches
+            outs[str(dev), paged] = [
+                eng.generate(p, max_new_tokens=n, return_logprobs=True, **kw)
+                for p, n, kw in reqs]
+            steps = eng.stats()["steps"]
+            if str(dev) != "cpu":
+                ran = (tda.blocked_decode_attention.launches - k1,
+                       tda.paged_decode_attention.launches - k3)
+                assert ran == ((0, 2 * steps) if paged == "1"
+                               else (2 * steps, 0))
+    for (tok_c, lp_c), (tok_g, lp_g), (tok_d, lp_d), (_, _, kw) in zip(
+            outs["cpu", "1"], outs["cuda", "1"], outs["cuda", "0"], reqs):
+        if not kw:
+            np.testing.assert_array_equal(tok_g, tok_c)
+            np.testing.assert_allclose(lp_g, lp_c, atol=5e-3)
+        np.testing.assert_array_equal(tok_g, tok_d)
+        np.testing.assert_array_equal(lp_g, lp_d)

@@ -161,8 +161,9 @@ def test_http_invoke_matches_jax_generate(weights, jax_server):
     assert metrics["server"]["requests"] == 3
     assert metrics["server"]["errors"] == 1
     assert set(metrics["handler"]["kernels"]) == {
-        "decode_attention", "decode_attention_int8kv", "int8_matmul",
-        "flash_attention"}
+        "decode_attention", "decode_attention_int8kv",
+        "paged_decode_attention", "paged_decode_attention_int8kv",
+        "int8_matmul", "flash_attention"}
 
 
 def test_port_imports_nothing_of_jax():
