@@ -12,12 +12,15 @@ Phases, each of which fails the run with a non-zero exit:
    per source, in parallel) and print the ptxas report;
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (the paged decode-attention kernel also bitwise
-   against the contiguous one on the K/V gathered through its tables),
-   and time kernel, plain version and a library call that the port
-   never uses (CUDA events, warmed, L2 defeated by rotating input
-   copies); then hold a small int8 model on the card against the same
-   model on the CPU, under each path's backends and through the paged
-   continuous engine;
+   against the contiguous one on the K/V gathered through its tables;
+   every decode-attention row bitwise the same row launched alone at
+   batch 1 with another capacity, and launch to launch), and time
+   kernel, plain version and a library call that the port never uses
+   (CUDA events, warmed, L2 defeated by rotating input copies; for
+   decode attention also the device time per call under the profiler,
+   and each time's fraction of the bound); then hold a small int8 model
+   on the card against the same model on the CPU, under each path's
+   backends and through the paged continuous engine;
 4. the main path: full-width ``llama3-8b`` (int8 weights, bf16,
    ``matmul_backend="pallas"``, seeded random weights) served by the
    port's HTTP server from a fresh handler per path. D first, timed
@@ -88,6 +91,37 @@ def cuda_time(fn, n_copies: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_time(fn, n_copies: int = 1, calls: int = 20) -> float:
+    """Mean device ms per call of ``fn(i)``, host time left out: the
+    stream is held by a sleep kernel while the host enqueues all
+    ``calls`` calls, then CUDA events time them running back to back
+    (launch gaps on the card included). ``cuda_time`` of eager calls
+    this small measures how fast the host enqueues them; this measures
+    the card. The calls' launches must fit the card's launch queue (a
+    plain version of ~30 small kernels takes fewer calls). Fails if the
+    host did not get ahead of the card."""
+    fn(0)
+    torch.cuda.synchronize()
+    held, start, end = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(3))
+    tries = []
+    for cycles in (50_000_000, 400_000_000, 3_000_000_000):  # ~30 ms-2 s
+        held.record()
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        start.record()
+        for i in range(calls):
+            fn(i % n_copies)
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        tries.append((host_ms, held.elapsed_time(start)))
+        if host_ms < tries[-1][1]:
+            return start.elapsed_time(end) / calls
+    raise SystemExit(f"device_time: the host did not enqueue ahead of the "
+                     f"card (host ms, held ms: {tries})")
+
+
 def copies_for(nbytes: int) -> int:
     return max(1, min(32, -(-L2_DEFEAT_BYTES // max(nbytes, 1))))
 
@@ -109,6 +143,30 @@ def row_rel_err(out, ref) -> float:
     diff = (out.float() - ref.float()).abs().amax(-1)
     rms = ref.float().square().mean(-1).sqrt()
     return (diff / rms).max().item()
+
+
+def solo_copy(x, r: int, n: int, cap: int):
+    """Row ``r`` of a cache ``[b, t, ...]`` alone at batch 1 with capacity
+    ``cap``: its first ``n`` positions copied, every later one NaN (0 for
+    int8, whose scales are NaN there), so a kernel that read past ``n``
+    would return NaN."""
+    fill = 0 if x.dtype == torch.int8 else float("nan")
+    y = torch.full((1, cap, *x.shape[2:]), fill, dtype=x.dtype,
+                   device=x.device)
+    y[:, :n] = x[r:r + 1, :n]
+    return y
+
+
+def rows_invariant(batched, out, solo, active) -> bool:
+    """The batch-invariance the serving engine rests on: a second launch
+    of ``batched()`` is bitwise ``out``, and each row ``r`` launched alone
+    (``solo(r, cap)``, at batch 1 with a capacity other than the batch's)
+    is bitwise ``out[r]``."""
+    same = torch.equal(batched(), out)
+    for r, n in enumerate(active):
+        cap = n + 64 + 37 * r  # another t per row, past the row's length
+        same = same and torch.equal(solo(r, cap), out[r:r + 1])
+    return bool(same)
 
 
 # ------------------------------------------------------------------ phase 3
@@ -183,15 +241,24 @@ def check_decode_attention(gen, quant: bool) -> dict:
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             rel, rel0 = row_rel_err(out, ref), row_rel_err(out0, ref0)
+            invariant = rows_invariant(
+                lambda: kernel(q, kv, alen), out,
+                lambda r, cap: kernel(
+                    q[r:r + 1], {n: solo_copy(x, r, active[r], cap)
+                                 for n, x in kv.items()}, alen[r:r + 1]),
+                active)
             key = f"b={b} t={t} {dtype}"
             log(f"{name} {key}: max_abs_err {err:.3e}; per row, max |diff| "
                 f"/ rms {rel:.3e} (active_len 0 case {rel0:.3e}), "
-                f"tolerance {tol}")
-            if not (rel <= tol and rel0 <= tol):
+                f"tolerance {tol}; every row bitwise alone at batch 1 "
+                f"with another t, and launch to launch: {invariant}")
+            if not (rel <= tol and rel0 <= tol and invariant):
                 raise SystemExit(f"{name} disagrees with its plain version "
-                                 f"at {key}: {rel}, {rel0} > {tol}")
+                                 f"at {key}: {rel}, {rel0} > {tol}, or is "
+                                 f"not batch-invariant ({invariant})")
             results[key] = {"max_abs_err": err, "row_rel_err": rel,
-                            "row_rel_err_len0": rel0, "tolerance": tol}
+                            "row_rel_err_len0": rel0, "tolerance": tol,
+                            "batch_invariant": invariant}
 
         # timing in bf16, K/V copies rotated past L2 (by the active K/V,
         # the bytes the kernel reads)
@@ -208,14 +275,18 @@ def check_decode_attention(gen, quant: bool) -> dict:
         # native, on K/V dequantized to bf16 beforehand
         qt = q.transpose(1, 2)
         deq = [plain_kv(kv, dtype, quant) for kv in kvs]
-        del kvs
         kts = [k.transpose(1, 2) for k, _ in deq]
         vts = [v.transpose(1, 2) for _, v in deq]
         mask = (torch.arange(t, device=dev)[None, :]
                 < alen[:, None])[:, None, None]
         library_ms = cuda_time(lambda i: F.scaled_dot_product_attention(
             qt, kts[i], vts[i], attn_mask=mask, enable_gqa=True), n)
-        del deq, kts, vts
+        dms = {"kernel": device_time(lambda i: kernel(q, kvs[i], alen), n),
+               "plain": device_time(lambda i: plain(q, kvs[i], alen), n,
+                                    calls=6),
+               "sdpa": device_time(lambda i: F.scaled_dot_product_attention(
+                   qt, kts[i], vts[i], attn_mask=mask, enable_gqa=True), n)}
+        del deq, kts, vts, kvs
         nbytes = 2 * q.numel() * 2 + 2 * positions * per_pos + b * 4
         bound_ms, bound_by = bound(nbytes, 4.0 * positions * h * d)
         shape = (f"b={b} h={h} kvh={kvh} d={d} t={t} "
@@ -223,10 +294,16 @@ def check_decode_attention(gen, quant: bool) -> dict:
                  + (" int8 K/V" if quant else ""))
         log(f"{name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by})")
+            f"({bound_by}; the kernel at {bound_ms / ms:.3f} of it); "
+            f"device time per call: kernel {dms['kernel']:.4f} ms "
+            f"({bound_ms / dms['kernel']:.3f} of the bound), plain "
+            f"{dms['plain']:.4f} ms, sdpa {dms['sdpa']:.4f} ms")
         timings.append({"shape": shape, "ms": ms, "plain_ms": plain_ms,
                         "library_ms": library_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by})
+                        "bound_by": bound_by,
+                        "bound_fraction": bound_ms / ms,
+                        "device_ms": dms,
+                        "device_bound_fraction": bound_ms / dms["kernel"]})
         torch.cuda.empty_cache()
     line = timings[0]
     return {"name": name, "route": "cuda",
@@ -351,19 +428,35 @@ def check_paged_decode_attention(gen) -> dict:
                 rel = row_rel_err(out, ref)
                 rel0 = row_rel_err(outs["len0"][0], outs["len0"][1])
                 same = all(torch.equal(o, c) for o, _, c in outs.values())
+
+                def solo(r, cap):
+                    # the row's own pages, then null pages up to `cap`
+                    own = -(-active[r] // PAGE)
+                    tb = torch.zeros(1, -(-cap // PAGE), dtype=torch.int32,
+                                     device="cuda")
+                    tb[0, :own] = tables[r, :own]
+                    return call(paged_decode_attention, q[r:r + 1], arena,
+                                tb, alen[r:r + 1])
+
+                invariant = rows_invariant(
+                    lambda: call(paged_decode_attention, q, arena, tables,
+                                 alen), out, solo, active)
                 key = f"{branch} b={b} t={t} {dtype}"
                 log(f"paged_decode_attention {key}: max_abs_err {err:.3e}; "
                     f"per row, max |diff| / rms {rel:.3e} (active_len 0 case "
                     f"{rel0:.3e}), tolerance {tol}; bitwise equal to the "
-                    f"contiguous kernel on the gathered K/V: {same}")
-                if not (rel <= tol and rel0 <= tol and same):
+                    f"contiguous kernel on the gathered K/V: {same}; every "
+                    f"row bitwise alone at batch 1 on another table "
+                    f"width, and launch to launch: {invariant}")
+                if not (rel <= tol and rel0 <= tol and same and invariant):
                     raise SystemExit(f"paged_decode_attention disagrees at "
                                      f"{key}: {rel}, {rel0} > {tol} or "
-                                     f"bitwise {same}")
+                                     f"bitwise {same}, invariant {invariant}")
                 result["checks"][key] = {
                     "max_abs_err": err, "row_rel_err": rel,
                     "row_rel_err_len0": rel0, "tolerance": tol,
-                    "bitwise_contiguous": same}
+                    "bitwise_contiguous": same,
+                    "batch_invariant": invariant}
             if dtype == torch.float32:
                 del arena
                 torch.cuda.empty_cache()
@@ -397,6 +490,17 @@ def check_paged_decode_attention(gen) -> dict:
                     lambda i: F.scaled_dot_product_attention(
                         q.transpose(1, 2), kts[i], vts[i], attn_mask=mask,
                         enable_gqa=True), n)
+                dms = {"kernel": device_time(
+                           lambda i: call(paged_decode_attention, q, arena,
+                                          tabs[i], alen), n),
+                       "plain": device_time(
+                           lambda i: call(paged_decode_attention_reference,
+                                          q, arena, tabs[i], alen), n,
+                           calls=6),
+                       "sdpa": device_time(
+                           lambda i: F.scaled_dot_product_attention(
+                               q.transpose(1, 2), kts[i], vts[i],
+                               attn_mask=mask, enable_gqa=True), n)}
                 del kts, vts
                 # q and out, the active K/V (and scales), the table
                 nbytes = (2 * q.numel() * 2 + 2 * positions * per_pos
@@ -408,11 +512,16 @@ def check_paged_decode_attention(gen) -> dict:
                 log(f"paged_decode_attention {shape}: kernel {ms:.4f} ms, "
                     f"plain {plain_ms:.4f} ms, sdpa (pre-gathered) "
                     f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                    f"({bound_by})")
+                    f"({bound_by}; the kernel at {bound_ms / ms:.3f} of it); "
+                    f"device time per call: kernel {dms['kernel']:.4f} ms "
+                    f"({bound_ms / dms['kernel']:.3f} of the bound), plain "
+                    f"{dms['plain']:.4f} ms, sdpa {dms['sdpa']:.4f} ms")
                 result["timings"].append(
                     {"shape": shape, "branch": branch, "ms": ms,
                      "plain_ms": plain_ms, "library_ms": library_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by})
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bound_fraction": bound_ms / ms, "device_ms": dms,
+                     "device_bound_fraction": bound_ms / dms["kernel"]})
             del arena
             torch.cuda.empty_cache()
     line = result["timings"][0]  # float K/V, b=4, t=544

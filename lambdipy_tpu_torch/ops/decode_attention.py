@@ -14,10 +14,16 @@ tables ``[b, nb]`` int32: row r's position p lives in page
 ``tables[r, p // page]`` at offset ``p % page``.
 
 The kernel reads nothing past a row's ``active_len`` and reads each kv
-head once for its ``h // kvh`` query heads; the source's header note
-says what bounds it and what its design does about that. On a CPU
-tensor the wrapper runs the plain version; on a CUDA tensor it launches
-the kernel or raises.
+head once for its ``h // kvh`` query heads. It is split-KV
+(flash-decoding): a row's positions are cut into chunks of
+:data:`KV_CHUNK` (:func:`split_bounds`), one block per (row x kv head,
+chunk) writes a softmax partial, and a second launch merges a row's
+partials in chunk order. The plan is a function of the row's
+``active_len`` alone, so a row's output is bitwise the same whatever the
+batch, the capacity ``t`` or the addressing; the source's header note
+says what bounds the kernel and what its design does about that. On a
+CPU tensor the wrapper runs the plain version; on a CUDA tensor it
+launches the kernel or raises.
 
 Int8-KV rounding: the port dequantizes as the TPU kernel BODY does
 (``decode_attention.py:134-137``): int8 times the f32 scale in f32, then
@@ -42,6 +48,19 @@ NEG_INF = -1e9  # the mask fill of models/llama.py _attend
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GROUP = 8
 _MAX_HEAD_DIM = 256
+# positions per split of the kernel's plan; csrc/decode_attention.cu has
+# the same constant, checked when the library loads
+KV_CHUNK = 128
+
+
+def split_bounds(active_len: int, t: int) -> list[tuple[int, int]]:
+    """The kernel's split plan for one row, as ``[start, end)`` position
+    ranges in merge order: ``active_len`` clamped to ``t`` (all ``t``
+    positions at ``active_len <= 0``, the uniform mean) cut into chunks
+    of :data:`KV_CHUNK`. For ``0 < active_len <= t`` it depends on
+    ``active_len`` alone."""
+    n = t if active_len <= 0 or active_len > t else active_len
+    return [(s, min(s + KV_CHUNK, n)) for s in range(0, n, KV_CHUNK)]
 
 
 def decode_attention_reference(q, k, v, active_len):
@@ -65,11 +84,23 @@ def decode_attention_reference(q, k, v, active_len):
 
 
 @functools.cache
+def _library():
+    """``csrc/decode_attention.cu``, built on first use; its split plan
+    must be :data:`KV_CHUNK` wide, since that sizes the partials."""
+    lib = _build.load("decode_attention")
+    lib.decode_attention_kv_chunk.restype = ctypes.c_int
+    chunk = lib.decode_attention_kv_chunk()
+    if chunk != KV_CHUNK:
+        raise RuntimeError(f"decode_attention.cu splits by {chunk} "
+                           f"positions, the wrapper by {KV_CHUNK}")
+    return lib
+
+
+@functools.cache
 def _launcher():
-    """The C entry point of ``csrc/decode_attention.cu``, built on first
-    use."""
-    fn = _build.load("decode_attention").decode_attention_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+    """The C entry point of ``csrc/decode_attention.cu``."""
+    fn = _library().decode_attention_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
                    + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -78,11 +109,21 @@ def _launcher():
 @functools.cache
 def _paged_launcher():
     """The paged C entry point of ``csrc/decode_attention.cu``."""
-    fn = _build.load("decode_attention").paged_decode_attention_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+    fn = _library().paged_decode_attention_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
                    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _partials(q, b, kvh, group, d, t):
+    """The kernel's scratch on q's device, one f32 allocation: the chunk
+    accumulators ``[b * kvh, ceil(t / KV_CHUNK), group, d]``, then their
+    (m, l) pairs ``[..., group, 2]``; written only for live chunks.
+    Returns the two base addresses."""
+    n = b * kvh * max(1, -(-t // KV_CHUNK)) * group
+    scratch = torch.empty(n * (d + 2), dtype=torch.float32, device=q.device)
+    return scratch, scratch.data_ptr(), scratch.data_ptr() + n * d * 4
 
 
 def dequantize_kv(x_i8, scale, dtype):
@@ -151,13 +192,14 @@ def blocked_decode_attention(q, k, v, active_len, *, k_scale=None,
         return decode_attention_reference(q, k, v, active_len)
     b, _, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
-    _check_kernel_operands(q, kvh, (q, k, v, active_len, k_scale, v_scale))
+    _check_kernel_operands(q, k, v, (q, k, v, active_len, k_scale, v_scale))
     out = torch.empty_like(q)
+    scratch, acc, ml = _partials(q, b, kvh, h // kvh, d, t)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _launcher()(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), k_scale.data_ptr() if quant else None,
                       v_scale.data_ptr() if quant else None,
-                      active_len.data_ptr(), out.data_ptr(),
+                      active_len.data_ptr(), out.data_ptr(), acc, ml,
                       b, t, kvh, h // kvh, d, d ** -0.5, stream)
     _build.check(err, "decode_attention")
     if quant:
@@ -171,21 +213,38 @@ blocked_decode_attention.launches = 0
 blocked_decode_attention.launches_int8kv = 0
 
 
-def _check_kernel_operands(q, kvh, operands) -> None:
+def _check_kernel_operands(q, k, v, operands) -> None:
     """What the kernel takes beyond the shapes: a CUDA device, q in f32
     or bf16, ``h // kvh <= 8``, ``d <= 256``, contiguous operands (None
-    entries skipped)."""
+    entries skipped), and K/V its 16-byte copies can read
+    (:func:`check_kv_alignment`)."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"decode attention kernel takes float32 or "
                          f"bfloat16, got {q.dtype}")
-    group, d = q.shape[2] // kvh, q.shape[3]
+    group, d = q.shape[2] // k.shape[2], q.shape[3]
     if group > _MAX_GROUP or d > _MAX_HEAD_DIM:
         raise ValueError(f"kernel supports group <= {_MAX_GROUP} and "
                          f"head dim <= {_MAX_HEAD_DIM}; got {group}, {d}")
     if not all(x.is_contiguous() for x in operands if x is not None):
         raise ValueError("decode attention kernel needs contiguous operands")
+    check_kv_alignment(k, v)
+
+
+def check_kv_alignment(k, v) -> None:
+    """The kernel copies each position's d-vector in 16-byte pieces: the
+    d-vector's bytes must be a multiple of 16 and K/V must start on a
+    16-byte boundary (every llama3-8b and test shape does: d = 32, 64,
+    128, 256 in f32, bf16 or int8)."""
+    row = k.shape[-1] * k.element_size()
+    if row % 16:
+        raise ValueError(f"decode attention kernel needs head dim x "
+                         f"element size a multiple of 16 bytes; got "
+                         f"{k.shape[-1]} x {k.element_size()}")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("decode attention kernel needs K/V on 16-byte "
+                         "aligned addresses")
 
 
 def gather_pages(pages, block_tables):
@@ -278,17 +337,19 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, active_len, *,
     b, _, h, d = q.shape
     page, kvh = k_pages.shape[1], k_pages.shape[2]
     nb = block_tables.shape[1]
-    _check_kernel_operands(q, kvh, (q, k_pages, v_pages, block_tables,
-                                    active_len, k_scale_pages,
-                                    v_scale_pages))
+    _check_kernel_operands(q, k_pages, v_pages,
+                           (q, k_pages, v_pages, block_tables, active_len,
+                            k_scale_pages, v_scale_pages))
     out = torch.empty_like(q)
+    scratch, acc, ml = _partials(q, b, kvh, h // kvh, d, nb * page)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _paged_launcher()(
         _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), k_scale_pages.data_ptr() if quant else None,
         v_scale_pages.data_ptr() if quant else None,
         block_tables.data_ptr(), active_len.data_ptr(), out.data_ptr(),
-        b, nb, page.bit_length() - 1, kvh, h // kvh, d, d ** -0.5, stream)
+        acc, ml, b, nb, page.bit_length() - 1, kvh, h // kvh, d, d ** -0.5,
+        stream)
     _build.check(err, "paged_decode_attention")
     if quant:
         paged_decode_attention.launches_int8kv += 1

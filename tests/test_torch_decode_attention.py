@@ -8,6 +8,8 @@ in interpret mode, over shuffled block tables with null-padded tails and
 distractor pages. The CUDA kernels themselves are held against the plain
 versions on the card in ``tests/test_torch_kernels.py``."""
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -388,3 +390,154 @@ def test_paged_wrapper_rejects_what_the_kernel_does_not_take(bad):
         tables = tables[:2]
     with pytest.raises(ValueError):
         tda.paged_decode_attention(q, kp, vp, tables, alen, **kwargs)
+
+
+# ------------------------------------------------------ split-KV plan
+
+CHUNK = tda.KV_CHUNK
+SPLIT_T = 4 * CHUNK
+# 0 (uniform mean over t), 1, a chunk's edges, several chunks, past t
+SPLIT_LENS = np.asarray([0, 1, CHUNK - 1, CHUNK, CHUNK + 1, 3 * CHUNK - 50,
+                         SPLIT_T + 88], np.int32)
+
+
+def test_kv_chunk_is_the_sources():
+    """The wrapper's ``KV_CHUNK`` (which sizes the kernel's partials) is
+    the one compiled into ``csrc/decode_attention.cu``; the wrapper also
+    checks it against the built library when it loads."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tda.__file__).resolve().parent.parent / "csrc"
+           / "decode_attention.cu").read_text()
+    assert re.findall(r"constexpr int KV_CHUNK = (\d+);", src) == [
+        str(CHUNK)]
+
+
+@pytest.mark.parametrize("t", [CHUNK, SPLIT_T, 8192])
+def test_split_bounds_depend_on_active_len_alone(t):
+    """A row's chunk bounds are a function of its own length: the same
+    at any capacity t that holds it, contiguous from 0, ``KV_CHUNK`` wide
+    but for the last."""
+    for n in range(1, t + 1, 7):
+        bounds = tda.split_bounds(n, t)
+        assert bounds == tda.split_bounds(n, n) == tda.split_bounds(
+            n, t + 3 * CHUNK + 5)
+        assert bounds[0][0] == 0 and bounds[-1][1] == n
+        assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+        assert all(e - s == CHUNK for s, e in bounds[:-1])
+        assert 0 < bounds[-1][1] - bounds[-1][0] <= CHUNK
+        assert len(bounds) == -(-n // CHUNK)
+
+
+def test_split_bounds_at_zero_and_past_the_window():
+    """At ``active_len <= 0`` the plan covers all t positions (the
+    uniform mean of V); past t it clamps to t."""
+    t = SPLIT_T + 40
+    whole = [(s, min(s + CHUNK, t)) for s in range(0, t, CHUNK)]
+    assert tda.split_bounds(0, t) == tda.split_bounds(-3, t) == whole
+    assert tda.split_bounds(t + 1000, t) == whole
+
+
+def split_combine_reference(q, k, v, active_len):
+    """The kernel's algorithm in plain f32 (tests only): each chunk of
+    :func:`split_bounds` gives a softmax partial (max m, sum l, unscaled
+    p @ V), merged in chunk order as ``sum exp(m_s - M) acc_s /
+    max(sum exp(m_s - M) l_s, 1e-30)``."""
+    q, k, v = q.float(), k.float(), v.float()
+    b, _, h, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    out = torch.empty(b, 1, h, d)
+    for r in range(b):
+        n = int(active_len[r])
+        qg = q[r, 0].reshape(kvh, h // kvh, d)
+        parts = []
+        for s0, s1 in tda.split_bounds(n, t):
+            kk = k[r, s0:s1].transpose(0, 1)  # [kvh, chunk, d]
+            vv = v[r, s0:s1].transpose(0, 1)
+            sc = torch.einsum("kgd,knd->kgn", qg, kk) / math.sqrt(d)
+            if n <= 0:
+                sc = torch.full_like(sc, tda.NEG_INF)
+            m = sc.amax(-1, keepdim=True)
+            p = torch.exp(sc - m)
+            parts.append((m, p.sum(-1, keepdim=True),
+                          torch.einsum("kgn,knd->kgd", p, vv)))
+        big = torch.stack([m for m, _, _ in parts]).amax(0)
+        l_sum = sum(torch.exp(m - big) * l for m, l, _ in parts)
+        acc = sum(torch.exp(m - big) * a for m, _, a in parts)
+        out[r, 0] = (acc / l_sum.clamp_min(1e-30)).reshape(h, d)
+    return out
+
+
+def _split_inputs(kvh, seed):
+    rng = np.random.default_rng(seed)
+    b = SPLIT_LENS.size
+    q = rng.normal(size=(b, 1, H, D)).astype(np.float32)
+    k = rng.normal(size=(b, SPLIT_T, kvh, D)).astype(np.float32)
+    v = rng.normal(size=(b, SPLIT_T, kvh, D)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("kvh", [4, 1], ids=["group1", "group4"])
+def test_split_combine_matches_jax_reference(kvh):
+    """The split plan with its merge computes the JAX reference's function
+    (f32, 1e-5) at lengths around the chunk edges, 0 and past t
+    included."""
+    q, k, v = _split_inputs(kvh, seed=20)
+    got = split_combine_reference(torch.as_tensor(q), torch.as_tensor(k),
+                                  torch.as_tensor(v),
+                                  torch.as_tensor(SPLIT_LENS))
+    want = jda.decode_attention_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(SPLIT_LENS))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("kvh", [4, 1], ids=["group1", "group4"])
+def test_split_combine_matches_pallas_kernel_interpret(kvh):
+    """The same against the Pallas kernel in interpret mode (128-position
+    blocks, its own online softmax), f32, 1e-5. Length 0 is left out:
+    there the TPU kernel returns zeros where the reference and the port
+    give the uniform mean of V (ROADMAP §3)."""
+    q, k, v = _split_inputs(kvh, seed=21)
+    lens = np.where(SPLIT_LENS == 0, 5, SPLIT_LENS).astype(np.int32)
+    got = split_combine_reference(torch.as_tensor(q), torch.as_tensor(k),
+                                  torch.as_tensor(v), torch.as_tensor(lens))
+    want = jda.blocked_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lens),
+        block_k=128, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("kvh", [4, 1], ids=["group1", "group4"])
+def test_split_combine_matches_the_port_plain_version(kvh):
+    """The port's plain version (which the kernel is held against on the
+    card) and the split-and-merge version agree at f32 1e-5 at the same
+    lengths."""
+    q, k, v = (torch.as_tensor(x) for x in _split_inputs(kvh, seed=22))
+    alen = torch.as_tensor(SPLIT_LENS)
+    got = split_combine_reference(q, k, v, alen)
+    want = tda.decode_attention_reference(q, k, v, alen)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["aligned", "row_bytes", "offset"])
+def test_kv_alignment_check(case):
+    """The kernel's 16-byte copies: a d-vector whose bytes are not a
+    multiple of 16, or K/V off a 16-byte boundary, is refused."""
+    if case == "aligned":
+        for dtype, d in ((torch.float32, 4), (torch.bfloat16, 32),
+                         (torch.int8, 16)):
+            k = torch.zeros(1, 3, 2, d, dtype=dtype)
+            tda.check_kv_alignment(k, k)
+        return
+    if case == "row_bytes":
+        k = torch.zeros(1, 3, 2, 4, dtype=torch.bfloat16)  # 8 bytes
+        match = "multiple of 16"
+    else:
+        k = torch.zeros(1 * 3 * 2 * 8 + 1)[1:].view(1, 3, 2, 8)
+        match = "16-byte"
+    with pytest.raises(ValueError, match=match):
+        tda.check_kv_alignment(k, k)

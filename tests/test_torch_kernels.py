@@ -396,3 +396,162 @@ def test_small_paged_engine_on_card_matches_cpu_and_dense(cuda_device):
             np.testing.assert_allclose(lp_g, lp_c, atol=5e-3)
         np.testing.assert_array_equal(tok_g, tok_d)
         np.testing.assert_array_equal(lp_g, lp_d)
+
+
+# ------------------------------------------------------ split-KV plan
+
+# lengths at and around the split plan's chunk edges: 0 (uniform mean of
+# V over all t), 1, one chunk less one, one chunk, one past it, several
+# chunks, and past the window (clamped to t)
+SPLIT_T = 4 * tda.KV_CHUNK + 40
+SPLIT_LENS = [0, 1, tda.KV_CHUNK - 1, tda.KV_CHUNK, tda.KV_CHUNK + 1,
+              3 * tda.KV_CHUNK + 17, SPLIT_T + 300]
+GROUPS = pytest.mark.parametrize(
+    "h,kvh,d", [(4, 4, 32), (32, 8, 128), (8, 1, 64)],
+    ids=["group1", "group4-d128", "group8"])
+
+
+def _kv_operands(rng, b, t, kvh, d, quant, dtype, device):
+    """K/V ``[b, t, kvh, d]`` as float in ``dtype`` or int8 with f32
+    scales quantized as the model does, on ``device``."""
+    out = {}
+    for name in ("k", "v"):
+        x = torch.as_tensor(rng.normal(size=(b, t, kvh, d)).astype(np.float32))
+        if quant:
+            out[name], out[f"{name}_scale"] = _kv_quantize(x)
+        else:
+            out[name] = x.to(dtype)
+    return {n: x.to(device) for n, x in out.items()}
+
+
+def _contiguous(q, kv, alen):
+    scales = ({"k_scale": kv["k_scale"], "v_scale": kv["v_scale"]}
+              if "k_scale" in kv else {})
+    return tda.blocked_decode_attention(q, kv["k"], kv["v"], alen, **scales)
+
+
+def _contiguous_plain(q, kv, alen):
+    if "k_scale" in kv:
+        return tda.int8_kv_decode_attention_reference(
+            q, kv["k"], kv["v"], alen, kv["k_scale"], kv["v_scale"])
+    return tda.decode_attention_reference(q, kv["k"], kv["v"], alen)
+
+
+@DTYPES
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+@GROUPS
+def test_decode_attention_kernel_at_split_edges(cuda_device, dtype, quant,
+                                                h, kvh, d):
+    """Kernels 1 and 1b at lengths that span several chunks of the split
+    plan and hit their edges, against the plain version."""
+    rng = np.random.default_rng(h + kvh + d + 7 * quant)
+    b = len(SPLIT_LENS)
+    q = torch.as_tensor(rng.normal(size=(b, 1, h, d)).astype(np.float32))
+    q = q.to(dtype).to(cuda_device)
+    kv = _kv_operands(rng, b, SPLIT_T, kvh, d, quant, dtype, cuda_device)
+    alen = torch.as_tensor(np.asarray(SPLIT_LENS, np.int32),
+                           device=cuda_device)
+    out = _contiguous(q, kv, alen)
+    ref = _contiguous_plain(q, kv, alen)
+    torch.cuda.synchronize()
+    assert _row_rel_err(out, ref) <= ATTN_TOL[dtype]
+
+
+@DTYPES
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("page", [16, 32, 128])
+@GROUPS
+def test_paged_decode_attention_kernel_at_split_edges(cuda_device, dtype,
+                                                      quant, page, h, kvh,
+                                                      d):
+    """Kernel 3 at the same split-edge lengths: against its plain version
+    and bitwise the contiguous kernel on the gathered K/V."""
+    rng = np.random.default_rng(page + h + kvh + d + quant)
+    nb = SPLIT_T // page + 1
+    alen = np.asarray(SPLIT_LENS, np.int32)
+    b = alen.size
+    pages, tables = _paged_case(rng, b, page, nb, kvh, d, quant, alen)
+    q = torch.as_tensor(rng.normal(size=(b, 1, h, d)).astype(np.float32))
+    q = q.to(dtype).to(cuda_device)
+    dev = {name: (x if quant else x.to(dtype)).to(cuda_device)
+           for name, x in pages.items()}
+    _check_paged(q, dev, tables.to(cuda_device),
+                 torch.as_tensor(alen, device=cuda_device), quant, dtype)
+
+
+@DTYPES
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_decode_attention_rows_are_batch_invariant(cuda_device, dtype, quant,
+                                                   paged):
+    """The property the serving engine's bitwise checks rest on: a row's
+    output is bitwise the same inside a batch of 8 with one capacity t,
+    alone at batch 1 with another (positions past its length NaN, or on a
+    table of another width), paged or contiguous, and from launch to
+    launch."""
+    h, kvh, d, page = 32, 8, 128, 32
+    rng = np.random.default_rng(17 + 2 * quant + paged)
+    lens = [1, 100, tda.KV_CHUNK, tda.KV_CHUNK + 1, 700, 1000, 1500, 37]
+    b, t = len(lens), 1536
+    q = torch.as_tensor(rng.normal(size=(b, 1, h, d)).astype(np.float32))
+    q = q.to(dtype).to(cuda_device)
+    kv = _kv_operands(rng, b, t, kvh, d, quant, dtype, cuda_device)
+    alen = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    if paged:
+        # the batch's K/V as pages of one arena, tables shuffled
+        nb = t // page
+        perm = torch.as_tensor(rng.permutation(b * nb) + 1,
+                               dtype=torch.int32)
+        tables = perm.reshape(b, nb).to(cuda_device)
+        arena = {}
+        for name, x in kv.items():
+            a = torch.zeros((b * nb + 1, page, *x.shape[2:]), dtype=x.dtype,
+                            device=cuda_device)
+            a[tables.reshape(-1).long()] = x.reshape(b * nb, page,
+                                                     *x.shape[2:])
+            arena[name] = a
+        scales = ({"k_scale_pages": arena["k_scale"],
+                   "v_scale_pages": arena["v_scale"]} if quant else {})
+
+        def paged_call(qq, tb, al):
+            return tda.paged_decode_attention(qq, arena["k"], arena["v"], tb,
+                                              al, **scales)
+
+        out = paged_call(q, tables, alen)
+        assert torch.equal(out, _contiguous(q, kv, alen))
+    else:
+        out = _contiguous(q, kv, alen)
+    assert _row_rel_err(out, _contiguous_plain(q, kv, alen)) \
+        <= ATTN_TOL[dtype]
+    again = paged_call(q, tables, alen) if paged else _contiguous(q, kv,
+                                                                   alen)
+    assert torch.equal(again, out)
+    for r, n in enumerate(lens):
+        cap = n + 64 + 29 * r  # another capacity, past the row's length
+        if paged:
+            own = -(-n // page)
+            tb = torch.zeros(1, -(-cap // page), dtype=torch.int32,
+                             device=cuda_device)
+            tb[0, :own] = tables[r, :own]
+            solo = paged_call(q[r:r + 1], tb, alen[r:r + 1])
+        else:
+            solo_kv = {}
+            for name, x in kv.items():
+                fill = 0 if x.dtype == torch.int8 else float("nan")
+                y = torch.full((1, cap, *x.shape[2:]), fill, dtype=x.dtype,
+                               device=cuda_device)
+                y[:, :n] = x[r:r + 1, :n]
+                solo_kv[name] = y
+            solo = _contiguous(q[r:r + 1], solo_kv, alen[r:r + 1])
+        assert torch.equal(solo, out[r:r + 1]), f"row {r} ({n} positions)"
+
+
+def test_wrapper_raises_on_cuda_for_misaligned_kv(cuda_device):
+    """The kernel copies K/V in 16-byte pieces: a view that starts off a
+    16-byte boundary is refused, not read."""
+    q = torch.zeros(1, 1, 4, 32, device=cuda_device)
+    flat = torch.zeros(1 * 8 * 4 * 32 + 1, device=cuda_device)
+    k = flat[1:].view(1, 8, 4, 32)
+    with pytest.raises(ValueError, match="16-byte"):
+        tda.blocked_decode_attention(q, k, k, torch.ones(1, dtype=torch.int32,
+                                                         device=cuda_device))
