@@ -14,11 +14,13 @@ Phases, each of which fails the run with a non-zero exit:
    main path's shapes (the paged decode-attention kernel also bitwise
    against the contiguous one on the K/V gathered through its tables;
    every decode-attention row bitwise the same row launched alone at
-   batch 1 with another capacity, and launch to launch), and time
-   kernel, plain version and a library call that the port never uses
-   (CUDA events, warmed, L2 defeated by rotating input copies; for
-   decode attention also the device time per call under the profiler,
-   and each time's fraction of the bound); then hold a small int8 model
+   batch 1 with another capacity, and launch to launch; every row of the
+   int8 matmul's tiled route bitwise the same row alone at m=16 and
+   inside m=32/128/1024), and time kernel, plain
+   version and a library call that the port never uses (CUDA events,
+   warmed, L2 defeated by rotating input copies; for decode attention
+   and the int8 matmul's faster rows also the device time per call, and
+   each time's fraction of the bound); then hold a small int8 model
    on the card against the same model on the CPU, under each path's
    backends and through the paged continuous engine;
 4. the main path: full-width ``llama3-8b`` (int8 weights, bf16,
@@ -634,15 +636,55 @@ def check_flash_attention(gen) -> dict:
             "library_ms": line["library_ms"], "checks": rows}
 
 
-MATMUL_SHAPES = (  # (k, n, x dtype): the projections of llama3-8b
-    (4096, 4096, torch.bfloat16),    # q_proj, o_proj
-    (4096, 1024, torch.bfloat16),    # k_proj, v_proj
-    (4096, 14336, torch.bfloat16),   # gate_proj, up_proj
-    (14336, 4096, torch.bfloat16),   # down_proj
-    (4096, 128256, torch.float32),   # lm_head (f32 x and output)
+# (k, n, x dtype, row counts): the projections of llama3-8b at
+# single-row decode (1), batch-4 decode (4), and the main path's prefills:
+# path A's 100-token prompt (bucket 128), a 4 x 512 group (2048) and the
+# ~4,000-token prompt of paths B and C (bucket 4096)
+PREFILL_MS = (1, 4, 128, 2048, 4096)
+MATMUL_SHAPES = (
+    (4096, 4096, torch.bfloat16, PREFILL_MS),    # q_proj, o_proj
+    (4096, 1024, torch.bfloat16, PREFILL_MS),    # k_proj, v_proj
+    (4096, 14336, torch.bfloat16, PREFILL_MS),   # gate_proj, up_proj
+    (14336, 4096, torch.bfloat16, PREFILL_MS),   # down_proj
+    (4096, 128256, torch.float32, (1, 4, 2048)),  # lm_head (f32 x and out)
 )
-MATMUL_MS = (1, 4, 2048)  # single-row decode, batch-4 decode, 4 x 512 prefill
 LINE_SHAPE = (4, 4096, 14336)  # the shape reported in the kernels line
+DEVICE_TIME_BELOW_MS = 0.2  # rows this fast also get their device time
+# the tiled route's row invariance: 16 rows alone at m=16 against the same
+# rows at these offsets inside these row counts (shapes: k_proj, q_proj,
+# whose tile shape changes with m, and a ragged one)
+INVARIANCE_SHAPES = ((4096, 1024), (4096, 4096), (264, 144))
+INVARIANCE_MS = (32, 128, 1024)
+INVARIANCE_OFFSETS = (0, 5, 70)
+
+
+def int8_rows_invariant(gen) -> bool:
+    """Every ``INVARIANCE_SHAPES`` in bf16 and f32: 16 rows through the
+    tiled route alone at m=16 are bitwise the same rows inside each of
+    ``INVARIANCE_MS`` at each of ``INVARIANCE_OFFSETS`` (other rows
+    random), as path D's grouped prefills need (the kernel's tile shape
+    changes with m)."""
+    from lambdipy_tpu_torch.ops.quant import int8_matmul
+
+    same = True
+    for k, n in INVARIANCE_SHAPES:
+        w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        scale = (torch.rand(1, n, generator=gen, device="cuda") + 0.5) \
+            / (127.0 * k ** 0.5)
+        for dtype in (torch.bfloat16, torch.float32):
+            rows = torch.randn(16, k, generator=gen, device="cuda").to(dtype)
+            alone = int8_matmul(rows, w, scale)
+            for m in INVARIANCE_MS:
+                for off in INVARIANCE_OFFSETS:
+                    if off + 16 > m:
+                        continue
+                    x = torch.randn(m, k, generator=gen,
+                                    device="cuda").to(dtype)
+                    x[off:off + 16] = rows
+                    out = int8_matmul(x, w, scale)
+                    same = same and torch.equal(out[off:off + 16], alone)
+    return bool(same)
 
 
 def check_int8_matmul(gen) -> dict:
@@ -650,7 +692,7 @@ def check_int8_matmul(gen) -> dict:
 
     dev = "cuda"
     rows, line = [], None
-    for k, n, xdtype in MATMUL_SHAPES:
+    for k, n, xdtype, ms_list in MATMUL_SHAPES:
         n_copies = copies_for(k * n)
         ws = [torch.randint(-127, 128, (k, n), generator=gen, device=dev,
                             dtype=torch.int8) for _ in range(n_copies)]
@@ -660,13 +702,14 @@ def check_int8_matmul(gen) -> dict:
         n_deq = copies_for(2 * k * n)
         w_deq = [(w.to(torch.bfloat16) * scale.to(torch.bfloat16))
                  for w in ws[:n_deq]]
-        for m in MATMUL_MS:
+        for m in ms_list:
             x = torch.randn(m, k, generator=gen, device=dev).to(xdtype)
             out = int8_matmul(x, ws[0], scale)
             ref = int8_matmul_reference(x, ws[0], scale)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             peak = ref.float().abs().max().item()
+            del out, ref
             # bf16 output: one bf16 ulp at the peak (2^-8) from another
             # f32 summation order; f32 output: summation order alone
             tol = (2.0 ** -7 if xdtype == torch.bfloat16 else 1e-5) * peak
@@ -677,20 +720,37 @@ def check_int8_matmul(gen) -> dict:
             xb = x.to(torch.bfloat16)
             library_ms = cuda_time(lambda i: torch.matmul(xb, w_deq[i]),
                                    n_deq)
+            device_ms = None
+            if ms < DEVICE_TIME_BELOW_MS:
+                device_ms = {
+                    "kernel": device_time(
+                        lambda i: int8_matmul(x, ws[i], scale), n_copies),
+                    "library": device_time(
+                        lambda i: torch.matmul(xb, w_deq[i]), n_deq)}
             esize = x.element_size()
             nbytes = m * k * esize + k * n + 4 * n + m * n * esize
             bound_ms, bound_by = bound(nbytes, 2.0 * m * k * n)
             row = {"m": m, "k": k, "n": n, "x_dtype": str(xdtype),
+                   "route": "gemv" if m <= 8 else "tiled",
                    "max_abs_err": err, "max_rel_err": err / peak,
                    "tolerance": tol, "ms": ms,
                    "plain_ms": plain_ms, "library_ms": library_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by}
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bound_fraction": bound_ms / ms, "device_ms": device_ms}
+            if device_ms is not None:
+                row["device_bound_fraction"] = bound_ms / device_ms["kernel"]
             rows.append(row)
             log(f"int8_matmul m={m} k={k} n={n} x={xdtype}: max_abs_err "
                 f"{err:.3e} (relative to the peak {err / peak:.3e}; tol "
                 f"{tol:.3e}) kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, bf16 matmul {library_ms:.4f} ms, bound "
-                f"{bound_ms:.4f} ms ({bound_by})")
+                f"{bound_ms:.4f} ms ({bound_by}; the kernel at "
+                f"{bound_ms / ms:.3f} of it)"
+                + ("" if device_ms is None else
+                   f"; device time per call: kernel "
+                   f"{device_ms['kernel']:.4f} ms "
+                   f"({bound_ms / device_ms['kernel']:.3f} of the bound), "
+                   f"bf16 matmul {device_ms['library']:.4f} ms"))
             if not ok:
                 raise SystemExit(f"int8_matmul disagrees with its plain "
                                  f"version at m={m} k={k} n={n}: {err} > {tol}")
@@ -698,6 +758,12 @@ def check_int8_matmul(gen) -> dict:
                 line = row
         del ws, w_deq
         torch.cuda.empty_cache()
+    invariant = int8_rows_invariant(gen)
+    log(f"int8_matmul tiled: every row bitwise alone at m=16 and inside "
+        f"m={'/'.join(map(str, INVARIANCE_MS))}: {invariant}")
+    if not invariant:
+        raise SystemExit("int8_matmul's tiled route is not row-invariant "
+                         "in m")
     return {"name": "int8_matmul", "route": "cuda",
             "source": "lambdipy_tpu_torch/csrc/int8_matmul.cu",
             "replaces": "lambdipy_tpu/ops/quant.py:32",
@@ -705,7 +771,8 @@ def check_int8_matmul(gen) -> dict:
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": line["ms"], "plain_ms": line["plain_ms"],
             "bound_ms": line["bound_ms"], "bound_by": line["bound_by"],
-            "library_ms": line["library_ms"], "checks": rows}
+            "library_ms": line["library_ms"], "checks": rows,
+            "rows_invariant_in_m": invariant}
 
 
 # the three configurations of the main path; all serve llama3-8b with

@@ -36,7 +36,7 @@ def _launcher():
     """The C entry point of ``csrc/int8_matmul.cu``, built on first use."""
     fn = _build.load("int8_matmul").int8_matmul_launch
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -58,11 +58,31 @@ def _check(x, w_i8, scale):
         raise ValueError(f"operands on different devices: {devices}")
 
 
+GEMV_MAX_ROWS = 8  # m <= 8: the GEMV route; above: the tiled route
+
+
+def tiled_shape_error(k: int, n: int, dtype) -> str | None:
+    """Why the tiled route (``m > GEMV_MAX_ROWS``) cannot take a ``[m, k]``
+    x of ``dtype`` times a ``[k, n]`` int8 weight, or None when it can.
+    Its tensor-memory-accelerator loads and stores want 16-byte row
+    strides: ``n % 16 == 0`` (the int8 weight rows and the output rows
+    in either dtype), ``k % 8 == 0`` for bf16 x, ``k % 4 == 0`` for f32."""
+    k_mult = 4 if dtype == torch.float32 else 8
+    if n % 16:
+        return f"the tiled int8 kernel needs n % 16 == 0; got n={n}"
+    if k % k_mult:
+        return (f"the tiled int8 kernel needs k % {k_mult} == 0 for "
+                f"{dtype} x; got k={k}")
+    return None
+
+
 def int8_matmul(x, w_i8, scale):
     """The int8-weight matmul kernel. CUDA tensors launch
-    ``csrc/int8_matmul.cu`` (contiguous, ``n % 8 == 0``, weights 16-byte
-    aligned; anything else raises): a GEMV path for ``m <= 8`` and a
-    tensor-core tiled path above. CPU tensors run the plain version."""
+    ``csrc/int8_matmul.cu``: a GEMV route for ``m <= 8`` (``n % 8 == 0``,
+    weights 16-byte aligned) and a TMA-fed wgmma route above
+    (:func:`tiled_shape_error`, and x, weights and scale 16-byte
+    aligned); anything else raises, as do non-contiguous operands. CPU
+    tensors run the plain version."""
     _check(x, w_i8, scale)
     if x.device.type == "cpu":
         return int8_matmul_reference(x, w_i8, scale)
@@ -70,15 +90,23 @@ def int8_matmul(x, w_i8, scale):
         raise ValueError(f"unsupported device {x.device}")
     m, k = x.shape
     n = w_i8.shape[1]
-    if n % 8 or w_i8.data_ptr() % 16:
-        raise ValueError(f"kernel needs n % 8 == 0 and 16-byte aligned "
-                         f"weights; got n={n}")
+    if m <= GEMV_MAX_ROWS:
+        if n % 8 or w_i8.data_ptr() % 16:
+            raise ValueError(f"kernel needs n % 8 == 0 and 16-byte aligned "
+                             f"weights; got n={n}")
+    else:
+        why = tiled_shape_error(k, n, x.dtype)
+        if why is not None:
+            raise ValueError(why)
+        if any(t.data_ptr() % 16 for t in (x, w_i8, scale)):
+            raise ValueError("the tiled int8 kernel needs 16-byte aligned "
+                             "x, weights and scale")
     if not all(t.is_contiguous() for t in (x, w_i8, scale)):
         raise ValueError("int8_matmul kernel needs contiguous operands")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _launcher()(_DTYPES[x.dtype], x.data_ptr(), w_i8.data_ptr(),
-                      scale.data_ptr(), out.data_ptr(), m, k, n, stream)
+                      scale.data_ptr(), out.data_ptr(), m, k, n, -1, stream)
     _build.check(err, "int8_matmul")
     int8_matmul.launches += 1
     return out

@@ -152,13 +152,15 @@ def test_flash_attention_never_repeats_kv(cuda_device):
     del out
 
 
-@pytest.mark.parametrize("m", [1, 4, 8, 9, 130])
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 16, 128, 130, 2048])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_int8_matmul_kernel_matches_plain(cuda_device, m, dtype):
-    """GEMV (m <= 8) and tiled paths, ragged n and k edges; tolerance:
-    one bf16 ulp at the peak for bf16 output, summation order for f32."""
+    """GEMV (m <= 8) and tiled routes, ragged tails in m, n and k (k=264 is
+    four 64-deep stages and 8 more; n=144 two 64-wide tiles and 16 more);
+    tolerance: one bf16 ulp at the peak for bf16 output, summation order
+    for f32."""
     rng = np.random.default_rng(m)
-    k, n = 264, 136
+    k, n = 264, 144
     x = torch.as_tensor(rng.normal(size=(m, k)).astype(np.float32)).to(dtype)
     w = torch.as_tensor(rng.integers(-127, 128, (k, n)).astype(np.int8))
     scale = torch.as_tensor(((rng.random((1, n)) + 0.5)
@@ -175,11 +177,56 @@ def test_int8_matmul_kernel_matches_plain(cuda_device, m, dtype):
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", [(4096, 1024), (4096, 4096), (264, 144)],
+                         ids=["k_proj", "q_proj", "ragged"])
+def test_int8_matmul_rows_are_batch_invariant(cuda_device, k, n, dtype):
+    """The property path D's engine rests on for its grouped prefills: 16
+    rows computed alone at m=16 are bitwise the same rows placed at
+    offsets 0, 5 and 70 inside m = 32, 128 and 1024 (other rows random).
+    The kernel's tile shape follows m: at q_proj 128 x 64 up to m=128,
+    then 256 x 128 (bf16) or 128 x 128 (f32) at m=1024."""
+    rng = np.random.default_rng(k + n)
+    rows = torch.as_tensor(rng.normal(size=(16, k)).astype(np.float32))
+    w = torch.as_tensor(rng.integers(-127, 128, (k, n)).astype(np.int8))
+    scale = torch.as_tensor(((rng.random((1, n)) + 0.5)
+                             / (127 * k ** 0.5)).astype(np.float32))
+    rows, w, scale = (rows.to(dtype).to(cuda_device), w.to(cuda_device),
+                      scale.to(cuda_device))
+    alone = tq.int8_matmul(rows, w, scale)
+    for m in (32, 128, 1024):
+        for off in (0, 5, 70):
+            if off + 16 > m:
+                continue
+            x = torch.as_tensor(rng.normal(size=(m, k)).astype(np.float32))
+            x = x.to(dtype).to(cuda_device)
+            x[off:off + 16] = rows
+            out = tq.int8_matmul(x, w, scale)
+            assert torch.equal(out[off:off + 16], alone), (m, off)
+
+
 def test_wrapper_raises_on_cuda_for_unsupported_input(cuda_device):
     w = torch.zeros(16, 12, dtype=torch.int8, device=cuda_device)  # n % 8
     with pytest.raises(ValueError, match="n % 8"):
         tq.int8_matmul(torch.zeros(2, 16, device=cuda_device), w,
                        torch.ones(1, 12, device=cuda_device))
+
+
+@pytest.mark.parametrize("k,n,dtype,match", [
+    (64, 24, torch.bfloat16, "n % 16"),
+    (68, 32, torch.bfloat16, "k % 8"),
+    (66, 32, torch.float32, "k % 4"),
+], ids=["n24", "bf16-k68", "f32-k66"])
+def test_wrapper_raises_on_cuda_outside_the_tiled_contract(cuda_device, k, n,
+                                                           dtype, match):
+    """Above 8 rows the TMA-fed kernel wants 16-byte row strides: a shape
+    the GEMV takes (n % 8 == 0) is refused there, never run plain."""
+    w = torch.zeros(k, n, dtype=torch.int8, device=cuda_device)
+    x = torch.zeros(16, k, dtype=dtype, device=cuda_device)
+    before = tq.int8_matmul.launches
+    with pytest.raises(ValueError, match=match):
+        tq.int8_matmul(x, w, torch.ones(1, n, device=cuda_device))
+    assert tq.int8_matmul.launches == before
 
 
 def test_small_int8_model_on_card_matches_cpu(cuda_device):

@@ -87,3 +87,32 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         x = x.long()
     with pytest.raises(ValueError):
         tq.int8_matmul(x, w, scale)
+
+
+@pytest.mark.parametrize("name", ["llama3-8b", "llama-tiny"])
+def test_every_qdense_shape_meets_the_tiled_contract(name):
+    """Every projection of the registry's models takes the tiled route
+    (prefill at m > 8) in the model's dtype and in f32 (the lm_head's
+    logits path): the kernel's 16-byte-stride contract holds, so no
+    prefill ever meets the wrapper's ValueError."""
+    from lambdipy_tpu_torch.models import registry
+    from lambdipy_tpu_torch.models.llama import LlamaModel, QDense
+
+    cfg = registry.get(name).build(quant="int8").config
+    dense = [mod for mod in LlamaModel(cfg, device="meta").modules()
+             if isinstance(mod, QDense)]
+    assert len(dense) == 7 * cfg.layers + 1
+    for mod in dense:
+        for dtype in (cfg.dtype, torch.float32):
+            assert tq.tiled_shape_error(mod.in_features, mod.features,
+                                        dtype) is None, (mod.in_features,
+                                                         mod.features)
+
+
+@pytest.mark.parametrize("k,n,dtype,ok", [
+    (4096, 128256, torch.float32, True), (264, 144, torch.bfloat16, True),
+    (64, 24, torch.bfloat16, False), (68, 32, torch.bfloat16, False),
+    (68, 32, torch.float32, True), (66, 32, torch.float32, False)])
+def test_tiled_contract_follows_the_row_strides(k, n, dtype, ok):
+    """n % 16 in either dtype; k % 8 for bf16 x, k % 4 for f32 x."""
+    assert (tq.tiled_shape_error(k, n, dtype) is None) is ok
