@@ -16,11 +16,13 @@ Phases, each of which fails the run with a non-zero exit:
    every decode-attention row bitwise the same row launched alone at
    batch 1 with another capacity, and launch to launch; every row of the
    int8 matmul's tiled route bitwise the same row alone at m=16 and
-   inside m=32/128/1024), and time kernel, plain
-   version and a library call that the port never uses (CUDA events,
-   warmed, L2 defeated by rotating input copies; for decode attention
-   and the int8 matmul's faster rows also the device time per call, and
-   each time's fraction of the bound); then hold a small int8 model
+   inside m=32/128/1024, and of its GEMV alone at m=1 and inside
+   m=8/16/64; every flash-attention row bitwise alone at b=1 inside
+   b=8), and time kernel, plain version and a library call that the
+   port never uses (CUDA events, warmed, L2 defeated by rotating input
+   copies; for decode attention and the faster rows of the int8 matmul
+   and flash attention also the device time per call, and each time's
+   fraction of the bound); then hold a small int8 model
    on the card against the same model on the CPU, under each path's
    backends and through the paged continuous engine;
 4. the main path: full-width ``llama3-8b`` (int8 weights, bf16,
@@ -539,12 +541,18 @@ def check_paged_decode_attention(gen) -> dict:
 
 
 FLASH_HEADS = (32, 8, 128)  # h, kvh, d of llama3-8b
-# (b, s, dtype, causal): the long prompt's bucket, a batch of 512-token
-# prompts, one full (non-causal) case and one f32 case
+# (b, s, dtype, causal): the long prompt's bucket, the main path's short
+# prompts (a 100-token prompt's 128 bucket alone and in a group of 8), a
+# batch of 512-token prompts, one full (non-causal) case and one f32 case
 FLASH_CASES = ((1, 4096, torch.bfloat16, True),
+               (1, 128, torch.bfloat16, True),
+               (8, 128, torch.bfloat16, True),
                (4, 512, torch.bfloat16, True),
                (4, 512, torch.bfloat16, False),
                (1, 512, torch.float32, True))
+# the flash kernel's batch invariance: rows of b=8 against the same rows
+# alone at b=1, at these lengths (200: ragged tiles), causal and full
+FLASH_INVARIANCE_S = (128, 200)
 # limits on row_rel_err. "kernel_rounding" is mha_reference on f32 q/k:
 # f32 logits and p rounded to bf16 before PV, as the kernel does (which
 # rounds p against the running max, not the final sum), so the two differ
@@ -606,25 +614,51 @@ def check_flash_attention(gen) -> dict:
                 raise SystemExit(f"flash_attention disagrees with the "
                                  f"{ref_name} version at {key}: {rel} > "
                                  f"{tol}")
-        ms = cuda_time(lambda i: flash_attention(*ins[i], causal=causal), n)
+        def kernel(i):
+            return flash_attention(*ins[i], causal=causal)
+
+        ms = cuda_time(kernel, n)
         plain_ms = cuda_time(
             lambda i: mha_reference(*ins[i], causal=causal), n)
         torch.cuda.empty_cache()
         tins = [tuple(x.transpose(1, 2) for x in t3) for t3 in ins]
-        library_ms = cuda_time(lambda i: F.scaled_dot_product_attention(
-            *tins[i], is_causal=causal, enable_gqa=True), n)
+
+        def sdpa(i):
+            return F.scaled_dot_product_attention(
+                *tins[i], is_causal=causal, enable_gqa=True)
+
+        library_ms = cuda_time(sdpa, n)
         pairs = s * (s + 1) / 2 if causal else s * s
         nbytes = b * s * (2 * h + 2 * kvh) * d * esize
         bound_ms, bound_by = bound(nbytes, 4.0 * b * h * d * pairs)
+        device_ms = None
+        if ms < DEVICE_TIME_BELOW_MS:
+            device_ms = {"kernel": device_time(kernel, n),
+                         "library": device_time(sdpa, n)}
         log(f"flash_attention {key} h={h} kvh={kvh} d={d}: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} "
-            f"ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f"{ms:.4f} ms ({bound_ms / ms:.3f} of the bound), plain "
+            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})"
+            + ("" if device_ms is None else
+               f"; device time per call: kernel {device_ms['kernel']:.4f} "
+               f"ms ({bound_ms / device_ms['kernel']:.3f} of the bound), "
+               f"sdpa {device_ms['library']:.4f} ms"))
         rows.append({"shape": f"{key} h={h} kvh={kvh} d={d}",
                      "max_abs_err": err, "row_rel_err": rels, "ms": ms,
-                     "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by})
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bound_fraction": bound_ms / ms,
+                     "device_ms": device_ms})
+        if device_ms is not None:
+            rows[-1]["device_bound_fraction"] = (bound_ms
+                                                 / device_ms["kernel"])
         del ins, tins
         torch.cuda.empty_cache()
+    invariant = flash_rows_invariant(gen)
+    log(f"flash_attention: every row bitwise alone at b=1 inside b=8: "
+        f"{invariant}")
+    if not invariant:
+        raise SystemExit("flash_attention's rows depend on the batch")
     line = rows[0]
     return {"name": "flash_attention", "route": "cuda",
             "source": "lambdipy_tpu_torch/csrc/flash_attention.cu",
@@ -633,7 +667,34 @@ def check_flash_attention(gen) -> dict:
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": line["ms"], "plain_ms": line["plain_ms"],
             "bound_ms": line["bound_ms"], "bound_by": line["bound_by"],
-            "library_ms": line["library_ms"], "checks": rows}
+            "library_ms": line["library_ms"], "checks": rows,
+            "rows_invariant_in_b": invariant}
+
+
+def flash_rows_invariant(gen) -> bool:
+    """Each row of a b=8 flash call at llama3-8b's heads is bitwise the
+    same row launched alone at b=1, and a second launch is bitwise the
+    first: bf16 and f32, causal and full, at every
+    ``FLASH_INVARIANCE_S`` (what a grouped prefill under ``flash``
+    rests on)."""
+    from lambdipy_tpu_torch.ops.attention import flash_attention
+
+    h, kvh, d = FLASH_HEADS
+    same = True
+    for s in FLASH_INVARIANCE_S:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn(8, s, heads, d, generator=gen,
+                                   device="cuda").to(dtype)
+                       for heads in (h, kvh, kvh))
+            for causal in (True, False):
+                out = flash_attention(q, k, v, causal=causal)
+                same = same and torch.equal(
+                    flash_attention(q, k, v, causal=causal), out)
+                for r in range(8):
+                    alone = flash_attention(q[r:r + 1], k[r:r + 1],
+                                            v[r:r + 1], causal=causal)
+                    same = same and torch.equal(alone, out[r:r + 1])
+    return bool(same)
 
 
 # (k, n, x dtype, row counts): the projections of llama3-8b at
@@ -648,6 +709,9 @@ MATMUL_SHAPES = (
     (14336, 4096, torch.bfloat16, PREFILL_MS),   # down_proj
     (4096, 128256, torch.float32, (1, 4, 2048)),  # lm_head (f32 x and out)
 )
+# the GEMV at the row counts a decode step over more than 8 slots gives it
+# (the caller's route: one position per row), at every shape above
+GEMV_MS = (16, 64)
 LINE_SHAPE = (4, 4096, 14336)  # the shape reported in the kernels line
 DEVICE_TIME_BELOW_MS = 0.2  # rows this fast also get their device time
 # the tiled route's row invariance: 16 rows alone at m=16 against the same
@@ -656,6 +720,38 @@ DEVICE_TIME_BELOW_MS = 0.2  # rows this fast also get their device time
 INVARIANCE_SHAPES = ((4096, 1024), (4096, 4096), (264, 144))
 INVARIANCE_MS = (32, 128, 1024)
 INVARIANCE_OFFSETS = (0, 5, 70)
+# the GEMV's row invariance: every row alone at m=1 against the same rows
+# inside these row counts (k_proj and the lm_head's width)
+GEMV_INVARIANCE_SHAPES = ((4096, 1024), (4096, 128256))
+GEMV_INVARIANCE_MS = (8, 16, 64)
+
+
+def gemv_rows_invariant(gen) -> bool:
+    """Every ``GEMV_INVARIANCE_SHAPES`` in bf16 and f32: 64 rows through
+    the GEMV alone at m=1 are bitwise the same rows inside each of
+    ``GEMV_INVARIANCE_MS`` (the route a decode step over the engine's
+    slots and the grouped lm_head take), one launch per call."""
+    from lambdipy_tpu_torch.ops.quant import int8_matmul
+
+    same = True
+    for k, n in GEMV_INVARIANCE_SHAPES:
+        w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        scale = (torch.rand(1, n, generator=gen, device="cuda") + 0.5) \
+            / (127.0 * k ** 0.5)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(max(GEMV_INVARIANCE_MS), k, generator=gen,
+                            device="cuda").to(dtype)
+            alone = torch.cat([int8_matmul(x[r:r + 1], w, scale,
+                                           rows_alone=True)
+                               for r in range(x.shape[0])])
+            for m in GEMV_INVARIANCE_MS:
+                before = int8_matmul.launches
+                out = int8_matmul(x[:m], w, scale, rows_alone=True)
+                same = (same and int8_matmul.launches == before + 1
+                        and torch.equal(out, alone[:m]))
+        del w
+    return bool(same)
 
 
 def int8_rows_invariant(gen) -> bool:
@@ -688,7 +784,9 @@ def int8_rows_invariant(gen) -> bool:
 
 
 def check_int8_matmul(gen) -> dict:
-    from lambdipy_tpu_torch.ops.quant import int8_matmul, int8_matmul_reference
+    from lambdipy_tpu_torch.ops.quant import (int8_matmul,
+                                              int8_matmul_reference,
+                                              int8_route)
 
     dev = "cuda"
     rows, line = [], None
@@ -702,9 +800,14 @@ def check_int8_matmul(gen) -> dict:
         n_deq = copies_for(2 * k * n)
         w_deq = [(w.to(torch.bfloat16) * scale.to(torch.bfloat16))
                  for w in ws[:n_deq]]
-        for m in ms_list:
+        for m, alone in ([(m, None) for m in ms_list]
+                         + [(m, True) for m in GEMV_MS]):
             x = torch.randn(m, k, generator=gen, device=dev).to(xdtype)
-            out = int8_matmul(x, ws[0], scale)
+
+            def kernel(i):
+                return int8_matmul(x, ws[i], scale, rows_alone=alone)
+
+            out = kernel(0)
             ref = int8_matmul_reference(x, ws[0], scale)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
@@ -714,7 +817,7 @@ def check_int8_matmul(gen) -> dict:
             # f32 summation order; f32 output: summation order alone
             tol = (2.0 ** -7 if xdtype == torch.bfloat16 else 1e-5) * peak
             ok = err <= tol
-            ms = cuda_time(lambda i: int8_matmul(x, ws[i], scale), n_copies)
+            ms = cuda_time(kernel, n_copies)
             plain_ms = cuda_time(
                 lambda i: int8_matmul_reference(x, ws[i], scale), n_copies)
             xb = x.to(torch.bfloat16)
@@ -723,15 +826,15 @@ def check_int8_matmul(gen) -> dict:
             device_ms = None
             if ms < DEVICE_TIME_BELOW_MS:
                 device_ms = {
-                    "kernel": device_time(
-                        lambda i: int8_matmul(x, ws[i], scale), n_copies),
+                        "kernel": device_time(kernel, n_copies),
                     "library": device_time(
                         lambda i: torch.matmul(xb, w_deq[i]), n_deq)}
             esize = x.element_size()
             nbytes = m * k * esize + k * n + 4 * n + m * n * esize
             bound_ms, bound_by = bound(nbytes, 2.0 * m * k * n)
+            route = int8_route(m, alone)
             row = {"m": m, "k": k, "n": n, "x_dtype": str(xdtype),
-                   "route": "gemv" if m <= 8 else "tiled",
+                   "route": route,
                    "max_abs_err": err, "max_rel_err": err / peak,
                    "tolerance": tol, "ms": ms,
                    "plain_ms": plain_ms, "library_ms": library_ms,
@@ -740,7 +843,8 @@ def check_int8_matmul(gen) -> dict:
             if device_ms is not None:
                 row["device_bound_fraction"] = bound_ms / device_ms["kernel"]
             rows.append(row)
-            log(f"int8_matmul m={m} k={k} n={n} x={xdtype}: max_abs_err "
+            log(f"int8_matmul m={m} k={k} n={n} x={xdtype} ({route}): "
+                f"max_abs_err "
                 f"{err:.3e} (relative to the peak {err / peak:.3e}; tol "
                 f"{tol:.3e}) kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, bf16 matmul {library_ms:.4f} ms, bound "
@@ -754,7 +858,7 @@ def check_int8_matmul(gen) -> dict:
             if not ok:
                 raise SystemExit(f"int8_matmul disagrees with its plain "
                                  f"version at m={m} k={k} n={n}: {err} > {tol}")
-            if (m, k, n) == LINE_SHAPE:
+            if (m, k, n) == LINE_SHAPE and alone is None:
                 line = row
         del ws, w_deq
         torch.cuda.empty_cache()
@@ -764,6 +868,11 @@ def check_int8_matmul(gen) -> dict:
     if not invariant:
         raise SystemExit("int8_matmul's tiled route is not row-invariant "
                          "in m")
+    gemv_invariant = gemv_rows_invariant(gen)
+    log(f"int8_matmul gemv: every row bitwise alone at m=1 inside "
+        f"m={'/'.join(map(str, GEMV_INVARIANCE_MS))}: {gemv_invariant}")
+    if not gemv_invariant:
+        raise SystemExit("int8_matmul's GEMV rows depend on the row count")
     return {"name": "int8_matmul", "route": "cuda",
             "source": "lambdipy_tpu_torch/csrc/int8_matmul.cu",
             "replaces": "lambdipy_tpu/ops/quant.py:32",
@@ -772,7 +881,8 @@ def check_int8_matmul(gen) -> dict:
             "ms": line["ms"], "plain_ms": line["plain_ms"],
             "bound_ms": line["bound_ms"], "bound_by": line["bound_by"],
             "library_ms": line["library_ms"], "checks": rows,
-            "rows_invariant_in_m": invariant}
+            "rows_invariant_in_m": invariant,
+            "gemv_rows_invariant_in_m": gemv_invariant}
 
 
 # the three configurations of the main path; all serve llama3-8b with

@@ -6,9 +6,12 @@
 // the per-output-channel f32 scale once at the end, cast to x's dtype.
 // x is [m, k] float32 or bfloat16, w is [k, n] int8 row-major (the
 // layout QDense keeps), scale is [1, n] float32, out is [m, n] in x's
-// dtype. What each route takes (the wrapper checks it):
-// * m <= 8: n % 8 == 0, w 16-byte aligned;
-// * m > 8: n % 16 == 0, k % 8 == 0 (bf16 x) or k % 4 == 0 (f32 x), and
+// dtype. The caller picks the route (ops/quant.py::int8_route): the GEMV
+// for rows that each stand alone (a decode step, the lm_head at the logit
+// positions) at any m, else the tiled route. What each route takes (the
+// wrapper checks it):
+// * gemv: n % 8 == 0, w 16-byte aligned;
+// * tiled: n % 16 == 0, k % 8 == 0 (bf16 x) or k % 4 == 0 (f32 x), and
 //   x, w, scale 16-byte aligned: the tensor-memory accelerator (TMA)
 //   wants 16-byte row strides and bases.
 //
@@ -18,17 +21,20 @@
 // m ~ 300 up, bytes below (m = 128 moves 2 * 128 flops per weight byte).
 // Two routes therefore:
 //
-// * gemv (m <= 8): threads side by side along n read contiguous int8 (8
-//   bytes a thread, 64 bytes per row segment), the block splits k over 32
-//   slices so every SM has loads in flight, accumulates m x 8 outputs per
-//   thread in f32 registers, and reduces the slices by warp shuffles and
-//   shared memory. The x rows are read through the cache (every thread
-//   of a slice reads the same value).
-// * tiled (m > 8): a warp-specialised wgmma GEMM. A block computes a
-//   BM x BN output tile, one of three shapes (256 x 128, 128 x 128,
-//   128 x 64: two consumer warpgroups of one or two 64-row slabs each),
-//   picked by m and n from the H100's measured step times so that short
-//   prompts get many blocks and long ones big tiles. One producer
+// * gemv (decode, m = the batch's rows): threads side by side along n
+//   read contiguous int8 (8 bytes a thread, 64 bytes per row segment),
+//   the block splits k over 32 slices so every SM has loads in flight,
+//   accumulates up to 8 rows x 8 outputs per thread in f32 registers, and
+//   reduces the slices by warp shuffles and shared memory. The x rows are
+//   read through the cache (every thread of a slice reads the same
+//   value). Above 8 rows the grid's y axis takes groups of 8 rows, each
+//   reading the weights again (m = 16 reads them twice).
+// * tiled (prefill, m = rows x positions >= 16): a warp-specialised
+//   wgmma GEMM. A block computes a BM x BN output tile, one of three
+//   shapes (256 x 128, 128 x 128, 128 x 64: two consumer warpgroups of
+//   one or two 64-row slabs each), picked by m and n from the H100's
+//   measured step times so that short prompts get many blocks and long
+//   ones big tiles. One producer
 //   thread keeps a ring of 3-8 stages in dynamic shared memory full
 //   through TMA (the x tile [BM, 64] with the 128-byte swizzle; the int8
 //   tile [64, BN] n-contiguous as QDense keeps it, half the bytes of
@@ -50,8 +56,10 @@
 //   run one after another into one accumulator.
 //
 // Row invariance in m (the serving engine's bitwise checks rest on it: a
-// row prefilled inside a group of rows must equal the row prefilled
-// alone): every element is summed over k in one order fixed by k alone —
+// row decoded or prefilled inside a group of rows must equal the row
+// alone). The GEMV sums each row in its own registers in an order fixed
+// by k, whatever the row count or the row's group of 8. The tiled route
+// sums every element over k in one order fixed by k alone —
 // 64-deep stages in order, four k16 wgmmas in order, each into the same
 // f32 accumulator, with no split of k. The tile shape and the grid, which
 // do depend on m, change which block computes an element, never its
@@ -89,13 +97,26 @@ constexpr int GV_TK = GV_THREADS / GV_TN;    // k slices
 constexpr int GV_BN = GV_TN * 8;             // columns per block
 constexpr int GV_WARPS = GV_THREADS / 32;
 
-template <int M, typename T>
+// One block: GV_BN columns of M rows. GROUPS (m > 8): the rows from
+// blockIdx.y * M, read through 32-bit offsets from the group's first row
+// (rows past m read row m - 1 and are not written); else rows 0 .. M - 1
+// of an m = M call. Each row sums in its own registers in an order fixed
+// by k alone, whatever M, m or the row group.
+template <int M, typename T, bool GROUPS>
 __global__ void __launch_bounds__(GV_THREADS) gemv_kernel(
     const T* __restrict__ x, const int8_t* __restrict__ w,
-    const float* __restrict__ scale, T* __restrict__ out, int k, int n) {
+    const float* __restrict__ scale, T* __restrict__ out, int m, int k,
+    int n) {
   const int cn = threadIdx.x % GV_TN;
   const int ks = threadIdx.x / GV_TN;
   const int col0 = blockIdx.x * GV_BN + cn * 8;
+  const int row0 = GROUPS ? blockIdx.y * M : 0;
+  int xoff[M];
+  if constexpr (GROUPS) {
+    x += (size_t)row0 * k;
+#pragma unroll
+    for (int mi = 0; mi < M; ++mi) xoff[mi] = min(mi, m - 1 - row0) * k;
+  }
   float acc[M][8];
 #pragma unroll
   for (int mi = 0; mi < M; ++mi) {
@@ -113,7 +134,8 @@ __global__ void __launch_bounds__(GV_THREADS) gemv_kernel(
       for (int i = 0; i < 8; ++i) wf[i] = (float)q[i];
 #pragma unroll
       for (int mi = 0; mi < M; ++mi) {
-        const float xv = bf16_round(x[(size_t)mi * k + kk]);
+        const float xv = bf16_round(GROUPS ? x[xoff[mi] + kk]
+                                           : x[(size_t)mi * k + kk]);
 #pragma unroll
         for (int i = 0; i < 8; ++i) acc[mi][i] += xv * wf[i];
       }
@@ -145,11 +167,11 @@ __global__ void __launch_bounds__(GV_THREADS) gemv_kernel(
     const int mi = o / GV_BN;
     const int c = o % GV_BN;
     const int col = blockIdx.x * GV_BN + c;
-    if (col < n) {
+    if (col < n && (!GROUPS || row0 + mi < m)) {
       float s = 0.f;
 #pragma unroll
       for (int wi = 0; wi < GV_WARPS; ++wi) s += red[wi][mi][c];
-      out[(size_t)mi * n + col] = from_f<T>(s * scale[col]);
+      out[(size_t)(row0 + mi) * n + col] = from_f<T>(s * scale[col]);
     }
   }
 }
@@ -620,44 +642,49 @@ int launch_tiled_shape(int shape, const void* x, const void* w,
   return (int)cudaErrorInvalidValue;
 }
 
+constexpr int ROUTE_GEMV = -2;  // the launch's route: the GEMV
+
 template <typename T>
 int launch(const void* xv, const void* wv, const void* sv, void* ov, int m,
-           int k, int n, int shape, cudaStream_t s) {
+           int k, int n, int route, cudaStream_t s) {
+  if (route != ROUTE_GEMV) {
+    if (route < 0) route = tiled_shape(m, n, sizeof(T) == 4);
+    return launch_tiled_shape<T>(route, xv, wv, sv, ov, m, k, n, s);
+  }
   const T* x = static_cast<const T*>(xv);
   const int8_t* w = static_cast<const int8_t*>(wv);
   const float* sc = static_cast<const float*>(sv);
   T* out = static_cast<T*>(ov);
-  const dim3 gv((n + GV_BN - 1) / GV_BN);
+  // up to 8 rows in one block; above, groups of 8 on the grid's y axis
+  const dim3 gv((n + GV_BN - 1) / GV_BN, (m + 7) / 8);
   switch (m) {
-    case 1: gemv_kernel<1, T><<<gv, GV_THREADS, 0, s>>>(x, w, sc, out, k, n); break;
-    case 2: gemv_kernel<2, T><<<gv, GV_THREADS, 0, s>>>(x, w, sc, out, k, n); break;
-    case 3: gemv_kernel<3, T><<<gv, GV_THREADS, 0, s>>>(x, w, sc, out, k, n); break;
-    case 4: gemv_kernel<4, T><<<gv, GV_THREADS, 0, s>>>(x, w, sc, out, k, n); break;
-    case 5: gemv_kernel<5, T><<<gv, GV_THREADS, 0, s>>>(x, w, sc, out, k, n); break;
-    case 6: gemv_kernel<6, T><<<gv, GV_THREADS, 0, s>>>(x, w, sc, out, k, n); break;
-    case 7: gemv_kernel<7, T><<<gv, GV_THREADS, 0, s>>>(x, w, sc, out, k, n); break;
-    case 8: gemv_kernel<8, T><<<gv, GV_THREADS, 0, s>>>(x, w, sc, out, k, n); break;
-    default:
-      if (shape < 0) shape = tiled_shape(m, n, sizeof(T) == 4);
-      return launch_tiled_shape<T>(shape, xv, wv, sv, ov, m, k, n, s);
+    case 1: gemv_kernel<1, T, false><<<gv, GV_THREADS, 0, s>>>(x, w, sc, out, m, k, n); break;
+    case 2: gemv_kernel<2, T, false><<<gv, GV_THREADS, 0, s>>>(x, w, sc, out, m, k, n); break;
+    case 3: gemv_kernel<3, T, false><<<gv, GV_THREADS, 0, s>>>(x, w, sc, out, m, k, n); break;
+    case 4: gemv_kernel<4, T, false><<<gv, GV_THREADS, 0, s>>>(x, w, sc, out, m, k, n); break;
+    case 5: gemv_kernel<5, T, false><<<gv, GV_THREADS, 0, s>>>(x, w, sc, out, m, k, n); break;
+    case 6: gemv_kernel<6, T, false><<<gv, GV_THREADS, 0, s>>>(x, w, sc, out, m, k, n); break;
+    case 7: gemv_kernel<7, T, false><<<gv, GV_THREADS, 0, s>>>(x, w, sc, out, m, k, n); break;
+    case 8: gemv_kernel<8, T, false><<<gv, GV_THREADS, 0, s>>>(x, w, sc, out, m, k, n); break;
+    default: gemv_kernel<8, T, true><<<gv, GV_THREADS, 0, s>>>(x, w, sc, out, m, k, n); break;
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype (of x and out): 0 = float32, 1 = bfloat16. shape: the tiled
-// route's tile shape (an index into TM_SHAPES; 0 only for bfloat16), -1
-// to let the kernel pick. Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue when a
-// tensor map cannot be encoded. The caller checks shapes, alignment and
-// contiguity.
+// dtype (of x and out): 0 = float32, 1 = bfloat16. route: -2 the GEMV
+// (any m; rows in groups of 8), -1 the tiled route with the tile shape the
+// kernel picks, 0.. the tiled route with that tile shape (an index into
+// TM_SHAPES; 0 only for bfloat16). Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue when a tensor map cannot be encoded.
+// The caller checks shapes, alignment and contiguity.
 extern "C" int int8_matmul_launch(int dtype, const void* x, const void* w,
                                   const void* scale, void* out, int m, int k,
-                                  int n, int shape, void* stream) {
+                                  int n, int route, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, w, scale, out, m, k, n, shape, s);
+  if (dtype == 0) return launch<float>(x, w, scale, out, m, k, n, route, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, w, scale, out, m, k, n, shape, s);
+    return launch<__nv_bfloat16>(x, w, scale, out, m, k, n, route, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -150,12 +150,22 @@ class QDense(nn.Module):
             self.register_buffer("kernel", torch.empty(
                 in_features, features, dtype=dtype, device=device))
 
+    @staticmethod
+    def rows_alone(x) -> bool | None:
+        """The int8 kernel's route word for an activation ``[..., s, f]``
+        (``ops/quant.py::int8_route``): True at s == 1 (a decode step, the
+        lm_head at the logit positions), so every row takes the GEMV and
+        keeps the bits it has alone whatever the batch; False for a
+        prefill (the tiled route); None, the kernel's default, for 2-D
+        x."""
+        return None if x.dim() < 3 else x.shape[-2] == 1
+
     def forward(self, x):
         if self.quant == "int8":
             if self.backend == "pallas":
                 flat = x.to(self.dtype).reshape(-1, self.in_features)
                 out = int8_matmul(flat.contiguous(), self.kernel_int8,
-                                  self.scale)
+                                  self.scale, rows_alone=self.rows_alone(x))
                 return out.reshape(*x.shape[:-1], self.features)
             w = self.kernel_int8.to(self.dtype) * self.scale.to(self.dtype)
         else:
@@ -564,15 +574,18 @@ def pack_prefill_into_pages(cfg: LlamaConfig, arena, table_row,
                             prefill_cache, src: int) -> None:
     """Store row ``src`` of a prefill cache (float entries ``[gb, sb,
     kvh, d]``) in the arena through ``table_row`` ``[nb]`` (the row's
-    pages, null-padded), quantizing under ``cfg.kv_quant``. The prompt's
-    bucket is zero-padded to whole pages; positions past the row's pages
-    land in the null page."""
+    pages, null-padded), quantizing under ``cfg.kv_quant``. Only the
+    first ``len(table_row) * page`` positions are stored, as the dense
+    engine cuts a prefill to its ``cache_len``: the prompt's bucket may be
+    wider than the engine's window, and positions past it lie beyond
+    ``s + max_new`` of any admitted row. What is kept is zero-padded to
+    whole pages; positions past the row's pages land in the null page."""
     page = arena[0][next(iter(arena[0]))].shape[1]
-    sb = prefill_cache[0]["k"].shape[1]
+    sb = min(prefill_cache[0]["k"].shape[1], table_row.shape[0] * page)
     width = -(-sb // page) * page
     cache = []
     for entry in prefill_cache:
-        k, v = entry["k"][src:src + 1], entry["v"][src:src + 1]
+        k, v = entry["k"][src:src + 1, :sb], entry["v"][src:src + 1, :sb]
         if width != sb:
             pad = (0, 0, 0, 0, 0, width - sb)
             k, v = F.pad(k, pad), F.pad(v, pad)

@@ -58,15 +58,33 @@ def _check(x, w_i8, scale):
         raise ValueError(f"operands on different devices: {devices}")
 
 
-GEMV_MAX_ROWS = 8  # m <= 8: the GEMV route; above: the tiled route
+# the route of a caller that does not say: the GEMV for m <= 8 rows
+GEMV_MAX_ROWS = 8
+_ROUTE_GEMV, _ROUTE_TILED = -2, -1  # the C entry point's route argument
+
+
+def int8_route(m: int, rows_alone: bool | None = None) -> str:
+    """The kernel route for an ``[m, k]`` x: ``"gemv"`` or ``"tiled"``.
+
+    ``rows_alone`` is the caller's word on what the rows are. True: each
+    row is one position of its own sequence (a decode step, the lm_head
+    at the logit positions), and the GEMV takes it at any ``m``: it sums
+    each row alone, so a row's bits do not depend on how many rows share
+    the call (an engine's 16-row decode step gives a row the bits of its
+    solo 1-row step). False: the tiled route (a prefill, ``m = b * s``),
+    whose rows are invariant in ``m`` too but sum in another order than
+    the GEMV's. None: the GEMV for ``m <= GEMV_MAX_ROWS``."""
+    if rows_alone is None:
+        rows_alone = m <= GEMV_MAX_ROWS
+    return "gemv" if rows_alone else "tiled"
 
 
 def tiled_shape_error(k: int, n: int, dtype) -> str | None:
-    """Why the tiled route (``m > GEMV_MAX_ROWS``) cannot take a ``[m, k]``
-    x of ``dtype`` times a ``[k, n]`` int8 weight, or None when it can.
-    Its tensor-memory-accelerator loads and stores want 16-byte row
-    strides: ``n % 16 == 0`` (the int8 weight rows and the output rows
-    in either dtype), ``k % 8 == 0`` for bf16 x, ``k % 4 == 0`` for f32."""
+    """Why the tiled route cannot take a ``[m, k]`` x of ``dtype`` times a
+    ``[k, n]`` int8 weight, or None when it can. Its
+    tensor-memory-accelerator loads and stores want 16-byte row strides:
+    ``n % 16 == 0`` (the int8 weight rows and the output rows in either
+    dtype), ``k % 8 == 0`` for bf16 x, ``k % 4 == 0`` for f32."""
     k_mult = 4 if dtype == torch.float32 else 8
     if n % 16:
         return f"the tiled int8 kernel needs n % 16 == 0; got n={n}"
@@ -76,12 +94,13 @@ def tiled_shape_error(k: int, n: int, dtype) -> str | None:
     return None
 
 
-def int8_matmul(x, w_i8, scale):
+def int8_matmul(x, w_i8, scale, *, rows_alone: bool | None = None):
     """The int8-weight matmul kernel. CUDA tensors launch
-    ``csrc/int8_matmul.cu``: a GEMV route for ``m <= 8`` (``n % 8 == 0``,
-    weights 16-byte aligned) and a TMA-fed wgmma route above
-    (:func:`tiled_shape_error`, and x, weights and scale 16-byte
-    aligned); anything else raises, as do non-contiguous operands. CPU
+    ``csrc/int8_matmul.cu`` on the route :func:`int8_route` picks from
+    ``m`` and ``rows_alone``: the GEMV (``n % 8 == 0``, weights 16-byte
+    aligned) or a TMA-fed wgmma route (:func:`tiled_shape_error`, and x,
+    weights and scale 16-byte aligned); anything else raises, as do
+    non-contiguous operands. One launch and one count per call. CPU
     tensors run the plain version."""
     _check(x, w_i8, scale)
     if x.device.type == "cpu":
@@ -90,7 +109,8 @@ def int8_matmul(x, w_i8, scale):
         raise ValueError(f"unsupported device {x.device}")
     m, k = x.shape
     n = w_i8.shape[1]
-    if m <= GEMV_MAX_ROWS:
+    gemv = int8_route(m, rows_alone) == "gemv"
+    if gemv:
         if n % 8 or w_i8.data_ptr() % 16:
             raise ValueError(f"kernel needs n % 8 == 0 and 16-byte aligned "
                              f"weights; got n={n}")
@@ -106,7 +126,8 @@ def int8_matmul(x, w_i8, scale):
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _launcher()(_DTYPES[x.dtype], x.data_ptr(), w_i8.data_ptr(),
-                      scale.data_ptr(), out.data_ptr(), m, k, n, -1, stream)
+                      scale.data_ptr(), out.data_ptr(), m, k, n,
+                      _ROUTE_GEMV if gemv else _ROUTE_TILED, stream)
     _build.check(err, "int8_matmul")
     int8_matmul.launches += 1
     return out

@@ -35,7 +35,10 @@ boundaries, packed into a free slot.
   collector records the first eos of a row (``eos_at``) and ``generate``
   truncates the row there and pads it with eos. A row's tokens do not
   depend on its neighbours: attention reads only the row's own
-  positions, the int8 GEMV (m <= 8 rows) computes each row alone, and a
+  positions, the int8 GEMV computes each row alone at any slot count
+  (decode steps and the grouped lm_head take it: one position per row;
+  ``ops/quant.py::int8_route``), the tiled prefill's rows and flash
+  prefill's rows do not depend on the group's size, and a
   sampled row draws once per step from its own generator, which travels
   with its slot.
 

@@ -25,7 +25,10 @@ import numpy as np
 import pytest
 
 from lambdipy_tpu.models import registry as jreg
+from lambdipy_tpu.models.llama import init_page_arena as jax_init_page_arena
+from lambdipy_tpu.models.llama import page_kv_bytes as jax_page_kv_bytes
 from lambdipy_tpu.runtime.continuous import ContinuousBatcher as JaxBatcher
+from lambdipy_tpu.runtime.pagepool import PagePool as JaxPagePool
 from lambdipy_tpu_torch.models import registry as treg
 from lambdipy_tpu_torch.models.params import from_jax_params
 from lambdipy_tpu_torch.runtime import continuous
@@ -376,6 +379,43 @@ def test_greedy_tokens_equal_the_jax_engine(weights, server):
         want = jax_engine.generate(p, max_new_tokens=n)
         np.testing.assert_array_equal(engine.generate(p, max_new_tokens=n),
                                       np.asarray(want))
+
+
+def test_paged_engine_serves_a_bucket_wider_than_its_window(weights, server):
+    """A 70-token prompt prefills at ``generate``'s 128-position bucket,
+    wider than a 96-position engine window of three 32-position pages.
+    The paged engine stores the window's part of the prefill and serves
+    the row: its tokens are solo ``generate``'s, tokens and logprobs are
+    bitwise the dense engine's, and the tokens equal the JAX paged
+    engine's at the same ``cache_len``."""
+    adapter, params, _ = weights
+    extra = {"batch_max": "4", "batch_segment": "4", "prefix_block": "32",
+             "batch_cache_len": "96"}
+    p, n = _prompt(3, 70), 10
+    outs = {}
+    for kind, paged in (("dense", "0"), ("paged", "1")):
+        engine = make_engine(server, {**extra, "kv_paged": paged})
+        outs[kind] = engine.generate(p, max_new_tokens=n,
+                                     return_logprobs=True)
+        assert engine.stats()["requests_served"] == 1
+    assert engine.pool.page == 32 and engine.pool.window_pages == 3
+    with engine._lock:  # the row's pages go back at the next barrier
+        while engine._engine_running:
+            engine._lock.wait(0.05)
+    assert engine.stats()["page_pool"]["pages_live"] == 0
+    np.testing.assert_array_equal(outs["paged"][0], outs["dense"][0])
+    np.testing.assert_array_equal(outs["paged"][1], outs["dense"][1])
+    _assert_solo(server, [(p, n, {})], [outs["paged"]])
+    cfg = adapter.make_server(params).model.cfg
+    pool = JaxPagePool(n_pages=13, page=32,
+                       page_bytes=jax_page_kv_bytes(cfg, 32),
+                       make_arena=lambda: jax_init_page_arena(cfg, 13, 32))
+    jax_engine = JaxBatcher(adapter.make_server(params), slots=4, segment=4,
+                            cache_len=96, window_bucketing=False,
+                            pipeline_depth=1, page_pool=pool)
+    np.testing.assert_array_equal(outs["paged"][0],
+                                  np.asarray(jax_engine.generate(
+                                      p, max_new_tokens=n)))
 
 
 def test_engine_failure_errors_every_waiting_row(server, monkeypatch):

@@ -110,13 +110,18 @@ FLASH_PLAIN_BF16_TOL = 0.12
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @DTYPES
 @pytest.mark.parametrize("h,kvh,d,s", [(4, 4, 32, 128), (32, 8, 128, 200),
-                                       (8, 1, 64, 77), (4, 2, 256, 64)],
+                                       (8, 1, 64, 77), (4, 2, 256, 64),
+                                       (32, 8, 128, 4096)],
                          ids=["group1", "group4-d128-ragged",
-                              "group8-ragged", "group2-d256"])
+                              "group8-ragged", "group2-d256",
+                              "group4-d128-long"])
 def test_flash_attention_kernel_matches_plain(cuda_device, causal, dtype,
                                               h, kvh, d, s):
+    """Head dims 32 to 256 (padded to 64, 128 or 256 by the kernel's
+    loads), ragged query and key tails, groups 1 to 8, and the long
+    prompt's bucket (s = 4096, one row) at llama3-8b's heads."""
     rng = np.random.default_rng(h + kvh + d + s)
-    b = 2
+    b = 1 if s == 4096 else 2
     q, k, v = (torch.as_tensor(rng.normal(size=sh).astype(np.float32))
                .to(dtype).to(cuda_device)
                for sh in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d)))
@@ -133,6 +138,27 @@ def test_flash_attention_kernel_matches_plain(cuda_device, causal, dtype,
         # the kernel body's rounding: f32 logits, p in bf16 before PV
         ref = tat.mha_reference(q.float(), k.float(), v, causal=causal)
         assert _row_rel_err(out, ref) <= ATTN_TOL[dtype]
+
+
+@DTYPES
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("s", [128, 200], ids=["s128", "s200-ragged"])
+def test_flash_attention_rows_are_batch_invariant(cuda_device, dtype, causal,
+                                                  s):
+    """What a grouped prefill under ``flash`` rests on: each row of a b=8
+    call is bitwise the same row launched alone at b=1, and a second
+    launch is bitwise the first (llama3-8b's heads)."""
+    h, kvh, d, b = 32, 8, 128, 8
+    rng = np.random.default_rng(s + causal)
+    q, k, v = (torch.as_tensor(rng.normal(size=sh).astype(np.float32))
+               .to(dtype).to(cuda_device)
+               for sh in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d)))
+    out = tat.flash_attention(q, k, v, causal=causal)
+    assert torch.equal(tat.flash_attention(q, k, v, causal=causal), out)
+    for r in range(b):
+        alone = tat.flash_attention(q[r:r + 1], k[r:r + 1], v[r:r + 1],
+                                    causal=causal)
+        assert torch.equal(alone, out[r:r + 1]), r
 
 
 def test_flash_attention_never_repeats_kv(cuda_device):
@@ -203,6 +229,55 @@ def test_int8_matmul_rows_are_batch_invariant(cuda_device, k, n, dtype):
             x[off:off + 16] = rows
             out = tq.int8_matmul(x, w, scale)
             assert torch.equal(out[off:off + 16], alone), (m, off)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", [(4096, 1024), (4096, 128256)],
+                         ids=["k_proj", "lm_head"])
+def test_int8_matmul_gemv_rows_are_alone_at_any_m(cuda_device, k, n, dtype):
+    """The GEMV route takes any row count when the caller says each row
+    stands alone (a decode step over the engine's slots, the lm_head at
+    the logit positions): every row at m=1 is bitwise the same row inside
+    m = 8, 16 and 64, one launch per call, so an engine row keeps its
+    solo bits past 8 slots."""
+    rng = np.random.default_rng(k + n)
+    x = torch.as_tensor(rng.normal(size=(64, k)).astype(np.float32))
+    w = torch.as_tensor(rng.integers(-127, 128, (k, n)).astype(np.int8))
+    scale = torch.as_tensor(((rng.random((1, n)) + 0.5)
+                             / (127 * k ** 0.5)).astype(np.float32))
+    x, w, scale = (x.to(dtype).to(cuda_device), w.to(cuda_device),
+                   scale.to(cuda_device))
+    alone = [tq.int8_matmul(x[r:r + 1], w, scale, rows_alone=True)
+             for r in range(64)]
+    for m in (8, 16, 64):
+        before = tq.int8_matmul.launches
+        out = tq.int8_matmul(x[:m], w, scale, rows_alone=True)
+        assert tq.int8_matmul.launches == before + 1
+        for r in range(m):
+            assert torch.equal(out[r:r + 1], alone[r]), (m, r)
+
+
+@pytest.mark.parametrize("m,rows_alone", [(16, True), (64, True), (4, False)],
+                         ids=["gemv16", "gemv64", "tiled4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_caller_route_matches_plain(cuda_device, m, rows_alone,
+                                                dtype):
+    """Each route the caller may pick, at row counts the default would
+    send the other way, against the plain version (tolerances as
+    ``test_int8_matmul_kernel_matches_plain``)."""
+    rng = np.random.default_rng(m + 7)
+    k, n = 264, 144
+    x = torch.as_tensor(rng.normal(size=(m, k)).astype(np.float32)).to(dtype)
+    w = torch.as_tensor(rng.integers(-127, 128, (k, n)).astype(np.int8))
+    scale = torch.as_tensor(((rng.random((1, n)) + 0.5)
+                             / (127 * k ** 0.5)).astype(np.float32))
+    x, w, scale = x.to(cuda_device), w.to(cuda_device), scale.to(cuda_device)
+    out = tq.int8_matmul(x, w, scale, rows_alone=rows_alone)
+    ref = tq.int8_matmul_reference(x, w, scale)
+    torch.cuda.synchronize()
+    peak = ref.float().abs().max().item()
+    tol = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * peak
+    assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
 def test_wrapper_raises_on_cuda_for_unsupported_input(cuda_device):
@@ -443,6 +518,82 @@ def test_small_paged_engine_on_card_matches_cpu_and_dense(cuda_device):
             np.testing.assert_allclose(lp_g, lp_c, atol=5e-3)
         np.testing.assert_array_equal(tok_g, tok_d)
         np.testing.assert_array_equal(lp_g, lp_d)
+
+
+def test_small_paged_engine_at_16_slots_rows_are_solo(cuda_device):
+    """Past 8 slots: the paged engine at 16 slots takes 14 concurrent
+    requests (one seeded-sampled), so every decode step runs 16 rows and
+    grouped prefills run up to 16; every engine row's tokens and logprobs
+    are bitwise its solo ``generate`` on the card. The decode's int8
+    matmuls and the grouped lm_head take the GEMV at any row count (one
+    position per row), as the solo row's do."""
+    import threading
+
+    from lambdipy_tpu_torch.runtime.handlers import make_engine
+
+    extra = {"vocab_size": 512, "hidden": 256, "heads": 4, "kv_heads": 2,
+             "mlp": 512, "layers": 2, "max_len": 256,
+             "attn_backend": "blocked", "matmul_backend": "pallas"}
+    adapter = registry.get("llama-tiny").build(quant="int8", extra=extra)
+    server = adapter.make_server(adapter.init_params(seed=3, device="cpu"),
+                                 device=cuda_device)
+    reqs = [(list(range(1 + i, 6 + 3 * i)), 8 + (5 * i) % 13,
+             {"temperature": 0.8, "top_p": 0.9, "seed": 7} if i == 5
+             else {}) for i in range(14)]
+    eng = make_engine(server, {"batch_max": "16", "batch_segment": "4",
+                               "kv_paged": "1"})
+    outs = [None] * len(reqs)
+
+    def run(i):
+        p, n, kw = reqs[i]
+        outs[i] = eng.generate(p, max_new_tokens=n, return_logprobs=True,
+                               **kw)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(reqs))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    stats = eng.stats()
+    assert stats["requests_served"] == len(reqs)
+    assert stats["mean_rows_per_step"] > 8, stats
+    for (p, n, kw), (toks, lps) in zip(reqs, outs):
+        want, want_lp = server.generate(p, max_new_tokens=n,
+                                        return_logprobs=True, **kw)
+        np.testing.assert_array_equal(toks, want)
+        np.testing.assert_array_equal(lps, want_lp)
+
+
+@pytest.mark.parametrize("sb", [16, 128])
+@pytest.mark.parametrize("bb", [1, 2, 4, 8])
+@pytest.mark.parametrize("attn", ["blocked", "flash"])
+def test_grouped_prefill_rows_are_bitwise_alone(cuda_device, attn, bb, sb):
+    """The identity the engine's grouped prefills rest on, swept over
+    group sizes and prompt buckets on a small bf16 int8 model: each row
+    of a ragged ``[bb, sb]`` prefill (the engine's call: logits at each
+    row's last position, K/V of every layer) is bitwise the row prefilled
+    alone at ``[1, sb]``."""
+    extra = {"vocab_size": 512, "hidden": 256, "heads": 4, "kv_heads": 2,
+             "mlp": 512, "layers": 2, "max_len": 256,
+             "attn_backend": attn, "matmul_backend": "pallas"}
+    adapter = registry.get("llama-tiny").build(dtype="bfloat16",
+                                               quant="int8", extra=extra)
+    model = adapter.make_server(adapter.init_params(seed=3, device="cpu"),
+                                device=cuda_device).model
+    rng = np.random.default_rng(bb * 1000 + sb)
+    tokens = torch.as_tensor(rng.integers(1, 512, (bb, sb)),
+                             device=cuda_device)
+    length = torch.as_tensor([max(1, sb - 5 * r) for r in range(bb)],
+                             device=cuda_device)
+    with torch.inference_mode():
+        logits, cache = model(tokens, logit_positions=length - 1)
+        for r in range(bb):
+            lg, c = model(tokens[r:r + 1], logit_positions=length[r:r + 1] - 1)
+            assert torch.equal(lg, logits[r:r + 1]), r
+            for entry, alone in zip(cache, c):
+                assert torch.equal(alone["k"], entry["k"][r:r + 1]), r
+                assert torch.equal(alone["v"], entry["v"][r:r + 1]), r
 
 
 # ------------------------------------------------------ split-KV plan

@@ -116,3 +116,51 @@ def test_every_qdense_shape_meets_the_tiled_contract(name):
 def test_tiled_contract_follows_the_row_strides(k, n, dtype, ok):
     """n % 16 in either dtype; k % 8 for bf16 x, k % 4 for f32 x."""
     assert (tq.tiled_shape_error(k, n, dtype) is None) is ok
+
+
+@pytest.mark.parametrize("b,s,route", [
+    (1, 1, "gemv"), (8, 1, "gemv"), (16, 1, "gemv"), (64, 1, "gemv"),
+    (1, 16, "tiled"), (4, 16, "tiled"), (1, 128, "tiled"), (8, 128, "tiled"),
+], ids=lambda v: str(v))
+def test_qdense_picks_the_route_by_positions_per_row(b, s, route):
+    """The route comes from the caller's input shape, not the flattened
+    row count alone: one position per row (a decode step over b slots,
+    the lm_head at the logit positions) takes the GEMV at any b, so an
+    engine row keeps its solo bits past 8 slots; a prefill ``[b, s >=
+    16]`` takes the tiled route, also at b * s = 16."""
+    from lambdipy_tpu_torch.models.llama import QDense
+
+    x = torch.zeros(b, s, 64)
+    assert tq.int8_route(b * s, rows_alone=QDense.rows_alone(x)) == route
+
+
+def test_int8_route_default_for_callers_that_do_not_say():
+    """A caller that passes no word keeps the kernel's default: the GEMV
+    for m <= 8, the tiled route above; so does a 2-D activation through
+    QDense."""
+    from lambdipy_tpu_torch.models.llama import QDense
+
+    assert QDense.rows_alone(torch.zeros(16, 64)) is None
+    assert [tq.int8_route(m) for m in (1, 8, 9, 16)] == [
+        "gemv", "gemv", "tiled", "tiled"]
+    assert tq.int8_route(4, rows_alone=False) == "tiled"
+
+
+def test_qdense_on_cpu_is_the_plain_version_on_every_route():
+    """On the CPU the route word changes nothing: QDense's int8 product
+    at one position per row and at a prefill shape is the plain version,
+    bitwise, and no launch is counted."""
+    from lambdipy_tpu_torch.models.llama import QDense
+
+    dense = QDense(K, N, "int8", torch.float32, "pallas", device="cpu")
+    _, w, scale = _inputs(1, seed=5)
+    dense.kernel_int8.copy_(torch.as_tensor(w))
+    dense.scale.copy_(torch.as_tensor(scale))
+    rng = np.random.default_rng(6)
+    before = tq.int8_matmul.launches
+    for shape in ((16, 1, K), (2, 16, K)):
+        x = torch.as_tensor(rng.normal(size=shape).astype(np.float32))
+        want = tq.int8_matmul_reference(x.reshape(-1, K), dense.kernel_int8,
+                                        dense.scale).reshape(*shape[:2], N)
+        assert torch.equal(dense(x), want)
+    assert tq.int8_matmul.launches == before
