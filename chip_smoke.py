@@ -20,9 +20,11 @@ Phases, each of which fails the run with a non-zero exit:
    m=8/16/64; every flash-attention row bitwise alone at b=1 inside
    b=8), and time kernel, plain version and a library call that the
    port never uses (CUDA events, warmed, L2 defeated by rotating input
-   copies; for decode attention and the faster rows of the int8 matmul
-   and flash attention also the device time per call, and each time's
-   fraction of the bound); then hold a small int8 model
+   copies; for decode attention, every GEMV row of the int8 matmul and
+   the faster rows of its tiled route and of flash attention also the
+   device time per call, and each time's fraction of the bound; the
+   GEMV's device time summed over one decode step's 225 calls at 1, 8
+   and 16 rows); then hold a small int8 model
    on the card against the same model on the CPU, under each path's
    backends and through the paged continuous engine;
 4. the main path: full-width ``llama3-8b`` (int8 weights, bf16,
@@ -709,11 +711,19 @@ MATMUL_SHAPES = (
     (14336, 4096, torch.bfloat16, PREFILL_MS),   # down_proj
     (4096, 128256, torch.float32, (1, 4, 2048)),  # lm_head (f32 x and out)
 )
-# the GEMV at the row counts a decode step over more than 8 slots gives it
-# (the caller's route: one position per row), at every shape above
-GEMV_MS = (16, 64)
+# the GEMV at the row counts of an engine's decode step (path D's 8 slots,
+# 16 and 64; the caller's route: one position per row), at every shape
+# above
+GEMV_MS = (8, 16, 64)
 LINE_SHAPE = (4, 4096, 14336)  # the shape reported in the kernels line
-DEVICE_TIME_BELOW_MS = 0.2  # rows this fast also get their device time
+# rows this fast also get their device time; so does every GEMV row
+DEVICE_TIME_BELOW_MS = 0.2
+# a decode step's int8 matmuls: each projection's calls per step (32
+# layers; q and o share 4096 x 4096, k and v 4096 x 1024, gate and up
+# 4096 x 14336) and the lm_head, 225 in all
+STEP_CALLS = {(4096, 4096): 64, (4096, 1024): 64, (4096, 14336): 64,
+              (14336, 4096): 32, (4096, 128256): 1}
+STEP_MS = (1, 8, 16)  # the row counts whose per-step sums are printed
 # the tiled route's row invariance: 16 rows alone at m=16 against the same
 # rows at these offsets inside these row counts (shapes: k_proj, q_proj,
 # whose tile shape changes with m, and a ragged one)
@@ -721,8 +731,9 @@ INVARIANCE_SHAPES = ((4096, 1024), (4096, 4096), (264, 144))
 INVARIANCE_MS = (32, 128, 1024)
 INVARIANCE_OFFSETS = (0, 5, 70)
 # the GEMV's row invariance: every row alone at m=1 against the same rows
-# inside these row counts (k_proj and the lm_head's width)
-GEMV_INVARIANCE_SHAPES = ((4096, 1024), (4096, 128256))
+# inside these row counts (k_proj, down_proj: the deepest merge of the
+# split plan, and the lm_head's width)
+GEMV_INVARIANCE_SHAPES = ((4096, 1024), (14336, 4096), (4096, 128256))
 GEMV_INVARIANCE_MS = (8, 16, 64)
 
 
@@ -823,16 +834,16 @@ def check_int8_matmul(gen) -> dict:
             xb = x.to(torch.bfloat16)
             library_ms = cuda_time(lambda i: torch.matmul(xb, w_deq[i]),
                                    n_deq)
+            route = int8_route(m, alone)
             device_ms = None
-            if ms < DEVICE_TIME_BELOW_MS:
+            if ms < DEVICE_TIME_BELOW_MS or route == "gemv":
                 device_ms = {
-                        "kernel": device_time(kernel, n_copies),
+                    "kernel": device_time(kernel, n_copies),
                     "library": device_time(
                         lambda i: torch.matmul(xb, w_deq[i]), n_deq)}
             esize = x.element_size()
             nbytes = m * k * esize + k * n + 4 * n + m * n * esize
             bound_ms, bound_by = bound(nbytes, 2.0 * m * k * n)
-            route = int8_route(m, alone)
             row = {"m": m, "k": k, "n": n, "x_dtype": str(xdtype),
                    "route": route,
                    "max_abs_err": err, "max_rel_err": err / peak,
@@ -862,6 +873,7 @@ def check_int8_matmul(gen) -> dict:
                 line = row
         del ws, w_deq
         torch.cuda.empty_cache()
+    step_sums = gemv_step_sums(rows)
     invariant = int8_rows_invariant(gen)
     log(f"int8_matmul tiled: every row bitwise alone at m=16 and inside "
         f"m={'/'.join(map(str, INVARIANCE_MS))}: {invariant}")
@@ -882,7 +894,32 @@ def check_int8_matmul(gen) -> dict:
             "bound_ms": line["bound_ms"], "bound_by": line["bound_by"],
             "library_ms": line["library_ms"], "checks": rows,
             "rows_invariant_in_m": invariant,
-            "gemv_rows_invariant_in_m": gemv_invariant}
+            "gemv_rows_invariant_in_m": gemv_invariant,
+            "gemv_step_sums": step_sums}
+
+
+def gemv_step_sums(rows) -> dict:
+    """Device ms of one decode step's 225 int8 matmuls (``STEP_CALLS``)
+    at each of ``STEP_MS`` rows, summed from phase 3's GEMV rows: the
+    kernel, the bytes bound and the bf16 matmul; printed one line per
+    row count."""
+    by = {(r["m"], r["k"], r["n"]): r for r in rows if r["route"] == "gemv"}
+    sums = {}
+    for m in STEP_MS:
+        got = {key: by[(m, *key)] for key in STEP_CALLS}
+        total = {name: sum(STEP_CALLS[key] * pick(got[key])
+                           for key in STEP_CALLS)
+                 for name, pick in (
+                     ("kernel_ms", lambda r: r["device_ms"]["kernel"]),
+                     ("bound_ms", lambda r: r["bound_ms"]),
+                     ("library_ms", lambda r: r["device_ms"]["library"]))}
+        sums[m] = total
+        log(f"int8_matmul gemv, one decode step at m={m} (225 calls, "
+            f"device time): kernel {total['kernel_ms']:.4f} ms, bytes bound "
+            f"{total['bound_ms']:.4f} ms (the kernel at "
+            f"{total['bound_ms'] / total['kernel_ms']:.3f} of it), bf16 "
+            f"matmul {total['library_ms']:.4f} ms")
+    return sums
 
 
 # the three configurations of the main path; all serve llama3-8b with

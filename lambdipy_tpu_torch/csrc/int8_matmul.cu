@@ -10,25 +10,43 @@
 // for rows that each stand alone (a decode step, the lm_head at the logit
 // positions) at any m, else the tiled route. What each route takes (the
 // wrapper checks it):
-// * gemv: n % 8 == 0, w 16-byte aligned;
+// * gemv: n % 8 == 0, w 16-byte aligned; any k, any m, x rows at any
+//   alignment;
 // * tiled: n % 16 == 0, k % 8 == 0 (bf16 x) or k % 4 == 0 (f32 x), and
 //   x, w, scale 16-byte aligned: the tensor-memory accelerator (TMA)
 //   wants 16-byte row strides and bases.
 //
-// What bounds it on the H100: at decode (m = 1 to 8) bytes — the k * n
+// What bounds it on the H100: at decode (m = 1 to 64) bytes — the k * n
 // int8 weights are read once per call and each weight byte feeds only 2m
 // flops, far below the ~295 flop/byte ridge; at prefill operations from
 // m ~ 300 up, bytes below (m = 128 moves 2 * 128 flops per weight byte).
 // Two routes therefore:
 //
-// * gemv (decode, m = the batch's rows): threads side by side along n
-//   read contiguous int8 (8 bytes a thread, 64 bytes per row segment),
-//   the block splits k over 32 slices so every SM has loads in flight,
-//   accumulates up to 8 rows x 8 outputs per thread in f32 registers, and
-//   reduces the slices by warp shuffles and shared memory. The x rows are
-//   read through the cache (every thread of a slice reads the same
-//   value). Above 8 rows the grid's y axis takes groups of 8 rows, each
-//   reading the weights again (m = 16 reads them twice).
+// * gemv (decode, m = the batch's rows, one position each): a split-k
+//   tensor-core kernel that reads the weights once for up to 64 rows.
+//   The plan (ops/quant.py::gemv_plan, a function of k and n alone,
+//   passed in) cuts k into at most 8 splits so that the column tiles
+//   times the splits make about one wave of two blocks on each of the 132
+//   SMs: a block owns 128 columns (64 for n < 2048, n % 16 != 0 or more
+//   than 16 rows) and one split, and its 8 warps take every 8th 16-deep
+//   k step of it. Each lane loads its weights straight into registers,
+//   16 (or 8) columns from each of 4 k rows a step, with the next step
+//   already in flight, so no shared memory sits between HBM and the
+//   tensor cores. The product runs transposed, out^T = W^T x^T, as
+//   mma.sync m16n8k16 bf16 with f32 accumulators: the int8 weights,
+//   converted to bf16 in registers (exact), are the A operand (16
+//   columns x 16 k), x^T the B operand (16 k x 8 rows, loaded a step
+//   ahead, f32 x rounded to bf16 there), so rows cost only tensor-core
+//   time up to 64 (8 row groups a block; past 64 the grid's z axis takes
+//   groups of 64). The block sums its warps in warp order through shared
+//   memory; with one split it applies scale[col] and writes the output,
+//   else it writes an f32 partial to a workspace [splits, m, n] and the
+//   last block of its column tile to arrive (a counter per tile, which
+//   that block resets) sums the partials in split order, applies the
+//   scale and writes the output. No atomics on the output. On the H100
+//   the large projections stream at ~0.7 of the bytes bound up to 16
+//   rows; small ones pay launch and ramp; at 64 rows the registers of 8
+//   row groups leave one block an SM (PERF.md has the numbers).
 // * tiled (prefill, m = rows x positions >= 16): a warp-specialised
 //   wgmma GEMM. A block computes a BM x BN output tile, one of three
 //   shapes (256 x 128, 128 x 128, 128 x 64: two consumer warpgroups of
@@ -57,30 +75,31 @@
 //
 // Row invariance in m (the serving engine's bitwise checks rest on it: a
 // row decoded or prefilled inside a group of rows must equal the row
-// alone). The GEMV sums each row in its own registers in an order fixed
-// by k, whatever the row count or the row's group of 8. The tiled route
-// sums every element over k in one order fixed by k alone —
-// 64-deep stages in order, four k16 wgmmas in order, each into the same
-// f32 accumulator, with no split of k. The tile shape and the grid, which
-// do depend on m, change which block computes an element, never its
-// order.
+// alone). The GEMV sums a row's element in an order fixed by k and n
+// alone: the 16-deep steps of a warp in k order, each one mma into the
+// same accumulator; the 8 warps in order; the splits in order. m picks
+// only how many row groups a block computes; the rows of an mma are
+// independent, so a row's bits are the same at m = 1 and anywhere in
+// m = 64. The tiled route sums every element over k in one order fixed
+// by k alone — 64-deep stages in order, four k16 wgmmas in order, each
+// into the same f32 accumulator, with no split of k. The tile shape and
+// the grid, which do depend on m, change which block computes an
+// element, never its order.
 //
-// Launches on the caller's stream, allocates nothing.
+// Launches on the caller's stream, allocates nothing: the GEMV's
+// workspace and counters come from the wrapper.
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
 
 namespace {
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-__device__ __forceinline__ float bf16_round(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -88,92 +107,6 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float x) {
   return __float2bfloat16(x);
-}
-
-// ---------------------------------------------------------------- gemv
-constexpr int GV_THREADS = 256;
-constexpr int GV_TN = 8;                     // threads along n
-constexpr int GV_TK = GV_THREADS / GV_TN;    // k slices
-constexpr int GV_BN = GV_TN * 8;             // columns per block
-constexpr int GV_WARPS = GV_THREADS / 32;
-
-// One block: GV_BN columns of M rows. GROUPS (m > 8): the rows from
-// blockIdx.y * M, read through 32-bit offsets from the group's first row
-// (rows past m read row m - 1 and are not written); else rows 0 .. M - 1
-// of an m = M call. Each row sums in its own registers in an order fixed
-// by k alone, whatever M, m or the row group.
-template <int M, typename T, bool GROUPS>
-__global__ void __launch_bounds__(GV_THREADS) gemv_kernel(
-    const T* __restrict__ x, const int8_t* __restrict__ w,
-    const float* __restrict__ scale, T* __restrict__ out, int m, int k,
-    int n) {
-  const int cn = threadIdx.x % GV_TN;
-  const int ks = threadIdx.x / GV_TN;
-  const int col0 = blockIdx.x * GV_BN + cn * 8;
-  const int row0 = GROUPS ? blockIdx.y * M : 0;
-  int xoff[M];
-  if constexpr (GROUPS) {
-    x += (size_t)row0 * k;
-#pragma unroll
-    for (int mi = 0; mi < M; ++mi) xoff[mi] = min(mi, m - 1 - row0) * k;
-  }
-  float acc[M][8];
-#pragma unroll
-  for (int mi = 0; mi < M; ++mi) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[mi][i] = 0.f;
-  }
-  if (col0 < n) {
-    const int8_t* wp = w + col0;
-#pragma unroll 4
-    for (int kk = ks; kk < k; kk += GV_TK) {
-      const uint2 raw = __ldg(reinterpret_cast<const uint2*>(wp + (size_t)kk * n));
-      const int8_t* q = reinterpret_cast<const int8_t*>(&raw);
-      float wf[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) wf[i] = (float)q[i];
-#pragma unroll
-      for (int mi = 0; mi < M; ++mi) {
-        const float xv = bf16_round(GROUPS ? x[xoff[mi] + kk]
-                                           : x[(size_t)mi * k + kk]);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[mi][i] += xv * wf[i];
-      }
-    }
-  }
-  // threadIdx = ks * 8 + cn: lanes 8 and 16 apart hold the same columns
-  // for the warp's four k slices
-#pragma unroll
-  for (int mi = 0; mi < M; ++mi) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float s = acc[mi][i];
-      s += __shfl_xor_sync(0xffffffffu, s, 8);
-      s += __shfl_xor_sync(0xffffffffu, s, 16);
-      acc[mi][i] = s;
-    }
-  }
-  __shared__ float red[GV_WARPS][M][GV_BN];
-  const int warp = threadIdx.x / 32;
-  if ((threadIdx.x & 31) < GV_TN) {
-#pragma unroll
-    for (int mi = 0; mi < M; ++mi) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) red[warp][mi][cn * 8 + i] = acc[mi][i];
-    }
-  }
-  __syncthreads();
-  for (int o = threadIdx.x; o < M * GV_BN; o += GV_THREADS) {
-    const int mi = o / GV_BN;
-    const int c = o % GV_BN;
-    const int col = blockIdx.x * GV_BN + c;
-    if (col < n && (!GROUPS || row0 + mi < m)) {
-      float s = 0.f;
-#pragma unroll
-      for (int wi = 0; wi < GV_WARPS; ++wi) s += red[wi][mi][c];
-      out[(size_t)(row0 + mi) * n + col] = from_f<T>(s * scale[col]);
-    }
-  }
 }
 
 // --------------------------------------------------------------- tiled
@@ -642,43 +575,382 @@ int launch_tiled_shape(int shape, const void* x, const void* w,
   return (int)cudaErrorInvalidValue;
 }
 
-constexpr int ROUTE_GEMV = -2;  // the launch's route: the GEMV
+// ---------------------------------------------------------------- gemv
+constexpr int GV_WARPS = 8;   // warps of a block; warp w takes the split's
+                              // k steps w, w + 8, w + 16, ...
+constexpr int GV_STEP = 16;   // k per step: one mma m16n8k16
+constexpr int GV_ROWS = 64;   // rows of a block; more on the grid's z axis
+constexpr int GV_MAX_SPLITS = 8;  // a column tile's partials to merge
+constexpr int GV_WIDE_MIN_N = 2048;  // the least n for 16 columns a lane
+constexpr int GV_THREADS = 32 * GV_WARPS;
+
+// 16 columns a lane (16-byte loads, 128 columns a block) where every
+// lane's 16 are whole (n % 16 == 0 keeps the loads aligned), n is wide
+// enough to fill the card with at most GV_MAX_SPLITS splits, and the
+// accumulators fit (m <= 16); else 8 columns (64 a block). Only which
+// block, lane and mma row an element takes changes, not its order.
+inline int gemv_lane_cols(int n, int m) {
+  return n % 16 == 0 && n >= GV_WIDE_MIN_N && m <= 16 ? 16 : 8;
+}
+
+// x as loaded for one lane and step: 4 consecutive k of one row
+template <typename T>
+using XRaw = typename std::conditional<sizeof(T) == 2, uint2, float4>::type;
+
+// MG: groups of 8 rows a block computes (1, 2, 4 or 8: m up to 8, 16, 32,
+// 64). CW: columns a lane loads from each of its k rows (8 or 16); a
+// block owns 8 * CW columns. DEPTH: k steps a warp keeps in flight, in
+// registers (more did not pay on an H100, nor did a cp.async ring in
+// shared memory). MIN_BLOCKS: blocks an SM holds, two where a lane's
+// 2 * MG * CW accumulators are at most 32 (more spill there). Shared
+// memory holds the reduction buffer, LANE floats a lane (4 past its
+// 2 * CW * MG against bank conflicts).
+template <int MG, int CW>
+struct Gemv {
+  static constexpr int COLS = 8 * CW;
+  static constexpr int MMAS = CW / 2;
+  static constexpr int DEPTH = CW == 16 || MG > 2 ? 2 : 4;
+  static constexpr int MIN_BLOCKS = MG * CW <= 16 ? 2 : 1;
+  static constexpr int LANE = 2 * CW * MG + 4;
+  static constexpr int SMEM = GV_THREADS * LANE * 4;
+  static constexpr int CHUNKS = 8 * MG * CW;  // 8 columns of a row each
+  using W = typename std::conditional<CW == 8, uint2, uint4>::type;
+};
+
+__device__ __forceinline__ void ld_stream(const int8_t* p, uint2& v) {
+  asm volatile("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(v.x), "=r"(v.y) : "l"(p));
+}
+__device__ __forceinline__ void ld_stream(const int8_t* p, uint4& v) {
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
+}
+__device__ __forceinline__ uint32_t word(const uint2& v, int i) {
+  return i == 0 ? v.x : v.y;
+}
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// x[row][kr .. kr + 3] (zero past k or past the block's rows); vec: the
+// row stride and base allow one aligned vector load
+template <typename T>
+__device__ __forceinline__ XRaw<T> load_x(const T* x, int row, int rows,
+                                          int kr, int k, bool vec) {
+  XRaw<T> v{};
+  if (row < rows && kr < k) {
+    const T* p = x + (size_t)row * k + kr;
+    if (vec) {
+      v = __ldg(reinterpret_cast<const XRaw<T>*>(p));
+    } else {
+      T e[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) e[i] = kr + i < k ? p[i] : from_f<T>(0.f);
+      memcpy(&v, e, sizeof v);
+    }
+  }
+  return v;
+}
+
+// the B fragment {x[kr], x[kr + 1]}, {x[kr + 2], x[kr + 3]} in bf16
+__device__ __forceinline__ void x_frag(uint2 v, uint32_t& b0, uint32_t& b1) {
+  b0 = v.x;
+  b1 = v.y;
+}
+__device__ __forceinline__ void x_frag(float4 v, uint32_t& b0, uint32_t& b1) {
+  b0 = pack_bf16(v.x, v.y);
+  b1 = pack_bf16(v.z, v.w);
+}
+
+// {bf16(byte b of u), bf16(byte b of v)} for words already XORed with
+// 0x80808080, exactly, as int8x8_to_bf16: the f32 2^23 + byte - (2^23 +
+// 128) is the int8 value, whose low 16 bits are zero, so its top half is
+// its bf16
+__device__ __forceinline__ uint32_t pair_bf16(uint32_t u, uint32_t v, int b) {
+  const float lo = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + b));
+  const float hi = __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7650 + b));
+  return __byte_perm(__float_as_uint(lo - 8388736.f),
+                     __float_as_uint(hi - 8388736.f), 0x7632);
+}
+
+// The A fragments of a lane's CW / 2 mmas from its CW columns of 4 k
+// rows. mma j: A row g is column CW g + 2j, row g + 8 column CW g + 2j +
+// 1; the lane's logical k 2t, 2t + 1, 2t + 8, 2t + 9 are the physical
+// rows 4t .. 4t + 3 (the same permutation for x, whatever m).
+template <int CW, typename W>
+__device__ __forceinline__ void a_frags(const W (&q)[4],
+                                        uint32_t (&a)[CW / 2][4]) {
+  uint32_t u[4][CW / 4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int i = 0; i < CW / 4; ++i) u[r][i] = word(q[r], i) ^ 0x80808080u;
+  }
+#pragma unroll
+  for (int j = 0; j < CW / 2; ++j) {
+    const int wd = j / 2, b = 2 * (j % 2);
+    a[j][0] = pair_bf16(u[0][wd], u[1][wd], b);
+    a[j][1] = pair_bf16(u[0][wd], u[1][wd], b + 1);
+    a[j][2] = pair_bf16(u[2][wd], u[3][wd], b);
+    a[j][3] = pair_bf16(u[2][wd], u[3][wd], b + 1);
+  }
+}
+
+// d[16 x 8] += A[16 x 16] B[16 x 8], bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void load8_l2(const float* p, float (&v)[8]) {
+  const float4 a = __ldcg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldcg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
 
 template <typename T>
-int launch(const void* xv, const void* wv, const void* sv, void* ov, int m,
-           int k, int n, int route, cudaStream_t s) {
-  if (route != ROUTE_GEMV) {
-    if (route < 0) route = tiled_shape(m, n, sizeof(T) == 4);
-    return launch_tiled_shape<T>(route, xv, wv, sv, ov, m, k, n, s);
+__device__ __forceinline__ void store8(T* p, const float (&v)[8]);
+template <>
+__device__ __forceinline__ void store8<float>(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+template <>
+__device__ __forceinline__ void store8<__nv_bfloat16>(__nv_bfloat16* p,
+                                                      const float (&v)[8]) {
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                 pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+}
+
+// One block: 8 * CW columns (blockIdx.x), one split of k (blockIdx.y:
+// rows [split * depth, min(k, (split + 1) * depth)), depth a multiple of
+// 16 * GV_WARPS), rows [64 z, 64 z + 64) of x (blockIdx.z), of which it
+// computes the first 8 * MG. Lane (g, t) of a warp loads columns CW g ..
+// CW g + CW - 1 of k rows 4t .. 4t + 3 of each of its steps. ws: the
+// workspace [splits, m, n]; counters: one per (z, 64 columns), zero on
+// entry and on exit; both unused with one split.
+template <int MG, int CW, typename T>
+__global__ void __launch_bounds__(GV_THREADS, Gemv<MG, CW>::MIN_BLOCKS)
+    gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
+                const float* __restrict__ scale, T* __restrict__ out,
+                float* __restrict__ ws, unsigned* __restrict__ counters,
+                int m, int k, int n, int depth, int xvec) {
+  using C = Gemv<MG, CW>;
+  using W = typename C::W;
+  extern __shared__ __align__(16) float red[];  // [GV_THREADS][C::LANE]
+  __shared__ bool last;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int col = blockIdx.x * C::COLS + CW * g;
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int row0 = blockIdx.z * GV_ROWS;
+  const int rows = min(GV_ROWS, m - row0);
+  const int kb = split * depth;
+  const int steps = (min(k, kb + depth) - kb + GV_STEP - 1) / GV_STEP;
+  const int mine =
+      warp < steps ? (steps - warp + GV_WARPS - 1) / GV_WARPS : 0;
+  x += (size_t)row0 * k;
+  const int kr0 = kb + GV_STEP * warp + 4 * t;  // the lane's first k row
+  const int8_t* wp = w + (size_t)kr0 * n + col;
+  const size_t wstep = (size_t)GV_STEP * GV_WARPS * n;
+  const bool colok = col < n;
+
+  float acc[MG][C::MMAS][4];
+#pragma unroll
+  for (int mg = 0; mg < MG; ++mg) {
+#pragma unroll
+    for (int j = 0; j < C::MMAS; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mg][j][i] = 0.f;
+    }
   }
+  W wq[C::DEPTH][4];
+  XRaw<T> xq[C::DEPTH][MG];
+  // the weights and x of the warp's step i into ring slot d
+  auto fetch = [&](int i, int d) {
+    const int kr = kr0 + GV_STEP * GV_WARPS * i;
+    const int8_t* p = wp + i * wstep;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (colok && kr + r < k) {
+        ld_stream(p + (size_t)r * n, wq[d][r]);
+      } else {
+        wq[d][r] = W{};
+      }
+    }
+#pragma unroll
+    for (int mg = 0; mg < MG; ++mg) {
+      xq[d][mg] = load_x<T>(x, 8 * mg + g, rows, kr, k, xvec);
+    }
+  };
+#pragma unroll
+  for (int d = 0; d < C::DEPTH; ++d) {
+    if (d < mine) fetch(d, d);
+  }
+  for (int i0 = 0; i0 < mine; i0 += C::DEPTH) {
+#pragma unroll
+    for (int d = 0; d < C::DEPTH; ++d) {
+      const int i = i0 + d;
+      if (i < mine) {
+        uint32_t a[C::MMAS][4], b[MG][2];
+        a_frags<CW>(wq[d], a);
+#pragma unroll
+        for (int mg = 0; mg < MG; ++mg) x_frag(xq[d][mg], b[mg][0], b[mg][1]);
+        if (i + C::DEPTH < mine) fetch(i + C::DEPTH, d);
+#pragma unroll
+        for (int mg = 0; mg < MG; ++mg) {
+#pragma unroll
+          for (int j = 0; j < C::MMAS; ++j) {
+            mma_bf16(acc[mg][j], a[j], b[mg][0], b[mg][1]);
+          }
+        }
+      }
+    }
+  }
+
+  // The warps' sums in warp order. Accumulator i of mma j, group mg holds
+  // row 8 mg + 2t + (i & 1), column CW g + 2j + (i >> 1): a lane leaves,
+  // per (mg, h = row parity), its CW columns in order, in chunks of 8.
+  float* mine_red = red + threadIdx.x * C::LANE;
+#pragma unroll
+  for (int mg = 0; mg < MG; ++mg) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float4* q = reinterpret_cast<float4*>(mine_red + (2 * mg + h) * CW);
+#pragma unroll
+      for (int j = 0; j < C::MMAS; j += 2) {
+        q[j / 2] = make_float4(acc[mg][j][h], acc[mg][j][h + 2],
+                               acc[mg][j + 1][h], acc[mg][j + 1][h + 2]);
+      }
+    }
+  }
+  __syncthreads();
+  // chunk c: 8 columns of one row, the (c / 32)-th chunk of lane c % 32
+  auto chunk = [&](int c, int& row, int& cc) {
+    const int cl = c % 32, ch = c / 32, mgh = ch / (CW / 8);
+    row = 8 * (mgh / 2) + 2 * (cl % 4) + mgh % 2;
+    cc = blockIdx.x * C::COLS + CW * (cl / 4) + 8 * (ch % (CW / 8));
+  };
+  auto finish = [&](int c, float (&v)[8]) {
+    int row, cc;
+    chunk(c, row, cc);
+    if (row >= rows || cc >= n) return;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] *= __ldg(scale + cc + e);
+    store8<T>(out + (size_t)(row0 + row) * n + cc, v);
+  };
+  for (int c = threadIdx.x; c < C::CHUNKS; c += GV_THREADS) {
+    const float* src = red + (c % 32) * C::LANE + (c / 32) * 8;
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = src[e];
+#pragma unroll
+    for (int wi = 1; wi < GV_WARPS; ++wi) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] += src[wi * 32 * C::LANE + e];
+    }
+    if (splits == 1) {
+      finish(c, v);
+    } else {
+      int row, cc;
+      chunk(c, row, cc);
+      if (row < rows && cc < n) {
+        store8<float>(ws + ((size_t)split * m + row0 + row) * n + cc, v);
+      }
+    }
+  }
+  if (splits == 1) return;
+
+  // the last block of the column tile to arrive merges the splits, in
+  // split order, and zeroes the tile's counter for the next call
+  __threadfence();
+  __syncthreads();
+  unsigned* counter = counters + blockIdx.z * ((n + 63) / 64) +
+                      blockIdx.x * (C::COLS / 64);
+  if (threadIdx.x == 0) last = atomicAdd(counter, 1u) == (unsigned)splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int c = threadIdx.x; c < C::CHUNKS; c += GV_THREADS) {
+    int row, cc;
+    chunk(c, row, cc);
+    if (row >= rows || cc >= n) continue;
+    const float* src = ws + (size_t)(row0 + row) * n + cc;
+    const size_t stride = (size_t)m * n;
+    float v[8];
+    load8_l2(src, v);
+#pragma unroll 4
+    for (int sp = 1; sp < splits; ++sp) {
+      float u[8];
+      load8_l2(src + sp * stride, u);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] += u[e];
+    }
+    finish(c, v);
+  }
+  if (threadIdx.x == 0) *counter = 0u;
+}
+
+template <int MG, int CW, typename T>
+int launch_gemv(const T* x, const int8_t* w, const float* sc, T* out,
+                float* ws, unsigned* counters, int m, int k, int n,
+                int splits, int depth, cudaStream_t s) {
+  using C = Gemv<MG, CW>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gemv_kernel<MG, CW, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const int xvec = k % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0;
+  const dim3 grid((n + C::COLS - 1) / C::COLS, splits,
+                  (m + GV_ROWS - 1) / GV_ROWS);
+  gemv_kernel<MG, CW, T><<<grid, GV_THREADS, C::SMEM, s>>>(
+      x, w, sc, out, ws, counters, m, k, n, depth, xvec);
+  return (int)cudaGetLastError();
+}
+
+// The row groups a block computes and the lane width follow m and n
+// (neither changes an element's order); the split plan is the caller's
+template <typename T>
+int launch_gemv_rows(const void* xv, const void* wv, const void* sv, void* ov,
+                     float* ws, unsigned* cnt, int m, int k, int n,
+                     int splits, int depth, cudaStream_t s) {
   const T* x = static_cast<const T*>(xv);
   const int8_t* w = static_cast<const int8_t*>(wv);
   const float* sc = static_cast<const float*>(sv);
   T* out = static_cast<T*>(ov);
-  // up to 8 rows in one block; above, groups of 8 on the grid's y axis
-  const dim3 gv((n + GV_BN - 1) / GV_BN, (m + 7) / 8);
-  switch (m) {
-    case 1: gemv_kernel<1, T, false><<<gv, GV_THREADS, 0, s>>>(x, w, sc, out, m, k, n); break;
-    case 2: gemv_kernel<2, T, false><<<gv, GV_THREADS, 0, s>>>(x, w, sc, out, m, k, n); break;
-    case 3: gemv_kernel<3, T, false><<<gv, GV_THREADS, 0, s>>>(x, w, sc, out, m, k, n); break;
-    case 4: gemv_kernel<4, T, false><<<gv, GV_THREADS, 0, s>>>(x, w, sc, out, m, k, n); break;
-    case 5: gemv_kernel<5, T, false><<<gv, GV_THREADS, 0, s>>>(x, w, sc, out, m, k, n); break;
-    case 6: gemv_kernel<6, T, false><<<gv, GV_THREADS, 0, s>>>(x, w, sc, out, m, k, n); break;
-    case 7: gemv_kernel<7, T, false><<<gv, GV_THREADS, 0, s>>>(x, w, sc, out, m, k, n); break;
-    case 8: gemv_kernel<8, T, false><<<gv, GV_THREADS, 0, s>>>(x, w, sc, out, m, k, n); break;
-    default: gemv_kernel<8, T, true><<<gv, GV_THREADS, 0, s>>>(x, w, sc, out, m, k, n); break;
+#define GV_LAUNCH(MG, CW) \
+  launch_gemv<MG, CW, T>(x, w, sc, out, ws, cnt, m, k, n, splits, depth, s)
+  if (gemv_lane_cols(n, m) == 16) {
+    return m <= 8 ? GV_LAUNCH(1, 16) : GV_LAUNCH(2, 16);
   }
-  return (int)cudaGetLastError();
+  if (m <= 8) return GV_LAUNCH(1, 8);
+  if (m <= 16) return GV_LAUNCH(2, 8);
+  if (m <= 32) return GV_LAUNCH(4, 8);
+  return GV_LAUNCH(8, 8);
+#undef GV_LAUNCH
+}
+
+template <typename T>
+int launch(const void* x, const void* w, const void* sc, void* out, int m,
+           int k, int n, int route, cudaStream_t s) {
+  if (route < 0) route = tiled_shape(m, n, sizeof(T) == 4);
+  return launch_tiled_shape<T>(route, x, w, sc, out, m, k, n, s);
 }
 
 }  // namespace
 
-// dtype (of x and out): 0 = float32, 1 = bfloat16. route: -2 the GEMV
-// (any m; rows in groups of 8), -1 the tiled route with the tile shape the
-// kernel picks, 0.. the tiled route with that tile shape (an index into
-// TM_SHAPES; 0 only for bfloat16). Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue when a tensor map cannot be encoded.
-// The caller checks shapes, alignment and contiguity.
+// dtype (of x and out): 0 = float32, 1 = bfloat16. route: -1 the tiled
+// route with the tile shape the kernel picks, 0.. the tiled route with that
+// tile shape (an index into TM_SHAPES; 0 only for bfloat16). Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue when a
+// tensor map cannot be encoded. The caller checks shapes, alignment and
+// contiguity.
 extern "C" int int8_matmul_launch(int dtype, const void* x, const void* w,
                                   const void* scale, void* out, int m, int k,
                                   int n, int route, void* stream) {
@@ -687,4 +959,40 @@ extern "C" int int8_matmul_launch(int dtype, const void* x, const void* w,
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, w, scale, out, m, k, n, route, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The GEMV. splits, depth: k in splits ranges of depth rows
+// (ops/quant.py::gemv_plan), depth a multiple of GV_STEP * GV_WARPS that
+// leaves no split empty, at most GV_MAX_SPLITS splits. ws: f32 [splits,
+// m, n]; counters: ceil(m / 64) * ceil(n / 64) unsigned, zero, left zero;
+// one set per stream; both may be null with one split. Returns
+// cudaErrorInvalidValue for a plan that does not cover k.
+extern "C" int int8_matmul_gemv_launch(int dtype, const void* x,
+                                       const void* w, const void* scale,
+                                       void* out, void* ws, void* counters,
+                                       int m, int k, int n, int splits,
+                                       int depth, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m < 1 || k < 1 || n < 1 || splits < 1 || splits > GV_MAX_SPLITS ||
+      depth % (GV_STEP * GV_WARPS) != 0 || (long)splits * depth < k ||
+      (long)(splits - 1) * depth >= k ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  float* wsf = static_cast<float*>(ws);
+  unsigned* cnt = static_cast<unsigned*>(counters);
+  if (dtype == 0)
+    return launch_gemv_rows<float>(x, w, scale, out, wsf, cnt, m, k, n,
+                                   splits, depth, s);
+  if (dtype == 1)
+    return launch_gemv_rows<__nv_bfloat16>(x, w, scale, out, wsf, cnt, m, k,
+                                           n, splits, depth, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The GEMV's geometry, checked by the wrapper when the library loads: 0
+// warps of a block, 1 k per step, 2 rows of a block, 3 the most splits, 4
+// the least n for 16 columns a lane.
+extern "C" int int8_matmul_gemv_geometry(int i) {
+  const int g[5] = {GV_WARPS, GV_STEP, GV_ROWS, GV_MAX_SPLITS, GV_WIDE_MIN_N};
+  return i >= 0 && i < 5 ? g[i] : -1;
 }

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -31,14 +32,98 @@ def int8_matmul_reference(x, w_i8, scale):
     return (torch.matmul(xb, wb) * scale.float()).to(x.dtype)
 
 
+# The GEMV's geometry: warps of a block, k per tensor-core step, rows of a
+# block, the most splits (partials a column tile merges), the least n for
+# 16 columns a lane; csrc/int8_matmul.cu has the same constants (GV_*),
+# checked when the library loads
+GEMV_WARPS, GEMV_STEP, GEMV_ROWS, GEMV_MAX_SPLITS, GEMV_WIDE_MIN_N = (
+    8, 16, 64, 8, 2048)
+# the plan's aim: one wave of two blocks on each of the H100's 132 SMs
+GEMV_SMS = 132
+GEMV_BLOCKS = 2 * GEMV_SMS
+
+
+def gemv_block_cols(n: int) -> int:
+    """Columns of a GEMV block for one to 16 rows: 128 (16 a lane, 16-byte
+    loads) where ``n % 16 == 0`` and ``n >= GEMV_WIDE_MIN_N``, else 64.
+    Which block computes an element never changes its bits."""
+    return 128 if n % 16 == 0 and n >= GEMV_WIDE_MIN_N else 64
+
+
+def gemv_split(k: int, splits: int) -> tuple[int, int]:
+    """k cut into about ``splits`` ranges of whole 16-deep steps for each
+    of a block's :data:`GEMV_WARPS` warps: ``(splits, depth)``, the
+    splits that ``depth`` rows leave (none empty, the last may be
+    shorter)."""
+    steps = -(-k // GEMV_STEP)
+    depth = -(-steps // splits // GEMV_WARPS) * GEMV_WARPS
+    return -(-steps // depth), depth * GEMV_STEP
+
+
+def gemv_plan(k: int, n: int) -> tuple[int, int]:
+    """The GEMV's split of k for a ``[k, n]`` weight: ``(splits, depth)``,
+    k cut into ``splits`` ranges of ``depth`` rows, summed in that order
+    (:func:`gemv_split`). A function of ``(k, n)`` alone, so a row's bits
+    never depend on ``m``: as many splits as fit :data:`GEMV_BLOCKS`
+    blocks, at most :data:`GEMV_MAX_SPLITS`. Measured on an H100
+    (``python -m lambdipy_tpu_torch.gemv_probe``): one wave of blocks
+    beats more, a second, partial wave costing more than it overlaps."""
+    tiles = -(-n // gemv_block_cols(n))
+    return gemv_split(k, min(GEMV_MAX_SPLITS, max(1, GEMV_BLOCKS // tiles)))
+
+
+@functools.cache
+def _library():
+    """``csrc/int8_matmul.cu``, built on first use; its GEMV geometry
+    must be the plan's."""
+    lib = _build.load("int8_matmul")
+    lib.int8_matmul_gemv_geometry.restype = ctypes.c_int
+    lib.int8_matmul_gemv_geometry.argtypes = [ctypes.c_int]
+    got = tuple(lib.int8_matmul_gemv_geometry(i) for i in range(5))
+    want = (GEMV_WARPS, GEMV_STEP, GEMV_ROWS, GEMV_MAX_SPLITS,
+            GEMV_WIDE_MIN_N)
+    if got != want:
+        raise RuntimeError(f"int8_matmul.cu's GEMV geometry (warps, step, "
+                           f"rows, splits, wide n) is {got}, the plan's "
+                           f"{want}")
+    return lib
+
+
 @functools.cache
 def _launcher():
-    """The C entry point of ``csrc/int8_matmul.cu``, built on first use."""
-    fn = _build.load("int8_matmul").int8_matmul_launch
+    """The tiled route's C entry point of ``csrc/int8_matmul.cu``."""
+    fn = _library().int8_matmul_launch
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _gemv_launcher():
+    """The GEMV's C entry point of ``csrc/int8_matmul.cu``."""
+    fn = _library().int8_matmul_gemv_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# (device, stream) -> the GEMV's merge counters, one per 64 columns and 64
+# rows: zero between calls (the block that merges a tile zeroes its own),
+# one buffer per stream so that calls on two streams never share one
+_counters: dict = {}
+_counters_lock = threading.Lock()
+
+
+def _gemv_counters(device, stream: int, count: int):
+    with _counters_lock:
+        buf = _counters.get((device, stream))
+        if buf is None or buf.numel() < count:
+            buf = torch.zeros(max(count, 4096), dtype=torch.int32,
+                              device=device)
+            _counters[(device, stream)] = buf
+        return buf
 
 
 def _check(x, w_i8, scale):
@@ -60,7 +145,7 @@ def _check(x, w_i8, scale):
 
 # the route of a caller that does not say: the GEMV for m <= 8 rows
 GEMV_MAX_ROWS = 8
-_ROUTE_GEMV, _ROUTE_TILED = -2, -1  # the C entry point's route argument
+_ROUTE_TILED = -1  # the tiled entry point's route: the kernel's tile pick
 
 
 def int8_route(m: int, rows_alone: bool | None = None) -> str:
@@ -98,10 +183,11 @@ def int8_matmul(x, w_i8, scale, *, rows_alone: bool | None = None):
     """The int8-weight matmul kernel. CUDA tensors launch
     ``csrc/int8_matmul.cu`` on the route :func:`int8_route` picks from
     ``m`` and ``rows_alone``: the GEMV (``n % 8 == 0``, weights 16-byte
-    aligned) or a TMA-fed wgmma route (:func:`tiled_shape_error`, and x,
-    weights and scale 16-byte aligned); anything else raises, as do
-    non-contiguous operands. One launch and one count per call. CPU
-    tensors run the plain version."""
+    aligned; split over k by :func:`gemv_plan`, with an f32 workspace
+    ``[splits, m, n]`` when it splits) or a TMA-fed wgmma route
+    (:func:`tiled_shape_error`, and x, weights and scale 16-byte
+    aligned); anything else raises, as do non-contiguous operands. One
+    launch and one count per call. CPU tensors run the plain version."""
     _check(x, w_i8, scale)
     if x.device.type == "cpu":
         return int8_matmul_reference(x, w_i8, scale)
@@ -125,9 +211,22 @@ def int8_matmul(x, w_i8, scale, *, rows_alone: bool | None = None):
         raise ValueError("int8_matmul kernel needs contiguous operands")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _launcher()(_DTYPES[x.dtype], x.data_ptr(), w_i8.data_ptr(),
-                      scale.data_ptr(), out.data_ptr(), m, k, n,
-                      _ROUTE_GEMV if gemv else _ROUTE_TILED, stream)
+    args = (_DTYPES[x.dtype], x.data_ptr(), w_i8.data_ptr(),
+            scale.data_ptr(), out.data_ptr())
+    if gemv:
+        splits, depth = gemv_plan(k, n)
+        ws = counters = None
+        if splits > 1:  # the f32 partials of the splits, merged in order
+            ws = torch.empty((splits, m, n), dtype=torch.float32,
+                             device=x.device)
+            counters = _gemv_counters(x.device, stream,
+                                      -(-m // GEMV_ROWS) * -(-n // 64))
+        err = _gemv_launcher()(
+            *args, None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            m, k, n, splits, depth, stream)
+    else:
+        err = _launcher()(*args, m, k, n, _ROUTE_TILED, stream)
     _build.check(err, "int8_matmul")
     int8_matmul.launches += 1
     return out

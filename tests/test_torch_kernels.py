@@ -232,14 +232,17 @@ def test_int8_matmul_rows_are_batch_invariant(cuda_device, k, n, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k,n", [(4096, 1024), (4096, 128256)],
-                         ids=["k_proj", "lm_head"])
+@pytest.mark.parametrize("k,n", [(4096, 1024), (4096, 128256), (14336, 4096),
+                                 (264, 152)],
+                         ids=["k_proj", "lm_head", "down_proj", "ragged"])
 def test_int8_matmul_gemv_rows_are_alone_at_any_m(cuda_device, k, n, dtype):
     """The GEMV route takes any row count when the caller says each row
     stands alone (a decode step over the engine's slots, the lm_head at
     the logit positions): every row at m=1 is bitwise the same row inside
     m = 8, 16 and 64, one launch per call, so an engine row keeps its
-    solo bits past 8 slots."""
+    solo bits past 8 slots. down_proj has the plan's deepest merge (8
+    splits); ragged (k=264, n=152) a last split of half a step and an
+    8-column tail."""
     rng = np.random.default_rng(k + n)
     x = torch.as_tensor(rng.normal(size=(64, k)).astype(np.float32))
     w = torch.as_tensor(rng.integers(-127, 128, (k, n)).astype(np.int8))
@@ -257,16 +260,21 @@ def test_int8_matmul_gemv_rows_are_alone_at_any_m(cuda_device, k, n, dtype):
             assert torch.equal(out[r:r + 1], alone[r]), (m, r)
 
 
-@pytest.mark.parametrize("m,rows_alone", [(16, True), (64, True), (4, False)],
-                         ids=["gemv16", "gemv64", "tiled4"])
+@pytest.mark.parametrize("m,rows_alone,k,n", [
+    (16, True, 264, 144), (64, True, 264, 144), (4, False, 264, 144),
+    (1, True, 14336, 4096), (8, True, 14336, 4096), (33, True, 14336, 4096),
+    (64, True, 14336, 4096)],
+    ids=["gemv16", "gemv64", "tiled4", "down-gemv1", "down-gemv8",
+         "down-gemv33", "down-gemv64"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_int8_matmul_caller_route_matches_plain(cuda_device, m, rows_alone,
-                                                dtype):
+                                                k, n, dtype):
     """Each route the caller may pick, at row counts the default would
     send the other way, against the plain version (tolerances as
-    ``test_int8_matmul_kernel_matches_plain``)."""
+    ``test_int8_matmul_kernel_matches_plain``); and the GEMV at down_proj
+    (its plan's deepest merge, 8 splits of 1,792 rows) at 1 to 64 rows,
+    each row group layout of the kernel."""
     rng = np.random.default_rng(m + 7)
-    k, n = 264, 144
     x = torch.as_tensor(rng.normal(size=(m, k)).astype(np.float32)).to(dtype)
     w = torch.as_tensor(rng.integers(-127, 128, (k, n)).astype(np.int8))
     scale = torch.as_tensor(((rng.random((1, n)) + 0.5)
@@ -278,6 +286,57 @@ def test_int8_matmul_caller_route_matches_plain(cuda_device, m, rows_alone,
     peak = ref.float().abs().max().item()
     tol = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * peak
     assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("m", [1, 70], ids=["m1", "m70"])
+def test_int8_matmul_gemv_merge_leaves_its_counters_zero(cuda_device, m):
+    """The GEMV's split merge: the last block of a column tile to arrive
+    sums the splits and zeroes the tile's counter, so back-to-back calls
+    (and a later CUDA-graph capture) find every counter zero and give the
+    same bits; at k_proj (8 splits) with one and two groups of 64 rows."""
+    rng = np.random.default_rng(m)
+    k, n = 4096, 1024
+    assert tq.gemv_plan(k, n)[0] > 1
+    x = torch.as_tensor(rng.normal(size=(m, k)).astype(np.float32))
+    w = torch.as_tensor(rng.integers(-127, 128, (k, n)).astype(np.int8))
+    scale = torch.as_tensor(((rng.random((1, n)) + 0.5)
+                             / (127 * k ** 0.5)).astype(np.float32))
+    x = x.to(torch.bfloat16).to(cuda_device)
+    w, scale = w.to(cuda_device), scale.to(cuda_device)
+    first = tq.int8_matmul(x, w, scale, rows_alone=True)
+    second = tq.int8_matmul(x, w, scale, rows_alone=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    counters = tq._counters[(x.device, stream)]
+    assert int(counters.abs().sum()) == 0
+
+
+def test_int8_matmul_gemv_replays_in_a_cuda_graph(cuda_device):
+    """A CUDA graph that captures the split GEMV (k_proj, 8 splits)
+    replays it with the eager call's bits, twice: the merge finds its
+    counters zero at every replay, as a compiled decode step will need."""
+    rng = np.random.default_rng(3)
+    k, n = 4096, 1024
+    x = torch.as_tensor(rng.normal(size=(8, k)).astype(np.float32))
+    w = torch.as_tensor(rng.integers(-127, 128, (k, n)).astype(np.int8))
+    scale = torch.as_tensor(((rng.random((1, n)) + 0.5)
+                             / (127 * k ** 0.5)).astype(np.float32))
+    x = x.to(torch.bfloat16).to(cuda_device)
+    w, scale = w.to(cuda_device), scale.to(cuda_device)
+    eager = tq.int8_matmul(x, w, scale, rows_alone=True)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):  # the capture stream's counters exist
+        tq.int8_matmul(x, w, scale, rows_alone=True)
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = tq.int8_matmul(x, w, scale, rows_alone=True)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
 
 
 def test_wrapper_raises_on_cuda_for_unsupported_input(cuda_device):

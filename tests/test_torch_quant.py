@@ -164,3 +164,101 @@ def test_qdense_on_cpu_is_the_plain_version_on_every_route():
                                         dense.scale).reshape(*shape[:2], N)
         assert torch.equal(dense(x), want)
     assert tq.int8_matmul.launches == before
+
+
+# k x n of QDense layers in both registry models, ragged shapes and the
+# edges of the plan (one k step, one split, the most splits)
+PLAN_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+               (4096, 128256), (64, 64), (64, 32), (128, 64), (64, 512),
+               (264, 152), (264, 144), (37, 24), (1, 8), (16, 16),
+               (100_000, 1024), (2048, 2048)]
+
+
+def _qdense_shapes(name):
+    from lambdipy_tpu_torch.models import registry
+    from lambdipy_tpu_torch.models.llama import LlamaModel, QDense
+
+    cfg = registry.get(name).build(quant="int8").config
+    return sorted({(mod.in_features, mod.features)
+                   for mod in LlamaModel(cfg, device="meta").modules()
+                   if isinstance(mod, QDense)})
+
+
+@pytest.mark.parametrize("k,n", PLAN_SHAPES, ids=lambda v: str(v))
+def test_gemv_plan_covers_k_exactly(k, n):
+    """The splits, in order, cover rows 0 .. k - 1 once each: no gap, no
+    overlap, no empty split; the depth is whole 16-deep steps for each of
+    a block's warps, and there are at most GEMV_MAX_SPLITS splits (the C
+    entry point refuses any other plan)."""
+    splits, depth = tq.gemv_plan(k, n)
+    assert 1 <= splits <= tq.GEMV_MAX_SPLITS
+    assert depth % (tq.GEMV_STEP * tq.GEMV_WARPS) == 0
+    ranges = [(s * depth, min(k, (s + 1) * depth)) for s in range(splits)]
+    assert all(lo < hi for lo, hi in ranges)
+    covered = [r for lo, hi in ranges for r in range(lo, hi)]
+    assert covered == list(range(k))
+
+
+def test_gemv_plan_is_a_function_of_k_and_n_alone():
+    """The plan takes the weight's shape and nothing else, so no row
+    count, dtype or device can change the order a row is summed in (the
+    bits of an engine row at any slot count rest on it)."""
+    import inspect
+
+    assert list(inspect.signature(tq.gemv_plan).parameters) == ["k", "n"]
+    for k, n in PLAN_SHAPES:
+        assert tq.gemv_plan(k, n) == tq.gemv_plan(k, n)
+
+
+@pytest.mark.parametrize("name", ["llama3-8b", "llama-tiny"])
+def test_gemv_plan_fills_the_card_at_every_qdense_shape(name):
+    """Through the registry, every projection's plan fills the H100: at
+    least 1.5 waves of blocks over its 132 SMs, or as many splits as the
+    shape or the kernel allows (GEMV_MAX_SPLITS, one warp step each);
+    and no more than one wave of two blocks an SM unless one split
+    already makes more (measured: a second, partial wave costs more than
+    it overlaps)."""
+    for k, n in _qdense_shapes(name):
+        splits, depth = tq.gemv_plan(k, n)
+        blocks = -(-n // tq.gemv_block_cols(n)) * splits
+        steps = -(-k // tq.GEMV_STEP)
+        at_most = splits == tq.GEMV_MAX_SPLITS or depth == (
+            tq.GEMV_STEP * tq.GEMV_WARPS) or splits == -(-steps // tq.GEMV_WARPS)
+        assert blocks >= 1.5 * tq.GEMV_SMS or at_most, (k, n, splits)
+        assert blocks <= tq.GEMV_BLOCKS or splits == 1, (k, n, splits)
+        if name == "llama3-8b":
+            assert blocks >= 128, (k, n, splits)
+
+
+def test_gemv_geometry_is_the_c_sources():
+    """The plan's constants are the kernel's: ``GV_*`` in
+    ``csrc/int8_matmul.cu`` read from the source text (the library also
+    checks them when it loads, on the card)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tq.__file__).resolve().parent.parent / "csrc"
+           / "int8_matmul.cu").read_text()
+    const = {name: int(v) for name, v in re.findall(
+        r"constexpr int (GV_\w+) = (\d+);", src)}
+    assert (const["GV_WARPS"], const["GV_STEP"], const["GV_ROWS"],
+            const["GV_MAX_SPLITS"], const["GV_WIDE_MIN_N"]) == (
+        tq.GEMV_WARPS, tq.GEMV_STEP, tq.GEMV_ROWS, tq.GEMV_MAX_SPLITS,
+        tq.GEMV_WIDE_MIN_N)
+    assert "n % 16 == 0 && n >= GV_WIDE_MIN_N && m <= 16 ? 16 : 8" in src
+    assert tq.gemv_block_cols(4096) == 128 and tq.gemv_block_cols(1024) == 64
+    assert tq.gemv_block_cols(2056) == 64  # n % 16 != 0
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 33, 64, 65])
+@pytest.mark.parametrize("k,n", [(264, 152), (300, 64)], ids=["ragged", "split"])
+def test_gemv_route_on_cpu_is_the_plain_version(m, k, n):
+    """On the CPU the GEMV route at any row count, split or not, is the
+    plain version bitwise, and no launch is counted."""
+    x, w, scale = (torch.as_tensor(a) for a in _inputs(m, k, n, seed=m))
+    before = tq.int8_matmul.launches
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype)
+        assert torch.equal(tq.int8_matmul(xd, w, scale, rows_alone=True),
+                           tq.int8_matmul_reference(xd, w, scale))
+    assert tq.int8_matmul.launches == before
