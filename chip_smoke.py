@@ -29,7 +29,8 @@ Phases, each of which fails the run with a non-zero exit:
    backends and through the paged continuous engine;
 4. the main path: full-width ``llama3-8b`` (int8 weights, bf16,
    ``matmul_backend="pallas"``, seeded random weights) served by the
-   port's HTTP server from a fresh handler per path. D first, timed
+   port's HTTP server from a fresh handler per path, every decode step a
+   replay of a captured CUDA graph (``models/graphs.py``). D first, timed
    before any profiler session: the continuous engine over a paged KV
    arena (``batch_mode="continuous"``, ``kv_paged=1``, 8 slots, segment
    16) takes a burst of 8 concurrent requests (prompts of 16 to ~4,000
@@ -41,10 +42,15 @@ Phases, each of which fails the run with a non-zero exit:
    ``attn_backend="blocked"`` (float KV), B ``blocked`` with
    ``kv_quant="int8"``, C ``attn_backend="flash"``, B and C with a
    ~4,000-token prompt. Around each path the kernels' launch counters
-   are set to 0 and must then equal what the path implies; the served
-   logits of A-C are held against the plain PyTorch model on the card,
-   and one request (one engine burst for D) is traced with
-   ``torch.profiler`` (device busy time by kernel, idle share);
+   are set to 0 and must then equal what the path implies, and every
+   decode step must have been a graph replay (the replays counted in the
+   launch counters); each path's rows must be bitwise (tokens and
+   logprobs) those of an eager server on the same weights (D: an eager
+   paged engine taking the same traffic), and batch-1 decode tok/s is
+   read with graphs and eagerly in turns; the served logits of A-C are
+   held against the plain PyTorch model on the card, and one request
+   (one engine burst for D) is traced with ``torch.profiler`` (device
+   busy time by kernel, idle share);
 5. print the kernels' JSON line and, last, the device line.
 
 Details go to ``chiprun_out/chip_smoke.json``. With no CUDA device, or
@@ -1072,6 +1078,86 @@ def set_launches_to_zero() -> None:
     flash_attention.launches = 0
 
 
+def check_replays(path: str, stats: dict, steps: int) -> dict:
+    """Every decode step of a path was a replay of a captured graph: the
+    server's (or engine's) ``replays`` equal the ``steps`` its requests
+    implied and none ran eagerly. The launch checks before this one count
+    each replay's launches."""
+    keys = ("compile_count", "replays", "eager_steps", "program_evictions",
+            "program_bytes", "decode_buckets")
+    programs = {k: stats[k] for k in keys if k in stats}
+    log(f"path {path} decode programs: {programs['compile_count']} graphs "
+        f"captured, {programs['replays']} replays for {steps} decode steps, "
+        f"{programs['eager_steps']} eager steps"
+        + (f", {programs['program_evictions']} evicted, "
+           f"{programs['program_bytes'] / 2**20:.1f} MiB of caches and "
+           f"graph pools" if "program_bytes" in programs else ""))
+    if programs["replays"] != steps or programs["eager_steps"]:
+        raise SystemExit(f"path {path}: {programs['replays']} replays and "
+                         f"{programs['eager_steps']} eager steps for {steps} "
+                         f"decode steps")
+    return programs
+
+
+RATE_TOKENS = 256
+
+
+def decode_rate(generate, rows) -> float:
+    """Decode tokens per second of ``rows``: rows x 255 / (wall of a
+    256-token request - wall of a 1-token request); over 255 steps a slow
+    short request moves the rate by a few percent, not past the device
+    bound."""
+    walls = []
+    for n in (1, RATE_TOKENS):
+        t0 = time.perf_counter()
+        generate(rows, max_new_tokens=n)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return len(rows) * (RATE_TOKENS - 1) / (walls[1] - walls[0])
+
+
+def graph_vs_eager(path: str, server, requests: dict, p100, ragged,
+                   card) -> dict:
+    """The graph server's rows against an eager server's on the same
+    weights (``LlamaServer(model, graphs=False)``): tokens and logprobs
+    bitwise for each request ``name -> (rows, knobs)`` of 32 new tokens;
+    then batch-1 decode tok/s on the 100-token prompt over 255 steps
+    (:func:`decode_rate`), graph and eager in turns (graph, eager, eager,
+    graph), the host's noise moving a rate 30-70% between runs, and the
+    graph server's ragged batch-4 tok/s, twice."""
+    from lambdipy_tpu_torch.models.llama import LlamaServer
+
+    eager = LlamaServer(server.model, graphs=False)
+    same = {}
+    for name, (rows, knobs) in requests.items():
+        got = server.generate(rows, max_new_tokens=32, return_logprobs=True,
+                              **knobs)
+        want = eager.generate(rows, max_new_tokens=32, return_logprobs=True,
+                              **knobs)
+        same[name] = bool(np.array_equal(got[0], want[0])
+                          and np.array_equal(got[1], want[1]))
+    log(f"path {path} graph vs eager server, tokens and logprobs bitwise: "
+        f"{same}")
+    if not all(same.values()):
+        raise SystemExit(f"path {path}: graph decode differs from eager")
+    rates = {"graph": [], "eager": []}
+    # the 256-token key's graph captured before the first timed reading
+    server.generate([p100], max_new_tokens=RATE_TOKENS)
+    for kind in ("graph", "eager", "eager", "graph"):
+        rates[kind].append(decode_rate(
+            (server if kind == "graph" else eager).generate, [p100]))
+    log(f"path {path} batch-1 decode tok/s, graph {rates['graph']} / eager "
+        f"{rates['eager']} (in turns) [{card}]")
+    server.generate(ragged, max_new_tokens=RATE_TOKENS)  # captured first
+    ragged_rate = [decode_rate(server.generate, ragged) for _ in range(2)]
+    log(f"path {path} ragged batch-4 decode tok/s, graph {ragged_rate} "
+        f"[{card}]")
+    del eager
+    gc.collect()
+    return {"bitwise": same, "decode_tok_s": rates,
+            "ragged4_decode_tok_s": ragged_rate, "card": card}
+
+
 def serve_path(path: str, card: str) -> dict:
     """Phase 4 for one path: ``path_spec(path)`` served over HTTP on the
     card from a fresh handler; the handler is freed before returning."""
@@ -1171,21 +1257,18 @@ def serve_path(path: str, card: str) -> dict:
         raise SystemExit(f"path {path}: launch counters {launches} "
                          f"(metrics {metrics['handler']['kernels']}) != "
                          f"implied {want}")
+    programs = check_replays(path, metrics["handler"],
+                             sum(n - 1 for *_, n in requests))
 
     perf = {"requests": len(requests), "wall_s": total_s,
             "requests_per_s": len(requests) / total_s,
             "ttft_s_1row_100tok": walls["ttft_1row"],
-            "ttft_s_ragged4": walls["ttft_ragged4"],
-            "decode_tok_s_1row": 31 / (walls["greedy_1row"]
-                                       - walls["ttft_1row"]),
-            "decode_tok_s_ragged4": 4 * 31 / (walls["ragged4"]
-                                              - walls["ttft_ragged4"])}
+            "ttft_s_ragged4": walls["ttft_ragged4"]}
     if path != "A":
         perf["ttft_s_1row_long"] = walls["ttft_long"]
-        perf["decode_tok_s_1row_long"] = 31 / (walls["long"]
-                                               - walls["ttft_long"])
     perf["max_memory_allocated_gib"] = (torch.cuda.max_memory_allocated()
                                         / 2**30)
+    perf["program_bytes"] = programs["program_bytes"]
     for key, val in perf.items():
         if key not in ("requests", "wall_s"):
             log(f"path {path} {key}: {val:.4f} [{card}]")
@@ -1194,6 +1277,11 @@ def serve_path(path: str, card: str) -> dict:
     # the served model against the plain PyTorch model on the card: the
     # same weight tensors and KV layout, dense attention and dequantized
     # matmuls
+    graph_check = graph_vs_eager(path, state.server, {
+        "greedy_1row": ([p100], {}), "ragged4": (ragged, {}),
+        "sampled": ([p_sampled], sampled),
+        **({"long": ([p_long], {})} if path != "A" else {})}, p100, ragged,
+        card)
     served = state.server.model
     plain = LlamaModel(dataclasses.replace(
         served.cfg, attn_backend="dense", matmul_backend="xla"),
@@ -1208,8 +1296,9 @@ def serve_path(path: str, card: str) -> dict:
     if path != "A":
         trace["long"] = profile_decode(state.server, [p_long], card)
     out = {"spec": spec, "boot_s": boot_s, "launches": launches,
-           "implied": want, "perf": perf, "plain_agreement": agree,
-           "trace": trace,
+           "implied": want, "programs": programs,
+           "graph_vs_eager": graph_check, "perf": perf,
+           "plain_agreement": agree, "trace": trace,
            "tokens": {k: v.get("tokens") for k, v in resp.items()
                       if "long" not in k}}
     # free this path's model before the next one is built
@@ -1306,7 +1395,9 @@ def serve_engine_path(card: str) -> dict:
     gives the same tokens and logprobs, (c) the launch counters equal the
     engines' steps and forwards, (d) the pool drains to 0 live pages,
     charged each request its pages, and its peak equals the most pages
-    the rows held at once."""
+    the rows held at once, (e) an eager paged engine on the same weights
+    gives every row bitwise; and every engine step was a graph
+    replay."""
     from lambdipy_tpu_torch.runtime.continuous import ContinuousBatcher
     from lambdipy_tpu_torch.runtime.handlers import (HandlerContext,
                                                      generate_handler,
@@ -1385,6 +1476,8 @@ def serve_engine_path(card: str) -> dict:
     if launches != want or metrics["handler"]["kernels"] != launches:
         raise SystemExit(f"path D: launch counters {launches} != implied "
                          f"{want}")
+    programs = check_replays("D", metrics["handler"]["batching"],
+                             stats["steps"])
     # (d) the pool drained; it charged each row ceil((s + n) / page)
     # pages; its peak is the most pages rows held at once, from the rows'
     # logged charge and release times
@@ -1461,8 +1554,22 @@ def serve_engine_path(card: str) -> dict:
     log(f"path D (b): paged (HTTP) and dense (direct) engines give equal "
         f"tokens and logprobs for every row; dense engine vs solo logprob "
         f"max |diff| {dense_solo:.3e} (unrounded)")
-    dense._carry = None
-    del dense, dense_out
+    dense.release()
+    del dense
+
+    # (e) the same traffic through an eager paged engine on the same
+    # weights: every row bitwise the graph engines' (dense, unrounded)
+    e_wall, e_out, e_stats = eager_engine_burst(state.server, reqs,
+                                                charges)
+    for kind_body, d, e in zip(reqs, dense_out, e_out):
+        if not (np.array_equal(d[0], e[0]) and np.array_equal(d[1], e[1])):
+            raise SystemExit(f"path D (e): {kind_body[0]} row of the eager "
+                             f"engine differs from the graph engines'")
+    log(f"path D (e): an eager paged engine gives every row's tokens and "
+        f"logprobs bitwise ({e_stats['eager_steps']} eager steps); its "
+        f"burst {e_wall:.3f} s, {new_tokens_of(reqs) / e_wall:.1f} tok/s "
+        f"[{card}]")
+    del dense_out
 
     # numbers, all from the timed paged burst
     log_by = {(e["s"], e["n"]): e for e in engine.request_log}
@@ -1478,9 +1585,11 @@ def serve_engine_path(card: str) -> dict:
             f"{e['ttft_s']:.3f} s (engine, from admission)"
             + (f", first streamed line {ttft[i]:.3f} s" if ttft[i] else "")
             + f" [{card}]")
-    new_tokens = sum(body["max_new_tokens"] for _, body in reqs)
+    new_tokens = new_tokens_of(reqs)
     perf = {"burst_wall_s": burst_s, "new_tokens": new_tokens,
             "decode_tok_s": new_tokens / burst_s,
+            "eager_engine_burst_wall_s": e_wall,
+            "eager_engine_decode_tok_s": new_tokens / e_wall,
             "engine_steps": stats["steps"],
             "mean_rows_per_step": stats["mean_rows_per_step"],
             "arena_bytes": page_stats["bytes_total"],
@@ -1488,10 +1597,12 @@ def serve_engine_path(card: str) -> dict:
                                          / 2**30)}
     for key, val in perf.items():
         log(f"path D {key}: {val} [{card}]")
+    perf["contended"] = contended_burst(state.server, engine, reqs, card)
     trace = profile_engine(engine, [body["tokens"] for _, body in reqs[:8]],
                            card)
     out = {"spec": spec, "boot_s": boot_s, "launches": launches,
-           "implied": want, "dense_launches": dense_launches,
+           "implied": want, "programs": programs,
+           "eager_engine": e_stats, "dense_launches": dense_launches,
            "engine": stats, "dense_engine": dstats, "page_pool": page_stats,
            "peak_held_pages": peak, "logprob_diff_http_vs_solo": lp_diff,
            "logprob_diff_dense_vs_solo": dense_solo, "perf": perf,
@@ -1502,14 +1613,103 @@ def serve_engine_path(card: str) -> dict:
     return out
 
 
+# the multi-row request beside the engine's burst: 4 rows of 500 tokens,
+# 64 new, run as one batch by ``LlamaServer.generate``
+MULTI_ROWS, MULTI_PROMPT, MULTI_NEW = 4, 500, 64
+
+
+def contended_burst(server, engine, reqs, card: str) -> dict:
+    """D's traffic driven directly through the paged engine twice: alone,
+    then beside a multi-row ``generate`` sent 0.1 s into the burst, which
+    takes the device lock a prefill or a segment of decode steps at a
+    time, as the engine does. The engine rows' TTFT (from admission) and
+    the burst's tok/s in each run."""
+    import threading
+
+    rng = torch.Generator().manual_seed(17)
+    multi = [torch.randint(1, server.model.cfg.vocab_size, (MULTI_PROMPT,),
+                           generator=rng).tolist()
+             for _ in range(MULTI_ROWS)]
+    server.generate(multi, max_new_tokens=MULTI_NEW)  # its graph captured
+
+    def send(i):
+        _, body = reqs[i]
+        knobs = {k: body[k] for k in ("temperature", "top_k", "top_p",
+                                      "seed", "eos_id") if k in body}
+        engine.generate(body["tokens"], max_new_tokens=body["max_new_tokens"],
+                        **knobs)
+
+    out = {}
+    for name in ("alone", "beside_multi_row"):
+        seq0 = max(e["seq"] for e in engine.request_log)
+        side = {}
+
+        def run_multi(side=side):
+            time.sleep(0.1)
+            t0 = time.perf_counter()
+            server.generate(multi, max_new_tokens=MULTI_NEW)
+            torch.cuda.synchronize()
+            side["wall_s"] = time.perf_counter() - t0
+
+        th = threading.Thread(target=run_multi)
+        if name != "alone":
+            th.start()
+        _, burst_s = _drive(send, reqs)
+        if name != "alone":
+            th.join(timeout=600)
+        ttfts = [e["ttft_s"] for e in engine.request_log if e["seq"] > seq0]
+        out[name] = {"burst_wall_s": burst_s,
+                     "decode_tok_s": new_tokens_of(reqs) / burst_s,
+                     "ttft_s": ttfts, "multi_row_wall_s": side.get("wall_s")}
+        log(f"path D burst driven directly, {name.replace('_', ' ')}: "
+            f"{burst_s:.3f} s, {new_tokens_of(reqs) / burst_s:.1f} tok/s, "
+            f"engine TTFT mean {np.mean(ttfts):.3f} s max {max(ttfts):.3f} s"
+            + (f"; the {MULTI_ROWS} x {MULTI_PROMPT}-token request "
+               f"({MULTI_NEW} new) took {side['wall_s']:.3f} s"
+               if side else "") + f" [{card}]")
+    return out
+
+
+def new_tokens_of(reqs) -> int:
+    return sum(body["max_new_tokens"] for _, body in reqs)
+
+
+def eager_engine_burst(server, reqs, charges):
+    """Path D's traffic through an eager paged engine (``LlamaServer(model,
+    graphs=False)``, its own arena of the pages the traffic charges plus
+    the null page), driven directly: (burst seconds, each row's
+    ``(tokens, logprobs)``, the engine's stats)."""
+    from lambdipy_tpu_torch.models.llama import LlamaServer
+    from lambdipy_tpu_torch.runtime.handlers import make_engine
+
+    eager = make_engine(LlamaServer(server.model, graphs=False),
+                        {**ENGINE_EXTRA, "kv_pages": str(sum(charges) + 1)})
+    out = [None] * len(reqs)
+
+    def send(i):
+        _, body = reqs[i]
+        knobs = {k: body[k] for k in ("temperature", "top_k", "top_p",
+                                      "seed", "eos_id") if k in body}
+        out[i] = eager.generate(body["tokens"],
+                                max_new_tokens=body["max_new_tokens"],
+                                return_logprobs=True, **knobs)
+
+    _, wall = _drive(send, reqs)
+    stats = eager.stats()
+    if stats["replays"] or stats["eager_steps"] != stats["steps"]:
+        raise SystemExit("path D: the eager engine replayed a graph")
+    eager.release()
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    return wall, out, stats
+
+
 def profile_engine(engine, prompts, card: str, n_new: int = 16) -> dict:
     """Where an engine burst's time goes: ``len(prompts)`` concurrent
     requests (prompts cut to 100 tokens, ``n_new`` new tokens) under
     ``torch.profiler``, after every timed run."""
     import threading
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     def burst():
         threads = [threading.Thread(target=engine.generate, args=(p[:100],),
@@ -1523,18 +1723,8 @@ def profile_engine(engine, prompts, card: str, n_new: int = 16) -> dict:
     burst()  # warm
     torch.cuda.synchronize()
     steps0 = engine.stats()["steps"]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        burst()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    wall_ms, busy_ms, kernels = _traced(burst)
     steps = engine.stats()["steps"] - steps0
-    kernels = sorted(
-        ((e.key, e.self_device_time_total / 1e3, e.count)
-         for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-        key=lambda r: -r[1])
-    busy_ms = sum(ms for _, ms, _ in kernels) if kernels else None
     if busy_ms is None:
         log("profiler recorded no device kernels: device busy time not "
             "measured")
@@ -1551,39 +1741,79 @@ def profile_engine(engine, prompts, card: str, n_new: int = 16) -> dict:
                         for n, ms, c in kernels[:25]]}
 
 
-def profile_decode(server, rows, card: str, n_new: int = 16) -> dict:
-    """Where a batch-1 request's time goes: one ``generate`` under
-    ``torch.profiler`` (after a warm one). Device busy time is the sum of
-    the CUDA kernels' durations; the rest of the wall is host time the
-    card sat idle (the profiler's own cost included)."""
+def _traced(fn, window: bool = False):
+    """``fn()`` under ``torch.profiler``: (wall ms to the card's end,
+    device busy ms as the sum of the CUDA kernels' durations or None when
+    the profiler saw none, kernels by device time); with ``window`` also
+    :func:`decode_window` of the trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    server.generate(rows, max_new_tokens=n_new)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        server.generate(rows, max_new_tokens=n_new)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = sorted(
         ((e.key, e.self_device_time_total / 1e3, e.count)
          for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
         key=lambda r: -r[1])
-    if not kernels:
+    busy_ms = sum(ms for _, ms, _ in kernels) if kernels else None
+    if window:
+        return wall_ms, busy_ms, kernels, decode_window(prof.events())
+    return wall_ms, busy_ms, kernels
+
+
+def decode_window(events):
+    """The decode part of one traced request, read from its own trace:
+    (window ms, device busy ms in it) from the host's first
+    ``cudaGraphLaunch`` (the first decode step's replay) to the end of the
+    card's last kernel, busy time being the kernels' durations clipped to
+    the window; None when the trace holds no graph launch."""
+    from torch.autograd import DeviceType
+
+    launches = [e.time_range.start for e in events
+                if e.name.startswith("cudaGraphLaunch")]
+    kernels = [(e.time_range.start, e.time_range.end) for e in events
+               if e.device_type == DeviceType.CUDA]
+    if not launches or not kernels:
+        return None
+    start, end = min(launches), max(b for _, b in kernels)
+    busy = sum(max(0, min(b, end) - max(a, start)) for a, b in kernels)
+    return (end - start) / 1e3, busy / 1e3
+
+
+def profile_decode(server, rows, card: str, n_new: int = 16) -> dict:
+    """Where a batch-1 request's time goes: one ``generate`` under
+    ``torch.profiler`` (after a warm one). Device busy time is the sum of
+    the CUDA kernels' durations; the rest of the wall is host time the
+    card sat idle (the profiler's own cost included). The decode part's
+    idle share comes from the same trace (:func:`decode_window`)."""
+    server.generate(rows, max_new_tokens=n_new)
+    torch.cuda.synchronize()
+    wall_ms, busy_ms, kernels, win = _traced(
+        lambda: server.generate(rows, max_new_tokens=n_new), window=True)
+    if busy_ms is None:
         log("profiler recorded no device kernels: device busy time not "
             "measured")
         return {"wall_ms": wall_ms, "device_busy_ms": None,
                 "idle_share": None, "kernels": []}
-    busy_ms = sum(ms for _, ms, _ in kernels)
+    decode_idle = None if win is None else 1 - win[1] / win[0]
     log(f"profiled batch-1 request ({len(rows[0])}-token prompt, {n_new} "
         f"new): wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle "
-        f"share {1 - busy_ms / wall_ms:.3f} [{card}]")
+        f"share {1 - busy_ms / wall_ms:.3f}; its decode part "
+        + ("not found in the trace (no graph launch)" if win is None else
+           f"(first replay to the last kernel: {win[0]:.2f} ms, busy "
+           f"{win[1]:.2f} ms) idle share {decode_idle:.3f}")
+        + f" [{card}]")
     for name, ms, count in kernels[:10]:
         log(f"  {ms:9.3f} ms  {count:6d}x  {name[:100]}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1 - busy_ms / wall_ms,
+            "decode_window_ms": None if win is None else win[0],
+            "decode_busy_ms": None if win is None else win[1],
+            "decode_idle_share": decode_idle,
             "kernels": [{"name": n, "ms": ms, "count": c}
                         for n, ms, c in kernels[:25]]}
 

@@ -6,10 +6,14 @@ Twin of ``lambdipy_tpu/models/llama.py``; names, layouts and numerics
 follow it so the two can be held against each other on the same
 weights (``models/params.py from_jax_params``). Differences:
 
-- PyTorch runs eagerly, so ``_scan_decode`` is a Python loop and the
-  server keeps no program cache. The bucketing (prompt, decode and batch
-  buckets, ``cache_len``) is kept, so the kernels see the shapes the JAX
-  programs see.
+- The decode step runs on buffers at fixed addresses (:class:`DecodeStep`)
+  and, on the card, as a captured CUDA graph replayed once per step; the
+  server keeps those programs in a bucket-keyed LRU
+  (``models/graphs.py``), the counterpart of the JAX server's compiled
+  programs. ``_scan_decode`` is a Python loop of replays; prefill runs
+  eagerly. The bucketing (prompt, decode and batch buckets,
+  ``cache_len``) is kept, so the kernels see the shapes the JAX programs
+  see.
 - The KV cache is updated in place (the JAX cache is functional).
 - Only per-row ``[b]`` cache indices exist: the serving decode path.
 - The paged decode branch (a cache entry holding arena leaves and block
@@ -47,6 +51,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lambdipy_tpu_torch.models.graphs import (DEVICE_LOCK, CudaGraph,
+                                              GraphStats, ProgramCache,
+                                              StepPrograms)
 from lambdipy_tpu_torch.ops.attention import flash_attention
 from lambdipy_tpu_torch.ops.decode_attention import (blocked_decode_attention,
                                                      gather_pages,
@@ -297,7 +304,7 @@ class LlamaBlock(nn.Module):
         """One decode step over a paged cache entry: the arena's
         ``_kv_store`` leaves ``[P, page, kvh, d]``, block ``tables``
         ``[b, nb]`` int32, the per-row ``index`` ``[b]`` and this step's
-        write address (:func:`set_decode_index`). Row r writes this
+        write address (:meth:`DecodeStep.step`). Row r writes this
         step's K/V there; then attention over positions ``<= index``: the
         paged kernel under ``blocked``, a gather and ``_attend`` under
         ``dense``."""
@@ -474,16 +481,26 @@ def init_decode_cache(cfg: LlamaConfig, batch: int, max_len: int, device):
             for _ in range(cfg.layers)]
 
 
+def write_prefill(cfg: LlamaConfig, cache, prefill_cache) -> None:
+    """Store a prefill cache (float entries sized s) at position 0 of a
+    decode cache, in place, quantizing under ``cfg.kv_quant``; every
+    position past s takes the empty cache's value again, so the cache
+    holds what a fresh one filled with the prefill would."""
+    for dest, entry in zip(cache, prefill_cache):
+        s = entry["k"].shape[1]
+        for name, val in _kv_store(cfg, entry["k"], entry["v"]).items():
+            dest[name][:, :s] = val
+            dest[name][:, s:] = 1e-8 if name.endswith("_scale") else 0
+
+
 def prefill_into_cache(cfg: LlamaConfig, prefill_cache, batch: int,
                        max_len: int, prompt_len: int):
     """Embed a prefill cache (float entries sized s) at position 0 of a
     static ``max_len`` decode cache, quantizing under ``cfg.kv_quant``."""
     device = prefill_cache[0]["k"].device
     out = init_decode_cache(cfg, batch, max_len, device)
-    for dest, entry in zip(out, prefill_cache):
-        s = entry["k"].shape[1]
-        for name, val in _kv_store(cfg, entry["k"], entry["v"]).items():
-            dest[name][:, :s] = val
+    write_prefill(cfg, out, prefill_cache)
+    for dest in out:
         dest["index"].fill_(prompt_len)
     return out
 
@@ -513,31 +530,8 @@ def page_kv_bytes(cfg: LlamaConfig, page: int) -> int:
     return int(cfg.layers * per_layer)
 
 
-# the non-leaf entries of a paged cache entry (:func:`set_decode_index`)
+# the non-leaf entries of a paged cache entry (:class:`DecodeStep`)
 PAGED_STEP_KEYS = ("tables", "index", "write_page", "write_off", "active")
-
-
-def set_decode_index(cache, pos) -> None:
-    """Point every layer's decode-cache entry at per-row positions
-    ``pos`` ``[b]``. A paged cache (entries holding block ``tables``)
-    also gets this step's write address, computed once for all layers:
-    page ``tables[r, pos // page]`` at offset ``pos % page``, or the null
-    page for a position past the table (the JAX scatter drops such a
-    write; nothing reads the null page unmasked), and the attention
-    length ``pos + 1``."""
-    step = {"index": pos}
-    first = cache[0]
-    if "tables" in first:
-        tables = first["tables"]
-        page = first["k_int8" if "k_int8" in first else "k"].shape[1]
-        nb = tables.shape[1]
-        blk = torch.div(pos, page, rounding_mode="floor").long()
-        pid = tables.gather(1, blk.clamp(max=nb - 1)[:, None])[:, 0].long()
-        step.update(write_page=torch.where(blk < nb, pid, NULL_PAGE),
-                    write_off=torch.remainder(pos, page).long(),
-                    active=(pos + 1).to(torch.int32))
-    for entry in cache:
-        entry.update(step)
 
 
 def _gather_page_cache(arena, tables, window: int, page: int, index):
@@ -639,81 +633,176 @@ def row_generators(seeds, device):
     return gens
 
 
+def select_tokens(lg, temperature, top_k, top_p, gens, sampled: bool):
+    """Token selection over per-row knob tensors ``[b]`` (temperature <= 0
+    = greedy; top_k, top_p as :func:`filter_logits_runtime`):
+    ``(token [b], raw logprob [b])`` from f32 logits ``lg [b, v]``. Not
+    ``sampled`` (an all-greedy batch) skips the sampling path, its two
+    sorts and the noise draws, entirely, as the JAX ``lax.cond`` does.
+    Reads no host data, so a CUDA graph can capture it."""
+    lg = lg.float()
+    greedy = lg.argmax(dim=-1)
+    if not sampled:
+        return greedy, _token_logprob(lg, greedy)
+    t = temperature.clamp(min=1e-6)[:, None]
+    filt = filter_logits_runtime(lg / t, top_k, top_p)
+    # Gumbel-max: argmax(logits + Gumbel noise) is a categorical draw
+    u = torch.stack([torch.rand(lg.shape[-1], generator=g,
+                                device=lg.device) for g in gens])
+    draw = (filt - torch.log(-torch.log(u))).argmax(dim=-1)
+    tok = torch.where(temperature > 0, draw, greedy)
+    return tok, _token_logprob(lg, tok)
+
+
 def _serve_select(temperature, top_k, top_p):
-    """Token selection over per-row knobs. ``temperature`` is a host numpy
-    ``[b]`` array (<= 0 = greedy), top_k/top_p per-row tensors.
-    ``select(lg [b, v] f32, gens)`` returns ``(token [b], raw logprob
-    [b])``. An all-greedy batch skips the sampling path (its two sorts
-    and the noise draws) entirely, as the JAX ``lax.cond`` does."""
-    sampled_rows = temperature > 0
+    """:func:`select_tokens` over a host numpy ``temperature [b]`` (which
+    decides greedy or sampled on the host) and top_k/top_p tensors:
+    ``select(lg [b, v] f32, gens)``."""
+    sampled = bool((temperature > 0).any())
 
     def select(lg, gens):
-        lg = lg.float()
-        greedy = lg.argmax(dim=-1)
-        if not sampled_rows.any():
-            return greedy, _token_logprob(lg, greedy)
         t_row = torch.as_tensor(temperature, device=lg.device)
-        t = t_row.clamp(min=1e-6)[:, None]
-        filt = filter_logits_runtime(lg / t, top_k, top_p)
-        # Gumbel-max: argmax(logits + Gumbel noise) is a categorical draw
-        u = torch.stack([torch.rand(lg.shape[-1], generator=g,
-                                    device=lg.device) for g in gens])
-        draw = (filt - torch.log(-torch.log(u))).argmax(dim=-1)
-        tok = torch.where(t_row > 0, draw, greedy)
-        return tok, _token_logprob(lg, tok)
+        return select_tokens(lg, t_row, top_k, top_p, gens, sampled)
 
     return select
 
 
-def _serve_prefill(model: LlamaModel, prompt, length, select, gens, eos_id,
-                   *, cache_len: int):
-    """Bucketed serving prefill: embed the prompt into a ``cache_len``
-    decode cache and select the first token. Returns the decode carry
-    ``(first, lp0, cache, pos, done)``."""
-    b = prompt.shape[0]
+class DecodeStep:
+    """One decode step of ``rows`` rows on buffers at fixed addresses: the
+    unit a CUDA graph captures (``models/graphs.py``). It owns
+
+    - the carry: ``tok [b]``, ``lp [b]``, ``pos [b]`` int32, ``done [b]``
+      and ``eos [b]`` (``< 0`` = none);
+    - the knobs ``temperature``, ``top_k``, ``top_p`` ``[b]`` and one
+      ``torch.Generator`` per row, which take a request's values and
+      states before a step (:meth:`set_knobs`, :meth:`set_generator`);
+    - the decode cache: ``cache``'s leaves (a contiguous cache, or the
+      page arena with ``tables [b, nb]``), each layer's entry pointing at
+      ``pos`` and, paged, at this step's write address.
+
+    :meth:`step` runs one forward and the selection and writes the next
+    carry in place. Host data never enters it, so the same step runs
+    eagerly (the CPU) or as a replay (the card)."""
+
+    def __init__(self, model: LlamaModel, cache, rows: int, tables=None):
+        dev = model.device
+        self.model, self.rows, self.tables = model, rows, tables
+
+        def zeros(dtype):
+            return torch.zeros(rows, dtype=dtype, device=dev)
+
+        self.tok, self.lp = zeros(torch.long), zeros(torch.float32)
+        self.pos, self.done = zeros(torch.int32), zeros(torch.bool)
+        self.eos = torch.full((rows,), -1, dtype=torch.long, device=dev)
+        self.temperature, self.top_k = zeros(torch.float32), zeros(torch.long)
+        self.top_p = torch.ones(rows, dtype=torch.float32, device=dev)
+        self.gens = row_generators([(0, r) for r in range(rows)], dev)
+        step_keys = {"index": self.pos}
+        if tables is not None:
+            step_keys.update(tables=tables, write_page=zeros(torch.long),
+                             write_off=zeros(torch.long),
+                             active=zeros(torch.int32))
+        self.cache = [{**{k: v for k, v in entry.items()
+                          if k not in PAGED_STEP_KEYS}, **step_keys}
+                      for entry in cache]
+
+    def set_knobs(self, temperature, top_k, top_p) -> None:
+        """Per-row knobs (host arrays or tensors) into their buffers."""
+        for buf, val in ((self.temperature, temperature),
+                         (self.top_k, top_k), (self.top_p, top_p)):
+            buf.copy_(torch.as_tensor(val, device=buf.device))
+
+    def set_generator(self, row: int, gen) -> None:
+        """Row ``row`` draws on from where ``gen`` stands: its generator,
+        the one a graph registered, takes ``gen``'s state."""
+        self.gens[row].set_state(gen.get_state())
+
+    def load(self, first, lp0, pos, eos, gens) -> None:
+        """A prefill's carry: the first token and its logprob, the
+        positions, eos per row (a row whose first token is eos starts
+        latched) and the rows' generators."""
+        self.tok.copy_(first)
+        self.lp.copy_(lp0)
+        self.pos.copy_(pos)
+        self.eos.copy_(eos)
+        self.done.copy_((eos >= 0) & (first == eos))
+        for r, gen in enumerate(gens):
+            self.set_generator(r, gen)
+
+    def _write_address(self) -> None:
+        """Paged: this step's write address for every layer, in place: page
+        ``tables[r, pos // page]`` at offset ``pos % page``, or the null
+        page for a position past the table (the JAX scatter drops such a
+        write; nothing reads the null page unmasked), and the attention
+        length ``pos + 1``."""
+        first = self.cache[0]
+        page = first["k_int8" if "k_int8" in first else "k"].shape[1]
+        nb = self.tables.shape[1]
+        pos = self.pos
+        blk = torch.div(pos, page, rounding_mode="floor").long()
+        pid = self.tables.gather(1, blk.clamp(max=nb - 1)[:, None])[:, 0]
+        first["write_page"].copy_(torch.where(blk < nb, pid.long(),
+                                              NULL_PAGE))
+        first["write_off"].copy_(torch.remainder(pos, page))
+        first["active"].copy_(pos + 1)
+
+    def step(self, sampled: bool) -> None:
+        """One forward of every row at ``pos`` (writing its K/V into the
+        cache), the next token selected, rows latched at their eos (after
+        eos a row emits eos with logprob 0), the carry advanced in
+        place."""
+        if self.tables is not None:
+            self._write_address()
+        logits, _ = self.model(self.tok[:, None],
+                               positions=self.pos[:, None], cache=self.cache)
+        nxt, nlp = select_tokens(logits[:, -1, :], self.temperature,
+                                 self.top_k, self.top_p, self.gens, sampled)
+        nxt = torch.where(self.done, self.eos, nxt)
+        nlp = torch.where(self.done, 0.0, nlp)
+        self.done |= (self.eos >= 0) & (nxt == self.eos)
+        self.tok.copy_(nxt)
+        self.lp.copy_(nlp)
+        self.pos += 1
+
+    def nbytes(self) -> int:
+        """Device bytes of the step's own decode cache (0 for the page
+        arena, which the pool owns)."""
+        if self.tables is not None:
+            return 0
+        return sum(v.numel() * v.element_size() for entry in self.cache
+                   for k, v in entry.items() if k != "index")
+
+
+def _serve_prefill(model: LlamaModel, step: DecodeStep, prompt, length,
+                   select, gens, eos) -> None:
+    """Bucketed serving prefill into ``step``: the prompt's K/V written into
+    the step's decode cache (:func:`write_prefill`), the first token
+    selected and the carry loaded."""
     logits, prefill_cache = model(prompt, logit_positions=length - 1)
-    cache = prefill_into_cache(model.cfg, prefill_cache, b, cache_len, 0)
-    for entry in cache:
-        entry["index"] = length
+    write_prefill(model.cfg, step.cache, prefill_cache)
     first, lp0 = select(logits[:, 0, :].float(), gens)
-    done0 = (eos_id >= 0) & (first == eos_id)
-    return first, lp0, cache, length, done0
+    step.load(first, lp0, length, eos, gens)
 
 
-def _scan_decode(model: LlamaModel, select, first, lp0, cache, start, done0,
-                 gens, eos_id, decode_steps: int, return_carry: bool = False):
-    """The decode loop: emits ``decode_steps`` tokens starting with
-    ``first``. Rows latch at ``eos_id`` (``< 0`` = none): after eos a row
-    emits eos with logprob 0. ``pos`` is per row. The JAX server scans a
-    bucketed number of steps and drops the tokens past the request;
-    this loop runs exactly ``decode_steps - 1`` forwards. Returns
-    ``(tokens, logprobs)``, each ``[b, decode_steps]``.
+def _scan_decode(run, step: DecodeStep, decode_steps: int,
+                 segment: bool = False):
+    """The decode loop: emits ``decode_steps`` tokens starting with the
+    step's current token, calling ``run()`` (one decode step, eager or a
+    graph replay) between them. The JAX server scans a bucketed number of
+    steps and drops the tokens past the request; this loop runs exactly
+    ``decode_steps - 1`` steps. Returns ``(tokens, logprobs)``, each ``[b,
+    decode_steps]``.
 
-    ``return_carry`` is the segment form: every step forwards the token
-    it emits (``decode_steps`` forwards, as the JAX scan) and the final
-    carry ``(tok, lp, cache, pos, done, gens)`` comes back too, so a
-    later segment continues the decode exactly where this one stopped."""
-    has_eos = eos_id >= 0
-    tok, lp, pos, done = first, lp0, start, done0
+    ``segment`` is the segment form: every step forwards the token it
+    emits (``decode_steps`` steps, as the JAX scan), so the carry left in
+    ``step`` continues the decode exactly where this segment stopped."""
     toks, lps = [], []
     for i in range(decode_steps):
-        toks.append(tok)
-        lps.append(lp)
-        if i == decode_steps - 1 and not return_carry:
-            break
-        # the blocks write this step's K/V into the cache in place
-        set_decode_index(cache, pos)
-        logits, _ = model(tok[:, None], positions=pos[:, None], cache=cache)
-        pos = pos + 1
-        nxt, nlp = select(logits[:, -1, :].float(), gens)
-        nxt = torch.where(done, eos_id, nxt)
-        nlp = torch.where(done, 0.0, nlp)
-        done = done | (has_eos & (nxt == eos_id))
-        tok, lp = nxt, nlp
-    for entry in cache:
-        entry["index"] = pos
-    out = (torch.stack(toks, dim=1), torch.stack(lps, dim=1))
-    return (out, (tok, lp, cache, pos, done, gens)) if return_carry else out
+        toks.append(step.tok.clone())
+        lps.append(step.lp.clone())
+        if segment or i < decode_steps - 1:
+            run()
+    return torch.stack(toks, dim=1), torch.stack(lps, dim=1)
 
 
 MIN_BUCKET = 16  # smallest prompt and decode bucket, as in the JAX server
@@ -726,16 +815,85 @@ def _next_bucket(n: int, lo: int) -> int:
     return b
 
 
+# the server's default program bounds. A-C's traffic holds 5 to 8 keys
+# (batch bucket, cache_len, greedy or sampled). An entry's decode cache is
+# bb x cache_len x 128 KiB of llama3-8b bf16 KV (32 layers x 8 kv heads x
+# 128 x 2 x 2 B): 0.50 GiB for one row at the long request's cache_len of
+# 4,128, 8 GiB for 8 rows at the full window of 8,192. So the count alone
+# does not bound the memory: the entries' bytes are held to a third of
+# what the weights leave of the card (23.7 GiB on an 80 GB H100 beside
+# llama3-8b's 8.2 GiB of int8 weights), the rest left to the prefills'
+# transients and the continuous engine's cache or arena.
+PROGRAM_CACHE_MAX = 8
+PROGRAM_CACHE_SHARE = 1 / 3
+
+
+def decode_cache_bytes(cfg: LlamaConfig, batch: int, max_len: int) -> int:
+    """Device bytes of :func:`init_decode_cache`'s K/V leaves."""
+    return batch * page_kv_bytes(cfg, max_len)
+
+
+def default_program_bytes(model: LlamaModel) -> int | None:
+    """The program cache's byte bound on the card: a share of the device
+    memory the weights leave (None on the CPU: no bound)."""
+    dev = model.device
+    if dev.type != "cuda":
+        return None
+    total = torch.cuda.get_device_properties(dev).total_memory
+    weights = sum(t.numel() * t.element_size()
+                  for t in (*model.parameters(), *model.buffers()))
+    return int(PROGRAM_CACHE_SHARE * max(total - weights, 0))
+
+
 class LlamaServer:
     """Bucketed serving over a :class:`LlamaModel`: prompts pad right to a
     power-of-two bucket, batches to a power-of-two row count with dummy
     length-1 rows, and every sampling knob is a per-row operand, as in
-    the JAX server. Calls are serialized by a lock (one card, one
-    stream)."""
+    the JAX server. Device work takes the process's ``DEVICE_LOCK`` (one
+    card, one stream; ``models/graphs.py``) a prefill or a segment of
+    decode steps at a time, so other requests' work and the continuous
+    engine's segments interleave with a long request.
 
-    def __init__(self, model: LlamaModel):
+    Decode runs on a :class:`DecodeStep` with its own decode cache per key
+    ``(batch bucket, cache_len, KV layout, backends)``, with a greedy and
+    a sampled program on it, each captured as a CUDA graph on its first
+    step and replayed at every step after (``models/graphs.py``). The
+    entries sit in an LRU bounded by ``program_cache_max`` entries and
+    ``program_cache_bytes`` device bytes (default: a third of what the
+    weights leave of the card; no byte bound on the CPU). ``graphs``:
+    None = CUDA graphs on the card, eager on the CPU; False = eager (the
+    step still runs on its fixed buffers); or a stand-in graph type
+    (tests)."""
+
+    # decode steps per hold of the device lock in generate
+    segment = 16
+
+    def __init__(self, model: LlamaModel, *, graphs=None,
+                 program_cache_max: int = PROGRAM_CACHE_MAX,
+                 program_cache_bytes: int | None = None):
         self.model = model
-        self._lock = threading.Lock()
+        self._lock = DEVICE_LOCK
+        if graphs is None:
+            graphs = CudaGraph if model.device.type == "cuda" else False
+        self.graph_type = graphs or None
+        self.graph_stats = GraphStats()
+        if program_cache_bytes is None:
+            program_cache_bytes = default_program_bytes(model)
+        self.programs = ProgramCache(program_cache_max, self.graph_stats,
+                                     program_cache_bytes)
+
+    def program_stats(self) -> dict:
+        """The decode programs, as the JAX handler reports them:
+        ``decode_buckets`` (the live programs' keys), ``compile_count``
+        (graphs captured), ``program_evictions``, ``replays``,
+        ``eager_steps``, and ``program_bytes`` (the entries' decode caches
+        and graph pools) under ``program_cache_bytes``."""
+        return {"graphs": self.graph_type is not None,
+                "decode_buckets": [list(k) for k in self.programs.keys()],
+                **self.graph_stats.report(),
+                "program_cache_max": self.programs.max_entries,
+                "program_cache_bytes": self.programs.max_bytes,
+                "program_bytes": self.programs.nbytes()}
 
     @property
     def device(self):
@@ -799,7 +957,10 @@ class LlamaServer:
                  eos_id: int | None = None, return_logprobs: bool = False):
         """prompt_tokens: ``[s]``, ``[b, s]`` or a ragged list of rows ->
         int32 numpy ``[b, max_new_tokens]`` (plus f32 logprobs when
-        asked). Knobs may be scalars or per-row lists."""
+        asked). Knobs may be scalars or per-row lists. A request that runs
+        out of device memory evicts every idle program and runs once more
+        from its prefill (the same bits: its generators are seeded
+        anew)."""
         rows, lengths = self._normalize_prompts(prompt_tokens)
         b, s = len(rows), max(lengths)
         self._validate(s, max_new_tokens)
@@ -807,16 +968,41 @@ class LlamaServer:
             toks = np.zeros((b, 0), np.int32)
             return (toks, np.zeros((b, 0), np.float32)) if return_logprobs \
                 else toks
-        with self._lock, torch.inference_mode():
-            select, gens, eos, carry = self._prefill(
-                rows, lengths, max_new_tokens, temperature, top_k, top_p,
+        args = (rows, lengths, max_new_tokens, temperature, top_k, top_p,
                 seed, eos_id)
-            toks, lps = _scan_decode(self.model, select, *carry, gens, eos,
-                                     max_new_tokens)
-            toks = toks[:b].to(torch.int32).cpu().numpy()
-            if return_logprobs:
-                return toks, lps[:b].float().cpu().numpy()
-        return toks
+        try:
+            toks, lps = self._generate(*args)
+        except torch.OutOfMemoryError:
+            with self._lock:
+                if not self.programs.drop_idle():
+                    raise
+            toks, lps = self._generate(*args)
+        toks, lps = toks[:b], lps[:b]
+        return (toks, lps) if return_logprobs else toks
+
+    def _generate(self, rows, lengths, max_new_tokens, *knobs):
+        """:meth:`generate`'s device work: the prefill, then the decode in
+        segments of ``segment`` steps, the device lock held for one
+        segment at a time; the tokens are fetched once, at the end."""
+        with self._lock, torch.inference_mode():
+            entry, prog = self._prefill(rows, lengths, max_new_tokens, *knobs)
+        try:
+            toks, lps, emitted = [], [], 0
+            while emitted < max_new_tokens:
+                k = min(self.segment, max_new_tokens - emitted)
+                emitted += k
+                with self._lock, torch.inference_mode():
+                    # the last token is emitted, not forwarded
+                    t, lp = _scan_decode(prog.run, entry.step, k,
+                                         segment=emitted < max_new_tokens)
+                toks.append(t)
+                lps.append(lp)
+            with self._lock:
+                return (torch.cat(toks, 1).to(torch.int32).cpu().numpy(),
+                        torch.cat(lps, 1).float().cpu().numpy())
+        finally:
+            with self._lock:
+                self.programs.checkin(entry)
 
     def prompt_bucket(self, s: int, max_new_tokens: int) -> int:
         """The padded prompt width ``generate`` prefills a prompt of ``s``
@@ -830,7 +1016,9 @@ class LlamaServer:
                  top_p, seed, eos_id):
         """The bucketed prefill shared by :meth:`generate` and
         :meth:`generate_stream` (caller holds the lock, inference mode):
-        ``(select, gens, eos, (first, lp0, cache, pos, done))``."""
+        checks out the key's entry, loads the prefill into its step and
+        returns ``(entry, program)``, the program greedy or sampled as the
+        knobs ask; the caller checks the entry back in."""
         cfg = self.model.cfg
         b, s = len(rows), max(lengths)
         steps = min(_next_bucket(max_new_tokens, MIN_BUCKET), cfg.max_len - s)
@@ -840,10 +1028,25 @@ class LlamaServer:
         prompt, length = self._pad_rows(rows, lengths, bb, sb)
         temp, tk, tp, gens, eos = self._knob_operands(
             temperature, top_k, top_p, seed, eos_id, b=bb)
-        select = _serve_select(temp, tk, tp)
-        carry = _serve_prefill(self.model, prompt, length, select, gens, eos,
-                               cache_len=cache_len)
-        return select, gens, eos, carry
+        key = (bb, cache_len, cfg.kv_quant or "float", cfg.attn_backend,
+               cfg.matmul_backend)
+
+        def make():
+            cache = init_decode_cache(cfg, bb, cache_len, self.device)
+            return StepPrograms(DecodeStep(self.model, cache, bb),
+                                self.graph_type, self.graph_stats)
+
+        entry = self.programs.checkout(
+            key, decode_cache_bytes(cfg, bb, cache_len), make)
+        try:
+            prog = entry.program(bool((temp > 0).any()))
+            entry.step.set_knobs(temp, tk, tp)
+            _serve_prefill(self.model, entry.step, prompt, length,
+                           _serve_select(temp, tk, tp), gens, eos)
+        except BaseException:
+            self.programs.checkin(entry)
+            raise
+        return entry, prog
 
     def generate_stream(self, prompt_tokens, *, max_new_tokens: int,
                         temperature: float = 0.0, top_k: int | None = None,
@@ -856,32 +1059,43 @@ class LlamaServer:
         eos. Concatenated chunks are exactly :meth:`generate`'s output
         prefix: the same prefill and cache, the same per-row generators
         (segment boundaries do not change a row's draws). The lock is
-        held per segment, not across the yields."""
+        held per segment, not across the yields; the stream holds its
+        entry (step, cache, graphs) from its prefill to its end. A prefill
+        that runs out of device memory evicts every idle program and runs
+        once more."""
         rows, lengths = self._normalize_prompts(prompt_tokens)
         b, s = len(rows), max(lengths)
         self._validate(s, max_new_tokens)
         if max_new_tokens == 0:
             return
         segment = max(1, min(int(segment), max_new_tokens))
-        with self._lock, torch.inference_mode():
-            select, gens, eos, carry = self._prefill(
-                rows, lengths, max_new_tokens, temperature, top_k, top_p,
+        args = (rows, lengths, max_new_tokens, temperature, top_k, top_p,
                 seed, eos_id)
-        tok, lp, cache, pos, done = carry
-        emitted = 0
-        while emitted < max_new_tokens:
-            k = min(segment, max_new_tokens - emitted)
-            with self._lock, torch.inference_mode():
-                (toks, lps), (tok, lp, cache, pos, done, gens) = \
-                    _scan_decode(self.model, select, tok, lp, cache, pos,
-                                 done, gens, eos, k, return_carry=True)
-                chunk = toks[:b].to(torch.int32).cpu().numpy()
-                lp_chunk = lps[:b].float().cpu().numpy()
-                latched = eos_id is not None and bool(done[:b].all())
-            emitted += k
-            yield (chunk, lp_chunk) if return_logprobs else chunk
-            if latched:
-                return
+        with self._lock, torch.inference_mode():
+            try:
+                entry, prog = self._prefill(*args)
+            except torch.OutOfMemoryError:
+                if not self.programs.drop_idle():
+                    raise
+                entry, prog = self._prefill(*args)
+        try:
+            emitted = 0
+            while emitted < max_new_tokens:
+                k = min(segment, max_new_tokens - emitted)
+                with self._lock, torch.inference_mode():
+                    toks, lps = _scan_decode(prog.run, entry.step, k,
+                                             segment=True)
+                    chunk = toks[:b].to(torch.int32).cpu().numpy()
+                    lp_chunk = lps[:b].float().cpu().numpy()
+                    latched = (eos_id is not None
+                               and bool(entry.step.done[:b].all()))
+                emitted += k
+                yield (chunk, lp_chunk) if return_logprobs else chunk
+                if latched:
+                    return
+        finally:
+            with self._lock:
+                self.programs.checkin(entry)
 
     @staticmethod
     def _normalize_prompts(prompt_tokens):

@@ -38,8 +38,12 @@ class TorchModel:
     def make_model(self, state_dict=None, *, device=None):
         return build_model(self.config, state_dict, device=device)
 
-    def make_server(self, state_dict=None, *, device=None) -> LlamaServer:
-        return LlamaServer(self.make_model(state_dict, device=device))
+    def make_server(self, state_dict=None, *, device=None,
+                    **server_kw) -> LlamaServer:
+        """``server_kw``: :class:`LlamaServer`'s ``graphs``,
+        ``program_cache_max`` and ``program_cache_bytes``."""
+        return LlamaServer(self.make_model(state_dict, device=device),
+                           **server_kw)
 
 
 _MODELS: dict[str, ModelSpec] = {}

@@ -120,7 +120,9 @@ def _partials(q, b, kvh, group, d, t):
     """The kernel's scratch on q's device, one f32 allocation: the chunk
     accumulators ``[b * kvh, ceil(t / KV_CHUNK), group, d]``, then their
     (m, l) pairs ``[..., group, 2]``; written only for live chunks.
-    Returns the two base addresses."""
+    Returns the two base addresses. Under a CUDA-graph capture the scratch
+    comes from the graph's private pool, at an address every replay
+    reuses."""
     n = b * kvh * max(1, -(-t // KV_CHUNK)) * group
     scratch = torch.empty(n * (d + 2), dtype=torch.float32, device=q.device)
     return scratch, scratch.data_ptr(), scratch.data_ptr() + n * d * 4
@@ -202,6 +204,8 @@ def blocked_decode_attention(q, k, v, active_len, *, k_scale=None,
                       active_len.data_ptr(), out.data_ptr(), acc, ml,
                       b, t, kvh, h // kvh, d, d ** -0.5, stream)
     _build.check(err, "decode_attention")
+    # a capture counts here too; models/graphs.py takes it back and adds it
+    # at every replay
     if quant:
         blocked_decode_attention.launches_int8kv += 1
     else:
@@ -351,6 +355,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, active_len, *,
         acc, ml, b, nb, page.bit_length() - 1, kvh, h // kvh, d, d ** -0.5,
         stream)
     _build.check(err, "paged_decode_attention")
+    # counted as in blocked_decode_attention, captures included
     if quant:
         paged_decode_attention.launches_int8kv += 1
     else:

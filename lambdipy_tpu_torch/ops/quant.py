@@ -111,15 +111,39 @@ def _gemv_launcher():
 
 # (device, stream) -> the GEMV's merge counters, one per 64 columns and 64
 # rows: zero between calls (the block that merges a tile zeroes its own),
-# one buffer per stream so that calls on two streams never share one
+# one buffer per stream so that calls on two streams never share one. Every
+# launch of the serving path, eager or replayed from a CUDA graph, goes to
+# the device's current stream, so no two launches that share a buffer can
+# overlap: a graph captured on the capture stream keeps that stream's
+# buffer and replays on the current stream, after and before the eager
+# launches there. Keep it so.
 _counters: dict = {}
+# buffers a larger one replaced: a graph captured with one still writes it
+_retired: list = []
 _counters_lock = threading.Lock()
 
 
-def _gemv_counters(device, stream: int, count: int):
+def gemv_counter_count(m: int, n: int) -> int:
+    """Merge counters an ``[m, k] x [k, n]`` GEMV call needs."""
+    return -(-m // GEMV_ROWS) * -(-n // 64)
+
+
+def reserve_gemv_counters(device, stream: int, count: int):
+    """The GEMV's merge counters of ``stream``, at least ``count`` of them.
+    A buffer is allocated (zeroed) outside a CUDA-graph capture only: one
+    made inside would be zeroed by the graph alone and live in its private
+    pool. A buffer that grows keeps its old one alive for the graphs that
+    captured it."""
     with _counters_lock:
         buf = _counters.get((device, stream))
         if buf is None or buf.numel() < count:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "the int8 GEMV's merge counters for this stream must be "
+                    "reserved before a CUDA-graph capture "
+                    "(reserve_gemv_counters)")
+            if buf is not None:
+                _retired.append(buf)
             buf = torch.zeros(max(count, 4096), dtype=torch.int32,
                               device=device)
             _counters[(device, stream)] = buf
@@ -209,6 +233,9 @@ def int8_matmul(x, w_i8, scale, *, rows_alone: bool | None = None):
                              "x, weights and scale")
     if not all(t.is_contiguous() for t in (x, w_i8, scale)):
         raise ValueError("int8_matmul kernel needs contiguous operands")
+    # under a CUDA-graph capture out and ws come from the graph's private
+    # pool, at addresses every replay reuses (``models/graphs.py`` counts
+    # the pool's bytes)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     args = (_DTYPES[x.dtype], x.data_ptr(), w_i8.data_ptr(),
@@ -219,8 +246,8 @@ def int8_matmul(x, w_i8, scale, *, rows_alone: bool | None = None):
         if splits > 1:  # the f32 partials of the splits, merged in order
             ws = torch.empty((splits, m, n), dtype=torch.float32,
                              device=x.device)
-            counters = _gemv_counters(x.device, stream,
-                                      -(-m // GEMV_ROWS) * -(-n // 64))
+            counters = reserve_gemv_counters(x.device, stream,
+                                             gemv_counter_count(m, n))
         err = _gemv_launcher()(
             *args, None if ws is None else ws.data_ptr(),
             None if counters is None else counters.data_ptr(),
@@ -228,6 +255,8 @@ def int8_matmul(x, w_i8, scale, *, rows_alone: bool | None = None):
     else:
         err = _launcher()(*args, m, k, n, _ROUTE_TILED, stream)
     _build.check(err, "int8_matmul")
+    # a capture runs this line too: models/graphs.py takes the capture's
+    # counts back and adds them at every replay
     int8_matmul.launches += 1
     return out
 

@@ -6,9 +6,14 @@ port serves one request at a time; here a batched decode advances in
 SEGMENTS of ``segment`` steps and new requests join it at segment
 boundaries, packed into a free slot.
 
-- The engine owns a B-slot decode carry (token, logprob, position and a
-  ``torch.Generator`` per slot) over either a dense B-slot cache of
-  ``cache_len`` positions or a page arena (``runtime/pagepool.py``).
+- The engine owns a B-slot decode step (``models/llama.py DecodeStep``:
+  token, logprob, position, knobs and a ``torch.Generator`` per slot, at
+  fixed addresses) over either a dense B-slot cache of ``cache_len``
+  positions or a page arena (``runtime/pagepool.py``) read through a
+  static block-table buffer. On the card every decode step is a replay
+  of a CUDA graph of that step, one graph per greedy / sampled
+  (``models/graphs.py``); a joiner's generator state moves into its
+  slot's generator, the one the graphs registered.
   Slots are a host concept: every decode step runs all B rows, and
   empty slots compute garbage nobody reads (their position is reset to 0
   at each barrier, so their attention stays one position long).
@@ -41,6 +46,9 @@ boundaries, packed into a free slot.
   prefill's rows do not depend on the group's size, and a
   sampled row draws once per step from its own generator, which travels
   with its slot.
+- Device work (prefills, packing, segments and their fetches) holds the
+  process's ``DEVICE_LOCK``, so no capture ever runs beside it. An
+  engine reset drops its step and graphs, as does a rebuilt arena.
 
 Not ported yet (ROADMAP): pipelining (``pipeline_depth >= 2``), window
 bucketing, the chunked joiner prefill, the watchdog / replay /
@@ -60,9 +68,11 @@ from collections import deque
 import numpy as np
 import torch
 
-from lambdipy_tpu_torch.models.llama import (_kv_store, _next_bucket,
-                                             _scan_decode, _serve_select,
-                                             init_decode_cache,
+from lambdipy_tpu_torch.models.graphs import (DEVICE_LOCK, StepProgram,
+                                              StepPrograms)
+from lambdipy_tpu_torch.models.llama import (DecodeStep, _kv_store,
+                                             _next_bucket, _scan_decode,
+                                             _serve_select, init_decode_cache,
                                              pack_prefill_into_pages,
                                              row_generators)
 from lambdipy_tpu_torch.runtime.metrics import EngineStats
@@ -96,7 +106,11 @@ class ContinuousBatcher:
         self._joiners: list[dict] = []
         self._active: list[dict | None] = [None] * self.slots
         self._engine_running = False
-        self._carry: dict | None = None
+        # the B-slot decode step and its greedy and sampled programs
+        self._step: DecodeStep | None = None
+        self._programs: StepPrograms | None = None
+        # the arena's generation the step was built over (paged)
+        self._arena_generation = 0
         # one request-thread prefill at a time
         self._prefill_lock = threading.Lock()
         # the last retired rows: prompt length, tokens asked, seconds from
@@ -135,25 +149,42 @@ class ContinuousBatcher:
 
     # -- device helpers ------------------------------------------------------
 
-    def _init_carry(self) -> dict:
-        """All-empty B-slot carry on the device: the dense B-slot cache,
-        or (paged) the pool's arena, built on first use."""
+    def _init_step(self) -> DecodeStep:
+        """The all-empty B-slot decode step: over the dense B-slot cache,
+        or (paged) over the pool's arena, built on first use, through a
+        static ``[B, nb]`` block-table buffer."""
         server, b = self.server, self.slots
         dev = server.device
-        carry = {"tok": torch.zeros(b, dtype=torch.long, device=dev),
-                 "lp": torch.zeros(b, dtype=torch.float32, device=dev),
-                 "pos": torch.zeros(b, dtype=torch.int32, device=dev),
-                 # empty slots draw from placeholders when a neighbour
-                 # samples; a joiner's own generator replaces its slot's
-                 "gens": row_generators([(0, r) for r in range(b)], dev)}
-        carry["idle_gens"] = list(carry["gens"])
-        if self.pool is not None:
-            with self.pool.arena_lock:
-                self.pool.ensure_arena()
-        else:
-            carry["cache"] = init_decode_cache(server.model.cfg, b,
-                                               self.cache_len, dev)
-        return carry
+        if self.pool is None:
+            return DecodeStep(server.model, init_decode_cache(
+                server.model.cfg, b, self.cache_len, dev), b)
+        with self.pool.arena_lock:
+            arena = self.pool.ensure_arena()
+            self._arena_generation = self.pool.generation
+        tables = torch.zeros((b, self.cache_len // self.pool.page),
+                             dtype=torch.int32, device=dev)
+        return DecodeStep(server.model, arena, b, tables=tables)
+
+    def _program(self, sampled: bool) -> StepProgram:
+        """The step's greedy or sampled program, made on first use."""
+        if self._programs is None:
+            self._programs = StepPrograms(self._step, self.server.graph_type,
+                                          self.stats_counters)
+        return self._programs.program(sampled)
+
+    def _detach(self) -> StepPrograms | None:
+        """Take the step and its programs off the engine (caller holds the
+        lock); the caller closes the programs once it let go of it."""
+        programs, self._programs, self._step = self._programs, None, None
+        return programs
+
+    def release(self) -> None:
+        """Drop the engine's step, its cache and its graphs; the next
+        segment builds them anew."""
+        with self._lock:
+            programs = self._detach()
+        if programs is not None:
+            programs.close()
 
     def _prefill_rows(self, entries: list):
         """ONE ragged prefill of ``entries`` (rows of one prompt bucket),
@@ -178,14 +209,15 @@ class ContinuousBatcher:
 
     def _pack(self, entry: dict, prefill, src: int) -> None:
         """Row ``src`` of a prefill into the entry's slot: the first token,
-        its logprob, the position and the generator into the carry; the
-        K/V into the slot's cache row (dense) or its pages (paged)."""
-        carry, slot = self._carry, entry["slot"]
+        its logprob, the position and the generator's state into the
+        step's slot; the K/V into the slot's cache row (dense) or its pages
+        (paged)."""
+        step, slot = self._step, entry["slot"]
         first, lp0, cache = prefill
-        carry["tok"][slot] = first[src]
-        carry["lp"][slot] = lp0[src]
-        carry["pos"][slot] = entry["s"]
-        carry["gens"][slot] = entry["gen"]
+        step.tok[slot] = first[src]
+        step.lp[slot] = lp0[src]
+        step.pos[slot] = entry["s"]
+        step.set_generator(slot, entry["gen"])
         cfg = self.server.model.cfg
         if self.pool is not None:
             nb = self.cache_len // self.pool.page
@@ -195,7 +227,7 @@ class ContinuousBatcher:
                 pack_prefill_into_pages(cfg, self.pool.arena, table, cache,
                                         src)
         else:
-            for dest, pc in zip(carry["cache"], cache):
+            for dest, pc in zip(step.cache, cache):
                 width = min(pc["k"].shape[1], self.cache_len)
                 store = _kv_store(cfg, pc["k"][src, :width],
                                   pc["v"][src, :width])
@@ -226,9 +258,7 @@ class ContinuousBatcher:
         """Advance every slot up to ``segment`` steps (no further than the
         live row furthest from its quota) and book each live row's
         tokens."""
-        server, carry = self.server, self._carry
-        dev = server.device
-        b = self.slots
+        step, b = self._step, self.slots
         k = min(self.segment,
                 max(e["n"] - len(e["toks"]) for _, e in live))
         temp = np.zeros((b,), np.float32)
@@ -238,27 +268,16 @@ class ContinuousBatcher:
             temp[slot] = e["temperature"] or 0.0
             top_k[slot] = e["top_k"] or 0
             top_p[slot] = 1.0 if e["top_p"] is None else e["top_p"]
-        select = _serve_select(temp, torch.as_tensor(top_k, device=dev),
-                               torch.as_tensor(top_p, device=dev))
-        eos = torch.full((b,), -1, dtype=torch.long, device=dev)
-        done = torch.zeros(b, dtype=torch.bool, device=dev)
+        step.set_knobs(temp, top_k, top_p)
         lock = contextlib.nullcontext()
         if self.pool is not None:
             nb = self.cache_len // self.pool.page
-            tables = torch.as_tensor(
-                np.stack([self._table_row(e, nb) for e in self._active]),
-                device=dev)
-            cache = [{**leaves, "tables": tables}
-                     for leaves in self.pool.arena]
+            step.tables.copy_(torch.as_tensor(
+                np.stack([self._table_row(e, nb) for e in self._active])))
             lock = self.pool.arena_lock
-        else:
-            cache = carry["cache"]
+        prog = self._program(bool((temp > 0).any()))
         with lock:
-            (toks, lps), (tok, lp, _, pos, _, _) = _scan_decode(
-                server.model, select, carry["tok"], carry["lp"], cache,
-                carry["pos"], done, carry["gens"], eos, k,
-                return_carry=True)
-        carry.update(tok=tok, lp=lp, pos=pos)
+            toks, lps = _scan_decode(prog.run, step, k, segment=True)
         toks = toks.cpu().numpy()
         lps = (lps.float().cpu().numpy()
                if any(e["want_lp"] for _, e in live) else None)
@@ -312,17 +331,19 @@ class ContinuousBatcher:
                     self._engine_running = False
                     self._lock.notify_all()
                     return
-            if self._carry is None:
-                self._carry = self._init_carry()
-            carry = self._carry
-            for slot, e in enumerate(self._active):
-                if e is None:
-                    # an empty slot restarts at position 0 with a
-                    # placeholder generator: its garbage stays short
-                    carry["pos"][slot] = 0
-                    carry["gens"][slot] = carry["idle_gens"][slot]
-            self._pack_joiners([e for _, e in live if not e["packed"]])
-            self._run_segment(live)
+            if (self._step is not None and self.pool is not None
+                    and self._arena_generation != self.pool.generation):
+                self.release()  # its graphs hold the old arena's addresses
+            with DEVICE_LOCK:
+                if self._step is None:
+                    self._step = self._init_step()
+                for slot, e in enumerate(self._active):
+                    if e is None:
+                        # an empty slot restarts at position 0: its
+                        # garbage stays short
+                        self._step.pos[slot] = 0
+                self._pack_joiners([e for _, e in live if not e["packed"]])
+                self._run_segment(live)
 
     def _retire(self, e: dict) -> None:
         """Return a finished row's pages and log it (caller holds the
@@ -337,7 +358,8 @@ class ContinuousBatcher:
 
     def _fail(self, error: BaseException) -> None:
         """Fail every admitted row (their waiters raise ``error``) and
-        reset the engine; the next request starts a fresh one."""
+        reset the engine, dropping its step and graphs; the next request
+        starts a fresh one."""
         with self._lock:
             for e in [*self._active, *self._joiners]:
                 if e is not None and not e["done"]:
@@ -346,9 +368,11 @@ class ContinuousBatcher:
                     self._release_pages(e)
             self._active = [None] * self.slots
             self._joiners = []
-            self._carry = None
+            programs = self._detach()
             self._engine_running = False
             self._lock.notify_all()
+        if programs is not None:
+            programs.close()
 
     # -- API -----------------------------------------------------------------
 
@@ -386,7 +410,8 @@ class ContinuousBatcher:
             self._charge_pages(entry, s + max_new_tokens)
         try:
             if s > GROUP_PREFILL_MAX:
-                with self._prefill_lock, torch.inference_mode():
+                with self._prefill_lock, DEVICE_LOCK, \
+                        torch.inference_mode():
                     entry["prefill"] = self._prefill_rows([entry])
                 self.stats_counters.record_row_prefill()
         except BaseException:

@@ -143,14 +143,25 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
     top_k, top_p, seed and eos_id for sampled decode, ``logprobs``, and
     ``stream`` (through :meth:`HandlerState.invoke_stream`). With
     ``batch_mode="continuous"`` single-row requests share the continuous
-    engine (:func:`make_engine`); multi-row requests run as one batch."""
+    engine (:func:`make_engine`); multi-row requests run as one batch.
+    On the card decode steps replay CUDA graphs, at most
+    ``program_cache_max`` programs (extra) beside the engine's; a
+    ``{"warmup": true}`` request captures its bucket's graph."""
     extra = dict(spec.get("extra") or {})
     _check_unported_extras(extra)
     # dtype and quant fall back to the builder's defaults when the spec
     # leaves them out (llama3-8b: bfloat16, int8)
     adapter = registry.get(spec["model"]).build(
         extra=extra, **{k: spec[k] for k in ("dtype", "quant") if k in spec})
-    server = adapter.make_server(ctx.state_dict, device=ctx.device)
+    server_kw = {}
+    if extra.get("program_cache_max") is not None:
+        # LRU bound on the decode programs (a CUDA graph and its decode
+        # cache each); rising program_evictions in /metrics means it is
+        # too small for the workload's bucket diversity
+        server_kw["program_cache_max"] = int(extra["program_cache_max"])
+    # on the card every decode step replays a captured CUDA graph
+    server = adapter.make_server(ctx.state_dict, device=ctx.device,
+                                 **server_kw)
     engine = (make_engine(server, extra)
               if str(extra.get("batch_mode") or "").lower() == "continuous"
               else None)
@@ -249,7 +260,9 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
         yield out
 
     def stats() -> dict:
-        out = {"kernels": kernel_launches()}
+        # decode_buckets, compile_count, program_evictions as the JAX
+        # handler reports them, plus replays and eager_steps
+        out = {"kernels": kernel_launches(), **server.program_stats()}
         if engine is not None:
             out["batching"] = engine.stats()
         return out

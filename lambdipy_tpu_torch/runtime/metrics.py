@@ -62,7 +62,11 @@ class EngineStats:
     ``rows_stepped / steps`` is the mean batch), ``joins`` (rows packed
     into a slot), ``prefill_groups``/``rows_group_prefilled`` (the
     engine's grouped prefills), ``row_prefills`` (long prompts prefilled
-    alone on their request thread) and ``requests_served``."""
+    alone on their request thread), ``requests_served``, and the decode
+    programs' ``captures`` (CUDA graphs captured, reported as
+    ``compile_count``), ``replays`` (steps run as a graph replay) and
+    ``eager_steps`` (steps run eagerly), recorded through :meth:`record`
+    by ``models/graphs.py StepProgram``."""
 
     segments: int = 0
     steps: int = 0
@@ -72,7 +76,16 @@ class EngineStats:
     rows_group_prefilled: int = 0
     row_prefills: int = 0
     requests_served: int = 0
+    captures: int = 0
+    replays: int = 0
+    eager_steps: int = 0
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def record(self, name: str, n: int = 1) -> None:
+        """A decode program's event: ``captures``, ``replays`` or
+        ``eager_steps``."""
+        with self._lock:
+            setattr(self, name, getattr(self, name) + int(n))
 
     def record_segment(self, steps: int, live_rows: int) -> None:
         with self._lock:
@@ -112,4 +125,7 @@ class EngineStats:
                     # prefill (grouped or alone)
                     "forwards": (self.steps + self.prefill_groups
                                  + self.row_prefills),
-                    "requests_served": self.requests_served}
+                    "requests_served": self.requests_served,
+                    "compile_count": self.captures,
+                    "replays": self.replays,
+                    "eager_steps": self.eager_steps}

@@ -20,7 +20,10 @@ continuous engine uses:
 - The arena is a set of device tensors updated in place (the JAX arena
   is a functional value each program replaces), so no chain of arena
   versions needs ordering; ``arena_lock`` makes arena writes (prefill
-  packing, decode steps) mutually exclusive between threads.
+  packing, decode steps) mutually exclusive between threads. A decode
+  step captured as a CUDA graph holds the arena's addresses: the arena's
+  ``generation`` rises whenever it is (re)built, and the engine drops its
+  graphs when it sees a new one.
 
 Not ported yet: fault injection (``faults``), the prefix store's
 ``reclaim_fn``/``pinned_fn`` hooks, host offload and ``reset_arena``.
@@ -85,6 +88,8 @@ class PagePool:
         self._lock = threading.RLock()
         self.arena_lock = threading.RLock()
         self._arena = None
+        # times the arena was built: graphs of an older one are stale
+        self.generation = 0
         # LIFO free list: the most recently freed page is reused first
         self._free: list[int] = list(range(self.n_pages - 1, 0, -1))
         # page id -> refcount; the null page is permanently held
@@ -110,6 +115,7 @@ class PagePool:
                 if self._make_arena is None:
                     raise RuntimeError("pool has no arena factory")
                 self._arena = self._make_arena()
+                self.generation += 1
             return self._arena
 
     # -- allocation ----------------------------------------------------------

@@ -6,12 +6,15 @@ machine without it:
     python -m pytest tests/test_torch_kernels.py --noconftest -m cuda -q
 """
 
+import threading
+import time
+
 import numpy as np
 import pytest
 import torch
 
 from lambdipy_tpu_torch.models import registry
-from lambdipy_tpu_torch.models.llama import _kv_quantize
+from lambdipy_tpu_torch.models.llama import LlamaServer, _kv_quantize
 from lambdipy_tpu_torch.ops import attention as tat
 from lambdipy_tpu_torch.ops import decode_attention as tda
 from lambdipy_tpu_torch.ops import quant as tq
@@ -812,3 +815,199 @@ def test_wrapper_raises_on_cuda_for_misaligned_kv(cuda_device):
     with pytest.raises(ValueError, match="16-byte"):
         tda.blocked_decode_attention(q, k, k, torch.ones(1, dtype=torch.int32,
                                                          device=cuda_device))
+
+
+# ------------------------------------------------ CUDA-graph decode steps
+
+SMALL = {"vocab_size": 512, "hidden": 256, "heads": 4, "kv_heads": 2,
+         "mlp": 512, "layers": 2, "max_len": 256, "matmul_backend": "pallas"}
+GRAPH_PATHS = {"A": {"attn_backend": "blocked"},
+               "B": {"attn_backend": "blocked", "kv_quant": "int8"},
+               "C": {"attn_backend": "flash"}}
+SAMPLED = {"temperature": 0.8, "top_k": 50, "top_p": 0.9, "seed": 1234}
+
+
+def _graph_and_eager(cuda_device, path="A"):
+    """A small bf16 int8 model on the card served twice on the same
+    weights: with CUDA graphs (the default on the card) and eagerly."""
+    adapter = registry.get("llama-tiny").build(
+        dtype="bfloat16", quant="int8", extra={**SMALL, **GRAPH_PATHS[path]})
+    graph = adapter.make_server(adapter.init_params(seed=3, device="cpu"),
+                                device=cuda_device)
+    return graph, LlamaServer(graph.model, graphs=False)
+
+
+@pytest.mark.parametrize("knobs", [{}, SAMPLED], ids=["greedy", "seeded"])
+@pytest.mark.parametrize("path", GRAPH_PATHS)
+def test_graph_decode_is_bitwise_eager(cuda_device, path, knobs):
+    """Paths A, B and C on a small bf16 int8 model: ragged rows decoded by
+    replays of the captured step give the eager server's tokens and
+    logprobs bitwise, greedy and seeded; every decode step was a replay
+    (C's decode attention is plain ``_attend``, cuBLAS inside the graph).
+    """
+    graph, eager = _graph_and_eager(cuda_device, path)
+    rows = [list(range(1, 40)), list(range(5, 12)), [7, 8, 9]]
+    for _ in range(2):  # the second request replays the captured program
+        got = graph.generate(rows, max_new_tokens=12, return_logprobs=True,
+                             **knobs)
+        want = eager.generate(rows, max_new_tokens=12, return_logprobs=True,
+                              **knobs)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    stats = graph.program_stats()
+    assert stats["compile_count"] == 1 and stats["eager_steps"] == 0
+    assert stats["replays"] == 2 * 11
+    assert eager.program_stats()["eager_steps"] == 2 * 11
+
+
+def test_graph_replays_count_their_launches(cuda_device):
+    """After a capture, N replays add N times one step's launches (2
+    layers: 15 int8 matmuls and 2 decode-attention launches); the capture
+    itself counts nothing."""
+    graph, _ = _graph_and_eager(cuda_device)
+    rows = [list(range(1, 20))]
+    mm, attn = tq.int8_matmul.launches, tda.blocked_decode_attention.launches
+    graph.generate(rows, max_new_tokens=1)  # prefill: no step, no capture
+    assert (tq.int8_matmul.launches - mm,
+            tda.blocked_decode_attention.launches - attn) == (15, 0)
+    for n in (9, 14):  # one key: the first captures, both replay
+        mm = tq.int8_matmul.launches
+        attn = tda.blocked_decode_attention.launches
+        graph.generate(rows, max_new_tokens=n)
+        assert tq.int8_matmul.launches - mm == 15 * n
+        assert tda.blocked_decode_attention.launches - attn == 2 * (n - 1)
+    stats = graph.program_stats()
+    assert stats["compile_count"] == 1 and stats["replays"] == 8 + 13
+
+
+def _threads(fns, timeout=300):
+    out, errors = [None] * len(fns), []
+
+    def run(i):
+        try:
+            out[i] = fns[i]()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(fns))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=timeout)
+    assert not any(th.is_alive() for th in threads)
+    if errors:
+        raise errors[0]
+    return out
+
+
+@pytest.mark.parametrize("paged", ["1", "0"], ids=["paged", "dense"])
+def test_graph_engine_rows_are_bitwise_eager_and_solo(cuda_device, paged):
+    """The continuous engine with graphs against the same engine run
+    eagerly, on the same weights: concurrent greedy and seeded rows, one
+    joining mid-decode, each bitwise the eager engine's row and its solo
+    ``generate``; every engine step a replay."""
+    from lambdipy_tpu_torch.runtime.handlers import make_engine
+
+    graph, eager = _graph_and_eager(cuda_device)
+    reqs = [(list(range(1, 40)), 24, {}),
+            (list(range(5, 12)), 20, SAMPLED),
+            (list(range(9, 80)), 9, {}),
+            (list(range(30, 33)), 16, {"temperature": 0.7, "seed": 3})]
+    outs = {}
+    for name, server in (("graph", graph), ("eager", eager)):
+        eng = make_engine(server, {"batch_max": "4", "batch_segment": "4",
+                                   "kv_paged": paged})
+
+        def call(i, eng=eng):
+            time.sleep(0.2 if i == 3 else 0.0)  # a joiner mid-decode
+            p, n, kw = reqs[i]
+            return eng.generate(p, max_new_tokens=n, return_logprobs=True,
+                                **kw)
+
+        outs[name] = _threads([lambda i=i: call(i) for i in range(4)])
+        stats = eng.stats()
+        if name == "graph":
+            assert stats["replays"] == stats["steps"] > 0
+            assert stats["eager_steps"] == 0 and stats["compile_count"] == 2
+    for (p, n, kw), g, e in zip(reqs, outs["graph"], outs["eager"]):
+        np.testing.assert_array_equal(g[0], e[0])
+        np.testing.assert_array_equal(g[1], e[1])
+        solo = graph.generate(p, max_new_tokens=n, return_logprobs=True,
+                              **kw)
+        np.testing.assert_array_equal(g[0], solo[0])
+        np.testing.assert_array_equal(g[1], solo[1])
+
+
+def test_two_streams_of_one_bucket_keep_their_solo_bits(cuda_device):
+    """Two streams of one key advanced in turns each hold a program of
+    their own (captured anew) and give their solo tokens and logprobs."""
+    graph, eager = _graph_and_eager(cuda_device)
+    a, b = list(range(1, 20)), list(range(40, 52))
+    sa = graph.generate_stream([a], max_new_tokens=12, segment=4,
+                               return_logprobs=True)
+    sb = graph.generate_stream([b], max_new_tokens=12, segment=4,
+                               return_logprobs=True)
+    chunks = list(zip(sa, sb))
+    for i, prompt in enumerate((a, b)):
+        want = eager.generate([prompt], max_new_tokens=12,
+                              return_logprobs=True)
+        np.testing.assert_array_equal(
+            np.concatenate([c[i][0] for c in chunks], 1), want[0])
+        np.testing.assert_array_equal(
+            np.concatenate([c[i][1] for c in chunks], 1), want[1])
+    assert graph.program_stats()["compile_count"] == 2
+
+
+def test_graph_programs_past_the_byte_bound_are_freed(cuda_device):
+    """A byte bound below one entry's cache: every entry is evicted when
+    its request ends, its graphs reset, and the next request of the same
+    key captures anew and stays bitwise the eager server's."""
+    graph, eager = _graph_and_eager(cuda_device)
+    bounded = LlamaServer(graph.model, program_cache_bytes=1)
+    rows = [list(range(1, 30)), [4, 5, 6]]
+    for n in (9, 9, 20):
+        got = bounded.generate(rows, max_new_tokens=n, return_logprobs=True)
+        want = eager.generate(rows, max_new_tokens=n, return_logprobs=True)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    stats = bounded.program_stats()
+    assert stats["program_bytes"] == 0 and stats["program_evictions"] == 3
+    assert stats["compile_count"] == 3 and stats["replays"] == 8 + 8 + 19
+
+
+def test_capture_beside_a_request_thread_prefill(cuda_device, monkeypatch):
+    """Captures (a new server key on one thread, the engine's first graph
+    on its thread) while long prompts prefill on their request threads
+    and a stream decodes: the process's device lock keeps every capture
+    alone, and every output is bitwise its eager twin's."""
+    from lambdipy_tpu_torch.runtime import continuous
+    from lambdipy_tpu_torch.runtime.handlers import make_engine
+
+    monkeypatch.setattr(continuous, "GROUP_PREFILL_MAX", 8)
+    graph, eager = _graph_and_eager(cuda_device)
+    eng = make_engine(graph, {"batch_max": "4", "batch_segment": "4",
+                              "kv_paged": "1"})
+    long_rows = [list(range(3 + i, 60 + 20 * i)) for i in range(3)]
+    fns = [lambda p=p: eng.generate(p, max_new_tokens=10,
+                                    return_logprobs=True)
+           for p in long_rows]
+    fns.append(lambda: graph.generate([list(range(2, 9))] * 2,
+                                      max_new_tokens=11,
+                                      return_logprobs=True, **SAMPLED))
+    fns.append(lambda: [c for c in graph.generate_stream(
+        [list(range(50, 70))], max_new_tokens=10, segment=4,
+        return_logprobs=True)])
+    outs = _threads(fns)
+    for p, got in zip(long_rows, outs):
+        want = eager.generate(p, max_new_tokens=10, return_logprobs=True)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    want = eager.generate([list(range(2, 9))] * 2, max_new_tokens=11,
+                          return_logprobs=True, **SAMPLED)
+    np.testing.assert_array_equal(outs[3][1], want[1])
+    want = eager.generate([list(range(50, 70))], max_new_tokens=10,
+                          return_logprobs=True)
+    np.testing.assert_array_equal(np.concatenate([c[1] for c in outs[4]], 1),
+                                  want[1])
+    assert eng.stats()["row_prefills"] == 3
