@@ -50,7 +50,14 @@ Phases, each of which fails the run with a non-zero exit:
    read with graphs and eagerly in turns; the served logits of A-C are
    held against the plain PyTorch model on the card, and one request
    (one engine burst for D) is traced with ``torch.profiler`` (device
-   busy time by kernel, idle share);
+   busy time by kernel, idle share). A-D run with the prefix store off
+   (``prefix_cache_mb=0``). Last, E: D's paged engine with the prefix
+   store at the handler's default (512 MB), 8 requests sharing a
+   2,048-token head (one cold, 7 together, then a full hit): every row
+   bitwise its solo routed run, paged bitwise a dense engine with an
+   assembling store, the store's counters and the launch counters the
+   traffic's, the pool left holding the store's pages alone; routed
+   against unrouted printed, and the TTFT cold, hot and unrouted;
 5. print the kernels' JSON line and, last, the device line.
 
 Details go to ``chiprun_out/chip_smoke.json``. With no CUDA device, or
@@ -707,9 +714,11 @@ def flash_rows_invariant(gen) -> bool:
 
 # (k, n, x dtype, row counts): the projections of llama3-8b at
 # single-row decode (1), batch-4 decode (4), and the main path's prefills:
-# path A's 100-token prompt (bucket 128), a 4 x 512 group (2048) and the
-# ~4,000-token prompt of paths B and C (bucket 4096)
-PREFILL_MS = (1, 4, 128, 2048, 4096)
+# a prefix walk's block chunk and a continuation's suffix (32), path A's
+# 100-token prompt (bucket 128), a prefix walk's wide chunk (256), a 4 x
+# 512 group (2048) and the ~4,000-token prompt of paths B and C (bucket
+# 4096)
+PREFILL_MS = (1, 4, 32, 128, 256, 2048, 4096)
 MATMUL_SHAPES = (
     (4096, 4096, torch.bfloat16, PREFILL_MS),    # q_proj, o_proj
     (4096, 1024, torch.bfloat16, PREFILL_MS),    # k_proj, v_proj
@@ -1044,9 +1053,11 @@ KERNELS = ("decode_attention", "decode_attention_int8kv",
 
 
 def path_spec(path: str) -> dict:
+    # the prefix store off, so the path's counts and numbers compare with
+    # the slices before it; path E drives the store
     return {"model": "llama3-8b", "dtype": "bfloat16", "quant": "int8",
             "extra": {**PATHS[path], "matmul_backend": "pallas",
-                      "max_new_tokens": "16"}}
+                      "max_new_tokens": "16", "prefix_cache_mb": "0"}}
 
 
 def implied_launches(path: str, layers: int, news) -> dict:
@@ -1405,7 +1416,8 @@ def serve_engine_path(card: str) -> dict:
     from lambdipy_tpu_torch.runtime.server import BundleServer
 
     spec = {"model": "llama3-8b", "dtype": "bfloat16", "quant": "int8",
-            "extra": {**ENGINE_EXTRA, "max_new_tokens": "16"}}
+            "extra": {**ENGINE_EXTRA, "max_new_tokens": "16",
+                      "prefix_cache_mb": "0"}}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = generate_handler(spec, HandlerContext(device="cuda"))
@@ -1907,6 +1919,398 @@ def compare_models(served, plain, tokens, path: str) -> dict:
                        "kv_rel_max": KV_REL_MAX}}
 
 
+# path E: the automatic prefix KV cache over the paged engine
+PREFIX_EXTRA = {**ENGINE_EXTRA, "max_new_tokens": "24"}  # store at 512 MB
+PREFIX_HEAD = 2048  # the shared head: a system prompt or few-shot template
+# (suffix tokens, streamed) of the 8 requests; request 0 runs cold, 1-7
+# together, then request 0 once more (a full hit)
+PREFIX_SUFFIXES = ((40, True), (63, True), (87, False), (110, False),
+                   (135, True), (158, False), (181, True), (200, False))
+PREFIX_NEW = 24
+# routed against unrouted (path E (c)): a continuation's softmax and PV
+# reduce over the 8,192-position window, the unrouted prefill's over its
+# 4,096 bucket, so the two differ in the last bits (ROADMAP section 3).
+# The bound: greedy rows' tokens equal, and every row's first-token
+# logprob within this of the unrouted one (measured on an H100, NVIDIA
+# H100 80GB HBM3, 700 W: 9.1e-3 at most over the 8 requests; over whole
+# rows 1.5e-2)
+ROUTED_LOGPROB_GAP = 0.05
+
+
+def prefix_knobs(i: int) -> dict:
+    """Even requests greedy, odd ones seeded."""
+    return ({} if i % 2 == 0 else
+            {"temperature": 0.8, "top_p": 0.9, "seed": 100 + i})
+
+
+def prefix_target(n: int, block: int, max_len: int) -> int:
+    """The prefix length the store routes an n-token prompt with."""
+    return min((n - 1) // block * block, max_len - block)
+
+
+def walk_rounds(matched: int, target: int, block: int, wide: int,
+                max_len: int) -> int:
+    """Chunk dispatches of a walk from ``matched`` to ``target``, as the
+    store cuts it: a first chunk (wide when the target allows) from 0,
+    then wide chunks where they fit, block chunks for the rest."""
+    pos, rounds = matched, 0
+    if pos == 0:
+        pos, rounds = (wide if target >= wide else block), 1
+    while pos < target:
+        pos += wide if (target - pos >= wide and pos + wide <= max_len) \
+            else block
+        rounds += 1
+    return rounds
+
+
+def serve_prefix_path(card: str) -> dict:
+    """Phase 4, path E: llama3-8b through the continuous engine over a
+    paged arena with the prefix store at the handler's default (512 MB),
+    over HTTP: a seeded 2,048-token head shared by 8 requests of their own
+    suffixes, 24 new tokens each, greedy and seeded, some streamed: one
+    cold, 7 together, then the first again (a full hit). Checks (a) every
+    row bitwise its solo routed run (``LlamaServer.generate(suffix,
+    prefix=)`` from the same prefix K/V), (b) the same traffic through a
+    dense full-window engine with a dense store (assembled hits) bitwise
+    the paged rows, (c) routed against unrouted (the whole prompt, no
+    store): printed, bitwise or the largest logprob gap, (d) the store's
+    hits, misses and hit tokens the traffic's and no assembly, (e) the
+    launch counters the walks', continuations' and engine steps', every
+    step a replay, (f) after the drain the pool holds the store's pages
+    alone and both pass their invariant checks."""
+    import threading
+
+    from lambdipy_tpu_torch.models.llama import cache_nbytes
+    from lambdipy_tpu_torch.runtime.continuous import ContinuousBatcher
+    from lambdipy_tpu_torch.runtime.handlers import (HandlerContext,
+                                                     generate_handler,
+                                                     kernel_launches)
+    from lambdipy_tpu_torch.runtime.prefixstore import PrefixStore
+    from lambdipy_tpu_torch.runtime.server import BundleServer
+
+    spec = {"model": "llama3-8b", "dtype": "bfloat16", "quant": "int8",
+            "extra": dict(PREFIX_EXTRA)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = generate_handler(spec, HandlerContext(device="cuda"))
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    server_, engine, store = state.server, state.engine, state.prefix_store
+    cfg = server_.model.cfg
+    layers, block, max_len = cfg.layers, store.block, cfg.max_len
+    if store is None or store.pool is not engine.pool:
+        raise SystemExit("path E: the handler built no paged prefix store")
+    log(f"path E: {spec['model']} ({layers} layers, {cfg.quant} weights, "
+        f"{cfg.attn_backend}, paged bf16 KV, {engine.slots} slots, page "
+        f"{engine.pool.page}) with the prefix store at "
+        f"{store.budget_bytes / 2**20:.0f} MiB (block {block}, walk chunk "
+        f"{store.walk_chunk}) built in {boot_s:.1f} s")
+    rng = torch.Generator().manual_seed(21)
+
+    def tokens(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    head = tokens(PREFIX_HEAD)
+    reqs = []
+    for i, (n, streamed) in enumerate(PREFIX_SUFFIXES):
+        body = {"tokens": head + tokens(n), "max_new_tokens": PREFIX_NEW,
+                "logprobs": True, **prefix_knobs(i)}
+        reqs.append((streamed, body))
+    order = [0, *range(1, 8), 0]  # cold, the 7 together, the full hit
+    targets = [prefix_target(len(b["tokens"]), block, max_len)
+               for _, b in reqs]
+
+    http = BundleServer(state, port=0).start_background()
+    url = http.url + "/invoke"
+    resp, first_line = [None] * len(order), [None] * len(order)
+    walk0 = {}
+
+    def send(j):
+        streamed, body = reqs[order[j]]
+        t1 = time.perf_counter()
+        if streamed or j in (0, len(order) - 1):
+            records, first_line[j] = _post_stream(url, body)
+            if not records[-1].get("done"):
+                raise SystemExit(f"path E: stream ended badly: "
+                                 f"{records[-1]}")
+            resp[j] = {"ok": all(r.get("ok") for r in records),
+                       "prefix_cached": records[-1].get("prefix_cached"),
+                       "tokens": [[t for r in records[:-1]
+                                   for t in r["tokens"][0]]],
+                       "logprobs": [[x for r in records[:-1]
+                                     for x in r["logprobs"][0]]]}
+        else:
+            resp[j] = http_json(url, body)
+        resp[j]["wall_s"] = time.perf_counter() - t1
+
+    try:
+        set_launches_to_zero()  # counters to 0 just before the path
+        t_traffic = time.perf_counter()
+        send(0)
+        prefill0 = store.stats()["prefill"]
+        walk0 = {"ms": 1e3 * prefill0["critical_path_s"],
+                 "chunks": prefill0["rounds"]}
+        errors = []
+
+        def run(j):
+            try:
+                send(j)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=(j,))
+                   for j in range(1, len(order) - 1)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        if errors or any(r is None for r in resp[1:-1]):
+            raise SystemExit(f"path E: a request failed: {errors!r}")
+        send(len(order) - 1)
+        traffic_s = time.perf_counter() - t_traffic
+        launches = kernel_launches()
+        metrics = http_json(http.url + "/metrics")
+    finally:
+        http.stop()
+    peak_paged = torch.cuda.max_memory_allocated()
+    if not all(r.get("ok") and r.get("prefix_cached") for r in resp):
+        raise SystemExit(f"path E: a request was not served from the "
+                         f"prefix cache: {resp}")
+    stats = engine.stats()
+    pstats = store.stats()
+
+    # (d) the store's counters: request 0 misses and walks its whole
+    # target, 1-7 hit the head and walk their own suffix blocks, the
+    # repeat hits its whole target
+    want_pc = {"misses": 1, "hits": len(order) - 1,
+               "hit_tokens": (len(order) - 2) * PREFIX_HEAD + targets[0],
+               "blocks": (targets[0] + sum(t - PREFIX_HEAD
+                                           for t in targets[1:])) // block,
+               "assembly_bytes_peak": 0, "assemblies": 0, "evictions": 0}
+    got_pc = {k: pstats[k] for k in want_pc}
+    rounds = (walk_rounds(0, targets[0], block, store.walk_chunk, max_len)
+              + sum(walk_rounds(PREFIX_HEAD, t, block, store.walk_chunk,
+                                max_len) for t in targets[1:]))
+    log(f"path E (d): prefix store {got_pc}, implied {want_pc}; "
+        f"{pstats['prefill']['walks']} walks of {pstats['prefill']['rounds']} "
+        f"chunks (implied 8 of {rounds}); {stats['prefix_joins']} prefix "
+        f"joins")
+    if (got_pc != want_pc or pstats["prefill"]["rounds"] != rounds
+            or pstats["prefill"]["walks"] != 8
+            or stats["prefix_joins"] != len(order)
+            or metrics["handler"]["prefix_cache"]["hits"] != want_pc["hits"]):
+        raise SystemExit("path E (d): the prefix store's counters differ "
+                         "from the traffic's")
+
+    # (e) every forward is a walk chunk, a continuation or an engine step
+    forwards = rounds + stats["prefix_joins"] + stats["forwards"]
+    want = dict.fromkeys(KERNELS, 0)
+    want["paged_decode_attention"] = layers * stats["steps"]
+    want["int8_matmul"] = (7 * layers + 1) * forwards
+    log(f"path E (e) launch counters: {launches}, implied {want} ({rounds} "
+        f"walk chunks, {stats['prefix_joins']} continuations, "
+        f"{stats['steps']} engine steps, {stats['forwards']} engine "
+        f"forwards)")
+    if launches != want or metrics["handler"]["kernels"] != launches:
+        raise SystemExit(f"path E: launch counters {launches} != implied "
+                         f"{want}")
+    programs = check_replays("E", metrics["handler"]["batching"],
+                             stats["steps"])
+
+    # (f) the pool holds the store's pages alone, each with the store's
+    # one ref
+    pool = engine.pool
+    pool.check_invariants()
+    inv = store.check_invariants()
+    refs = {p: r for p, r in pool.snapshot_refs().items() if p != 0}
+    log(f"path E (f): after the drain {len(refs)} pages live, the store "
+        f"holds {len(inv['pages'])}, every refcount "
+        f"{sorted(set(refs.values()))}; store invariants {inv['ok']} "
+        f"{inv['violations']}, pool invariants hold")
+    if not inv["ok"] or sorted(refs) != inv["pages"] \
+            or set(refs.values()) != {1}:
+        raise SystemExit("path E (f): the pool holds pages other than the "
+                         "store's after the drain")
+
+    # (b) the same traffic through a dense full-window engine whose dense
+    # store assembles its hits, driven directly
+    dense = ContinuousBatcher(server_, slots=engine.slots,
+                              segment=engine.segment)
+    dstore = PrefixStore(server_, block=block)
+    dense_out = [None] * len(order)
+
+    def send_dense(j):
+        _, body = reqs[order[j]]
+        knobs = {k: body[k] for k in ("temperature", "top_p", "seed")
+                 if k in body}
+        row = body["tokens"]
+        m = dstore.route(row)
+        dense_out[j] = dense.generate(row[m:], prefix=row[:m],
+                                      max_new_tokens=PREFIX_NEW,
+                                      return_logprobs=True, **knobs)
+
+    torch.cuda.reset_peak_memory_stats()
+    send_dense(0)
+    threads = [threading.Thread(target=send_dense, args=(j,))
+               for j in range(1, len(order) - 1)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    send_dense(len(order) - 1)
+    peak_dense = torch.cuda.max_memory_allocated()
+    dpc = dstore.stats()
+    for j, (r, d) in enumerate(zip(resp, dense_out)):
+        if r["tokens"] != d[0].tolist() or not np.array_equal(
+                np.asarray(r["logprobs"]), _as_served(d[1])):
+            raise SystemExit(f"path E (b): request {order[j]}'s paged row "
+                             f"differs from the dense engine's")
+    log(f"path E (b): paged (HTTP) and dense (direct) engines give equal "
+        f"tokens and logprobs for every row; the dense store assembled "
+        f"{dpc['assemblies']} caches, peak {dpc['assembly_bytes_peak']} B, "
+        f"{dense.stats()['prefix_joins']} prefix joins")
+
+    # (a) each request solo through LlamaServer.generate(prefix=), from
+    # the same prefix K/V (the dense store's entry), against the dense
+    # engine's row, bitwise (unrounded), and (c) against the whole prompt
+    # unrouted
+    solo, unrouted, gaps = {}, {}, []
+    for i, (_, body) in enumerate(reqs):
+        knobs = {k: body[k] for k in ("temperature", "top_p", "seed")
+                 if k in body}
+        row = body["tokens"]
+        m = dstore.route(row)
+        solo[i] = server_.generate(row[m:], prefix=row[:m],
+                                   max_new_tokens=PREFIX_NEW,
+                                   return_logprobs=True, **knobs)
+        unrouted[i] = server_.generate(row, max_new_tokens=PREFIX_NEW,
+                                       return_logprobs=True, **knobs)
+        u, s_ = unrouted[i], solo[i]
+        gaps.append({"request": i, "greedy": not knobs,
+                     "tokens_equal": bool(np.array_equal(u[0], s_[0])),
+                     "bitwise": bool(np.array_equal(u[0], s_[0])
+                                     and np.array_equal(u[1], s_[1])),
+                     "first_logprob_gap": float(abs(u[1][0, 0]
+                                                    - s_[1][0, 0])),
+                     "logprob_gap_max": float(np.abs(u[1] - s_[1]).max())})
+    for j, d in enumerate(dense_out):
+        s_ = solo[order[j]]
+        if not (np.array_equal(d[0], s_[0]) and np.array_equal(d[1], s_[1])):
+            raise SystemExit(f"path E (a): request {order[j]}'s engine row "
+                             f"differs from its solo routed run")
+    log(f"path E (a): all {len(order)} engine rows (paged over HTTP at the "
+        f"served rounding, dense unrounded) bitwise their solo routed runs")
+    bitwise = all(g["bitwise"] for g in gaps)
+    greedy_equal = all(g["tokens_equal"] for g in gaps if g["greedy"])
+    first_gap = max(g["first_logprob_gap"] for g in gaps)
+    log(f"path E (c): routed against unrouted (the whole prompt, no "
+        f"store): " + ("bitwise" if bitwise else
+                       f"not bitwise; largest first-token logprob gap "
+                       f"{first_gap:.3e} (bound {ROUTED_LOGPROB_GAP}), "
+                       f"largest logprob gap over the row "
+                       f"{max(g['logprob_gap_max'] for g in gaps):.3e}")
+        + f"; greedy tokens equal: {greedy_equal}; tokens equal by "
+        f"request {[g['tokens_equal'] for g in gaps]} [{card}]")
+    if not greedy_equal or first_gap > ROUTED_LOGPROB_GAP:
+        raise SystemExit("path E (c): routed output left its bound against "
+                         "unrouted")
+
+    # time to first token: cold (walk + continuation), hot (continuation)
+    # and unrouted (the whole prompt), one-token solo requests on the
+    # server, each twice after a warm-up; the HTTP streams' first lines
+    row0 = reqs[0][1]["tokens"]
+
+    def one_token(fn):
+        fn()
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+        return walls
+
+    def cold():
+        fresh = PrefixStore(server_, block=block)
+        with server_._prefix_lock:
+            server_._prefixes.clear()
+        m = fresh.route(row0)
+        server_.generate(row0[m:], prefix=row0[:m], max_new_tokens=1)
+
+    m0 = targets[0]
+    traces = {}
+    for name, fn in (("cold", cold), ("hot", lambda: server_.generate(
+            row0[m0:], prefix=row0[:m0], max_new_tokens=1))):
+        wall_ms, busy_ms, kernels = _traced(fn)
+        traces[name] = {"wall_ms": wall_ms, "busy_ms": busy_ms,
+                        "idle_share": (None if busy_ms is None
+                                       else 1 - busy_ms / wall_ms),
+                        "top_kernels": kernels[:6]}
+        if busy_ms is None:
+            raise SystemExit("path E: the profiler saw no kernel")
+        log(f"path E traced {name} one-token request: wall {wall_ms:.2f} "
+            f"ms, device busy {busy_ms:.2f} ms, idle share "
+            f"{traces[name]['idle_share']:.3f}; top kernels "
+            + ", ".join(f"{k[:40]} {ms:.2f} ms x{n}"
+                        for k, ms, n in kernels[:3]) + f" [{card}]")
+    ttft = {"cold_s": one_token(cold),
+            "hot_s": one_token(lambda: server_.generate(
+                row0[m0:], prefix=row0[:m0], max_new_tokens=1)),
+            "unrouted_s": one_token(lambda: server_.generate(
+                row0, max_new_tokens=1)),
+            "http_first_line_cold_s": first_line[0],
+            "http_first_line_hot_s": first_line[-1]}
+    entry_bytes = cache_nbytes(server_.get_prefix(
+        server_._prefix_key(row0[:m0]))[0])
+    perf = {"traffic_wall_s": traffic_s,
+            "new_tokens": PREFIX_NEW * len(order),
+            "decode_tok_s": PREFIX_NEW * len(order) / traffic_s,
+            "ttft": ttft, "walk_cold_ms": walk0["ms"],
+            "walk_cold_chunks": walk0["chunks"],
+            "walks_ms_total": 1e3 * pstats["prefill"]["critical_path_s"],
+            "walk_chunks_total": pstats["prefill"]["rounds"],
+            "prefix_entry_bytes": entry_bytes,
+            "server_prefix_entries": server_.program_stats()[
+                "prefix_entries"],
+            "server_prefix_bytes": server_.program_stats()["prefix_bytes"],
+            "store_bytes": pstats["bytes"],
+            "max_memory_allocated_gib_paged": peak_paged / 2**30,
+            "max_memory_allocated_gib_dense": peak_dense / 2**30}
+    log(f"path E TTFT (one-token solo requests, two readings each): cold "
+        f"{ttft['cold_s']} s, hot {ttft['hot_s']} s, unrouted "
+        f"{ttft['unrouted_s']} s; first streamed line over HTTP (a segment "
+        f"of 16 steps after the first token): cold "
+        f"{first_line[0]:.3f} s, hot {first_line[-1]:.3f} s [{card}]")
+    log(f"path E cold walk of {targets[0]} tokens: {walk0['ms']:.1f} ms in "
+        f"{walk0['chunks']} chunks; the 8 walks' walls summed (7 of them "
+        f"concurrent) {perf['walks_ms_total']:.1f} ms in "
+        f"{perf['walk_chunks_total']} chunks [{card}]")
+    for key in ("traffic_wall_s", "decode_tok_s", "prefix_entry_bytes",
+                "server_prefix_entries", "server_prefix_bytes",
+                "store_bytes", "max_memory_allocated_gib_paged",
+                "max_memory_allocated_gib_dense"):
+        log(f"path E {key}: {perf[key]} [{card}]")
+    out = {"spec": spec, "boot_s": boot_s, "launches": launches,
+           "implied": want, "programs": programs, "engine": stats,
+           "prefix_cache": pstats, "dense_prefix_cache": dpc,
+           "page_pool": pool.stats(), "routed_vs_unrouted": gaps,
+           "routed_vs_unrouted_bitwise": bitwise,
+           "greedy_tokens_equal": greedy_equal, "perf": perf,
+           "traces": traces,
+           "requests": [{"request": order[j], "wall_s": r["wall_s"],
+                         "http_first_line_s": first_line[j]}
+                        for j, r in enumerate(resp)],
+           "card": card}
+    dense.release()
+    del state, engine, store, server_, dense, dstore, http
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # -------------------------------------------------------------------- main
 
 def main() -> int:
@@ -1950,6 +2354,9 @@ def main() -> int:
         t_path = time.perf_counter()
         paths[path] = serve_path(path, card)
         log(f"path {path} took {time.perf_counter() - t_path:.1f} s")
+    t_path = time.perf_counter()
+    paths["E"] = serve_prefix_path(card)
+    log(f"path E took {time.perf_counter() - t_path:.1f} s")
     # each kernel's launches: the sum over the paths, each path counted
     # from 0 just before it was driven
     for name, kern in kernels.items():

@@ -14,8 +14,14 @@ weights (``models/params.py from_jax_params``). Differences:
   eagerly. The bucketing (prompt, decode and batch buckets,
   ``cache_len``) is kept, so the kernels see the shapes the JAX programs
   see.
-- The KV cache is updated in place (the JAX cache is functional).
-- Only per-row ``[b]`` cache indices exist: the serving decode path.
+- The KV cache is updated in place (the JAX cache is functional). A
+  prefix entry the server or the prefix store shares is never written:
+  a continuation runs on a copy (the step's own cache, or
+  :func:`copy_cache`), as the JAX ext program's donation needs the copy
+  ``runtime/prefixstore.py`` makes first.
+- Cache indices are per-row ``[b]`` tensors (one-token decode steps) or
+  a Python ``int`` (the multi-token chunk of a continuation or of a
+  prefix walk, :meth:`LlamaBlock._chunk_attend`).
 - The paged decode branch (a cache entry holding arena leaves and block
   ``tables``) writes each step's K/V into the row's page and, under
   ``blocked``, runs the paged decode-attention kernel on the arena where
@@ -42,8 +48,10 @@ weights (``models/params.py from_jax_params``). Differences:
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 import threading
+from collections import OrderedDict
 from typing import Any
 
 import numpy as np
@@ -333,12 +341,56 @@ class LlamaBlock(nn.Module):
                  <= idx[:, None, None])  # [b, 1, t]
         return _attend(q, ck, cv, valid)
 
+    def _chunk_attend(self, q, k, v, cache):
+        """A chunk of ``s`` tokens at one scalar ``index`` (an ``int``):
+        the chunk's K/V written at ``[index, index + s)``, in place, and
+        chunk query j attending keys ``<= index + j``, causal within the
+        chunk and everything before it (JAX ``llama.py:401-431``). A
+        prefix continuation or a prefix walk's extension chunk. The
+        attention is plain ``_attend`` over the whole cache width (int8
+        K/V through ``_kv_dequantize``), as the JAX package runs it; a
+        one-token chunk under ``blocked`` takes the decode kernel, as
+        there. The chunk must fit the cache: the JAX write clamps a
+        crossing chunk back onto real K/V, so callers keep ``index + s <=
+        width``, and here a crossing chunk raises."""
+        cfg = self.cfg
+        b, s = q.shape[:2]
+        idx = cache["index"]
+        t = cache_width([cache])
+        if idx < 0 or idx + s > t:
+            raise ValueError(f"a {s}-token chunk at index {idx} crosses the "
+                             f"cache's {t} positions")
+        new_cache = {}
+        for name, val in _kv_store(cfg, k, v).items():
+            cache[name][:, idx:idx + s] = val
+            new_cache[name] = cache[name]
+        new_cache["index"] = idx
+        if cfg.kv_quant == "int8":
+            ck, cv = new_cache["k_int8"], new_cache["v_int8"]
+            scales = {"k_scale": new_cache["k_scale"],
+                      "v_scale": new_cache["v_scale"]}
+        else:
+            ck, cv, scales = new_cache["k"], new_cache["v"], {}
+        if cfg.attn_backend == "blocked" and s == 1:
+            active = torch.full((b,), idx + 1, dtype=torch.int32,
+                                device=q.device)
+            return blocked_decode_attention(q, ck, cv, active,
+                                            **scales), new_cache
+        if scales:
+            ck = _kv_dequantize(ck, scales["k_scale"], cfg.dtype)
+            cv = _kv_dequantize(cv, scales["v_scale"], cfg.dtype)
+        keys = torch.arange(t, device=q.device)
+        queries = idx + torch.arange(s, device=q.device)
+        valid = (keys[None, None, :] <= queries[None, :, None]).expand(b, s, t)
+        return _attend(q, ck, cv, valid), new_cache
+
     def forward(self, x, positions, mask, cache):
-        """cache: None (prefill over all of x) or a decode-cache entry
-        for a one-token decode step: the ``_kv_store`` leaves and a
-        per-row ``[b]`` index, or a paged entry (arena leaves, block
-        ``tables`` and the index; :meth:`_paged_decode`). Returns ``(y,
-        new_cache_entry)``; a decode step writes the cache in place. The
+        """cache: None (prefill over all of x), a decode-cache entry for a
+        one-token decode step (the ``_kv_store`` leaves and a per-row
+        ``[b]`` index), a paged entry (arena leaves, block ``tables`` and
+        the index; :meth:`_paged_decode`), or an entry whose index is an
+        ``int`` for a multi-token chunk (:meth:`_chunk_attend`). Returns
+        ``(y, new_cache_entry)``; a cache is written in place. The
         prefill entry is float K/V; ``prefill_into_cache`` stores it in
         the cache's layout."""
         cfg = self.cfg
@@ -353,6 +405,8 @@ class LlamaBlock(nn.Module):
         if cache is None:
             out = self._prefill_attend(q, k, v, mask)
             new_cache = {"k": k, "v": v}
+        elif isinstance(cache["index"], int):
+            out, new_cache = self._chunk_attend(q, k, v, cache)
         elif "tables" in cache:
             if s != 1:
                 raise ValueError("the paged cache branch takes one-token "
@@ -503,6 +557,63 @@ def prefill_into_cache(cfg: LlamaConfig, prefill_cache, batch: int,
     for dest in out:
         dest["index"].fill_(prompt_len)
     return out
+
+
+def _leaves(entry: dict) -> dict:
+    """A cache entry's K/V leaves (its tensors in the store layout),
+    without the index and the paged step's entries."""
+    return {name: val for name, val in entry.items()
+            if name not in PAGED_STEP_KEYS}
+
+
+def slice_cache_blocks(cache, start: int, width: int):
+    """Store-layout ``[start, start + width)`` sequence slices of a decode
+    cache, one dict per layer (``index`` dropped): the block unit the
+    radix prefix store (``runtime/prefixstore.py``) keeps. Slices are
+    fresh buffers, so they stay valid whatever later writes the source
+    cache takes, and they hold only their own bytes."""
+    return [{name: val[:, start:start + width].clone()
+             for name, val in _leaves(entry).items()}
+            for entry in cache]
+
+
+def concat_cache_blocks(cfg: LlamaConfig, blocks, cache_len: int):
+    """Assemble per-layer block slices (as :func:`slice_cache_blocks`
+    returns, one list entry per block, in sequence order) back into a
+    one-row ``cache_len`` decode cache with ``index`` = the assembled
+    width (an ``int``): the inverse of slicing at block boundaries. K/V
+    is position-dependent (RoPE comes before the cache store), so blocks
+    go back to the positions they were sliced from; a radix path does
+    that by construction. Positions past the blocks hold the empty
+    cache's values."""
+    first = next(iter(blocks[0][0].values()))
+    out = []
+    for i in range(cfg.layers):
+        dest = _empty_cache_entry(cfg, 1, cache_len, first.device)
+        pos = 0
+        for blk in blocks:
+            width = next(iter(blk[i].values())).shape[1]
+            for name, val in blk[i].items():
+                dest[name][:, pos:pos + width] = val
+            pos += width
+        dest["index"] = pos
+        out.append(dest)
+    return out
+
+
+def copy_cache(cache):
+    """Fresh-buffer copy of a decode cache (tensors cloned, an ``int``
+    index kept): what a continuation or an extension walk writes in
+    place while the original stays shared in a prefix store."""
+    return [{name: val.clone() if torch.is_tensor(val) else val
+             for name, val in entry.items()}
+            for entry in cache]
+
+
+def cache_nbytes(cache) -> int:
+    """Device bytes of a cache's K/V leaves."""
+    return sum(val.numel() * val.element_size() for entry in cache
+               for val in _leaves(entry).values())
 
 
 NULL_PAGE = 0  # the arena's reserved page (runtime/pagepool.py)
@@ -784,6 +895,32 @@ def _serve_prefill(model: LlamaModel, step: DecodeStep, prompt, length,
     step.load(first, lp0, length, eos, gens)
 
 
+def _continue_prefill(model: LlamaModel, cache, suffix, suffix_len: int,
+                      select, gens, eos, sbs: int):
+    """Continuation prefill from a cached prefix K/V: the padded suffix
+    ``[b, sbs]`` embedded at the positions after the cache's ``int``
+    index (written in place into ``cache``), the first token selected at
+    the suffix's last real position. Returns the decode carry ``(first,
+    lp0, cache, pos, done)`` with per-row ``[b]`` index and position, the
+    shapes :func:`_serve_prefill` gives. The one source of the prefix
+    continuation math: the solo, streaming and engine prefix paths all
+    run it (JAX ``llama.py:1141``)."""
+    dev = suffix.device
+    b = suffix.shape[0]
+    idx = int(cache[0]["index"])
+    positions = (idx + torch.arange(sbs, device=dev))[None, :].expand(b, sbs)
+    logits, new_cache = model(
+        suffix, positions=positions,
+        cache=[{**_leaves(entry), "index": idx} for entry in cache],
+        logit_positions=torch.full((b,), suffix_len - 1, device=dev))
+    start = torch.full((b,), idx + suffix_len, dtype=torch.int32, device=dev)
+    for entry in new_cache:
+        entry["index"] = start
+    first, lp0 = select(logits[:, 0, :].float(), gens)
+    done0 = (eos >= 0) & (first == eos)
+    return first, lp0, new_cache, start, done0
+
+
 def _scan_decode(run, step: DecodeStep, decode_steps: int,
                  segment: bool = False):
     """The decode loop: emits ``decode_steps`` tokens starting with the
@@ -863,14 +1000,24 @@ class LlamaServer:
     weights leave of the card; no byte bound on the CPU). ``graphs``:
     None = CUDA graphs on the card, eager on the CPU; False = eager (the
     step still runs on its fixed buffers); or a stand-in graph type
-    (tests)."""
+    (tests).
+
+    Prefix caching (``generate(..., prefix=)``): a prefix's K/V is
+    prefilled once into a one-row full-window cache and kept in an LRU of
+    ``prefix_cache_max`` entries (:meth:`cache_prefix`), outside the
+    program bytes: one entry of ``llama3-8b`` bf16 K/V is 8,192 positions
+    x 128 KiB = 1 GiB. A request then prefills only its suffix: the entry's
+    prefix positions are copied into the decode step's cache (the entry
+    itself is never written) and the suffix continues there
+    (:func:`_continue_prefill`), so decode replays the step's graph."""
 
     # decode steps per hold of the device lock in generate
     segment = 16
 
     def __init__(self, model: LlamaModel, *, graphs=None,
                  program_cache_max: int = PROGRAM_CACHE_MAX,
-                 program_cache_bytes: int | None = None):
+                 program_cache_bytes: int | None = None,
+                 prefix_cache_max: int = 4):
         self.model = model
         self._lock = DEVICE_LOCK
         if graphs is None:
@@ -881,19 +1028,33 @@ class LlamaServer:
             program_cache_bytes = default_program_bytes(model)
         self.programs = ProgramCache(program_cache_max, self.graph_stats,
                                      program_cache_bytes)
+        self._prefix_cache_max = max(1, int(prefix_cache_max))
+        self._prefixes: OrderedDict = OrderedDict()  # key -> (cache, len)
+        self._prefix_lock = threading.Lock()
+        self._prefix_inflight: dict[str, threading.Event] = {}
 
     def program_stats(self) -> dict:
         """The decode programs, as the JAX handler reports them:
         ``decode_buckets`` (the live programs' keys), ``compile_count``
         (graphs captured), ``program_evictions``, ``replays``,
         ``eager_steps``, and ``program_bytes`` (the entries' decode caches
-        and graph pools) under ``program_cache_bytes``."""
+        and graph pools) under ``program_cache_bytes``; and the prefix
+        entries (``prefix_entries``, ``prefix_bytes``), which lie outside
+        that bound."""
         return {"graphs": self.graph_type is not None,
                 "decode_buckets": [list(k) for k in self.programs.keys()],
                 **self.graph_stats.report(),
                 "program_cache_max": self.programs.max_entries,
                 "program_cache_bytes": self.programs.max_bytes,
-                "program_bytes": self.programs.nbytes()}
+                "program_bytes": self.programs.nbytes(),
+                **self.prefix_stats()}
+
+    def prefix_stats(self) -> dict:
+        """The prefix entries: how many, and their device bytes."""
+        with self._prefix_lock:
+            entries = [cache for cache, _ in self._prefixes.values()]
+        return {"prefix_entries": len(entries),
+                "prefix_bytes": sum(cache_nbytes(c) for c in entries)}
 
     @property
     def device(self):
@@ -954,38 +1115,63 @@ class LlamaServer:
     def generate(self, prompt_tokens, *, max_new_tokens: int,
                  temperature: float = 0.0, top_k: int | None = None,
                  top_p: float | None = None, seed: int = 0,
-                 eos_id: int | None = None, return_logprobs: bool = False):
+                 eos_id: int | None = None, prefix=None,
+                 return_logprobs: bool = False):
         """prompt_tokens: ``[s]``, ``[b, s]`` or a ragged list of rows ->
         int32 numpy ``[b, max_new_tokens]`` (plus f32 logprobs when
         asked). Knobs may be scalars or per-row lists. A request that runs
         out of device memory evicts every idle program and runs once more
         from its prefill (the same bits: its generators are seeded
-        anew)."""
+        anew).
+
+        ``prefix``: shared-prefix tokens for a single-row request: their
+        K/V is prefilled once and kept (:meth:`cache_prefix`), and only
+        ``prompt_tokens``, the suffix after the prefix, is prefilled per
+        request. With the float KV cache the output is
+        ``generate(prefix + prompt)``'s; under ``kv_quant`` the suffix
+        attends the quantized prefix K/V, so the two agree to the
+        quantization's tolerance."""
         rows, lengths = self._normalize_prompts(prompt_tokens)
         b, s = len(rows), max(lengths)
+        if prefix is not None:
+            return self._generate_with_prefix(
+                prefix, rows, lengths, max_new_tokens, temperature, top_k,
+                top_p, seed, eos_id, return_logprobs)
         self._validate(s, max_new_tokens)
         if max_new_tokens == 0:
-            toks = np.zeros((b, 0), np.int32)
-            return (toks, np.zeros((b, 0), np.float32)) if return_logprobs \
-                else toks
+            return self._empty(b, return_logprobs)
         args = (rows, lengths, max_new_tokens, temperature, top_k, top_p,
                 seed, eos_id)
+        toks, lps = self._retry_on_oom(
+            lambda: self._generate(lambda: self._prefill(*args),
+                                   max_new_tokens))
+        toks, lps = toks[:b], lps[:b]
+        return (toks, lps) if return_logprobs else toks
+
+    @staticmethod
+    def _empty(b: int, return_logprobs: bool):
+        toks = np.zeros((b, 0), np.int32)
+        return (toks, np.zeros((b, 0), np.float32)) if return_logprobs \
+            else toks
+
+    def _retry_on_oom(self, fn):
+        """``fn()``; once more after evicting every idle program when it
+        runs out of device memory."""
         try:
-            toks, lps = self._generate(*args)
+            return fn()
         except torch.OutOfMemoryError:
             with self._lock:
                 if not self.programs.drop_idle():
                     raise
-            toks, lps = self._generate(*args)
-        toks, lps = toks[:b], lps[:b]
-        return (toks, lps) if return_logprobs else toks
+            return fn()
 
-    def _generate(self, rows, lengths, max_new_tokens, *knobs):
-        """:meth:`generate`'s device work: the prefill, then the decode in
-        segments of ``segment`` steps, the device lock held for one
+    def _generate(self, prefill, max_new_tokens):
+        """:meth:`generate`'s device work: ``prefill()`` (under the lock,
+        returning the checked-out entry and its program), then the decode
+        in segments of ``segment`` steps, the device lock held for one
         segment at a time; the tokens are fetched once, at the end."""
         with self._lock, torch.inference_mode():
-            entry, prog = self._prefill(rows, lengths, max_new_tokens, *knobs)
+            entry, prog = prefill()
         try:
             toks, lps, emitted = [], [], 0
             while emitted < max_new_tokens:
@@ -1012,6 +1198,21 @@ class LlamaServer:
         steps = min(_next_bucket(max_new_tokens, MIN_BUCKET), max_len - s)
         return min(_next_bucket(s, MIN_BUCKET), max_len - steps)
 
+    def _checkout(self, bb: int, cache_len: int) -> StepPrograms:
+        """The program entry of key ``(bb, cache_len, KV layout,
+        backends)``, checked out (caller holds the lock)."""
+        cfg = self.model.cfg
+        key = (bb, cache_len, cfg.kv_quant or "float", cfg.attn_backend,
+               cfg.matmul_backend)
+
+        def make():
+            cache = init_decode_cache(cfg, bb, cache_len, self.device)
+            return StepPrograms(DecodeStep(self.model, cache, bb),
+                                self.graph_type, self.graph_stats)
+
+        return self.programs.checkout(
+            key, decode_cache_bytes(cfg, bb, cache_len), make)
+
     def _prefill(self, rows, lengths, max_new_tokens, temperature, top_k,
                  top_p, seed, eos_id):
         """The bucketed prefill shared by :meth:`generate` and
@@ -1028,16 +1229,7 @@ class LlamaServer:
         prompt, length = self._pad_rows(rows, lengths, bb, sb)
         temp, tk, tp, gens, eos = self._knob_operands(
             temperature, top_k, top_p, seed, eos_id, b=bb)
-        key = (bb, cache_len, cfg.kv_quant or "float", cfg.attn_backend,
-               cfg.matmul_backend)
-
-        def make():
-            cache = init_decode_cache(cfg, bb, cache_len, self.device)
-            return StepPrograms(DecodeStep(self.model, cache, bb),
-                                self.graph_type, self.graph_stats)
-
-        entry = self.programs.checkout(
-            key, decode_cache_bytes(cfg, bb, cache_len), make)
+        entry = self._checkout(bb, cache_len)
         try:
             prog = entry.program(bool((temp > 0).any()))
             entry.step.set_knobs(temp, tk, tp)
@@ -1052,7 +1244,7 @@ class LlamaServer:
                         temperature: float = 0.0, top_k: int | None = None,
                         top_p: float | None = None, seed: int = 0,
                         eos_id: int | None = None, segment: int = 16,
-                        return_logprobs: bool = False):
+                        prefix=None, return_logprobs: bool = False):
         """Streaming :meth:`generate`: yields int32 numpy ``[b, k]``
         chunks (``k <= segment``; ``(tokens, logprobs)`` pairs when
         asked) as they decode, stopping early once every row has latched
@@ -1062,22 +1254,41 @@ class LlamaServer:
         held per segment, not across the yields; the stream holds its
         entry (step, cache, graphs) from its prefill to its end. A prefill
         that runs out of device memory evicts every idle program and runs
-        once more."""
+        once more. ``prefix=`` streams from a cached prefix K/V (a single
+        row), as :meth:`generate` does."""
         rows, lengths = self._normalize_prompts(prompt_tokens)
         b, s = len(rows), max(lengths)
+        if prefix is not None:
+            if max_new_tokens == 0:
+                self._validate(s, max_new_tokens)
+                return
+            segment = max(1, min(int(segment), max_new_tokens))
+            yield from self._generate_stream_with_prefix(
+                prefix, rows, lengths, max_new_tokens, temperature, top_k,
+                top_p, seed, eos_id, segment, return_logprobs)
+            return
         self._validate(s, max_new_tokens)
         if max_new_tokens == 0:
             return
         segment = max(1, min(int(segment), max_new_tokens))
         args = (rows, lengths, max_new_tokens, temperature, top_k, top_p,
                 seed, eos_id)
+        yield from self._stream(lambda: self._prefill(*args), b,
+                                max_new_tokens, segment, eos_id,
+                                return_logprobs)
+
+    def _stream(self, prefill, b, max_new_tokens, segment, eos_id,
+                return_logprobs):
+        """:meth:`generate_stream`'s device work: ``prefill()`` under the
+        lock (once more after evicting idle programs when it runs out of
+        memory), then the decode a segment at a time."""
         with self._lock, torch.inference_mode():
             try:
-                entry, prog = self._prefill(*args)
+                entry, prog = prefill()
             except torch.OutOfMemoryError:
                 if not self.programs.drop_idle():
                     raise
-                entry, prog = self._prefill(*args)
+                entry, prog = prefill()
         try:
             emitted = 0
             while emitted < max_new_tokens:
@@ -1096,6 +1307,255 @@ class LlamaServer:
         finally:
             with self._lock:
                 self.programs.checkin(entry)
+
+    # -- prefix caching ------------------------------------------------------
+
+    @staticmethod
+    def _prefix_key(tokens) -> str:
+        arr = np.asarray(tokens, np.int32).reshape(-1)
+        return hashlib.sha1(arr.tobytes()).hexdigest()
+
+    def cache_prefix(self, prefix_tokens) -> str:
+        """Prefill ``prefix_tokens`` once and keep its K/V for the
+        ``prefix=`` paths (idempotent; LRU-bounded by
+        ``prefix_cache_max``). Returns the key. The kept cache spans the
+        whole context window, so any suffix and decode the window allows
+        can continue from it. Concurrent callers of one prefix wait for
+        the one prefill; a wait that times out twice raises."""
+        cfg = self.model.cfg
+        rows, lengths = self._normalize_prompts(prefix_tokens)
+        if len(rows) != 1:
+            raise ValueError("prefix caching is single-row")
+        s = lengths[0]
+        if s >= cfg.max_len:
+            raise ValueError(f"prefix {s} fills the whole context window")
+        key = self._prefix_key(rows[0])
+        wait_s, timeouts, max_timeouts = 300.0, 0, 2
+        while True:
+            with self._prefix_lock:
+                if key in self._prefixes:
+                    self._prefixes.move_to_end(key)
+                    return key
+                waiter = self._prefix_inflight.get(key)
+                if waiter is None:
+                    self._prefix_inflight[key] = threading.Event()
+                    break
+            if not waiter.wait(timeout=wait_s):
+                timeouts += 1
+                if timeouts >= max_timeouts:
+                    raise RuntimeError(
+                        f"prefix prefill (key {key[:8]}...) owned by another "
+                        f"thread did not complete within "
+                        f"{timeouts * wait_s:.0f}s; failing this request")
+        try:
+            return self._prefill_prefix(key, rows, lengths)
+        finally:
+            with self._prefix_lock:
+                self._prefix_inflight.pop(key).set()
+
+    def get_prefix(self, key: str):
+        """LRU-refreshing peek: ``(cache, length)`` for an exact prefix
+        key, or None; never prefills."""
+        with self._prefix_lock:
+            entry = self._prefixes.get(key)
+            if entry is not None:
+                self._prefixes.move_to_end(key)
+            return entry
+
+    def register_prefix(self, key: str, cache, length: int) -> None:
+        """Insert a full-window prefix cache built elsewhere (the radix
+        prefix store's assembly or walk) under ``key``, with the same LRU
+        bound as :meth:`cache_prefix`, so every ``prefix=`` path serves
+        from it unchanged."""
+        with self._prefix_lock:
+            self._prefixes[key] = (cache, int(length))
+            self._prefixes.move_to_end(key)
+            while len(self._prefixes) > self._prefix_cache_max:
+                self._prefixes.popitem(last=False)
+
+    def _prefix_first_fn(self, sb: int, cache_len: int):
+        """First-chunk prefix prefill of width ``sb``: ``pf(prompt [1, sb],
+        length)`` embeds the padded chunk into a fresh one-row
+        ``cache_len`` cache with ``index`` = the true length (an
+        ``int``); the lm_head runs at one position. Takes the device lock
+        for its dispatch."""
+        def pf(prompt, length: int):
+            with self._lock, torch.inference_mode():
+                _, prefill_cache = self.model(
+                    prompt, logit_positions=torch.zeros(
+                        1, dtype=torch.long, device=self.device))
+                cache = prefill_into_cache(self.model.cfg, prefill_cache, 1,
+                                           cache_len, 0)
+            for entry in cache:
+                entry["index"] = int(length)
+            return cache
+
+        return pf
+
+    def _prefix_ext_fn(self, sbs: int):
+        """Extend a one-row prefix cache by one padded chunk of width
+        ``sbs``: ``ext(cache, chunk [1, sbs], chunk_len)`` writes the
+        chunk's K/V at the cache's index in place (no token selection;
+        the lm_head at one position) and moves the index by
+        ``chunk_len``. Every chunk but the last must be full: the write
+        covers the whole padded chunk, the next chunk overwrites the
+        padding, and the last chunk's padding stays behind the index.
+        Takes the device lock for its dispatch."""
+        def ext(cache, chunk, chunk_len: int):
+            idx = int(cache[0]["index"])
+            positions = (idx + torch.arange(sbs, device=self.device))[None]
+            with self._lock, torch.inference_mode():
+                _, new_cache = self.model(
+                    chunk, positions=positions,
+                    cache=[{**_leaves(c), "index": idx} for c in cache],
+                    logit_positions=torch.zeros(1, dtype=torch.long,
+                                                device=self.device))
+            for entry in new_cache:
+                entry["index"] = idx + int(chunk_len)
+            return new_cache
+
+        return ext
+
+    def _prefill_prefix(self, key: str, rows, lengths) -> str:
+        cfg = self.model.cfg
+        s = lengths[0]
+        sb = min(_next_bucket(s, MIN_BUCKET), cfg.max_len)
+        prompt, _ = self._pad_rows(rows, lengths, 1, sb)
+        cache = self._prefix_first_fn(sb, cfg.max_len)(prompt, s)
+        self.register_prefix(key, cache, s)
+        return key
+
+    def _prefix_entry(self, prefix_tokens):
+        """``(cache, prefix_len)`` for ``prefix_tokens``, prefilled if
+        absent; retried when a burst of other prefixes evicts it between
+        the prefill and the lookup."""
+        for _ in range(3):
+            key = self.cache_prefix(prefix_tokens)
+            entry = self.get_prefix(key)
+            if entry is not None:
+                return entry
+        raise RuntimeError("prefix cache thrashing: entry evicted right "
+                           "after insert 3x; raise prefix_cache_max")
+
+    def _stream_prefix_fn(self, sbs: int):
+        """The continuation a carry is taken from: ``cont(cache, suffix
+        [1, sbs], suffix_len, select, gens, eos)`` runs
+        :func:`_continue_prefill` on ``cache`` (written in place) and
+        returns the decode carry. The solo and streaming prefix paths run
+        it on their decode step's cache, the dense engine on a copy of the
+        prefix entry."""
+        def cont(cache, suffix, suffix_len: int, select, gens, eos):
+            return _continue_prefill(self.model, cache, suffix, suffix_len,
+                                     select, gens, eos, sbs)
+
+        return cont
+
+    def _continue(self, cache, plen: int, row, s: int, sbs: int, knobs):
+        """The prefix paths' prefill (caller holds the lock, inference
+        mode): checks out the one-row entry at the prefix cache's width,
+        copies the prefix's ``plen`` positions into its step's cache (the
+        shared entry is never written), continues the suffix padded to
+        ``sbs`` there and loads the carry; returns ``(entry,
+        program)``."""
+        temp, tk, tp, gens, eos = self._knob_operands(*knobs, b=1)
+        entry = self._checkout(1, cache_width(cache))
+        try:
+            prog = entry.program(bool((temp > 0).any()))
+            step = entry.step
+            step.set_knobs(temp, tk, tp)
+            for dest, src in zip(step.cache, cache):
+                for name, val in _leaves(src).items():
+                    dest[name][:, :plen] = val[:, :plen]
+            suffix, _ = self._pad_rows([row], [s], 1, sbs)
+            first, lp0, _, start, _ = self._stream_prefix_fn(sbs)(
+                [{**_leaves(e), "index": plen} for e in step.cache],
+                suffix, s, _serve_select(temp, tk, tp), gens, eos)
+            step.load(first, lp0, start, eos, gens)
+        except BaseException:
+            self.programs.checkin(entry)
+            raise
+        return entry, prog
+
+    def _generate_with_prefix(self, prefix_tokens, rows, lengths,
+                              max_new_tokens, temperature, top_k, top_p,
+                              seed, eos_id, return_logprobs=False):
+        """Continuation prefill and decode from a cached prefix K/V (one
+        row). With the float cache the output is ``generate(prefix +
+        suffix)``'s: the suffix attends the cached prefix through the same
+        masked attention, where masked positions add exact zeros."""
+        cfg = self.model.cfg
+        if len(rows) != 1:
+            raise ValueError("prefix= requires a single prompt row")
+        cache, plen = self._prefix_entry(prefix_tokens)
+        s = lengths[0]
+        self._validate(plen + s, max_new_tokens)
+        if max_new_tokens == 0:
+            return self._empty(1, return_logprobs)
+        steps = min(_next_bucket(max_new_tokens, MIN_BUCKET),
+                    cfg.max_len - plen - s)
+        sbs = min(_next_bucket(s, MIN_BUCKET), cfg.max_len - plen - steps)
+        knobs = (temperature, top_k, top_p, seed, eos_id)
+        toks, lps = self._retry_on_oom(lambda: self._generate(
+            lambda: self._continue(cache, plen, rows[0], s, sbs, knobs),
+            max_new_tokens))
+        return (toks, lps) if return_logprobs else toks
+
+    def _generate_stream_with_prefix(self, prefix_tokens, rows, lengths,
+                                     max_new_tokens, temperature, top_k,
+                                     top_p, seed, eos_id, segment,
+                                     return_logprobs):
+        """Streaming decode from a cached prefix K/V (one row): one
+        continuation of the suffix, then the segment walk of
+        :meth:`generate_stream`; its chunks concatenate to the fused
+        ``generate(prefix=)`` output (the suffix bucket is the JAX
+        streaming path's, without the decode steps' share)."""
+        cfg = self.model.cfg
+        if len(rows) != 1:
+            raise ValueError("prefix= streaming requires a single row")
+        cache, plen = self._prefix_entry(prefix_tokens)
+        s = lengths[0]
+        self._validate(plen + s, max_new_tokens)
+        sbs = min(_next_bucket(s, MIN_BUCKET), cfg.max_len - plen)
+        knobs = (temperature, top_k, top_p, seed, eos_id)
+        yield from self._stream(
+            lambda: self._continue(cache, plen, rows[0], s, sbs, knobs), 1,
+            max_new_tokens, segment, eos_id, return_logprobs)
+
+    def _paged_gather_fn(self, page: int, window: int):
+        """Read-only page gather: ``g(arena, table [1, nb], index)`` gives
+        a contiguous one-row cache of ``window`` positions with ``index``
+        attached; a paged prefix walk continues from cached pages
+        through it."""
+        def g(arena, table, index):
+            return _gather_page_cache(arena, table, window, page, index)
+
+        return g
+
+    def _paged_continue_fn(self, sbs: int, page: int, window: int):
+        """Continuation prefill from shared prefix pages: ``cont(arena,
+        table [1, nb], plen, suffix [1, sbs], suffix_len, select, gens,
+        eos)`` gathers the row's pages (the matched prefix pages and its
+        own) into a contiguous ``window``, runs :func:`_continue_prefill`
+        there (at the shapes the dense prefix path runs it), and writes
+        back only the pages the suffix chunk wrote, from ``plen // page``
+        on: the prefix pages are read in place and never written.
+        Returns ``(first, lp0, pos, done)``. The caller holds the device
+        and arena locks."""
+        def cont(arena, table, plen: int, suffix, suffix_len: int, select,
+                 gens, eos):
+            cache = _gather_page_cache(arena, table, window, page, plen)
+            first, lp0, new_cache, start, done0 = _continue_prefill(
+                self.model, cache, suffix, suffix_len, select, gens, eos,
+                sbs)
+            lo = plen // page
+            hi = min(table.shape[1], -(-(plen + sbs) // page))
+            written = [{name: val[:, lo * page:hi * page]
+                        for name, val in _leaves(entry).items()}
+                       for entry in new_cache]
+            _scatter_page_cache(arena, table[:, lo:hi], written, page)
+            return first, lp0, start, done0
+
+        return cont
 
     @staticmethod
     def _normalize_prompts(prompt_tokens):

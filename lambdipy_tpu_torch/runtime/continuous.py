@@ -49,6 +49,18 @@ boundaries, packed into a free slot.
 - Device work (prefills, packing, segments and their fetches) holds the
   process's ``DEVICE_LOCK``, so no capture ever runs beside it. An
   engine reset drops its step and graphs, as does a rebuilt arena.
+- Prefix rows (``prefix=``, explicit or from the prefix store's routing)
+  continue their suffix from the cached prefix K/V on their request
+  thread (``models/llama.py _continue_prefill``) and join like a
+  long-prompt row. Dense: from a copy of the server's full-window prefix
+  entry (:meth:`ContinuousBatcher._prefill_prefix_row`), packed into the
+  slot's cache row. Paged: the row's table starts with the store's
+  prefix pages, taken by refcount bump (``prefix_pages_fn``, the store's
+  ``acquire_pages``), and the continuation reads them in place and
+  writes only the suffix into the row's own pages
+  (:meth:`ContinuousBatcher._paged_continue_row`). A prefix entry spans
+  the whole window, so a prefix row needs an engine whose ``cache_len``
+  is ``max_len``; elsewhere it runs solo.
 
 Not ported yet (ROADMAP): pipelining (``pipeline_depth >= 2``), window
 bucketing, the chunked joiner prefill, the watchdog / replay /
@@ -70,9 +82,12 @@ import torch
 
 from lambdipy_tpu_torch.models.graphs import (DEVICE_LOCK, StepProgram,
                                               StepPrograms)
-from lambdipy_tpu_torch.models.llama import (DecodeStep, _kv_store,
-                                             _next_bucket, _scan_decode,
-                                             _serve_select, init_decode_cache,
+from lambdipy_tpu_torch.models.llama import (MIN_BUCKET, DecodeStep,
+                                             _kv_store, _leaves,
+                                             _next_bucket,
+                                             _scan_decode, _serve_select,
+                                             cache_width, copy_cache,
+                                             init_decode_cache,
                                              pack_prefill_into_pages,
                                              row_generators)
 from lambdipy_tpu_torch.runtime.metrics import EngineStats
@@ -113,6 +128,10 @@ class ContinuousBatcher:
         self._arena_generation = 0
         # one request-thread prefill at a time
         self._prefill_lock = threading.Lock()
+        # paged prefix hits: prefix tokens -> (page ids, length) with a
+        # ref taken per page (the prefix store's acquire_pages), or None;
+        # unset, prefix rows run solo
+        self.prefix_pages_fn = None
         # the last retired rows: prompt length, tokens asked, seconds from
         # admission to the first booked token and to completion; paged
         # rows also their page count and when (``time.monotonic``) the
@@ -121,14 +140,25 @@ class ContinuousBatcher:
 
     # -- paged-KV helpers ----------------------------------------------------
 
-    def _charge_pages(self, entry: dict, tokens: int) -> None:
-        """Charge pages for the row's tokens (prompt + requested decode);
-        :class:`PagesExhausted` propagates to the caller. Charges and
-        releases happen under the engine lock, so their times order them
-        as the pool saw them."""
+    def _charge_pages(self, entry: dict, tokens: int, shared=()) -> None:
+        """Charge pages for the row's tokens (prompt + requested decode),
+        ``shared`` prefix pages (already retained for the row) first, so
+        only the rest are allocated; :class:`PagesExhausted` propagates
+        to the caller after the shared refs drop. Charges and releases
+        happen under the engine lock, so their times order them as the
+        pool saw them."""
+        shared = list(shared)
+        page = self.pool.page
         with self._lock:
-            entry["pages"] = self.pool.alloc(-(-tokens // self.pool.page),
-                                             tokens=tokens)
+            try:
+                fresh = self.pool.alloc(
+                    -(-tokens // page) - len(shared),
+                    tokens=tokens - len(shared) * page)
+            except BaseException:
+                if shared:
+                    self.pool.release(shared)
+                raise
+            entry["pages"] = shared + fresh
             entry["charged_at"] = time.monotonic()
 
     def _release_pages(self, entry: dict) -> None:
@@ -211,15 +241,23 @@ class ContinuousBatcher:
         """Row ``src`` of a prefill into the entry's slot: the first token,
         its logprob, the position and the generator's state into the
         step's slot; the K/V into the slot's cache row (dense) or its pages
-        (paged)."""
+        (paged). A paged prefix row's K/V is in its pages already (no
+        cache); a dense prefix row's continuation cache is in the store
+        layout and is copied as it is."""
         step, slot = self._step, entry["slot"]
         first, lp0, cache = prefill
         step.tok[slot] = first[src]
         step.lp[slot] = lp0[src]
-        step.pos[slot] = entry["s"]
+        step.pos[slot] = entry["pos0"]
         step.set_generator(slot, entry["gen"])
         cfg = self.server.model.cfg
-        if self.pool is not None:
+        if cache is None:
+            pass
+        elif entry["prefix_toks"] is not None:
+            for dest, pc in zip(step.cache, cache):
+                for name, val in _leaves(pc).items():
+                    dest[name][slot] = val[src]
+        elif self.pool is not None:
             nb = self.cache_len // self.pool.page
             table = torch.as_tensor(self._table_row(entry, nb),
                                     device=self.server.device)
@@ -235,6 +273,8 @@ class ContinuousBatcher:
                     dest[name][slot, :width] = val
         entry["packed"] = True
         self.stats_counters.record_join()
+        if entry["prefix_toks"] is not None:
+            self.stats_counters.record_prefix_join()
 
     def _pack_joiners(self, packing: list) -> None:
         """Prefill the raw joiners, grouped by prompt bucket, and pack
@@ -376,33 +416,124 @@ class ContinuousBatcher:
 
     # -- API -----------------------------------------------------------------
 
+    def _prefill_prefix_row(self, entry: dict, pentry):
+        """Dense prefix row: continue the suffix from a copy of the
+        server's full-window prefix entry ``pentry`` (the entry itself is
+        never written) at the suffix bucket the solo prefix path uses;
+        returns ``(first, lp0, cache)`` for :meth:`_pack`."""
+        server = self.server
+        cfg = server.model.cfg
+        cache, plen = pentry
+        s = entry["s"]
+        sbs = min(_next_bucket(s, MIN_BUCKET), cfg.max_len - plen)
+        suffix, _ = server._pad_rows([entry["row"]], [s], 1, sbs)
+        temp, tk, tp, _, eos = server._knob_operands(
+            entry["temperature"], entry["top_k"], entry["top_p"],
+            entry["seed"], None, b=1)
+        first, lp0, new_cache, _, _ = server._stream_prefix_fn(sbs)(
+            copy_cache(cache), suffix, s, _serve_select(temp, tk, tp),
+            [entry["gen"]], eos)
+        return first, lp0, new_cache
+
+    def _paged_continue_row(self, entry: dict):
+        """Paged prefix row: the suffix continued from the shared prefix
+        pages, read in place through the row's table; only the suffix is
+        written, into the row's own pages. Gathers the whole engine window
+        (``max_len`` on every routed configuration), so the continuation
+        runs at the shapes of the dense and solo prefix paths. Returns
+        ``(first, lp0, None)`` for :meth:`_pack`."""
+        server, pool = self.server, self.pool
+        plen, s = entry["plen"], entry["s"]
+        sbs = min(_next_bucket(s, MIN_BUCKET), self.cache_len - plen)
+        window = self.cache_len
+        cont = server._paged_continue_fn(sbs, pool.page, window)
+        table = torch.as_tensor(self._table_row(entry, window // pool.page),
+                                device=server.device)[None, :]
+        suffix, _ = server._pad_rows([entry["row"]], [s], 1, sbs)
+        temp, tk, tp, _, eos = server._knob_operands(
+            entry["temperature"], entry["top_k"], entry["top_p"],
+            entry["seed"], None, b=1)
+        with pool.arena_lock:
+            first, lp0, _, _ = cont(pool.ensure_arena(), table, plen,
+                                    suffix, s, _serve_select(temp, tk, tp),
+                                    [entry["gen"]], eos)
+        return first, lp0, None
+
+    def _admit_prefix(self, entry: dict, prefix, max_new_tokens: int):
+        """The prefix half of :meth:`_admit`: continue the row's suffix
+        from its cached prefix here, on the request thread. Returns False
+        when the row must run solo: an engine narrower than the prefix
+        entry's window, or (paged) a prefix the store does not hold, or a
+        row no window or arena could hold."""
+        server, s = self.server, entry["s"]
+        entry["prefix_toks"] = \
+            np.asarray(prefix, np.int32).reshape(-1).tolist()
+        if self.pool is None:
+            pentry = server._prefix_entry(prefix)
+            if self.cache_len != cache_width(pentry[0]):
+                return False
+            server._validate(pentry[1] + s, max_new_tokens)
+            entry["pos0"] = pentry[1] + s
+            with self._prefill_lock, DEVICE_LOCK, torch.inference_mode():
+                entry["prefill"] = self._prefill_prefix_row(entry, pentry)
+            return True
+        acq = (self.prefix_pages_fn(prefix)
+               if self.prefix_pages_fn is not None else None)
+        if acq is None:
+            return False
+        pids, plen = acq
+        total = plen + s + max_new_tokens
+        if total > self.cache_len \
+                or -(-total // self.pool.page) > self.pool.capacity_pages:
+            self.pool.release(pids)
+            return False
+        server._validate(plen + s, max_new_tokens)
+        entry["plen"], entry["pos0"] = plen, plen + s
+        self._charge_pages(entry, total, shared=pids)
+        try:
+            with self._prefill_lock, DEVICE_LOCK, torch.inference_mode():
+                entry["prefill"] = self._paged_continue_row(entry)
+        except BaseException:
+            with self._lock:
+                self._release_pages(entry)
+            raise
+        return True
+
     def _admit(self, prompt_row, max_new_tokens, temperature, top_k, top_p,
-               seed, eos_id, return_logprobs):
-        """Validate, charge pages, prefill a long prompt here, enqueue the
-        row as a joiner and start the engine. Returns the live entry, or
-        None when the row must run solo: past the engine's ``cache_len``,
-        or more pages than the arena could ever hold. A transiently full
-        arena raises :class:`PagesExhausted`."""
+               seed, eos_id, return_logprobs, prefix=None):
+        """Validate, charge pages, prefill a long prompt (or continue a
+        prefix row's suffix) here, enqueue the row as a joiner and start
+        the engine. Returns the live entry, or None when the row must run
+        solo: past the engine's ``cache_len``, more pages than the arena
+        could ever hold, or a prefix row the engine cannot take
+        (:meth:`_admit_prefix`). A transiently full arena raises
+        :class:`PagesExhausted`."""
         t0 = time.monotonic()
         if max_new_tokens <= 0:
             return None
         row = np.asarray(prompt_row, np.int32).reshape(-1).tolist()
         s = len(row)
-        if s + max_new_tokens > self.cache_len:
+        if prefix is None and s + max_new_tokens > self.cache_len:
             return None
-        self.server._validate(s, max_new_tokens)
         seed = int(seed) if seed is not None else 0
         entry = {"n": max_new_tokens, "eos_id": eos_id,
                  "temperature": temperature, "top_k": top_k, "top_p": top_p,
                  "seed": seed, "toks": [], "lps": [],
                  "want_lp": return_logprobs, "done": False, "error": None,
                  "slot": None, "packed": False, "eos_at": None,
-                 "row": row, "s": s, "prefill": None,
+                 "row": row, "s": s, "prefill": None, "pos0": s,
+                 "prefix_toks": None,
                  "seq": next(_entry_seq), "t0": t0, "ttft_s": None,
                  # the row's own generator, seeded as generate seeds a
                  # one-row request; it travels with the row's slot
                  "gen": row_generators([(seed, 0)],
                                        self.server.device)[0]}
+        if prefix is not None:
+            if not self._admit_prefix(entry, prefix, max_new_tokens):
+                return None
+            self._enqueue(entry)
+            return entry
+        self.server._validate(s, max_new_tokens)
         if self.pool is not None:
             if -(-(s + max_new_tokens) // self.pool.page) \
                     > self.pool.capacity_pages:
@@ -419,27 +550,34 @@ class ContinuousBatcher:
                 with self._lock:
                     self._release_pages(entry)
             raise
+        self._enqueue(entry)
+        return entry
+
+    def _enqueue(self, entry: dict) -> None:
+        """The admitted row joins the queue; the engine starts if idle."""
         with self._lock:
             self._joiners.append(entry)
             if not self._engine_running:
                 self._engine_running = True
                 threading.Thread(target=self._engine_loop, daemon=True,
                                  name="continuous-batch").start()
-        return entry
 
     def generate(self, prompt_row, *, max_new_tokens: int,
                  temperature: float = 0.0, top_k=None, top_p=None,
-                 seed: int = 0, eos_id=None, return_logprobs: bool = False):
+                 seed: int = 0, eos_id=None, prefix=None,
+                 return_logprobs: bool = False):
         """One request row -> int32 ``[1, max_new_tokens]`` (plus f32
         logprobs when asked): the ``LlamaServer.generate`` contract for a
-        single prompt. Rows the engine cannot hold run solo."""
+        single prompt, ``prefix=`` included (the row is then the suffix).
+        Rows the engine cannot hold run solo."""
         entry = self._admit(prompt_row, max_new_tokens, temperature, top_k,
-                            top_p, seed, eos_id, return_logprobs)
+                            top_p, seed, eos_id, return_logprobs, prefix)
         if entry is None:
             return self.server.generate(
                 prompt_row, max_new_tokens=max_new_tokens,
                 temperature=temperature, top_k=top_k, top_p=top_p,
-                seed=seed, eos_id=eos_id, return_logprobs=return_logprobs)
+                seed=seed, eos_id=eos_id, prefix=prefix,
+                return_logprobs=return_logprobs)
         with self._lock:
             while not entry["done"]:
                 self._lock.wait(timeout=1.0)
@@ -461,7 +599,7 @@ class ContinuousBatcher:
 
     def generate_stream(self, prompt_row, *, max_new_tokens: int,
                         temperature: float = 0.0, top_k=None, top_p=None,
-                        seed: int = 0, eos_id=None,
+                        seed: int = 0, eos_id=None, prefix=None,
                         return_logprobs: bool = False):
         """Streaming over the shared engine: the row joins like any other
         and its slice of each segment is yielded as it lands, as ``[1,
@@ -470,13 +608,13 @@ class ContinuousBatcher:
         the chunk holding eos. The chunk cadence is the engine's segment,
         also for a row that runs solo."""
         entry = self._admit(prompt_row, max_new_tokens, temperature, top_k,
-                            top_p, seed, eos_id, return_logprobs)
+                            top_p, seed, eos_id, return_logprobs, prefix)
         if entry is None:
             yield from self.server.generate_stream(
                 prompt_row, max_new_tokens=max_new_tokens,
                 temperature=temperature, top_k=top_k, top_p=top_p,
                 seed=seed, eos_id=eos_id, segment=self.segment,
-                return_logprobs=return_logprobs)
+                prefix=prefix, return_logprobs=return_logprobs)
             return
         delivered = 0
         while delivered < max_new_tokens:

@@ -3,7 +3,8 @@ for the generate path: a port-owned :class:`HandlerState` and
 :func:`generate_handler`, which takes the same spec shape (``model``,
 ``dtype``, ``quant``, ``extra``) and the same request fields as the JAX
 handler, with ``batch_mode="continuous"`` (optionally over a paged KV
-arena, ``kv_paged``) for concurrent traffic."""
+arena, ``kv_paged``) for concurrent traffic, and the automatic prefix KV
+cache (``runtime/prefixstore.py``) built as the JAX handler builds it."""
 
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from lambdipy_tpu_torch.ops.decode_attention import (blocked_decode_attention,
 from lambdipy_tpu_torch.ops.quant import int8_matmul
 from lambdipy_tpu_torch.runtime.continuous import ContinuousBatcher
 from lambdipy_tpu_torch.runtime.pagepool import PagePool, page_width
+from lambdipy_tpu_torch.runtime.prefixstore import PrefixStore
 
 
 @dataclasses.dataclass
@@ -37,6 +39,8 @@ class HandlerState:
     invoke_stream_fn: Callable[[dict], Iterator[dict]] | None = None
     # the continuous engine behind invoke_fn, when batch_mode=continuous
     engine: Any = None
+    # the automatic prefix KV cache, when one is built
+    prefix_store: Any = None
 
     def invoke(self, request: dict) -> dict:
         return self.invoke_fn(request)
@@ -88,9 +92,13 @@ _UNPORTED_ENGINE_EXTRAS = {
     "max_logical_ctx": ("0",),
     "long_prefill": ("0", "false", "off"),
     "prefill_mode": ("chunked",),
-    "prefix_cache_mb": ("0",),
     "mesh": ("", "off"),
     "batch_window_ms": ("0",),
+    # the prefix store's session pins and host offload tier
+    "session_pin_budget_mb": ("",),
+    "session_ttl_s": ("",),
+    "session_idle_s": ("",),
+    "kv_offload": ("0", "false", "off", ""),
 }
 
 
@@ -110,6 +118,39 @@ def _on(value) -> bool:
     return str(value).strip().lower() not in ("", "0", "false", "off")
 
 
+def prefix_block(extra: dict) -> int:
+    """The one resolution of the prefix block width, shared by the page
+    pool (its page width) and the prefix store (its radix block)."""
+    raw = extra.get("prefix_block")
+    return int(raw) if raw not in (None, "") else 32
+
+
+def make_prefix_store(server, engine, extra: dict) -> PrefixStore | None:
+    """The automatic prefix KV cache, built as the JAX handler builds it
+    (``lambdipy_tpu/runtime/handlers.py:655-718``): on by default with a
+    512 MB budget (``prefix_cache_mb``, 0 = off); under ``kv_quant`` only
+    when ``prefix_cache_mb`` is set (the cached prefix reads back
+    quantized, so routed output agrees with unrouted only to the
+    quantization's tolerance); not at all where routing must stand down,
+    an engine narrower than the model's window (it cannot take a
+    full-window prefix row). A paged engine's store shares its arena:
+    blocks are pages, and a hit takes them by refcount bump."""
+    cfg = server.model.cfg
+    routable = engine is None or engine.cache_len == cfg.max_len
+    raw_mb = extra.get("prefix_cache_mb")
+    explicit = raw_mb not in (None, "")
+    mb = float(raw_mb) if explicit else 512.0
+    if not routable or mb <= 0 or (cfg.kv_quant is not None
+                                   and not explicit):
+        return None
+    pool = engine.pool if engine is not None else None
+    store = PrefixStore(server, block=prefix_block(extra), budget_mb=mb,
+                        pool=pool)
+    if pool is not None:
+        engine.prefix_pages_fn = store.acquire_pages
+    return store
+
+
 def make_engine(server, extra: dict) -> ContinuousBatcher:
     """The continuous engine the extras ask for: ``batch_max`` slots,
     ``batch_segment`` steps per segment, ``batch_cache_len`` positions
@@ -123,7 +164,7 @@ def make_engine(server, extra: dict) -> ContinuousBatcher:
     cache_len = min(int(bcl) if bcl else cfg.max_len, cfg.max_len)
     pool = None
     if _on(extra.get("kv_paged", "0")):
-        page = page_width(cache_len, int(extra.get("prefix_block") or 32))
+        page = page_width(cache_len, prefix_block(extra))
         window_pages = cache_len // page
         raw = extra.get("kv_pages")
         n_pages = max(2, int(raw) if raw not in (None, "")
@@ -146,7 +187,13 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
     engine (:func:`make_engine`); multi-row requests run as one batch.
     On the card decode steps replay CUDA graphs, at most
     ``program_cache_max`` programs (extra) beside the engine's; a
-    ``{"warmup": true}`` request captures its bucket's graph."""
+    ``{"warmup": true}`` request captures its bucket's graph.
+
+    Single-row requests route through the prefix store
+    (:func:`make_prefix_store`) unless they carry an explicit ``prefix``
+    (the client's split is kept): the prompt's longest cached block head
+    becomes the ``prefix=`` of a suffix-only request, and a response
+    served from a cached prefix says ``"prefix_cached": true``."""
     extra = dict(spec.get("extra") or {})
     _check_unported_extras(extra)
     # dtype and quant fall back to the builder's defaults when the spec
@@ -159,17 +206,39 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
         # cache each); rising program_evictions in /metrics means it is
         # too small for the workload's bucket diversity
         server_kw["program_cache_max"] = int(extra["program_cache_max"])
+    if extra.get("prefix_cache_max") is not None:
+        # LRU bound on the server's full-window prefix entries
+        server_kw["prefix_cache_max"] = int(extra["prefix_cache_max"])
     # on the card every decode step replays a captured CUDA graph
     server = adapter.make_server(ctx.state_dict, device=ctx.device,
                                  **server_kw)
     engine = (make_engine(server, extra)
               if str(extra.get("batch_mode") or "").lower() == "continuous"
               else None)
+    store = make_prefix_store(server, engine, extra)
     default_new = int(extra.get("max_new_tokens", 16))
 
+    def _route_prefix(prompt, prefix):
+        """Transparent radix reuse: a single-row prompt split into (suffix
+        prompt, cached prefix tokens) when the store matches or extends a
+        block-aligned head. An explicit ``prefix`` keeps the client's
+        split; multi-row and sub-block prompts pass through; a store
+        failure routes nothing (``route`` returns 0)."""
+        if store is None or prefix is not None or len(prompt) != 1:
+            return prompt, prefix
+        row = [int(t) for t in np.asarray(prompt[0]).reshape(-1)]
+        m = store.route(row)
+        if m <= 0:
+            return prompt, prefix
+        return ([np.asarray(row[m:], np.int32)],
+                np.asarray(row[:m], np.int32))
+
     def parse(req: dict):
-        """Request -> (prompt, max_new, sample_kwargs, want_logprobs), or
-        an error dict."""
+        """Request -> (prompt, max_new, sample_kwargs, want_logprobs,
+        prefix), or an error dict."""
+        if req.get("session_id") is not None and str(req["session_id"]):
+            raise ValueError("session_id needs the prefix store's session "
+                             "pins, which the port does not have yet")
         if req.get("warmup"):
             prompt = np.asarray([[1, 2, 3, 4]], np.int32)
         else:
@@ -200,28 +269,45 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
             "seed": int(req.get("seed") or 0),
             "eos_id": int(req["eos_id"]) if req.get("eos_id") is not None else None,
         }
-        return prompt, max_new, sample_kwargs, bool(req.get("logprobs"))
+        prefix = req.get("prefix")
+        if prefix is not None:
+            prefix = np.asarray(prefix, np.int32).reshape(-1)
+            if prefix.size == 0:
+                return {"ok": False, "error": "empty prefix"}
+            if len(prompt) != 1:
+                return {"ok": False, "error": "prefix caching is single-row"}
+        return (prompt, max_new, sample_kwargs, bool(req.get("logprobs")),
+                prefix)
+
+    def n_prompt(prompt, prefix) -> int:
+        return int(sum(len(r) for r in prompt)
+                   + (len(prefix) if prefix is not None else 0))
 
     def invoke(req: dict) -> dict:
         parsed = parse(req)
         if isinstance(parsed, dict):
             return parsed
-        prompt, max_new, sample_kwargs, want_lp = parsed
+        prompt, max_new, sample_kwargs, want_lp, prefix = parsed
+        prompt, prefix = _route_prefix(prompt, prefix)
         if engine is not None and len(prompt) == 1:
             out_ = engine.generate(prompt[0], max_new_tokens=max_new,
-                                   return_logprobs=want_lp, **sample_kwargs)
+                                   prefix=prefix, return_logprobs=want_lp,
+                                   **sample_kwargs)
         else:
             out_ = server.generate(prompt, max_new_tokens=max_new,
-                                   return_logprobs=want_lp, **sample_kwargs)
+                                   prefix=prefix, return_logprobs=want_lp,
+                                   **sample_kwargs)
         toks, lps = out_ if want_lp else (out_, None)
         out = {"ok": True, "tokens": toks.tolist(),
                "n_new": int(toks.shape[-1]),
-               "n_prompt": int(sum(len(r) for r in prompt))}
+               "n_prompt": n_prompt(prompt, prefix)}
         if lps is not None:
             out["logprobs"] = [[round(float(x), 5) for x in row]
                                for row in lps]
         if sample_kwargs["eos_id"] is not None:
             out["eos_id"] = sample_kwargs["eos_id"]
+        if prefix is not None:
+            out["prefix_cached"] = True
         return out
 
     def invoke_stream(req: dict):
@@ -232,18 +318,19 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
         if isinstance(parsed, dict):
             yield parsed
             return
-        prompt, max_new, sample_kwargs, want_lp = parsed
+        prompt, max_new, sample_kwargs, want_lp, prefix = parsed
+        prompt, prefix = _route_prefix(prompt, prefix)
         if engine is not None and len(prompt) == 1:
             # the engine's segment sets the chunk cadence
             chunks = engine.generate_stream(
-                prompt[0], max_new_tokens=max_new, return_logprobs=want_lp,
-                **sample_kwargs)
+                prompt[0], max_new_tokens=max_new, prefix=prefix,
+                return_logprobs=want_lp, **sample_kwargs)
         else:
             # a pow-2 segment in [4, 64], as the JAX handler clamps it
             segment = min(64, _next_bucket(int(req.get("segment") or 16), 4))
             chunks = server.generate_stream(
                 prompt, max_new_tokens=max_new, segment=segment,
-                return_logprobs=want_lp, **sample_kwargs)
+                prefix=prefix, return_logprobs=want_lp, **sample_kwargs)
         n_new = 0
         for chunk in chunks:
             chunk, lp_chunk = chunk if want_lp else (chunk, None)
@@ -254,9 +341,11 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
                                    for row in lp_chunk]
             yield rec
         out = {"ok": True, "done": True, "n_new": n_new,
-               "n_prompt": int(sum(len(r) for r in prompt))}
+               "n_prompt": n_prompt(prompt, prefix)}
         if sample_kwargs["eos_id"] is not None:
             out["eos_id"] = sample_kwargs["eos_id"]
+        if prefix is not None:
+            out["prefix_cached"] = True
         yield out
 
     def stats() -> dict:
@@ -265,6 +354,10 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
         out = {"kernels": kernel_launches(), **server.program_stats()}
         if engine is not None:
             out["batching"] = engine.stats()
+        if store is not None:
+            # hits, misses, hit_tokens, evictions, bytes and hit_rate: the
+            # automatic radix reuse, with the assembled entries' bytes
+            out["prefix_cache"] = store.stats()
         return out
 
     cfg = adapter.config
@@ -276,7 +369,8 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
               "matmul_backend": cfg.matmul_backend,
               "kv_quant": cfg.kv_quant,
               "batch_mode": "continuous" if engine is not None else None,
-              "kv_paged": engine is not None and engine.pool is not None},
+              "kv_paged": engine is not None and engine.pool is not None,
+              "prefix_cache": store is not None},
         stats_fn=stats, server=server, invoke_stream_fn=invoke_stream,
-        engine=engine)
+        engine=engine, prefix_store=store)
 

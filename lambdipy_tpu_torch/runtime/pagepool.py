@@ -25,18 +25,29 @@ continuous engine uses:
   ``generation`` rises whenever it is (re)built, and the engine drops its
   graphs when it sees a new one.
 
-Not ported yet: fault injection (``faults``), the prefix store's
-``reclaim_fn``/``pinned_fn`` hooks, host offload and ``reset_arena``.
+- The prefix store (``runtime/prefixstore.py``) shares the arena: a radix
+  block IS a page, the store holds one ref per cached page, and a hit
+  hands the pages to a row by refcount bump. When an allocation comes up
+  short, the pool first asks ``reclaim_fn`` (the store's
+  ``reclaim_pages``) to release cold pages no row shares. The JAX pool's
+  ``arena_generation`` (the content generation the store's tree was
+  written against) is ``generation`` here.
+
+Not ported yet: fault injection (``faults``), the ``pinned_fn`` hook of
+session pins, host offload and ``reset_arena``.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from collections.abc import Callable
 from typing import Any
 
 from lambdipy_tpu_torch.runtime.metrics import PagePoolStats
+
+log = logging.getLogger("lambdipy_tpu_torch.pagepool")
 
 NULL_PAGE = 0
 
@@ -84,6 +95,10 @@ class PagePool:
         self.page_bytes = int(page_bytes)
         self.window_pages = max(1, int(window_pages or 1))
         self._make_arena = make_arena
+        # the prefix store's reclaim_pages: called OUTSIDE the pool lock
+        # when an alloc comes up short, so store-owned cold pages yield to
+        # admission (lock order store -> pool, never the reverse)
+        self.reclaim_fn: Callable[[int], int] | None = None
         self.stats_counters = PagePoolStats()
         self._lock = threading.RLock()
         self.arena_lock = threading.RLock()
@@ -129,17 +144,27 @@ class PagePool:
         with self._lock:
             return len(self._free)
 
-    def alloc(self, n: int, *, tokens: int = 0) -> list[int]:
+    def alloc(self, n: int, *, tokens: int = 0,
+              record_shed: bool = True) -> list[int]:
         """Take ``n`` pages (refcount 1 each); ``tokens`` is how many KV
-        positions the caller will store across them. Raises
-        :class:`PagesExhausted` (and counts a shed) when fewer are
-        free."""
+        positions the caller will store across them. A short free list
+        first asks ``reclaim_fn`` to release cold store pages, then raises
+        :class:`PagesExhausted` (and counts a shed unless
+        ``record_shed=False``: the store caching less is not a refused
+        admission)."""
         n = int(n)
         if n <= 0:
             return []
+        if n > self.free_count() and self.reclaim_fn is not None:
+            try:
+                self.reclaim_fn(n - self.free_count())
+            except Exception as e:  # noqa: BLE001 — best effort: a broken
+                # reclaimer must not turn an honest shed into an error
+                log.error("page reclaim failed: %s", e)
         with self._lock:
             if n > len(self._free):
-                self.stats_counters.record_shed()
+                if record_shed:
+                    self.stats_counters.record_shed()
                 raise PagesExhausted(n, len(self._free),
                                      self.retry_after_s(n))
             pids = [self._free.pop() for _ in range(n)]
@@ -191,6 +216,12 @@ class PagePool:
                     self._release_gap_s = (0.8 * self._release_gap_s
                                            + 0.2 * min(gap, 30.0))
                 self._last_release_t = now
+
+    def snapshot_refs(self) -> dict:
+        """One-lock copy of every live refcount: the store's eviction
+        sweep reads it once per pass."""
+        with self._lock:
+            return dict(self._refs)
 
     def refcount(self, pid: int) -> int:
         """Current refcount of one page (0 = free)."""

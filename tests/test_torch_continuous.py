@@ -331,14 +331,19 @@ def test_full_arena_sheds_503_kv_pages_over_http(weights):
     assert metrics["server"]["sheds"] == {"kv_pages": 2}
     assert metrics["server"]["errors"] == 0
     page_pool = metrics["handler"]["batching"]["page_pool"]
-    assert page_pool["sheds"] == 2 and page_pool["pages_live"] == 0
+    # the prefix store (on by default) keeps the prompt's whole 16-token
+    # block in a page of the arena: the only page live after the drain
+    prefix_cache = metrics["handler"]["prefix_cache"]
+    assert page_pool["sheds"] == 2
+    assert page_pool["pages_live"] == prefix_cache["blocks"] == 1
 
 
 def test_handler_wiring(weights):
     """``batch_mode=continuous`` + ``kv_paged`` build the engine and its
     arena; single rows ride the engine, multi-row requests run as one
     batch; ``/metrics`` carries the engine, its pool and the paged kernel
-    counters; extras of features the port lacks raise."""
+    counters; extras of features the port lacks raise, and
+    ``prefix_cache_mb`` builds the prefix store."""
     state = generate_handler(
         {"model": "llama-tiny", "dtype": "float32",
          "extra": {**EXTRA, **ENGINES["paged"], "batch_mode": "continuous",
@@ -360,10 +365,19 @@ def test_handler_wiring(weights):
     for extra in ({"batch_mode": "continuous", "pipeline_depth": "2"},
                   {"batch_mode": "continuous", "spec_k": "4"},
                   {"batch_mode": "window"},
-                  {"prefix_cache_mb": "8"}):
+                  {"session_pin_budget_mb": "64"},
+                  {"session_ttl_s": "60"},
+                  {"session_idle_s": "30"},
+                  {"kv_offload": "1"}):
         with pytest.raises(ValueError, match="not"):
             generate_handler({"model": "llama-tiny", "extra": extra},
                              HandlerContext(device="cpu"))
+    # the prefix store is ported: prefix_cache_mb sizes it
+    built = generate_handler({"model": "llama-tiny",
+                              "extra": {"prefix_cache_mb": "8"}},
+                             HandlerContext(device="cpu"))
+    assert built.meta["prefix_cache"]
+    assert built.prefix_store.budget_bytes == 8 << 20
 
 
 def test_greedy_tokens_equal_the_jax_engine(weights, server):

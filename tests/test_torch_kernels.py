@@ -1011,3 +1011,140 @@ def test_capture_beside_a_request_thread_prefill(cuda_device, monkeypatch):
     np.testing.assert_array_equal(np.concatenate([c[1] for c in outs[4]], 1),
                                   want[1])
     assert eng.stats()["row_prefills"] == 3
+
+
+# ------------------------------------------------ the prefix KV cache
+
+PREFIX_HEAD = list(range(3, 100))  # 97 tokens of shared head
+PREFIX_ROWS = [(PREFIX_HEAD + [200, 201], {}),
+               (PREFIX_HEAD + list(range(300, 340)), SAMPLED),
+               (PREFIX_HEAD[:40] + [7, 8, 9], {}),
+               (PREFIX_HEAD + [400], {"temperature": 0.7, "seed": 3})]
+
+
+@pytest.mark.parametrize("paged", ["1", "0"], ids=["paged", "dense"])
+def test_routed_engine_rows_are_bitwise_solo(cuda_device, paged):
+    """Routed rows through the continuous engine with the prefix store
+    (the paged store shares the engine's arena), concurrent, greedy and
+    seeded: each row's tokens and logprobs are bitwise its solo routed
+    run from the same prefix K/V (a dense store walked in the same order
+    registers it); the paged store assembles nothing."""
+    from lambdipy_tpu_torch.runtime.handlers import make_engine
+    from lambdipy_tpu_torch.runtime.prefixstore import PrefixStore
+
+    graph, _ = _graph_and_eager(cuda_device)
+    eng = make_engine(graph, {"batch_max": "4", "batch_segment": "4",
+                              "kv_paged": paged, "prefix_block": "16"})
+    store = PrefixStore(graph, block=16, pool=eng.pool)
+    if eng.pool is not None:
+        eng.prefix_pages_fn = store.acquire_pages
+    solo_store = PrefixStore(graph, block=16)
+    ms = [store.route(row) for row, _ in PREFIX_ROWS]
+    assert ms == [solo_store.route(row) for row, _ in PREFIX_ROWS]
+    assert all(ms)
+
+    def call(i):
+        row, kw = PREFIX_ROWS[i]
+        return eng.generate(row[ms[i]:], prefix=row[:ms[i]],
+                            max_new_tokens=12, return_logprobs=True, **kw)
+
+    outs = _threads([lambda i=i: call(i) for i in range(len(PREFIX_ROWS))])
+    for i, ((row, kw), got) in enumerate(zip(PREFIX_ROWS, outs)):
+        solo_store.route(row)  # its entry registered (assembled if evicted)
+        want = graph.generate(row[ms[i]:], prefix=row[:ms[i]],
+                              max_new_tokens=12, return_logprobs=True, **kw)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    stats = eng.stats()
+    assert stats["prefix_joins"] == len(PREFIX_ROWS)
+    assert stats["replays"] == stats["steps"] > 0
+    if eng.pool is not None:
+        assert store.stats()["assembly_bytes_peak"] == 0
+        assert eng.pool.stats()["pages_live"] == store.stats()["blocks"]
+        assert store.check_invariants()["ok"]
+
+
+@pytest.mark.parametrize("knobs", [{}, SAMPLED], ids=["greedy", "seeded"])
+@pytest.mark.parametrize("path", GRAPH_PATHS)
+def test_graph_decode_after_a_continuation_is_bitwise_eager(cuda_device,
+                                                            path, knobs):
+    """``generate(prefix=)`` and its stream, with graphs against the
+    eager server on the same weights, on paths A, B and C: the suffix
+    continued from the prefix entry in the step's own cache, then every
+    decode step a replay of the step's graph, bitwise the eager steps;
+    the prefix entry keeps its bits."""
+    graph, eager = _graph_and_eager(cuda_device, path)
+    prefix, suffix = PREFIX_HEAD[:64], list(range(150, 170))
+    for _ in range(2):
+        got = graph.generate(suffix, prefix=prefix, max_new_tokens=12,
+                             return_logprobs=True, **knobs)
+        want = eager.generate(suffix, prefix=prefix, max_new_tokens=12,
+                              return_logprobs=True, **knobs)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    chunks = list(graph.generate_stream(suffix, prefix=prefix,
+                                        max_new_tokens=12, segment=4,
+                                        return_logprobs=True, **knobs))
+    np.testing.assert_array_equal(np.concatenate([c[1] for c in chunks], 1),
+                                  want[1])
+    stats = graph.program_stats()
+    assert stats["eager_steps"] == 0 and stats["replays"] == 3 * 11 + 1
+    assert stats["prefix_entries"] == 1
+
+
+def test_prefix_walk_first_chunk_runs_flash(cuda_device):
+    """Under ``attn_backend="flash"`` a cold walk's first chunk (no cache
+    yet) runs the flash kernel, one launch per layer, and writes the K/V
+    that the plain backend (``dense``) writes on the same weights, within
+    ``chip_smoke.py``'s K/V limit (max |diff| / max |value| <= 0.1);
+    extension chunks and the continuation attend with plain ``_attend``
+    (no launch)."""
+    from lambdipy_tpu_torch.runtime.prefixstore import PrefixStore
+
+    flash, _ = _graph_and_eager(cuda_device, "C")
+    adapter = registry.get("llama-tiny").build(
+        dtype="bfloat16", quant="int8",
+        extra={**SMALL, "attn_backend": "dense"})
+    plain = adapter.make_server(adapter.init_params(seed=3, device="cpu"),
+                                device=cuda_device)
+    row = PREFIX_HEAD + [5, 6]  # 99 tokens: target 96, a 16-wide first
+    caches = {}
+    for name, server in (("flash", flash), ("plain", plain)):
+        store = PrefixStore(server, block=16)
+        before = tat.flash_attention.launches
+        assert store.route(row) == 96
+        launched = tat.flash_attention.launches - before
+        assert launched == (server.model.cfg.layers if name == "flash"
+                            else 0)
+        assert store.stats()["prefill"]["rounds"] == 6
+        caches[name] = server.get_prefix(server._prefix_key(row[:96]))[0]
+    for g, w in zip(caches["flash"], caches["plain"]):
+        for leaf in ("k", "v"):
+            a, b = g[leaf][:, :96].float(), w[leaf][:, :96].float()
+            assert ((a - b).abs().max() / b.abs().max()).item() <= 0.1
+    before = tat.flash_attention.launches
+    flash.generate(row[96:], prefix=row[:96], max_new_tokens=4)
+    assert tat.flash_attention.launches == before
+
+
+def test_routed_against_unrouted_stays_within_its_bound(cuda_device):
+    """On the card a routed request is not bitwise its unrouted twin: a
+    continuation's softmax and PV reduce over the whole window, an
+    unrouted prefill's over its bucket (ROADMAP section 3). The bound, as
+    ``chip_smoke.py`` path E's: greedy tokens equal, and the first
+    token's logprob within 0.05 of the unrouted one."""
+    from lambdipy_tpu_torch.runtime.prefixstore import PrefixStore
+
+    graph, _ = _graph_and_eager(cuda_device)
+    store = PrefixStore(graph, block=16)
+    rng = np.random.default_rng(5)
+    for n in (40, 99, 150, 230):
+        row = rng.integers(1, 512, n).tolist()
+        m = store.route(row)
+        assert m == (n - 1) // 16 * 16
+        routed = graph.generate(row[m:], prefix=row[:m], max_new_tokens=8,
+                                return_logprobs=True)
+        unrouted = graph.generate(row, max_new_tokens=8,
+                                  return_logprobs=True)
+        np.testing.assert_array_equal(routed[0], unrouted[0])
+        assert abs(float(routed[1][0, 0] - unrouted[1][0, 0])) <= 0.05
