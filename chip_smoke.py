@@ -57,7 +57,17 @@ Phases, each of which fails the run with a non-zero exit:
    bitwise its solo routed run, paged bitwise a dense engine with an
    assembling store, the store's counters and the launch counters the
    traffic's, the pool left holding the store's pages alone; routed
-   against unrouted printed, and the TTFT cold, hot and unrouted;
+   against unrouted printed, and the TTFT cold, hot and unrouted.
+   D runs at the serving defaults: every request passes the SLO
+   scheduler (``fair``) into an engine at pipeline depth 2; D (f) holds
+   every row of a depth-1 engine bitwise the depth-2 engines', and the
+   same burst is driven directly at depths 2, 1, 1, 2 (tok/s and TTFT
+   printed), with the depth-2 engine's ``pipeline`` block. F, on D's
+   handler behind a second server with 2 run slots and a queue of 2:
+   ``/v1/completions`` against ``/invoke`` and its SSE stream, a burst
+   of 8 shed ``queue_full`` past concurrency plus queue, a deadline
+   shed, interactive granted before background, and ``/shutdown``
+   draining; its launch counters from 0 equal what the engine implies;
 5. print the kernels' JSON line and, last, the device line.
 
 Details go to ``chiprun_out/chip_smoke.json``. With no CUDA device, or
@@ -73,6 +83,7 @@ import json
 import subprocess
 import sys
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -1581,7 +1592,21 @@ def serve_engine_path(card: str) -> dict:
         f"logprobs bitwise ({e_stats['eager_steps']} eager steps); its "
         f"burst {e_wall:.3f} s, {new_tokens_of(reqs) / e_wall:.1f} tok/s "
         f"[{card}]")
-    del dense_out
+
+    # (f) the same traffic through a depth-1 (synchronous) paged engine
+    # on the same weights, driven directly in turns with the depth-2
+    # engine: every row bitwise the depth-2 engines' (dense and eager
+    # paged, unrounded); the bursts' tok/s and TTFT side by side
+    depths = depth_bursts(state.server, engine, reqs, charges, card)
+    for kind_body, d, e, f in zip(reqs, dense_out, e_out, depths.pop("out")):
+        if not all(np.array_equal(a[j], f[j]) for a in (d, e)
+                   for j in (0, 1)):
+            raise SystemExit(f"path D (f): {kind_body[0]} row of the "
+                             f"depth-1 engine differs from the depth-2 "
+                             f"engines'")
+    log(f"path D (f): a depth-1 paged engine gives every row's tokens and "
+        f"logprobs bitwise the depth-2 engines' (dense and eager paged)")
+    del dense_out, e_out
 
     # numbers, all from the timed paged burst
     log_by = {(e["s"], e["n"]): e for e in engine.request_log}
@@ -1609,6 +1634,24 @@ def serve_engine_path(card: str) -> dict:
                                          / 2**30)}
     for key, val in perf.items():
         log(f"path D {key}: {val} [{card}]")
+    pipe = stats["pipeline"]
+    log(f"path D pipeline (depth {stats['pipeline_depth']}, policy "
+        f"{stats['policy']}, the HTTP burst): in_flight {pipe['in_flight']}, "
+        f"drains {pipe['drains']}, wasted_overdecode_tokens "
+        f"{pipe['wasted_overdecode_tokens']}, overlap_ratio "
+        f"{pipe['overlap_ratio']}, fetch_block_s {pipe['fetch_block_s']}, "
+        f"wall_s {pipe['wall_s']} [{card}]")
+    sched = metrics["sched"]
+    log(f"path D scheduler: policy {sched['policy']}, max_concurrency "
+        f"{sched['max_concurrency']}, admitted {sched['admitted']}, "
+        f"completed {sched['completed']}, shed {sched['shed']['total']}, "
+        f"queue wait {sched['queue_wait']}")
+    if (sched["admitted"] != len(reqs) or sched["shed"]["total"]
+            or sched["policy"] != "fair" or stats["pipeline_depth"] != 2):
+        raise SystemExit("path D: every request must pass the fair "
+                         "scheduler unshed, into a depth-2 engine")
+    perf["depths"] = depths
+    perf["pipeline"] = pipe
     perf["contended"] = contended_burst(state.server, engine, reqs, card)
     trace = profile_engine(engine, [body["tokens"] for _, body in reqs[:8]],
                            card)
@@ -1618,7 +1661,11 @@ def serve_engine_path(card: str) -> dict:
            "engine": stats, "dense_engine": dstats, "page_pool": page_stats,
            "peak_held_pages": peak, "logprob_diff_http_vs_solo": lp_diff,
            "logprob_diff_dense_vs_solo": dense_solo, "perf": perf,
-           "requests": rows, "trace": trace, "card": card}
+           "requests": rows, "trace": trace, "card": card,
+           "sched": sched}
+    t_front = time.perf_counter()
+    out["F"] = serve_front_path(state, card)
+    log(f"path F took {time.perf_counter() - t_front:.1f} s")
     del state, engine, server
     gc.collect()
     torch.cuda.empty_cache()
@@ -1715,6 +1762,333 @@ def eager_engine_burst(server, reqs, charges):
     gc.collect()
     torch.cuda.empty_cache()
     return wall, out, stats
+
+
+def depth_bursts(server, engine, reqs, charges, card: str) -> dict:
+    """D's traffic driven directly through the depth-2 paged engine (the
+    HTTP run's) and a depth-1 paged engine on the same weights (its own
+    arena of the pages the traffic charges plus the null page), in turns
+    2, 1, 1, 2: each burst's wall, tok/s and the rows' TTFT (from
+    admission), and the first depth-1 burst's rows ``(tokens,
+    logprobs)`` under ``out``."""
+    from lambdipy_tpu_torch.runtime.handlers import make_engine
+
+    sync = make_engine(server, {**ENGINE_EXTRA, "pipeline_depth": "1",
+                                "kv_pages": str(sum(charges) + 1)})
+    out = {"out": [None] * len(reqs)}
+    for turn, eng in enumerate((engine, sync, sync, engine)):
+        keep = turn == 1
+
+        def send(i, eng=eng, keep=keep):
+            _, body = reqs[i]
+            knobs = {k: body[k] for k in ("temperature", "top_k", "top_p",
+                                          "seed", "eos_id") if k in body}
+            got = eng.generate(body["tokens"],
+                               max_new_tokens=body["max_new_tokens"],
+                               return_logprobs=True, **knobs)
+            if keep:
+                out["out"][i] = got
+
+        seq0 = max((e["seq"] for e in eng.request_log), default=-1)
+        before = eng.stats()
+        _, burst_s = _drive(send, reqs)
+        after = eng.stats()
+        ttfts = [e["ttft_s"] for e in eng.request_log if e["seq"] > seq0]
+        steps = after["steps"] - before["steps"]
+        wasted = (after["pipeline"]["wasted_overdecode_tokens"]
+                  - before["pipeline"]["wasted_overdecode_tokens"])
+        drains = {c: n - before["pipeline"]["drains"].get(c, 0)
+                  for c, n in after["pipeline"]["drains"].items()}
+        name = f"depth{eng.pipeline_depth}"
+        out.setdefault(name, []).append(
+            {"burst_wall_s": burst_s,
+             "decode_tok_s": new_tokens_of(reqs) / burst_s,
+             "ttft_mean_s": float(np.mean(ttfts)),
+             "ttft_max_s": max(ttfts), "steps": steps,
+             "segments": after["segments"] - before["segments"],
+             "wasted_overdecode_tokens": wasted, "drains": drains})
+        log(f"path D burst driven directly at pipeline depth "
+            f"{eng.pipeline_depth} (turn {turn + 1} of 4): {burst_s:.3f} s, "
+            f"{new_tokens_of(reqs) / burst_s:.1f} tok/s, engine TTFT mean "
+            f"{np.mean(ttfts):.3f} s max {max(ttfts):.3f} s; {steps} steps "
+            f"in {after['segments'] - before['segments']} segments, "
+            f"{wasted} tokens dropped, drains {drains} [{card}]")
+        out[name][-1]["steady"] = steady_decode(eng, card)
+    out["depth1_pipeline"] = sync.stats()["pipeline"]
+    sync.release()
+    del sync
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+STEADY_NEW = 256  # 16 segments of one row, no joiner, no drain between
+
+
+def steady_decode(engine, card: str) -> dict:
+    """One greedy row of 16 prompt tokens and ``STEADY_NEW`` new ones
+    alone through ``engine``: the host clock's ms per decode step after
+    the first token. Against the depth-1 engine in the same call, the
+    difference is the host time between segments that pipelining
+    hides."""
+    prompt = list(range(1, 17))
+    engine.generate(prompt, max_new_tokens=32)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.generate(prompt, max_new_tokens=STEADY_NEW)
+    wall = time.perf_counter() - t0
+    with engine._lock:  # the row is logged at the barrier after it
+        while engine._engine_running:
+            engine._lock.wait(0.01)
+    ttft = engine.request_log[-1]["ttft_s"]
+    step_ms = (wall - ttft) / (STEADY_NEW - 1) * 1e3
+    log(f"path D one row alone at pipeline depth {engine.pipeline_depth}: "
+        f"{STEADY_NEW} tokens in {wall:.3f} s, TTFT {ttft:.3f} s, "
+        f"{step_ms:.3f} ms per decode step after it [{card}]")
+    return {"wall_s": wall, "ttft_s": ttft, "step_ms": step_ms}
+
+
+# path F: the serving front (scheduler, /v1/completions, SSE, /shutdown)
+# on D's handler: a second server with 2 run slots and a queue of 2
+FRONT_SCHED = {"max_concurrency": 2, "queue_cap": 2}
+FRONT_NEW = 24
+# the burst's rows run ~0.5 s on the card, far longer than its last 6
+# requests take to arrive: exactly concurrency plus queue are admitted
+BURST_NEW = 64
+FRONT_KNOBS = {"greedy": {"temperature": 0.0},
+               "seeded": {"temperature": 0.8, "top_p": 0.9, "seed": 7}}
+
+
+def _http(url: str, body: dict, headers: dict | None = None,
+          raw: bool = False):
+    """POST ``body``: (status, JSON body or raw bytes, headers); error
+    statuses carry their body too."""
+    req = urllib.request.Request(
+        url, data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            data, code, hdrs = resp.read(), resp.status, dict(resp.headers)
+    except urllib.error.HTTPError as e:
+        data, code, hdrs = e.read(), e.code, dict(e.headers)
+    return code, (data if raw else json.loads(data)), hdrs
+
+
+def _sse_events(raw: bytes) -> list:
+    return [line[6:] if line[6:] == b"[DONE]" else json.loads(line[6:])
+            for line in raw.split(b"\n") if line.startswith(b"data: ")]
+
+
+def serve_front_path(state, card: str) -> dict:
+    """Path F: D's handler (no second 8B load) behind a second
+    ``BundleServer`` with ``FRONT_SCHED``: (a) ``/v1/completions`` with a
+    token-array prompt gives ``/invoke``'s tokens for the same body,
+    greedy and seeded; (b) its SSE chunks put together equal (a), ending
+    in a ``finish_reason`` chunk and ``data: [DONE]``; (c) a burst of 8:
+    the 4 over concurrency plus queue are shed 503 ``queue_full`` with
+    Retry-After >= 1, counted by reason and class in ``/metrics``, and
+    every admitted row equals its solo tokens; (d) a 1 ms
+    ``x-deadline-ms`` is shed 503; (e) with both run slots taken, an
+    interactive request is granted before a background one that came
+    first (a fresh server, so the fair policy starts from no credit);
+    (f) ``POST /shutdown`` lets the request in flight finish with 200
+    and the next is refused. The launch counters, from 0 before the
+    traffic, equal what the engine's steps and forwards imply."""
+    import threading
+
+    from lambdipy_tpu_torch.runtime.handlers import kernel_launches
+    from lambdipy_tpu_torch.runtime.server import BundleServer
+
+    server, engine = state.server, state.engine
+    layers = server.model.cfg.layers
+    rng = torch.Generator().manual_seed(23)
+
+    def prompt(n):
+        return torch.randint(1, server.model.cfg.vocab_size, (n,),
+                             generator=rng).tolist()
+
+    solo_checks = []  # (tokens served, prompt, new tokens, knobs)
+    stats0 = engine.stats()
+    set_launches_to_zero()
+    t0 = time.perf_counter()
+    srv = BundleServer(state, port=0, sched=FRONT_SCHED).start_background()
+    if srv.sched.config.max_concurrency != 2:
+        raise SystemExit("path F: the pinned max_concurrency was not kept")
+    # (a), (b)
+    for name, knobs in FRONT_KNOBS.items():
+        p = prompt(40)
+        code_i, inv, _ = _http(srv.url + "/invoke",
+                               {"tokens": p, "max_new_tokens": FRONT_NEW,
+                                **knobs})
+        body = {"prompt": p, "max_tokens": FRONT_NEW, **knobs}
+        code_c, comp, _ = _http(srv.url + "/v1/completions", body)
+        code_s, raw, hdrs = _http(srv.url + "/v1/completions",
+                                  {**body, "stream": True}, raw=True)
+        toks = comp["choices"][0]["tokens"] if code_c == 200 else None
+        events = _sse_events(raw) if code_s == 200 else []
+        chunks = [e["choices"][0] for e in events[:-1]
+                  if isinstance(e, dict) and "choices" in e]
+        streamed = [t for c in chunks for t in c["tokens"]]
+        if not (code_i == code_c == 200 and toks == inv["tokens"][0]):
+            raise SystemExit(f"path F (a): {name} /v1/completions differs "
+                             f"from /invoke")
+        if not (events and events[-1] == b"[DONE]" and streamed == toks
+                and chunks[-1]["finish_reason"] == "length"
+                and hdrs.get("Content-Type") == "text/event-stream"):
+            raise SystemExit(f"path F (b): {name} SSE stream differs: "
+                             f"{events[-2:]}")
+        solo_checks.append((toks, p, FRONT_NEW, knobs))
+        log(f"path F (a), (b): {name} /v1/completions = /invoke, "
+            f"{len(chunks) - 1} SSE chunks + finish_reason "
+            f"{chunks[-1]['finish_reason']!r} + [DONE] = the same "
+            f"{len(toks)} tokens")
+    # (c) a burst of 8: the first 2 take the run slots, then the other
+    # 6 at once: 2 queue, 4 are shed
+    classes = ["interactive", "batch", "background"]
+    burst = [(prompt(64), classes[i % 3]) for i in range(8)]
+    results = [None] * 8
+    gate = threading.Barrier(6)
+
+    def fire(i):
+        if i >= 2:
+            gate.wait()
+        p, cls = burst[i]
+        results[i] = _http(srv.url + "/invoke",
+                           {"tokens": p, "max_new_tokens": BURST_NEW},
+                           headers={"x-priority": cls})
+
+    threads = [threading.Thread(target=fire, args=(i,)) for i in range(8)]
+    for i, th in enumerate(threads):
+        th.start()
+        limit = time.monotonic() + 120
+        while i < 2 and srv.sched.report()["running"] <= i:
+            if time.monotonic() > limit:
+                raise SystemExit("path F (c): a request did not start")
+            time.sleep(0.002)
+    for th in threads:
+        th.join(timeout=600)
+    ok = [i for i, r in enumerate(results) if r[0] == 200]
+    shed = [i for i, r in enumerate(results) if r[0] != 200]
+    metrics = http_json(srv.url + "/metrics")["sched"]
+    want_cls = {}
+    for i in shed:
+        want_cls[burst[i][1]] = want_cls.get(burst[i][1], 0) + 1
+    bad = [results[i] for i in shed
+           if not (results[i][0] == 503
+                   and results[i][1].get("shed") == "queue_full"
+                   and int(results[i][2].get("Retry-After", 0)) >= 1)]
+    log(f"path F (c): burst of 8 -> {len(ok)} admitted, {len(shed)} shed "
+        f"503 queue_full; sched shed {metrics['shed']}")
+    if (len(ok) != sum(FRONT_SCHED.values()) or bad
+            or metrics["shed"]["by_reason"] != {"queue_full": len(shed)}
+            or metrics["shed"]["by_class"] != want_cls):
+        raise SystemExit(f"path F (c): admitted {len(ok)}, bad sheds "
+                         f"{bad[:1]}, sched {metrics['shed']}")
+    for i in ok:
+        solo_checks.append((results[i][1]["tokens"][0], burst[i][0],
+                            BURST_NEW, {}))
+    # (d) a deadline no request can meet
+    code, body, hdrs = _http(srv.url + "/invoke",
+                             {"tokens": prompt(16), "max_new_tokens": 8},
+                             headers={"x-deadline-ms": "1"})
+    reason = body.get("shed", "")
+    if code != 503 or not (reason == "deadline" or "cancelled" in reason) \
+            or int(hdrs.get("Retry-After", 0)) < 1:
+        raise SystemExit(f"path F (d): a 1 ms deadline answered {code} "
+                         f"{body}")
+    log(f"path F (d): a 1 ms x-deadline-ms is answered 503 {reason!r}")
+    # (e) interactive granted before an earlier background request
+    fresh = BundleServer(state, port=0,
+                         sched=FRONT_SCHED).start_background()
+    done, sent = {}, {}
+
+    def call(key, n, cls, p):
+        sent[key] = time.monotonic()
+        done[key] = _http(fresh.url + "/v1/completions",
+                          {"prompt": p, "max_tokens": n, "temperature": 0},
+                          headers={"x-priority": cls})
+
+    def wait_for(pred, what):
+        limit = time.monotonic() + 120
+        while not pred():
+            if time.monotonic() > limit:
+                raise SystemExit(f"path F (e): timed out waiting for {what}")
+            time.sleep(0.002)
+
+    order = [("long1", 64, "interactive"), ("long2", 160, "interactive"),
+             ("bg", 8, "background"), ("ia", 8, "interactive")]
+    threads = []
+    for k, (key, n, cls) in enumerate(order):
+        threads.append(threading.Thread(target=call,
+                                        args=(key, n, cls, prompt(32))))
+        threads[-1].start()
+        if k < 2:
+            wait_for(lambda k=k: fresh.sched.report()["running"] == k + 1,
+                     f"{key} to run")
+        else:
+            wait_for(lambda k=k: fresh.sched.queue.depth() == k - 1,
+                     f"{key} to queue")
+    for th in threads:
+        th.join(timeout=600)
+    fresh.stop()
+    granted = {key: sent[key] + done[key][1]["queue_wait_ms"] / 1e3
+               for key in ("bg", "ia")}
+    log(f"path F (e): both slots taken, a background request then an "
+        f"interactive one queued; granted ia {granted['ia'] - sent['bg']:.3f}"
+        f" s and bg {granted['bg'] - sent['bg']:.3f} s after bg was sent")
+    if not all(done[k][0] == 200 for k in done) \
+            or granted["ia"] >= granted["bg"]:
+        raise SystemExit("path F (e): interactive was not granted before "
+                         "background under contention")
+    # (f) /shutdown drains: the request in flight ends 200, the next is
+    # refused
+    inflight = {}
+    p = prompt(48)
+    th = threading.Thread(target=lambda: inflight.setdefault(
+        "r", _http(srv.url + "/invoke", {"tokens": p, "max_new_tokens": 64})))
+    th.start()
+    limit = time.monotonic() + 60
+    while srv._inflight == 0 and time.monotonic() < limit:
+        time.sleep(0.002)
+    code_s, body_s, _ = _http(srv.url + "/shutdown", {})
+    try:
+        code_n, body_n, _ = _http(srv.url + "/invoke",
+                                  {"tokens": p, "max_new_tokens": 4})
+        refused = code_n == 503 and body_n.get("shed") == "draining"
+    except OSError:  # the socket already closed
+        refused, code_n = True, "connection refused"
+    th.join(timeout=600)
+    code_r, body_r, _ = inflight["r"]
+    log(f"path F (f): /shutdown {code_s}; the request in flight {code_r}, "
+        f"the next {code_n}")
+    if code_s != 200 or code_r != 200 or not refused:
+        raise SystemExit("path F (f): /shutdown did not drain and refuse")
+    solo_checks.append((body_r["tokens"][0], p, 64, {}))
+    srv.stop()
+    wall_s = time.perf_counter() - t0
+    launches = kernel_launches()
+    stats = engine.stats()
+    steps = stats["steps"] - stats0["steps"]
+    forwards = stats["forwards"] - stats0["forwards"]
+    want = dict.fromkeys(KERNELS, 0)
+    want["paged_decode_attention"] = layers * steps
+    want["int8_matmul"] = (7 * layers + 1) * forwards
+    log(f"path F launch counters: {launches}, implied {want} ({steps} "
+        f"engine steps, {forwards} forwards)")
+    if launches != want:
+        raise SystemExit("path F: launch counters differ from the implied "
+                         "counts")
+    for toks, p, n, knobs in solo_checks:
+        if toks != server.generate(p, max_new_tokens=n,
+                                   **knobs)[0].tolist():
+            raise SystemExit("path F: a served row differs from solo "
+                             "generation")
+    log(f"path F: all {len(solo_checks)} served rows equal solo generation; "
+        f"{wall_s:.1f} s of traffic [{card}]")
+    return {"launches": launches, "implied": want, "wall_s": wall_s,
+            "burst": {"admitted": len(ok), "shed": len(shed)},
+            "sched": metrics, "grant_s": {k: granted[k] - sent["bg"]
+                                          for k in granted}}
 
 
 def profile_engine(engine, prompts, card: str, n_new: int = 16) -> dict:
@@ -2349,7 +2723,9 @@ def main() -> int:
     # path D first: its times come before any profiler session
     t_path = time.perf_counter()
     paths = {"D": serve_engine_path(card)}
-    log(f"path D took {time.perf_counter() - t_path:.1f} s")
+    # path F ran on D's handler, after D's numbers
+    paths["F"] = paths["D"].pop("F")
+    log(f"paths D and F took {time.perf_counter() - t_path:.1f} s")
     for path in PATHS:
         t_path = time.perf_counter()
         paths[path] = serve_path(path, card)

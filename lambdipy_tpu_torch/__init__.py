@@ -20,7 +20,7 @@ import importlib
 
 __version__ = "0.1.0"
 
-_SUBMODULES = ("models", "ops", "runtime", "utils")
+_SUBMODULES = ("models", "ops", "runtime", "sched", "utils")
 
 
 def __getattr__(name: str):

@@ -33,9 +33,34 @@ boundaries, packed into a free slot.
   square of its bucket under ``blocked``). Packing (scalars into the
   slot, the prefill's K/V into the slot's cache row or pages) happens on
   the engine thread at the barrier.
-- The loop is synchronous (``pipeline_depth`` 1): run a segment, fetch
-  its ``[B, k]`` token block, book it, retire finished rows, pack
-  joiners, repeat; it exits when idle and restarts on the next request.
+- The loop is pipelined (``pipeline_depth``, default 2, as in JAX): it
+  keeps up to ``pipeline_depth`` segments on the card. A segment's
+  ``[B, k]`` token block (a fresh tensor per segment) is copied
+  ``non_blocking`` into pinned host memory behind a CUDA event, and the
+  host waits on the oldest segment's event only after the next segment
+  is enqueued, so the card computes segment N+1 while the host books N.
+  Slot retirement and joiner packing happen only at BARRIERS, with the
+  pipeline empty. A waiting joiner that a slot could take stops the
+  dispatch: the bounded drain (at most ``pipeline_depth - 1`` segments)
+  then reaches the barrier. ``disp`` counts the tokens dispatched per
+  row; the segment length is the furthest live row's undispatched
+  quota. A row that finished behind the dispatch frontier keeps its
+  slot as a garbage row until the barrier: its blocks are dropped on
+  the host (``wasted_overdecode_tokens``), so every row is bitwise the
+  depth-1 engine's. Its position runs on past its quota: the dense
+  write past ``cache_len`` leaves the cache as it is, and the paged
+  write goes to the row's own last page or, past its table, to the null
+  page, never into a shared prefix page (those lie before the row's
+  prompt end). Depth 1 is the synchronous loop: run a segment, fetch
+  its block, book it, barrier. The engine exits when idle and restarts
+  on the next request.
+- Each entry carries its request's scheduling class (``cls``), arrival
+  ``seq`` and deadline (``deadline_at``, from ``x-deadline-ms``) from
+  the request context ``sched/`` sets; free slots go to joiners in the
+  engine's ``policy`` order (the handler's default is ``fair``). At a
+  barrier, a row whose deadline passed or whose stream's reader went
+  away is failed with :class:`RequestCancelled`; its slot and pages are
+  freed there.
 - eos is handled on the host, as in JAX: decode never latches; the
   collector records the first eos of a row (``eos_at``) and ``generate``
   truncates the row there and pads it with eos. A row's tokens do not
@@ -46,9 +71,11 @@ boundaries, packed into a free slot.
   prefill's rows do not depend on the group's size, and a
   sampled row draws once per step from its own generator, which travels
   with its slot.
-- Device work (prefills, packing, segments and their fetches) holds the
-  process's ``DEVICE_LOCK``, so no capture ever runs beside it. An
-  engine reset drops its step and graphs, as does a rebuilt arena.
+- Device work (prefills, packing, dispatches and the waits on a
+  segment's event) holds the process's ``DEVICE_LOCK``, so no capture
+  ever runs beside it: the engine takes it for "dispatch N+1, wait on
+  N" and lets it go while N's tokens are booked. An engine reset drops
+  its step and graphs, as does a rebuilt arena.
 - Prefix rows (``prefix=``, explicit or from the prefix store's routing)
   continue their suffix from the cached prefix K/V on their request
   thread (``models/llama.py _continue_prefill``) and join like a
@@ -62,10 +89,9 @@ boundaries, packed into a free slot.
   the whole window, so a prefix row needs an engine whose ``cache_len``
   is ``max_len``; elsewhere it runs solo.
 
-Not ported yet (ROADMAP): pipelining (``pipeline_depth >= 2``), window
-bucketing, the chunked joiner prefill, the watchdog / replay /
-degradation ladder, speculation, long context, meshes and the
-scheduling policy (joiners are FIFO).
+Not ported yet (ROADMAP): window bucketing, the chunked joiner prefill,
+the watchdog / replay / degradation ladder, speculation, long context
+and meshes.
 """
 
 from __future__ import annotations
@@ -90,7 +116,9 @@ from lambdipy_tpu_torch.models.llama import (MIN_BUCKET, DecodeStep,
                                              init_decode_cache,
                                              pack_prefill_into_pages,
                                              row_generators)
-from lambdipy_tpu_torch.runtime.metrics import EngineStats
+from lambdipy_tpu_torch.runtime.metrics import EngineStats, PipelineStats
+from lambdipy_tpu_torch.sched import (current_request_class,
+                                      current_request_deadline_ms)
 
 log = logging.getLogger("lambdipy_tpu_torch.continuous")
 
@@ -100,15 +128,27 @@ _entry_seq = itertools.count()
 GROUP_PREFILL_MAX = 256
 
 
+class RequestCancelled(RuntimeError):
+    """A row cancelled at a barrier: its waiter went away (a closed
+    stream) or its deadline passed mid-decode."""
+
+
 class ContinuousBatcher:
-    """Segment-boundary continuous batching over a ``LlamaServer``."""
+    """Segment-boundary continuous batching over a ``LlamaServer``.
+    ``policy`` (``sched.policy``) orders the joiners a barrier hands free
+    slots to (None: arrival order); ``pipeline_depth`` is the most
+    segments kept on the card."""
 
     def __init__(self, server, *, slots: int = 8, segment: int = 16,
-                 cache_len: int | None = None, page_pool=None):
+                 cache_len: int | None = None, page_pool=None, policy=None,
+                 pipeline_depth: int = 2):
         cfg = server.model.cfg
         self.server = server
         self.slots = max(1, int(slots))
         self.segment = max(1, int(segment))
+        self.policy = policy
+        self.pipeline_depth = max(1, int(pipeline_depth))
+        self.pipe_stats = PipelineStats(depth=self.pipeline_depth)
         self.cache_len = min(cache_len or cfg.max_len, cfg.max_len)
         self.pool = page_pool
         if page_pool is not None:
@@ -294,37 +334,96 @@ class ContinuousBatcher:
                 self._pack(e, e["prefill"], 0)
                 e["prefill"] = None  # free the row's prefill cache
 
-    def _run_segment(self, live: list) -> None:
-        """Advance every slot up to ``segment`` steps (no further than the
-        live row furthest from its quota) and book each live row's
-        tokens."""
+    @staticmethod
+    def _to_device(buf, host) -> None:
+        """A host array into a device buffer. On the card from pinned
+        memory, ``non_blocking``: a pageable copy would wait for the
+        segments in flight before this dispatch could be enqueued."""
+        src = torch.from_numpy(np.ascontiguousarray(host))
+        if buf.is_cuda:
+            buf.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            buf.copy_(src)
+
+    def _run_segment(self, live: list) -> dict:
+        """Dispatch one segment (caller holds ``DEVICE_LOCK``): every slot
+        advances ``k`` steps, ``k`` the undispatched quota of the live
+        row furthest from its end, at most ``segment``; each row's
+        ``disp`` moves by ``k``. Only rows with quota left take their
+        knobs: one whose output is all dispatched decodes greedy garbage,
+        as a finished row does, so the segment samples (and picks the
+        sampled program) exactly when the depth-1 loop would. The ``[B,
+        k]`` block goes to pinned host memory behind a CUDA event on the
+        card (on the CPU it is there already). Returns the in-flight
+        record :meth:`_collect` books."""
         step, b = self._step, self.slots
-        k = min(self.segment,
-                max(e["n"] - len(e["toks"]) for _, e in live))
+        rows = [(slot, e) for slot, e in live
+                if not e["done"] and e["disp"] < e["n"]]
+        k = min(self.segment, max(e["n"] - e["disp"] for _, e in rows))
         temp = np.zeros((b,), np.float32)
         top_k = np.zeros((b,), np.int64)
         top_p = np.ones((b,), np.float32)
-        for slot, e in live:
+        for slot, e in rows:
             temp[slot] = e["temperature"] or 0.0
             top_k[slot] = e["top_k"] or 0
             top_p[slot] = 1.0 if e["top_p"] is None else e["top_p"]
-        step.set_knobs(temp, top_k, top_p)
+        for buf, host in ((step.temperature, temp), (step.top_k, top_k),
+                          (step.top_p, top_p)):
+            self._to_device(buf, host)
         lock = contextlib.nullcontext()
         if self.pool is not None:
+            # every occupied slot's table, finished rows' too: their
+            # garbage steps write into their own pages or the null page
             nb = self.cache_len // self.pool.page
-            step.tables.copy_(torch.as_tensor(
-                np.stack([self._table_row(e, nb) for e in self._active])))
+            self._to_device(step.tables, np.stack(
+                [self._table_row(e, nb) for e in self._active]))
             lock = self.pool.arena_lock
         prog = self._program(bool((temp > 0).any()))
+        t_dispatch = time.monotonic()
         with lock:
             toks, lps = _scan_decode(prog.run, step, k, segment=True)
-        toks = toks.cpu().numpy()
-        lps = (lps.float().cpu().numpy()
-               if any(e["want_lp"] for _, e in live) else None)
-        self.stats_counters.record_segment(k, len(live))
+        need_lp = any(e["want_lp"] for _, e in rows)
+        rec = {"rows": live, "k": k, "t_dispatch": t_dispatch,
+               "toks": toks, "lps": lps if need_lp else None, "event": None}
+        if toks.is_cuda:
+            for key in ("toks", "lps"):
+                if rec[key] is not None:
+                    host = torch.empty(rec[key].shape, dtype=rec[key].dtype,
+                                       pin_memory=True)
+                    rec[key] = host.copy_(rec[key], non_blocking=True)
+            rec["event"] = torch.cuda.Event()
+            rec["event"].record()
+        for _, e in live:
+            e["disp"] += k
+        self.stats_counters.record_segment(k, len(rows))
+        return rec
+
+    def _wait(self, rec: dict) -> None:
+        """Block until the record's block is on the host (caller holds
+        ``DEVICE_LOCK``: a wait beside another thread's capture would
+        invalidate it); stamps when it was ready and how long the host
+        was blocked."""
+        t0 = time.monotonic()
+        if rec["event"] is not None:
+            rec["event"].synchronize()
+        rec["t_ready"] = time.monotonic()
+        rec["blocked_s"] = rec["t_ready"] - t0
+
+    def _collect(self, rec: dict) -> None:
+        """Book a segment's block: each live row's tokens (and logprobs
+        when some row asked), its first eos, and done at its eos or
+        quota. A row already done when its block lands (finished behind
+        the dispatch frontier) books nothing: the block is counted as
+        wasted."""
+        toks = rec["toks"].numpy()
+        lps = rec["lps"].float().numpy() if rec["lps"] is not None else None
         now = time.monotonic()
+        wasted = 0
         with self._lock:
-            for slot, e in live:
+            for slot, e in rec["rows"]:
+                if e["done"]:
+                    wasted += rec["k"]
+                    continue
                 row = toks[slot].tolist()
                 base = len(e["toks"])
                 if base == 0:
@@ -341,6 +440,9 @@ class ContinuousBatcher:
                     e["wall_s"] = now - e["t0"]
                     self.stats_counters.record_served()
             self._lock.notify_all()
+        self.pipe_stats.record_collect(rec["t_dispatch"], rec["t_ready"],
+                                       fetch_s=rec["blocked_s"],
+                                       wasted=wasted)
 
     # -- engine thread -------------------------------------------------------
 
@@ -352,38 +454,124 @@ class ContinuousBatcher:
             log.exception("continuous engine failed")
             self._fail(e)
 
+    @staticmethod
+    def _cancel_due(entry: dict, now: float) -> bool:
+        return bool(entry.get("abandoned")) or (
+            entry.get("deadline_at") is not None
+            and now > entry["deadline_at"])
+
+    def _cancel_expired_locked(self, now: float) -> None:
+        """Barrier cancellation (caller holds the lock, the pipeline is
+        empty): rows and queued joiners whose waiter went away or whose
+        deadline passed fail with :class:`RequestCancelled`, and their
+        slots and pages are freed; decoding them on would spend the card
+        on tokens nobody reads."""
+        def cancel(e, where):
+            e["error"] = RequestCancelled(
+                f"cancelled {where}: "
+                + ("waiter gone" if e.get("abandoned")
+                   else "deadline expired"))
+            e["done"], e["prefill"] = True, None
+            if self.pool is not None:
+                self._release_pages(e)
+            self.stats_counters.record_cancelled()
+            self._lock.notify_all()
+
+        for slot, e in enumerate(self._active):
+            if e is not None and not e["done"] and self._cancel_due(e, now):
+                self._active[slot] = None
+                cancel(e, "at a barrier")
+        for j in [j for j in self._joiners if self._cancel_due(j, now)]:
+            self._joiners.remove(j)
+            cancel(j, "while queued")
+
+    def _barrier(self) -> list:
+        """The pipeline is empty: cancel what is due, retire finished
+        rows, hand free slots to joiners in policy order. Returns the
+        live ``(slot, entry)`` pairs; none means the engine stops (caller
+        holds the lock)."""
+        self._cancel_expired_locked(time.monotonic())
+        for slot, e in enumerate(self._active):
+            if e is not None and e["done"]:
+                self._active[slot] = None
+                self._retire(e)
+        free = [i for i, e in enumerate(self._active) if e is None]
+        if self._joiners and free:
+            ordered = (self.policy.order(list(self._joiners))
+                       if self.policy is not None else list(self._joiners))
+            for joiner in ordered[:len(free)]:
+                self._joiners.remove(joiner)
+                joiner["slot"] = free.pop(0)
+                self._active[joiner["slot"]] = joiner
+        return [(slot, e) for slot, e in enumerate(self._active)
+                if e is not None]
+
+    def _stop_cause(self, live: list) -> str | None:
+        """Why dispatching stops before another segment (caller holds
+        the lock): ``complete`` when every live row has its whole output
+        dispatched, ``cancel`` when a live row is due to be cancelled (the
+        drain brings its barrier at once instead of after the batch),
+        ``joiner`` when a waiting joiner could take a slot that is free or
+        finished."""
+        if not any(not e["done"] and e["disp"] < e["n"] for _, e in live):
+            return "complete"
+        now = time.monotonic()
+        if any(not e["done"] and self._cancel_due(e, now) for _, e in live):
+            return "cancel"
+        if self._joiners and (len(live) < self.slots
+                              or any(e["done"] for _, e in live)):
+            return "joiner"
+        return None
+
     def _engine_body(self) -> None:
-        while True:
-            # barrier: retire finished rows, hand free slots to joiners
-            with self._lock:
-                for slot, e in enumerate(self._active):
-                    if e is not None and e["done"]:
-                        self._active[slot] = None
-                        self._retire(e)
-                free = [i for i, e in enumerate(self._active) if e is None]
-                while self._joiners and free:
-                    joiner = self._joiners.pop(0)
-                    joiner["slot"] = free.pop(0)
-                    self._active[joiner["slot"]] = joiner
-                live = [(slot, e) for slot, e in enumerate(self._active)
-                        if e is not None]
-                if not live:
-                    self._engine_running = False
-                    self._lock.notify_all()
-                    return
-            if (self._step is not None and self.pool is not None
-                    and self._arena_generation != self.pool.generation):
-                self.release()  # its graphs hold the old arena's addresses
-            with DEVICE_LOCK:
-                if self._step is None:
-                    self._step = self._init_step()
-                for slot, e in enumerate(self._active):
-                    if e is None:
-                        # an empty slot restarts at position 0: its
-                        # garbage stays short
-                        self._step.pos[slot] = 0
-                self._pack_joiners([e for _, e in live if not e["packed"]])
-                self._run_segment(live)
+        pstats = self.pipe_stats
+        t0 = time.monotonic()
+        pstats.begin_episode(t0)
+        inflight: deque = deque()
+        try:
+            while True:
+                with self._lock:
+                    live = self._barrier()
+                    if not live:
+                        self._engine_running = False
+                        self._lock.notify_all()
+                        return
+                if (self._step is not None and self.pool is not None
+                        and self._arena_generation != self.pool.generation):
+                    self.release()  # its graphs hold the old arena's addresses
+                with DEVICE_LOCK:
+                    if self._step is None:
+                        self._step = self._init_step()
+                    for slot, e in enumerate(self._active):
+                        if e is None:
+                            # an empty slot restarts at position 0: its
+                            # garbage stays short
+                            self._step.pos[slot] = 0
+                    self._pack_joiners([e for _, e in live
+                                        if not e["packed"]])
+                while True:
+                    with self._lock:
+                        cause = self._stop_cause(live)
+                    if cause is not None:
+                        break
+                    with DEVICE_LOCK:
+                        inflight.append(self._run_segment(live))
+                        pstats.record_dispatch(len(inflight))
+                        full = len(inflight) >= self.pipeline_depth
+                        if full:
+                            self._wait(inflight[0])
+                    if full:
+                        self._collect(inflight.popleft())
+                    if self.pipeline_depth == 1:
+                        break  # the synchronous loop: a barrier each segment
+                if inflight:
+                    pstats.record_drain(cause)
+                    while inflight:
+                        with DEVICE_LOCK:
+                            self._wait(inflight[0])
+                        self._collect(inflight.popleft())
+        finally:
+            pstats.record_wall(time.monotonic() - t0)
 
     def _retire(self, e: dict) -> None:
         """Return a finished row's pages and log it (caller holds the
@@ -516,6 +704,7 @@ class ContinuousBatcher:
         if prefix is None and s + max_new_tokens > self.cache_len:
             return None
         seed = int(seed) if seed is not None else 0
+        deadline_ms = current_request_deadline_ms()
         entry = {"n": max_new_tokens, "eos_id": eos_id,
                  "temperature": temperature, "top_k": top_k, "top_p": top_p,
                  "seed": seed, "toks": [], "lps": [],
@@ -523,7 +712,16 @@ class ContinuousBatcher:
                  "slot": None, "packed": False, "eos_at": None,
                  "row": row, "s": s, "prefill": None, "pos0": s,
                  "prefix_toks": None,
-                 "seq": next(_entry_seq), "t0": t0, "ttft_s": None,
+                 # tokens dispatched for the row (ahead of ``toks`` while
+                 # segments are in flight)
+                 "disp": 0,
+                 # the request context: scheduling class, arrival order
+                 # and deadline; a stream whose reader left is abandoned
+                 "cls": current_request_class(), "seq": next(_entry_seq),
+                 "deadline_at": (t0 + deadline_ms / 1e3 if deadline_ms
+                                 else None),
+                 "abandoned": False,
+                 "t0": t0, "ttft_s": None,
                  # the row's own generator, seeded as generate seeds a
                  # one-row request; it travels with the row's slot
                  "gen": row_generators([(seed, 0)],
@@ -616,43 +814,56 @@ class ContinuousBatcher:
                 seed=seed, eos_id=eos_id, segment=self.segment,
                 prefix=prefix, return_logprobs=return_logprobs)
             return
-        delivered = 0
-        while delivered < max_new_tokens:
+        try:
+            delivered = 0
+            while delivered < max_new_tokens:
+                with self._lock:
+                    while not entry["done"] \
+                            and len(entry["toks"]) <= delivered:
+                        self._lock.wait(timeout=1.0)
+                    if entry["error"] is not None:
+                        raise entry["error"]
+                    toks, lps = list(entry["toks"]), list(entry["lps"])
+                # at most one segment per chunk, also when this reader
+                # fell behind the engine by several segments
+                take = min(len(toks), max_new_tokens,
+                           delivered + self.segment)
+                chunk = toks[delivered:take]
+                lp_chunk = lps[delivered:take]
+                if not chunk:
+                    return
+                latched = eos_id is not None and eos_id in chunk
+                if latched:
+                    # fill the rest of the chunk with eos, as the device
+                    # latch would, and end the stream at this segment
+                    cut = chunk.index(eos_id) + 1
+                    chunk = chunk[:cut] + [eos_id] * (len(chunk) - cut)
+                    lp_chunk = lp_chunk[:cut] + [0.0] * (len(chunk) - cut)
+                delivered = take
+                arr = np.asarray([chunk], np.int32)
+                yield ((arr, np.asarray([lp_chunk], np.float32))
+                       if return_logprobs else arr)
+                if latched:
+                    return
+        finally:
+            # a stream closed early (its reader went away) leaves the row
+            # without a waiter: the next barrier cancels it
             with self._lock:
-                while not entry["done"] and len(entry["toks"]) <= delivered:
-                    self._lock.wait(timeout=1.0)
-                if entry["error"] is not None:
-                    raise entry["error"]
-                toks, lps = list(entry["toks"]), list(entry["lps"])
-            # at most one segment per chunk, also when this reader fell
-            # behind the engine by several segments
-            take = min(len(toks), max_new_tokens, delivered + self.segment)
-            chunk = toks[delivered:take]
-            lp_chunk = lps[delivered:take]
-            if not chunk:
-                return
-            latched = eos_id is not None and eos_id in chunk
-            if latched:
-                # fill the rest of the chunk with eos, as the device
-                # latch would, and end the stream at this segment
-                cut = chunk.index(eos_id) + 1
-                chunk = chunk[:cut] + [eos_id] * (len(chunk) - cut)
-                lp_chunk = lp_chunk[:cut] + [0.0] * (len(chunk) - cut)
-            delivered = take
-            arr = np.asarray([chunk], np.int32)
-            yield ((arr, np.asarray([lp_chunk], np.float32))
-                   if return_logprobs else arr)
-            if latched:
-                return
+                if not entry["done"]:
+                    entry["abandoned"] = True
 
     def stats(self) -> dict:
         with self._lock:
             out = {"mode": "continuous", "slots": self.slots,
                    "segment": self.segment, "cache_len": self.cache_len,
                    "paged": self.pool is not None,
+                   "pipeline_depth": self.pipeline_depth,
+                   "policy": (self.policy.name if self.policy is not None
+                              else "arrival"),
                    "active_rows": sum(e is not None for e in self._active),
                    "waiting_joiners": len(self._joiners),
-                   **self.stats_counters.report()}
+                   **self.stats_counters.report(),
+                   "pipeline": self.pipe_stats.report()}
         if self.pool is not None:
             out["page_pool"] = self.pool.stats()
         return out

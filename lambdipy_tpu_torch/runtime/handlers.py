@@ -3,12 +3,15 @@ for the generate path: a port-owned :class:`HandlerState` and
 :func:`generate_handler`, which takes the same spec shape (``model``,
 ``dtype``, ``quant``, ``extra``) and the same request fields as the JAX
 handler, with ``batch_mode="continuous"`` (optionally over a paged KV
-arena, ``kv_paged``) for concurrent traffic, and the automatic prefix KV
-cache (``runtime/prefixstore.py``) built as the JAX handler builds it."""
+arena, ``kv_paged``; pipelined at ``pipeline_depth`` 2, joiners in the
+``sched_policy`` order, ``fair`` by default) for concurrent traffic, and
+the automatic prefix KV cache (``runtime/prefixstore.py``) built as the
+JAX handler builds it."""
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from collections.abc import Callable, Iterator
 from typing import Any
 
@@ -24,6 +27,7 @@ from lambdipy_tpu_torch.ops.quant import int8_matmul
 from lambdipy_tpu_torch.runtime.continuous import ContinuousBatcher
 from lambdipy_tpu_torch.runtime.pagepool import PagePool, page_width
 from lambdipy_tpu_torch.runtime.prefixstore import PrefixStore
+from lambdipy_tpu_torch.sched.policy import make_policy
 
 
 @dataclasses.dataclass
@@ -41,6 +45,12 @@ class HandlerState:
     engine: Any = None
     # the automatic prefix KV cache, when one is built
     prefix_store: Any = None
+    # prompt ids -> tokens the prefix store would reuse: the scheduler
+    # prices the suffix a cache hit will prefill
+    prefix_probe: Callable[[Any], int] | None = None
+    # the spec's extra: the server reads its sched_* keys, batch_mode
+    # and batch_max from it
+    extra: dict = dataclasses.field(default_factory=dict)
 
     def invoke(self, request: dict) -> dict:
         return self.invoke_fn(request)
@@ -81,7 +91,6 @@ def kernel_launches() -> dict:
 # engine extras of the JAX handler whose features are not ported: the
 # value each may take (the feature off), anything else raises
 _UNPORTED_ENGINE_EXTRAS = {
-    "pipeline_depth": ("1",),
     "batch_window_bucketing": ("0", "false", "off"),
     "prefill_chunk": ("0",),
     "engine_watchdog_s": ("0", "0.0"),
@@ -151,13 +160,36 @@ def make_prefix_store(server, engine, extra: dict) -> PrefixStore | None:
     return store
 
 
+def sched_policy_name(extra: dict) -> str:
+    """The policy batch formation orders joiners by, resolved as the JAX
+    handler and ``SchedConfig.from_extra`` resolve it: the
+    ``LAMBDIPY_SCHED_POLICY`` environment (the serve process's choice),
+    then the ``sched_policy`` extra, then ``fair``."""
+    return (os.environ.get("LAMBDIPY_SCHED_POLICY")
+            or extra.get("sched_policy") or "fair")
+
+
+def pipeline_depth(extra: dict) -> int:
+    """The engine's pipeline depth: the ``pipeline_depth`` extra, then
+    the ``LAMBDIPY_PIPELINE_DEPTH`` environment, then 2 (the JAX
+    default); 1 is the synchronous loop."""
+    raw = extra.get("pipeline_depth",
+                    os.environ.get("LAMBDIPY_PIPELINE_DEPTH", "2"))
+    depth = int(raw)
+    if depth < 1:
+        raise ValueError(f"pipeline_depth must be >= 1, got {raw!r}")
+    return depth
+
+
 def make_engine(server, extra: dict) -> ContinuousBatcher:
     """The continuous engine the extras ask for: ``batch_max`` slots,
     ``batch_segment`` steps per segment, ``batch_cache_len`` positions
-    per row (default ``max_len``) and, with ``kv_paged``, a page arena of
-    ``kv_pages`` pages (default ``batch_max`` full windows plus the null
-    page) whose page width is ``page_width(cache_len, prefix_block)``
-    (``prefix_block`` default 32)."""
+    per row (default ``max_len``), :func:`pipeline_depth` segments in
+    flight, joiners ordered by :func:`sched_policy_name` and, with
+    ``kv_paged``, a page arena of ``kv_pages`` pages (default
+    ``batch_max`` full windows plus the null page) whose page width is
+    ``page_width(cache_len, prefix_block)`` (``prefix_block`` default
+    32)."""
     cfg = server.model.cfg
     slots = int(extra.get("batch_max", 8))
     bcl = extra.get("batch_cache_len")
@@ -176,7 +208,9 @@ def make_engine(server, extra: dict) -> ContinuousBatcher:
             window_pages=window_pages)
     return ContinuousBatcher(server, slots=slots,
                              segment=int(extra.get("batch_segment", 16)),
-                             cache_len=cache_len, page_pool=pool)
+                             cache_len=cache_len, page_pool=pool,
+                             policy=make_policy(sched_policy_name(extra)),
+                             pipeline_depth=pipeline_depth(extra))
 
 
 def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
@@ -241,6 +275,10 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
                              "pins, which the port does not have yet")
         if req.get("warmup"):
             prompt = np.asarray([[1, 2, 3, 4]], np.int32)
+        elif req.get("text") is not None and req.get("tokens") is None:
+            # the JAX handler's answer when its bundle has no tokenizer
+            return {"ok": False,
+                    "error": "bundle has no tokenizer; send 'tokens'"}
         else:
             raw = req.get("tokens")
             if raw is None:
@@ -372,5 +410,7 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
               "kv_paged": engine is not None and engine.pool is not None,
               "prefix_cache": store is not None},
         stats_fn=stats, server=server, invoke_stream_fn=invoke_stream,
-        engine=engine, prefix_store=store)
+        engine=engine, prefix_store=store,
+        prefix_probe=store.match_len if store is not None else None,
+        extra=extra)
 

@@ -1,13 +1,148 @@
-"""Counters the port's serving engine reports under ``/metrics``: the
-port's copies of ``PagePoolStats`` and ``PrefixCacheStats``
-(``lambdipy_tpu/runtime/metrics.py``), ``PrefillStats`` cut to the
-chunked walk, and the continuous engine's own counters (segments, decode
-steps, joins, rows per step)."""
+"""Counters the port's serving path reports under ``/metrics``: the
+port's copies of ``LatencyStats``, ``PipelineStats``, ``PagePoolStats``
+and ``PrefixCacheStats`` (``lambdipy_tpu/runtime/metrics.py``),
+``PrefillStats`` cut to the chunked walk, and the continuous engine's own
+counters (segments, decode steps, joins, rows per step)."""
 
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass, field
+
+
+@dataclass
+class LatencyStats:
+    """Bounded reservoir of recent latencies (ms) with percentile report."""
+
+    capacity: int = 2048
+    samples: list[float] = field(default_factory=list)
+    count: int = 0
+    errors: int = 0
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def record(self, ms: float) -> None:
+        with self._lock:
+            # sample N lands at index N % capacity once the ring is full
+            if len(self.samples) >= self.capacity:
+                self.samples[self.count % self.capacity] = ms
+            else:
+                self.samples.append(ms)
+            self.count += 1
+
+    def record_error(self) -> None:
+        with self._lock:
+            self.errors += 1
+
+    @staticmethod
+    def _percentile(samples: list[float], q: float) -> float | None:
+        if not samples:
+            return None
+        s = sorted(samples)
+        idx = min(len(s) - 1, max(0, round(q / 100.0 * (len(s) - 1))))
+        return s[idx]
+
+    def percentile(self, q: float) -> float | None:
+        with self._lock:
+            samples = list(self.samples)
+        return self._percentile(samples, q)
+
+    def report(self) -> dict:
+        with self._lock:
+            count, errors = self.count, self.errors
+            samples = list(self.samples)
+        return {
+            "count": count,
+            "errors": errors,
+            "p50_ms": self._percentile(samples, 50),
+            "p90_ms": self._percentile(samples, 90),
+            "p99_ms": self._percentile(samples, 99),
+        }
+
+
+@dataclass
+class PipelineStats:
+    """The continuous engine's pipelined dispatch/collect loop (the
+    ``batching.pipeline`` block on ``/metrics``). ``in_flight``
+    histograms the segments on the card at each dispatch (this one
+    included); ``drains`` counts the barrier causes (``joiner``: a
+    waiting joiner forced a bounded drain so packing sees host-truth
+    slots; ``complete``: every live row had its whole output
+    dispatched; ``cancel``: a live row's deadline passed or its stream's
+    reader left). ``wasted_tokens`` are tokens fetched for rows already
+    finished (eos or quota observed behind the dispatch frontier) and
+    dropped on the host. ``fetch_block_s`` is the host's wall time
+    blocked on a segment's tokens after the next segment was enqueued;
+    ``overlap_ratio`` = device-busy / wall, device-busy the union of
+    each segment's [dispatch, tokens-ready] interval, so 1.0 means the
+    card always had a segment queued while the host booked."""
+
+    depth: int = 1
+    segments: int = 0
+    dispatches: int = 0
+    wasted_tokens: int = 0
+    inflight: dict = field(default_factory=dict)  # depth -> dispatches
+    drains: dict = field(default_factory=dict)    # cause -> count
+    device_busy_s: float = 0.0
+    fetch_block_s: float = 0.0
+    wall_s: float = 0.0
+    _cover_end: float = field(default=0.0, repr=False)
+    # start of the engine episode running now (None when idle): report()
+    # folds the open episode into wall, so a mid-traffic scrape is sane
+    _ep_t0: float | None = field(default=None, repr=False)
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def record_dispatch(self, inflight_depth: int) -> None:
+        with self._lock:
+            self.dispatches += 1
+            self.inflight[int(inflight_depth)] = \
+                self.inflight.get(int(inflight_depth), 0) + 1
+
+    def record_collect(self, dispatch_t: float, ready_t: float, *,
+                       fetch_s: float, wasted: int) -> None:
+        with self._lock:
+            self.segments += 1
+            self.wasted_tokens += int(wasted)
+            self.fetch_block_s += max(0.0, fetch_s)
+            # the union of [dispatch, ready] intervals, accumulated as
+            # they come: both ends are monotone across segments
+            self.device_busy_s += max(
+                0.0, ready_t - max(dispatch_t, self._cover_end))
+            self._cover_end = max(self._cover_end, ready_t)
+
+    def record_drain(self, cause: str) -> None:
+        with self._lock:
+            self.drains[cause] = self.drains.get(cause, 0) + 1
+
+    def begin_episode(self, t: float) -> None:
+        with self._lock:
+            self._ep_t0 = t
+
+    def record_wall(self, seconds: float) -> None:
+        """Close the open episode, folding its wall into ``wall_s``."""
+        with self._lock:
+            self.wall_s += max(0.0, seconds)
+            self._ep_t0 = None
+
+    def report(self) -> dict:
+        with self._lock:
+            wall = self.wall_s
+            if self._ep_t0 is not None:
+                wall += max(0.0, time.monotonic() - self._ep_t0)
+            return {
+                "depth": self.depth,
+                "segments": self.segments,
+                "dispatches": self.dispatches,
+                "wasted_overdecode_tokens": self.wasted_tokens,
+                "in_flight": {str(d): n
+                              for d, n in sorted(self.inflight.items())},
+                "drains": dict(self.drains),
+                "device_busy_s": round(self.device_busy_s, 4),
+                "fetch_block_s": round(self.fetch_block_s, 4),
+                "wall_s": round(wall, 4),
+                "overlap_ratio": (round(self.device_busy_s / wall, 4)
+                                  if wall else 0.0),
+            }
 
 
 @dataclass
@@ -66,11 +201,15 @@ class EngineStats:
     their suffix continued on the request thread and packed like a
     long-prompt row), ``prefill_groups``/``rows_group_prefilled`` (the
     engine's grouped prefills), ``row_prefills`` (long prompts prefilled
-    alone on their request thread), ``requests_served``, and the decode
-    programs' ``captures`` (CUDA graphs captured, reported as
-    ``compile_count``), ``replays`` (steps run as a graph replay) and
-    ``eager_steps`` (steps run eagerly), recorded through :meth:`record`
-    by ``models/graphs.py StepProgram``."""
+    alone on their request thread), ``requests_served``, ``cancelled``
+    (rows failed with ``RequestCancelled`` at a barrier: deadline passed
+    or waiter gone), and the decode programs' ``captures`` (CUDA graphs
+    captured, reported as ``compile_count``), ``replays`` (steps run as a
+    graph replay) and ``eager_steps`` (steps run eagerly), recorded
+    through :meth:`record` by ``models/graphs.py StepProgram``. Steps
+    are counted when dispatched, over-decoded steps of a pipelined
+    engine included, so the kernels' launch counters stay equal to what
+    ``steps`` and ``forwards`` imply."""
 
     segments: int = 0
     steps: int = 0
@@ -84,6 +223,7 @@ class EngineStats:
     captures: int = 0
     replays: int = 0
     eager_steps: int = 0
+    cancelled: int = 0
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
     def record(self, name: str, n: int = 1) -> None:
@@ -119,6 +259,10 @@ class EngineStats:
         with self._lock:
             self.prefix_joins += 1
 
+    def record_cancelled(self) -> None:
+        with self._lock:
+            self.cancelled += 1
+
     def report(self) -> dict:
         with self._lock:
             return {"segments": self.segments, "steps": self.steps,
@@ -136,6 +280,7 @@ class EngineStats:
                     "forwards": (self.steps + self.prefill_groups
                                  + self.row_prefills),
                     "requests_served": self.requests_served,
+                    "cancelled": self.cancelled,
                     "compile_count": self.captures,
                     "replays": self.replays,
                     "eager_steps": self.eager_steps}

@@ -1,13 +1,31 @@
-"""A small threaded HTTP server for a port handler: ``GET /healthz``,
-``POST /invoke`` (``"stream": true`` answers chunked ndjson, one line per
-decode segment) and ``GET /metrics`` (request counters, each kernel's
-launch counter, the continuous engine and its page pool). The port's
-counterpart of the invoke path of ``lambdipy_tpu/runtime/server.py``; a
-full page arena is a priced 503 shed (reason ``kv_pages``) as there.
-Scheduling and the fleet surfaces are not ported yet."""
+"""A threaded HTTP server for a port handler, the twin of the serving front
+of ``lambdipy_tpu/runtime/server.py``:
+
+- ``GET /healthz``: liveness, the handler's meta, ``ready`` (false once
+  draining) and the scheduler's policy and queue depth;
+- ``GET /metrics``: the server's counters and latency percentiles, the
+  scheduler's report (``sched``) and the handler's stats (each kernel's
+  launch counter, the continuous engine, its page pool and pipeline);
+- ``POST /invoke``: a JSON request through the handler;
+  ``"stream": true`` answers chunked ndjson, one line per decode segment;
+- ``POST /v1/completions``: the OpenAI completions shape over the same
+  handler, ``"stream": true`` as server-sent events closed by
+  ``data: [DONE]``;
+- ``POST /shutdown``: drain, then stop.
+
+Every invoke passes the SLO scheduler (``sched/``): admission (per-tenant
+token buckets on ``x-api-key`` / ``x-tenant``, a bounded queue, deadline
+shedding on ``x-deadline-ms``) and then a policy-ordered wait for one of
+``max_concurrency`` run slots, by class (``x-priority``: interactive,
+batch or background). Overload is an explicit 429 or 503 with
+``Retry-After``; so are a full page arena (reason ``kv_pages``) and a row
+the engine cancelled at a barrier (its deadline passed). The fleet
+surfaces (``/v1/kv/*``, ``/v1/sessions``, ``/v1/debug/*``, ``/profile``)
+are not ported."""
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import threading
@@ -15,23 +33,142 @@ import time
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from lambdipy_tpu_torch.runtime.continuous import RequestCancelled
 from lambdipy_tpu_torch.runtime.handlers import HandlerState
+from lambdipy_tpu_torch.runtime.metrics import LatencyStats
 from lambdipy_tpu_torch.runtime.pagepool import PagesExhausted
+from lambdipy_tpu_torch.sched import (SchedConfig, Scheduler, Shed,
+                                      clear_request_context,
+                                      set_request_context)
+from lambdipy_tpu_torch.sched.policy import make_policy
+
+
+def _request_token_counts(request: dict | None,
+                          prefix_probe=None) -> tuple[int, int]:
+    """Best-effort (prefill, decode) token counts for the cost estimator;
+    wrong-shaped fields count as zero (validation is the handler's).
+    ``prefix_probe`` (prompt ids -> tokens the prefix store would reuse)
+    prices the suffix a cache hit will prefill, not the whole prompt."""
+    if not isinstance(request, dict):
+        return 0, 0
+    prefill = 0
+    toks = request.get("tokens")
+    flat_row = None
+    if isinstance(toks, (list, tuple)):
+        if toks and isinstance(toks[0], (list, tuple)):
+            prefill = sum(len(r) for r in toks
+                          if isinstance(r, (list, tuple)))
+        else:
+            prefill = len(toks)
+            flat_row = toks
+    prefix = request.get("prefix")
+    if isinstance(prefix, (list, tuple)):
+        prefill += len(prefix)
+    elif prefix_probe is not None and flat_row is not None and prefill:
+        try:
+            prefill = max(0, prefill - int(prefix_probe(flat_row)))
+        except Exception:  # noqa: BLE001 — pricing is advisory
+            pass
+    decode = 0
+    for key in ("max_new_tokens", "max_tokens"):
+        raw = request.get(key)
+        if isinstance(raw, (int, float)):
+            decode = max(0, int(raw))
+            break
+    return prefill, decode
+
+
+def _openai_to_internal(req: dict) -> tuple[dict, str | None]:
+    """An OpenAI ``/v1/completions`` body as the generate handler's
+    request. ``prompt`` may be a string (needs a tokenizer) or an int
+    token array. OpenAI's sampling defaults apply: temperature and top_p
+    default to 1.0 (sampled); send temperature 0 for greedy."""
+    prompt = req.get("prompt")
+    internal: dict = {}
+    if isinstance(prompt, str):
+        internal["text"] = prompt
+    elif isinstance(prompt, list) and prompt and \
+            all(isinstance(t, int) for t in prompt):
+        internal["tokens"] = prompt
+    else:
+        return {}, "prompt must be a string or an array of token ids"
+    if req.get("stop") is not None:
+        return {}, "stop sequences are not supported; pass eos_id"
+    if req.get("n", 1) != 1:
+        return {}, "n > 1 is not supported"
+    try:
+        if req.get("max_tokens") is not None:
+            internal["max_new_tokens"] = int(req["max_tokens"])
+        internal["temperature"] = float(req.get("temperature", 1.0))
+        internal["top_p"] = float(req.get("top_p", 1.0))
+    except (TypeError, ValueError) as e:
+        return {}, f"max_tokens/temperature/top_p must be numbers: {e}"
+    for knob in ("top_k", "seed", "eos_id", "prefix", "segment",
+                 "speculative", "session_id", "session_ttl_s"):
+        if req.get(knob) is not None:
+            internal[knob] = req[knob]
+    lp = req.get("logprobs")
+    if lp:
+        try:
+            if lp is not True and int(lp) > 1:
+                return {}, ("top_logprobs > 1 is not supported "
+                            "(send logprobs: 1)")
+        except (TypeError, ValueError):
+            return {}, "logprobs must be a boolean or small integer"
+        internal["logprobs"] = True
+    internal["stream"] = bool(req.get("stream"))
+    return internal, None
+
+
+def _internal_to_openai(internal: dict, result: dict) -> dict:
+    """A handler result in the OpenAI completions shape: the row trimmed
+    after its eos (the engine pads it with eos), ``finish_reason``
+    ``stop`` or ``length``, and the token usage."""
+    row = list((result.get("tokens") or [[]])[0])
+    eos = result.get("eos_id", internal.get("eos_id"))
+    finish = "length"
+    if eos is not None and eos in row:
+        row = row[: row.index(eos) + 1]
+        finish = "stop"
+    n_prompt = int(result.get("n_prompt",
+                              len(internal.get("tokens") or [])))
+    choice = {"index": 0, "text": result.get("completion", ""),
+              "tokens": row, "finish_reason": finish,
+              "logprobs": None}
+    if result.get("logprobs"):
+        lp_row = result["logprobs"][0][: len(row)]
+        choice["logprobs"] = {"tokens": [str(t) for t in row],
+                              "token_logprobs": lp_row,
+                              "top_logprobs": None, "text_offset": None}
+    return {
+        "object": "text_completion",
+        "model": "lambdipy-bundle",
+        "choices": [choice],
+        "usage": {"prompt_tokens": n_prompt,
+                  "completion_tokens": len(row),
+                  "total_tokens": n_prompt + len(row)},
+    }
 
 
 class _Stats:
+    """The server's counters: requests answered, errors, busy seconds,
+    sheds by reason, and the latency percentiles of the requests served."""
+
     def __init__(self):
         self._lock = threading.Lock()
         self.requests = 0
         self.errors = 0
         self.busy_s = 0.0
         self.sheds: dict[str, int] = {}
+        self.latency = LatencyStats()
 
     def record(self, seconds: float, ok: bool) -> None:
         with self._lock:
             self.requests += 1
             self.errors += 0 if ok else 1
             self.busy_s += seconds
+        if ok:
+            self.latency.record(seconds * 1e3)
 
     def record_shed(self, reason: str) -> None:
         """A refused request (backpressure, not an error)."""
@@ -41,20 +178,54 @@ class _Stats:
 
     def report(self) -> dict:
         with self._lock:
-            return {"requests": self.requests, "errors": self.errors,
-                    "busy_s": self.busy_s, "sheds": dict(self.sheds)}
+            out = {"requests": self.requests, "errors": self.errors,
+                   "busy_s": self.busy_s, "sheds": dict(self.sheds)}
+        out["latency"] = self.latency.report()
+        return out
+
+
+def sched_config(extra: dict, sched: dict | None = None) -> SchedConfig:
+    """The scheduler's configuration, as the JAX server resolves it: the
+    extra's ``sched_*`` keys, ``LAMBDIPY_SCHED_POLICY``, then ``sched``
+    (the constructor's or the CLI's). Unless ``max_concurrency`` is
+    pinned, a continuous engine's ``batch_max`` floors it, so every slot
+    of the engine can fill."""
+    sched = sched or {}
+    cfg = SchedConfig.from_extra(extra, **sched)
+    pinned = (extra.get("sched_max_concurrency") is not None
+              or sched.get("max_concurrency") is not None)
+    if not pinned and str(extra.get("batch_mode", "")).lower() \
+            == "continuous":
+        cfg.max_concurrency = max(cfg.max_concurrency,
+                                  int(extra.get("batch_max", 8)))
+    return cfg
 
 
 class BundleServer:
     """Serves one :class:`HandlerState` on ``host:port`` (port 0 picks a
-    free port). ``start_background()`` runs it on a thread, ``stop()``
-    shuts it down and closes the socket."""
+    free port) behind a :class:`~lambdipy_tpu_torch.sched.Scheduler`
+    configured by :func:`sched_config` from the handler's extra and
+    ``sched``. The continuous engine's joiners follow the scheduler's
+    policy. ``start_background()`` runs it on a thread; ``stop()`` drains
+    (new invokes are shed 503 ``draining``; those admitted finish) and
+    closes the socket."""
 
     def __init__(self, state: HandlerState, *, host: str = "127.0.0.1",
-                 port: int = 0):
+                 port: int = 0, sched: dict | None = None):
         self.state = state
         self.stats = _Stats()
+        self.sched = Scheduler(sched_config(
+            dict(getattr(state, "extra", None) or {}), sched))
+        engine = getattr(state, "engine", None)
+        policy = self.sched.policy.name
+        if engine is not None and getattr(engine.policy, "name", None) \
+                != policy:
+            engine.policy = make_policy(policy)
+        self.draining = False
+        self._inflight = 0
+        self._inflight_lock = threading.Lock()
         self._thread = None
+        self._stopped = False
         self.httpd = ThreadingHTTPServer((host, port), self._handler_class())
         self.httpd.daemon_threads = True
 
@@ -81,15 +252,112 @@ class BundleServer:
                 self.end_headers()
                 self.wfile.write(body)
 
-            def _send_shed(self, reason: str, retry_after_s: float) -> None:
-                """503 + Retry-After (whole seconds; the body carries the
-                exact float), shaped as the JAX server's sheds."""
-                server.stats.record_shed(reason)
-                self._send(503, {"ok": False, "error": f"shed: {reason}",
-                                 "shed": reason,
-                                 "retry_after_s": round(retry_after_s, 3)},
-                           {"Retry-After":
-                            str(max(1, math.ceil(retry_after_s)))})
+            def _cls(self) -> str:
+                return (self.headers.get("x-priority")
+                        or "interactive").strip().lower()
+
+            def _send_shed(self, shed: Shed, *, openai: bool = False,
+                           counter: str | None = None) -> None:
+                """429/503 + Retry-After (whole seconds; the body carries
+                the exact float), in the OpenAI error shape on that
+                route."""
+                server.stats.record_shed(counter or shed.reason)
+                headers = {"Retry-After":
+                           str(max(1, math.ceil(shed.retry_after_s)))}
+                if openai:
+                    payload = {"error": {
+                        "message": f"shed: {shed.reason}",
+                        "type": ("rate_limit_error" if shed.code == 429
+                                 else "overloaded_error"),
+                        "retry_after_s": round(shed.retry_after_s, 3)}}
+                else:
+                    payload = shed.payload()
+                self._send(shed.code, payload, headers)
+
+            def _shed_failure(self, e: BaseException, *,
+                              openai: bool = False) -> bool:
+                """A handler exception that is backpressure, not a fault:
+                a full page arena (``kv_pages``) or a row cancelled at a
+                barrier; counted through the admission controller and
+                answered as a shed. False for any other exception."""
+                if isinstance(e, PagesExhausted):
+                    shed, counter = Shed(503, "kv_pages",
+                                         e.retry_after_s), "kv_pages"
+                elif isinstance(e, RequestCancelled):
+                    shed, counter = Shed(503, str(e), 1.0), "cancelled"
+                else:
+                    return False
+                server.sched.admission.count_shed(counter, self._cls())
+                self._send_shed(shed, openai=openai, counter=counter)
+                return True
+
+            def _begin_invoke(self, request: dict | None, *,
+                              openai: bool = False):
+                """The admission gate every invoke passes: the draining
+                check and the in-flight count as one step (``stop`` then
+                never sees 0 while an admitted invoke is on its way),
+                scheduler admission (rate, queue depth, deadline), then
+                the policy-ordered wait for a run slot; the request
+                context is set for the engine. Returns the ticket, or
+                None after sending the shed."""
+                cls = self._cls()
+                tenant = (self.headers.get("x-api-key")
+                          or self.headers.get("x-tenant") or "anon")
+                try:
+                    deadline_ms = float(self.headers["x-deadline-ms"])
+                except (KeyError, TypeError, ValueError):
+                    deadline_ms = None
+                with server._inflight_lock:
+                    draining = server.draining
+                    if not draining:
+                        server._inflight += 1
+                if draining:
+                    server.sched.admission.count_shed("draining", cls)
+                    self._send_shed(Shed(503, "draining", 1.0),
+                                    openai=openai)
+                    return None
+                prefill, decode = _request_token_counts(
+                    request, getattr(server.state, "prefix_probe", None))
+                out = server.sched.admit(
+                    tenant=tenant, cls=cls, deadline_ms=deadline_ms,
+                    prefill_tokens=prefill, decode_tokens=decode)
+                if isinstance(out, Shed):
+                    server._leave()
+                    self._send_shed(out, openai=openai)
+                    return None
+                if not server.sched.wait_turn(out):
+                    # the deadline became unmeetable while queued
+                    server._leave()
+                    self._send_shed(Shed(503, "deadline",
+                                         max(0.05, out.cost_ms / 1e3)),
+                                    openai=openai)
+                    return None
+                set_request_context(cls=out.cls, tenant=tenant,
+                                    deadline_ms=deadline_ms)
+                return out
+
+            def _end_invoke(self, ticket, t0: float) -> None:
+                clear_request_context()
+                server.sched.finish(
+                    ticket, service_ms=(time.monotonic() - t0) * 1e3)
+                server._leave()
+
+            def _read_json(self) -> dict | None:
+                """The request body as a JSON object, or None after a 400
+                (the body is read either way: keep-alive must not parse
+                it as the next request)."""
+                length = int(self.headers.get("Content-Length") or 0)
+                raw = self.rfile.read(length)
+                try:
+                    body = json.loads(raw or b"{}")
+                    if not isinstance(body, dict):
+                        raise ValueError("body must be a JSON object")
+                    return body
+                except ValueError as e:
+                    server.stats.record(0.0, False)
+                    self._send(400, {"ok": False,
+                                     "error": f"bad json: {e}"})
+                    return None
 
             def _write_frame(self, body: bytes) -> bool:
                 """One chunked-transfer frame; False when the client went
@@ -102,20 +370,40 @@ class BundleServer:
                     self.close_connection = True
                     return False
 
-            def _send_stream(self, request: dict, t0: float) -> None:
-                """Chunked ndjson, one line per decode segment. The first
-                record is taken before the headers go out, so a refused
-                admission is still a 503; a later error becomes a final
-                ``{"ok": false}`` line."""
-                records = server.state.invoke_stream(request)
+            def _end_frames(self) -> None:
                 try:
-                    first = next(records)
-                except PagesExhausted as e:
-                    self._send_shed("kv_pages", e.retry_after_s)
-                    return
-                except (ValueError, TypeError, KeyError) as e:
-                    server.stats.record(time.monotonic() - t0, False)
-                    self._send(400, {"ok": False, "error": str(e)})
+                    self.wfile.write(b"0\r\n\r\n")
+                except OSError:
+                    self.close_connection = True
+
+            def _first_record(self, request: dict, *, openai: bool):
+                """The stream's records and its first one, taken before
+                the headers go out so that a refused admission is still a
+                503 or a 400; (None, None) after answering."""
+                records = None
+                try:
+                    records = server.state.invoke_stream(request)
+                    return records, next(records)
+                except Exception as e:  # noqa: BLE001 — answered below
+                    if records is not None:
+                        records.close()
+                    if self._shed_failure(e, openai=openai):
+                        return None, None
+                    bad = isinstance(e, (ValueError, TypeError, KeyError))
+                    if not bad:
+                        traceback.print_exc()
+                    server.stats.record(0.0, False)
+                    kind = "invalid_request_error" if bad else type(e).__name__
+                    self._send(400 if bad else 500, (
+                        {"error": {"message": str(e), "type": kind}}
+                        if openai else {"ok": False, "error": str(e)}))
+                    return None, None
+
+            def _send_stream(self, request: dict, t0: float) -> None:
+                """Chunked ndjson, one line per decode segment; a later
+                error becomes a final ``{"ok": false}`` line."""
+                records, first = self._first_record(request, openai=False)
+                if records is None:
                     return
                 self.send_response(200)
                 self.send_header("Content-Type", "application/x-ndjson")
@@ -123,11 +411,10 @@ class BundleServer:
                 self.end_headers()
                 ok = first.get("ok", False)
                 try:
-                    if self._write_frame(json.dumps(first).encode() + b"\n"):
-                        for rec in records:
-                            if not self._write_frame(
-                                    json.dumps(rec).encode() + b"\n"):
-                                break
+                    for rec in itertools.chain([first], records):
+                        if not self._write_frame(
+                                json.dumps(rec).encode() + b"\n"):
+                            break
                 except Exception as e:  # noqa: BLE001 — headers are sent
                     traceback.print_exc()
                     ok = False
@@ -135,53 +422,185 @@ class BundleServer:
                         {"ok": False, "error": repr(e)}).encode() + b"\n")
                 finally:
                     records.close()
-                try:
-                    self.wfile.write(b"0\r\n\r\n")
-                except OSError:
-                    self.close_connection = True
+                self._end_frames()
                 server.stats.record(time.monotonic() - t0, ok)
 
-            def do_GET(self):
-                if self.path == "/healthz":
-                    self._send(200, {"ok": True, **server.state.meta})
-                elif self.path == "/metrics":
-                    self._send(200, {"server": server.stats.report(),
-                                     "handler": server.state.stats()})
-                else:
-                    self._send(404, {"ok": False, "error": "not found"})
+            def _send_sse(self, internal: dict, t0: float) -> None:
+                """OpenAI server-sent events: one ``data:`` chunk per
+                decode segment, then a last chunk carrying
+                ``finish_reason`` and ``data: [DONE]``. An error after
+                the headers is a terminal error event."""
+                records, first = self._first_record(internal, openai=True)
+                if records is None:
+                    return
+                self.send_response(200)
+                self.send_header("Content-Type", "text/event-stream")
+                self.send_header("Transfer-Encoding", "chunked")
+                self.end_headers()
 
-            def do_POST(self):
-                if self.path != "/invoke":
-                    self._send(404, {"ok": False, "error": "not found"})
-                    return
-                length = int(self.headers.get("Content-Length") or 0)
+                def event(obj) -> bool:
+                    body = b"data: " + (obj if isinstance(obj, bytes)
+                                        else json.dumps(obj).encode()) \
+                        + b"\n\n"
+                    return self._write_frame(body)
+
+                def chunk_event(tokens, finish=None, logprobs=None) -> bool:
+                    choice = {"index": 0, "text": "", "tokens": tokens,
+                              "finish_reason": finish}
+                    if logprobs is not None:
+                        choice["logprobs"] = {
+                            "tokens": [str(t) for t in tokens],
+                            "token_logprobs": logprobs,
+                            "top_logprobs": None, "text_offset": None}
+                    return event({"object": "text_completion.chunk",
+                                  "model": "lambdipy-bundle",
+                                  "choices": [choice]})
+
+                emitted: list = []
+                final: dict = {}
                 try:
-                    request = json.loads(self.rfile.read(length) or b"{}")
-                except json.JSONDecodeError as e:
-                    server.stats.record(0.0, False)
-                    self._send(400, {"ok": False, "error": f"bad json: {e}"})
+                    for payload in itertools.chain([first], records):
+                        if not payload.get("ok"):
+                            server.stats.record(time.monotonic() - t0,
+                                                False)
+                            event({"error": {"message": payload.get("error"),
+                                             "type": "invoke_error"}})
+                            self._end_frames()
+                            return
+                        if payload.get("done"):
+                            final = payload
+                            continue
+                        emitted.extend(payload["tokens"][0])
+                        if not chunk_event(payload["tokens"][0],
+                                           logprobs=(payload.get("logprobs")
+                                                     or [None])[0]):
+                            server.stats.record(time.monotonic() - t0,
+                                                False)
+                            return
+                except Exception as e:  # noqa: BLE001 — headers are sent
+                    traceback.print_exc()
+                    server.stats.record(time.monotonic() - t0, False)
+                    event({"error": {"message": str(e),
+                                     "type": type(e).__name__}})
+                    self._end_frames()
                     return
-                t0 = time.monotonic()
+                finally:
+                    records.close()
+                eos = final.get("eos_id", internal.get("eos_id"))
+                finish = ("stop" if eos is not None and eos in emitted
+                          else "length")
+                chunk_event([], finish=finish)
+                server.stats.record(time.monotonic() - t0, True)
+                if event(b"[DONE]"):
+                    self._end_frames()
+
+            def _invoke(self, request: dict, t0: float) -> None:
+                """``/invoke`` past admission: the handler's result, or a
+                shed, a 400 for a bad request, a 500 for a fault."""
                 if request.get("stream"):
                     self._send_stream(request, t0)
                     return
                 try:
                     result = server.state.invoke(request)
                     code = 200 if result.get("ok") else 400
-                except PagesExhausted as e:
-                    # the paged KV arena is transiently full: priced
-                    # backpressure, not an error
-                    self._send_shed("kv_pages", e.retry_after_s)
-                    return
-                except (ValueError, TypeError, KeyError) as e:
-                    result, code = {"ok": False, "error": str(e)}, 400
                 except Exception as e:  # noqa: BLE001 — report, keep serving
-                    traceback.print_exc()
-                    result, code = {"ok": False, "error": repr(e)}, 500
+                    if self._shed_failure(e):
+                        return
+                    if isinstance(e, (ValueError, TypeError, KeyError)):
+                        result, code = {"ok": False, "error": str(e)}, 400
+                    else:
+                        traceback.print_exc()
+                        result, code = {"ok": False, "error": repr(e)}, 500
                 server.stats.record(time.monotonic() - t0, code == 200)
                 self._send(code, result)
 
+            def _completions(self, internal: dict, ticket,
+                             t0: float) -> None:
+                """``/v1/completions`` past admission."""
+                if internal.pop("stream", False):
+                    self._send_sse(internal, t0)
+                    return
+                try:
+                    result = server.state.invoke(internal)
+                except Exception as e:  # noqa: BLE001 — report, keep serving
+                    if self._shed_failure(e, openai=True):
+                        return
+                    bad = isinstance(e, (ValueError, TypeError, KeyError))
+                    if not bad:
+                        traceback.print_exc()
+                    server.stats.record(time.monotonic() - t0, False)
+                    self._send(400 if bad else 500, {"error": {
+                        "message": str(e),
+                        "type": ("invalid_request_error" if bad
+                                 else type(e).__name__)}})
+                    return
+                if not result.get("ok"):
+                    server.stats.record(time.monotonic() - t0, False)
+                    self._send(400, {"error": {
+                        "message": result.get("error", "invoke failed"),
+                        "type": "invalid_request_error"}})
+                    return
+                server.stats.record(time.monotonic() - t0, True)
+                out = _internal_to_openai(internal, result)
+                if ticket.wait_ms is not None:
+                    out["queue_wait_ms"] = round(ticket.wait_ms, 3)
+                self._send(200, out)
+
+            def do_GET(self):
+                if self.path == "/healthz":
+                    self._send(200, {
+                        "ok": True, **server.state.meta,
+                        "ready": not server.draining,
+                        "draining": server.draining,
+                        "sched": {"policy": server.sched.policy.name,
+                                  "queued": server.sched.queue.depth()}})
+                elif self.path == "/metrics":
+                    self._send(200, {"server": server.stats.report(),
+                                     "sched": server.sched.report(),
+                                     "handler": server.state.stats()})
+                else:
+                    self._send(404, {"ok": False, "error": "not found"})
+
+            def do_POST(self):
+                if self.path == "/shutdown":
+                    self._send(200, {"ok": True, "draining": True})
+                    threading.Thread(target=server.stop,
+                                     daemon=True).start()
+                    return
+                if self.path not in ("/invoke", "/v1/completions"):
+                    self._send(404, {"ok": False, "error": "not found"})
+                    return
+                request = self._read_json()
+                if request is None:
+                    return
+                openai = self.path == "/v1/completions"
+                if openai:
+                    request, err = _openai_to_internal(request)
+                    if err is not None:
+                        server.stats.record(0.0, False)
+                        self._send(400, {"error": {
+                            "message": err,
+                            "type": "invalid_request_error"}})
+                        return
+                ticket = self._begin_invoke(request, openai=openai)
+                if ticket is None:
+                    return
+                t0 = time.monotonic()
+                # in flight until the response is written: a drain must
+                # not close the socket under it
+                try:
+                    if openai:
+                        self._completions(request, ticket, t0)
+                    else:
+                        self._invoke(request, t0)
+                finally:
+                    self._end_invoke(ticket, t0)
+
         return Handler
+
+    def _leave(self) -> None:
+        with self._inflight_lock:
+            self._inflight -= 1
 
     def serve_forever(self) -> None:
         self.httpd.serve_forever()
@@ -192,8 +611,22 @@ class BundleServer:
         self._thread.start()
         return self
 
-    def stop(self) -> None:
+    def stop(self, *, drain_grace: float = 10.0) -> None:
+        """Drain, then stop: admission closes first (new invokes are shed
+        503 ``draining`` by the server's gate and the scheduler), then the
+        invokes in flight and those already queued finish, for at most
+        ``drain_grace`` seconds, then the socket closes."""
+        with self._inflight_lock:
+            self.draining = True
+            if self._stopped:
+                return
+            self._stopped = True
+        self.sched.drain()
+        deadline = time.monotonic() + drain_grace
+        while self._inflight > 0 and time.monotonic() < deadline:
+            time.sleep(0.02)
         self.httpd.shutdown()
         self.httpd.server_close()
-        if self._thread is not None:
+        if self._thread is not None \
+                and self._thread is not threading.current_thread():
             self._thread.join(timeout=10)

@@ -352,6 +352,8 @@ def test_handler_wiring(weights):
     engine = state.engine
     assert state.meta["batch_mode"] == "continuous" and state.meta["kv_paged"]
     assert engine.pool.page == 32 and engine.pool.n_pages == 4 * 4 + 1
+    # the JAX handler's defaults: pipeline depth 2, joiners in fair order
+    assert engine.pipeline_depth == 2 and engine.policy.name == "fair"
     one = state.invoke({"tokens": _prompt(1, 6), "max_new_tokens": 5,
                         "logprobs": True})
     two = state.invoke({"tokens": [_prompt(1, 6), _prompt(2, 9)],
@@ -362,7 +364,7 @@ def test_handler_wiring(weights):
     assert stats["batching"]["page_pool"]["pages_total"] == 16
     assert {"paged_decode_attention", "paged_decode_attention_int8kv"} \
         <= set(stats["kernels"])
-    for extra in ({"batch_mode": "continuous", "pipeline_depth": "2"},
+    for extra in ({"batch_mode": "continuous", "engine_watchdog_s": "3"},
                   {"batch_mode": "continuous", "spec_k": "4"},
                   {"batch_mode": "window"},
                   {"session_pin_budget_mb": "64"},

@@ -939,6 +939,56 @@ def test_graph_engine_rows_are_bitwise_eager_and_solo(cuda_device, paged):
         np.testing.assert_array_equal(g[1], solo[1])
 
 
+@pytest.mark.parametrize("paged", ["1", "0"], ids=["paged", "dense"])
+def test_pipelined_engine_rows_are_bitwise_depth1_and_solo(cuda_device,
+                                                            paged):
+    """The continuous engine with graphs at pipeline depths 1, 2 and 3 on
+    the same weights: concurrent greedy and seeded rows, one with an eos
+    it meets early (its blocks behind the frontier dropped) and one
+    joining mid-decode (a bounded drain). Every row of depths 2 and 3 is
+    bitwise the depth-1 engine's and its solo ``generate``, tokens and
+    logprobs; every engine step a replay, over-decoded steps included."""
+    from lambdipy_tpu_torch.runtime.handlers import make_engine
+
+    graph, _ = _graph_and_eager(cuda_device)
+    free = graph.generate(list(range(60, 70)), max_new_tokens=30)[0]
+    reqs = [(list(range(1, 40)), 24, {}),
+            (list(range(5, 12)), 20, SAMPLED),
+            (list(range(60, 70)), 30, {"eos_id": int(free[5])}),
+            (list(range(9, 80)), 9, {}),
+            (list(range(30, 33)), 16, {"temperature": 0.7, "seed": 3})]
+    outs = {}
+    for depth in (1, 2, 3):
+        eng = make_engine(graph, {"batch_max": "4", "batch_segment": "4",
+                                  "kv_paged": paged,
+                                  "pipeline_depth": str(depth)})
+
+        def call(i, eng=eng):
+            time.sleep(0.2 if i == 4 else 0.0)  # a joiner mid-decode
+            p, n, kw = reqs[i]
+            return eng.generate(p, max_new_tokens=n, return_logprobs=True,
+                                **kw)
+
+        outs[depth] = _threads([lambda i=i: call(i) for i in range(5)])
+        with eng._lock:
+            while eng._engine_running:
+                eng._lock.wait(0.05)
+        stats = eng.stats()
+        assert stats["replays"] == stats["steps"] > 0
+        assert stats["eager_steps"] == 0
+        pipe = stats["pipeline"]
+        assert max(int(d) for d in pipe["in_flight"]) <= depth
+        assert pipe["segments"] == pipe["dispatches"] == stats["segments"]
+        if paged == "1":
+            assert stats["page_pool"]["pages_live"] == 0
+    for i, (p, n, kw) in enumerate(reqs):
+        solo = graph.generate(p, max_new_tokens=n, return_logprobs=True,
+                              **kw)
+        for depth in (1, 2, 3):
+            np.testing.assert_array_equal(outs[depth][i][0], solo[0])
+            np.testing.assert_array_equal(outs[depth][i][1], solo[1])
+
+
 def test_two_streams_of_one_bucket_keep_their_solo_bits(cuda_device):
     """Two streams of one key advanced in turns each hold a program of
     their own (captured anew) and give their solo tokens and logprobs."""
