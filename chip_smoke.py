@@ -62,7 +62,18 @@ Phases, each of which fails the run with a non-zero exit:
    scheduler (``fair``) into an engine at pipeline depth 2; D (f) holds
    every row of a depth-1 engine bitwise the depth-2 engines', and the
    same burst is driven directly at depths 2, 1, 1, 2 (tok/s and TTFT
-   printed), with the depth-2 engine's ``pipeline`` block. F, on D's
+   printed), with the depth-2 engine's ``pipeline`` block. D's chunked
+   turns drive the same burst through paged depth-2 engines with
+   ``prefill_chunk`` off, 512, 512, off (the long rows walk 512-token
+   chunks between the engine's segments): tok/s, steps, segments
+   dispatched during walks, TTFT of the rows that arrive while the
+   ~4,000-token row prefills and of the long rows; D (g) holds every
+   chunked row, paged and dense at depths 2 and 1, bitwise its solo
+   ``generate(row[split:], prefix=row[:split])``, D (h) its greedy
+   tokens and first logprob within the routed bound of plain solo
+   ``generate``, D (i) the launch counters each turn's steps and
+   forwards, walk chunks counted. E also walks its head cold at the
+   store's default width and at ``prefill_chunk=512``. F, on D's
    handler behind a second server with 2 run slots and a queue of 2:
    ``/v1/completions`` against ``/invoke`` and its SSE stream, a burst
    of 8 shed ``queue_full`` past concurrency plus queue, a deadline
@@ -1397,6 +1408,20 @@ def _as_served(lps) -> np.ndarray:
     return np.asarray([[round(float(x), 5) for x in row] for row in lps])
 
 
+def _knobs(body: dict) -> dict:
+    """A request body's sampling knobs, as ``generate`` takes them."""
+    return {k: body[k] for k in ("temperature", "top_k", "top_p", "seed",
+                                 "eos_id") if k in body}
+
+
+def _idle(engine) -> None:
+    """Wait until the engine has retired its rows (logged at the barrier
+    after the last one) and stopped."""
+    with engine._lock:
+        while engine._engine_running:
+            engine._lock.wait(0.01)
+
+
 def held_peak(request_log) -> int:
     """The most pages that logged rows held at once: each row holds its
     ``n_pages`` from ``charged_at`` until ``released_at``."""
@@ -1525,8 +1550,7 @@ def serve_engine_path(card: str) -> dict:
     solo_out = []
     lp_diff = 0.0
     for (kind, body), r in zip(reqs, resp):
-        knobs = {k: body[k] for k in ("temperature", "top_k", "top_p",
-                                      "seed", "eos_id") if k in body}
+        knobs = _knobs(body)
         toks, lps = state.server.generate(
             body["tokens"], max_new_tokens=body["max_new_tokens"],
             return_logprobs=True, **knobs)
@@ -1548,8 +1572,7 @@ def serve_engine_path(card: str) -> dict:
 
     def send_dense(i):
         _, body = reqs[i]
-        knobs = {k: body[k] for k in ("temperature", "top_k", "top_p",
-                                      "seed", "eos_id") if k in body}
+        knobs = _knobs(body)
         dense_out[i] = dense.generate(body["tokens"],
                                       max_new_tokens=body["max_new_tokens"],
                                       return_logprobs=True, **knobs)
@@ -1607,6 +1630,8 @@ def serve_engine_path(card: str) -> dict:
     log(f"path D (f): a depth-1 paged engine gives every row's tokens and "
         f"logprobs bitwise the depth-2 engines' (dense and eager paged)")
     del dense_out, e_out
+    # (g)-(i) the same burst with chunked prefill, off and on in turns
+    chunked = chunked_turns(state.server, reqs, charges, solo_out, card)
 
     # numbers, all from the timed paged burst
     log_by = {(e["s"], e["n"]): e for e in engine.request_log}
@@ -1639,8 +1664,9 @@ def serve_engine_path(card: str) -> dict:
         f"{stats['policy']}, the HTTP burst): in_flight {pipe['in_flight']}, "
         f"drains {pipe['drains']}, wasted_overdecode_tokens "
         f"{pipe['wasted_overdecode_tokens']}, overlap_ratio "
-        f"{pipe['overlap_ratio']}, fetch_block_s {pipe['fetch_block_s']}, "
-        f"wall_s {pipe['wall_s']} [{card}]")
+        f"{pipe['overlap_ratio']}, fetch_block_s {pipe['fetch_block_s']} "
+        f"(transport), device_wait_s {pipe['device_wait_s']}, wall_s "
+        f"{pipe['wall_s']} [{card}]")
     sched = metrics["sched"]
     log(f"path D scheduler: policy {sched['policy']}, max_concurrency "
         f"{sched['max_concurrency']}, admitted {sched['admitted']}, "
@@ -1662,7 +1688,7 @@ def serve_engine_path(card: str) -> dict:
            "peak_held_pages": peak, "logprob_diff_http_vs_solo": lp_diff,
            "logprob_diff_dense_vs_solo": dense_solo, "perf": perf,
            "requests": rows, "trace": trace, "card": card,
-           "sched": sched}
+           "sched": sched, "chunked": chunked}
     t_front = time.perf_counter()
     out["F"] = serve_front_path(state, card)
     log(f"path F took {time.perf_counter() - t_front:.1f} s")
@@ -1693,8 +1719,7 @@ def contended_burst(server, engine, reqs, card: str) -> dict:
 
     def send(i):
         _, body = reqs[i]
-        knobs = {k: body[k] for k in ("temperature", "top_k", "top_p",
-                                      "seed", "eos_id") if k in body}
+        knobs = _knobs(body)
         engine.generate(body["tokens"], max_new_tokens=body["max_new_tokens"],
                         **knobs)
 
@@ -1747,8 +1772,7 @@ def eager_engine_burst(server, reqs, charges):
 
     def send(i):
         _, body = reqs[i]
-        knobs = {k: body[k] for k in ("temperature", "top_k", "top_p",
-                                      "seed", "eos_id") if k in body}
+        knobs = _knobs(body)
         out[i] = eager.generate(body["tokens"],
                                 max_new_tokens=body["max_new_tokens"],
                                 return_logprobs=True, **knobs)
@@ -1781,8 +1805,7 @@ def depth_bursts(server, engine, reqs, charges, card: str) -> dict:
 
         def send(i, eng=eng, keep=keep):
             _, body = reqs[i]
-            knobs = {k: body[k] for k in ("temperature", "top_k", "top_p",
-                                          "seed", "eos_id") if k in body}
+            knobs = _knobs(body)
             got = eng.generate(body["tokens"],
                                max_new_tokens=body["max_new_tokens"],
                                return_logprobs=True, **knobs)
@@ -1837,15 +1860,207 @@ def steady_decode(engine, card: str) -> dict:
     t0 = time.perf_counter()
     engine.generate(prompt, max_new_tokens=STEADY_NEW)
     wall = time.perf_counter() - t0
-    with engine._lock:  # the row is logged at the barrier after it
-        while engine._engine_running:
-            engine._lock.wait(0.01)
+    _idle(engine)  # the row is logged at the barrier after it
     ttft = engine.request_log[-1]["ttft_s"]
     step_ms = (wall - ttft) / (STEADY_NEW - 1) * 1e3
     log(f"path D one row alone at pipeline depth {engine.pipeline_depth}: "
         f"{STEADY_NEW} tokens in {wall:.3f} s, TTFT {ttft:.3f} s, "
         f"{step_ms:.3f} ms per decode step after it [{card}]")
     return {"wall_s": wall, "ttft_s": ttft, "step_ms": step_ms}
+
+
+# D's chunked turns: the server's prefill_chunk (llama3-8b's window of
+# 8,192 is a multiple). The burst's 1,000-, 2,000- and 4,000-token rows
+# walk 1, 3 and 7 chunks of 512 and continue a tail of 488, 464 and 416
+# tokens at the 512 bucket; the 500-token row is not past the width.
+CHUNK = 512
+
+
+def _rows_equal(a, b) -> bool:
+    return np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+
+
+def chunked_turns(server, reqs, charges, solo_out, card: str) -> dict:
+    """D's burst driven directly through two paged depth-2 engines on the
+    same weights, one over ``server`` (chunking off, as D) and one over a
+    ``prefill_chunk=512`` server, in turns off, 512, 512, off, each with
+    the launch counters from 0: the burst's tok/s, steps, the segments
+    dispatched while a walk was in progress, the TTFT of the rows that
+    arrived while the 4,000-token row prefilled and the long rows' own
+    TTFT. Checks: (g) every chunked row of the 512 engines, and of a
+    paged depth-1 and dense depth-2 and depth-1 engine on the chunked
+    server, bitwise its solo ``generate(row[split:], prefix=row[:split])``
+    there, every other row bitwise the off engine's; (h) against plain
+    solo ``generate`` the chunked rows' greedy tokens equal and the first
+    logprob within the routed bound; (i) per turn, paged decode
+    attention = 32 x engine steps and the int8 matmul = 225 x forwards,
+    the walk chunks counted."""
+    from lambdipy_tpu_torch.models.llama import LlamaServer
+    from lambdipy_tpu_torch.runtime.continuous import (GROUP_PREFILL_MAX,
+                                                       ContinuousBatcher)
+    from lambdipy_tpu_torch.runtime.handlers import (kernel_launches,
+                                                     make_engine)
+
+    layers = server.model.cfg.layers
+    chunked = LlamaServer(server.model, prefill_chunk=CHUNK)
+    if chunked.prefill_chunk != CHUNK:
+        raise SystemExit(f"path D: prefill_chunk {CHUNK} normalised to "
+                         f"{chunked.prefill_chunk}")
+    lens = [len(body["tokens"]) for _, body in reqs]
+    walked = [s > GROUP_PREFILL_MAX and s > CHUNK for s in lens]
+    splits = [(s - 1) // CHUNK * CHUNK if w else 0
+              for s, w in zip(lens, walked)]
+    long_seq = lens.index(max(lens))
+    pages = {**ENGINE_EXTRA, "kv_pages": str(sum(charges) + 1)}
+    engines = {"off": make_engine(server, pages),
+               "512": make_engine(chunked, pages)}
+    for eng in engines.values():  # each engine's two graphs captured
+        eng.generate(list(range(1, 17)), max_new_tokens=32)
+        eng.generate(list(range(1, 17)), max_new_tokens=32, temperature=0.8,
+                     seed=1)
+
+    def drive(eng, counted: bool):
+        outs = [None] * len(reqs)
+
+        def send(i):
+            _, body = reqs[i]
+            outs[i] = eng.generate(body["tokens"],
+                                   max_new_tokens=body["max_new_tokens"],
+                                   return_logprobs=True, **_knobs(body))
+
+        seq0 = max((e["seq"] for e in eng.request_log), default=-1)
+        before = eng.stats()
+        if counted:
+            set_launches_to_zero()  # counters to 0 just before the turn
+        _, burst_s = _drive(send, reqs)
+        _idle(eng)
+        launches = kernel_launches() if counted else None
+        after = eng.stats()
+        logs = sorted((e for e in eng.request_log if e["seq"] > seq0),
+                      key=lambda e: e["seq"])
+        return outs, burst_s, launches, before, after, logs
+
+    out = {"turns": [], "launches": dict.fromkeys(KERNELS, 0)}
+    rows = {}
+    for turn, name in enumerate(("off", "512", "512", "off")):
+        eng = engines[name]
+        outs, burst_s, launches, before, after, logs = drive(eng, True)
+        rows.setdefault(name, outs)
+        delta = {k: after[k] - before[k]
+                 for k in ("steps", "segments", "forwards", "walk_segments",
+                           "prefill_chunks", "row_prefills")}
+        want = dict.fromkeys(KERNELS, 0)
+        want["paged_decode_attention"] = layers * delta["steps"]
+        want["int8_matmul"] = (7 * layers + 1) * delta["forwards"]
+        if launches != want:
+            raise SystemExit(f"path D (i): chunked turn {turn + 1} ({name}) "
+                             f"launch counters {launches} != implied {want}")
+        for k, n in launches.items():
+            out["launches"][k] += n
+        ttft = {(e["s"], e["n"]): e["ttft_s"] for e in logs}
+        if len(ttft) != len(reqs):
+            raise SystemExit("path D: a chunked turn logged other rows than "
+                             "its burst's")
+        big = logs[[e["s"] for e in logs].index(lens[long_seq])]
+        during = [e["ttft_s"] for e in logs if e is not big
+                  and big["t0"] <= e["t0"] <= big["prefilled_at"]]
+        rec = {"prefill_chunk": eng.server.prefill_chunk,
+               "burst_wall_s": burst_s,
+               "decode_tok_s": new_tokens_of(reqs) / burst_s, **delta,
+               "long_row_prefill_s": big["prefilled_at"] - big["t0"],
+               "ttft_arrived_during_long_prefill_s": during,
+               "ttft_long_rows_s": {s: ttft[s, body["max_new_tokens"]]
+                                    for s, w, (_, body)
+                                    in zip(lens, walked, reqs) if w},
+               "ttft_short_rows_mean_s": float(np.mean(
+                   [t for (s, _), t in ttft.items()
+                    if s <= GROUP_PREFILL_MAX])),
+               "ttft_mean_s": float(np.mean(list(ttft.values())))}
+        out["turns"].append(rec)
+        log(f"path D chunked turn {turn + 1} of 4 (prefill_chunk "
+            f"{rec['prefill_chunk']}): {burst_s:.3f} s, "
+            f"{rec['decode_tok_s']:.1f} tok/s, {delta['steps']} steps in "
+            f"{delta['segments']} segments, {delta['walk_segments']} "
+            f"segments dispatched during walks, {delta['prefill_chunks']} "
+            f"walk chunks; the {lens[long_seq]}-token row prefilled in "
+            f"{rec['long_row_prefill_s']:.3f} s from admission; TTFT of the "
+            f"{len(during)} rows that arrived meanwhile "
+            f"{[round(t, 3) for t in during]} s, of the long rows "
+            f"{ {s: round(t, 3) for s, t in rec['ttft_long_rows_s'].items()} }"
+            f" s, short rows' mean {rec['ttft_short_rows_mean_s']:.3f} s, "
+            f"all rows' mean {rec['ttft_mean_s']:.3f} s [{card}]")
+        if name == "512" and delta["prefill_chunks"] != sum(
+                s // CHUNK for s in splits):
+            raise SystemExit("path D: the walks ran other chunks than the "
+                             "rows imply")
+    log(f"path D (i): in each chunked turn paged decode attention = "
+        f"{layers} x engine steps and int8 matmul = {7 * layers + 1} x "
+        f"forwards (walk chunks and continuations counted)")
+    for eng in engines.values():
+        eng.release()
+
+    # (g) the chunked rows against their solo prefix runs on the chunked
+    # server, the rest against the off engine's rows, in four engines
+    solo = {}
+    for i, (_, body) in enumerate(reqs):
+        if walked[i]:
+            row, sp = body["tokens"], splits[i]
+            solo[i] = chunked.generate(row[sp:], prefix=row[:sp],
+                                       max_new_tokens=body["max_new_tokens"],
+                                       return_logprobs=True, **_knobs(body))
+    with chunked._prefix_lock:
+        chunked._prefixes.clear()
+    checked = {"paged depth 2": rows["512"]}
+    for label, make in (
+            ("paged depth 1", lambda: make_engine(
+                chunked, {**pages, "pipeline_depth": "1"})),
+            ("dense depth 2", lambda: ContinuousBatcher(
+                chunked, slots=8, segment=16, pipeline_depth=2)),
+            ("dense depth 1", lambda: ContinuousBatcher(
+                chunked, slots=8, segment=16, pipeline_depth=1))):
+        eng = make()
+        checked[label] = drive(eng, False)[0]
+        eng.release()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    for label, outs in checked.items():
+        for i, got in enumerate(outs):
+            want = solo[i] if walked[i] else rows["off"][i]
+            if not _rows_equal(got, want):
+                raise SystemExit(
+                    f"path D (g): the {lens[i]}-token row of the {label} "
+                    f"chunked engine differs from its "
+                    + ("solo prefix run" if walked[i] else "unchunked row"))
+    log(f"path D (g): every chunked row ({sum(walked)} per burst) of the "
+        f"paged depth-2 and depth-1 and dense depth-2 and depth-1 engines "
+        f"bitwise its solo generate(row[split:], prefix=row[:split]) on the "
+        f"prefill_chunk={CHUNK} server, every other row bitwise the "
+        f"unchunked engine's")
+
+    # (h) the routed bound against plain unchunked solo generate
+    gaps, bitwise = {}, {}
+    for i in solo:
+        got, plain = rows["512"][i], solo_out[i]
+        greedy = "temperature" not in reqs[i][1]
+        gaps[lens[i]] = float(abs(got[1][0, 0] - plain[1][0, 0]))
+        bitwise[lens[i]] = _rows_equal(got, plain)
+        if (greedy and not np.array_equal(got[0], plain[0])) \
+                or gaps[lens[i]] > ROUTED_LOGPROB_GAP:
+            raise SystemExit(
+                f"path D (h): the {lens[i]}-token chunked row left its bound "
+                f"against plain solo generate: greedy tokens equal "
+                f"{np.array_equal(got[0], plain[0])}, first-token logprob "
+                f"gap {gaps[lens[i]]:.3e}")
+    log(f"path D (h): chunked rows against plain solo generate: greedy "
+        f"tokens equal, first-token logprob gaps {gaps} (bound "
+        f"{ROUTED_LOGPROB_GAP}); bitwise by row {bitwise}")
+    out["first_logprob_gap_vs_plain"] = gaps
+    out["bitwise_vs_plain"] = bitwise
+    del chunked, engines, solo, rows, checked
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # path F: the serving front (scheduler, /v1/completions, SSE, /shutdown)
@@ -2337,6 +2552,50 @@ def walk_rounds(matched: int, target: int, block: int, wide: int,
     return rounds
 
 
+def cold_walks(server, row, block: int, card: str) -> dict:
+    """E's cold walk of ``row``'s head by a fresh dense store, at the
+    store's default width (256) and over a ``prefill_chunk=512`` server on
+    the same weights (walk chunk 512), in turns default, 512, 512,
+    default: each walk's host wall (the store's ``critical_path_s``) and
+    chunks, which must be the walk's implied rounds."""
+    from lambdipy_tpu_torch.models.llama import LlamaServer
+    from lambdipy_tpu_torch.runtime.prefixstore import PrefixStore
+
+    max_len = server.model.cfg.max_len
+    servers = {"default": server,
+               "chunked": LlamaServer(server.model, prefill_chunk=CHUNK)}
+    target = prefix_target(len(row), block, max_len)
+    out = {}
+    for name in ("default", "chunked", "chunked", "default"):
+        srv = servers[name]
+        store = PrefixStore(srv, block=block)
+        with srv._prefix_lock:
+            srv._prefixes.clear()
+        if store.route(row) != target:
+            raise SystemExit("path E: a cold walk routed another target")
+        torch.cuda.synchronize()
+        walk = store.prefill_stats.report()
+        rounds = walk_rounds(0, target, block, store.walk_chunk, max_len)
+        if walk["rounds"] != rounds:
+            raise SystemExit(f"path E: the {store.walk_chunk}-wide walk ran "
+                             f"{walk['rounds']} chunks, implied {rounds}")
+        out.setdefault(name, []).append(
+            {"ms": 1e3 * walk["critical_path_s"], "chunks": walk["rounds"],
+             "walk_chunk": store.walk_chunk})
+    with servers["chunked"]._prefix_lock:
+        servers["chunked"]._prefixes.clear()
+    if out["chunked"][0]["walk_chunk"] != CHUNK:
+        raise SystemExit("path E: the store did not walk at the server's "
+                         "prefill_chunk")
+    log(f"path E cold walks of {target} tokens, turns default, "
+        f"prefill_chunk={CHUNK}, {CHUNK}, default: "
+        + "; ".join(f"{ws[0]['walk_chunk']}-wide "
+                    f"{[round(w['ms'], 1) for w in ws]} ms in "
+                    f"{ws[0]['chunks']} chunks" for ws in out.values())
+        + f" [{card}]")
+    return out
+
+
 def serve_prefix_path(card: str) -> dict:
     """Phase 4, path E: llama3-8b through the continuous engine over a
     paged arena with the prefix store at the handler's default (512 MB),
@@ -2653,6 +2912,7 @@ def serve_prefix_path(card: str) -> dict:
             "store_bytes": pstats["bytes"],
             "max_memory_allocated_gib_paged": peak_paged / 2**30,
             "max_memory_allocated_gib_dense": peak_dense / 2**30}
+    perf["cold_walks"] = cold_walks(server_, row0, block, card)
     log(f"path E TTFT (one-token solo requests, two readings each): cold "
         f"{ttft['cold_s']} s, hot {ttft['hot_s']} s, unrouted "
         f"{ttft['unrouted_s']} s; first streamed line over HTTP (a segment "
@@ -2723,8 +2983,10 @@ def main() -> int:
     # path D first: its times come before any profiler session
     t_path = time.perf_counter()
     paths = {"D": serve_engine_path(card)}
-    # path F ran on D's handler, after D's numbers
+    # path F ran on D's handler, after D's numbers; D's chunked turns are
+    # counted apart from its HTTP burst
     paths["F"] = paths["D"].pop("F")
+    paths["D-chunked"] = paths["D"].pop("chunked")
     log(f"paths D and F took {time.perf_counter() - t_path:.1f} s")
     for path in PATHS:
         t_path = time.perf_counter()

@@ -678,23 +678,28 @@ def _scatter_page_cache(arena, tables, cache, page: int):
 def pack_prefill_into_pages(cfg: LlamaConfig, arena, table_row,
                             prefill_cache, src: int) -> None:
     """Store row ``src`` of a prefill cache (float entries ``[gb, sb,
-    kvh, d]``) in the arena through ``table_row`` ``[nb]`` (the row's
-    pages, null-padded), quantizing under ``cfg.kv_quant``. Only the
-    first ``len(table_row) * page`` positions are stored, as the dense
-    engine cuts a prefill to its ``cache_len``: the prompt's bucket may be
-    wider than the engine's window, and positions past it lie beyond
-    ``s + max_new`` of any admitted row. What is kept is zero-padded to
-    whole pages; positions past the row's pages land in the null page."""
+    kvh, d]``, quantized here under ``cfg.kv_quant``; or a cache already
+    in the store layout, as a chunked prefill leaves it) in the arena
+    through ``table_row`` ``[nb]`` (the row's pages, null-padded). Only
+    the first ``len(table_row) * page`` positions are stored, as the
+    dense engine cuts a prefill to its ``cache_len``: the prompt's bucket
+    may be wider than the engine's window, and positions past it lie
+    beyond ``s + max_new`` of any admitted row. What is kept is
+    zero-padded to whole pages; positions past the row's pages land in
+    the null page."""
     page = arena[0][next(iter(arena[0]))].shape[1]
-    sb = min(prefill_cache[0]["k"].shape[1], table_row.shape[0] * page)
+    sb = min(cache_width(prefill_cache), table_row.shape[0] * page)
     width = -(-sb // page) * page
     cache = []
     for entry in prefill_cache:
-        k, v = entry["k"][src:src + 1, :sb], entry["v"][src:src + 1, :sb]
+        rows = {name: val[src:src + 1, :sb]
+                for name, val in _leaves(entry).items()}
         if width != sb:
-            pad = (0, 0, 0, 0, 0, width - sb)
-            k, v = F.pad(k, pad), F.pad(v, pad)
-        cache.append(_kv_store(cfg, k, v))
+            rows = {name: F.pad(val, (0, 0, 0, 0, 0, width - sb))
+                    for name, val in rows.items()}
+        if "k" in rows:  # float K/V: into the store layout
+            rows = _kv_store(cfg, rows["k"], rows["v"])
+        cache.append(rows)
     _scatter_page_cache(arena, table_row[None, :width // page], cache, page)
 
 
@@ -942,7 +947,7 @@ def _scan_decode(run, step: DecodeStep, decode_steps: int,
     return torch.stack(toks, dim=1), torch.stack(lps, dim=1)
 
 
-MIN_BUCKET = 16  # smallest prompt and decode bucket, as in the JAX server
+MIN_BUCKET = 16  # the JAX server's default smallest prompt and decode bucket
 
 
 def _next_bucket(n: int, lo: int) -> int:
@@ -1009,7 +1014,14 @@ class LlamaServer:
     x 128 KiB = 1 GiB. A request then prefills only its suffix: the entry's
     prefix positions are copied into the decode step's cache (the entry
     itself is never written) and the suffix continues there
-    (:func:`_continue_prefill`), so decode replays the step's graph."""
+    (:func:`_continue_prefill`), so decode replays the step's graph.
+
+    The JAX server's bucket and cap arguments: ``min_bucket`` (the
+    smallest prompt and decode-step bucket, 16), ``decode_cap`` (the most
+    new tokens a request may ask for; default the window) and
+    ``prefill_chunk`` (off by default; a prefix of at least that many
+    tokens prefills in fixed-width chunks, :meth:`_chunked_prefill_cache`,
+    and so do the continuous engine's long joiners)."""
 
     # decode steps per hold of the device lock in generate
     segment = 16
@@ -1017,9 +1029,28 @@ class LlamaServer:
     def __init__(self, model: LlamaModel, *, graphs=None,
                  program_cache_max: int = PROGRAM_CACHE_MAX,
                  program_cache_bytes: int | None = None,
-                 prefix_cache_max: int = 4):
+                 prefix_cache_max: int = 4, min_bucket: int = MIN_BUCKET,
+                 decode_cap: int | None = None,
+                 prefill_chunk: int | None = None):
         self.model = model
         self._lock = DEVICE_LOCK
+        # the smallest prompt and decode-step bucket
+        self.min_bucket = min_bucket
+        # chunked prefill (JAX ``llama.py:1404-1418``): a prefix or a long
+        # joiner of this width or more prefills in fixed-width chunks
+        # against the growing cache. Every chunk, the padded last one
+        # included, is written whole at a multiple of the width, so the
+        # width must divide max_len: halved until it does, off when
+        # nothing >= min_bucket does. None = off, the JAX default.
+        self.prefill_chunk = None
+        if prefill_chunk:
+            ck = max(min_bucket, _next_bucket(prefill_chunk, 16))
+            while ck >= min_bucket and model.cfg.max_len % ck:
+                ck //= 2
+            if ck >= min_bucket:
+                self.prefill_chunk = ck
+        # the most new tokens a request may ask for (default: the window)
+        self.decode_cap = decode_cap or model.cfg.max_len
         if graphs is None:
             graphs = CudaGraph if model.device.type == "cuda" else False
         self.graph_type = graphs or None
@@ -1064,6 +1095,10 @@ class LlamaServer:
         cfg = self.model.cfg
         if max_new_tokens < 0:
             raise ValueError(f"max_new_tokens must be >= 0, got {max_new_tokens}")
+        if max_new_tokens > self.decode_cap:
+            raise ValueError(
+                f"max_new_tokens {max_new_tokens} exceeds the server's "
+                f"decode cap {self.decode_cap}")
         if s + max_new_tokens > cfg.max_len:
             raise ValueError(
                 f"prompt {s} + max_new_tokens {max_new_tokens} exceeds "
@@ -1195,8 +1230,9 @@ class LlamaServer:
         tokens at: the pow-2 bucket, shrunk toward ``s`` near
         ``max_len``."""
         max_len = self.model.cfg.max_len
-        steps = min(_next_bucket(max_new_tokens, MIN_BUCKET), max_len - s)
-        return min(_next_bucket(s, MIN_BUCKET), max_len - steps)
+        steps = min(_next_bucket(max_new_tokens, self.min_bucket),
+                    max_len - s)
+        return min(_next_bucket(s, self.min_bucket), max_len - steps)
 
     def _checkout(self, bb: int, cache_len: int) -> StepPrograms:
         """The program entry of key ``(bb, cache_len, KV layout,
@@ -1222,7 +1258,8 @@ class LlamaServer:
         knobs ask; the caller checks the entry back in."""
         cfg = self.model.cfg
         b, s = len(rows), max(lengths)
-        steps = min(_next_bucket(max_new_tokens, MIN_BUCKET), cfg.max_len - s)
+        steps = min(_next_bucket(max_new_tokens, self.min_bucket),
+                    cfg.max_len - s)
         sb = self.prompt_bucket(s, max_new_tokens)
         bb = _next_bucket(b, 1)
         cache_len = min(sb + steps, cfg.max_len)
@@ -1403,8 +1440,9 @@ class LlamaServer:
         Takes the device lock for its dispatch."""
         def ext(cache, chunk, chunk_len: int):
             idx = int(cache[0]["index"])
-            positions = (idx + torch.arange(sbs, device=self.device))[None]
             with self._lock, torch.inference_mode():
+                positions = (idx + torch.arange(sbs,
+                                                device=self.device))[None]
                 _, new_cache = self.model(
                     chunk, positions=positions,
                     cache=[{**_leaves(c), "index": idx} for c in cache],
@@ -1416,12 +1454,56 @@ class LlamaServer:
 
         return ext
 
+    def _chunked_prefill_cache(self, row, upto: int, cache_len: int,
+                               stats=None):
+        """``row[:upto]`` embedded into a fresh one-row ``cache_len`` cache
+        in chunks of ``prefill_chunk`` tokens (JAX ``llama.py:2075``,
+        without the sequence-parallel walk), each chunk an extension
+        (``_prefix_ext_fn``) written at the cache's index and its own
+        dispatch under the device lock, so other work interleaves between
+        chunks. The JAX walk prefills its first chunk alone
+        (``_prefix_first_fn``); here the first chunk extends an empty cache
+        at index 0 as well, so every chunk attends through the same plain
+        attention over the window that a continuation uses (a first chunk
+        attending only its own width softmaxes its rows at another width
+        than an unchunked prefill's bucket does: other bits, and on the
+        card other greedy tokens where two are nearly tied). ``cache_len``
+        must be a multiple of the chunk; the last chunk may be ragged (its
+        padding stays behind the index). The one chunk walk of the prefix
+        path and the continuous engine's chunked joiner prefill;
+        ``stats`` (a ``PrefillStats``) counts a round per chunk."""
+        cfg = self.model.cfg
+        ck = self.prefill_chunk
+        ext = self._prefix_ext_fn(ck)
+        pos = 0
+        with self._lock:
+            cache = [{**_empty_cache_entry(cfg, 1, cache_len, self.device),
+                      "index": 0} for _ in range(cfg.layers)]
+        while pos < upto:
+            n = min(ck, upto - pos)
+            # the chunk's upload too: no copy beside another thread's
+            # capture
+            with self._lock:
+                chunk, _ = self._pad_rows([row[pos:pos + n]], [n], 1, ck)
+                cache = ext(cache, chunk, n)
+            if stats is not None:
+                stats.record_round()
+            pos += n
+        return cache
+
     def _prefill_prefix(self, key: str, rows, lengths) -> str:
         cfg = self.model.cfg
         s = lengths[0]
-        sb = min(_next_bucket(s, MIN_BUCKET), cfg.max_len)
-        prompt, _ = self._pad_rows(rows, lengths, 1, sb)
-        cache = self._prefix_first_fn(sb, cfg.max_len)(prompt, s)
+        ck = self.prefill_chunk
+        # JAX walks a prefix longer than the chunk; a prefix of exactly
+        # one chunk walks here too, so that it is the walk the engine runs
+        # for a joiner split there (every chunk an extension)
+        if ck and s >= ck:
+            cache = self._chunked_prefill_cache(rows[0], s, cfg.max_len)
+        else:
+            sb = min(_next_bucket(s, self.min_bucket), cfg.max_len)
+            prompt, _ = self._pad_rows(rows, lengths, 1, sb)
+            cache = self._prefix_first_fn(sb, cfg.max_len)(prompt, s)
         self.register_prefix(key, cache, s)
         return key
 
@@ -1491,9 +1573,10 @@ class LlamaServer:
         self._validate(plen + s, max_new_tokens)
         if max_new_tokens == 0:
             return self._empty(1, return_logprobs)
-        steps = min(_next_bucket(max_new_tokens, MIN_BUCKET),
+        steps = min(_next_bucket(max_new_tokens, self.min_bucket),
                     cfg.max_len - plen - s)
-        sbs = min(_next_bucket(s, MIN_BUCKET), cfg.max_len - plen - steps)
+        sbs = min(_next_bucket(s, self.min_bucket),
+                  cfg.max_len - plen - steps)
         knobs = (temperature, top_k, top_p, seed, eos_id)
         toks, lps = self._retry_on_oom(lambda: self._generate(
             lambda: self._continue(cache, plen, rows[0], s, sbs, knobs),
@@ -1515,7 +1598,7 @@ class LlamaServer:
         cache, plen = self._prefix_entry(prefix_tokens)
         s = lengths[0]
         self._validate(plen + s, max_new_tokens)
-        sbs = min(_next_bucket(s, MIN_BUCKET), cfg.max_len - plen)
+        sbs = min(_next_bucket(s, self.min_bucket), cfg.max_len - plen)
         knobs = (temperature, top_k, top_p, seed, eos_id)
         yield from self._stream(
             lambda: self._continue(cache, plen, rows[0], s, sbs, knobs), 1,

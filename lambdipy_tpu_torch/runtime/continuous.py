@@ -33,6 +33,14 @@ boundaries, packed into a free slot.
   square of its bucket under ``blocked``). Packing (scalars into the
   slot, the prefill's K/V into the slot's cache row or pages) happens on
   the engine thread at the barrier.
+- Chunked joiner prefill (the server's ``prefill_chunk``, off by
+  default, as in JAX): a long prompt past the chunk width walks its head
+  in fixed-width chunks into a transient ``cache_len`` cache and
+  continues its tail at the tail's bucket
+  (:meth:`ContinuousBatcher._prefill_row_chunked`). Each chunk takes the
+  device lock alone (a ``FairLock``, granted in arrival order), so the
+  engine's segments run between chunks instead of stalling behind one
+  wide prefill; the prefill lock spans the walk.
 - The loop is pipelined (``pipeline_depth``, default 2, as in JAX): it
   keeps up to ``pipeline_depth`` segments on the card. A segment's
   ``[B, k]`` token block (a fresh tensor per segment) is copied
@@ -89,9 +97,8 @@ boundaries, packed into a free slot.
   the whole window, so a prefix row needs an engine whose ``cache_len``
   is ``max_len``; elsewhere it runs solo.
 
-Not ported yet (ROADMAP): window bucketing, the chunked joiner prefill,
-the watchdog / replay / degradation ladder, speculation, long context
-and meshes.
+Not ported yet (ROADMAP): window bucketing, the watchdog / replay /
+degradation ladder, speculation, long context and meshes.
 """
 
 from __future__ import annotations
@@ -108,15 +115,15 @@ import torch
 
 from lambdipy_tpu_torch.models.graphs import (DEVICE_LOCK, StepProgram,
                                               StepPrograms)
-from lambdipy_tpu_torch.models.llama import (MIN_BUCKET, DecodeStep,
-                                             _kv_store, _leaves,
-                                             _next_bucket,
+from lambdipy_tpu_torch.models.llama import (DecodeStep, _kv_store,
+                                             _leaves, _next_bucket,
                                              _scan_decode, _serve_select,
                                              cache_width, copy_cache,
                                              init_decode_cache,
                                              pack_prefill_into_pages,
                                              row_generators)
-from lambdipy_tpu_torch.runtime.metrics import EngineStats, PipelineStats
+from lambdipy_tpu_torch.runtime.metrics import (EngineStats, PipelineStats,
+                                                PrefillStats)
 from lambdipy_tpu_torch.sched import (current_request_class,
                                       current_request_deadline_ms)
 
@@ -157,6 +164,9 @@ class ContinuousBatcher:
                                  f"engine cache_len {self.cache_len}")
             page_pool.window_pages = self.cache_len // page_pool.page
         self.stats_counters = EngineStats()
+        # chunked walks (the engine's and, when it shares them, the prefix
+        # store's): rounds, chunks, walks and their wall
+        self.prefill_stats = PrefillStats()
         self._lock = threading.Condition()
         self._joiners: list[dict] = []
         self._active: list[dict | None] = [None] * self.slots
@@ -166,8 +176,13 @@ class ContinuousBatcher:
         self._programs: StepPrograms | None = None
         # the arena's generation the step was built over (paged)
         self._arena_generation = 0
-        # one request-thread prefill at a time
+        # one request-thread prefill at a time: long rows keep their
+        # arrival order, and at most one chunked walk's transient window
+        # cache lives at a time
         self._prefill_lock = threading.Lock()
+        # chunked walks in progress (segments dispatched meanwhile are
+        # counted as interleaved)
+        self._walking = 0
         # paged prefix hits: prefix tokens -> (page ids, length) with a
         # ref taken per page (the prefix store's acquire_pages), or None;
         # unset, prefix rows run solo
@@ -282,8 +297,9 @@ class ContinuousBatcher:
         its logprob, the position and the generator's state into the
         step's slot; the K/V into the slot's cache row (dense) or its pages
         (paged). A paged prefix row's K/V is in its pages already (no
-        cache); a dense prefix row's continuation cache is in the store
-        layout and is copied as it is."""
+        cache); a plain prefill's float K/V is stored in the cache's
+        layout, and a dense prefix row's continuation cache and a chunked
+        row's cache, in that layout already, are copied as they are."""
         step, slot = self._step, entry["slot"]
         first, lp0, cache = prefill
         step.tok[slot] = first[src]
@@ -293,23 +309,23 @@ class ContinuousBatcher:
         cfg = self.server.model.cfg
         if cache is None:
             pass
-        elif entry["prefix_toks"] is not None:
-            for dest, pc in zip(step.cache, cache):
-                for name, val in _leaves(pc).items():
-                    dest[name][slot] = val[src]
         elif self.pool is not None:
+            # the row's own pages: a prefill's positions past them (its
+            # bucket's padding, a chunked row's window) are never read
             nb = self.cache_len // self.pool.page
-            table = torch.as_tensor(self._table_row(entry, nb),
+            table = torch.as_tensor(np.asarray(entry["pages"][:nb], np.int32),
                                     device=self.server.device)
             with self.pool.arena_lock:
                 pack_prefill_into_pages(cfg, self.pool.arena, table, cache,
                                         src)
         else:
             for dest, pc in zip(step.cache, cache):
-                width = min(pc["k"].shape[1], self.cache_len)
-                store = _kv_store(cfg, pc["k"][src, :width],
-                                  pc["v"][src, :width])
-                for name, val in store.items():
+                width = min(cache_width([pc]), self.cache_len)
+                rows = {name: val[src, :width]
+                        for name, val in _leaves(pc).items()}
+                if "k" in rows:  # float K/V: into the store layout
+                    rows = _kv_store(cfg, rows["k"], rows["v"])
+                for name, val in rows.items():
                     dest[name][slot, :width] = val
         entry["packed"] = True
         self.stats_counters.record_join()
@@ -395,19 +411,20 @@ class ContinuousBatcher:
             rec["event"].record()
         for _, e in live:
             e["disp"] += k
-        self.stats_counters.record_segment(k, len(rows))
+        self.stats_counters.record_segment(k, len(rows),
+                                           beside_walk=self._walking > 0)
         return rec
 
     def _wait(self, rec: dict) -> None:
-        """Block until the record's block is on the host (caller holds
-        ``DEVICE_LOCK``: a wait beside another thread's capture would
-        invalidate it); stamps when it was ready and how long the host
-        was blocked."""
+        """Block until the card has computed the record's segment and
+        copied its block to the host (caller holds ``DEVICE_LOCK``: a wait
+        beside another thread's capture would invalidate it); stamps when
+        it was ready and how long the host waited on the card."""
         t0 = time.monotonic()
         if rec["event"] is not None:
             rec["event"].synchronize()
         rec["t_ready"] = time.monotonic()
-        rec["blocked_s"] = rec["t_ready"] - t0
+        rec["wait_s"] = rec["t_ready"] - t0
 
     def _collect(self, rec: dict) -> None:
         """Book a segment's block: each live row's tokens (and logprobs
@@ -418,6 +435,9 @@ class ContinuousBatcher:
         toks = rec["toks"].numpy()
         lps = rec["lps"].float().numpy() if rec["lps"] is not None else None
         now = time.monotonic()
+        # the JAX metric's interval: from the wait's return until the
+        # host arrays exist (its device_get after block_until_ready)
+        fetch_s = now - rec["t_ready"]
         wasted = 0
         with self._lock:
             for slot, e in rec["rows"]:
@@ -441,7 +461,7 @@ class ContinuousBatcher:
                     self.stats_counters.record_served()
             self._lock.notify_all()
         self.pipe_stats.record_collect(rec["t_dispatch"], rec["t_ready"],
-                                       fetch_s=rec["blocked_s"],
+                                       fetch_s=fetch_s, wait_s=rec["wait_s"],
                                        wasted=wasted)
 
     # -- engine thread -------------------------------------------------------
@@ -577,7 +597,8 @@ class ContinuousBatcher:
         """Return a finished row's pages and log it (caller holds the
         lock)."""
         record = {"seq": e["seq"], "s": e["s"], "n": e["n"],
-                  "ttft_s": e["ttft_s"], "wall_s": e["wall_s"]}
+                  "ttft_s": e["ttft_s"], "wall_s": e["wall_s"],
+                  "t0": e["t0"], "prefilled_at": e["prefilled_at"]}
         if self.pool is not None:
             self._release_pages(e)
             record.update({k: e[k] for k in ("n_pages", "charged_at",
@@ -613,7 +634,7 @@ class ContinuousBatcher:
         cfg = server.model.cfg
         cache, plen = pentry
         s = entry["s"]
-        sbs = min(_next_bucket(s, MIN_BUCKET), cfg.max_len - plen)
+        sbs = min(_next_bucket(s, server.min_bucket), cfg.max_len - plen)
         suffix, _ = server._pad_rows([entry["row"]], [s], 1, sbs)
         temp, tk, tp, _, eos = server._knob_operands(
             entry["temperature"], entry["top_k"], entry["top_p"],
@@ -632,7 +653,7 @@ class ContinuousBatcher:
         ``(first, lp0, None)`` for :meth:`_pack`."""
         server, pool = self.server, self.pool
         plen, s = entry["plen"], entry["s"]
-        sbs = min(_next_bucket(s, MIN_BUCKET), self.cache_len - plen)
+        sbs = min(_next_bucket(s, server.min_bucket), self.cache_len - plen)
         window = self.cache_len
         cont = server._paged_continue_fn(sbs, pool.page, window)
         table = torch.as_tensor(self._table_row(entry, window // pool.page),
@@ -646,6 +667,47 @@ class ContinuousBatcher:
                                     suffix, s, _serve_select(temp, tk, tp),
                                     [entry["gen"]], eos)
         return first, lp0, None
+
+    def _prefill_row_chunked(self, entry: dict):
+        """Long-prompt joiner prefill in fixed-width chunks (JAX
+        ``continuous.py:827-869``): ``row[:split]``, ``split`` the last
+        multiple of ``prefill_chunk`` before the row's end, walks into a
+        transient ``cache_len`` cache (:meth:`LlamaServer.
+        _chunked_prefill_cache`), each chunk one dispatch under the device
+        lock alone, so engine segments run between chunks; then the tail
+        continues at its bucket (``_stream_prefix_fn``), which selects the
+        first token. The caller holds ``_prefill_lock`` (not the device
+        lock). Returns ``(first, lp0, cache)``, the cache in the store
+        layout. The same walk and continuation as solo
+        ``generate(row[split:], prefix=row[:split])`` on a ``cache_len ==
+        max_len`` engine, so a row is bitwise that run on the card."""
+        server = self.server
+        ck = server.prefill_chunk
+        row, s = entry["row"], entry["s"]
+        split = ((s - 1) // ck) * ck  # >= 1 token left to continue
+        tail = row[split:]
+        t0 = time.monotonic()
+        with self._lock:
+            self._walking += 1
+        try:
+            cache = server._chunked_prefill_cache(
+                row, split, self.cache_len, stats=self.prefill_stats)
+        finally:
+            with self._lock:
+                self._walking -= 1
+        self.prefill_stats.record_walk(time.monotonic() - t0)
+        self.stats_counters.record_prefill_chunks(-(-split // ck))
+        sbs = min(_next_bucket(len(tail), server.min_bucket),
+                  self.cache_len - split)
+        with DEVICE_LOCK, torch.inference_mode():
+            suffix, _ = server._pad_rows([tail], [len(tail)], 1, sbs)
+            temp, tk, tp, _, eos = server._knob_operands(
+                entry["temperature"], entry["top_k"], entry["top_p"],
+                entry["seed"], None, b=1)
+            first, lp0, cache, _, _ = server._stream_prefix_fn(sbs)(
+                cache, suffix, len(tail), _serve_select(temp, tk, tp),
+                [entry["gen"]], eos)
+        return first, lp0, cache
 
     def _admit_prefix(self, entry: dict, prefix, max_new_tokens: int):
         """The prefix half of :meth:`_admit`: continue the row's suffix
@@ -712,6 +774,8 @@ class ContinuousBatcher:
                  "slot": None, "packed": False, "eos_at": None,
                  "row": row, "s": s, "prefill": None, "pos0": s,
                  "prefix_toks": None,
+                 # when a request-thread prefill finished (monotonic)
+                 "prefilled_at": None,
                  # tokens dispatched for the row (ahead of ``toks`` while
                  # segments are in flight)
                  "disp": 0,
@@ -738,10 +802,19 @@ class ContinuousBatcher:
                 return None
             self._charge_pages(entry, s + max_new_tokens)
         try:
-            if s > GROUP_PREFILL_MAX:
+            ck = self.server.prefill_chunk
+            if s > GROUP_PREFILL_MAX and ck and s > ck \
+                    and self.cache_len % ck == 0:
+                # chunked (JAX continuous.py:2183-2189): the device lock
+                # is taken chunk by chunk, the prefill lock for the walk
+                with self._prefill_lock:
+                    entry["prefill"] = self._prefill_row_chunked(entry)
+            elif s > GROUP_PREFILL_MAX:
                 with self._prefill_lock, DEVICE_LOCK, \
                         torch.inference_mode():
                     entry["prefill"] = self._prefill_rows([entry])
+            if entry["prefill"] is not None:
+                entry["prefilled_at"] = time.monotonic()
                 self.stats_counters.record_row_prefill()
         except BaseException:
             if self.pool is not None:
@@ -863,7 +936,9 @@ class ContinuousBatcher:
                    "active_rows": sum(e is not None for e in self._active),
                    "waiting_joiners": len(self._joiners),
                    **self.stats_counters.report(),
-                   "pipeline": self.pipe_stats.report()}
+                   "pipeline": self.pipe_stats.report(),
+                   "prefill_chunk": self.server.prefill_chunk,
+                   "prefill": self.prefill_stats.report()}
         if self.pool is not None:
             out["page_pool"] = self.pool.stats()
         return out

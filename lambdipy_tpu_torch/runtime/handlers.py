@@ -6,7 +6,8 @@ handler, with ``batch_mode="continuous"`` (optionally over a paged KV
 arena, ``kv_paged``; pipelined at ``pipeline_depth`` 2, joiners in the
 ``sched_policy`` order, ``fair`` by default) for concurrent traffic, and
 the automatic prefix KV cache (``runtime/prefixstore.py``) built as the
-JAX handler builds it."""
+JAX handler builds it. The server takes the JAX handler's ``decode_cap``,
+``prefill_chunk`` and ``min_bucket`` extras."""
 
 from __future__ import annotations
 
@@ -92,7 +93,6 @@ def kernel_launches() -> dict:
 # value each may take (the feature off), anything else raises
 _UNPORTED_ENGINE_EXTRAS = {
     "batch_window_bucketing": ("0", "false", "off"),
-    "prefill_chunk": ("0",),
     "engine_watchdog_s": ("0", "0.0"),
     "max_replays": ("0",),
     "fault_spec": ("",),
@@ -108,6 +108,8 @@ _UNPORTED_ENGINE_EXTRAS = {
     "session_ttl_s": ("",),
     "session_idle_s": ("",),
     "kv_offload": ("0", "false", "off", ""),
+    # a bundle's tokenizer (text in, text out)
+    "tokenizer_path": ("",),
 }
 
 
@@ -153,8 +155,12 @@ def make_prefix_store(server, engine, extra: dict) -> PrefixStore | None:
                                    and not explicit):
         return None
     pool = engine.pool if engine is not None else None
+    # the store's cold walks and the engine's chunked prefills report in
+    # one prefill block, as in the JAX handler
     store = PrefixStore(server, block=prefix_block(extra), budget_mb=mb,
-                        pool=pool)
+                        pool=pool,
+                        prefill_stats=(engine.prefill_stats
+                                       if engine is not None else None))
     if pool is not None:
         engine.prefix_pages_fn = store.acquire_pages
     return store
@@ -243,6 +249,16 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
     if extra.get("prefix_cache_max") is not None:
         # LRU bound on the server's full-window prefix entries
         server_kw["prefix_cache_max"] = int(extra["prefix_cache_max"])
+    # the JAX handler's server arguments (handlers.py:422-443): the decode
+    # cap (None = the window), chunked prefill (off unless set: a long
+    # prefix or engine joiner prefills in chunks that other work
+    # interleaves with) and the smallest prompt and decode bucket
+    if extra.get("decode_cap"):
+        server_kw["decode_cap"] = int(extra["decode_cap"])
+    if extra.get("prefill_chunk") is not None:
+        server_kw["prefill_chunk"] = int(extra["prefill_chunk"])
+    if extra.get("min_bucket") is not None:
+        server_kw["min_bucket"] = int(extra["min_bucket"])
     # on the card every decode step replays a captured CUDA graph
     server = adapter.make_server(ctx.state_dict, device=ctx.device,
                                  **server_kw)
@@ -273,7 +289,7 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
         if req.get("session_id") is not None and str(req["session_id"]):
             raise ValueError("session_id needs the prefix store's session "
                              "pins, which the port does not have yet")
-        if req.get("warmup"):
+        if req.get("warmup") or req.get("random"):
             prompt = np.asarray([[1, 2, 3, 4]], np.int32)
         elif req.get("text") is not None and req.get("tokens") is None:
             # the JAX handler's answer when its bundle has no tokenizer
@@ -314,6 +330,16 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
                 return {"ok": False, "error": "empty prefix"}
             if len(prompt) != 1:
                 return {"ok": False, "error": "prefix caching is single-row"}
+        if req.get("speculative") is not None:
+            # validated as the JAX handler validates it; then refused
+            try:
+                int(req["speculative"])
+            except (TypeError, ValueError):
+                return {"ok": False, "error": "speculative must be an "
+                                              "integer draft length"}
+            return {"ok": False, "error": "speculative decoding is not "
+                                          "ported yet; send no "
+                                          "'speculative'"}
         return (prompt, max_new, sample_kwargs, bool(req.get("logprobs")),
                 prefix)
 

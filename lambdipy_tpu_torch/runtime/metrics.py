@@ -71,11 +71,15 @@ class PipelineStats:
     dispatched; ``cancel``: a live row's deadline passed or its stream's
     reader left). ``wasted_tokens`` are tokens fetched for rows already
     finished (eos or quota observed behind the dispatch frontier) and
-    dropped on the host. ``fetch_block_s`` is the host's wall time
-    blocked on a segment's tokens after the next segment was enqueued;
-    ``overlap_ratio`` = device-busy / wall, device-busy the union of
-    each segment's [dispatch, tokens-ready] interval, so 1.0 means the
-    card always had a segment queued while the host booked."""
+    dropped on the host. ``fetch_block_s`` is the JAX metric's interval:
+    from the end of the wait on a segment until its host arrays exist
+    (the transport, near 0 here: the block is copied ``non_blocking``
+    into pinned memory before the wait ends); ``device_wait_s`` is the
+    host's wait on the segment's CUDA event, the card's compute still
+    outstanding when the host asked; ``overlap_ratio`` = device-busy /
+    wall, device-busy the union of each segment's [dispatch,
+    tokens-ready] interval, so 1.0 means the card always had a segment
+    queued while the host booked."""
 
     depth: int = 1
     segments: int = 0
@@ -85,6 +89,7 @@ class PipelineStats:
     drains: dict = field(default_factory=dict)    # cause -> count
     device_busy_s: float = 0.0
     fetch_block_s: float = 0.0
+    device_wait_s: float = 0.0
     wall_s: float = 0.0
     _cover_end: float = field(default=0.0, repr=False)
     # start of the engine episode running now (None when idle): report()
@@ -99,11 +104,13 @@ class PipelineStats:
                 self.inflight.get(int(inflight_depth), 0) + 1
 
     def record_collect(self, dispatch_t: float, ready_t: float, *,
-                       fetch_s: float, wasted: int) -> None:
+                       fetch_s: float, wasted: int,
+                       wait_s: float = 0.0) -> None:
         with self._lock:
             self.segments += 1
             self.wasted_tokens += int(wasted)
             self.fetch_block_s += max(0.0, fetch_s)
+            self.device_wait_s += max(0.0, wait_s)
             # the union of [dispatch, ready] intervals, accumulated as
             # they come: both ends are monotone across segments
             self.device_busy_s += max(
@@ -139,6 +146,7 @@ class PipelineStats:
                 "drains": dict(self.drains),
                 "device_busy_s": round(self.device_busy_s, 4),
                 "fetch_block_s": round(self.fetch_block_s, 4),
+                "device_wait_s": round(self.device_wait_s, 4),
                 "wall_s": round(wall, 4),
                 "overlap_ratio": (round(self.device_busy_s / wall, 4)
                                   if wall else 0.0),
@@ -201,7 +209,10 @@ class EngineStats:
     their suffix continued on the request thread and packed like a
     long-prompt row), ``prefill_groups``/``rows_group_prefilled`` (the
     engine's grouped prefills), ``row_prefills`` (long prompts prefilled
-    alone on their request thread), ``requests_served``, ``cancelled``
+    alone on their request thread, a chunked row's continuation
+    included), ``prefill_chunks`` (the chunk forwards of chunked row
+    prefills), ``walk_segments`` (segments dispatched while a chunked
+    walk was in progress), ``requests_served``, ``cancelled``
     (rows failed with ``RequestCancelled`` at a barrier: deadline passed
     or waiter gone), and the decode programs' ``captures`` (CUDA graphs
     captured, reported as ``compile_count``), ``replays`` (steps run as a
@@ -219,6 +230,8 @@ class EngineStats:
     prefill_groups: int = 0
     rows_group_prefilled: int = 0
     row_prefills: int = 0
+    prefill_chunks: int = 0
+    walk_segments: int = 0
     requests_served: int = 0
     captures: int = 0
     replays: int = 0
@@ -232,11 +245,13 @@ class EngineStats:
         with self._lock:
             setattr(self, name, getattr(self, name) + int(n))
 
-    def record_segment(self, steps: int, live_rows: int) -> None:
+    def record_segment(self, steps: int, live_rows: int,
+                       beside_walk: bool = False) -> None:
         with self._lock:
             self.segments += 1
             self.steps += int(steps)
             self.rows_stepped += int(steps) * int(live_rows)
+            self.walk_segments += int(beside_walk)
 
     def record_group_prefill(self, rows: int) -> None:
         with self._lock:
@@ -246,6 +261,10 @@ class EngineStats:
     def record_row_prefill(self) -> None:
         with self._lock:
             self.row_prefills += 1
+
+    def record_prefill_chunks(self, chunks: int) -> None:
+        with self._lock:
+            self.prefill_chunks += int(chunks)
 
     def record_join(self) -> None:
         with self._lock:
@@ -275,10 +294,12 @@ class EngineStats:
                     "prefill_groups": self.prefill_groups,
                     "rows_group_prefilled": self.rows_group_prefilled,
                     "row_prefills": self.row_prefills,
-                    # forwards the engine ran: decode steps plus one per
-                    # prefill (grouped or alone)
+                    "prefill_chunks": self.prefill_chunks,
+                    "walk_segments": self.walk_segments,
+                    # forwards the engine ran: decode steps, one per
+                    # prefill (grouped or alone) and one per walk chunk
                     "forwards": (self.steps + self.prefill_groups
-                                 + self.row_prefills),
+                                 + self.row_prefills + self.prefill_chunks),
                     "requests_served": self.requests_served,
                     "cancelled": self.cancelled,
                     "compile_count": self.captures,
@@ -353,7 +374,9 @@ class PrefixCacheStats:
 
 @dataclass
 class PrefillStats:
-    """The prefix store's cold walks (the JAX package's ``PrefillStats``,
+    """Chunked walks: the prefix store's cold walks and the continuous
+    engine's chunked joiner prefills, which share one block when a
+    handler builds both (the JAX package's ``PrefillStats``,
     ``batching.prefill`` on ``/metrics``, cut to the chunked walk): a
     ROUND is one chunk's dispatch on the request's critical path,
     ``walks`` the walks run and ``critical_path_s`` their host wall

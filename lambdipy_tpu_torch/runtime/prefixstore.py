@@ -111,9 +111,15 @@ class PrefixStore:
             # crosses max_len
             self.block = page_width(cfg.max_len, block)
         # cold walks dispatch in chunks wider than a block (the blocks are
-        # cut from the walk's cache either way): 256 tokens, or the widest
-        # pow-2 width that divides the window; block-wide chunks finish it
-        wide = max(self.block, min(256, cfg.max_len))
+        # cut from the walk's cache either way): the server's
+        # prefill_chunk when it is a multiple of the block, else 256
+        # tokens; the widest pow-2 width that divides the window;
+        # block-wide chunks finish it
+        ck = server.prefill_chunk
+        if ck and ck % self.block == 0:
+            wide = ck
+        else:
+            wide = max(self.block, min(256, cfg.max_len))
         while wide > self.block and cfg.max_len % wide:
             wide //= 2
         self.walk_chunk = wide

@@ -370,7 +370,8 @@ def test_handler_wiring(weights):
                   {"session_pin_budget_mb": "64"},
                   {"session_ttl_s": "60"},
                   {"session_idle_s": "30"},
-                  {"kv_offload": "1"}):
+                  {"kv_offload": "1"},
+                  {"tokenizer_path": "tokenizer/"}):
         with pytest.raises(ValueError, match="not"):
             generate_handler({"model": "llama-tiny", "extra": extra},
                              HandlerContext(device="cpu"))

@@ -1198,3 +1198,59 @@ def test_routed_against_unrouted_stays_within_its_bound(cuda_device):
                                   return_logprobs=True)
         np.testing.assert_array_equal(routed[0], unrouted[0])
         assert abs(float(routed[1][0, 0] - unrouted[1][0, 0])) <= 0.05
+
+
+CHUNKED_ROWS = [(list(range(3, 63)), {}),             # 60: 3 chunks + 12
+                (list(range(10, 110)), SAMPLED),      # 100: 6 chunks + 4
+                (list(range(40, 73)), {}),            # 33: 2 chunks + 1
+                (list(range(90, 110)), {}),           # 20: 1 chunk + 4
+                (list(range(5, 12)), {}),             # 7: a grouped row
+                (list(range(7, 207)), {"temperature": 0.7, "seed": 3})]
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+@pytest.mark.parametrize("paged", ["1", "0"], ids=["paged", "dense"])
+def test_chunked_engine_rows_are_bitwise_solo(cuda_device, monkeypatch,
+                                              paged, depth):
+    """Long joiners on a ``prefill_chunk=16`` server prefill in chunks on
+    their request threads while other rows decode, dense and paged, at
+    pipeline depths 1-3: every chunked row's tokens and logprobs are
+    bitwise its solo ``generate(row[split:], prefix=row[:split])`` (the
+    same walk and continuation over the same window), a grouped row's
+    its solo ``generate``; every decode step a replay."""
+    from lambdipy_tpu_torch.runtime import continuous
+    from lambdipy_tpu_torch.runtime.handlers import make_engine
+
+    monkeypatch.setattr(continuous, "GROUP_PREFILL_MAX", 8)
+    adapter = registry.get("llama-tiny").build(
+        dtype="bfloat16", quant="int8", extra={**SMALL, **GRAPH_PATHS["A"]})
+    graph = adapter.make_server(adapter.init_params(seed=3, device="cpu"),
+                                device=cuda_device, prefill_chunk=16)
+    eng = make_engine(graph, {"batch_max": "4", "batch_segment": "4",
+                              "kv_paged": paged, "prefix_block": "16",
+                              "pipeline_depth": str(depth)})
+
+    def call(i):
+        row, kw = CHUNKED_ROWS[i]
+        return eng.generate(row, max_new_tokens=12, return_logprobs=True,
+                            **kw)
+
+    outs = _threads([lambda i=i: call(i) for i in range(len(CHUNKED_ROWS))])
+    chunks = 0
+    for (row, kw), got in zip(CHUNKED_ROWS, outs):
+        split = (len(row) - 1) // 16 * 16
+        if len(row) > 8:
+            chunks += split // 16
+            want = graph.generate(row[split:], prefix=row[:split],
+                                  max_new_tokens=12, return_logprobs=True,
+                                  **kw)
+        else:
+            want = graph.generate(row, max_new_tokens=12,
+                                  return_logprobs=True, **kw)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    stats = eng.stats()
+    assert stats["prefill_chunks"] == chunks and stats["row_prefills"] == 5
+    assert stats["replays"] == stats["steps"] > 0
+    if eng.pool is not None:
+        assert eng.pool.stats()["pages_live"] == 0
