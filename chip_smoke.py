@@ -78,7 +78,25 @@ Phases, each of which fails the run with a non-zero exit:
    ``/v1/completions`` against ``/invoke`` and its SSE stream, a burst
    of 8 shed ``queue_full`` past concurrency plus queue, a deadline
    shed, interactive granted before background, and ``/shutdown``
-   draining; its launch counters from 0 equal what the engine implies;
+   draining; its launch counters from 0 equal what the engine implies.
+   G, the engine's fault isolation on D's handler (a fresh server), engine
+   and weights: (a) ``segment_fetch:exception@seg=3`` armed over ``POST
+   /v1/debug/faults`` under D's burst of 8 (two rows streamed): every row
+   that had sent nothing replays bitwise its solo run and D's unfaulted
+   row, a streamed row that got a chunk ends with the injected error, the
+   pool drains, the recovery time printed; (b) ``engine_watchdog_s`` 1.0
+   and nothing injected: a 1.7 s ``torch.cuda._sleep`` on the serving
+   stream between two segments trips the wait within 1.5 s, ``/healthz``
+   reads not ready and wedged, a request meanwhile is shed 503 ``wedged``
+   with ``Retry-After``, the replayed row is bitwise solo and ``ready``
+   returns; with ``max_replays=0`` the waiter gets the timeout within the
+   same bound and the self-probe clears the wedge; (c) two failures step
+   the ladder to 1, the replay runs at depth 1 bitwise, a clean interval
+   restores it; (e) D's burst at the defaults (no wait polled), its tok/s
+   beside D's; (d) E's traffic routed through a store over a second paged
+   engine on the same server, every row bitwise its unfaulted routed run
+   after ``segment_fetch:exception@seg=2``. Each phase's launch counters,
+   from 0, equal its engine steps and forwards;
 5. print the kernels' JSON line and, last, the device line.
 
 Details go to ``chiprun_out/chip_smoke.json``. With no CUDA device, or
@@ -737,10 +755,11 @@ def flash_rows_invariant(gen) -> bool:
 # (k, n, x dtype, row counts): the projections of llama3-8b at
 # single-row decode (1), batch-4 decode (4), and the main path's prefills:
 # a prefix walk's block chunk and a continuation's suffix (32), path A's
-# 100-token prompt (bucket 128), a prefix walk's wide chunk (256), a 4 x
-# 512 group (2048) and the ~4,000-token prompt of paths B and C (bucket
-# 4096)
-PREFILL_MS = (1, 4, 32, 128, 256, 2048, 4096)
+# 100-token prompt (bucket 128), a prefix walk's wide chunk (256), a
+# chunked walk's chunk and a chunked tail at ``prefill_chunk=512`` (512), a
+# 4 x 512 group (2048) and the ~4,000-token prompt of paths B and C
+# (bucket 4096)
+PREFILL_MS = (1, 4, 32, 128, 256, 512, 2048, 4096)
 MATMUL_SHAPES = (
     (4096, 4096, torch.bfloat16, PREFILL_MS),    # q_proj, o_proj
     (4096, 1024, torch.bfloat16, PREFILL_MS),    # k_proj, v_proj
@@ -753,8 +772,11 @@ MATMUL_SHAPES = (
 # above
 GEMV_MS = (8, 16, 64)
 LINE_SHAPE = (4, 4096, 14336)  # the shape reported in the kernels line
-# rows this fast also get their device time; so does every GEMV row
+# rows this fast also get their device time; so does every GEMV row and
+# every row of these row counts (D's chunked turns run the tiled route at
+# m = 512)
 DEVICE_TIME_BELOW_MS = 0.2
+DEVICE_TIME_MS = (512,)
 # a decode step's int8 matmuls: each projection's calls per step (32
 # layers; q and o share 4096 x 4096, k and v 4096 x 1024, gate and up
 # 4096 x 14336) and the lm_head, 225 in all
@@ -873,7 +895,8 @@ def check_int8_matmul(gen) -> dict:
                                    n_deq)
             route = int8_route(m, alone)
             device_ms = None
-            if ms < DEVICE_TIME_BELOW_MS or route == "gemv":
+            if ms < DEVICE_TIME_BELOW_MS or route == "gemv" \
+                    or m in DEVICE_TIME_MS:
                 device_ms = {
                     "kernel": device_time(kernel, n_copies),
                     "library": device_time(
@@ -1692,6 +1715,9 @@ def serve_engine_path(card: str) -> dict:
     t_front = time.perf_counter()
     out["F"] = serve_front_path(state, card)
     log(f"path F took {time.perf_counter() - t_front:.1f} s")
+    t_fault = time.perf_counter()
+    out["G"] = serve_fault_path(state, reqs, resp, solo_out, depths, card)
+    log(f"path G took {time.perf_counter() - t_fault:.1f} s")
     del state, engine, server
     gc.collect()
     torch.cuda.empty_cache()
@@ -2304,6 +2330,506 @@ def serve_front_path(state, card: str) -> dict:
             "burst": {"admitted": len(ok), "shed": len(shed)},
             "sched": metrics, "grant_s": {k: granted[k] - sent["bg"]
                                           for k in granted}}
+
+
+# path G: engine fault isolation on D's handler, engine and weights (8
+# slots, segment 16, depth 2): a replay, the watchdog on a real wait, the
+# ladder, prefix rows replayed over their pages, and the default path
+FAULT_WATCHDOG_S = 1.0
+# the stall enqueued on the serving stream between two segments: past the
+# watchdog, so the next segment's wait trips; short enough that what the
+# replay waits for after the trip (the stall's last ~0.5 s) stays inside it
+FAULT_STALL_S = 1.7
+FAULT_TRIP_SLACK_S = 0.5  # a trip lands within the watchdog plus this
+# (c): the ladder's window (its own two failures, not those of (a) and
+# (b)) and the clean interval after which it restores
+FAULT_WINDOW_S = 5.0
+FAULT_CLEAN_S = 2.0
+G_STREAMED = (0, 3)  # (a) streams the burst's 16- and 500-token rows
+
+
+def _stall_cycles_per_s() -> float:
+    """``torch.cuda._sleep`` cycles per second on this card, timed."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(1000)
+    start.record()
+    torch.cuda._sleep(200_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    return 200_000_000 / (start.elapsed_time(end) / 1e3)
+
+
+def _faults_delta(before: dict, after: dict) -> dict:
+    """What one phase added to the engine's ``faults`` block."""
+    a, b = after["faults"], before["faults"]
+    return {"failures": {k: v - b["failures"].get(k, 0)
+                         for k, v in a["failures"].items()
+                         if v != b["failures"].get(k, 0)},
+            "watchdog_trips": a["watchdog_trips"] - b["watchdog_trips"],
+            "replays": {k: a["replays"][k] - b["replays"][k]
+                        for k in ("attempted", "succeeded")},
+            "degrade_steps": {k: v - b["degrade_steps"].get(k, 0)
+                              for k, v in a["degrade_steps"].items()
+                              if v != b["degrade_steps"].get(k, 0)},
+            "degrade_level": a["degrade_level"],
+            "recoveries": a["recoveries"] - b["recoveries"],
+            "restores": a["restores"] - b["restores"],
+            "wedged": a["wedged"]}
+
+
+def _engine_launches(phase: str, before: dict, after: dict, layers: int,
+                     extra_forwards: int = 0) -> dict:
+    """The launch counters since they were set to 0 must equal what the
+    engine's steps and forwards (plus ``extra_forwards``: walk chunks and
+    continuations) imply: the failed attempts' dispatched steps and every
+    replay's prefill counted."""
+    from lambdipy_tpu_torch.runtime.handlers import kernel_launches
+
+    launches = kernel_launches()
+    steps = after["steps"] - before["steps"]
+    forwards = after["forwards"] - before["forwards"] + extra_forwards
+    want = dict.fromkeys(KERNELS, 0)
+    want["paged_decode_attention"] = layers * steps
+    want["int8_matmul"] = (7 * layers + 1) * forwards
+    log(f"path G ({phase}) launch counters: {launches}, implied {want} "
+        f"({steps} engine steps, {forwards} forwards)")
+    if launches != want:
+        raise SystemExit(f"path G ({phase}): launch counters {launches} != "
+                         f"implied {want}")
+    return launches
+
+
+def _wait_decoding(engine, timeout: float = 120.0) -> None:
+    """Until a live row of ``engine`` has booked a segment."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        with engine._lock:
+            if any(e is not None and len(e["toks"]) >= engine.segment
+                   for e in engine._active):
+                return
+        time.sleep(0.002)
+    raise SystemExit("path G: no row started decoding")
+
+
+def _stall(cycles_per_s: float) -> float:
+    """``FAULT_STALL_S`` of ``torch.cuda._sleep`` on the serving stream,
+    between two of the engine's segments (it holds ``DEVICE_LOCK`` for
+    each dispatch and wait); returns when it was enqueued."""
+    from lambdipy_tpu_torch.models.graphs import DEVICE_LOCK
+
+    with DEVICE_LOCK:
+        torch.cuda._sleep(int(FAULT_STALL_S * cycles_per_s))
+        return time.monotonic()
+
+
+def _until_health(url: str, pred, timeout: float = 60.0) -> tuple:
+    """Poll ``/healthz`` until ``pred(health)``: (health, when)."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        h = http_json(url + "/healthz")
+        if pred(h):
+            return h, time.monotonic()
+        time.sleep(0.005)
+    raise SystemExit(f"path G: /healthz never met its condition: {h}")
+
+
+def fault_replay(url, engine, reqs, d_resp, solo_out, layers, card) -> dict:
+    """(a) ``segment_fetch:exception@seg=3`` armed over
+    ``/v1/debug/faults``, then D's burst of 8 (rows 0 and 3 streamed):
+    every row that has not streamed replays bitwise its solo run and D's
+    unfaulted row; a streamed row that got a chunk ends with the injected
+    error; the pool drains; the recovery time is from the failure to the
+    last replayed row's completion."""
+    code, out, _ = _http(url + "/v1/debug/faults",
+                         {"spec": "segment_fetch:exception@seg=3"})
+    if code != 200 or not out.get("ok"):
+        raise SystemExit(f"path G (a): arming failed: {out}")
+    burst = reqs[:8]
+    resp = [None] * len(burst)
+
+    def send(i):
+        _, body = burst[i]
+        if i in G_STREAMED:
+            records, _ = _post_stream(url + "/invoke", body)
+            resp[i] = {"records": records}
+        else:
+            resp[i] = http_json(url + "/invoke", body)
+
+    before = engine.stats()
+    seq0 = max(e["seq"] for e in engine.request_log)
+    n_fail = len(engine.failure_log)
+    set_launches_to_zero()
+    _drive(send, burst)
+    _idle(engine)
+    after = engine.stats()
+    launches = _engine_launches("a", before, after, layers)
+    _http(url + "/v1/debug/faults", {"clear": True})
+    delta = _faults_delta(before, after)
+    failure = engine.failure_log[n_fail]
+    streamed_errors = 0
+    for i, ((kind, body), r) in enumerate(zip(burst, resp)):
+        toks, lps = solo_out[i]
+        if "records" in r:
+            recs = r["records"]
+            if not recs[-1].get("ok"):
+                if not ("injected exception at segment_fetch"
+                        in recs[-1].get("error", "") and len(recs) > 1):
+                    raise SystemExit(f"path G (a): streamed row {i} ended "
+                                     f"badly: {recs[-1]}")
+                streamed_errors += 1
+                continue
+            r = {"tokens": [[t for x in recs[:-1] for t in x["tokens"][0]]],
+                 "logprobs": [[v for x in recs[:-1]
+                               for v in x["logprobs"][0]]]}
+        same = (r["tokens"] == toks.tolist()
+                and r["tokens"] == d_resp[i]["tokens"]
+                and ("logprobs" not in r
+                     or (np.array_equal(np.asarray(r["logprobs"]),
+                                        _as_served(lps))
+                         and r["logprobs"] == d_resp[i]["logprobs"])))
+        if not same:
+            raise SystemExit(f"path G (a): {kind} row {i} differs from its "
+                             f"solo run or D's unfaulted row")
+    replayed = [e for e in engine.request_log
+                if e["seq"] > seq0 and e["replays"]]
+    reps = delta["replays"]
+    log(f"path G (a): segment_fetch:exception@seg=3 over D's burst of 8: "
+        f"failures {delta['failures']}, replays {reps} ({failure['requeued']}"
+        f" rows requeued), {streamed_errors} streamed row(s) ended with the "
+        f"injected error, every other row bitwise its solo run and D's "
+        f"unfaulted row")
+    if (delta["failures"] != {"segment_fetch": 1} or reps["attempted"] < 1
+            or reps["attempted"] != reps["succeeded"]
+            or reps["attempted"] != failure["requeued"]
+            or len(replayed) != reps["attempted"]):
+        raise SystemExit(f"path G (a): faults {delta}, {len(replayed)} "
+                         f"replayed rows logged")
+    pool = engine.pool
+    pool.check_invariants()
+    if pool.stats()["pages_live"]:
+        raise SystemExit("path G (a): the pool did not drain")
+    recovery_s = max(e["t0"] + e["wall_s"] for e in replayed) - failure["at"]
+    log(f"path G (a): recovery {recovery_s:.3f} s from the failure to the "
+        f"last replayed row's completion; pool drained [{card}]")
+    return {"faults": delta, "launches": launches, "recovery_s": recovery_s,
+            "streamed_errors": streamed_errors,
+            "requeued": failure["requeued"]}
+
+
+def fault_watchdog(url, engine, reqs, solo_out, layers, card) -> dict:
+    """(b) ``engine_watchdog_s`` = ``FAULT_WATCHDOG_S`` and nothing
+    injected: a real stall on the serving stream between two segments of
+    a decoding row trips the wait within the watchdog plus
+    ``FAULT_TRIP_SLACK_S``; ``/healthz`` reads not ready and wedged; a
+    request while the replay waits is shed 503 ``wedged`` with
+    ``Retry-After``; the replayed row is bitwise solo, the wedge clears (1
+    recovery) and ``ready`` returns. Then with ``max_replays=0`` the
+    waiter gets :class:`EngineWatchdogTimeout` within the same bound, and
+    the self-probe clears the wedge."""
+    import threading
+
+    from lambdipy_tpu_torch.runtime.faults import EngineWatchdogTimeout
+
+    cycles = _stall_cycles_per_s()
+    engine.watchdog_s = FAULT_WATCHDOG_S
+    bound_s = FAULT_WATCHDOG_S + FAULT_TRIP_SLACK_S
+    _, body = reqs[0]  # 16 tokens, 128 new, greedy
+    want = solo_out[0][0][0].tolist()
+    before = engine.stats()
+    n_fail = len(engine.failure_log)
+    set_launches_to_zero()
+    res = {}
+
+    def call():
+        code, res["r"], _ = _http(url + "/invoke", body)
+        res["code"] = code
+
+    th = threading.Thread(target=call)
+    th.start()
+    _wait_decoding(engine)
+    t_stall = _stall(cycles)
+    wedged, _ = _until_health(url, lambda h: h.get("wedged"), 30)
+    shed = None
+    while shed is None:
+        h = http_json(url + "/healthz")
+        if not h.get("wedged"):
+            raise SystemExit("path G (b): the engine recovered before a "
+                             "request could be shed")
+        if h["engine"]["restarting"]:
+            code, payload, hdrs = _http(url + "/invoke",
+                                        {"tokens": [1, 2, 3],
+                                         "max_new_tokens": 4})
+            shed = {"code": code, "body": payload,
+                    "retry_after": hdrs.get("Retry-After")}
+    ready, t_ready = _until_health(url, lambda h: h.get("ready"), 60)
+    th.join(timeout=300)
+    trip = engine.failure_log[n_fail]
+    mid = engine.stats()
+    delta = _faults_delta(before, mid)
+    log(f"path G (b): a {FAULT_STALL_S} s stall on the serving stream "
+        f"tripped the {trip['site']} wait after {trip['waited_s']:.3f} s "
+        f"(watchdog {FAULT_WATCHDOG_S} s; the trip {trip['at'] - t_stall:.3f}"
+        f" s after the stall was enqueued); /healthz ready "
+        f"{wedged['ready']} wedged {wedged['wedged']}; the request sent "
+        f"while the replay waited: {shed['code']} {shed['body'].get('shed')}"
+        f" Retry-After {shed['retry_after']}; trip to ready "
+        f"{t_ready - trip['at']:.3f} s [{card}]")
+    if not (trip["site"] == "watchdog:transport"
+            and trip["waited_s"] <= bound_s and not wedged["ready"]
+            and shed["code"] == 503 and shed["body"].get("shed") == "wedged"
+            and shed["retry_after"]
+            and res.get("r", {}).get("tokens") == [want]
+            and ready["ready"] and not ready["wedged"]
+            and delta["recoveries"] == 1 and delta["watchdog_trips"] == 1
+            and delta["replays"] == {"attempted": 1, "succeeded": 1}):
+        got = (res.get("r") or {}).get("tokens") or [[]]
+        diff = next((j for j, (a, b) in enumerate(zip(got[0], want))
+                     if a != b), None)
+        raise SystemExit(f"path G (b): trip {trip}, health {wedged} then "
+                         f"{ready}, shed {shed}, faults {delta}, the row: "
+                         f"{res.get('code')} "
+                         f"{(res.get('r') or {}).get('error')}, "
+                         f"{len(got[0])} tokens, first difference at "
+                         f"{diff}: {got[0][diff - 2:diff + 3] if diff else ''}"
+                         f" against {want[diff - 2:diff + 3] if diff else ''}")
+    # the same stall with no replay budget: the waiter gets the timeout
+    engine.max_replays = 0
+    n_fail = len(engine.failure_log)
+    err = {}
+
+    def direct():
+        try:
+            engine.generate(body["tokens"],
+                            max_new_tokens=body["max_new_tokens"])
+        except EngineWatchdogTimeout as e:
+            err["at"], err["e"] = time.monotonic(), e
+
+    th = threading.Thread(target=direct)
+    th.start()
+    _wait_decoding(engine)
+    _stall(cycles)
+    th.join(timeout=60)
+    trip0 = engine.failure_log[n_fail]
+    waiter_s = err["at"] - (trip0["at"] - trip0["waited_s"]) \
+        if "at" in err else None
+    ready0, t_ready0 = _until_health(url, lambda h: h.get("ready"), 60)
+    engine.max_replays = 1
+    engine.watchdog_s = 0.0
+    after = engine.stats()
+    launches = _engine_launches("b", before, after, layers)
+    log(f"path G (b): with max_replays=0 the waiter got "
+        f"{type(err.get('e')).__name__} {waiter_s} s after its wait "
+        f"began (bound {bound_s} s); the self-probe cleared the wedge "
+        f"{t_ready0 - trip0['at']:.3f} s after the trip [{card}]")
+    if waiter_s is None or waiter_s > bound_s or not ready0["ready"]:
+        raise SystemExit(f"path G (b): max_replays=0 waiter {err}, trip "
+                         f"{trip0}, health {ready0}")
+    return {"trip_s": trip["waited_s"],
+            "trip_to_ready_s": t_ready - trip["at"],
+            "shed": {"code": shed["code"],
+                     "retry_after": shed["retry_after"]},
+            "no_replay_waiter_s": waiter_s,
+            "probe_to_ready_s": t_ready0 - trip0["at"],
+            "faults": _faults_delta(before, after), "launches": launches}
+
+
+def fault_ladder(url, engine, reqs, solo_out, layers, card) -> dict:
+    """(c) ``segment_fetch:exception@seg=1,n=2`` with ``max_replays=2``:
+    the attempt and the first replay fail, the level becomes 1, the second
+    replay runs at depth 1 (no second segment in flight) and is bitwise
+    solo; after ``degrade_clean_s`` the next request restores level 0."""
+    last = engine.failure_log[-1]["at"]
+    time.sleep(max(0.0, last + FAULT_WINDOW_S + 0.1 - time.monotonic()))
+    engine.degrade_window_s = FAULT_WINDOW_S
+    engine.degrade_clean_s = FAULT_CLEAN_S
+    engine.max_replays = 2
+    _http(url + "/v1/debug/faults",
+          {"spec": "segment_fetch:exception@seg=1,n=2"})
+    before = engine.stats()
+    set_launches_to_zero()
+    _, body = reqs[0]
+    got = engine.generate(body["tokens"],
+                          max_new_tokens=body["max_new_tokens"],
+                          return_logprobs=True)
+    _idle(engine)
+    stepped = engine.stats()
+    _http(url + "/v1/debug/faults", {"clear": True})
+    time.sleep(FAULT_CLEAN_S + 0.2)
+    kind1, body1 = reqs[1]
+    got1 = engine.generate(body1["tokens"],
+                           max_new_tokens=body1["max_new_tokens"],
+                           return_logprobs=True, **_knobs(body1))
+    _idle(engine)
+    after = engine.stats()
+    launches = _engine_launches("c", before, after, layers)
+    engine.max_replays = 1
+    engine.degrade_window_s = 60.0
+    engine.degrade_clean_s = 30.0
+    d1, d2 = _faults_delta(before, stepped), _faults_delta(stepped, after)
+    two = {k: stepped["pipeline"]["in_flight"].get(k, 0)
+           - before["pipeline"]["in_flight"].get(k, 0) for k in ("1", "2")}
+    bitwise = all(np.array_equal(a[j], b[j]) for a, b in
+                  ((got, solo_out[0]), (got1, solo_out[1])) for j in (0, 1))
+    log(f"path G (c): failures {d1['failures']}, level {d1['degrade_level']}"
+        f" (steps {d1['degrade_steps']}), replays {d1['replays']}; segments "
+        f"dispatched with 1 / 2 in flight {two['1']} / {two['2']} (the two "
+        f"failed attempts reached 2, the depth-1 replay 1); rows bitwise "
+        f"solo {bitwise}; after {FAULT_CLEAN_S} s clean: level "
+        f"{d2['degrade_level']}, restores {d2['restores']} [{card}]")
+    if not (bitwise and d1["degrade_level"] == 1
+            and d1["degrade_steps"] == {"1": 1} and two["2"] == 2
+            and d1["replays"] == {"attempted": 2, "succeeded": 1}
+            and d2["degrade_level"] == 0 and d2["restores"] == 1):
+        raise SystemExit(f"path G (c): {d1}, {d2}, in flight {two}, "
+                         f"bitwise {bitwise}")
+    return {"stepped": d1, "restored": d2, "in_flight": two,
+            "launches": launches}
+
+
+def fault_default(engine, reqs, depths, layers, card) -> dict:
+    """(e) D's burst driven directly at the defaults (no watchdog, an
+    empty plan, one replay): tok/s beside D's own depth-2 bursts of this
+    run; no wait polled."""
+    def send(i):
+        _, body = reqs[i]
+        engine.generate(body["tokens"], max_new_tokens=body["max_new_tokens"],
+                        **_knobs(body))
+
+    if engine.watchdog_s or engine.faults.active() or engine.max_replays != 1:
+        raise SystemExit("path G (e): the engine is not at its defaults")
+    before = engine.stats()
+    set_launches_to_zero()
+    _, burst_s = _drive(send, reqs)
+    _idle(engine)
+    after = engine.stats()
+    launches = _engine_launches("e", before, after, layers)
+    polled = after["polled_waits"] - before["polled_waits"]
+    tok_s = new_tokens_of(reqs) / burst_s
+    d2 = [b["decode_tok_s"] for b in depths["depth2"]]
+    log(f"path G (e): D's burst at the defaults {burst_s:.3f} s, "
+        f"{tok_s:.1f} tok/s (D's depth-2 bursts of this run "
+        f"{', '.join(f'{x:.1f}' for x in d2)}); waits polled: {polled} "
+        f"[{card}]")
+    if polled:
+        raise SystemExit("path G (e): the default path polled")
+    return {"burst_wall_s": burst_s, "decode_tok_s": tok_s,
+            "d_depth2_tok_s": d2, "polled_waits": polled,
+            "launches": launches}
+
+
+def fault_prefix(server, layers, card) -> dict:
+    """(d) E's traffic (a seeded 2,048-token head and 8 suffixes, 24 new,
+    even rows greedy, odd seeded) routed through a prefix store over a
+    paged engine on D's weights: unfaulted, then with
+    ``segment_fetch:exception@seg=2``: every routed row bitwise its
+    unfaulted routed run, the paged rows continued again over the pages
+    they kept, the pool left holding the store's pages."""
+    import threading
+
+    from lambdipy_tpu_torch.runtime.handlers import (make_engine,
+                                                     make_prefix_store)
+
+    cfg = server.model.cfg
+    engine = make_engine(server, {**ENGINE_EXTRA, "kv_pages": "1025"})
+    store = make_prefix_store(server, engine, {})
+    block = store.block
+    rng = torch.Generator().manual_seed(21)
+
+    def tokens(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    head = tokens(PREFIX_HEAD)
+    rows = [(head + tokens(n), prefix_knobs(i))
+            for i, (n, _) in enumerate(PREFIX_SUFFIXES)]
+
+    def burst():
+        out = [None] * len(rows)
+
+        def one(i):
+            row, kw = rows[i]
+            m = store.route(row)
+            if m != prefix_target(len(row), block, cfg.max_len):
+                raise SystemExit(f"path G (d): row {i} routed {m} tokens")
+            out[i] = engine.generate(row[m:], prefix=row[:m],
+                                     max_new_tokens=PREFIX_NEW,
+                                     return_logprobs=True, **kw)
+
+        one(0)  # the cold walk, then the rest together
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(1, len(rows))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        _idle(engine)
+        return out
+
+    want = burst()
+    engine.faults.arm("segment_fetch:exception@seg=2")
+    before, rounds0 = engine.stats(), store.stats()["prefill"]["rounds"]
+    set_launches_to_zero()
+    got = burst()
+    after = engine.stats()
+    walked = store.stats()["prefill"]["rounds"] - rounds0
+    continuations = after["prefix_joins"] - before["prefix_joins"]
+    launches = _engine_launches("d", before, after, layers,
+                                extra_forwards=walked + continuations)
+    delta = _faults_delta(before, after)
+    bitwise = all(w is not None and g is not None and np.array_equal(
+        w[j], g[j]) for w, g in zip(want, got) for j in (0, 1))
+    engine.pool.check_invariants()
+    inv = store.check_invariants()
+    pages = engine.pool.stats()["pages_live"]
+    log(f"path G (d): E's 8 routed rows with segment_fetch:exception@seg=2:"
+        f" failures {delta['failures']}, replays {delta['replays']}, "
+        f"{continuations} continuations ({walked} walk chunks); every row "
+        f"bitwise its unfaulted routed run: {bitwise}; pool holds "
+        f"{pages} pages = the store's {inv['blocks']} [{card}]")
+    if not (bitwise and delta["failures"] == {"segment_fetch": 1}
+            and delta["replays"]["attempted"] >= 1
+            and delta["replays"]["attempted"] == delta["replays"]["succeeded"]
+            and inv["ok"] and pages == inv["blocks"]):
+        raise SystemExit(f"path G (d): {delta}, bitwise {bitwise}, pages "
+                         f"{pages}, store {inv}")
+    engine.release()
+    del engine, store
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"faults": delta, "continuations": continuations,
+            "launches": launches}
+
+
+def serve_fault_path(state, reqs, d_resp, solo_out, depths, card) -> dict:
+    """Phase 4, path G: the engine's fault isolation on D's handler
+    (served over HTTP by a fresh server), D's engine and D's weights:
+    (a) a replay, (b) the watchdog on a real wait, (c) the ladder, (e) the
+    default path, then (d) prefix rows on a second paged engine over the
+    same server. Each phase sets the launch counters to 0 just before it
+    and checks them after; the path's launches are their sum."""
+    from lambdipy_tpu_torch.runtime.server import BundleServer
+
+    engine, server = state.engine, state.server
+    layers = server.model.cfg.layers
+    # (a) and (b) leave the ladder alone: their failures come seconds
+    # apart, (c) steps it with its own two
+    engine.degrade_window_s = 0.1
+    http = BundleServer(state, port=0).start_background()
+    try:
+        out = {"a": fault_replay(http.url, engine, reqs, d_resp, solo_out,
+                                 layers, card),
+               "b": fault_watchdog(http.url, engine, reqs, solo_out, layers,
+                                   card),
+               "c": fault_ladder(http.url, engine, reqs, solo_out, layers,
+                                 card)}
+        metrics = http_json(http.url + "/metrics")
+    finally:
+        http.stop()
+    out["e"] = fault_default(engine, reqs, depths, layers, card)
+    out["d"] = fault_prefix(server, layers, card)
+    out["metrics_faults"] = metrics["handler"]["batching"]["faults"]
+    out["launches"] = {k: sum(out[p]["launches"][k] for p in "abcde")
+                       for k in KERNELS}
+    return out
 
 
 def profile_engine(engine, prompts, card: str, n_new: int = 16) -> dict:
@@ -2986,8 +3512,9 @@ def main() -> int:
     # path F ran on D's handler, after D's numbers; D's chunked turns are
     # counted apart from its HTTP burst
     paths["F"] = paths["D"].pop("F")
+    paths["G"] = paths["D"].pop("G")
     paths["D-chunked"] = paths["D"].pop("chunked")
-    log(f"paths D and F took {time.perf_counter() - t_path:.1f} s")
+    log(f"paths D, F and G took {time.perf_counter() - t_path:.1f} s")
     for path in PATHS:
         t_path = time.perf_counter()
         paths[path] = serve_path(path, card)

@@ -82,8 +82,9 @@ boundaries, packed into a free slot.
 - Device work (prefills, packing, dispatches and the waits on a
   segment's event) holds the process's ``DEVICE_LOCK``, so no capture
   ever runs beside it: the engine takes it for "dispatch N+1, wait on
-  N" and lets it go while N's tokens are booked. An engine reset drops
-  its step and graphs, as does a rebuilt arena.
+  N" and lets it go while N's tokens are booked. A rebuilt arena drops
+  the step and its graphs, as does a failure from the CUDA runtime or a
+  watchdog trip (below).
 - Prefix rows (``prefix=``, explicit or from the prefix store's routing)
   continue their suffix from the cached prefix K/V on their request
   thread (``models/llama.py _continue_prefill``) and join like a
@@ -97,8 +98,43 @@ boundaries, packed into a free slot.
   the whole window, so a prefix row needs an engine whose ``cache_len``
   is ``max_len``; elsewhere it runs solo.
 
-Not ported yet (ROADMAP): window bucketing, the watchdog / replay /
-degradation ladder, speculation, long context and meshes.
+- Fault isolation (``runtime/faults.py`` is the injection layer), as in
+  JAX: every device wait the engine makes (a segment's dispatch, the wait
+  on its CUDA event, its host read, a group prefill) goes through
+  :meth:`ContinuousBatcher._device_wait`, which fires the site's fault
+  hook and, under ``watchdog_s``, registers the wait with a monitor
+  thread. A wait past ``watchdog_s`` marks the engine wedged, aborts the
+  wait (under a watchdog a CUDA-event wait polls ``event.query()`` and
+  its abort flag, since ``synchronize()`` cannot be interrupted, so the
+  stuck thread lets go of ``DEVICE_LOCK``) and bumps the engine's
+  GENERATION: a superseded thread exits at its next check without
+  touching state. On any engine failure (:meth:`ContinuousBatcher.
+  _fail_engine`) rows already done keep their results, rows that have
+  delivered no bytes (not streamed, or streamed before the first chunk)
+  are reset to their admitted state and REPLAYED through a restarted
+  engine, at most ``max_replays`` times (default 1, as in JAX), bitwise
+  the first attempt, and the rest get the error. A row never packed
+  keeps its prefill; a packed one gets a fresh generator from its seed
+  and prefills again through the function that admitted it: short rows
+  in the group prefill, long rows
+  alone on the engine thread (plain or chunked), prefix rows continue
+  again from the server's prefix entry (dense) or over the pages they
+  kept, shared prefix pages included (paged). Unlike JAX the arena is not
+  reset: it is written in place and never holds the output of a failed
+  computation, and engine writes never land in shared prefix pages. The
+  step and its graphs survive a failure unless it came from the CUDA
+  runtime or the watchdog. A CUDA runtime error is sticky: it wedges the
+  engine and replays nothing. Two failures inside ``degrade_window_s``
+  step the DEGRADATION LADDER (1: depth 1; 2: the full-window program,
+  which is all the port has; 3: the prefix store bypassed, in the
+  handler), and ``degrade_clean_s`` without a failure restores it. A
+  wedged idle engine runs a self-probe, a trivial device round trip on a
+  disposable thread under the watchdog; the first clean fetch after a
+  failure, or a probe that succeeds, clears the wedge. Everything is
+  published as ``EngineFaultStats`` under ``batching.faults``.
+
+Not ported yet (ROADMAP): window bucketing, speculation, long context and
+meshes.
 """
 
 from __future__ import annotations
@@ -122,8 +158,12 @@ from lambdipy_tpu_torch.models.llama import (DecodeStep, _kv_store,
                                              init_decode_cache,
                                              pack_prefill_into_pages,
                                              row_generators)
-from lambdipy_tpu_torch.runtime.metrics import (EngineStats, PipelineStats,
+from lambdipy_tpu_torch.runtime.faults import (EngineWatchdogTimeout,
+                                               FaultPlan)
+from lambdipy_tpu_torch.runtime.metrics import (EngineFaultStats,
+                                                EngineStats, PipelineStats,
                                                 PrefillStats)
+from lambdipy_tpu_torch.runtime.pagepool import PagesExhausted
 from lambdipy_tpu_torch.sched import (current_request_class,
                                       current_request_deadline_ms)
 
@@ -140,15 +180,43 @@ class RequestCancelled(RuntimeError):
     stream) or its deadline passed mid-decode."""
 
 
+class _StaleEngine(Exception):
+    """Raised in an engine thread whose generation a failure superseded:
+    it exits without touching the restarted engine's state."""
+
+
+def is_cuda_error(error: BaseException) -> bool:
+    """A CUDA runtime error (an illegal address, a launch failure): it
+    poisons the process's context, so no replay in this process can
+    succeed. An out-of-memory error is not one."""
+    accel = getattr(torch, "AcceleratorError", None)
+    return ((accel is not None and isinstance(error, accel))
+            or "CUDA error" in str(error))
+
+
+def _stamp(error: BaseException, site: str) -> None:
+    """Attribute a failure to the site it surfaced at, unless it carries
+    one (an injected fault, a watchdog timeout)."""
+    if not hasattr(error, "fault_site"):
+        error.fault_site = site
+
+
 class ContinuousBatcher:
     """Segment-boundary continuous batching over a ``LlamaServer``.
     ``policy`` (``sched.policy``) orders the joiners a barrier hands free
     slots to (None: arrival order); ``pipeline_depth`` is the most
-    segments kept on the card."""
+    segments kept on the card. ``watchdog_s`` bounds device waits (0:
+    off, the default, as in JAX), ``max_replays`` the replays of a row
+    that delivered nothing, ``faults`` is the injection plan (shared with
+    the pool when it has none); ``degrade_window_s`` and
+    ``degrade_clean_s`` drive the degradation ladder."""
 
     def __init__(self, server, *, slots: int = 8, segment: int = 16,
                  cache_len: int | None = None, page_pool=None, policy=None,
-                 pipeline_depth: int = 2):
+                 pipeline_depth: int = 2, watchdog_s: float = 0.0,
+                 max_replays: int = 1, faults: FaultPlan | None = None,
+                 degrade_window_s: float = 60.0,
+                 degrade_clean_s: float = 30.0):
         cfg = server.model.cfg
         self.server = server
         self.slots = max(1, int(slots))
@@ -188,10 +256,40 @@ class ContinuousBatcher:
         # unset, prefix rows run solo
         self.prefix_pages_fn = None
         # the last retired rows: prompt length, tokens asked, seconds from
-        # admission to the first booked token and to completion; paged
-        # rows also their page count and when (``time.monotonic``) the
-        # pages were charged and released
+        # admission to the first booked token and to completion, replays;
+        # paged rows also their page count and when (``time.monotonic``)
+        # the pages were charged and released
         self.request_log: deque = deque(maxlen=256)
+        # -- fault isolation ---------------------------------------------
+        self.watchdog_s = max(0.0, float(watchdog_s or 0.0))
+        self.max_replays = max(0, int(max_replays))
+        self.faults = faults if faults is not None else FaultPlan.empty()
+        self.fault_stats = EngineFaultStats()
+        if page_pool is not None and page_pool.faults is None:
+            # one plan drives the pool's page_alloc site too
+            page_pool.faults = self.faults
+        self.degrade_window_s = max(0.1, float(degrade_window_s))
+        self.degrade_clean_s = max(0.1, float(degrade_clean_s))
+        self._fail_times: list[float] = []
+        self._last_failure_t: float | None = None
+        self._had_failure = False        # a recovery waits for a clean fetch
+        # bumped by every failure: a thread of an older generation exits
+        self._gen = 0
+        self._waits: dict[int, dict] = {}   # waits under the watchdog
+        self._wait_seq = itertools.count()
+        self._monitor: threading.Thread | None = None
+        # the wedged engine's self-probe: when it last fired, whether one
+        # runs, and consecutive misses (its back-off)
+        self._probe_t = 0.0
+        self._probe_live = False
+        self._probe_misses = 0
+        # CUDA-event waits that polled (a watchdog or an armed plan); the
+        # default path synchronizes and never polls
+        self.polled_waits = 0
+        # the last failures: site, when (``time.monotonic``), rows
+        # requeued, whether it wedged the engine, and for a watchdog trip
+        # how long the wait had lasted
+        self.failure_log: deque = deque(maxlen=64)
 
     # -- paged-KV helpers ----------------------------------------------------
 
@@ -199,16 +297,30 @@ class ContinuousBatcher:
         """Charge pages for the row's tokens (prompt + requested decode),
         ``shared`` prefix pages (already retained for the row) first, so
         only the rest are allocated; :class:`PagesExhausted` propagates
-        to the caller after the shared refs drop. Charges and releases
-        happen under the engine lock, so their times order them as the
-        pool saw them."""
+        to the caller after the shared refs drop. Any other allocator
+        failure (an armed ``page_alloc`` fault) sheds this row as
+        :class:`PagesExhausted` too, counted under its site, and leaves
+        the engine alone. Charges and releases happen under the engine
+        lock, so their times order them as the pool saw them."""
         shared = list(shared)
         page = self.pool.page
+        need = -(-tokens // page) - len(shared)
         with self._lock:
             try:
-                fresh = self.pool.alloc(
-                    -(-tokens // page) - len(shared),
-                    tokens=tokens - len(shared) * page)
+                fresh = self.pool.alloc(need,
+                                        tokens=tokens - len(shared) * page)
+            except PagesExhausted:
+                if shared:
+                    self.pool.release(shared)
+                raise
+            except Exception as e:  # noqa: BLE001 — an injected fault
+                if shared:
+                    self.pool.release(shared)
+                self.fault_stats.record_failure(
+                    getattr(e, "fault_site", "page_alloc"))
+                raise PagesExhausted(
+                    max(0, need), self.pool.free_count(),
+                    self.pool.retry_after_s(max(1, need))) from e
             except BaseException:
                 if shared:
                     self.pool.release(shared)
@@ -292,7 +404,7 @@ class ContinuousBatcher:
                                                   gens)
         return first, lp0, cache
 
-    def _pack(self, entry: dict, prefill, src: int) -> None:
+    def _pack(self, entry: dict, prefill, src: int, gen: int) -> None:
         """Row ``src`` of a prefill into the entry's slot: the first token,
         its logprob, the position and the generator's state into the
         step's slot; the K/V into the slot's cache row (dense) or its pages
@@ -327,27 +439,102 @@ class ContinuousBatcher:
                     rows = _kv_store(cfg, rows["k"], rows["v"])
                 for name, val in rows.items():
                     dest[name][slot, :width] = val
-        entry["packed"] = True
+        with self._lock:
+            if gen != self._gen:
+                raise _StaleEngine()  # a failure reset the entry meanwhile
+            entry["packed"] = True
         self.stats_counters.record_join()
         if entry["prefix_toks"] is not None:
             self.stats_counters.record_prefix_join()
 
-    def _pack_joiners(self, packing: list) -> None:
-        """Prefill the raw joiners, grouped by prompt bucket, and pack
-        every joiner of this barrier."""
+    def _replay_prefill(self, entry: dict):
+        """A replayed row's prefill, on the engine thread, through the
+        function that admitted it (caller holds ``DEVICE_LOCK``): a long
+        row alone (plain or chunked), so it is never regrouped at a width
+        it did not run at; a dense prefix row continued again from the
+        server's prefix entry; a paged prefix row continued again over
+        the pages it kept, shared prefix pages included."""
+        route = entry["route"]
+        if route == "prefix":
+            return self._prefill_prefix_row(
+                entry, self.server._prefix_entry(entry["prefix_toks"]))
+        if route == "paged_prefix":
+            return self._paged_continue_row(entry)
+        out = (self._prefill_row_chunked(entry) if route == "chunked"
+               else self._prefill_rows([entry]))
+        self.stats_counters.record_row_prefill()
+        return out
+
+    def _pack_joiners(self, packing: list, gen: int) -> None:
+        """Prefill this barrier's joiners and pack them: replayed rows of
+        another route alone through :meth:`_replay_prefill`, the raw ones
+        grouped by prompt bucket. A failed prefill stays scoped to its
+        rows, as in JAX: a replayed row gets the error; a group's rows
+        under their replay budget wait for the next barrier, the others
+        get the error."""
+        for e in [e for e in packing
+                  if e["prefill"] is None and e["route"] != "group"]:
+            site = ("prefix_assemble" if e["prefix_toks"] is not None
+                    else "group_prefill")
+            try:
+                e["prefill"] = self._device_wait(site, gen,
+                                                 self._replay_prefill, e)
+            except (_StaleEngine, EngineWatchdogTimeout):
+                raise
+            except Exception as err:  # noqa: BLE001 — scoped to the row
+                with self._lock:
+                    if gen != self._gen:
+                        raise _StaleEngine() from None
+                    log.error("replayed row's prefill failed: %s", err)
+                    self.fault_stats.record_failure(
+                        getattr(err, "fault_site", site))
+                    e["error"], e["done"] = err, True
+                    self._active[e["slot"]] = None
+                    if self.pool is not None:
+                        self._release_pages(e)
+                    self._lock.notify_all()
         groups: dict[int, list] = {}
         for e in packing:
-            if e["prefill"] is None:
+            if e["prefill"] is None and e["route"] == "group":
                 sb = self.server.prompt_bucket(e["s"], e["n"])
                 groups.setdefault(sb, []).append(e)
         for group in groups.values():
-            prefill = self._prefill_rows(group)
+            try:
+                prefill = self._device_wait("group_prefill", gen,
+                                            self._prefill_rows, group)
+            except (_StaleEngine, EngineWatchdogTimeout):
+                raise
+            except Exception as err:  # noqa: BLE001 — scoped to the group
+                with self._lock:
+                    if gen != self._gen:
+                        raise _StaleEngine() from None
+                    log.error("group prefill failed: %s", err)
+                    self.fault_stats.record_failure(
+                        getattr(err, "fault_site", "group_prefill"))
+                    retried = 0
+                    for j in group:
+                        self._active[j["slot"]] = None
+                        if j["replays"] < self.max_replays:
+                            j["replays"] += 1
+                            j["slot"] = None
+                            j["gen"] = row_generators([(j["seed"], 0)],
+                                                      self.server.device)[0]
+                            self._joiners.append(j)
+                            retried += 1
+                        else:
+                            j["error"], j["done"] = err, True
+                            if self.pool is not None:
+                                self._release_pages(j)
+                    if retried:
+                        self.fault_stats.record_replays(attempted=retried)
+                    self._lock.notify_all()
+                continue
             self.stats_counters.record_group_prefill(len(group))
             for src, e in enumerate(group):
-                self._pack(e, prefill, src)
+                self._pack(e, prefill, src, gen)
         for e in packing:
-            if e["prefill"] is not None:
-                self._pack(e, e["prefill"], 0)
+            if e["prefill"] is not None and not e["done"]:
+                self._pack(e, e["prefill"], 0, gen)
                 e["prefill"] = None  # free the row's prefill cache
 
     @staticmethod
@@ -364,14 +551,14 @@ class ContinuousBatcher:
     def _run_segment(self, live: list) -> dict:
         """Dispatch one segment (caller holds ``DEVICE_LOCK``): every slot
         advances ``k`` steps, ``k`` the undispatched quota of the live
-        row furthest from its end, at most ``segment``; each row's
-        ``disp`` moves by ``k``. Only rows with quota left take their
-        knobs: one whose output is all dispatched decodes greedy garbage,
-        as a finished row does, so the segment samples (and picks the
-        sampled program) exactly when the depth-1 loop would. The ``[B,
-        k]`` block goes to pinned host memory behind a CUDA event on the
-        card (on the CPU it is there already). Returns the in-flight
-        record :meth:`_collect` books."""
+        row furthest from its end, at most ``segment``. Only rows with
+        quota left take their knobs: one whose output is all dispatched
+        decodes greedy garbage, as a finished row does, so the segment
+        samples (and picks the sampled program) exactly when the depth-1
+        loop would. The ``[B, k]`` block goes to pinned host memory behind
+        a CUDA event on the card (on the CPU it is there already). Returns
+        the in-flight record :meth:`_collect` books; the caller moves the
+        rows' ``disp`` by its ``k``."""
         step, b = self._step, self.slots
         rows = [(slot, e) for slot, e in live
                 if not e["done"] and e["disp"] < e["n"]]
@@ -409,37 +596,51 @@ class ContinuousBatcher:
                     rec[key] = host.copy_(rec[key], non_blocking=True)
             rec["event"] = torch.cuda.Event()
             rec["event"].record()
-        for _, e in live:
-            e["disp"] += k
         self.stats_counters.record_segment(k, len(rows),
                                            beside_walk=self._walking > 0)
         return rec
 
-    def _wait(self, rec: dict) -> None:
+    def _wait(self, rec: dict, gen: int) -> None:
         """Block until the card has computed the record's segment and
         copied its block to the host (caller holds ``DEVICE_LOCK``: a wait
-        beside another thread's capture would invalidate it); stamps when
-        it was ready and how long the host waited on the card."""
+        beside another thread's capture would invalidate it), through the
+        ``transport`` site; stamps when it was ready and how long the host
+        waited on the card."""
         t0 = time.monotonic()
-        if rec["event"] is not None:
-            rec["event"].synchronize()
+        self._device_wait("transport", gen, event=rec["event"])
         rec["t_ready"] = time.monotonic()
         rec["wait_s"] = rec["t_ready"] - t0
 
-    def _collect(self, rec: dict) -> None:
-        """Book a segment's block: each live row's tokens (and logprobs
-        when some row asked), its first eos, and done at its eos or
-        quota. A row already done when its block lands (finished behind
-        the dispatch frontier) books nothing: the block is counted as
-        wasted."""
+    @staticmethod
+    def _fetch(rec: dict):
+        """The host arrays of a segment's block (its pinned copy is
+        complete once the wait returned)."""
         toks = rec["toks"].numpy()
         lps = rec["lps"].float().numpy() if rec["lps"] is not None else None
+        return toks, lps
+
+    def _collect(self, rec: dict, gen: int) -> None:
+        """Book a segment's block, read through the ``segment_fetch``
+        site: each live row's tokens (and logprobs when some row asked),
+        its first eos, and done at its eos or quota. A row already done
+        when its block lands (finished behind the dispatch frontier)
+        books nothing: the block is counted as wasted. The first clean
+        fetch after a failure counts a recovery and clears a wedge."""
+        toks, lps = self._device_wait("segment_fetch", gen, self._fetch, rec)
         now = time.monotonic()
         # the JAX metric's interval: from the wait's return until the
         # host arrays exist (its device_get after block_until_ready)
         fetch_s = now - rec["t_ready"]
         wasted = 0
         with self._lock:
+            if gen != self._gen:
+                # a failure reset these rows while this thread read: their
+                # booking would corrupt the replay
+                raise _StaleEngine()
+            if self._had_failure:
+                self._had_failure = False
+                self.fault_stats.record_recovery()
+                self.fault_stats.set_wedged(False)
             for slot, e in rec["rows"]:
                 if e["done"]:
                     wasted += rec["k"]
@@ -459,20 +660,313 @@ class ContinuousBatcher:
                     e["done"] = True
                     e["wall_s"] = now - e["t0"]
                     self.stats_counters.record_served()
+                    if e["replays"]:
+                        # a requeued row completed: the replay delivered
+                        self.fault_stats.record_replays(succeeded=1)
             self._lock.notify_all()
         self.pipe_stats.record_collect(rec["t_dispatch"], rec["t_ready"],
                                        fetch_s=fetch_s, wait_s=rec["wait_s"],
                                        wasted=wasted)
 
+    # -- fault isolation -----------------------------------------------------
+
+    @property
+    def wedged(self) -> bool:
+        return self.fault_stats.wedged
+
+    @property
+    def degrade_level(self) -> int:
+        return self.fault_stats.degrade_level
+
+    def fault_state(self) -> dict:
+        """O(1) health snapshot for ``/healthz`` and the admission gate:
+        bare attribute reads, no locks."""
+        return {"wedged": self.fault_stats.wedged,
+                "degrade_level": self.fault_stats.degrade_level,
+                "restarting": (self.fault_stats.wedged
+                               and self._engine_running)}
+
+    def _poll_event(self, event, abort: threading.Event) -> None:
+        """Wait for a CUDA event by polling ``query()`` (sleeps of at most
+        1 ms) and the watchdog's abort flag: ``synchronize()`` cannot be
+        interrupted, and a stuck wait must let go of ``DEVICE_LOCK``."""
+        with self._lock:
+            self.polled_waits += 1
+        while not event.query():
+            if abort.is_set():
+                return
+            time.sleep(0.0005)
+
+    def _device_wait(self, site: str, gen: int | None, fn=None, *args,
+                     kind: str = "engine", event=None):
+        """A device wait under the fault layer and the watchdog: the site's
+        fault hook fires first, then the wait on ``event`` (a CUDA event,
+        or None) and ``fn(*args)``. A superseded engine generation aborts
+        it instead of touching restarted state. Under a watchdog the wait
+        is registered with the monitor, which trips it after
+        ``watchdog_s``; the tripped wait raises
+        :class:`EngineWatchdogTimeout`. ``kind='request'`` marks a wait on
+        a request thread (a prefix continuation, the self-probe): the
+        watchdog aborts it and counts the trip, but only engine waits
+        wedge the engine. With no watchdog and an empty plan (the
+        default) the event is synchronized, and only the site stamp and
+        the generation check are added."""
+        if self.watchdog_s <= 0 and not self.faults.rules:
+            try:
+                if event is not None:
+                    event.synchronize()
+                out = fn(*args) if fn is not None else None
+            except Exception as e:  # noqa: BLE001 — stamped, re-raised
+                _stamp(e, site)
+                raise
+            if gen is not None and gen != self._gen:
+                raise _StaleEngine()
+            return out
+        wid = next(self._wait_seq)
+        abort = threading.Event()
+        rec = {"site": site, "t0": time.monotonic(), "gen": gen,
+               "kind": kind, "abort": abort, "tripped": False}
+        with self._lock:
+            self._waits[wid] = rec
+            self._ensure_monitor_locked()
+        try:
+            self.faults.check(site, interrupt=abort)
+            if event is not None:
+                self._poll_event(event, abort)
+            if abort.is_set():
+                raise EngineWatchdogTimeout(site, self.watchdog_s)
+            out = fn(*args) if fn is not None else None
+        except EngineWatchdogTimeout:
+            raise
+        except Exception as e:  # noqa: BLE001 — stamped, re-raised
+            if abort.is_set():
+                # an aborted injected hang: the wait was tripped
+                raise EngineWatchdogTimeout(site, self.watchdog_s) from e
+            _stamp(e, site)
+            raise
+        finally:
+            with self._lock:
+                self._waits.pop(wid, None)
+        if abort.is_set():
+            raise EngineWatchdogTimeout(site, self.watchdog_s)
+        if gen is not None and gen != self._gen:
+            raise _StaleEngine()
+        return out
+
+    def _ensure_monitor_locked(self) -> None:
+        if self.watchdog_s <= 0:
+            return
+        if self._monitor is not None and self._monitor.is_alive():
+            return
+        self._monitor = threading.Thread(target=self._monitor_loop,
+                                         daemon=True, name="engine-watchdog")
+        self._monitor.start()
+
+    def _monitor_loop(self) -> None:
+        """The watchdog: trips registered waits older than ``watchdog_s``;
+        an engine wait's trip fails the engine, wedged. A tripped wait is
+        disowned (a real hang never returns, so its record stays): with
+        no other wait and the engine stopped, a wedged engine self-probes
+        at a backed-off cadence; an idle healthy one ends the monitor."""
+        tick = max(0.01, min(0.2, self.watchdog_s / 4))
+        while True:
+            time.sleep(tick)
+            now = time.monotonic()
+            expired: list[dict] = []
+            with self._lock:
+                live = any(not rec["tripped"]
+                           for rec in self._waits.values())
+                if not live and not self._engine_running:
+                    if not self.fault_stats.wedged:
+                        self._monitor = None  # the next wait restarts it
+                        return
+                    if (not self._probe_live
+                            and now - self._probe_t
+                            >= min(600.0, max(1.0, 2 * self.watchdog_s)
+                                   * (1 << self._probe_misses))):
+                        self._probe_live = True
+                        self._probe_t = now
+                        threading.Thread(target=self._recovery_probe,
+                                         daemon=True,
+                                         name="engine-recovery-probe").start()
+                else:
+                    expired = [rec for rec in self._waits.values()
+                               if not rec["tripped"]
+                               and now - rec["t0"] > self.watchdog_s]
+                    for rec in expired:
+                        rec["tripped"] = True
+                        rec["waited_s"] = now - rec["t0"]
+                        if rec["kind"] != "engine":
+                            # a request wait: it raises to its own caller
+                            self.fault_stats.record_failure(
+                                f"watchdog:{rec['site']}", watchdog=True)
+                            self.failure_log.append(
+                                {"site": f"watchdog:{rec['site']}",
+                                 "at": now, "requeued": 0, "wedged": False,
+                                 "waited_s": rec["waited_s"]})
+            for rec in expired:
+                rec["abort"].set()
+                if rec["kind"] == "engine":
+                    self._fail_engine(
+                        EngineWatchdogTimeout(rec["site"], self.watchdog_s),
+                        site=f"watchdog:{rec['site']}", gen=rec["gen"],
+                        wedged=True, waited_s=rec["waited_s"])
+
+    def _probe_op(self) -> None:
+        """One trivial device round trip through the ``transport`` site,
+        under ``DEVICE_LOCK`` (no capture may run beside it) and the
+        watchdog (the wait polls, so a hung card lets go of the lock)."""
+        dev = self.server.device
+        with DEVICE_LOCK, torch.inference_mode():
+            x = torch.ones(1, device=dev) + 1
+            event = None
+            if x.is_cuda:
+                event = torch.cuda.Event()
+                event.record()
+            self._device_wait("transport", None, lambda: float(x.cpu()[0]),
+                              kind="request", event=event)
+
+    def _recovery_probe(self) -> None:
+        """A wedged engine with nothing to serve proves the card answers
+        again: :meth:`_probe_op` on a disposable thread, joined for at
+        most ``2 * watchdog_s + 1`` seconds. Success clears the wedge and
+        counts a recovery; a failure (a sticky CUDA error, a card still
+        hung) leaves the engine wedged and backs the cadence off."""
+        done = threading.Event()
+        ok: list = []
+
+        def op():
+            try:
+                self._probe_op()
+                ok.append(True)
+            except Exception:  # noqa: BLE001 — still wedged
+                pass
+            finally:
+                done.set()
+
+        threading.Thread(target=op, daemon=True,
+                         name="engine-recovery-probe-op").start()
+        finished = done.wait(timeout=2 * self.watchdog_s + 1.0)
+        self._probe_live = False
+        if not (finished and ok):
+            self._probe_misses = min(self._probe_misses + 1, 9)
+            return
+        self._probe_misses = 0
+        with self._lock:
+            if self.fault_stats.wedged and not self._engine_running:
+                self.fault_stats.set_wedged(False)
+                self._had_failure = False
+                self.fault_stats.record_recovery()
+                log.info("engine recovery probe succeeded: wedge cleared")
+
+    def _fail_engine(self, error: BaseException, *, site: str,
+                     gen: int | None, wedged: bool = False,
+                     waited_s: float | None = None) -> None:
+        """One engine failure, handled as JAX handles it (``wedged``: a
+        watchdog trip). Done rows keep their results and release their
+        pages; a row that has not streamed, is not abandoned and has
+        replays left is reset to its admitted state and requeued (its
+        pages kept; a packed row also gets a fresh generator from its seed
+        and prefills again, a row never packed keeps its prefill); every
+        other row gets the error. A CUDA runtime error replays nothing and
+        wedges the engine. The ladder and the wedge update, and a
+        replacement engine starts when anything was requeued. The step and
+        its graphs are dropped after a CUDA error or a trip, kept
+        otherwise."""
+        sticky = is_cuda_error(error)
+        programs = None
+        with self._lock:
+            if gen is not None and gen != self._gen:
+                return  # a newer generation already handled it
+            self._gen += 1
+            now = time.monotonic()
+            self.fault_stats.record_failure(site, watchdog=wedged)
+            if wedged or sticky:
+                self.fault_stats.set_wedged(True)
+                self._probe_t = now  # the first self-probe an interval out
+                self._probe_misses = 0
+            self._had_failure = True
+            self._last_failure_t = now
+            self._fail_times = [t for t in self._fail_times
+                                if now - t <= self.degrade_window_s]
+            self._fail_times.append(now)
+            if len(self._fail_times) >= 2 \
+                    and self.fault_stats.degrade_level < 3:
+                self.fault_stats.record_degrade(
+                    self.fault_stats.degrade_level + 1, site)
+            survivors: list[dict] = []
+            for entry in self._joiners + [a for a in self._active if a]:
+                if entry["done"]:
+                    # finished behind the frontier: its result stands; the
+                    # barrier that would retire it died with this engine
+                    self._retire(entry)
+                    continue
+                if (not sticky and not entry["streamed"]
+                        and not entry["abandoned"]
+                        and entry["replays"] < self.max_replays):
+                    # no bytes reached this row's client: replay it
+                    entry["replays"] += 1
+                    entry["toks"], entry["lps"] = [], []
+                    entry["disp"] = 0
+                    entry["eos_at"] = None
+                    entry["slot"] = None
+                    if entry["packed"]:
+                        # its generator was consumed: a fresh one from its
+                        # seed, and a prefill again through its route
+                        entry["packed"] = False
+                        entry["prefill"] = None
+                        entry["gen"] = row_generators(
+                            [(entry["seed"], 0)], self.server.device)[0]
+                    # a row never packed keeps its request-thread prefill
+                    # (and the generator that drew its first token)
+                    survivors.append(entry)
+                else:
+                    entry["error"], entry["done"] = error, True
+                    if self.pool is not None:
+                        self._release_pages(entry)
+            requeued = len(survivors)
+            if requeued:
+                self.fault_stats.record_replays(attempted=requeued)
+            self.failure_log.append({"site": site, "at": now,
+                                     "requeued": requeued,
+                                     "wedged": wedged or sticky,
+                                     "waited_s": waited_s})
+            self._joiners = survivors
+            self._active = [None] * self.slots
+            if wedged or sticky:
+                programs = self._detach()
+            self._engine_running = bool(survivors)
+            if survivors:
+                threading.Thread(target=self._engine_loop,
+                                 args=(self._gen,), daemon=True,
+                                 name="continuous-batch").start()
+            self._lock.notify_all()
+        if programs is not None and wedged:
+            # closing takes DEVICE_LOCK, which the tripped thread lets go
+            # of once it sees its abort: not on the watchdog's thread
+            threading.Thread(target=programs.close, daemon=True,
+                             name="engine-programs-close").start()
+        elif programs is not None:
+            programs.close()  # the failed thread let go of DEVICE_LOCK
+        log.error("continuous engine failed at %s: %s (replaying %d "
+                  "row(s), degrade level %d%s)", site, error, requeued,
+                  self.fault_stats.degrade_level,
+                  ", wedged" if (wedged or sticky) else "")
+
     # -- engine thread -------------------------------------------------------
 
-    def _engine_loop(self) -> None:
+    def _engine_loop(self, gen: int) -> None:
         try:
             with torch.inference_mode():
-                self._engine_body()
+                self._engine_body(gen)
+        except _StaleEngine:
+            log.debug("stale engine generation %d exited", gen)
         except BaseException as e:  # noqa: BLE001 — waiters must never hang
-            log.exception("continuous engine failed")
-            self._fail(e)
+            # a tripped wait that raised here before the watchdog failed
+            # the engine is still a trip
+            self._fail_engine(e, site=getattr(e, "fault_site", "engine"),
+                              gen=gen,
+                              wedged=isinstance(e, EngineWatchdogTimeout))
 
     @staticmethod
     def _cancel_due(entry: dict, now: float) -> bool:
@@ -495,6 +989,7 @@ class ContinuousBatcher:
             if self.pool is not None:
                 self._release_pages(e)
             self.stats_counters.record_cancelled()
+            self.fault_stats.record_cancelled()
             self._lock.notify_all()
 
         for slot, e in enumerate(self._active):
@@ -505,12 +1000,21 @@ class ContinuousBatcher:
             self._joiners.remove(j)
             cancel(j, "while queued")
 
-    def _barrier(self) -> list:
-        """The pipeline is empty: cancel what is due, retire finished
-        rows, hand free slots to joiners in policy order. Returns the
-        live ``(slot, entry)`` pairs; none means the engine stops (caller
-        holds the lock)."""
-        self._cancel_expired_locked(time.monotonic())
+    def _barrier(self, gen: int) -> list:
+        """The pipeline is empty: restore the ladder after a clean
+        interval, cancel what is due, retire finished rows, hand free
+        slots to joiners in policy order. Returns the live ``(slot,
+        entry)`` pairs; none means the engine stops (caller holds the
+        lock)."""
+        if gen != self._gen:
+            raise _StaleEngine()
+        now = time.monotonic()
+        if self.fault_stats.degrade_level \
+                and self._last_failure_t is not None \
+                and now - self._last_failure_t > self.degrade_clean_s:
+            self.fault_stats.record_restore()
+            self._fail_times.clear()
+        self._cancel_expired_locked(now)
         for slot, e in enumerate(self._active):
             if e is not None and e["done"]:
                 self._active[slot] = None
@@ -523,6 +1027,9 @@ class ContinuousBatcher:
                 self._joiners.remove(joiner)
                 joiner["slot"] = free.pop(0)
                 self._active[joiner["slot"]] = joiner
+        return self._live_locked()
+
+    def _live_locked(self) -> list:
         return [(slot, e) for slot, e in enumerate(self._active)
                 if e is not None]
 
@@ -543,7 +1050,7 @@ class ContinuousBatcher:
             return "joiner"
         return None
 
-    def _engine_body(self) -> None:
+    def _engine_body(self, gen: int) -> None:
         pstats = self.pipe_stats
         t0 = time.monotonic()
         pstats.begin_episode(t0)
@@ -551,7 +1058,7 @@ class ContinuousBatcher:
         try:
             while True:
                 with self._lock:
-                    live = self._barrier()
+                    live = self._barrier(gen)
                     if not live:
                         self._engine_running = False
                         self._lock.notify_all()
@@ -568,28 +1075,44 @@ class ContinuousBatcher:
                             # garbage stays short
                             self._step.pos[slot] = 0
                     self._pack_joiners([e for _, e in live
-                                        if not e["packed"]])
+                                        if not e["packed"]], gen)
+                with self._lock:
+                    # a failed prefill dropped its rows from their slots
+                    live = self._live_locked()
                 while True:
                     with self._lock:
+                        if gen != self._gen:
+                            raise _StaleEngine()
                         cause = self._stop_cause(live)
                     if cause is not None:
                         break
+                    # ladder level >= 1: the synchronous loop, one wait
+                    # outstanding at a time
+                    depth = (1 if self.fault_stats.degrade_level >= 1
+                             else self.pipeline_depth)
                     with DEVICE_LOCK:
-                        inflight.append(self._run_segment(live))
+                        rec = self._device_wait("segment_dispatch", gen,
+                                                self._run_segment, live)
+                        with self._lock:
+                            if gen != self._gen:
+                                raise _StaleEngine()
+                            for _, e in live:
+                                e["disp"] += rec["k"]
+                        inflight.append(rec)
                         pstats.record_dispatch(len(inflight))
-                        full = len(inflight) >= self.pipeline_depth
+                        full = len(inflight) >= depth
                         if full:
-                            self._wait(inflight[0])
+                            self._wait(inflight[0], gen)
                     if full:
-                        self._collect(inflight.popleft())
-                    if self.pipeline_depth == 1:
+                        self._collect(inflight.popleft(), gen)
+                    if depth == 1:
                         break  # the synchronous loop: a barrier each segment
                 if inflight:
                     pstats.record_drain(cause)
                     while inflight:
                         with DEVICE_LOCK:
-                            self._wait(inflight[0])
-                        self._collect(inflight.popleft())
+                            self._wait(inflight[0], gen)
+                        self._collect(inflight.popleft(), gen)
         finally:
             pstats.record_wall(time.monotonic() - t0)
 
@@ -598,30 +1121,13 @@ class ContinuousBatcher:
         lock)."""
         record = {"seq": e["seq"], "s": e["s"], "n": e["n"],
                   "ttft_s": e["ttft_s"], "wall_s": e["wall_s"],
-                  "t0": e["t0"], "prefilled_at": e["prefilled_at"]}
+                  "t0": e["t0"], "prefilled_at": e["prefilled_at"],
+                  "replays": e["replays"]}
         if self.pool is not None:
             self._release_pages(e)
             record.update({k: e[k] for k in ("n_pages", "charged_at",
                                              "released_at")})
         self.request_log.append(record)
-
-    def _fail(self, error: BaseException) -> None:
-        """Fail every admitted row (their waiters raise ``error``) and
-        reset the engine, dropping its step and graphs; the next request
-        starts a fresh one."""
-        with self._lock:
-            for e in [*self._active, *self._joiners]:
-                if e is not None and not e["done"]:
-                    e["error"], e["done"] = error, True
-                if e is not None and self.pool is not None:
-                    self._release_pages(e)
-            self._active = [None] * self.slots
-            self._joiners = []
-            programs = self._detach()
-            self._engine_running = False
-            self._lock.notify_all()
-        if programs is not None:
-            programs.close()
 
     # -- API -----------------------------------------------------------------
 
@@ -714,18 +1220,30 @@ class ContinuousBatcher:
         from its cached prefix here, on the request thread. Returns False
         when the row must run solo: an engine narrower than the prefix
         entry's window, or (paged) a prefix the store does not hold, or a
-        row no window or arena could hold."""
+        row no window or arena could hold. The continuation runs through
+        the ``prefix_assemble`` site as a request wait: a fault or a
+        watchdog trip there reaches this caller and never the engine."""
         server, s = self.server, entry["s"]
         entry["prefix_toks"] = \
             np.asarray(prefix, np.int32).reshape(-1).tolist()
+
+        def continued(fn, *args):
+            def run():
+                with self._prefill_lock, DEVICE_LOCK, \
+                        torch.inference_mode():
+                    return fn(*args)
+            return self._device_wait("prefix_assemble", None, run,
+                                     kind="request")
+
         if self.pool is None:
             pentry = server._prefix_entry(prefix)
             if self.cache_len != cache_width(pentry[0]):
                 return False
             server._validate(pentry[1] + s, max_new_tokens)
             entry["pos0"] = pentry[1] + s
-            with self._prefill_lock, DEVICE_LOCK, torch.inference_mode():
-                entry["prefill"] = self._prefill_prefix_row(entry, pentry)
+            entry["route"] = "prefix"
+            entry["prefill"] = continued(self._prefill_prefix_row, entry,
+                                         pentry)
             return True
         acq = (self.prefix_pages_fn(prefix)
                if self.prefix_pages_fn is not None else None)
@@ -739,10 +1257,10 @@ class ContinuousBatcher:
             return False
         server._validate(plen + s, max_new_tokens)
         entry["plen"], entry["pos0"] = plen, plen + s
+        entry["route"] = "paged_prefix"
         self._charge_pages(entry, total, shared=pids)
         try:
-            with self._prefill_lock, DEVICE_LOCK, torch.inference_mode():
-                entry["prefill"] = self._paged_continue_row(entry)
+            entry["prefill"] = continued(self._paged_continue_row, entry)
         except BaseException:
             with self._lock:
                 self._release_pages(entry)
@@ -785,7 +1303,13 @@ class ContinuousBatcher:
                  "deadline_at": (t0 + deadline_ms / 1e3 if deadline_ms
                                  else None),
                  "abandoned": False,
-                 "t0": t0, "ttft_s": None,
+                 # fault isolation: replays spent, and whether bytes
+                 # reached the client (a streamed row cannot replay)
+                 "replays": 0, "streamed": False,
+                 # how the row prefills (and prefills again on a replay):
+                 # group, row, chunked, prefix or paged_prefix
+                 "route": "group",
+                 "t0": t0, "ttft_s": None, "wall_s": None,
                  # the row's own generator, seeded as generate seeds a
                  # one-row request; it travels with the row's slot
                  "gen": row_generators([(seed, 0)],
@@ -807,9 +1331,11 @@ class ContinuousBatcher:
                     and self.cache_len % ck == 0:
                 # chunked (JAX continuous.py:2183-2189): the device lock
                 # is taken chunk by chunk, the prefill lock for the walk
+                entry["route"] = "chunked"
                 with self._prefill_lock:
                     entry["prefill"] = self._prefill_row_chunked(entry)
             elif s > GROUP_PREFILL_MAX:
+                entry["route"] = "row"
                 with self._prefill_lock, DEVICE_LOCK, \
                         torch.inference_mode():
                     entry["prefill"] = self._prefill_rows([entry])
@@ -830,7 +1356,8 @@ class ContinuousBatcher:
             self._joiners.append(entry)
             if not self._engine_running:
                 self._engine_running = True
-                threading.Thread(target=self._engine_loop, daemon=True,
+                threading.Thread(target=self._engine_loop,
+                                 args=(self._gen,), daemon=True,
                                  name="continuous-batch").start()
 
     def generate(self, prompt_row, *, max_new_tokens: int,
@@ -897,10 +1424,15 @@ class ContinuousBatcher:
                     if entry["error"] is not None:
                         raise entry["error"]
                     toks, lps = list(entry["toks"]), list(entry["lps"])
-                # at most one segment per chunk, also when this reader
-                # fell behind the engine by several segments
-                take = min(len(toks), max_new_tokens,
-                           delivered + self.segment)
+                    # at most one segment per chunk, also when this reader
+                    # fell behind the engine by several segments
+                    take = min(len(toks), max_new_tokens,
+                               delivered + self.segment)
+                    if take > delivered:
+                        # bytes are about to reach the client: from here a
+                        # failure can only end the stream with its error
+                        # (marked under the lock the failure handler takes)
+                        entry["streamed"] = True
                 chunk = toks[delivered:take]
                 lp_chunk = lps[delivered:take]
                 if not chunk:
@@ -938,7 +1470,13 @@ class ContinuousBatcher:
                    **self.stats_counters.report(),
                    "pipeline": self.pipe_stats.report(),
                    "prefill_chunk": self.server.prefill_chunk,
-                   "prefill": self.prefill_stats.report()}
+                   "prefill": self.prefill_stats.report(),
+                   "watchdog_s": self.watchdog_s,
+                   "max_replays": self.max_replays,
+                   "polled_waits": self.polled_waits,
+                   "faults": self.fault_stats.report(),
+                   **({"fault_plan": self.faults.describe()}
+                      if self.faults.active() else {})}
         if self.pool is not None:
             out["page_pool"] = self.pool.stats()
         return out

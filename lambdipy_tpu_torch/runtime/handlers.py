@@ -7,7 +7,12 @@ arena, ``kv_paged``; pipelined at ``pipeline_depth`` 2, joiners in the
 ``sched_policy`` order, ``fair`` by default) for concurrent traffic, and
 the automatic prefix KV cache (``runtime/prefixstore.py``) built as the
 JAX handler builds it. The server takes the JAX handler's ``decode_cap``,
-``prefill_chunk`` and ``min_bucket`` extras."""
+``prefill_chunk`` and ``min_bucket`` extras, the engine its fault
+isolation extras (``engine_watchdog_s``, ``max_replays``, ``fault_spec``;
+one live fault plan serves the engine, the page pool and the prefix
+store), and the state carries the engine's fault state for ``/healthz``,
+the plan's control for ``POST /v1/debug/faults`` and the invariant sweep
+for ``GET /v1/debug/invariants``."""
 
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from lambdipy_tpu_torch.ops.decode_attention import (blocked_decode_attention,
                                                      paged_decode_attention)
 from lambdipy_tpu_torch.ops.quant import int8_matmul
 from lambdipy_tpu_torch.runtime.continuous import ContinuousBatcher
+from lambdipy_tpu_torch.runtime.faults import FaultPlan
 from lambdipy_tpu_torch.runtime.pagepool import PagePool, page_width
 from lambdipy_tpu_torch.runtime.prefixstore import PrefixStore
 from lambdipy_tpu_torch.sched.policy import make_policy
@@ -52,6 +58,15 @@ class HandlerState:
     # the spec's extra: the server reads its sched_* keys, batch_mode
     # and batch_max from it
     extra: dict = dataclasses.field(default_factory=dict)
+    # O(1) engine fault state ({"wedged", "degrade_level", "restarting"}):
+    # /healthz reports it and admission sheds on it
+    engine_fault_fn: Callable[[], dict] | None = None
+    # host-only invariant sweep (GET /v1/debug/invariants): the pool's
+    # conservation, the store's accounting, the engine's fault state
+    debug_invariants_fn: Callable[[], dict] | None = None
+    # host-only fault control (POST /v1/debug/faults): arm a spec on the
+    # live plan, or clear it
+    faults_admin_fn: Callable[[dict], dict] | None = None
 
     def invoke(self, request: dict) -> dict:
         return self.invoke_fn(request)
@@ -93,9 +108,6 @@ def kernel_launches() -> dict:
 # value each may take (the feature off), anything else raises
 _UNPORTED_ENGINE_EXTRAS = {
     "batch_window_bucketing": ("0", "false", "off"),
-    "engine_watchdog_s": ("0", "0.0"),
-    "max_replays": ("0",),
-    "fault_spec": ("",),
     "spec_k": ("0", "1"),
     "draft_mode": ("off",),
     "max_logical_ctx": ("0",),
@@ -160,7 +172,9 @@ def make_prefix_store(server, engine, extra: dict) -> PrefixStore | None:
     store = PrefixStore(server, block=prefix_block(extra), budget_mb=mb,
                         pool=pool,
                         prefill_stats=(engine.prefill_stats
-                                       if engine is not None else None))
+                                       if engine is not None else None),
+                        faults=(engine.faults if engine is not None
+                                else None))
     if pool is not None:
         engine.prefix_pages_fn = store.acquire_pages
     return store
@@ -187,15 +201,32 @@ def pipeline_depth(extra: dict) -> int:
     return depth
 
 
+def fault_knobs(extra: dict) -> dict:
+    """The engine's fault isolation, resolved as the JAX handler resolves
+    it (``handlers.py:522-537``), the extra before the environment: the
+    watchdog (``engine_watchdog_s``, ``LAMBDIPY_ENGINE_WATCHDOG_S``, 0 =
+    off), the replays of a row that delivered nothing (``max_replays``,
+    ``LAMBDIPY_MAX_REPLAYS``, 1) and the injection plan (``fault_spec``,
+    ``LAMBDIPY_FAULT``, empty)."""
+    wd = extra.get("engine_watchdog_s",
+                   os.environ.get("LAMBDIPY_ENGINE_WATCHDOG_S", "0"))
+    mr = extra.get("max_replays", os.environ.get("LAMBDIPY_MAX_REPLAYS",
+                                                 "1"))
+    spec = str(extra.get("fault_spec", os.environ.get("LAMBDIPY_FAULT",
+                                                      "")) or "")
+    return {"watchdog_s": float(wd or 0), "max_replays": int(mr),
+            "faults": FaultPlan.from_spec(spec) if spec.strip() else None}
+
+
 def make_engine(server, extra: dict) -> ContinuousBatcher:
     """The continuous engine the extras ask for: ``batch_max`` slots,
     ``batch_segment`` steps per segment, ``batch_cache_len`` positions
     per row (default ``max_len``), :func:`pipeline_depth` segments in
-    flight, joiners ordered by :func:`sched_policy_name` and, with
-    ``kv_paged``, a page arena of ``kv_pages`` pages (default
-    ``batch_max`` full windows plus the null page) whose page width is
-    ``page_width(cache_len, prefix_block)`` (``prefix_block`` default
-    32)."""
+    flight, joiners ordered by :func:`sched_policy_name`, the fault
+    isolation of :func:`fault_knobs` and, with ``kv_paged``, a page arena
+    of ``kv_pages`` pages (default ``batch_max`` full windows plus the
+    null page) whose page width is ``page_width(cache_len,
+    prefix_block)`` (``prefix_block`` default 32)."""
     cfg = server.model.cfg
     slots = int(extra.get("batch_max", 8))
     bcl = extra.get("batch_cache_len")
@@ -216,7 +247,8 @@ def make_engine(server, extra: dict) -> ContinuousBatcher:
                              segment=int(extra.get("batch_segment", 16)),
                              cache_len=cache_len, page_pool=pool,
                              policy=make_policy(sched_policy_name(extra)),
-                             pipeline_depth=pipeline_depth(extra))
+                             pipeline_depth=pipeline_depth(extra),
+                             **fault_knobs(extra))
 
 
 def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
@@ -273,8 +305,12 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
         prompt, cached prefix tokens) when the store matches or extends a
         block-aligned head. An explicit ``prefix`` keeps the client's
         split; multi-row and sub-block prompts pass through; a store
-        failure routes nothing (``route`` returns 0)."""
+        failure routes nothing (``route`` returns 0). At the engine's
+        degradation level 3 routing stands down: the plainest path until
+        a clean interval restores it."""
         if store is None or prefix is not None or len(prompt) != 1:
+            return prompt, prefix
+        if engine is not None and engine.degrade_level >= 3:
             return prompt, prefix
         row = [int(t) for t in np.asarray(prompt[0]).reshape(-1)]
         m = store.route(row)
@@ -412,6 +448,51 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
             out["prefix_cached"] = True
         yield out
 
+    # one live fault plan serves the engine (and through it the pool and
+    # the store): armed and cleared at run time, reported in /metrics
+    live_faults = engine.faults if engine is not None else None
+
+    def debug_invariants() -> dict:
+        """Host-only: the pool's conservation and the store's accounting
+        (``ok`` covers these), with the engine's fault state beside
+        them."""
+        ok, checks = True, {}
+        if engine is not None and engine.pool is not None:
+            try:
+                engine.pool.check_invariants()
+                checks["page_pool"] = {"ok": True}
+            except AssertionError as e:
+                checks["page_pool"] = {"ok": False, "error": str(e)}
+            checks["page_pool"]["stats"] = engine.pool.stats()
+            ok = ok and checks["page_pool"]["ok"]
+        if store is not None:
+            checks["prefix_store"] = store.check_invariants()
+            ok = ok and checks["prefix_store"]["ok"]
+        if engine is not None:
+            checks["engine"] = engine.fault_state()
+        return {"ok": ok, "checks": checks}
+
+    def faults_admin(req: dict) -> dict:
+        """``{"spec": "site:kind@..."}`` arms rules on the live plan,
+        ``{"clear": true}`` drops them and releases hangs in flight."""
+        if live_faults is None:
+            return {"ok": False,
+                    "error": "no fault plan on this handler (no continuous "
+                             "engine)"}
+        if req.get("clear"):
+            return {"ok": True, "cleared": live_faults.clear(),
+                    "armed": live_faults.armed()}
+        spec = req.get("spec")
+        if not spec:
+            return {"ok": False,
+                    "error": "want {\"spec\": \"site:kind@...\"} or "
+                             "{\"clear\": true}"}
+        try:
+            added = live_faults.arm(str(spec))
+        except ValueError as e:
+            return {"ok": False, "error": str(e)}
+        return {"ok": True, "added": added, "armed": live_faults.armed()}
+
     def stats() -> dict:
         # decode_buckets, compile_count, program_evictions as the JAX
         # handler reports them, plus replays and eager_steps
@@ -422,6 +503,9 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
             # hits, misses, hit_tokens, evictions, bytes and hit_rate: the
             # automatic radix reuse, with the assembled entries' bytes
             out["prefix_cache"] = store.stats()
+        if live_faults is not None:
+            # the live injection plan: a stray LAMBDIPY_FAULT shows here
+            out["faults"] = {"armed": live_faults.armed()}
         return out
 
     cfg = adapter.config
@@ -438,5 +522,7 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
         stats_fn=stats, server=server, invoke_stream_fn=invoke_stream,
         engine=engine, prefix_store=store,
         prefix_probe=store.match_len if store is not None else None,
-        extra=extra)
+        extra=extra,
+        engine_fault_fn=engine.fault_state if engine is not None else None,
+        debug_invariants_fn=debug_invariants, faults_admin_fn=faults_admin)
 

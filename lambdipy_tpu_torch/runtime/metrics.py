@@ -1,8 +1,9 @@
 """Counters the port's serving path reports under ``/metrics``: the
 port's copies of ``LatencyStats``, ``PipelineStats``, ``PagePoolStats``
 and ``PrefixCacheStats`` (``lambdipy_tpu/runtime/metrics.py``),
-``PrefillStats`` cut to the chunked walk, and the continuous engine's own
-counters (segments, decode steps, joins, rows per step)."""
+``PrefillStats`` cut to the chunked walk, ``EngineFaultStats``, and the
+continuous engine's own counters (segments, decode steps, joins, rows per
+step)."""
 
 from __future__ import annotations
 
@@ -305,6 +306,90 @@ class EngineStats:
                     "compile_count": self.captures,
                     "replays": self.replays,
                     "eager_steps": self.eager_steps}
+
+
+@dataclass
+class EngineFaultStats:
+    """The continuous engine's fault isolation (the ``batching.faults``
+    block of ``/metrics``), the twin of the JAX package's. ``failures``
+    counts engine failures by site (a ``watchdog:`` prefix marks a wait
+    the watchdog gave up on, also counted in ``watchdog_trips``);
+    ``replays`` counts rows requeued through a restarted engine
+    (``attempted``) and those of them that completed (``succeeded``);
+    ``cancelled`` rows dropped at a barrier (waiter gone or deadline
+    passed). ``degrade_level`` is the ladder's level (0 full service, 1
+    pipeline depth 1, 2 the full-window program, 3 the prefix store
+    bypassed), ``degrade_steps`` the entries into each level and
+    ``last_degrade_cause`` the site of the last step. ``recoveries``
+    counts the first clean fetch after a failure (or a self-probe that
+    cleared a wedge), ``restores`` the ladder's returns to 0 after a
+    clean interval; ``wedged`` is what ``/healthz`` reports."""
+
+    failures: dict = field(default_factory=dict)   # site -> count
+    watchdog_trips: int = 0
+    replays_attempted: int = 0
+    replays_succeeded: int = 0
+    cancelled: int = 0
+    degrade_level: int = 0                          # gauge
+    degrade_steps: dict = field(default_factory=dict)  # level -> entries
+    last_degrade_cause: str | None = None
+    recoveries: int = 0
+    restores: int = 0
+    wedged: bool = False                            # gauge
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def record_failure(self, site: str, *, watchdog: bool = False) -> None:
+        with self._lock:
+            self.failures[site] = self.failures.get(site, 0) + 1
+            if watchdog:
+                self.watchdog_trips += 1
+
+    def record_replays(self, *, attempted: int = 0, succeeded: int = 0
+                       ) -> None:
+        with self._lock:
+            self.replays_attempted += int(attempted)
+            self.replays_succeeded += int(succeeded)
+
+    def record_cancelled(self, n: int = 1) -> None:
+        with self._lock:
+            self.cancelled += int(n)
+
+    def record_degrade(self, level: int, cause: str) -> None:
+        with self._lock:
+            self.degrade_level = int(level)
+            self.degrade_steps[str(level)] = \
+                self.degrade_steps.get(str(level), 0) + 1
+            self.last_degrade_cause = cause
+
+    def record_restore(self) -> None:
+        with self._lock:
+            if self.degrade_level:
+                self.restores += 1
+            self.degrade_level = 0
+
+    def record_recovery(self) -> None:
+        with self._lock:
+            self.recoveries += 1
+
+    def set_wedged(self, wedged: bool) -> None:
+        with self._lock:
+            self.wedged = bool(wedged)
+
+    def report(self) -> dict:
+        with self._lock:
+            return {
+                "failures": dict(self.failures),
+                "watchdog_trips": self.watchdog_trips,
+                "replays": {"attempted": self.replays_attempted,
+                            "succeeded": self.replays_succeeded},
+                "cancelled": self.cancelled,
+                "degrade_level": self.degrade_level,
+                "degrade_steps": dict(self.degrade_steps),
+                "last_degrade_cause": self.last_degrade_cause,
+                "recoveries": self.recoveries,
+                "restores": self.restores,
+                "wedged": self.wedged,
+            }
 
 
 @dataclass

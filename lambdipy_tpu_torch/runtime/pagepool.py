@@ -33,8 +33,13 @@ continuous engine uses:
   ``arena_generation`` (the content generation the store's tree was
   written against) is ``generation`` here.
 
-Not ported yet: fault injection (``faults``), the ``pinned_fn`` hook of
-session pins, host offload and ``reset_arena``.
+- ``faults`` (a ``runtime/faults.py`` plan, the engine's when the pool
+  has none): the ``page_alloc`` site fires in :meth:`PagePool.alloc`
+  before any page leaves the free list, so an injected failure never
+  leaks a partial allocation.
+
+Not ported yet: the ``pinned_fn`` hook of session pins, host offload and
+``reset_arena`` (the port's engine keeps its arena through a failure).
 """
 
 from __future__ import annotations
@@ -87,7 +92,7 @@ class PagePool:
 
     def __init__(self, *, n_pages: int, page: int, page_bytes: int,
                  make_arena: Callable[[], Any] | None = None,
-                 window_pages: int | None = None):
+                 window_pages: int | None = None, faults: Any = None):
         if n_pages < 2:
             raise ValueError("n_pages must be >= 2 (page 0 is reserved)")
         self.n_pages = int(n_pages)
@@ -99,6 +104,7 @@ class PagePool:
         # when an alloc comes up short, so store-owned cold pages yield to
         # admission (lock order store -> pool, never the reverse)
         self.reclaim_fn: Callable[[int], int] | None = None
+        self.faults = faults  # FaultPlan | None; site "page_alloc"
         self.stats_counters = PagePoolStats()
         self._lock = threading.RLock()
         self.arena_lock = threading.RLock()
@@ -151,10 +157,12 @@ class PagePool:
         first asks ``reclaim_fn`` to release cold store pages, then raises
         :class:`PagesExhausted` (and counts a shed unless
         ``record_shed=False``: the store caching less is not a refused
-        admission)."""
+        admission). An armed ``page_alloc`` fault fires first."""
         n = int(n)
         if n <= 0:
             return []
+        if self.faults is not None:
+            self.faults.check("page_alloc")
         if n > self.free_count() and self.reclaim_fn is not None:
             try:
                 self.reclaim_fn(n - self.free_count())

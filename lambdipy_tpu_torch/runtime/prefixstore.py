@@ -43,13 +43,13 @@ and writes each new block into a page of its own; eviction is
 refcount-aware (a page a live row shares stays).
 
 Every failure path FAILS OPEN: a store error logs and the request serves
-unrouted.
+unrouted. The ``prefix_walk`` fault site (``runtime/faults.py``, the
+handler's live plan) fires once per chunk dispatch of a cold walk.
 
 Each chunk of a walk takes the device lock alone, like a prefill, so the
 continuous engine's segments interleave with a long walk. Not ported yet
 (ROADMAP): session pins, the host offload tier, K/V export and import
-(``runtime/kvwire.py``), the sequence-parallel walk and the
-``prefix_walk`` fault site.
+(``runtime/kvwire.py``) and the sequence-parallel walk.
 """
 
 from __future__ import annotations
@@ -98,8 +98,13 @@ class PrefixStore:
 
     def __init__(self, server: Any, *, block: int = 32,
                  budget_mb: float = 512.0, pool: Any = None,
-                 prefill_stats: PrefillStats | None = None):
+                 prefill_stats: PrefillStats | None = None,
+                 faults: Any = None):
         self.server = server
+        # FaultPlan | None: site "prefix_walk" fires once per cold-walk
+        # chunk dispatch; an exception fails the walk open (route serves
+        # the request unrouted)
+        self.faults = faults
         cfg = server.model.cfg
         self.pool = pool
         if pool is not None:
@@ -346,6 +351,11 @@ class PrefixStore:
                     f"prefix walk for key {key[:8]}... owned by another "
                     "thread did not complete within 300s")
 
+    def _walk_fault(self) -> None:
+        """The ``prefix_walk`` site: once per cold-walk chunk dispatch."""
+        if self.faults is not None:
+            self.faults.check("prefix_walk")
+
     def _walk(self, row: list, matched: int, target: int,
               path: list) -> None:
         """The chunked walk from ``matched`` to ``target``: a first chunk
@@ -361,6 +371,7 @@ class PrefixStore:
         if matched == 0:
             fw = self.walk_chunk if target >= self.walk_chunk else bk
             prompt, _ = server._pad_rows([row[:fw]], [fw], 1, fw)
+            self._walk_fault()
             cache = server._prefix_first_fn(fw, cfg.max_len)(prompt, fw)
             pos = fw
             stats.record_round()
@@ -399,6 +410,7 @@ class PrefixStore:
             width = wk if wide else bk
             chunk, _ = server._pad_rows([row[pos:pos + width]], [width], 1,
                                         width)
+            self._walk_fault()
             cache = (ext_wide if wide else ext)(cache, chunk, width)
             pos += width
             stats.record_round()

@@ -1,8 +1,10 @@
 """A threaded HTTP server for a port handler, the twin of the serving front
 of ``lambdipy_tpu/runtime/server.py``:
 
-- ``GET /healthz``: liveness, the handler's meta, ``ready`` (false once
-  draining) and the scheduler's policy and queue depth;
+- ``GET /healthz``: liveness (always 200), the handler's meta, ``ready``
+  (false once draining or while the engine is wedged), ``wedged`` and the
+  engine's fault state (``engine``), and the scheduler's policy and queue
+  depth;
 - ``GET /metrics``: the server's counters and latency percentiles, the
   scheduler's report (``sched``) and the handler's stats (each kernel's
   launch counter, the continuous engine, its page pool and pipeline);
@@ -11,17 +13,22 @@ of ``lambdipy_tpu/runtime/server.py``:
 - ``POST /v1/completions``: the OpenAI completions shape over the same
   handler, ``"stream": true`` as server-sent events closed by
   ``data: [DONE]``;
-- ``POST /shutdown``: drain, then stop.
+- ``POST /shutdown``: drain, then stop;
+- ``POST /v1/debug/faults`` (arm a fault spec on the live plan, or
+  clear it) and ``GET /v1/debug/invariants`` (the pool's and the store's
+  accounting), for loopback clients only.
 
 Every invoke passes the SLO scheduler (``sched/``): admission (per-tenant
 token buckets on ``x-api-key`` / ``x-tenant``, a bounded queue, deadline
 shedding on ``x-deadline-ms``) and then a policy-ordered wait for one of
 ``max_concurrency`` run slots, by class (``x-priority``: interactive,
 batch or background). Overload is an explicit 429 or 503 with
-``Retry-After``; so are a full page arena (reason ``kv_pages``) and a row
-the engine cancelled at a barrier (its deadline passed). The fleet
-surfaces (``/v1/kv/*``, ``/v1/sessions``, ``/v1/debug/*``, ``/profile``)
-are not ported."""
+``Retry-After``; so are a full page arena (reason ``kv_pages``), a row
+the engine cancelled at a barrier (its deadline passed), and a request
+that arrives while a wedged engine restarts (reason ``wedged``: a wedged
+engine with no restart in flight admits, since that request is its
+probe). The fleet surfaces (``/v1/kv/*``, ``/v1/sessions``,
+``/v1/debug/knobs``, ``/profile``) are not ported."""
 
 from __future__ import annotations
 
@@ -316,6 +323,14 @@ class BundleServer:
                     self._send_shed(Shed(503, "draining", 1.0),
                                     openai=openai)
                     return None
+                engine = server.engine_fault_state()
+                if engine.get("wedged") and engine.get("restarting"):
+                    # a wedged engine restarting behind a dead wait: shed
+                    # instead of queueing into it
+                    server._leave()
+                    server.sched.admission.count_shed("wedged", cls)
+                    self._send_shed(Shed(503, "wedged", 2.0), openai=openai)
+                    return None
                 prefill, decode = _request_token_counts(
                     request, getattr(server.state, "prefix_probe", None))
                 out = server.sched.admit(
@@ -546,14 +561,46 @@ class BundleServer:
                     out["queue_wait_ms"] = round(ticket.wait_ms, 3)
                 self._send(200, out)
 
+            def _require_loopback(self) -> bool:
+                """Host-only endpoints refuse other clients with a 403
+                before reading the body, and close the connection."""
+                if self.client_address[0] in ("127.0.0.1", "::1"):
+                    return True
+                self.close_connection = True
+                self._send(403, {"ok": False, "error": "host-only endpoint "
+                                 "(loopback clients only)"})
+                return False
+
+            def _debug(self, name: str, request=None) -> None:
+                """``/v1/debug/*``: the handler's ``name`` surface."""
+                fn = getattr(server.state, name, None)
+                if fn is None:
+                    self._send(404, {"ok": False, "error": "not supported "
+                                     "by this handler"})
+                    return
+                try:
+                    out = fn() if request is None else fn(request)
+                except Exception as e:  # noqa: BLE001 — reported
+                    self._send(500, {"ok": False, "error": str(e)})
+                    return
+                self._send(200 if request is None or out.get("ok") else 400,
+                           out)
+
             def do_GET(self):
                 if self.path == "/healthz":
+                    engine = server.engine_fault_state()
+                    wedged = bool(engine.get("wedged"))
                     self._send(200, {
                         "ok": True, **server.state.meta,
-                        "ready": not server.draining,
+                        "ready": not server.draining and not wedged,
+                        "wedged": wedged,
+                        **({"engine": engine} if engine else {}),
                         "draining": server.draining,
                         "sched": {"policy": server.sched.policy.name,
                                   "queued": server.sched.queue.depth()}})
+                elif self.path == "/v1/debug/invariants":
+                    if self._require_loopback():
+                        self._debug("debug_invariants_fn")
                 elif self.path == "/metrics":
                     self._send(200, {"server": server.stats.report(),
                                      "sched": server.sched.report(),
@@ -566,6 +613,12 @@ class BundleServer:
                     self._send(200, {"ok": True, "draining": True})
                     threading.Thread(target=server.stop,
                                      daemon=True).start()
+                    return
+                if self.path == "/v1/debug/faults":
+                    if self._require_loopback():
+                        request = self._read_json()
+                        if request is not None:
+                            self._debug("faults_admin_fn", request)
                     return
                 if self.path not in ("/invoke", "/v1/completions"):
                     self._send(404, {"ok": False, "error": "not found"})
@@ -601,6 +654,17 @@ class BundleServer:
     def _leave(self) -> None:
         with self._inflight_lock:
             self._inflight -= 1
+
+    def engine_fault_state(self) -> dict:
+        """The engine's O(1) fault state (empty without one); never
+        raises, so health never answers 500."""
+        fn = getattr(self.state, "engine_fault_fn", None)
+        if fn is None:
+            return {}
+        try:
+            return dict(fn())
+        except Exception:  # noqa: BLE001 — health must never fail
+            return {}
 
     def serve_forever(self) -> None:
         self.httpd.serve_forever()

@@ -364,7 +364,7 @@ def test_handler_wiring(weights):
     assert stats["batching"]["page_pool"]["pages_total"] == 16
     assert {"paged_decode_attention", "paged_decode_attention_int8kv"} \
         <= set(stats["kernels"])
-    for extra in ({"batch_mode": "continuous", "engine_watchdog_s": "3"},
+    for extra in ({"batch_mode": "continuous", "max_logical_ctx": "4096"},
                   {"batch_mode": "continuous", "spec_k": "4"},
                   {"batch_mode": "window"},
                   {"session_pin_budget_mb": "64"},
@@ -381,6 +381,21 @@ def test_handler_wiring(weights):
                              HandlerContext(device="cpu"))
     assert built.meta["prefix_cache"]
     assert built.prefix_store.budget_bytes == 8 << 20
+    # the fault isolation extras reach the engine (an unset max_replays
+    # is 1, as in JAX), and one plan serves the engine, pool and store
+    assert engine.watchdog_s == 0.0 and engine.max_replays == 1
+    assert not engine.faults.active()
+    faulty = generate_handler(
+        {"model": "llama-tiny",
+         "extra": {**ENGINES["paged"], "batch_mode": "continuous",
+                   "engine_watchdog_s": "3", "max_replays": "2",
+                   "fault_spec": "segment_fetch:exception@seg=3"}},
+        HandlerContext(device="cpu"))
+    fe = faulty.engine
+    assert fe.watchdog_s == 3.0 and fe.max_replays == 2
+    assert fe.faults.describe() == ["segment_fetch:exception@seg=3,n=1"]
+    assert fe.pool.faults is fe.faults
+    assert faulty.prefix_store.faults is fe.faults
 
 
 def test_greedy_tokens_equal_the_jax_engine(weights, server):

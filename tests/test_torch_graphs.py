@@ -527,9 +527,11 @@ def test_engine_rows_match_the_eager_engine_and_solo(weights, kind,
 
 def test_engine_reset_and_a_rebuilt_arena_drop_its_graphs(weights,
                                                           monkeypatch):
-    """An engine failure resets the engine with its step and graphs; an
-    arena rebuilt under the engine (a new ``generation``) makes it drop
-    graphs that hold the old arena's addresses."""
+    """A failure from the CUDA runtime resets the engine with its step
+    and graphs (an injected or host-side failure keeps them:
+    ``tests/test_torch_faults.py``); an arena rebuilt under the engine (a
+    new ``generation``) makes it drop graphs that hold the old arena's
+    addresses."""
     server = _server(weights, FakeGraph)
     engine = make_engine(server, ENGINES["paged"])
     p = [1, 2, 3, 4, 5]
@@ -539,7 +541,7 @@ def test_engine_reset_and_a_rebuilt_arena_drop_its_graphs(weights,
     assert graph.fn is not None
 
     def boom(*args, **kwargs):
-        raise RuntimeError("device lost")
+        raise RuntimeError("CUDA error: device lost")
 
     monkeypatch.setattr(engine, "_run_segment", boom)
     with pytest.raises(RuntimeError, match="device lost"):
