@@ -29,8 +29,18 @@ Phases, each of which fails the run with a non-zero exit:
    backends and through the paged continuous engine;
 4. the main path: full-width ``llama3-8b`` (int8 weights, bf16,
    ``matmul_backend="pallas"``, seeded random weights) served by the
-   port's HTTP server from a fresh handler per path, every decode step a
-   replay of a captured CUDA graph (``models/graphs.py``). D first, timed
+   port's HTTP server from a fresh handler per path, every decode step
+   and every prefill (the serving prefill, the engine's groups and long
+   rows, a chunked row's chunks and tail, the prefix store's walk chunks,
+   the prefix continuations) a replay of a captured CUDA graph
+   (``models/graphs.py``, ``models/llama.py PrefillProgram``): each
+   path's ``prefill_replays`` must equal the prefills it ran and none may
+   run eagerly, and every graph pool is printed by its program's key. A-C
+   also hold their prefills at 100 and ~4,000 tokens bitwise (first
+   token, logprob, every layer's K/V) against an eager server's, greedy
+   and sampled, and time the first token graph and eager in turns; D's
+   chunked rows also run through an eager engine, and E's traffic
+   through an eager server's paged engine and store, bitwise. D first, timed
    before any profiler session: the continuous engine over a paged KV
    arena (``batch_mode="continuous"``, ``kv_paged=1``, 8 slots, segment
    16) takes a burst of 8 concurrent requests (prompts of 16 to ~4,000
@@ -111,6 +121,7 @@ import gc
 import json
 import subprocess
 import sys
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -1134,13 +1145,17 @@ def set_launches_to_zero() -> None:
     flash_attention.launches = 0
 
 
-def check_replays(path: str, stats: dict, steps: int) -> dict:
+def check_replays(path: str, stats: dict, steps: int,
+                  prefills: int | None = None) -> dict:
     """Every decode step of a path was a replay of a captured graph: the
     server's (or engine's) ``replays`` equal the ``steps`` its requests
-    implied and none ran eagerly. The launch checks before this one count
-    each replay's launches."""
-    keys = ("compile_count", "replays", "eager_steps", "program_evictions",
-            "program_bytes", "decode_buckets")
+    implied and none ran eagerly; and so was every prefill: its
+    ``prefill_replays`` equal the ``prefills`` it ran (when given) and
+    none ran eagerly. The launch checks before this one count each
+    replay's launches. Prints every program's graph pool."""
+    keys = ("compile_count", "replays", "eager_steps", "prefill_replays",
+            "eager_prefills", "program_evictions", "program_bytes",
+            "decode_buckets", "program_pools")
     programs = {k: stats[k] for k in keys if k in stats}
     log(f"path {path} decode programs: {programs['compile_count']} graphs "
         f"captured, {programs['replays']} replays for {steps} decode steps, "
@@ -1152,7 +1167,25 @@ def check_replays(path: str, stats: dict, steps: int) -> dict:
         raise SystemExit(f"path {path}: {programs['replays']} replays and "
                          f"{programs['eager_steps']} eager steps for {steps} "
                          f"decode steps")
+    log(f"path {path} prefill programs: {programs['prefill_replays']} "
+        f"replays for {prefills if prefills is not None else 'the'} "
+        f"prefills run, {programs['eager_prefills']} eager")
+    if programs["eager_prefills"] or (
+            prefills is not None and programs["prefill_replays"] != prefills):
+        raise SystemExit(f"path {path}: {programs['prefill_replays']} "
+                         f"prefill replays and {programs['eager_prefills']} "
+                         f"eager prefills for {prefills} prefills")
+    log_pools(path, programs.get("program_pools", []))
     return programs
+
+
+def log_pools(path: str, pools) -> None:
+    """Each live program's key and the bytes of its graph's pool."""
+    if pools:
+        log(f"path {path} graph pools by program key (MiB): "
+            + "; ".join(f"{'/'.join(map(str, k[:-1]))} {k[-1] / 2**20:.1f}"
+                        for k in pools)
+            + f"; {sum(k[-1] for k in pools) / 2**30:.3f} GiB in all")
 
 
 RATE_TOKENS = 256
@@ -1172,11 +1205,71 @@ def decode_rate(generate, rows) -> float:
     return len(rows) * (RATE_TOKENS - 1) / (walls[1] - walls[0])
 
 
+def prefill_carry(server, rows, knobs) -> tuple:
+    """``server``'s bucketed prefill of ``rows`` for one new token, run as
+    ``generate`` runs it: the first tokens, their logprobs and the K/V the
+    prefill wrote into the decode cache, copied."""
+    with server._lock, torch.inference_mode():
+        entry, _ = server._prefill(rows, [len(r) for r in rows], 1,
+                                   knobs.get("temperature", 0.0),
+                                   knobs.get("top_k"), knobs.get("top_p"),
+                                   knobs.get("seed", 0), None)
+        try:
+            step = entry.step
+            return (step.tok.clone(), step.lp.clone(),
+                    [{name: val.clone() for name, val in e.items()
+                      if name != "index"} for e in step.cache])
+        finally:
+            server.programs.checkin(entry)
+
+
+def carries_equal(a, b) -> bool:
+    return (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            and all(torch.equal(x[n], y[n]) for x, y in zip(a[2], b[2])
+                    for n in x))
+
+
+def prefill_twins(path: str, server, eager, prompts: dict, knobs: dict,
+                  card) -> dict:
+    """Graph prefill against eager prefill on the same weights: for each
+    ``name -> rows`` the first token, its logprob and every layer's K/V
+    bitwise (graph, eager, eager, graph: the graph's second run a replay
+    of the program the first captured), greedy and under ``knobs``; then
+    the time to first token of a one-token ``generate``, graph and eager
+    in turns (graph, eager, eager, graph)."""
+    same, ttft = {}, {}
+    for name, rows in prompts.items():
+        for label, kw in (("greedy", {}), ("sampled", knobs)):
+            runs = [prefill_carry(srv, rows, kw)
+                    for srv in (server, eager, eager, server)]
+            same[f"{name} {label}"] = all(carries_equal(runs[0], r)
+                                          for r in runs[1:])
+            del runs
+        walls = {"graph": [], "eager": []}
+        for kind in ("graph", "eager", "eager", "graph"):
+            srv = server if kind == "graph" else eager
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv.generate(rows, max_new_tokens=1)
+            torch.cuda.synchronize()
+            walls[kind].append(time.perf_counter() - t0)
+        ttft[name] = walls
+        log(f"path {path} TTFT {name} ({len(rows[0])} tokens), one-token "
+            f"generate in turns: graph {[round(w, 4) for w in walls['graph']]}"
+            f" s, eager {[round(w, 4) for w in walls['eager']]} s [{card}]")
+    log(f"path {path} graph vs eager prefill, first token, logprob and "
+        f"K/V bitwise: {same}")
+    if not all(same.values()):
+        raise SystemExit(f"path {path}: graph prefill differs from eager")
+    return {"bitwise": same, "ttft_s": ttft}
+
+
 def graph_vs_eager(path: str, server, requests: dict, p100, ragged,
-                   card) -> dict:
+                   p_long, card) -> dict:
     """The graph server's rows against an eager server's on the same
     weights (``LlamaServer(model, graphs=False)``): tokens and logprobs
     bitwise for each request ``name -> (rows, knobs)`` of 32 new tokens;
+    the prefills alone (:func:`prefill_twins`) at 100 and ~4,000 tokens;
     then batch-1 decode tok/s on the 100-token prompt over 255 steps
     (:func:`decode_rate`), graph and eager in turns (graph, eager, eager,
     graph), the host's noise moving a rate 30-70% between runs, and the
@@ -1196,6 +1289,9 @@ def graph_vs_eager(path: str, server, requests: dict, p100, ragged,
         f"{same}")
     if not all(same.values()):
         raise SystemExit(f"path {path}: graph decode differs from eager")
+    prefill = prefill_twins(path, server, eager,
+                            {"100": [p100], "long": [p_long]},
+                            requests["sampled"][1], card)
     rates = {"graph": [], "eager": []}
     # the 256-token key's graph captured before the first timed reading
     server.generate([p100], max_new_tokens=RATE_TOKENS)
@@ -1210,7 +1306,7 @@ def graph_vs_eager(path: str, server, requests: dict, p100, ragged,
         f"[{card}]")
     del eager
     gc.collect()
-    return {"bitwise": same, "decode_tok_s": rates,
+    return {"bitwise": same, "prefill": prefill, "decode_tok_s": rates,
             "ragged4_decode_tok_s": ragged_rate, "card": card}
 
 
@@ -1314,7 +1410,8 @@ def serve_path(path: str, card: str) -> dict:
                          f"(metrics {metrics['handler']['kernels']}) != "
                          f"implied {want}")
     programs = check_replays(path, metrics["handler"],
-                             sum(n - 1 for *_, n in requests))
+                             sum(n - 1 for *_, n in requests),
+                             prefills=len(requests))
 
     perf = {"requests": len(requests), "wall_s": total_s,
             "requests_per_s": len(requests) / total_s,
@@ -1337,7 +1434,7 @@ def serve_path(path: str, card: str) -> dict:
         "greedy_1row": ([p100], {}), "ragged4": (ragged, {}),
         "sampled": ([p_sampled], sampled),
         **({"long": ([p_long], {})} if path != "A" else {})}, p100, ragged,
-        card)
+        p_long, card)
     served = state.server.model
     plain = LlamaModel(dataclasses.replace(
         served.cfg, attn_backend="dense", matmul_backend="xla"),
@@ -1547,8 +1644,11 @@ def serve_engine_path(card: str) -> dict:
     if launches != want or metrics["handler"]["kernels"] != launches:
         raise SystemExit(f"path D: launch counters {launches} != implied "
                          f"{want}")
+    # every prefill a replay: the groups, the long rows
     programs = check_replays("D", metrics["handler"]["batching"],
-                             stats["steps"])
+                             stats["steps"],
+                             prefills=stats["forwards"] - stats["steps"])
+    log_pools("D (server)", metrics["handler"]["program_pools"])
     # (d) the pool drained; it charged each row ceil((s + n) / page)
     # pages; its peak is the most pages rows held at once, from the rows'
     # logged charge and release times
@@ -1805,7 +1905,9 @@ def eager_engine_burst(server, reqs, charges):
 
     _, wall = _drive(send, reqs)
     stats = eager.stats()
-    if stats["replays"] or stats["eager_steps"] != stats["steps"]:
+    if stats["replays"] or stats["eager_steps"] != stats["steps"] \
+            or stats["prefill_replays"] or stats["eager_prefills"] != (
+                stats["forwards"] - stats["steps"]):
         raise SystemExit("path D: the eager engine replayed a graph")
     eager.release()
     del eager
@@ -1974,7 +2076,16 @@ def chunked_turns(server, reqs, charges, solo_out, card: str) -> dict:
         rows.setdefault(name, outs)
         delta = {k: after[k] - before[k]
                  for k in ("steps", "segments", "forwards", "walk_segments",
-                           "prefill_chunks", "row_prefills")}
+                           "prefill_chunks", "row_prefills",
+                           "prefill_replays", "eager_prefills")}
+        # every prefill a replay: groups, long rows, chunks and tails
+        if delta["eager_prefills"] or delta["prefill_replays"] != (
+                delta["forwards"] - delta["steps"]):
+            raise SystemExit(f"path D: chunked turn {turn + 1} ran "
+                             f"{delta['prefill_replays']} prefill replays "
+                             f"and {delta['eager_prefills']} eager prefills "
+                             f"for {delta['forwards'] - delta['steps']} "
+                             f"prefill forwards")
         want = dict.fromkeys(KERNELS, 0)
         want["paged_decode_attention"] = layers * delta["steps"]
         want["int8_matmul"] = (7 * layers + 1) * delta["forwards"]
@@ -2037,7 +2148,11 @@ def chunked_turns(server, reqs, charges, solo_out, card: str) -> dict:
     with chunked._prefix_lock:
         chunked._prefixes.clear()
     checked = {"paged depth 2": rows["512"]}
+    eager_chunked = LlamaServer(server.model, graphs=False,
+                                prefill_chunk=CHUNK)
     for label, make in (
+            ("eager paged depth 2", lambda: make_engine(eager_chunked,
+                                                        pages)),
             ("paged depth 1", lambda: make_engine(
                 chunked, {**pages, "pipeline_depth": "1"})),
             ("dense depth 2", lambda: ContinuousBatcher(
@@ -2059,10 +2174,12 @@ def chunked_turns(server, reqs, charges, solo_out, card: str) -> dict:
                     f"chunked engine differs from its "
                     + ("solo prefix run" if walked[i] else "unchunked row"))
     log(f"path D (g): every chunked row ({sum(walked)} per burst) of the "
-        f"paged depth-2 and depth-1 and dense depth-2 and depth-1 engines "
-        f"bitwise its solo generate(row[split:], prefix=row[:split]) on the "
-        f"prefill_chunk={CHUNK} server, every other row bitwise the "
-        f"unchunked engine's")
+        f"paged depth-2 and depth-1, dense depth-2 and depth-1 and eager "
+        f"paged depth-2 engines bitwise its solo generate(row[split:], "
+        f"prefix=row[:split]) on the prefill_chunk={CHUNK} server, every "
+        f"other row bitwise the unchunked engine's: graph chunks, tails, "
+        f"groups and long rows bitwise their eager twins")
+    del eager_chunked
 
     # (h) the routed bound against plain unchunked solo generate
     gaps, bitwise = {}, {}
@@ -2827,6 +2944,16 @@ def serve_fault_path(state, reqs, d_resp, solo_out, depths, card) -> dict:
     out["e"] = fault_default(engine, reqs, depths, layers, card)
     out["d"] = fault_prefix(server, layers, card)
     out["metrics_faults"] = metrics["handler"]["batching"]["faults"]
+    # every prefill of D's engine since D, the replayed rows' included, a
+    # replay of a captured program
+    estats = engine.stats()
+    out["prefills"] = {k: estats[k] for k in ("prefill_replays",
+                                              "eager_prefills",
+                                              "compile_count")}
+    log(f"path G prefill programs of D's engine after the faults: "
+        f"{out['prefills']}")
+    if estats["eager_prefills"]:
+        raise SystemExit("path G: a prefill ran eagerly")
     out["launches"] = {k: sum(out[p]["launches"][k] for p in "abcde")
                        for k in KERNELS}
     return out
@@ -3082,8 +3209,11 @@ def cold_walks(server, row, block: int, card: str) -> dict:
     """E's cold walk of ``row``'s head by a fresh dense store, at the
     store's default width (256) and over a ``prefill_chunk=512`` server on
     the same weights (walk chunk 512), in turns default, 512, 512,
-    default: each walk's host wall (the store's ``critical_path_s``) and
-    chunks, which must be the walk's implied rounds."""
+    default: each walk's wall (host clock around the routing, ended by a
+    synchronize; the first 512-wide walk captures its programs), the
+    store's ``critical_path_s`` (since the chunks are replays, the host's
+    enqueue time) and the chunks, which must be the walk's implied
+    rounds."""
     from lambdipy_tpu_torch.models.llama import LlamaServer
     from lambdipy_tpu_torch.runtime.prefixstore import PrefixStore
 
@@ -3097,17 +3227,20 @@ def cold_walks(server, row, block: int, card: str) -> dict:
         store = PrefixStore(srv, block=block)
         with srv._prefix_lock:
             srv._prefixes.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         if store.route(row) != target:
             raise SystemExit("path E: a cold walk routed another target")
         torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
         walk = store.prefill_stats.report()
         rounds = walk_rounds(0, target, block, store.walk_chunk, max_len)
         if walk["rounds"] != rounds:
             raise SystemExit(f"path E: the {store.walk_chunk}-wide walk ran "
                              f"{walk['rounds']} chunks, implied {rounds}")
         out.setdefault(name, []).append(
-            {"ms": 1e3 * walk["critical_path_s"], "chunks": walk["rounds"],
-             "walk_chunk": store.walk_chunk})
+            {"ms": wall_ms, "enqueue_ms": 1e3 * walk["critical_path_s"],
+             "chunks": walk["rounds"], "walk_chunk": store.walk_chunk})
     with servers["chunked"]._prefix_lock:
         servers["chunked"]._prefixes.clear()
     if out["chunked"][0]["walk_chunk"] != CHUNK:
@@ -3117,8 +3250,52 @@ def cold_walks(server, row, block: int, card: str) -> dict:
         f"prefill_chunk={CHUNK}, {CHUNK}, default: "
         + "; ".join(f"{ws[0]['walk_chunk']}-wide "
                     f"{[round(w['ms'], 1) for w in ws]} ms in "
-                    f"{ws[0]['chunks']} chunks" for ws in out.values())
+                    f"{ws[0]['chunks']} chunks (enqueued in "
+                    f"{[round(w['enqueue_ms'], 1) for w in ws]} ms)"
+                    for ws in out.values())
         + f" [{card}]")
+    return out
+
+
+def eager_prefix_traffic(server, reqs, order, block: int) -> list:
+    """E's traffic (cold, the 7 together, the full hit) through a paged
+    engine and store over an eager server on ``server``'s model
+    (``graphs=False``), driven directly: each row's ``(tokens,
+    logprobs)``."""
+    from lambdipy_tpu_torch.models.llama import LlamaServer
+    from lambdipy_tpu_torch.runtime.handlers import make_engine
+    from lambdipy_tpu_torch.runtime.prefixstore import PrefixStore
+
+    eager = LlamaServer(server.model, graphs=False)
+    engine = make_engine(eager, {**PREFIX_EXTRA, "kv_pages": "512"})
+    store = PrefixStore(eager, block=block, pool=engine.pool)
+    engine.prefix_pages_fn = store.acquire_pages
+    out = [None] * len(order)
+
+    def send(j):
+        body = reqs[order[j]][1]
+        row = body["tokens"]
+        m = store.route(row)
+        out[j] = engine.generate(row[m:], prefix=row[:m],
+                                 max_new_tokens=PREFIX_NEW,
+                                 return_logprobs=True, **_knobs(body))
+
+    send(0)
+    threads = [threading.Thread(target=send, args=(j,))
+               for j in range(1, len(order) - 1)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    send(len(order) - 1)
+    stats = engine.stats()
+    if stats["prefill_replays"] or stats["replays"] \
+            or eager.program_stats()["prefill_replays"]:
+        raise SystemExit("path E: the eager twin replayed a graph")
+    engine.release()
+    del engine, store, eager
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3139,7 +3316,7 @@ def serve_prefix_path(card: str) -> dict:
     alone and both pass their invariant checks."""
     import threading
 
-    from lambdipy_tpu_torch.models.llama import cache_nbytes
+    from lambdipy_tpu_torch.models.llama import LlamaServer, cache_nbytes
     from lambdipy_tpu_torch.runtime.continuous import ContinuousBatcher
     from lambdipy_tpu_torch.runtime.handlers import (HandlerContext,
                                                      generate_handler,
@@ -3205,6 +3382,7 @@ def serve_prefix_path(card: str) -> dict:
         resp[j]["wall_s"] = time.perf_counter() - t1
 
     try:
+        server0 = server_.program_stats()
         set_launches_to_zero()  # counters to 0 just before the path
         t_traffic = time.perf_counter()
         send(0)
@@ -3275,8 +3453,19 @@ def serve_prefix_path(card: str) -> dict:
     if launches != want or metrics["handler"]["kernels"] != launches:
         raise SystemExit(f"path E: launch counters {launches} != implied "
                          f"{want}")
+    # every prefill a replay: the engine's continuations, the store's
+    # walk chunks (on the server's counters)
     programs = check_replays("E", metrics["handler"]["batching"],
-                             stats["steps"])
+                             stats["steps"],
+                             prefills=(stats["prefix_joins"]
+                                       + stats["forwards"] - stats["steps"]))
+    walked = {k: metrics["handler"][k] - server0[k]
+              for k in ("prefill_replays", "eager_prefills")}
+    log(f"path E walk programs: {walked['prefill_replays']} replays for "
+        f"{rounds} walk chunks, {walked['eager_prefills']} eager")
+    if walked != {"prefill_replays": rounds, "eager_prefills": 0}:
+        raise SystemExit("path E: a walk chunk was not a replay")
+    log_pools("E (server)", metrics["handler"]["program_pools"])
 
     # (f) the pool holds the store's pages alone, each with the store's
     # one ref
@@ -3361,6 +3550,19 @@ def serve_prefix_path(card: str) -> dict:
                              f"differs from its solo routed run")
     log(f"path E (a): all {len(order)} engine rows (paged over HTTP at the "
         f"served rounding, dense unrounded) bitwise their solo routed runs")
+
+    # the same traffic through an eager server's paged engine and store
+    # (graphs=False: every walk chunk, continuation and decode step eager),
+    # driven directly: every row bitwise the graph engines'
+    eager_out = eager_prefix_traffic(server_, reqs, order, block)
+    for j, (d, e) in enumerate(zip(dense_out, eager_out)):
+        if not (np.array_equal(d[0], e[0]) and np.array_equal(d[1], e[1])):
+            raise SystemExit(f"path E: request {order[j]}'s row through the "
+                             f"eager paged engine differs from the graph "
+                             f"engines'")
+    log(f"path E: an eager server's paged engine and store (cold walk, "
+        f"hot and paged continuations eager) give all {len(order)} rows "
+        f"bitwise the graph engines'")
     bitwise = all(g["bitwise"] for g in gaps)
     greedy_equal = all(g["tokens_equal"] for g in gaps if g["greedy"])
     first_gap = max(g["first_logprob_gap"] for g in gaps)
@@ -3392,12 +3594,12 @@ def serve_prefix_path(card: str) -> dict:
             walls.append(time.perf_counter() - t1)
         return walls
 
-    def cold():
-        fresh = PrefixStore(server_, block=block)
-        with server_._prefix_lock:
-            server_._prefixes.clear()
+    def cold(srv=server_):
+        fresh = PrefixStore(srv, block=block)
+        with srv._prefix_lock:
+            srv._prefixes.clear()
         m = fresh.route(row0)
-        server_.generate(row0[m:], prefix=row0[:m], max_new_tokens=1)
+        srv.generate(row0[m:], prefix=row0[:m], max_new_tokens=1)
 
     m0 = targets[0]
     traces = {}
@@ -3415,8 +3617,12 @@ def serve_prefix_path(card: str) -> dict:
             f"{traces[name]['idle_share']:.3f}; top kernels "
             + ", ".join(f"{k[:40]} {ms:.2f} ms x{n}"
                         for k, ms, n in kernels[:3]) + f" [{card}]")
+    eager_srv = LlamaServer(server_.model, graphs=False)
     ttft = {"cold_s": one_token(cold),
             "hot_s": one_token(lambda: server_.generate(
+                row0[m0:], prefix=row0[:m0], max_new_tokens=1)),
+            "cold_eager_s": one_token(lambda: cold(eager_srv)),
+            "hot_eager_s": one_token(lambda: eager_srv.generate(
                 row0[m0:], prefix=row0[:m0], max_new_tokens=1)),
             "unrouted_s": one_token(lambda: server_.generate(
                 row0, max_new_tokens=1)),
@@ -3439,14 +3645,19 @@ def serve_prefix_path(card: str) -> dict:
             "max_memory_allocated_gib_paged": peak_paged / 2**30,
             "max_memory_allocated_gib_dense": peak_dense / 2**30}
     perf["cold_walks"] = cold_walks(server_, row0, block, card)
+    del eager_srv
     log(f"path E TTFT (one-token solo requests, two readings each): cold "
         f"{ttft['cold_s']} s, hot {ttft['hot_s']} s, unrouted "
-        f"{ttft['unrouted_s']} s; first streamed line over HTTP (a segment "
+        f"{ttft['unrouted_s']} s; eager server cold {ttft['cold_eager_s']} "
+        f"s, hot {ttft['hot_eager_s']} s; first streamed line over HTTP (a "
+        f"segment "
         f"of 16 steps after the first token): cold "
         f"{first_line[0]:.3f} s, hot {first_line[-1]:.3f} s [{card}]")
-    log(f"path E cold walk of {targets[0]} tokens: {walk0['ms']:.1f} ms in "
-        f"{walk0['chunks']} chunks; the 8 walks' walls summed (7 of them "
-        f"concurrent) {perf['walks_ms_total']:.1f} ms in "
+    log(f"path E cold walk of {targets[0]} tokens (the HTTP traffic's "
+        f"first, its programs captured on the way): enqueued in "
+        f"{walk0['ms']:.1f} ms, {walk0['chunks']} chunks; the 8 walks' "
+        f"enqueue times summed (7 of them concurrent) "
+        f"{perf['walks_ms_total']:.1f} ms in "
         f"{perf['walk_chunks_total']} chunks [{card}]")
     for key in ("traffic_wall_s", "decode_tok_s", "prefix_entry_bytes",
                 "server_prefix_entries", "server_prefix_bytes",
@@ -3515,6 +3726,11 @@ def main() -> int:
     paths["G"] = paths["D"].pop("G")
     paths["D-chunked"] = paths["D"].pop("chunked")
     log(f"paths D, F and G took {time.perf_counter() - t_path:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"after paths D, F and G: {torch.cuda.memory_allocated() / 2**30:.2f}"
+        f" GiB still allocated, threads alive: "
+        f"{sorted(t.name for t in threading.enumerate())}")
     for path in PATHS:
         t_path = time.perf_counter()
         paths[path] = serve_path(path, card)

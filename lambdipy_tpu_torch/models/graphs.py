@@ -1,30 +1,40 @@
-"""Compiled decode steps: a :class:`~lambdipy_tpu_torch.models.llama.DecodeStep`
-captured as a CUDA graph and replayed once per decode step, and the
-bucket-keyed LRU of such programs that ``LlamaServer`` keeps. The port's
-twin of the JAX server's compiled programs: ``LlamaServer._fn_cached``
-(``lambdipy_tpu/models/llama.py``) and the ``lax.scan`` of
-``_scan_decode`` compiled once per bucket.
+"""Compiled programs: a :class:`~lambdipy_tpu_torch.models.llama.DecodeStep`
+captured as a CUDA graph and replayed once per decode step, every prefill
+of the serving path captured the same way (``models/llama.py
+PrefillProgram``), and the bucket-keyed LRU of such programs that
+``LlamaServer`` keeps. The port's twin of the JAX server's compiled
+programs: ``LlamaServer._fn_cached`` (``lambdipy_tpu/models/llama.py``),
+the ``lax.scan`` of ``_scan_decode`` compiled once per bucket and the
+prefill, prefix and continuation programs.
 
+- A program is a closure over static buffers (:class:`GraphProgram`):
+  what a request brings is copied into its input buffers before a run,
+  and what it gives is read from its output buffers after; a capture
+  records the closure's kernels at those addresses.
 - A replay runs no Python, so the kernel wrappers' launch counters (a
   Python ``+= 1`` beside each launch) would miss it. A capture runs the
-  step's Python once without running its kernels: :class:`StepProgram`
-  takes back what the capture counted and adds exactly that at every
-  replay, so the counters stay equal to the launches the card ran.
+  program's Python once without running its kernels:
+  :class:`GraphProgram` takes back what the capture counted and adds
+  exactly that at every replay, so the counters stay equal to the
+  launches the card ran.
 - What must not happen inside a capture is done first, on the capture
   stream (:func:`prepare_capture`): the kernel libraries built and
-  loaded, the int8 GEMV's merge counters for the capture stream
+  loaded, each kernel instantiation's one-time set-up run once outside
+  any capture (the tensor-map encoder's driver lookup, the shared-memory
+  attributes), the int8 GEMV's merge counters for the capture stream
   allocated, cuBLAS's handle and workspace for this thread and stream
   made (a first cuBLAS call inside a capture invalidates it on an H100).
 - One capture at a time per process, with no other device work beside
   it: every serving path holds :data:`DEVICE_LOCK` around its device work
   (prefills, decode steps and the fetches that wait on them), and
   captures take it too.
-- A sampled step draws from one ``torch.Generator`` per row. The
+- A sampled program draws from one ``torch.Generator`` per row. The
   generators are registered with the graph
   (``CUDAGraph.register_generator_state``), so a replay draws what the
-  eager step would and advances each generator as it would. Where the
-  card's PyTorch cannot register them, sampled steps run eagerly and are
-  counted (``eager_steps``); greedy steps are always captured.
+  eager run would and advances each generator as it would. Where the
+  card's PyTorch cannot register them, sampled programs run eagerly and
+  are counted (``eager_steps``, ``eager_prefills``); greedy ones are
+  always captured.
 
 On the CPU no graph exists: a program runs its step eagerly. Tests inject
 a stand-in for the graph type (:class:`CudaGraph` is the card's).
@@ -32,13 +42,13 @@ a stand-in for the graph type (:class:`CudaGraph` is the card's).
 
 from __future__ import annotations
 
+import gc
 import threading
 from collections import OrderedDict, deque
 
 import torch
 
-from lambdipy_tpu_torch.ops import decode_attention, quant
-from lambdipy_tpu_torch.ops.attention import flash_attention
+from lambdipy_tpu_torch.ops import _build, attention, decode_attention, quant
 
 
 class FairLock:
@@ -91,7 +101,7 @@ _COUNTERS = ((decode_attention.blocked_decode_attention, "launches"),
              (decode_attention.paged_decode_attention, "launches"),
              (decode_attention.paged_decode_attention, "launches_int8kv"),
              (quant.int8_matmul, "launches"),
-             (flash_attention, "launches"))
+             (attention.flash_attention, "launches"))
 
 
 def _read_counts() -> list[int]:
@@ -116,11 +126,53 @@ def capture_stream(device) -> torch.cuda.Stream:
         return _streams[device]
 
 
+_warmed: set = set()
+
+
+def _warm_kernels(cfg, dev) -> None:
+    """Launch every instantiation a prefill of ``cfg`` can reach once,
+    outside any capture, on tiny operands and without counting: each runs
+    its one-time set-up then (the driver lookup of the tensor-map encoder,
+    the function-static ``cudaFuncSetAttribute`` of its shared memory),
+    so that no capture ever records it."""
+    key = (dev, cfg.dtype, cfg.head_dim, cfg.attn_backend, cfg.quant,
+           cfg.matmul_backend)
+    if key in _warmed:
+        return
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if cfg.quant == "int8" and cfg.matmul_backend == "pallas":
+        # the tiled route's three tile shapes (0: bf16 only), at m, k, n
+        # that fill a tile of each
+        m, k, n = 256, 64, 128
+        w = torch.zeros(k, n, dtype=torch.int8, device=dev)
+        scale = torch.ones(1, n, dtype=torch.float32, device=dev)
+        for dtype in {cfg.dtype, torch.float32}:
+            x = torch.zeros(m, k, dtype=dtype, device=dev)
+            out = torch.empty(m, n, dtype=dtype, device=dev)
+            for route in range(0 if dtype == torch.bfloat16 else 1, 3):
+                err = quant._launcher()(
+                    quant._DTYPES[dtype], x.data_ptr(), w.data_ptr(),
+                    scale.data_ptr(), out.data_ptr(), m, k, n, route, stream)
+                _build.check(err, "int8_matmul")
+    if cfg.attn_backend == "flash":
+        q = torch.zeros(1, 128, 1, cfg.head_dim, dtype=cfg.dtype, device=dev)
+        out = torch.empty_like(q)
+        err = attention._launcher()(
+            attention._DTYPES[cfg.dtype], q.data_ptr(), q.data_ptr(),
+            q.data_ptr(), out.data_ptr(), 1, 128, 128, 1, 1, cfg.head_dim,
+            1.0, 1, stream)
+        _build.check(err, "flash_attention")
+    torch.cuda.current_stream(dev).synchronize()
+    _warmed.add(key)
+
+
 def prepare_capture(model, rows: int) -> None:
-    """On the current stream, everything a capture of ``model``'s decode
-    step of ``rows`` rows must find done: the kernel libraries loaded
-    (``nvcc`` and ``dlopen`` cannot run inside a capture), the GEMV's merge
-    counters for this stream at the widest projection's size, and
+    """On the current stream, everything a capture of one of ``model``'s
+    programs over ``rows`` rows must find done: the kernel libraries loaded
+    (``nvcc`` and ``dlopen`` cannot run inside a capture) and every kernel
+    instantiation's one-time set-up run (:func:`_warm_kernels`), the
+    GEMV's merge counters for this stream at the widest projection's size
+    (a decode step's every projection, a prefill's lm_head), and
     cuBLAS's handle and workspace for this thread and stream."""
     cfg = model.cfg
     dev = model.embed.embedding.device  # with its index, as the kernels key
@@ -133,6 +185,7 @@ def prepare_capture(model, rows: int) -> None:
         stream = torch.cuda.current_stream(dev).cuda_stream
         quant.reserve_gemv_counters(dev, stream,
                                     quant.gemv_counter_count(rows, widest))
+    _warm_kernels(cfg, dev)
     for dtype in {cfg.dtype, torch.float32}:
         a = torch.zeros(1, 8, 8, dtype=dtype, device=dev)
         torch.bmm(a, a)
@@ -164,15 +217,24 @@ class CudaGraph:
         stream.wait_stream(main)
         # capture_begin / capture_end, not the ``torch.cuda.graph`` context:
         # that one empties PyTorch's cache first, and the next request's
-        # prefill then waits on fresh cudaMallocs
-        with torch.cuda.stream(stream):
-            prepare()
-            reserved = torch.cuda.memory_reserved(self.device)
-            self.graph.capture_begin()
-            try:
-                fn()
-            finally:
-                self.graph.capture_end()
+        # prefill then waits on fresh cudaMallocs. The garbage collector
+        # is held off while the capture runs: a graph it finalised there
+        # (one of a dropped server's programs) would reset inside the
+        # capture, which invalidates it
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(stream):
+                prepare()
+                reserved = torch.cuda.memory_reserved(self.device)
+                self.graph.capture_begin()
+                try:
+                    fn()
+                finally:
+                    self.graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
         main.wait_stream(stream)
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
 
@@ -184,16 +246,19 @@ class CudaGraph:
 
 
 class GraphStats:
-    """Counters of a server's (or an engine's) decode programs:
-    ``captures`` (graphs captured, the JAX server's ``compile_count``),
-    ``replays`` (decode steps run as a replay), ``eager_steps`` (decode
-    steps run eagerly: every step without graphs, sampled steps where the
-    card cannot capture draws) and ``evictions`` (programs the LRU
-    dropped)."""
+    """Counters of a server's (or an engine's) programs: ``captures``
+    (graphs captured, decode and prefill: the JAX server's
+    ``compile_count``), ``replays`` (decode steps run as a replay),
+    ``eager_steps`` (decode steps run eagerly: every step without graphs,
+    sampled steps where the card cannot capture draws),
+    ``prefill_replays`` and ``eager_prefills`` (the same for prefills:
+    serving prefills, continuations, a walk's chunks) and ``evictions``
+    (entries the LRU dropped)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self.captures = self.replays = self.eager_steps = self.evictions = 0
+        self.prefill_replays = self.eager_prefills = 0
 
     def record(self, name: str, n: int = 1) -> None:
         with self._lock:
@@ -203,21 +268,37 @@ class GraphStats:
         with self._lock:
             return {"compile_count": self.captures, "replays": self.replays,
                     "eager_steps": self.eager_steps,
+                    "prefill_replays": self.prefill_replays,
+                    "eager_prefills": self.eager_prefills,
                     "program_evictions": self.evictions}
 
 
-class StepProgram:
-    """One decode step of ``step`` (greedy or ``sampled``), run by
-    :meth:`run`: eagerly when ``graph_type`` is None (the CPU, or a server
-    built with ``graphs=False``) or when the graph type cannot capture
-    generator draws and the step samples; else captured on its first run
-    and replayed from then on. A failed capture raises."""
+class GraphProgram:
+    """``body()``, a closure over static buffers, run by :meth:`run`:
+    eagerly when ``graph_type`` is None (the CPU, or a server built with
+    ``graphs=False``) or when the graph type cannot capture generator
+    draws and the program samples (``gens``, one per row, are registered
+    with the graph); else captured on its first run and replayed from then
+    on. A failed capture raises. ``events`` names the counters a replay
+    and an eager run add to (decode: ``replays`` / ``eager_steps``).
 
-    def __init__(self, step, sampled: bool, graph_type, stats: GraphStats):
-        self.step = step
+    ``body`` may return a tuple of tensors: the program's outputs. The
+    first run's tensors are kept in :attr:`outputs` (on the card, the
+    capture's: they live in the graph's pool) and every later run writes
+    into them, so a run overwrites what the one before it gave, eager or
+    replayed alike: a caller that keeps an output past the next run of
+    the program copies it first."""
+
+    def __init__(self, body, model, rows: int, sampled: bool, gens,
+                 graph_type, stats: GraphStats,
+                 events: tuple = ("replays", "eager_steps")):
+        self.body, self.model, self.rows = body, model, rows
         self.sampled = bool(sampled)
+        self.gens = gens
         self.graph_type = graph_type
         self.stats = stats
+        self.events = events
+        self.outputs = None
         self._graph = None
         self._counts = None
 
@@ -230,91 +311,172 @@ class StepProgram:
     def pool_bytes(self) -> int:
         return getattr(self._graph, "pool_bytes", 0)
 
-    def run(self) -> None:
+    def _call(self) -> None:
+        out = self.body()
+        if out is None:
+            return
+        if self.outputs is None:
+            self.outputs = tuple(out)
+        else:
+            for dst, src in zip(self.outputs, out):
+                dst.copy_(src)
+
+    def run(self, stats: GraphStats | None = None) -> None:
+        """One run; its counters go to ``stats`` (default: the program's
+        own)."""
+        stats = stats or self.stats
         if not self.uses_graph:
-            self.step.step(self.sampled)
-            self.stats.record("eager_steps")
+            self._call()
+            stats.record(self.events[1])
             return
         if self._graph is None:
-            self._capture()
+            self._capture(stats)
         self._graph.replay()
         _add_counts(self._counts)
-        self.stats.record("replays")
+        stats.record(self.events[0])
 
-    def _capture(self) -> None:
-        step = self.step
-        graph = self.graph_type(step.model.device)
+    def _capture(self, stats: GraphStats) -> None:
+        graph = self.graph_type(self.model.device)
         if self.sampled:
-            for gen in step.gens:
+            for gen in self.gens:
                 graph.register_generator_state(gen)
         with DEVICE_LOCK:
             before = _read_counts()
             try:
-                graph.capture(lambda: step.step(self.sampled),
-                              lambda: prepare_capture(step.model, step.rows))
+                graph.capture(self._call,
+                              lambda: prepare_capture(self.model, self.rows))
+            except BaseException:
+                self.outputs = None  # the failed capture's, never computed
+                raise
             finally:
                 # the capture ran the wrappers' Python, not their kernels
                 counts = [a - b for a, b in zip(_read_counts(), before)]
                 _add_counts(counts, -1)
         self._graph, self._counts = graph, counts
-        self.stats.record("captures")
+        stats.record("captures")
 
     def close(self) -> None:
-        """Free the graph (and its pool) and let go of the step."""
+        """Free the graph (and its pool) and let go of the closure."""
         if self._graph is not None:
             with DEVICE_LOCK:
                 self._graph.reset()
-        self._graph = self.step = None
+        self._graph = self.body = self.outputs = None
 
 
-class StepPrograms:
+class StepProgram(GraphProgram):
+    """One decode step of ``step`` (greedy or ``sampled``): a
+    :class:`GraphProgram` over the step's buffers and its per-row
+    generators."""
+
+    def __init__(self, step, sampled: bool, graph_type, stats: GraphStats):
+        super().__init__(lambda: step.step(sampled), step.model, step.rows,
+                         sampled, step.gens, graph_type, stats)
+        self.step = step
+
+    def close(self) -> None:
+        super().close()
+        self.step = None
+
+
+class ProgramSet:
+    """Programs made on first use, under keys of the caller's (a prefill
+    width, greedy or sampled), and the device memory they hold: their
+    graphs' pools and :meth:`buffer_bytes`. The unit a :class:`ProgramCache`
+    holds, checks out and evicts; ``counted`` says whether it counts
+    toward the cache's entry bound (decode entries do; an engine's prefill
+    programs and a walk's window count by their bytes alone)."""
+
+    counted = False
+
+    def __init__(self):
+        self.programs: dict = {}
+
+    def program(self, key: tuple, make):
+        """The program of ``key``, made by ``make()`` on first use."""
+        if key not in self.programs:
+            self.programs[key] = make()
+        return self.programs[key]
+
+    def modes(self) -> list[str]:
+        """Its decode programs' modes (none here)."""
+        return []
+
+    def buffer_bytes(self) -> int:
+        return 0
+
+    def pool_report(self) -> list:
+        """``(key, pool bytes)`` of every program."""
+        return [(key, prog.pool_bytes) for key, prog in self.programs.items()]
+
+    def nbytes(self) -> int:
+        """Device bytes held: the buffers and the graphs' pools."""
+        return self.buffer_bytes() + sum(p for _, p in self.pool_report())
+
+    def close(self) -> None:
+        """Free the graphs (and their pools)."""
+        for prog in self.programs.values():
+            prog.close()
+        self.programs = {}
+
+
+class StepPrograms(ProgramSet):
     """A :class:`~lambdipy_tpu_torch.models.llama.DecodeStep` (its buffers
-    and decode cache) with its greedy and its sampled :class:`StepProgram`,
-    each made on first use: one cache, two programs. The unit both the
-    server's :class:`ProgramCache` and the continuous engine hold."""
+    and decode cache) with its greedy and its sampled :class:`StepProgram`
+    and the prefills that load it (``programs``: the serving prefill per
+    prompt width, the prefix continuation per suffix width, each greedy
+    or sampled), each made on first use: one cache, its programs. The unit
+    both the server's :class:`ProgramCache` and the continuous engine
+    hold."""
+
+    counted = True
 
     def __init__(self, step, graph_type, stats: GraphStats):
+        super().__init__()
         self.step = step
         self.graph_type = graph_type
         self.stats = stats
-        self._programs: dict[bool, StepProgram] = {}
+        self._steps: dict[bool, StepProgram] = {}
 
-    def program(self, sampled: bool) -> StepProgram:
+    def decode(self, sampled: bool) -> StepProgram:
+        """The greedy or sampled decode program."""
         sampled = bool(sampled)
-        if sampled not in self._programs:
-            self._programs[sampled] = StepProgram(self.step, sampled,
-                                                  self.graph_type, self.stats)
-        return self._programs[sampled]
+        if sampled not in self._steps:
+            self._steps[sampled] = StepProgram(self.step, sampled,
+                                               self.graph_type, self.stats)
+        return self._steps[sampled]
 
     def modes(self) -> list[str]:
-        return ["sampled" if s else "greedy" for s in sorted(self._programs)]
+        return ["sampled" if s else "greedy" for s in sorted(self._steps)]
 
     def graph(self, sampled: bool):
         """The captured graph of the greedy or sampled program, or None."""
-        prog = self._programs.get(bool(sampled))
+        prog = self._steps.get(bool(sampled))
         return prog._graph if prog is not None else None
 
-    def nbytes(self) -> int:
-        """Device bytes held: the step's decode cache and the graphs'
-        pools."""
-        if self.step is None:
-            return 0
-        return self.step.nbytes() + sum(p.pool_bytes
-                                        for p in self._programs.values())
+    def buffer_bytes(self) -> int:
+        return 0 if self.step is None else self.step.nbytes()
+
+    def pool_report(self) -> list:
+        return [(("decode", "sampled" if s else "greedy"), p.pool_bytes)
+                for s, p in self._steps.items()] + super().pool_report()
 
     def close(self) -> None:
         """Free the graphs (and their pools) and let go of the step."""
-        for prog in self._programs.values():
+        for prog in self._steps.values():
             prog.close()
-        self._programs, self.step = {}, None
+        super().close()
+        self._steps, self.step = {}, None
 
 
 class ProgramCache:
-    """``LlamaServer``'s decode programs: an LRU of :class:`StepPrograms`
-    keyed by everything but greedy or sampled, bounded by a count
-    (``max_entries``, the JAX server's ``program_cache_max``) and by the
-    device bytes the entries hold (``max_bytes``, None = no bound), since
-    an entry owns a decode cache whose size grows with its key.
+    """``LlamaServer``'s programs: an LRU of :class:`ProgramSet` entries
+    (decode entries, :class:`StepPrograms`, keyed by everything but greedy
+    or sampled; an engine's prefill programs of one shape; a walk's
+    window), bounded by a count of decode entries (``max_entries``, the
+    JAX server's ``program_cache_max``) and by the device bytes all the
+    entries hold, graph pools included (``max_bytes``, None = no bound),
+    since an entry owns a decode cache whose size grows with its key and
+    a prefill's pool keeps the prefill's peak.
 
     A request checks an entry out for its whole life (a stream holds it
     across segments), so two requests never share a cache: a second
@@ -334,16 +496,18 @@ class ProgramCache:
         self._idle: OrderedDict = OrderedDict()  # id -> (key, entry)
         self._busy: dict = {}
 
-    def checkout(self, key, nbytes: int, make) -> StepPrograms:
-        """An idle entry of ``key``, or a new one from ``make()`` whose
-        decode cache takes ``nbytes`` (caller holds :data:`DEVICE_LOCK`)."""
+    def checkout(self, key, nbytes: int, make,
+                 counted: bool = True) -> ProgramSet:
+        """An idle entry of ``key``, or a new one from ``make()`` that
+        takes about ``nbytes`` and counts toward ``max_entries`` when
+        ``counted`` (caller holds :data:`DEVICE_LOCK`)."""
         with self._lock:
             for eid, (k, entry) in reversed(self._idle.items()):
                 if k == key:
                     del self._idle[eid]
                     self._busy[eid] = (k, entry)
                     return entry
-        self._evict(incoming=nbytes)
+        self._evict(incoming=nbytes, counted=counted)
         try:
             entry = make()
         except torch.OutOfMemoryError:
@@ -354,7 +518,7 @@ class ProgramCache:
             self._busy[id(entry)] = (key, entry)
         return entry
 
-    def checkin(self, entry: StepPrograms) -> None:
+    def checkin(self, entry: ProgramSet) -> None:
         with self._lock:
             self._idle[id(entry)] = self._busy.pop(id(entry))
         self._evict()
@@ -369,12 +533,15 @@ class ProgramCache:
 
     def _held(self) -> tuple[int, int]:
         entries = [e for _, e in (*self._idle.values(), *self._busy.values())]
-        return len(entries), sum(e.nbytes() for e in entries)
+        return (sum(e.counted for e in entries),
+                sum(e.nbytes() for e in entries))
 
-    def _evict(self, incoming: int | None = None) -> None:
+    def _evict(self, incoming: int | None = None,
+               counted: bool = True) -> None:
         """Evict idle entries, oldest first, until the held entries (and
-        an ``incoming`` one of that many bytes) fit both bounds."""
-        extra = 0 if incoming is None else 1
+        an ``incoming`` one of that many bytes, a decode entry when
+        ``counted``) fit both bounds."""
+        extra = int(incoming is not None and counted)
         dropped = []
         with self._lock:
             while self._idle:
@@ -392,14 +559,22 @@ class ProgramCache:
             self.stats.record("evictions")
 
     def keys(self) -> list:
-        """Every program's key: the entry's key and greedy or sampled."""
+        """Every decode program's key: the entry's key and greedy or
+        sampled."""
         with self._lock:
             items = [*self._idle.values(), *self._busy.values()]
         return sorted(((*k, mode) for k, e in items for mode in e.modes()),
                       key=repr)
 
+    def pools(self) -> list:
+        """Every program's key (the entry's and the program's) and the
+        bytes of its graph's pool."""
+        with self._lock:
+            items = [*self._idle.values(), *self._busy.values()]
+        return sorted(([*k, *pk, pool] for k, e in items
+                       for pk, pool in e.pool_report()), key=repr)
+
     def nbytes(self) -> int:
-        """Device bytes the entries hold: their decode caches and graph
-        pools."""
+        """Device bytes the entries hold: their caches and graph pools."""
         with self._lock:
             return self._held()[1]

@@ -7,21 +7,23 @@ follow it so the two can be held against each other on the same
 weights (``models/params.py from_jax_params``). Differences:
 
 - The decode step runs on buffers at fixed addresses (:class:`DecodeStep`)
-  and, on the card, as a captured CUDA graph replayed once per step; the
-  server keeps those programs in a bucket-keyed LRU
+  and, on the card, as a captured CUDA graph replayed once per step; so
+  does every prefill (:class:`PrefillProgram`: the serving prefill, a
+  prefix continuation, a walk's chunks, the engine's grouped and long
+  rows). The server keeps those programs in a bucket-keyed LRU
   (``models/graphs.py``), the counterpart of the JAX server's compiled
-  programs. ``_scan_decode`` is a Python loop of replays; prefill runs
-  eagerly. The bucketing (prompt, decode and batch buckets,
-  ``cache_len``) is kept, so the kernels see the shapes the JAX programs
-  see.
+  programs. ``_scan_decode`` is a Python loop of replays. The bucketing
+  (prompt, decode and batch buckets, ``cache_len``) is kept, so the
+  kernels see the shapes the JAX programs see.
 - The KV cache is updated in place (the JAX cache is functional). A
   prefix entry the server or the prefix store shares is never written:
-  a continuation runs on a copy (the step's own cache, or
-  :func:`copy_cache`), as the JAX ext program's donation needs the copy
-  ``runtime/prefixstore.py`` makes first.
+  a continuation runs on a copy (the step's own cache, or a one-row
+  window, :class:`WindowEntry`), as the JAX ext program's donation needs
+  the copy ``runtime/prefixstore.py`` makes first.
 - Cache indices are per-row ``[b]`` tensors (one-token decode steps) or
-  a Python ``int`` (the multi-token chunk of a continuation or of a
-  prefix walk, :meth:`LlamaBlock._chunk_attend`).
+  one scalar (the multi-token chunk of a continuation or of a prefix
+  walk, :meth:`LlamaBlock._chunk_attend`): a 0-dim device tensor, so a
+  captured chunk reads its position from a buffer, or a Python ``int``.
 - The paged decode branch (a cache entry holding arena leaves and block
   ``tables``) writes each step's K/V into the row's page and, under
   ``blocked``, runs the paged decode-attention kernel on the arena where
@@ -60,7 +62,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from lambdipy_tpu_torch.models.graphs import (DEVICE_LOCK, CudaGraph,
-                                              GraphStats, ProgramCache,
+                                              GraphProgram, GraphStats,
+                                              ProgramCache, ProgramSet,
                                               StepPrograms)
 from lambdipy_tpu_torch.ops.attention import flash_attention
 from lambdipy_tpu_torch.ops.decode_attention import (blocked_decode_attention,
@@ -276,6 +279,26 @@ def _kv_store(cfg: LlamaConfig, k, v) -> dict:
     return {"k": k.to(cfg.dtype), "v": v.to(cfg.dtype)}
 
 
+def _scalar_index(index) -> bool:
+    """A chunk's index: one scalar (an ``int`` or a 0-dim tensor), not a
+    decode step's per-row ``[b]`` tensor."""
+    return isinstance(index, int) or (torch.is_tensor(index)
+                                      and index.dim() == 0)
+
+
+def _device_index(index, s: int, width: int, device):
+    """A chunk's scalar index as a 0-dim int64 tensor on ``device``. An
+    ``int`` is checked against the cache first (a chunk of ``s`` tokens
+    must end inside its ``width`` positions) and made with a fill, not a
+    host copy."""
+    if torch.is_tensor(index):
+        return index
+    if index < 0 or index + s > width:
+        raise ValueError(f"a {s}-token chunk at index {index} crosses the "
+                         f"cache's {width} positions")
+    return torch.full((), index, dtype=torch.long, device=device)
+
+
 class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
@@ -342,29 +365,30 @@ class LlamaBlock(nn.Module):
         return _attend(q, ck, cv, valid)
 
     def _chunk_attend(self, q, k, v, cache):
-        """A chunk of ``s`` tokens at one scalar ``index`` (an ``int``):
-        the chunk's K/V written at ``[index, index + s)``, in place, and
-        chunk query j attending keys ``<= index + j``, causal within the
-        chunk and everything before it (JAX ``llama.py:401-431``). A
-        prefix continuation or a prefix walk's extension chunk. The
-        attention is plain ``_attend`` over the whole cache width (int8
-        K/V through ``_kv_dequantize``), as the JAX package runs it; a
-        one-token chunk under ``blocked`` takes the decode kernel, as
-        there. The chunk must fit the cache: the JAX write clamps a
-        crossing chunk back onto real K/V, so callers keep ``index + s <=
-        width``, and here a crossing chunk raises."""
+        """A chunk of ``s`` tokens at one scalar ``index`` (a 0-dim device
+        tensor, or an ``int``): the chunk's K/V written at ``[index,
+        index + s)``, in place (an indexed copy, so the position is read
+        on the device), and chunk query j attending keys ``<= index + j``,
+        causal within the chunk and everything before it (JAX
+        ``llama.py:401-431``). A prefix continuation or a prefix walk's
+        extension chunk. The attention is plain ``_attend`` over the whole
+        cache width (int8 K/V through ``_kv_dequantize``), as the JAX
+        package runs it; a one-token chunk under ``blocked`` takes the
+        decode kernel, as there. The chunk must fit the cache: the JAX
+        write clamps a crossing chunk back onto real K/V, so callers keep
+        ``index + s <= width``: an ``int`` index is checked here (a
+        crossing chunk raises), a device index by the caller, who knows
+        it on the host."""
         cfg = self.cfg
         b, s = q.shape[:2]
-        idx = cache["index"]
-        t = cache_width([cache])
-        if idx < 0 or idx + s > t:
-            raise ValueError(f"a {s}-token chunk at index {idx} crosses the "
-                             f"cache's {t} positions")
+        idx = _device_index(cache["index"], s, cache_width([cache]),
+                            q.device)
+        slots = idx + torch.arange(s, device=q.device)
         new_cache = {}
         for name, val in _kv_store(cfg, k, v).items():
-            cache[name][:, idx:idx + s] = val
+            cache[name].index_copy_(1, slots, val)
             new_cache[name] = cache[name]
-        new_cache["index"] = idx
+        new_cache["index"] = cache["index"]
         if cfg.kv_quant == "int8":
             ck, cv = new_cache["k_int8"], new_cache["v_int8"]
             scales = {"k_scale": new_cache["k_scale"],
@@ -372,24 +396,24 @@ class LlamaBlock(nn.Module):
         else:
             ck, cv, scales = new_cache["k"], new_cache["v"], {}
         if cfg.attn_backend == "blocked" and s == 1:
-            active = torch.full((b,), idx + 1, dtype=torch.int32,
-                                device=q.device)
+            active = (idx + 1).to(torch.int32).expand(b).contiguous()
             return blocked_decode_attention(q, ck, cv, active,
                                             **scales), new_cache
         if scales:
             ck = _kv_dequantize(ck, scales["k_scale"], cfg.dtype)
             cv = _kv_dequantize(cv, scales["v_scale"], cfg.dtype)
+        t = ck.shape[1]
         keys = torch.arange(t, device=q.device)
-        queries = idx + torch.arange(s, device=q.device)
-        valid = (keys[None, None, :] <= queries[None, :, None]).expand(b, s, t)
+        valid = (keys[None, None, :] <= slots[None, :, None]).expand(b, s, t)
         return _attend(q, ck, cv, valid), new_cache
 
     def forward(self, x, positions, mask, cache):
         """cache: None (prefill over all of x), a decode-cache entry for a
         one-token decode step (the ``_kv_store`` leaves and a per-row
         ``[b]`` index), a paged entry (arena leaves, block ``tables`` and
-        the index; :meth:`_paged_decode`), or an entry whose index is an
-        ``int`` for a multi-token chunk (:meth:`_chunk_attend`). Returns
+        the index; :meth:`_paged_decode`), or an entry whose index is one
+        scalar (an ``int`` or a 0-dim tensor) for a multi-token chunk
+        (:meth:`_chunk_attend`). Returns
         ``(y, new_cache_entry)``; a cache is written in place. The
         prefill entry is float K/V; ``prefill_into_cache`` stores it in
         the cache's layout."""
@@ -405,7 +429,7 @@ class LlamaBlock(nn.Module):
         if cache is None:
             out = self._prefill_attend(q, k, v, mask)
             new_cache = {"k": k, "v": v}
-        elif isinstance(cache["index"], int):
+        elif _scalar_index(cache["index"]):
             out, new_cache = self._chunk_attend(q, k, v, cache)
         elif "tables" in cache:
             if s != 1:
@@ -770,17 +794,22 @@ def select_tokens(lg, temperature, top_k, top_p, gens, sampled: bool):
     return tok, _token_logprob(lg, tok)
 
 
-def _serve_select(temperature, top_k, top_p):
-    """:func:`select_tokens` over a host numpy ``temperature [b]`` (which
-    decides greedy or sampled on the host) and top_k/top_p tensors:
-    ``select(lg [b, v] f32, gens)``."""
-    sampled = bool((temperature > 0).any())
+def to_device(buf, value) -> None:
+    """``value`` (a tensor, or host data) into the device buffer ``buf``.
+    Host data goes through pinned memory on the card, ``non_blocking``: a
+    pageable copy would wait for the work already enqueued."""
+    if torch.is_tensor(value):
+        buf.copy_(value)
+        return
+    src = torch.as_tensor(np.asarray(value)).to(buf.dtype).contiguous()
+    if buf.is_cuda:
+        buf.copy_(src.pin_memory(), non_blocking=True)
+    else:
+        buf.copy_(src)
 
-    def select(lg, gens):
-        t_row = torch.as_tensor(temperature, device=lg.device)
-        return select_tokens(lg, t_row, top_k, top_p, gens, sampled)
 
-    return select
+def _mode(sampled: bool) -> str:
+    return "sampled" if sampled else "greedy"
 
 
 class DecodeStep:
@@ -822,11 +851,14 @@ class DecodeStep:
                           if k not in PAGED_STEP_KEYS}, **step_keys}
                       for entry in cache]
 
+    def knobs(self) -> tuple:
+        """The knob buffers ``(temperature, top_k, top_p)``."""
+        return self.temperature, self.top_k, self.top_p
+
     def set_knobs(self, temperature, top_k, top_p) -> None:
         """Per-row knobs (host arrays or tensors) into their buffers."""
-        for buf, val in ((self.temperature, temperature),
-                         (self.top_k, top_k), (self.top_p, top_p)):
-            buf.copy_(torch.as_tensor(val, device=buf.device))
+        for buf, val in zip(self.knobs(), (temperature, top_k, top_p)):
+            to_device(buf, val)
 
     def set_generator(self, row: int, gen) -> None:
         """Row ``row`` draws on from where ``gen`` stands: its generator,
@@ -835,13 +867,13 @@ class DecodeStep:
 
     def load(self, first, lp0, pos, eos, gens) -> None:
         """A prefill's carry: the first token and its logprob, the
-        positions, eos per row (a row whose first token is eos starts
-        latched) and the rows' generators."""
+        positions, eos per row (a tensor or host data; a row whose first
+        token is eos starts latched) and the rows' generators."""
         self.tok.copy_(first)
         self.lp.copy_(lp0)
         self.pos.copy_(pos)
-        self.eos.copy_(eos)
-        self.done.copy_((eos >= 0) & (first == eos))
+        to_device(self.eos, eos)
+        self.done.copy_((self.eos >= 0) & (first == self.eos))
         for r, gen in enumerate(gens):
             self.set_generator(r, gen)
 
@@ -889,41 +921,262 @@ class DecodeStep:
                    for k, v in entry.items() if k != "index")
 
 
-def _serve_prefill(model: LlamaModel, step: DecodeStep, prompt, length,
-                   select, gens, eos) -> None:
-    """Bucketed serving prefill into ``step``: the prompt's K/V written into
-    the step's decode cache (:func:`write_prefill`), the first token
-    selected and the carry loaded."""
-    logits, prefill_cache = model(prompt, logit_positions=length - 1)
-    write_prefill(model.cfg, step.cache, prefill_cache)
-    first, lp0 = select(logits[:, 0, :].float(), gens)
-    step.load(first, lp0, length, eos, gens)
+def _chunk_forward(model: LlamaModel, cache, chunk, last):
+    """A chunk ``[b, w]`` at the scalar index of ``cache``'s entries (a
+    0-dim device tensor, or an ``int``), its K/V written there in place,
+    the lm_head at ``last [b]``, each row's position in the chunk.
+    Returns the logits ``[b, 1, v]`` and the index as a device tensor."""
+    b, w = chunk.shape
+    dev = chunk.device
+    idx = _device_index(cache[0]["index"], w, cache_width(cache), dev)
+    positions = (idx + torch.arange(w, device=dev))[None, :].expand(b, w)
+    logits, _ = model(chunk, positions=positions,
+                      cache=[{**_leaves(e), "index": idx} for e in cache],
+                      logit_positions=last)
+    return logits, idx
 
 
-def _continue_prefill(model: LlamaModel, cache, suffix, suffix_len: int,
+def _continue_prefill(model: LlamaModel, cache, suffix, suffix_len,
                       select, gens, eos, sbs: int):
     """Continuation prefill from a cached prefix K/V: the padded suffix
-    ``[b, sbs]`` embedded at the positions after the cache's ``int``
-    index (written in place into ``cache``), the first token selected at
-    the suffix's last real position. Returns the decode carry ``(first,
-    lp0, cache, pos, done)`` with per-row ``[b]`` index and position, the
-    shapes :func:`_serve_prefill` gives. The one source of the prefix
-    continuation math: the solo, streaming and engine prefix paths all
-    run it (JAX ``llama.py:1141``)."""
-    dev = suffix.device
+    ``[b, sbs]`` embedded at the positions after the cache's scalar index
+    (a 0-dim device tensor or an ``int``; written in place into
+    ``cache``), the first token selected at the suffix's last real
+    position (``suffix_len``: an ``int``, or a per-row ``[b]`` tensor).
+    Returns the decode carry ``(first, lp0, cache, pos, done)`` with
+    per-row ``[b]`` index and position, the shapes a prefill gives. The
+    one source of the prefix continuation math: the solo, streaming and
+    engine prefix paths and a chunked row's tail all run it, eagerly or
+    captured (:class:`PrefillProgram`) (JAX ``llama.py:1141``)."""
     b = suffix.shape[0]
-    idx = int(cache[0]["index"])
-    positions = (idx + torch.arange(sbs, device=dev))[None, :].expand(b, sbs)
-    logits, new_cache = model(
-        suffix, positions=positions,
-        cache=[{**_leaves(entry), "index": idx} for entry in cache],
-        logit_positions=torch.full((b,), suffix_len - 1, device=dev))
-    start = torch.full((b,), idx + suffix_len, dtype=torch.int32, device=dev)
-    for entry in new_cache:
-        entry["index"] = start
+    if isinstance(suffix_len, int):
+        suffix_len = torch.full((b,), suffix_len, dtype=torch.long,
+                                device=suffix.device)
+    logits, idx = _chunk_forward(model, cache, suffix[:, :sbs],
+                                 suffix_len - 1)
+    start = (idx + suffix_len).to(torch.int32)
+    new_cache = [{**_leaves(e), "index": start} for e in cache]
     first, lp0 = select(logits[:, 0, :].float(), gens)
     done0 = (eos >= 0) & (first == eos)
     return first, lp0, new_cache, start, done0
+
+
+class PrefillProgram:
+    """One prefill of ``rows`` rows at ``width`` tokens on static buffers,
+    eager or a CUDA graph (:class:`~lambdipy_tpu_torch.models.graphs.
+    GraphProgram`): the tokens ``[rows, width]``, each row's real length,
+    the position ``index`` (0-dim), the knobs ``[rows]`` (its own, or a
+    decode step's buffers), eos, and one generator per row when
+    ``sampled``.
+
+    - ``at_index`` False: a prompt from position 0, the lm_head at each
+      row's last real position; its K/V written into the decode cache
+      ``target`` (:func:`write_prefill`) or, with no target, kept as
+      outputs (:meth:`prefill_cache`, float ``[rows, width]``).
+    - ``at_index`` True: a chunk at ``index`` of the one-row cache
+      ``target``, written there in place (:func:`_continue_prefill`); the
+      lm_head at the chunk's last real position.
+    - ``select``: the first token and its logprob are selected (outputs
+      :attr:`first`, :attr:`lp0`; at an index also :attr:`start`, the
+      position after the chunk). A walk's chunk selects nothing.
+
+    :meth:`run` copies a request's tokens, lengths, index, knobs and eos
+    into the buffers (from pinned memory on the card), each generator's
+    state into the program's and, after the run, back out, so the
+    request's generators stand where an eager draw would have left
+    them. Outputs are overwritten by the next run."""
+
+    def __init__(self, model: LlamaModel, rows: int, width: int, *,
+                 sampled: bool = False, select: bool = True,
+                 at_index: bool = False, target=None, knobs=None,
+                 graph_type=None, stats: GraphStats | None = None):
+        dev = model.device
+        self.model, self.width = model, width
+        self.sampled, self.select, self.at_index = sampled, select, at_index
+        self.target = target
+        self.tokens = torch.zeros(rows, width, dtype=torch.long, device=dev)
+        self.length = torch.ones(rows, dtype=torch.int32, device=dev)
+        self.index = torch.zeros((), dtype=torch.long, device=dev)
+        self.eos = torch.full((rows,), -1, dtype=torch.long, device=dev)
+        self.knobs = knobs or (
+            torch.zeros(rows, dtype=torch.float32, device=dev),
+            torch.zeros(rows, dtype=torch.long, device=dev),
+            torch.ones(rows, dtype=torch.float32, device=dev))
+        self.own_knobs = knobs is None
+        self.gens = ([torch.Generator(device=dev) for _ in range(rows)]
+                     if sampled else [])
+        self.program = GraphProgram(
+            self._body, model, rows, sampled, self.gens, graph_type,
+            stats or GraphStats(),
+            events=("prefill_replays", "eager_prefills"))
+
+    @property
+    def pool_bytes(self) -> int:
+        return self.program.pool_bytes
+
+    def close(self) -> None:
+        self.program.close()
+
+    def _select(self, lg, gens):
+        return select_tokens(lg, *self.knobs, gens, self.sampled)
+
+    def _body(self):
+        model = self.model
+        if self.at_index:
+            cache = [{**_leaves(e), "index": self.index}
+                     for e in self.target]
+            if not self.select:
+                _chunk_forward(model, cache, self.tokens, self.length - 1)
+                return None
+            first, lp0, _, start, _ = _continue_prefill(
+                model, cache, self.tokens, self.length, self._select,
+                self.gens, self.eos, self.width)
+            return first, lp0, start
+        logits, pc = model(self.tokens, logit_positions=self.length - 1)
+        if self.target is not None:
+            write_prefill(model.cfg, self.target, pc)
+        if not self.select:
+            return None
+        first, lp0 = self._select(logits[:, 0, :].float(), self.gens)
+        if self.target is not None:
+            return first, lp0
+        return (first, lp0, *[t for e in pc for t in (e["k"], e["v"])])
+
+    def run(self, tokens, lengths, *, index: int = 0, knobs=None, gens=(),
+            stats: GraphStats | None = None) -> None:
+        """One prefill of ``tokens [rows, width]`` (host data) and their
+        real ``lengths``, at ``index`` (host int; checked against the
+        target), under ``knobs`` (host data; only for a program with its
+        own knob buffers) drawing on from ``gens``; counters to
+        ``stats``."""
+        if self.at_index:
+            t = cache_width(self.target)
+            if index < 0 or index + self.width > t:
+                raise ValueError(f"a {self.width}-token chunk at index "
+                                 f"{index} crosses the cache's {t} "
+                                 f"positions")
+            to_device(self.index, np.int64(index))
+        to_device(self.tokens, tokens)
+        to_device(self.length, lengths)
+        if knobs is not None:
+            if not self.own_knobs:
+                raise ValueError("this program reads a decode step's knobs")
+            for buf, val in zip(self.knobs, knobs):
+                to_device(buf, val)
+        for mine, gen in zip(self.gens, gens):
+            mine.set_state(gen.get_state())
+        self.program.run(stats)
+        for mine, gen in zip(self.gens, gens):
+            gen.set_state(mine.get_state())
+
+    @property
+    def first(self):
+        return self.program.outputs[0]
+
+    @property
+    def lp0(self):
+        return self.program.outputs[1]
+
+    @property
+    def start(self):
+        return self.program.outputs[2]
+
+    def prefill_cache(self) -> list:
+        """The float K/V outputs, one ``{"k", "v"}`` per layer."""
+        kv = self.program.outputs[2:]
+        return [{"k": kv[2 * i], "v": kv[2 * i + 1]}
+                for i in range(len(kv) // 2)]
+
+
+def _serve_prefill(program: PrefillProgram, step: DecodeStep, tokens,
+                   lengths, eos, gens) -> None:
+    """Bucketed serving prefill into ``step``: ``program`` (over the
+    step's decode cache and knobs) runs the padded prompt, writing its K/V
+    into the cache and selecting the first token, and the carry is
+    loaded."""
+    program.run(tokens, lengths, gens=gens)
+    step.load(program.first, program.lp0, program.length, eos, gens)
+
+
+class WindowEntry(ProgramSet):
+    """A one-row cache of ``width`` positions and the programs that write
+    it (:class:`PrefillProgram`): a walk's first chunk and its extensions,
+    keyed by width, and the continuations of a suffix after it, keyed by
+    width and greedy or sampled. Checked out of the server's program cache
+    for a whole walk or continuation, so two walks never share one;
+    ``index`` is the host's position in it (a walk's bookkeeping), copied
+    into a program's index buffer at each run. Whatever must outlive the
+    checkout is copied out (:meth:`snapshot`). ``stats`` receives the
+    counters of the runs; whoever checks the window out sets it."""
+
+    def __init__(self, model: LlamaModel, width: int, graph_type,
+                 stats: GraphStats):
+        super().__init__()
+        cfg = model.cfg
+        self.model, self.width = model, width
+        self.graph_type, self.stats = graph_type, stats
+        self.cache = [_empty_cache_entry(cfg, 1, width, model.device)
+                      for _ in range(cfg.layers)]
+        self.index = 0
+
+    def buffer_bytes(self) -> int:
+        return cache_nbytes(self.cache)
+
+    def reset(self) -> None:
+        """The empty cache's values again (int8 scales 1e-8), index 0."""
+        for entry in self.cache:
+            for name, val in entry.items():
+                val.fill_(1e-8 if name.endswith("_scale") else 0)
+        self.index = 0
+
+    def load(self, cache, length: int) -> None:
+        """Every position of ``cache``'s leaves (a one-row cache of this
+        width) copied in; the index at ``length``."""
+        for dest, src in zip(self.cache, cache):
+            for name, val in dest.items():
+                val.copy_(src[name])
+        self.index = int(length)
+
+    def snapshot(self) -> list:
+        """A fresh copy of the cache with the index (an ``int``): what a
+        caller keeps past the checkout."""
+        return [{**{name: val.clone() for name, val in entry.items()},
+                 "index": self.index} for entry in self.cache]
+
+    def _program(self, kind: str, width: int,
+                 sampled: bool = False) -> PrefillProgram:
+        key = (kind, width) + ((_mode(sampled),) if kind == "continue"
+                               else ())
+        return self.program(key, lambda: PrefillProgram(
+            self.model, 1, width, sampled=sampled,
+            select=kind == "continue", at_index=kind != "first",
+            target=self.cache, graph_type=self.graph_type,
+            stats=self.stats))
+
+    def first(self, tokens, length: int) -> None:
+        """A walk's first chunk: ``tokens [1, w]`` (host data, padded)
+        prefilled from position 0 into the window, every position past
+        ``w`` emptied; the index at the chunk's real ``length``."""
+        self._program("first", tokens.shape[1]).run(tokens, [length],
+                                                    stats=self.stats)
+        self.index = int(length)
+
+    def extend(self, tokens, n: int) -> None:
+        """One extension chunk ``tokens [1, w]`` (host data, ``n`` real)
+        written at the index; the index moves by ``n``."""
+        self._program("extend", tokens.shape[1]).run(
+            tokens, [n], index=self.index, stats=self.stats)
+        self.index += int(n)
+
+    def cont(self, tokens, n: int, knobs, gens, sampled: bool):
+        """The continuation of a suffix ``tokens [1, w]`` (host data, ``n``
+        real) at the index, under ``knobs`` (host data) drawing from
+        ``gens``: ``(first [1], lp0 [1])``, the program's outputs (copy
+        them to keep them past its next run). The index stays."""
+        prog = self._program("continue", tokens.shape[1], sampled)
+        prog.run(tokens, [n], index=self.index, knobs=knobs, gens=gens,
+                 stats=self.stats)
+        return prog.first, prog.lp0
 
 
 def _scan_decode(run, step: DecodeStep, decode_steps: int,
@@ -962,10 +1215,12 @@ def _next_bucket(n: int, lo: int) -> int:
 # bb x cache_len x 128 KiB of llama3-8b bf16 KV (32 layers x 8 kv heads x
 # 128 x 2 x 2 B): 0.50 GiB for one row at the long request's cache_len of
 # 4,128, 8 GiB for 8 rows at the full window of 8,192. So the count alone
-# does not bound the memory: the entries' bytes are held to a third of
-# what the weights leave of the card (23.7 GiB on an 80 GB H100 beside
-# llama3-8b's 8.2 GiB of int8 weights), the rest left to the prefills'
-# transients and the continuous engine's cache or arena.
+# does not bound the memory: the entries' bytes, graph pools included (a
+# captured prefill keeps its peak: 6.4 GiB for a 4,096-token ``blocked``
+# prompt on an H100), are held to a third of what the weights leave of the
+# card (23.7 GiB on an 80 GB H100 beside llama3-8b's 8.2 GiB of int8
+# weights), the rest left to eager transients and the continuous engine's
+# cache or arena.
 PROGRAM_CACHE_MAX = 8
 PROGRAM_CACHE_SHARE = 1 / 3
 
@@ -973,6 +1228,21 @@ PROGRAM_CACHE_SHARE = 1 / 3
 def decode_cache_bytes(cfg: LlamaConfig, batch: int, max_len: int) -> int:
     """Device bytes of :func:`init_decode_cache`'s K/V leaves."""
     return batch * page_kv_bytes(cfg, max_len)
+
+
+def prefill_bytes(cfg: LlamaConfig, rows: int, width: int) -> int:
+    """About the device bytes a captured prefill of ``rows x width``
+    tokens keeps in its graph's pool: its float K/V, one layer's MLP
+    activations and, but under ``flash``, one layer's f32 attention
+    scores, masked and softmaxed (``_attend``). What a new entry is
+    expected to take before its first capture says."""
+    item = torch.empty((), dtype=cfg.dtype).element_size()
+    tokens = rows * width
+    kv = 2 * cfg.layers * tokens * cfg.kv_heads * cfg.head_dim * item
+    mlp = 3 * tokens * cfg.mlp * item
+    scores = (0 if cfg.attn_backend == "flash"
+              else 3 * rows * cfg.heads * width * width * 4)
+    return kv + mlp + scores
 
 
 def default_program_bytes(model: LlamaModel) -> int | None:
@@ -999,13 +1269,18 @@ class LlamaServer:
     Decode runs on a :class:`DecodeStep` with its own decode cache per key
     ``(batch bucket, cache_len, KV layout, backends)``, with a greedy and
     a sampled program on it, each captured as a CUDA graph on its first
-    step and replayed at every step after (``models/graphs.py``). The
-    entries sit in an LRU bounded by ``program_cache_max`` entries and
-    ``program_cache_bytes`` device bytes (default: a third of what the
-    weights leave of the card; no byte bound on the CPU). ``graphs``:
-    None = CUDA graphs on the card, eager on the CPU; False = eager (the
-    step still runs on its fixed buffers); or a stand-in graph type
-    (tests).
+    step and replayed at every step after (``models/graphs.py``), and the
+    prefills that load it (:class:`PrefillProgram`, keyed in the entry by
+    the prompt or suffix width and greedy or sampled), captured on their
+    first run. The entries sit in an LRU bounded by ``program_cache_max``
+    decode entries and ``program_cache_bytes`` device bytes, graph pools
+    included (default: a third of what the weights leave of the card; no
+    byte bound on the CPU); the same LRU holds the continuous engine's
+    prefill programs and the one-row windows that prefix walks, chunked
+    prefills and continuations run in (:class:`WindowEntry`), checked out
+    for a whole walk. ``graphs``: None = CUDA graphs on the card, eager
+    on the CPU; False = eager, prefills included (every program still runs
+    on its fixed buffers); or a stand-in graph type (tests).
 
     Prefix caching (``generate(..., prefix=)``): a prefix's K/V is
     prefilled once into a one-row full-window cache and kept in an LRU of
@@ -1065,19 +1340,23 @@ class LlamaServer:
         self._prefix_inflight: dict[str, threading.Event] = {}
 
     def program_stats(self) -> dict:
-        """The decode programs, as the JAX handler reports them:
-        ``decode_buckets`` (the live programs' keys), ``compile_count``
-        (graphs captured), ``program_evictions``, ``replays``,
-        ``eager_steps``, and ``program_bytes`` (the entries' decode caches
-        and graph pools) under ``program_cache_bytes``; and the prefix
-        entries (``prefix_entries``, ``prefix_bytes``), which lie outside
-        that bound."""
+        """The programs, as the JAX handler reports them:
+        ``decode_buckets`` (the live decode programs' keys),
+        ``compile_count`` (graphs captured, decode and prefill),
+        ``program_evictions``, ``replays``, ``eager_steps``,
+        ``prefill_replays``, ``eager_prefills``, ``program_pools`` (every
+        live program's key and its graph pool's bytes) and
+        ``program_bytes`` (the entries' caches and graph pools) under
+        ``program_cache_bytes``; and the prefix entries
+        (``prefix_entries``, ``prefix_bytes``), which lie outside that
+        bound."""
         return {"graphs": self.graph_type is not None,
                 "decode_buckets": [list(k) for k in self.programs.keys()],
                 **self.graph_stats.report(),
                 "program_cache_max": self.programs.max_entries,
                 "program_cache_bytes": self.programs.max_bytes,
                 "program_bytes": self.programs.nbytes(),
+                "program_pools": self.programs.pools(),
                 **self.prefix_stats()}
 
     def prefix_stats(self) -> dict:
@@ -1104,23 +1383,24 @@ class LlamaServer:
                 f"prompt {s} + max_new_tokens {max_new_tokens} exceeds "
                 f"max_len {cfg.max_len}")
 
-    def _pad_rows(self, rows, lengths, bb: int, sb: int):
-        """(padded ``[bb, sb]`` token tensor, per-row length tensor); dummy
-        length-1 rows fill the batch bucket."""
+    @staticmethod
+    def _pad_host(rows, lengths, bb: int, sb: int):
+        """(padded ``[bb, sb]`` int64 tokens, per-row int32 lengths), host
+        arrays for a program's buffers; dummy length-1 rows fill the batch
+        bucket."""
         padded = np.zeros((bb, sb), np.int64)
         for r, row in enumerate(rows):
             padded[r, :lengths[r]] = row
-        lens = np.asarray(lengths + [1] * (bb - len(rows)), np.int32)
-        return (torch.as_tensor(padded, device=self.device),
-                torch.as_tensor(lens, device=self.device))
+        lens = np.asarray(list(lengths) + [1] * (bb - len(rows)), np.int32)
+        return padded, lens
 
-    def _knob_operands(self, temperature, top_k, top_p, seed, eos_id,
-                       b: int = 1):
-        """Per-row knobs: ``(temperature [b] numpy f32, top_k [b], top_p
-        [b], generators, eos [b])``. Each knob is a scalar (broadcast;
-        None = the disabled value) or a list of per-row values padded with
-        the disabled value. Row r's generator is seeded from
-        ``(seed_r, 0)`` for a list of seeds and ``(seed, r)`` for one
+    def _knobs_host(self, temperature, top_k, top_p, seed, eos_id,
+                    b: int = 1):
+        """Per-row knobs as host arrays: ``(temperature [b] f32, top_k [b]
+        int64, top_p [b] f32, eos [b] int64, generators)``. Each knob is a
+        scalar (broadcast; None = the disabled value) or a list of per-row
+        values padded with the disabled value. Row r's generator is seeded
+        from ``(seed_r, 0)`` for a list of seeds and ``(seed, r)`` for one
         shared seed — a function of the row's own request alone."""
 
         def vec(x, default, dtype):
@@ -1138,14 +1418,9 @@ class LlamaServer:
             base = int(seed) if seed is not None else 0
             pairs = [(base, r) for r in range(b)]
 
-        def dev(a):
-            return torch.as_tensor(a, device=self.device)
-
-        return (vec(temperature, 0.0, np.float32),
-                dev(vec(top_k, 0, np.int64)),
-                dev(vec(top_p, 1.0, np.float32)),
-                row_generators(pairs, self.device),
-                dev(vec(eos_id, -1, np.int64)))
+        return (vec(temperature, 0.0, np.float32), vec(top_k, 0, np.int64),
+                vec(top_p, 1.0, np.float32), vec(eos_id, -1, np.int64),
+                row_generators(pairs, self.device))
 
     def generate(self, prompt_tokens, *, max_new_tokens: int,
                  temperature: float = 0.0, top_k: int | None = None,
@@ -1234,12 +1509,15 @@ class LlamaServer:
                     max_len - s)
         return min(_next_bucket(s, self.min_bucket), max_len - steps)
 
+    def _layout(self) -> tuple:
+        """The KV layout and backends that key every program."""
+        cfg = self.model.cfg
+        return cfg.kv_quant or "float", cfg.attn_backend, cfg.matmul_backend
+
     def _checkout(self, bb: int, cache_len: int) -> StepPrograms:
         """The program entry of key ``(bb, cache_len, KV layout,
         backends)``, checked out (caller holds the lock)."""
         cfg = self.model.cfg
-        key = (bb, cache_len, cfg.kv_quant or "float", cfg.attn_backend,
-               cfg.matmul_backend)
 
         def make():
             cache = init_decode_cache(cfg, bb, cache_len, self.device)
@@ -1247,15 +1525,70 @@ class LlamaServer:
                                 self.graph_type, self.graph_stats)
 
         return self.programs.checkout(
-            key, decode_cache_bytes(cfg, bb, cache_len), make)
+            (bb, cache_len, *self._layout()),
+            decode_cache_bytes(cfg, bb, cache_len), make)
+
+    def _step_prefill(self, entry: StepPrograms, kind: str, width: int,
+                      sampled: bool) -> PrefillProgram:
+        """A decode entry's prefill program: ``"prefill"`` (a prompt from
+        position 0) or ``"continue"`` (a suffix after a prefix) of
+        ``width`` tokens, over the entry's decode cache and knobs."""
+        step = entry.step
+        return entry.program((kind, width, _mode(sampled)),
+                             lambda: PrefillProgram(
+                                 self.model, step.rows, width,
+                                 sampled=sampled,
+                                 at_index=kind == "continue",
+                                 target=step.cache, knobs=step.knobs(),
+                                 graph_type=self.graph_type,
+                                 stats=self.graph_stats))
+
+    def _checkout_window(self, width: int,
+                         stats: GraphStats | None = None) -> WindowEntry:
+        """A one-row window of ``width`` positions, checked out for a walk
+        or a continuation (caller holds the lock); its runs count on
+        ``stats`` (default: the server's)."""
+        window = self.programs.checkout(
+            ("window", width, *self._layout()),
+            decode_cache_bytes(self.model.cfg, 1, width),
+            lambda: WindowEntry(self.model, width, self.graph_type,
+                                self.graph_stats), counted=False)
+        window.stats = stats or self.graph_stats
+        return window
+
+    def _rows_prefill(self, tokens, lengths, knobs, gens,
+                      stats: GraphStats | None = None):
+        """The continuous engine's ragged prefill of ``tokens [bb, sb]``
+        (host data; caller holds the lock, inference mode) through the
+        prefill program of its shape, each row under its own knobs and
+        generator: ``(first [bb], lp0 [bb], prefill cache)``, copied out of
+        the program's buffers, since the rows are packed after the next
+        request may have run it; counters to ``stats``."""
+        cfg = self.model.cfg
+        bb, sb = tokens.shape
+        sampled = bool((knobs[0] > 0).any())
+        entry = self.programs.checkout(
+            ("prefill", bb, sb, *self._layout()), prefill_bytes(cfg, bb, sb),
+            ProgramSet, counted=False)
+        try:
+            prog = entry.program((_mode(sampled),), lambda: PrefillProgram(
+                self.model, bb, sb, sampled=sampled,
+                graph_type=self.graph_type, stats=self.graph_stats))
+            prog.run(tokens, lengths, knobs=knobs, gens=gens, stats=stats)
+            return (prog.first.clone(), prog.lp0.clone(),
+                    [{name: val.clone() for name, val in e.items()}
+                     for e in prog.prefill_cache()])
+        finally:
+            self.programs.checkin(entry)
 
     def _prefill(self, rows, lengths, max_new_tokens, temperature, top_k,
                  top_p, seed, eos_id):
         """The bucketed prefill shared by :meth:`generate` and
         :meth:`generate_stream` (caller holds the lock, inference mode):
-        checks out the key's entry, loads the prefill into its step and
-        returns ``(entry, program)``, the program greedy or sampled as the
-        knobs ask; the caller checks the entry back in."""
+        checks out the key's entry, runs its prefill program of the
+        prompt's bucket into the step and returns ``(entry, program)``,
+        the decode program greedy or sampled as the knobs ask; the caller
+        checks the entry back in."""
         cfg = self.model.cfg
         b, s = len(rows), max(lengths)
         steps = min(_next_bucket(max_new_tokens, self.min_bucket),
@@ -1263,15 +1596,16 @@ class LlamaServer:
         sb = self.prompt_bucket(s, max_new_tokens)
         bb = _next_bucket(b, 1)
         cache_len = min(sb + steps, cfg.max_len)
-        prompt, length = self._pad_rows(rows, lengths, bb, sb)
-        temp, tk, tp, gens, eos = self._knob_operands(
+        tokens, lens = self._pad_host(rows, lengths, bb, sb)
+        temp, tk, tp, eos, gens = self._knobs_host(
             temperature, top_k, top_p, seed, eos_id, b=bb)
+        sampled = bool((temp > 0).any())
         entry = self._checkout(bb, cache_len)
         try:
-            prog = entry.program(bool((temp > 0).any()))
+            prog = entry.decode(sampled)
             entry.step.set_knobs(temp, tk, tp)
-            _serve_prefill(self.model, entry.step, prompt, length,
-                           _serve_select(temp, tk, tp), gens, eos)
+            _serve_prefill(self._step_prefill(entry, "prefill", sb, sampled),
+                           entry.step, tokens, lens, eos, gens)
         except BaseException:
             self.programs.checkin(entry)
             raise
@@ -1411,55 +1745,49 @@ class LlamaServer:
                 self._prefixes.popitem(last=False)
 
     def _prefix_first_fn(self, sb: int, cache_len: int):
-        """First-chunk prefix prefill of width ``sb``: ``pf(prompt [1, sb],
-        length)`` embeds the padded chunk into a fresh one-row
-        ``cache_len`` cache with ``index`` = the true length (an
-        ``int``); the lm_head runs at one position. Takes the device lock
-        for its dispatch."""
-        def pf(prompt, length: int):
+        """First-chunk prefix prefill of width ``sb``: ``pf(prompt [1, sb]
+        host data, length, window=None)`` embeds the padded chunk at
+        position 0 of a one-row ``cache_len`` window with the index at the
+        true length (the lm_head runs at one position). Into ``window``
+        when given (returned), else into a window checked out for it, of
+        which a copy (``index`` an ``int``) is returned. Takes the device
+        lock for its dispatch."""
+        def pf(prompt, length: int, window=None):
             with self._lock, torch.inference_mode():
-                _, prefill_cache = self.model(
-                    prompt, logit_positions=torch.zeros(
-                        1, dtype=torch.long, device=self.device))
-                cache = prefill_into_cache(self.model.cfg, prefill_cache, 1,
-                                           cache_len, 0)
-            for entry in cache:
-                entry["index"] = int(length)
-            return cache
+                if window is not None:
+                    window.first(prompt, length)
+                    return window
+                window = self._checkout_window(cache_len)
+                try:
+                    window.first(prompt, length)
+                    return window.snapshot()
+                finally:
+                    self.programs.checkin(window)
 
         return pf
 
     def _prefix_ext_fn(self, sbs: int):
-        """Extend a one-row prefix cache by one padded chunk of width
-        ``sbs``: ``ext(cache, chunk [1, sbs], chunk_len)`` writes the
-        chunk's K/V at the cache's index in place (no token selection;
+        """Extend a walk's window by one padded chunk of width ``sbs``:
+        ``ext(window, chunk [1, sbs] host data, chunk_len)`` writes the
+        chunk's K/V at the window's index in place (no token selection;
         the lm_head at one position) and moves the index by
         ``chunk_len``. Every chunk but the last must be full: the write
         covers the whole padded chunk, the next chunk overwrites the
         padding, and the last chunk's padding stays behind the index.
         Takes the device lock for its dispatch."""
-        def ext(cache, chunk, chunk_len: int):
-            idx = int(cache[0]["index"])
+        def ext(window, chunk, chunk_len: int):
             with self._lock, torch.inference_mode():
-                positions = (idx + torch.arange(sbs,
-                                                device=self.device))[None]
-                _, new_cache = self.model(
-                    chunk, positions=positions,
-                    cache=[{**_leaves(c), "index": idx} for c in cache],
-                    logit_positions=torch.zeros(1, dtype=torch.long,
-                                                device=self.device))
-            for entry in new_cache:
-                entry["index"] = idx + int(chunk_len)
-            return new_cache
+                window.extend(chunk, chunk_len)
+            return window
 
         return ext
 
-    def _chunked_prefill_cache(self, row, upto: int, cache_len: int,
-                               stats=None):
-        """``row[:upto]`` embedded into a fresh one-row ``cache_len`` cache
-        in chunks of ``prefill_chunk`` tokens (JAX ``llama.py:2075``,
-        without the sequence-parallel walk), each chunk an extension
-        (``_prefix_ext_fn``) written at the cache's index and its own
+    def _walk_chunks(self, window: WindowEntry, row, upto: int,
+                     stats=None) -> WindowEntry:
+        """``row[:upto]`` embedded into ``window`` (emptied first) in
+        chunks of ``prefill_chunk`` tokens (JAX ``llama.py:2075``, without
+        the sequence-parallel walk), each chunk an extension
+        (``_prefix_ext_fn``) written at the window's index and its own
         dispatch under the device lock, so other work interleaves between
         chunks. The JAX walk prefills its first chunk alone
         (``_prefix_first_fn``); here the first chunk extends an empty cache
@@ -1467,29 +1795,39 @@ class LlamaServer:
         attention over the window that a continuation uses (a first chunk
         attending only its own width softmaxes its rows at another width
         than an unchunked prefill's bucket does: other bits, and on the
-        card other greedy tokens where two are nearly tied). ``cache_len``
-        must be a multiple of the chunk; the last chunk may be ragged (its
-        padding stays behind the index). The one chunk walk of the prefix
-        path and the continuous engine's chunked joiner prefill;
-        ``stats`` (a ``PrefillStats``) counts a round per chunk."""
-        cfg = self.model.cfg
+        card other greedy tokens where two are nearly tied). The window's
+        width must be a multiple of the chunk; the last chunk may be
+        ragged (its padding stays behind the index). ``stats`` (a
+        ``PrefillStats``) counts a round per chunk."""
         ck = self.prefill_chunk
         ext = self._prefix_ext_fn(ck)
+        with self._lock, torch.inference_mode():
+            window.reset()
         pos = 0
-        with self._lock:
-            cache = [{**_empty_cache_entry(cfg, 1, cache_len, self.device),
-                      "index": 0} for _ in range(cfg.layers)]
         while pos < upto:
             n = min(ck, upto - pos)
-            # the chunk's upload too: no copy beside another thread's
-            # capture
-            with self._lock:
-                chunk, _ = self._pad_rows([row[pos:pos + n]], [n], 1, ck)
-                cache = ext(cache, chunk, n)
+            chunk, _ = self._pad_host([row[pos:pos + n]], [n], 1, ck)
+            window = ext(window, chunk, n)
             if stats is not None:
                 stats.record_round()
             pos += n
-        return cache
+        return window
+
+    def _chunked_prefill_cache(self, row, upto: int, cache_len: int,
+                               stats=None):
+        """``row[:upto]`` walked in chunks (:meth:`_walk_chunks`) in a
+        one-row ``cache_len`` window checked out for the walk; returns a
+        copy of the window (``index`` the ``int`` ``upto``). The chunk
+        walk of the prefix path."""
+        with self._lock:
+            window = self._checkout_window(cache_len)
+        try:
+            self._walk_chunks(window, row, upto, stats)
+            with self._lock, torch.inference_mode():
+                return window.snapshot()
+        finally:
+            with self._lock:
+                self.programs.checkin(window)
 
     def _prefill_prefix(self, key: str, rows, lengths) -> str:
         cfg = self.model.cfg
@@ -1502,7 +1840,7 @@ class LlamaServer:
             cache = self._chunked_prefill_cache(rows[0], s, cfg.max_len)
         else:
             sb = min(_next_bucket(s, self.min_bucket), cfg.max_len)
-            prompt, _ = self._pad_rows(rows, lengths, 1, sb)
+            prompt, _ = self._pad_host(rows, lengths, 1, sb)
             cache = self._prefix_first_fn(sb, cfg.max_len)(prompt, s)
         self.register_prefix(key, cache, s)
         return key
@@ -1519,40 +1857,27 @@ class LlamaServer:
         raise RuntimeError("prefix cache thrashing: entry evicted right "
                            "after insert 3x; raise prefix_cache_max")
 
-    def _stream_prefix_fn(self, sbs: int):
-        """The continuation a carry is taken from: ``cont(cache, suffix
-        [1, sbs], suffix_len, select, gens, eos)`` runs
-        :func:`_continue_prefill` on ``cache`` (written in place) and
-        returns the decode carry. The solo and streaming prefix paths run
-        it on their decode step's cache, the dense engine on a copy of the
-        prefix entry."""
-        def cont(cache, suffix, suffix_len: int, select, gens, eos):
-            return _continue_prefill(self.model, cache, suffix, suffix_len,
-                                     select, gens, eos, sbs)
-
-        return cont
-
     def _continue(self, cache, plen: int, row, s: int, sbs: int, knobs):
         """The prefix paths' prefill (caller holds the lock, inference
         mode): checks out the one-row entry at the prefix cache's width,
         copies the prefix's ``plen`` positions into its step's cache (the
-        shared entry is never written), continues the suffix padded to
-        ``sbs`` there and loads the carry; returns ``(entry,
-        program)``."""
-        temp, tk, tp, gens, eos = self._knob_operands(*knobs, b=1)
+        shared entry is never written), runs the entry's continuation
+        program of the suffix padded to ``sbs`` there at index ``plen``
+        and loads the carry; returns ``(entry, program)``."""
+        temp, tk, tp, eos, gens = self._knobs_host(*knobs, b=1)
+        sampled = bool((temp > 0).any())
         entry = self._checkout(1, cache_width(cache))
         try:
-            prog = entry.program(bool((temp > 0).any()))
+            prog = entry.decode(sampled)
             step = entry.step
             step.set_knobs(temp, tk, tp)
             for dest, src in zip(step.cache, cache):
                 for name, val in _leaves(src).items():
                     dest[name][:, :plen] = val[:, :plen]
-            suffix, _ = self._pad_rows([row], [s], 1, sbs)
-            first, lp0, _, start, _ = self._stream_prefix_fn(sbs)(
-                [{**_leaves(e), "index": plen} for e in step.cache],
-                suffix, s, _serve_select(temp, tk, tp), gens, eos)
-            step.load(first, lp0, start, eos, gens)
+            suffix, _ = self._pad_host([row], [s], 1, sbs)
+            pre = self._step_prefill(entry, "continue", sbs, sampled)
+            pre.run(suffix, [s], index=plen, gens=gens)
+            step.load(pre.first, pre.lp0, pre.start, eos, gens)
         except BaseException:
             self.programs.checkin(entry)
             raise
@@ -1604,39 +1929,42 @@ class LlamaServer:
             lambda: self._continue(cache, plen, rows[0], s, sbs, knobs), 1,
             max_new_tokens, segment, eos_id, return_logprobs)
 
-    def _paged_gather_fn(self, page: int, window: int):
-        """Read-only page gather: ``g(arena, table [1, nb], index)`` gives
-        a contiguous one-row cache of ``window`` positions with ``index``
-        attached; a paged prefix walk continues from cached pages
-        through it."""
-        def g(arena, table, index):
-            return _gather_page_cache(arena, table, window, page, index)
+    @staticmethod
+    def _gather_pages_into(window: WindowEntry, arena, table, page: int,
+                           length: int) -> None:
+        """A one-row block table's pages (``table [1, nb]``, ``nb * page``
+        the window's width) gathered into ``window``, bitwise the pages'
+        values, null pages included; the index at ``length``. Reads the
+        arena, never writes it."""
+        tbl = table[0].long()
+        for dest, entry in zip(window.cache, arena):
+            for name, val in dest.items():
+                torch.index_select(entry[name], 0, tbl,
+                                   out=val.view(-1, page, *val.shape[2:]))
+        window.index = int(length)
 
-        return g
-
-    def _paged_continue_fn(self, sbs: int, page: int, window: int):
-        """Continuation prefill from shared prefix pages: ``cont(arena,
-        table [1, nb], plen, suffix [1, sbs], suffix_len, select, gens,
-        eos)`` gathers the row's pages (the matched prefix pages and its
-        own) into a contiguous ``window``, runs :func:`_continue_prefill`
-        there (at the shapes the dense prefix path runs it), and writes
-        back only the pages the suffix chunk wrote, from ``plen // page``
-        on: the prefix pages are read in place and never written.
-        Returns ``(first, lp0, pos, done)``. The caller holds the device
-        and arena locks."""
-        def cont(arena, table, plen: int, suffix, suffix_len: int, select,
-                 gens, eos):
-            cache = _gather_page_cache(arena, table, window, page, plen)
-            first, lp0, new_cache, start, done0 = _continue_prefill(
-                self.model, cache, suffix, suffix_len, select, gens, eos,
-                sbs)
+    def _paged_continue_fn(self, sbs: int, page: int):
+        """Continuation prefill from shared prefix pages: ``cont(window,
+        arena, table [1, nb], plen, suffix [1, sbs] host data, suffix_len,
+        knobs, gens, sampled)`` gathers the row's pages (the matched
+        prefix pages and its own) into ``window`` (as wide as the table),
+        runs the window's continuation there (at the shapes the dense
+        prefix path runs it), and writes back only the pages the suffix
+        chunk wrote, from ``plen // page`` on: the prefix pages are read in
+        place and never written. Returns ``(first, lp0)``, copies. The
+        caller holds the device and arena locks."""
+        def cont(window, arena, table, plen: int, suffix, suffix_len: int,
+                 knobs, gens, sampled: bool):
+            self._gather_pages_into(window, arena, table, page, plen)
+            first, lp0 = window.cont(suffix, suffix_len, knobs, gens,
+                                     sampled)
             lo = plen // page
             hi = min(table.shape[1], -(-(plen + sbs) // page))
             written = [{name: val[:, lo * page:hi * page]
-                        for name, val in _leaves(entry).items()}
-                       for entry in new_cache]
+                        for name, val in entry.items()}
+                       for entry in window.cache]
             _scatter_page_cache(arena, table[:, lo:hi], written, page)
-            return first, lp0, start, done0
+            return first.clone(), lp0.clone()
 
         return cont
 

@@ -30,13 +30,17 @@ boundaries, packed into a free slot.
   (the bucket ``LlamaServer.generate`` uses, so a row prefills at the
   width it would solo); longer prompts prefill alone on their request
   thread, one at a time (a prefill's transient memory grows with the
-  square of its bucket under ``blocked``). Packing (scalars into the
-  slot, the prefill's K/V into the slot's cache row or pages) happens on
-  the engine thread at the barrier.
+  square of its bucket under ``blocked``). Both run the server's prefill
+  program of their shape (``models/llama.py PrefillProgram``, a CUDA
+  graph on the card), whose outputs are copied out, since a long row
+  waits for a later barrier. Packing (scalars into the slot, the
+  prefill's K/V into the slot's cache row or pages) happens on the
+  engine thread at the barrier.
 - Chunked joiner prefill (the server's ``prefill_chunk``, off by
   default, as in JAX): a long prompt past the chunk width walks its head
-  in fixed-width chunks into a transient ``cache_len`` cache and
-  continues its tail at the tail's bucket
+  in fixed-width chunks into a ``cache_len`` window checked out of the
+  server's program cache for the walk and continues its tail there at
+  the tail's bucket
   (:meth:`ContinuousBatcher._prefill_row_chunked`). Each chunk takes the
   device lock alone (a ``FairLock``, granted in arrival order), so the
   engine's segments run between chunks instead of stalling behind one
@@ -89,11 +93,11 @@ boundaries, packed into a free slot.
   continue their suffix from the cached prefix K/V on their request
   thread (``models/llama.py _continue_prefill``) and join like a
   long-prompt row. Dense: from a copy of the server's full-window prefix
-  entry (:meth:`ContinuousBatcher._prefill_prefix_row`), packed into the
-  slot's cache row. Paged: the row's table starts with the store's
-  prefix pages, taken by refcount bump (``prefix_pages_fn``, the store's
-  ``acquire_pages``), and the continuation reads them in place and
-  writes only the suffix into the row's own pages
+  entry in a window (:meth:`ContinuousBatcher._prefill_prefix_row`),
+  packed into the slot's cache row. Paged: the row's table starts with
+  the store's prefix pages, taken by refcount bump (``prefix_pages_fn``,
+  the store's ``acquire_pages``), and the continuation reads them in
+  place and writes only the suffix into the row's own pages
   (:meth:`ContinuousBatcher._paged_continue_row`). A prefix entry spans
   the whole window, so a prefix row needs an engine whose ``cache_len``
   is ``max_len``; elsewhere it runs solo.
@@ -124,10 +128,10 @@ boundaries, packed into a free slot.
   computation, and engine writes never land in shared prefix pages. The
   step and its graphs survive a failure unless it came from the CUDA
   runtime or the watchdog. A CUDA runtime error is sticky: it wedges the
-  engine and replays nothing. Two failures inside ``degrade_window_s``
-  step the DEGRADATION LADDER (1: depth 1; 2: the full-window program,
-  which is all the port has; 3: the prefix store bypassed, in the
-  handler), and ``degrade_clean_s`` without a failure restores it. A
+  engine, replays nothing and drops the server's idle prefill programs
+  too. Two failures inside ``degrade_window_s`` step the DEGRADATION
+  LADDER (1: depth 1; 2: the full-window program, which is all the port
+  has; 3: the prefix store bypassed, in the handler), and ``degrade_clean_s`` without a failure restores it. A
   wedged idle engine runs a self-probe, a trivial device round trip on a
   disposable thread under the watchdog; the first clean fetch after a
   failure, or a probe that succeeds, clears the wedge. Everything is
@@ -153,11 +157,10 @@ from lambdipy_tpu_torch.models.graphs import (DEVICE_LOCK, StepProgram,
                                               StepPrograms)
 from lambdipy_tpu_torch.models.llama import (DecodeStep, _kv_store,
                                              _leaves, _next_bucket,
-                                             _scan_decode, _serve_select,
-                                             cache_width, copy_cache,
+                                             _scan_decode, cache_width,
                                              init_decode_cache,
                                              pack_prefill_into_pages,
-                                             row_generators)
+                                             row_generators, to_device)
 from lambdipy_tpu_torch.runtime.faults import (EngineWatchdogTimeout,
                                                FaultPlan)
 from lambdipy_tpu_torch.runtime.metrics import (EngineFaultStats,
@@ -245,8 +248,7 @@ class ContinuousBatcher:
         # the arena's generation the step was built over (paged)
         self._arena_generation = 0
         # one request-thread prefill at a time: long rows keep their
-        # arrival order, and at most one chunked walk's transient window
-        # cache lives at a time
+        # arrival order, and one chunked walk holds a window at a time
         self._prefill_lock = threading.Lock()
         # chunked walks in progress (segments dispatched meanwhile are
         # counted as interleaved)
@@ -367,7 +369,7 @@ class ContinuousBatcher:
         if self._programs is None:
             self._programs = StepPrograms(self._step, self.server.graph_type,
                                           self.stats_counters)
-        return self._programs.program(sampled)
+        return self._programs.decode(sampled)
 
     def _detach(self) -> StepPrograms | None:
         """Take the step and its programs off the engine (caller holds the
@@ -385,24 +387,32 @@ class ContinuousBatcher:
 
     def _prefill_rows(self, entries: list):
         """ONE ragged prefill of ``entries`` (rows of one prompt bucket),
-        each row under its own knobs and generator: ``(first [bb], lp0
-        [bb], prefill cache)``. The prompt width is ``generate``'s for
-        the row, so the prefill is the one the row would run solo."""
+        each row under its own knobs and generator, through the server's
+        prefill program of its shape (caller holds ``DEVICE_LOCK``):
+        ``(first [bb], lp0 [bb], prefill cache)``, copies that outlive the
+        program's next run (a long row's waits for a later barrier). The
+        prompt width is ``generate``'s for the row, so the prefill is the
+        one the row would run solo."""
         server = self.server
         rows = [e["row"] for e in entries]
         lens = [e["s"] for e in entries]
         bb = _next_bucket(len(rows), 1)
         sb = max(server.prompt_bucket(e["s"], e["n"]) for e in entries)
-        prompt, length = server._pad_rows(rows, lens, bb, sb)
-        temp, tk, tp, gens, _ = server._knob_operands(
+        tokens, lengths = server._pad_host(rows, lens, bb, sb)
+        temp, tk, tp, _, gens = server._knobs_host(
             [e["temperature"] for e in entries],
             [e["top_k"] for e in entries], [e["top_p"] for e in entries],
             [e["seed"] for e in entries], None, b=bb)
         gens[:len(entries)] = [e["gen"] for e in entries]
-        logits, cache = server.model(prompt, logit_positions=length - 1)
-        first, lp0 = _serve_select(temp, tk, tp)(logits[:, 0, :].float(),
-                                                  gens)
-        return first, lp0, cache
+        return server._rows_prefill(tokens, lengths, (temp, tk, tp), gens,
+                                    stats=self.stats_counters)
+
+    def _knobs(self, entry: dict):
+        """A row's knobs as host arrays and whether it samples."""
+        temp, tk, tp, _, _ = self.server._knobs_host(
+            entry["temperature"], entry["top_k"], entry["top_p"],
+            entry["seed"], None, b=1)
+        return (temp, tk, tp), bool(temp[0] > 0)
 
     def _pack(self, entry: dict, prefill, src: int, gen: int) -> None:
         """Row ``src`` of a prefill into the entry's slot: the first token,
@@ -537,17 +547,6 @@ class ContinuousBatcher:
                 self._pack(e, e["prefill"], 0, gen)
                 e["prefill"] = None  # free the row's prefill cache
 
-    @staticmethod
-    def _to_device(buf, host) -> None:
-        """A host array into a device buffer. On the card from pinned
-        memory, ``non_blocking``: a pageable copy would wait for the
-        segments in flight before this dispatch could be enqueued."""
-        src = torch.from_numpy(np.ascontiguousarray(host))
-        if buf.is_cuda:
-            buf.copy_(src.pin_memory(), non_blocking=True)
-        else:
-            buf.copy_(src)
-
     def _run_segment(self, live: list) -> dict:
         """Dispatch one segment (caller holds ``DEVICE_LOCK``): every slot
         advances ``k`` steps, ``k`` the undispatched quota of the live
@@ -570,15 +569,15 @@ class ContinuousBatcher:
             temp[slot] = e["temperature"] or 0.0
             top_k[slot] = e["top_k"] or 0
             top_p[slot] = 1.0 if e["top_p"] is None else e["top_p"]
-        for buf, host in ((step.temperature, temp), (step.top_k, top_k),
-                          (step.top_p, top_p)):
-            self._to_device(buf, host)
+        # from pinned memory: a pageable copy would wait for the segments
+        # in flight before this dispatch could be enqueued
+        step.set_knobs(temp, top_k, top_p)
         lock = contextlib.nullcontext()
         if self.pool is not None:
             # every occupied slot's table, finished rows' too: their
             # garbage steps write into their own pages or the null page
             nb = self.cache_len // self.pool.page
-            self._to_device(step.tables, np.stack(
+            to_device(step.tables, np.stack(
                 [self._table_row(e, nb) for e in self._active]))
             lock = self.pool.arena_lock
         prog = self._program(bool((temp > 0).any()))
@@ -948,6 +947,10 @@ class ContinuousBatcher:
                              name="engine-programs-close").start()
         elif programs is not None:
             programs.close()  # the failed thread let go of DEVICE_LOCK
+        if sticky:
+            # the server's idle prefill programs and windows go with them
+            with DEVICE_LOCK:
+                self.server.programs.drop_idle()
         log.error("continuous engine failed at %s: %s (replaying %d "
                   "row(s), degrade level %d%s)", site, error, requeued,
                   self.fault_stats.degrade_level,
@@ -1132,59 +1135,67 @@ class ContinuousBatcher:
     # -- API -----------------------------------------------------------------
 
     def _prefill_prefix_row(self, entry: dict, pentry):
-        """Dense prefix row: continue the suffix from a copy of the
-        server's full-window prefix entry ``pentry`` (the entry itself is
-        never written) at the suffix bucket the solo prefix path uses;
-        returns ``(first, lp0, cache)`` for :meth:`_pack`."""
+        """Dense prefix row: the server's full-window prefix entry
+        ``pentry`` copied into a window checked out for it (the entry
+        itself is never written), the suffix continued there at the
+        suffix bucket the solo prefix path uses (caller holds
+        ``DEVICE_LOCK``); returns ``(first, lp0, cache)`` for
+        :meth:`_pack`, copies of the window's."""
         server = self.server
         cfg = server.model.cfg
         cache, plen = pentry
         s = entry["s"]
         sbs = min(_next_bucket(s, server.min_bucket), cfg.max_len - plen)
-        suffix, _ = server._pad_rows([entry["row"]], [s], 1, sbs)
-        temp, tk, tp, _, eos = server._knob_operands(
-            entry["temperature"], entry["top_k"], entry["top_p"],
-            entry["seed"], None, b=1)
-        first, lp0, new_cache, _, _ = server._stream_prefix_fn(sbs)(
-            copy_cache(cache), suffix, s, _serve_select(temp, tk, tp),
-            [entry["gen"]], eos)
-        return first, lp0, new_cache
+        suffix, _ = server._pad_host([entry["row"]], [s], 1, sbs)
+        knobs, sampled = self._knobs(entry)
+        window = server._checkout_window(cache_width(cache),
+                                         stats=self.stats_counters)
+        try:
+            window.load(cache, plen)
+            first, lp0 = window.cont(suffix, s, knobs, [entry["gen"]],
+                                     sampled)
+            return first.clone(), lp0.clone(), window.snapshot()
+        finally:
+            server.programs.checkin(window)
 
     def _paged_continue_row(self, entry: dict):
         """Paged prefix row: the suffix continued from the shared prefix
         pages, read in place through the row's table; only the suffix is
         written, into the row's own pages. Gathers the whole engine window
-        (``max_len`` on every routed configuration), so the continuation
-        runs at the shapes of the dense and solo prefix paths. Returns
+        (``max_len`` on every routed configuration) into a window checked
+        out for it, so the continuation runs at the shapes of the dense
+        and solo prefix paths (caller holds ``DEVICE_LOCK``). Returns
         ``(first, lp0, None)`` for :meth:`_pack`."""
         server, pool = self.server, self.pool
         plen, s = entry["plen"], entry["s"]
         sbs = min(_next_bucket(s, server.min_bucket), self.cache_len - plen)
-        window = self.cache_len
-        cont = server._paged_continue_fn(sbs, pool.page, window)
-        table = torch.as_tensor(self._table_row(entry, window // pool.page),
-                                device=server.device)[None, :]
-        suffix, _ = server._pad_rows([entry["row"]], [s], 1, sbs)
-        temp, tk, tp, _, eos = server._knob_operands(
-            entry["temperature"], entry["top_k"], entry["top_p"],
-            entry["seed"], None, b=1)
-        with pool.arena_lock:
-            first, lp0, _, _ = cont(pool.ensure_arena(), table, plen,
-                                    suffix, s, _serve_select(temp, tk, tp),
-                                    [entry["gen"]], eos)
+        cont = server._paged_continue_fn(sbs, pool.page)
+        table = torch.as_tensor(
+            self._table_row(entry, self.cache_len // pool.page),
+            device=server.device)[None, :]
+        suffix, _ = server._pad_host([entry["row"]], [s], 1, sbs)
+        knobs, sampled = self._knobs(entry)
+        window = server._checkout_window(self.cache_len,
+                                         stats=self.stats_counters)
+        try:
+            with pool.arena_lock:
+                first, lp0 = cont(window, pool.ensure_arena(), table, plen,
+                                  suffix, s, knobs, [entry["gen"]], sampled)
+        finally:
+            server.programs.checkin(window)
         return first, lp0, None
 
     def _prefill_row_chunked(self, entry: dict):
         """Long-prompt joiner prefill in fixed-width chunks (JAX
         ``continuous.py:827-869``): ``row[:split]``, ``split`` the last
         multiple of ``prefill_chunk`` before the row's end, walks into a
-        transient ``cache_len`` cache (:meth:`LlamaServer.
-        _chunked_prefill_cache`), each chunk one dispatch under the device
-        lock alone, so engine segments run between chunks; then the tail
-        continues at its bucket (``_stream_prefix_fn``), which selects the
-        first token. The caller holds ``_prefill_lock`` (not the device
-        lock). Returns ``(first, lp0, cache)``, the cache in the store
-        layout. The same walk and continuation as solo
+        ``cache_len`` window checked out for the row (:meth:`LlamaServer.
+        _walk_chunks`), each chunk one dispatch under the device lock
+        alone, so engine segments run between chunks; then the tail
+        continues there at its bucket, which selects the first token. The
+        caller holds ``_prefill_lock`` (not the device lock). Returns
+        ``(first, lp0, cache)``, copies of the window's, the cache in the
+        store layout. The same walk and continuation as solo
         ``generate(row[split:], prefix=row[:split])`` on a ``cache_len ==
         max_len`` engine, so a row is bitwise that run on the card."""
         server = self.server
@@ -1192,28 +1203,32 @@ class ContinuousBatcher:
         row, s = entry["row"], entry["s"]
         split = ((s - 1) // ck) * ck  # >= 1 token left to continue
         tail = row[split:]
-        t0 = time.monotonic()
-        with self._lock:
-            self._walking += 1
-        try:
-            cache = server._chunked_prefill_cache(
-                row, split, self.cache_len, stats=self.prefill_stats)
-        finally:
-            with self._lock:
-                self._walking -= 1
-        self.prefill_stats.record_walk(time.monotonic() - t0)
-        self.stats_counters.record_prefill_chunks(-(-split // ck))
         sbs = min(_next_bucket(len(tail), server.min_bucket),
                   self.cache_len - split)
-        with DEVICE_LOCK, torch.inference_mode():
-            suffix, _ = server._pad_rows([tail], [len(tail)], 1, sbs)
-            temp, tk, tp, _, eos = server._knob_operands(
-                entry["temperature"], entry["top_k"], entry["top_p"],
-                entry["seed"], None, b=1)
-            first, lp0, cache, _, _ = server._stream_prefix_fn(sbs)(
-                cache, suffix, len(tail), _serve_select(temp, tk, tp),
-                [entry["gen"]], eos)
-        return first, lp0, cache
+        suffix, _ = server._pad_host([tail], [len(tail)], 1, sbs)
+        with DEVICE_LOCK:
+            knobs, sampled = self._knobs(entry)
+            window = server._checkout_window(self.cache_len,
+                                             stats=self.stats_counters)
+        try:
+            t0 = time.monotonic()
+            with self._lock:
+                self._walking += 1
+            try:
+                server._walk_chunks(window, row, split,
+                                    stats=self.prefill_stats)
+            finally:
+                with self._lock:
+                    self._walking -= 1
+            self.prefill_stats.record_walk(time.monotonic() - t0)
+            self.stats_counters.record_prefill_chunks(-(-split // ck))
+            with DEVICE_LOCK, torch.inference_mode():
+                first, lp0 = window.cont(suffix, len(tail), knobs,
+                                         [entry["gen"]], sampled)
+                return first.clone(), lp0.clone(), window.snapshot()
+        finally:
+            with DEVICE_LOCK:
+                server.programs.checkin(window)
 
     def _admit_prefix(self, entry: dict, prefix, max_new_tokens: int):
         """The prefix half of :meth:`_admit`: continue the row's suffix

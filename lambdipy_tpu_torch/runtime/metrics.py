@@ -215,10 +215,13 @@ class EngineStats:
     prefills), ``walk_segments`` (segments dispatched while a chunked
     walk was in progress), ``requests_served``, ``cancelled``
     (rows failed with ``RequestCancelled`` at a barrier: deadline passed
-    or waiter gone), and the decode programs' ``captures`` (CUDA graphs
-    captured, reported as ``compile_count``), ``replays`` (steps run as a
-    graph replay) and ``eager_steps`` (steps run eagerly), recorded
-    through :meth:`record` by ``models/graphs.py StepProgram``. Steps
+    or waiter gone), and the programs' ``captures`` (CUDA graphs
+    captured, decode and prefill, reported as ``compile_count``),
+    ``replays`` (steps run as a graph replay), ``eager_steps`` (steps run
+    eagerly), ``prefill_replays`` and ``eager_prefills`` (the engine's
+    prefills: groups, long rows, prefix rows, a chunked row's chunks and
+    tail), recorded through :meth:`record` by ``models/graphs.py
+    GraphProgram``. Steps
     are counted when dispatched, over-decoded steps of a pipelined
     engine included, so the kernels' launch counters stay equal to what
     ``steps`` and ``forwards`` imply."""
@@ -237,12 +240,14 @@ class EngineStats:
     captures: int = 0
     replays: int = 0
     eager_steps: int = 0
+    prefill_replays: int = 0
+    eager_prefills: int = 0
     cancelled: int = 0
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
     def record(self, name: str, n: int = 1) -> None:
-        """A decode program's event: ``captures``, ``replays`` or
-        ``eager_steps``."""
+        """A program's event: ``captures``, ``replays``, ``eager_steps``,
+        ``prefill_replays`` or ``eager_prefills``."""
         with self._lock:
             setattr(self, name, getattr(self, name) + int(n))
 
@@ -305,7 +310,9 @@ class EngineStats:
                     "cancelled": self.cancelled,
                     "compile_count": self.captures,
                     "replays": self.replays,
-                    "eager_steps": self.eager_steps}
+                    "eager_steps": self.eager_steps,
+                    "prefill_replays": self.prefill_replays,
+                    "eager_prefills": self.eager_prefills}
 
 
 @dataclass

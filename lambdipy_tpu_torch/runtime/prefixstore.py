@@ -19,9 +19,12 @@ style of SGLang's RadixAttention and vLLM's automatic prefix caching:
   (solo, streamed, the continuous engine's join) serves the suffix-only
   continuation unchanged.
 - Unmatched whole blocks prefill HERE, through the server's fixed-width
-  chunk functions (``_prefix_first_fn`` / ``_prefix_ext_fn``), and go
-  into the tree: the request's own prefill is the insertion. Concurrent
-  first requests for one target collapse to one walk.
+  chunk functions (``_prefix_first_fn`` / ``_prefix_ext_fn``, captured
+  programs on the card) in a one-row window checked out of the server's
+  program cache for the whole walk, and go into the tree: the request's
+  own prefill is the insertion. Concurrent first requests for one target
+  collapse to one walk; walks of other targets get windows of their
+  own.
 - A device-memory budget bounds the tree: block bytes are counted from
   the stored leaves, and inserts past the budget evict least-recently
   used LEAF nodes (an interior node's K/V is position-prefixed by its
@@ -38,8 +41,8 @@ PAGED mode (``pool=`` a ``runtime/pagepool.py PagePool``): nodes hold
 arena PAGE IDS, since a radix block IS a page. A hit costs a refcount
 bump per page (:meth:`PrefixStore.acquire_pages`): no assembly, no
 registered full-window duplicate (``assembly_bytes_peak`` stays 0). A
-cold walk runs the same chunk functions on a transient contiguous cache
-and writes each new block into a page of its own; eviction is
+cold walk runs the same chunk functions in its window and writes each
+new block into a page of its own; eviction is
 refcount-aware (a page a live row shares stays).
 
 Every failure path FAILS OPEN: a store error logs and the request serves
@@ -66,7 +69,7 @@ import torch
 from lambdipy_tpu_torch.models.graphs import DEVICE_LOCK
 from lambdipy_tpu_torch.models.llama import (cache_nbytes,
                                              concat_cache_blocks,
-                                             copy_cache, slice_cache_blocks)
+                                             slice_cache_blocks)
 from lambdipy_tpu_torch.runtime.metrics import (PrefillStats,
                                                 PrefixCacheStats)
 from lambdipy_tpu_torch.runtime.pagepool import PagesExhausted, page_width
@@ -358,11 +361,25 @@ class PrefixStore:
 
     def _walk(self, row: list, matched: int, target: int,
               path: list) -> None:
-        """The chunked walk from ``matched`` to ``target``: a first chunk
-        (or the matched prefix gathered from its pages / copied from its
-        registered entry), then wide chunks where they fit, block-wide
+        """The chunked walk from ``matched`` to ``target`` in a window
+        checked out of the server's program cache for the walk: a first
+        chunk (or the matched prefix gathered from its pages / copied from
+        its registered entry), then wide chunks where they fit, block-wide
         chunks for the rest; every chunk one dispatch under the device
-        lock."""
+        lock. What outlives the walk is copied out of the window: the
+        registered entry and the tree's blocks (dense), the new pages
+        (paged)."""
+        server = self.server
+        with DEVICE_LOCK:
+            window = server._checkout_window(server.model.cfg.max_len)
+        try:
+            self._walk_in(window, row, matched, target, path)
+        finally:
+            with DEVICE_LOCK:
+                server.programs.checkin(window)
+
+    def _walk_in(self, window, row: list, matched: int, target: int,
+                 path: list) -> None:
         server = self.server
         cfg = server.model.cfg
         bk = self.block
@@ -370,35 +387,32 @@ class PrefixStore:
         t_walk = time.monotonic()
         if matched == 0:
             fw = self.walk_chunk if target >= self.walk_chunk else bk
-            prompt, _ = server._pad_rows([row[:fw]], [fw], 1, fw)
+            prompt, _ = server._pad_host([row[:fw]], [fw], 1, fw)
             self._walk_fault()
-            cache = server._prefix_first_fn(fw, cfg.max_len)(prompt, fw)
-            pos = fw
+            server._prefix_first_fn(fw, cfg.max_len)(prompt, fw, window)
             stats.record_round()
         elif self.pool is not None:
             # the matched blocks live in pages: gather them into the
-            # walk's contiguous cache (transient, never registered)
-            gather = server._paged_gather_fn(self.pool.page, cfg.max_len)
+            # walk's window (transient, never registered)
             tbl = np.zeros((1, cfg.max_len // bk), np.int32)
             tbl[0, :len(path)] = [n.page_id for n in path]
             with DEVICE_LOCK, self.pool.arena_lock, torch.inference_mode():
-                arena = self.pool.ensure_arena()
-                cache = gather(arena, torch.as_tensor(tbl,
-                                                      device=server.device),
-                               matched)
-            pos = matched
+                server._gather_pages_into(
+                    window, self.pool.ensure_arena(),
+                    torch.as_tensor(tbl, device=server.device), bk, matched)
         else:
             entry = server.get_prefix(server._prefix_key(row[:matched]))
             with DEVICE_LOCK, torch.inference_mode():
                 if entry is not None:
-                    # the walk writes its cache in place; the registered
+                    # the walk writes its window in place; the registered
                     # entry stays whole for concurrent readers
-                    cache = copy_cache(entry[0])
+                    window.load(entry[0], matched)
                 else:
                     cache = concat_cache_blocks(cfg, [n.kv for n in path],
                                                 cfg.max_len)
                     self.stats_counters.record_assembly(cache_nbytes(cache))
-            pos = matched
+                    window.load(cache, matched)
+        pos = window.index
         # full wide chunks where they fit, block-wide ones after: a chunk
         # is written whole at the index, so it must end inside max_len
         wk = self.walk_chunk
@@ -408,21 +422,22 @@ class PrefixStore:
             wide = (ext_wide is not None and target - pos >= wk
                     and pos + wk <= cfg.max_len)
             width = wk if wide else bk
-            chunk, _ = server._pad_rows([row[pos:pos + width]], [width], 1,
+            chunk, _ = server._pad_host([row[pos:pos + width]], [width], 1,
                                         width)
             self._walk_fault()
-            cache = (ext_wide if wide else ext)(cache, chunk, width)
+            (ext_wide if wide else ext)(window, chunk, width)
             pos += width
             stats.record_round()
         stats.record_walk(time.monotonic() - t_walk)
         if self.pool is not None:
-            # paged insertion: each new block gets a page of its own; the
-            # walk's cache is transient, nothing is registered
-            self._insert_paged(row, matched, cache, target)
+            # paged insertion: each new block gets a page of its own,
+            # written from the window; nothing is registered
+            self._insert_paged(row, matched, window.cache, target)
             return
         with DEVICE_LOCK, torch.inference_mode():
-            new_blocks = [slice_cache_blocks(cache, p, bk)
+            new_blocks = [slice_cache_blocks(window.cache, p, bk)
                           for p in range(matched, target, bk)]
+            cache = window.snapshot()
         server.register_prefix(server._prefix_key(row[:target]), cache,
                                target)
         self._insert(row, matched, new_blocks)

@@ -128,9 +128,11 @@ def reference_generate(server, rows, max_new_tokens, *, temperature=0.0,
     bb = tl._next_bucket(b, 1)
     cache_len = min(sb + steps, cfg.max_len)
     with torch.inference_mode():
-        prompt, length = server._pad_rows(rows, lengths, bb, sb)
-        temp, tk, tp, gens, eos = server._knob_operands(
+        prompt, length = map(torch.as_tensor,
+                             server._pad_host(rows, lengths, bb, sb))
+        temp, tk, tp, eos, gens = server._knobs_host(
             temperature, top_k, top_p, seed, eos_id, b=bb)
+        tk, tp, eos = map(torch.as_tensor, (tk, tp, eos))
         select = _old_select(temp, tk, tp)
         logits, pc = model(prompt, logit_positions=length - 1)
         cache = tl.prefill_into_cache(cfg, pc, bb, cache_len, 0)
@@ -179,10 +181,13 @@ def test_static_step_is_bitwise_the_loop_it_replaced(weights, graph_type,
     np.testing.assert_array_equal(again[1], want[1])
     stats = server.program_stats()
     if graph_type:
-        assert stats["compile_count"] == 1
+        # the prefill program and the decode program, each captured once
+        assert stats["compile_count"] == 2
         assert stats["replays"] == 2 * 11 and stats["eager_steps"] == 0
+        assert stats["prefill_replays"] == 2 and stats["eager_prefills"] == 0
     else:
         assert stats["compile_count"] == 0 and stats["eager_steps"] == 22
+        assert stats["eager_prefills"] == 2
 
 
 @GRAPHS
@@ -231,10 +236,11 @@ def test_greedy_with_graphs_is_token_exact_against_jax(weights):
 
 def test_program_cache_keys_lru_and_evictions(weights):
     """An entry is keyed (batch bucket, cache_len, KV layout, backends) and
-    holds one decode cache with a greedy and a sampled program on it; a
-    program's key adds greedy or sampled, as the JAX server keys its
-    programs. The LRU holds ``program_cache_max`` entries and counts what
-    it evicts; an evicted entry's graphs are freed."""
+    holds one decode cache with a greedy and a sampled program on it and
+    the prefill programs that load it; a program's key adds greedy or
+    sampled, as the JAX server keys its programs. The LRU holds
+    ``program_cache_max`` entries and counts what it evicts; an evicted
+    entry's graphs, prefill graphs included, are freed."""
     server = _server(weights, FakeGraph, program_cache_max=2)
     cfg = server.model.cfg
     FakeGraph.made.clear()
@@ -244,21 +250,27 @@ def test_program_cache_keys_lru_and_evictions(weights):
     assert stats["decode_buckets"] == [
         [1, 32, "float", "blocked", "pallas", "greedy"],
         [1, 32, "float", "blocked", "pallas", "sampled"]]
-    assert stats["compile_count"] == 2 and stats["program_evictions"] == 0
+    # a prefill and a decode program each, greedy and sampled
+    assert stats["compile_count"] == 4 and stats["program_evictions"] == 0
+    assert stats["program_pools"] == [
+        [1, 32, "float", "blocked", "pallas", "decode", mode, 0]
+        for mode in ("greedy", "sampled")] + [
+        [1, 32, "float", "blocked", "pallas", "prefill", 16, mode, 0]
+        for mode in ("greedy", "sampled")]
     # greedy and sampled share the entry's one cache
     assert stats["program_bytes"] == tl.decode_cache_bytes(cfg, 1, 32)
     server.generate(ROWS, max_new_tokens=4)                # (4, 48)
     server.generate([1, 2, 3], max_new_tokens=20)          # (1, 48)
     stats = server.program_stats()
-    assert stats["compile_count"] == 4 and stats["program_evictions"] == 1
+    assert stats["compile_count"] == 8 and stats["program_evictions"] == 1
     assert [k[:2] for k in stats["decode_buckets"]] == [[1, 48], [4, 48]]
-    # both graphs of the evicted entry were reset
-    assert FakeGraph.made[0].fn is None and FakeGraph.made[1].fn is None
+    # the four graphs of the evicted entry were reset
+    assert all(g.fn is None for g in FakeGraph.made[:4])
     # a hit captures nothing new and moves the key to the front
     server.generate(ROWS, max_new_tokens=4)
     server.generate([1, 2, 3], max_new_tokens=4)           # (1, 32) again
     stats = server.program_stats()
-    assert stats["compile_count"] == 5 and stats["program_evictions"] == 2
+    assert stats["compile_count"] == 10 and stats["program_evictions"] == 2
     assert [k[:2] for k in stats["decode_buckets"]] == [[1, 32], [4, 48]]
     assert stats["program_bytes"] == (tl.decode_cache_bytes(cfg, 1, 32)
                                       + tl.decode_cache_bytes(cfg, 4, 48))
@@ -357,7 +369,7 @@ def test_generate_lets_other_device_work_run_between_segments(weights):
     """``generate`` holds the device lock one segment of decode steps at
     a time: a thread that asks for the lock while a request decodes (an
     engine segment, another prefill) runs after that segment, not after
-    the request."""
+    the request. (Replay 1 is the prefill's.)"""
     replays, other = [], []
 
     def other_work():
@@ -368,7 +380,7 @@ def test_generate_lets_other_device_work_run_between_segments(weights):
         def replay(self):
             super().replay()
             replays.append(1)
-            if len(replays) == 1:
+            if len(replays) == 2:
                 threading.Thread(target=other_work).start()
                 while not graphs.DEVICE_LOCK._queue:
                     time.sleep(0.001)
@@ -378,27 +390,28 @@ def test_generate_lets_other_device_work_run_between_segments(weights):
     want = reference_generate(server, [[1, 2, 3]], 13)[0]
     np.testing.assert_array_equal(server.generate([1, 2, 3],
                                                   max_new_tokens=13), want)
-    assert other == [4] and len(replays) == 12
+    assert other == [1 + 4] and len(replays) == 1 + 12
 
 
 def test_replays_add_what_the_capture_counted(weights):
     """A capture counts nothing (the stand-in's capture 'counted'
-    FAKE_LAUNCHES, and the program took them back); every replay adds
-    exactly what the capture counted."""
+    FAKE_LAUNCHES, and the program took them back); every replay, of a
+    prefill or of a decode step, adds exactly what its capture counted."""
     server = _server(weights, FakeGraph)
     before = tq.int8_matmul.launches
     server.generate([4, 5, 6], max_new_tokens=1)   # prefill only
-    assert tq.int8_matmul.launches == before
+    assert tq.int8_matmul.launches - before == FAKE_LAUNCHES
     server.generate([4, 5, 6], max_new_tokens=9)
     stats = server.program_stats()
-    assert stats["compile_count"] == 1 and stats["replays"] == 8
-    assert tq.int8_matmul.launches - before == 8 * FAKE_LAUNCHES
+    assert stats["compile_count"] == 2 and stats["replays"] == 8
+    assert stats["prefill_replays"] == 2
+    assert tq.int8_matmul.launches - before == (2 + 8) * FAKE_LAUNCHES
 
 
 def test_sampled_steps_run_eagerly_where_draws_cannot_be_captured(weights):
-    """A graph type that cannot register generators: greedy steps are
-    still captured, sampled steps run eagerly and are counted, with the
-    same bits."""
+    """A graph type that cannot register generators: greedy steps and
+    prefills are still captured, sampled ones run eagerly and are
+    counted, with the same bits."""
     server = _server(weights, NoDrawsGraph)
     want = reference_generate(server, ROWS, 6, **SEEDED)
     got = server.generate(ROWS, max_new_tokens=6, return_logprobs=True,
@@ -407,7 +420,8 @@ def test_sampled_steps_run_eagerly_where_draws_cannot_be_captured(weights):
     server.generate(ROWS, max_new_tokens=6)
     stats = server.program_stats()
     assert stats["eager_steps"] == 5 and stats["replays"] == 5
-    assert stats["compile_count"] == 1
+    assert stats["eager_prefills"] == 1 and stats["prefill_replays"] == 1
+    assert stats["compile_count"] == 2
 
 
 def test_interleaved_streams_of_one_bucket_get_their_own_programs(weights):
@@ -433,7 +447,8 @@ def test_interleaved_streams_of_one_bucket_get_their_own_programs(weights):
     np.testing.assert_array_equal(
         outs[1][1], reference_generate(server, [b], 8)[0][0, 4:])
     stats = server.program_stats()
-    assert stats["compile_count"] == 3
+    # each of the three decode programs with its prefill
+    assert stats["compile_count"] == 6
     assert len(stats["decode_buckets"]) == 3
 
 
@@ -508,11 +523,19 @@ def test_engine_rows_match_the_eager_engine_and_solo(weights, kind,
         alone[graph_type] = engine.generate(p, max_new_tokens=n,
                                             return_logprobs=True, **kw)
         stats = engine.stats()
+        prefills = stats["prefill_groups"] + stats["row_prefills"]
         if graph_type:
+            # the two decode programs and a prefill program per shape
+            shapes = [k for k in server.program_stats()["program_pools"]
+                      if k[0] == "prefill"]
             assert stats["replays"] == stats["steps"] > 0
-            assert stats["compile_count"] == 2 and stats["eager_steps"] == 0
+            assert stats["compile_count"] == 2 + len(shapes) > 2
+            assert stats["eager_steps"] == 0
+            assert stats["prefill_replays"] == prefills
+            assert stats["eager_prefills"] == 0
         else:
             assert stats["eager_steps"] == stats["steps"]
+            assert stats["eager_prefills"] == prefills
     np.testing.assert_array_equal(alone[FakeGraph][0], alone[False][0])
     np.testing.assert_array_equal(alone[FakeGraph][1], alone[False][1])
     for (p, n, kw), (tok_e, lp_e), (tok_g, lp_g) in zip(
@@ -556,7 +579,9 @@ def test_engine_reset_and_a_rebuilt_arena_drop_its_graphs(weights,
     assert engine.pool.generation == 2
     np.testing.assert_array_equal(engine.generate(p, max_new_tokens=6), want)
     assert graph.fn is None and engine._programs.graph(False) is not graph
-    assert engine.stats()["compile_count"] == 3
+    # the decode step three times, the group prefill twice: the CUDA
+    # error dropped the server's idle prefill programs too
+    assert engine.stats()["compile_count"] == 5
 
 
 def test_handler_honours_program_cache_max_and_reports_programs(weights):

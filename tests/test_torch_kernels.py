@@ -855,19 +855,21 @@ def test_graph_decode_is_bitwise_eager(cuda_device, path, knobs):
         np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_array_equal(got[1], want[1])
     stats = graph.program_stats()
-    assert stats["compile_count"] == 1 and stats["eager_steps"] == 0
+    # the prefill and the decode step, each captured once
+    assert stats["compile_count"] == 2 and stats["eager_steps"] == 0
     assert stats["replays"] == 2 * 11
+    assert stats["prefill_replays"] == 2 and stats["eager_prefills"] == 0
     assert eager.program_stats()["eager_steps"] == 2 * 11
 
 
 def test_graph_replays_count_their_launches(cuda_device):
     """After a capture, N replays add N times one step's launches (2
     layers: 15 int8 matmuls and 2 decode-attention launches); the capture
-    itself counts nothing."""
+    itself counts nothing. The prefill's replay adds its forward's 15."""
     graph, _ = _graph_and_eager(cuda_device)
     rows = [list(range(1, 20))]
     mm, attn = tq.int8_matmul.launches, tda.blocked_decode_attention.launches
-    graph.generate(rows, max_new_tokens=1)  # prefill: no step, no capture
+    graph.generate(rows, max_new_tokens=1)  # the prefill's capture, no step
     assert (tq.int8_matmul.launches - mm,
             tda.blocked_decode_attention.launches - attn) == (15, 0)
     for n in (9, 14):  # one key: the first captures, both replay
@@ -877,7 +879,8 @@ def test_graph_replays_count_their_launches(cuda_device):
         assert tq.int8_matmul.launches - mm == 15 * n
         assert tda.blocked_decode_attention.launches - attn == 2 * (n - 1)
     stats = graph.program_stats()
-    assert stats["compile_count"] == 1 and stats["replays"] == 8 + 13
+    assert stats["compile_count"] == 2 and stats["replays"] == 8 + 13
+    assert stats["prefill_replays"] == 3
 
 
 def _threads(fns, timeout=300):
@@ -928,8 +931,14 @@ def test_graph_engine_rows_are_bitwise_eager_and_solo(cuda_device, paged):
         outs[name] = _threads([lambda i=i: call(i) for i in range(4)])
         stats = eng.stats()
         if name == "graph":
+            # the decode programs and a prefill program per group shape
+            shapes = [k for k in server.program_stats()["program_pools"]
+                      if k[0] == "prefill"]
             assert stats["replays"] == stats["steps"] > 0
-            assert stats["eager_steps"] == 0 and stats["compile_count"] == 2
+            assert stats["eager_steps"] == 0
+            assert stats["compile_count"] == 2 + len(shapes)
+            assert stats["eager_prefills"] == 0
+            assert stats["prefill_replays"] == stats["prefill_groups"]
     for (p, n, kw), g, e in zip(reqs, outs["graph"], outs["eager"]):
         np.testing.assert_array_equal(g[0], e[0])
         np.testing.assert_array_equal(g[1], e[1])
@@ -1006,7 +1015,8 @@ def test_two_streams_of_one_bucket_keep_their_solo_bits(cuda_device):
             np.concatenate([c[i][0] for c in chunks], 1), want[0])
         np.testing.assert_array_equal(
             np.concatenate([c[i][1] for c in chunks], 1), want[1])
-    assert graph.program_stats()["compile_count"] == 2
+    # each stream's prefill and decode step
+    assert graph.program_stats()["compile_count"] == 4
 
 
 def test_graph_programs_past_the_byte_bound_are_freed(cuda_device):
@@ -1023,7 +1033,8 @@ def test_graph_programs_past_the_byte_bound_are_freed(cuda_device):
         np.testing.assert_array_equal(got[1], want[1])
     stats = bounded.program_stats()
     assert stats["program_bytes"] == 0 and stats["program_evictions"] == 3
-    assert stats["compile_count"] == 3 and stats["replays"] == 8 + 8 + 19
+    assert stats["compile_count"] == 6 and stats["replays"] == 8 + 8 + 19
+    assert stats["prefill_replays"] == 3
 
 
 def test_capture_beside_a_request_thread_prefill(cuda_device, monkeypatch):

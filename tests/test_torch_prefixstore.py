@@ -387,9 +387,10 @@ def test_continue_prefill_matches_jax(weights, jax_server, server):
     with torch.inference_mode():
         first, lp0, tcache, start, done = tl._continue_prefill(
             server.model, tl.copy_cache(cache), torch.as_tensor(pad).long(),
-            len(suffix), tl._serve_select(np.zeros(1, np.float32),
-                                          torch.zeros(1, dtype=torch.long),
-                                          torch.ones(1)),
+            len(suffix),
+            lambda lg, gens: tl.select_tokens(
+                lg, torch.zeros(1), torch.zeros(1, dtype=torch.long),
+                torch.ones(1), gens, False),
             [None], torch.tensor([-1]), sbs)
     jcache = [{**{k: jnp.asarray(v.numpy())
                   for k, v in tl._leaves(e).items()},
