@@ -375,6 +375,7 @@ def check_decode_attention(gen, quant: bool) -> dict:
                         "device_ms": dms,
                         "device_bound_fraction": bound_ms / dms["kernel"]})
         torch.cuda.empty_cache()
+    results["verify row map"] = check_row_map(gen, quant, kernel, plain)
     line = timings[0]
     return {"name": name, "route": "cuda",
             "source": "lambdipy_tpu_torch/csrc/decode_attention.cu",
@@ -387,6 +388,66 @@ def check_decode_attention(gen, quant: bool) -> dict:
             "bound_ms": line["bound_ms"], "bound_by": line["bound_by"],
             "library_ms": line["library_ms"], "checks": results,
             "timings": timings}
+
+
+VERIFY_KB = 8  # path H's verify width: 8 slots x 8 = 64 one-token rows
+
+
+def check_row_map(gen, quant: bool, kernel, plain) -> dict:
+    """The contiguous kernel's row map at a verify of path D's engine
+    shape: each of its 8 rows' kb = 8 one-token rows at ``active_len +
+    j`` over the row's cache row. Against the plain version (the map
+    read as a gather) within the tolerance, and bitwise the kernel
+    launched on K/V gathered row by row (the map moves only where a row
+    reads from); the device time per call against the spec-off step's
+    8-row call."""
+    from lambdipy_tpu_torch.ops.decode_attention import (
+        blocked_decode_attention, map_rows)
+
+    b, t, active = ENGINE_SHAPE
+    h, _, d = DECODE_HEADS
+    kb = VERIFY_KB
+    dtype = torch.bfloat16
+    q, kv = _decode_operands(gen, b * kb, t, dtype, quant)
+    kv = {n: x[:b].contiguous() for n, x in kv.items()}
+    row_map = torch.arange(b, dtype=torch.int32,
+                           device="cuda").repeat_interleave(kb)
+    alen = (torch.tensor(active, dtype=torch.int32,
+                         device="cuda").repeat_interleave(kb)
+            + torch.arange(kb, dtype=torch.int32, device="cuda").repeat(b))
+    scales = ({"k_scale": kv["k_scale"], "v_scale": kv["v_scale"]}
+              if quant else {})
+
+    def mapped():
+        return blocked_decode_attention(q, kv["k"], kv["v"], alen,
+                                        row_map=row_map, **scales)
+
+    out = mapped()
+    gathered = {n: x.contiguous() for n, x in zip(
+        kv, map_rows(row_map, *kv.values()))}
+    alone = kernel(q, gathered, alen)
+    ref = plain(q, gathered, alen)
+    torch.cuda.synchronize()
+    rel = row_rel_err(out, ref)
+    err = (out.float() - ref.float()).abs().max().item()
+    bitwise = bool(torch.equal(out, alone))
+    del gathered, alone, ref
+    torch.cuda.empty_cache()
+    verify_ms = device_time(lambda i: mapped())
+    step_alen = torch.tensor(active, dtype=torch.int32, device="cuda")
+    step_ms = device_time(lambda i: kernel(q[:b], kv, step_alen))
+    name = "decode_attention_int8kv" if quant else "decode_attention"
+    log(f"{name} verify row map, {b} rows x kb={kb} over b={b} t={t} "
+        f"bf16: per row, max |diff| / rms {rel:.3e}, tolerance "
+        f"{DECODE_TOL[dtype]}; bitwise the kernel on K/V gathered row by "
+        f"row: {bitwise}; device time per call {verify_ms:.4f} ms against "
+        f"{step_ms:.4f} ms for the {b}-row step")
+    if not (rel <= DECODE_TOL[dtype] and bitwise):
+        raise SystemExit(f"{name}'s row map disagrees: {rel}, bitwise "
+                         f"{bitwise}")
+    return {"max_abs_err": err, "row_rel_err": rel,
+            "bitwise_gathered": bitwise,
+            "verify_device_ms": verify_ms, "step_device_ms": step_ms}
 
 
 def plain_kv(kv, dtype, quant):
@@ -3684,6 +3745,369 @@ def serve_prefix_path(card: str) -> dict:
 
 # -------------------------------------------------------------------- main
 
+# path H: speculative decoding. Solo "speculative": k on A's and B's
+# servers over HTTP; D's burst through engines at spec_k = 8
+SPEC_K = 8
+SPEC_NEW = 256
+SPEC_PROMPT = 200   # the solo prompt: a phrase of 24 tokens repeated
+SPEC_SUFFIX = 64    # the suffix after the shared prefix
+SPEC_PREFIX = 2048
+SPEC_MODES = (("lookup", 1), ("model", 1), ("model", 32))
+SPEC_TIMED_PROMPT = 512  # the 8-slot timing's prompts, cut to this
+SPEC_SAMPLED = {"temperature": 0.8, "top_p": 0.9, "seed": 7}
+
+
+def spec_prompt(rng, vocab: int, n: int, period: int = 24) -> list:
+    """A prompt that repeats a random phrase of ``period`` tokens: text
+    with repeats, where prompt-lookup drafting finds its n-grams."""
+    phrase = torch.randint(1, vocab, (period,), generator=rng).tolist()
+    return (phrase * (n // period + 1))[:n]
+
+
+def spec_launches(layers: int, attn: str, forwards: int, steps: int,
+                  draft_forwards: int = 0, draft_exit: int = 0) -> dict:
+    """The launches speculative traffic implies: 7 projections a layer
+    plus the lm_head for every full forward (prefills, plain steps and
+    verifies, one forward of ``slots x kb`` rows each) and ``7 *
+    draft_exit + 1`` for every shallow draft forward; one ``attn`` launch
+    a layer for every step (plain or verify) and ``draft_exit`` for every
+    draft forward."""
+    want = dict.fromkeys(KERNELS, 0)
+    want["int8_matmul"] = ((7 * layers + 1) * forwards
+                           + (7 * draft_exit + 1) * draft_forwards)
+    want[attn] = layers * steps + draft_exit * draft_forwards
+    return want
+
+
+def program_times(server, prompts, kb: int) -> dict:
+    """Device ms of one plain decode step and one verify of width ``kb``
+    (host drafts of -1: one token accepted a verify) on a decode entry of
+    ``len(prompts)`` rows holding ``prompts``, both replays of their
+    captured graphs (``device_time``: the host's enqueue left out)."""
+    from lambdipy_tpu_torch.models.llama import verify_program
+
+    lens = [len(p) for p in prompts]
+    with server._lock, torch.inference_mode():
+        entry, prog = server._prefill(prompts, lens, SPEC_NEW, 0.0, None,
+                                      None, 0, None)
+        try:
+            vprog = verify_program(entry, kb, False)
+            vprog.vstep.set_drafts(np.full(vprog.vstep.draft.shape, -1,
+                                           np.int64))
+            step_ms = device_time(lambda i: prog.run())
+            verify_ms = device_time(lambda i: vprog.run())
+        finally:
+            server.programs.checkin(entry)
+    return {"rows": len(prompts), "kb": kb, "step_ms": step_ms,
+            "verify_ms": verify_ms}
+
+
+def solo_spec(path: str, card: str) -> dict:
+    """Path H on ``path``'s server (A or B) over HTTP: ``"speculative":
+    8`` with 256 new tokens, greedy bitwise plain (tokens and logprobs as
+    served), sampled the same across two runs, streamed = fused; a
+    2,048-token ``prefix``; the launch counters those requests imply;
+    every verify a replay; then, directly, greedy bitwise plain
+    ``generate`` (unrounded logprobs, with and without the prefix),
+    decode tok/s spec on and off, acceptance and ``tokens_per_step``,
+    and a verify's device time against a plain step's."""
+    from lambdipy_tpu_torch.runtime.handlers import (HandlerContext,
+                                                     generate_handler,
+                                                     kernel_launches)
+    from lambdipy_tpu_torch.runtime.server import BundleServer
+
+    state = generate_handler(path_spec(path), HandlerContext(device="cuda"))
+    server, cfg = state.server, state.server.model.cfg
+    layers = cfg.layers
+    attn = "decode_attention_int8kv" if path == "B" else "decode_attention"
+    rng = torch.Generator().manual_seed(29)
+    p = spec_prompt(rng, cfg.vocab_size, SPEC_PROMPT)
+    head = torch.randint(1, cfg.vocab_size, (SPEC_PREFIX,),
+                         generator=rng).tolist()
+    suffix = spec_prompt(rng, cfg.vocab_size, SPEC_SUFFIX)
+    greedy = {"tokens": p, "max_new_tokens": SPEC_NEW, "logprobs": True}
+    spec = {**greedy, "speculative": SPEC_K}
+    sampled = {**spec, **SPEC_SAMPLED}
+    pre = {"tokens": suffix, "prefix": head, "max_new_tokens": SPEC_NEW,
+           "logprobs": True}
+    http = BundleServer(state, port=0).start_background()
+    url = http.url + "/invoke"
+    try:
+        before = http_json(http.url + "/metrics")["handler"]
+        set_launches_to_zero()
+        resp = {name: http_json(url, body) for name, body in (
+            ("plain", greedy), ("spec", spec), ("sampled", sampled),
+            ("sampled_again", sampled))}
+        records, _ = _post_stream(url, spec)
+        launches = kernel_launches()
+        after = http_json(http.url + "/metrics")["handler"]
+        resp["prefix_plain"] = http_json(url, pre)
+        resp["prefix_spec"] = http_json(url, {**pre, "speculative": SPEC_K})
+        prefix_stream, _ = _post_stream(url, {**pre, "speculative": SPEC_K})
+    finally:
+        http.stop()
+    bad = [n for n, r in resp.items() if not r.get("ok")]
+    if bad or not records[-1].get("done") \
+            or not prefix_stream[-1].get("done"):
+        raise SystemExit(f"path H ({path}): requests failed: {bad}")
+    streamed = [t for r in records[:-1] for t in r["tokens"][0]]
+    pre_streamed = [t for r in prefix_stream[:-1] for t in r["tokens"][0]]
+    checks = {
+        "spec = plain (tokens, served logprobs)":
+            resp["spec"]["tokens"] == resp["plain"]["tokens"]
+            and resp["spec"]["logprobs"] == resp["plain"]["logprobs"],
+        "sampled the same twice":
+            resp["sampled"]["tokens"] == resp["sampled_again"]["tokens"],
+        "streamed = fused": streamed == resp["spec"]["tokens"][0],
+        "prefix spec = prefix plain":
+            resp["prefix_spec"]["tokens"] == resp["prefix_plain"]["tokens"]
+            and resp["prefix_spec"]["logprobs"]
+            == resp["prefix_plain"]["logprobs"],
+        "prefix streamed = fused":
+            pre_streamed == resp["prefix_spec"]["tokens"][0]}
+    verifies = sum(r["speculative"]["steps"] for r in
+                   (resp["spec"], resp["sampled"], resp["sampled_again"],
+                    records[-1]))
+    plain_steps = SPEC_NEW - 1
+    want = spec_launches(layers, attn, 5 + plain_steps + verifies,
+                         plain_steps + verifies)
+    replays = after["replays"] - before["replays"]
+    eager = after["eager_steps"] - before["eager_steps"]
+    checks["launch identities"] = launches == want
+    checks["every step and verify a replay"] = (
+        replays == plain_steps + verifies and eager == 0)
+    log(f"path H ({path}): launches {launches}, implied {want} for 5 "
+        f"prefills, {plain_steps} plain steps and {verifies} verifies; "
+        f"{replays} replays, {eager} eager steps")
+
+    # directly: unrounded logprobs, rates and device times
+    gen = server.generate(p, max_new_tokens=SPEC_NEW, return_logprobs=True)
+    (sgen, stats) = server.generate_speculative(
+        p, max_new_tokens=SPEC_NEW, k=SPEC_K, return_logprobs=True,
+        return_stats=True)
+    pgen = server.generate(suffix, prefix=head, max_new_tokens=SPEC_NEW,
+                           return_logprobs=True)
+    psgen = server.generate_speculative(suffix, prefix=head,
+                                        max_new_tokens=SPEC_NEW, k=SPEC_K,
+                                        return_logprobs=True)
+    checks["direct spec bitwise plain"] = all(
+        np.array_equal(a, b) for a, b in zip(gen, sgen))
+    checks["direct prefix spec bitwise plain"] = all(
+        np.array_equal(a, b) for a, b in zip(pgen, psgen))
+    log(f"path H ({path}) checks: {checks}")
+    if not all(checks.values()):
+        raise SystemExit(f"path H ({path}) failed: {checks}")
+    off = decode_rate(server.generate, [p])
+    walls = []
+    for n, fn in ((1, server.generate), (SPEC_NEW, lambda r, max_new_tokens:
+                   server.generate_speculative(r, max_new_tokens=
+                                               max_new_tokens, k=SPEC_K))):
+        t0 = time.perf_counter()
+        fn(p, max_new_tokens=n)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    on = (SPEC_NEW - 1) / (walls[1] - walls[0])
+    accept = (stats["emitted"] - stats["steps"]) / (stats["steps"]
+                                                   * (SPEC_K - 1))
+    times = program_times(server, [p], SPEC_K)
+    log(f"path H ({path}) batch 1: decode {off:.1f} tok/s spec off, "
+        f"{on:.1f} tok/s at speculative={SPEC_K}; {stats['steps']} verifies "
+        f"for {stats['emitted']} tokens: tokens_per_step "
+        f"{stats['tokens_per_step']}, acceptance {accept:.4f}; device ms a "
+        f"plain step {times['step_ms']:.4f}, a verify of kb={SPEC_K} "
+        f"{times['verify_ms']:.4f} ({times['verify_ms'] / times['step_ms']:.3f}"
+        f"x) [{card}]")
+    out = {"checks": checks, "launches": launches, "implied": want,
+           "replays": replays, "stats": stats, "acceptance": accept,
+           "tok_s_off": off, "tok_s_on": on, "times": times,
+           "spec_metrics": after.get("spec")}
+    del state, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_burst(engine, reqs) -> tuple:
+    """D's burst driven directly through ``engine``: (each row's
+    ``(tokens, logprobs)``, the burst's wall seconds)."""
+    out = [None] * len(reqs)
+
+    def send(i):
+        _, body = reqs[i]
+        out[i] = engine.generate(body["tokens"],
+                                 max_new_tokens=body["max_new_tokens"],
+                                 return_logprobs=True, **_knobs(body))
+
+    _, wall = _drive(send, reqs)
+    _idle(engine)
+    return out, wall
+
+
+def spec_engines(card: str) -> dict:
+    """Path H's engines: D's burst (its 8 concurrent requests) over HTTP
+    through a handler at ``spec_k = 8`` (paged, depth 2, lookup), then
+    directly through paged and dense engines at depths 2 and 1, spec off
+    and at ``spec_k = 8`` with lookup drafts and the model tier at
+    ``draft_exit`` 1 and 32: every row, greedy and seeded-sampled,
+    bitwise the spec-off engine's (tokens and logprobs); the launch
+    counters the steps, verifies and draft forwards imply; every step
+    and verify a replay, none eager; the pool drained. Prints acceptance,
+    ``tokens_per_step``, the burst's tok/s spec on and off, and a verify
+    of 8 slots x kb = 8 against an 8-slot step in device time."""
+    from lambdipy_tpu_torch.runtime.handlers import (HandlerContext,
+                                                     generate_handler,
+                                                     kernel_launches,
+                                                     make_engine)
+    from lambdipy_tpu_torch.runtime.metrics import SpecDecodeStats
+    from lambdipy_tpu_torch.runtime.server import BundleServer
+
+    extra = {**ENGINE_EXTRA, "max_new_tokens": "16", "prefix_cache_mb": "0"}
+    state = generate_handler(
+        {"model": "llama3-8b", "dtype": "bfloat16", "quant": "int8",
+         "extra": {**extra, "spec_k": str(SPEC_K)}},
+        HandlerContext(device="cuda"))
+    server, cfg = state.server, state.server.model.cfg
+    layers = cfg.layers
+    rng = torch.Generator().manual_seed(31)
+    reqs = []
+    for i, (s_len, n, kind) in enumerate(BURST):
+        tokens = (spec_prompt(rng, cfg.vocab_size, s_len) if i % 2 == 0
+                  else torch.randint(1, cfg.vocab_size, (s_len,),
+                                     generator=rng).tolist())
+        body = {"tokens": tokens, "max_new_tokens": n,
+                **KNOBS.get(kind, {}), "logprobs": True}
+        reqs.append((kind, body))
+    charges = [-(-(len(b["tokens"]) + b["max_new_tokens"]) // 32)
+               for _, b in reqs]
+    new = new_tokens_of(reqs)
+    http = BundleServer(state, port=0).start_background()
+    resp = [None] * len(reqs)
+
+    def send(i):
+        resp[i] = http_json(http.url + "/invoke", reqs[i][1])
+
+    try:
+        set_launches_to_zero()
+        _drive(send, reqs)
+        launches = kernel_launches()
+        metrics = http_json(http.url + "/metrics")["handler"]
+    finally:
+        http.stop()
+    batching = metrics["batching"]
+    want = spec_launches(layers, "paged_decode_attention",
+                         batching["forwards"], batching["steps"])
+    log(f"path H: D's burst over HTTP through a spec_k={SPEC_K} handler: "
+        f"{batching['steps']} steps ({batching['verify_segments']} "
+        f"verifies), spec {batching['spec']}; launches {launches} implied "
+        f"{want}; replays {batching['replays']}, eager steps "
+        f"{batching['eager_steps']} (server {metrics['eager_steps']})")
+    if not all(r.get("ok") for r in resp) or metrics["eager_steps"] \
+            or batching["eager_steps"] or launches != want \
+            or batching["replays"] != batching["steps"]:
+        raise SystemExit("path H: the spec_k handler's burst failed")
+    served = [(np.asarray(r["tokens"]), np.asarray(r["logprobs"]))
+              for r in resp]
+    state.engine.release()
+    results = {"http": {"spec": batching["spec"], "launches": launches,
+                        "implied": want}}
+    refs = {}
+    for paged in ("1", "0"):
+        attn = "paged_decode_attention" if paged == "1" else \
+            "decode_attention"
+        for depth in ("2", "1"):
+            base = {**ENGINE_EXTRA, "kv_paged": paged,
+                    "pipeline_depth": depth,
+                    "kv_pages": str(sum(charges) + 1)}
+            runs = [("off", 0, 0)] + [(m, SPEC_K, x) for m, x in SPEC_MODES]
+            if paged == "1" and depth == "2":
+                runs.append(("off", 0, 0))  # spec off, timed warm
+            for mode, k, exit_layer in runs:
+                eng = make_engine(server, {**base, "spec_k": str(k),
+                                           "draft_mode": mode,
+                                           "draft_exit": str(exit_layer
+                                                             or 1)})
+                eng.spec_metrics = SpecDecodeStats()
+                set_launches_to_zero()
+                out, wall = spec_burst(eng, reqs)
+                launches = kernel_launches()
+                stats = eng.stats()
+                key = f"paged={paged} depth={depth} {mode}" + (
+                    f" exit={exit_layer}" if mode == "model" else "")
+                if mode == "off":
+                    refs.setdefault((paged, depth), out)
+                want = spec_launches(
+                    layers, attn, stats["forwards"], stats["steps"],
+                    stats["draft_forwards"], eng.draft_exit)
+                same = all(np.array_equal(a[0], b[0])
+                           and np.array_equal(a[1], b[1])
+                           for a, b in zip(out, refs[paged, depth]))
+                ok = (same and launches == want
+                      and stats["replays"] == stats["steps"]
+                      and (mode != "lookup"
+                           or stats["verify_segments"] == stats["steps"])
+                      and stats["eager_steps"] == 0
+                      and (paged == "0"
+                           or eng.pool.stats()["pages_live"] == 0))
+                rep = stats.get("spec", {})
+                results[key] = {
+                    "bitwise_spec_off": same, "launches": launches,
+                    "implied": want, "wall_s": wall, "tok_s": new / wall,
+                    "steps": stats["steps"],
+                    "verify_segments": stats["verify_segments"],
+                    "draft_forwards": stats["draft_forwards"],
+                    "acceptance": rep.get("acceptance_rate"),
+                    "tokens_per_step": rep.get("tokens_per_step"),
+                    "k_hist": rep.get("draft", {}).get("k_hist")}
+                log(f"path H {key}: {new} tokens in {wall:.3f} s, "
+                    f"{new / wall:.1f} tok/s; {stats['steps']} steps "
+                    f"({stats['verify_segments']} verifies, "
+                    f"{stats['draft_forwards']} draft forwards), acceptance "
+                    f"{rep.get('acceptance_rate')}, tokens_per_step "
+                    f"{rep.get('tokens_per_step')}, k {rep.get('draft', {}).get('k_hist')}; "
+                    f"bitwise spec off: {same}; launches {launches} implied "
+                    f"{want}; replays {stats['replays']} eager "
+                    f"{stats['eager_steps']} [{card}]")
+                eng.release()
+                del eng
+                gc.collect()
+                torch.cuda.empty_cache()
+                if not ok:
+                    raise SystemExit(f"path H {key} failed: {results[key]}")
+    same_http = all(np.array_equal(a[0], b[0])
+                    and np.array_equal(_as_served(b[1]), a[1])
+                    for a, b in zip(served, refs["1", "2"]))
+    log(f"path H: the spec_k={SPEC_K} handler's HTTP burst = the spec-off "
+        f"engine's rows (tokens, served logprobs): {same_http}")
+    if not same_http:
+        raise SystemExit("path H: the HTTP burst's rows differ")
+    prompts = [b["tokens"][:SPEC_TIMED_PROMPT] for _, b in reqs]
+    results["times"] = program_times(server, prompts, SPEC_K)
+    t = results["times"]
+    log(f"path H: device ms of an 8-slot step {t['step_ms']:.4f}, of a "
+        f"verify of 8 slots x kb={SPEC_K} {t['verify_ms']:.4f} "
+        f"({t['verify_ms'] / t['step_ms']:.3f}x) [{card}]")
+    del state, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results
+
+
+def serve_spec_path(card: str) -> dict:
+    """Path H: speculative decoding; its launch counters, from 0 before
+    each counted phase, are summed into the kernels line."""
+    out = {"A": solo_spec("A", card), "B": solo_spec("B", card)}
+    out["engines"] = spec_engines(card)
+    launches = dict.fromkeys(KERNELS, 0)
+    phases = [out["A"]["launches"], out["B"]["launches"]] + [
+        r["launches"] for r in out["engines"].values()
+        if isinstance(r, dict) and "launches" in r]
+    for phase in phases:
+        for name, n in phase.items():
+            launches[name] += n
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3738,6 +4162,9 @@ def main() -> int:
     t_path = time.perf_counter()
     paths["E"] = serve_prefix_path(card)
     log(f"path E took {time.perf_counter() - t_path:.1f} s")
+    t_path = time.perf_counter()
+    paths["H"] = serve_spec_path(card)
+    log(f"path H took {time.perf_counter() - t_path:.1f} s")
     # each kernel's launches: the sum over the paths, each path counted
     # from 0 just before it was driven
     for name, kern in kernels.items():

@@ -76,6 +76,11 @@
 //
 // Layouts are the JAX package's: q [b, 1, h, d], k/v [b, t, kvh, d]
 // (contiguous, heads grouped, not pre-broadcast), scales [b, t, kvh, 1],
+// or, with a row map [b] int32, k/v [rows, t, kvh, d] and query row r
+// reading cache row map[r] (a speculative verify chunk: kb one-token
+// rows per sequence, each at its own active_len, over one cache row;
+// only the origin of the row's K/V changes, so each row is bitwise the
+// one-token step at its length),
 // active_len [b] int32, out [b, 1, h, d]. The caller allocates the
 // partials (acc [b * kvh, nsplit, group, d] f32, m/l [b * kvh, nsplit,
 // group, 2] f32, nsplit = ceil(t / KV_CHUNK)); the kernels allocate
@@ -207,7 +212,10 @@ __device__ __forceinline__ void load_vec(const int8_t* p, float sc,
 
 // First pass: one block per (chunk, row x kv head). KV is T (float
 // branch, scales unused) or int8_t (int8 branch). PAGED false: k/v are
-// [b, t, kvh, d], tables unused. PAGED true: k/v are the arena
+// [rows, t, kvh, d] and tables is null (query row r reads cache row r)
+// or the row map [b] (query row r reads cache row tables[r]: a verify
+// chunk's one-token rows share their sequence's cache row). PAGED true:
+// k/v are the arena
 // [P, 1 << page_shift, kvh, d], row r's block table is
 // tables[r * nb .. r * nb + nb), and t = nb << page_shift. GT >= group
 // is the register width of the query group (1, 2, 4 or 8).
@@ -255,10 +263,11 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
   int* pid_s = reinterpret_cast<int*>(smem + lay.pages);
 
   const size_t pos_stride = (size_t)kvh * d;
-  // contiguous: the (row, head) origins; paged: the head within a slot
-  const size_t kv0 = (PAGED ? 0 : (size_t)row * t * pos_stride) +
-                     (size_t)head * d;
-  const size_t sc0 = (PAGED ? 0 : (size_t)row * t * kvh) + head;
+  // contiguous: the (cache row, head) origins; paged: the head within a
+  // slot
+  const size_t crow = PAGED ? 0 : (tables != nullptr ? tables[row] : row);
+  const size_t kv0 = crow * t * pos_stride + (size_t)head * d;
+  const size_t sc0 = crow * t * kvh + head;
   const int page0 = c0 >> page_shift;
   if constexpr (PAGED) {
     // the chunk's page ids, one table read per page
@@ -653,20 +662,22 @@ int dispatch(int dtype, const void* q, const void* k, const void* v,
 extern "C" int decode_attention_kv_chunk() { return KV_CHUNK; }
 
 // dtype (of q and out): 0 = float32, 1 = bfloat16. k_scale/v_scale null:
-// k/v in q's dtype; else k/v int8 with f32 scales [b, t, kvh, 1].
+// k/v in q's dtype; else k/v int8 with f32 scales [rows, t, kvh, 1].
+// row_map: null (query row r reads cache row r) or [b] int32 cache rows.
 // part_acc/part_ml: scratch as the header note says. Returns the first
 // non-zero cudaGetLastError() of the two launches. The caller checks
 // group <= 8, d <= 256, d * element size a multiple of 16 bytes,
-// 16-byte-aligned K/V and contiguity.
+// 16-byte-aligned K/V, contiguity and every map entry a cache row.
 extern "C" int decode_attention_launch(int dtype, const void* q,
                                        const void* k, const void* v,
                                        const void* k_scale,
                                        const void* v_scale,
+                                       const void* row_map,
                                        const void* active_len, void* out,
                                        void* part_acc, void* part_ml, int b,
                                        int t, int kvh, int group, int d,
                                        float scale, void* stream) {
-  return dispatch<false>(dtype, q, k, v, k_scale, v_scale, nullptr,
+  return dispatch<false>(dtype, q, k, v, k_scale, v_scale, row_map,
                          active_len, out, part_acc, part_ml, b, t, 0, 0, kvh,
                          group, d, scale, stream);
 }

@@ -28,13 +28,11 @@ prefill, prefix and continuation programs.
   it: every serving path holds :data:`DEVICE_LOCK` around its device work
   (prefills, decode steps and the fetches that wait on them), and
   captures take it too.
-- A sampled program draws from one ``torch.Generator`` per row. The
-  generators are registered with the graph
-  (``CUDAGraph.register_generator_state``), so a replay draws what the
-  eager run would and advances each generator as it would. Where the
-  card's PyTorch cannot register them, sampled programs run eagerly and
-  are counted (``eager_steps``, ``eager_prefills``); greedy ones are
-  always captured.
+- A sampled program draws counter-based noise, a function of each
+  row's key and draw index, both buffers of the program
+  (``models/llama.py stream_uniform``): no generator state lives
+  outside the graph, so sampled programs are captured like greedy ones
+  and a replay draws what the eager run would.
 
 On the CPU no graph exists: a program runs its step eagerly. Tests inject
 a stand-in for the graph type (:class:`CudaGraph` is the card's).
@@ -200,16 +198,10 @@ class CudaGraph:
     holds the step's temporaries (the kernels' outputs and scratch) at
     the addresses every replay reuses."""
 
-    # the card's PyTorch can capture per-row generator draws
-    captures_draws = hasattr(torch.cuda.CUDAGraph, "register_generator_state")
-
     def __init__(self, device):
         self.device = device
         self.graph = torch.cuda.CUDAGraph()
         self.pool_bytes = 0
-
-    def register_generator_state(self, gen) -> None:
-        self.graph.register_generator_state(gen)
 
     def capture(self, fn, prepare) -> None:
         stream = capture_stream(self.device)
@@ -248,9 +240,9 @@ class CudaGraph:
 class GraphStats:
     """Counters of a server's (or an engine's) programs: ``captures``
     (graphs captured, decode and prefill: the JAX server's
-    ``compile_count``), ``replays`` (decode steps run as a replay),
-    ``eager_steps`` (decode steps run eagerly: every step without graphs,
-    sampled steps where the card cannot capture draws),
+    ``compile_count``), ``replays`` (decode steps and verify steps run as
+    a replay), ``eager_steps`` (the same run eagerly: every step without
+    graphs),
     ``prefill_replays`` and ``eager_prefills`` (the same for prefills:
     serving prefills, continuations, a walk's chunks) and ``evictions``
     (entries the LRU dropped)."""
@@ -276,11 +268,10 @@ class GraphStats:
 class GraphProgram:
     """``body()``, a closure over static buffers, run by :meth:`run`:
     eagerly when ``graph_type`` is None (the CPU, or a server built with
-    ``graphs=False``) or when the graph type cannot capture generator
-    draws and the program samples (``gens``, one per row, are registered
-    with the graph); else captured on its first run and replayed from then
-    on. A failed capture raises. ``events`` names the counters a replay
-    and an eager run add to (decode: ``replays`` / ``eager_steps``).
+    ``graphs=False``), else captured on its first run and replayed from
+    then on. A failed capture raises. ``events`` names the counters a
+    replay and an eager run add to (decode: ``replays`` /
+    ``eager_steps``).
 
     ``body`` may return a tuple of tensors: the program's outputs. The
     first run's tensors are kept in :attr:`outputs` (on the card, the
@@ -289,12 +280,10 @@ class GraphProgram:
     replayed alike: a caller that keeps an output past the next run of
     the program copies it first."""
 
-    def __init__(self, body, model, rows: int, sampled: bool, gens,
-                 graph_type, stats: GraphStats,
+    def __init__(self, body, model, rows: int, graph_type,
+                 stats: GraphStats,
                  events: tuple = ("replays", "eager_steps")):
         self.body, self.model, self.rows = body, model, rows
-        self.sampled = bool(sampled)
-        self.gens = gens
         self.graph_type = graph_type
         self.stats = stats
         self.events = events
@@ -304,8 +293,7 @@ class GraphProgram:
 
     @property
     def uses_graph(self) -> bool:
-        return self.graph_type is not None and (
-            not self.sampled or self.graph_type.captures_draws)
+        return self.graph_type is not None
 
     @property
     def pool_bytes(self) -> int:
@@ -337,9 +325,6 @@ class GraphProgram:
 
     def _capture(self, stats: GraphStats) -> None:
         graph = self.graph_type(self.model.device)
-        if self.sampled:
-            for gen in self.gens:
-                graph.register_generator_state(gen)
         with DEVICE_LOCK:
             before = _read_counts()
             try:
@@ -365,12 +350,11 @@ class GraphProgram:
 
 class StepProgram(GraphProgram):
     """One decode step of ``step`` (greedy or ``sampled``): a
-    :class:`GraphProgram` over the step's buffers and its per-row
-    generators."""
+    :class:`GraphProgram` over the step's buffers."""
 
     def __init__(self, step, sampled: bool, graph_type, stats: GraphStats):
         super().__init__(lambda: step.step(sampled), step.model, step.rows,
-                         sampled, step.gens, graph_type, stats)
+                         graph_type, stats)
         self.step = step
 
     def close(self) -> None:

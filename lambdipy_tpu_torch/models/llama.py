@@ -41,14 +41,22 @@ weights (``models/params.py from_jax_params``). Differences:
   the plain PyTorch reference the kernels are held against. Prefill
   attention under ``blocked`` and ``dense`` is plain PyTorch, as the JAX
   package leaves it to XLA.
-- Sampling draws Gumbel-max noise from one ``torch.Generator`` per row,
-  seeded from that row's ``(seed, row)`` alone. Tokens are deterministic
-  within the port and independent of batch composition, but they are not
-  JAX's threefry draws.
+- Sampling draws Gumbel-max noise that is a hash of the row's key (from
+  its ``(seed, row)`` alone), its draw index and the vocab index
+  (:func:`stream_uniform`), carried on the device. Tokens are
+  deterministic within the port and independent of batch composition,
+  but they are not JAX's threefry draws. A speculative verify rolls a
+  rejected tail's draws back by advancing the draw index by the accepted
+  count (:class:`VerifyStep`).
+- Speculative decoding scores a verify chunk ``[b, kb]`` as ``b * kb``
+  one-token rows, so every accepted position is bitwise the one-token
+  step (JAX runs the chunk through its scalar-index branch and admits a
+  bf16 argmax difference on the solo path).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import math
@@ -65,11 +73,14 @@ from lambdipy_tpu_torch.models.graphs import (DEVICE_LOCK, CudaGraph,
                                               GraphProgram, GraphStats,
                                               ProgramCache, ProgramSet,
                                               StepPrograms)
+from lambdipy_tpu_torch.models.spec import (accept_resample, chain_verify,
+                                            lookup_draft_hit)
 from lambdipy_tpu_torch.ops.attention import flash_attention
 from lambdipy_tpu_torch.ops.decode_attention import (blocked_decode_attention,
                                                      gather_pages,
                                                      paged_decode_attention)
 from lambdipy_tpu_torch.ops.quant import int8_matmul
+from lambdipy_tpu_torch.runtime.metrics import SpecDecodeStats
 from lambdipy_tpu_torch.utils.platform import resolve_device
 
 NEG_INF = -1e9  # attention mask fill, as in the JAX package
@@ -444,10 +455,14 @@ class LlamaBlock(nn.Module):
             idx = cache["index"]  # [b]
             store = _kv_store(cfg, k, v)
             t = cache_width([cache])
+            # a verify forward's rows map each one-token row to its cache
+            # row (several rows write one cache row, at their positions)
+            row_map = cache.get("rows")
+            rows = (torch.arange(b, device=x.device) if row_map is None
+                    else row_map)
             # the JAX scatter drops out-of-bounds writes; an out-of-bounds
             # index is a device assert here, so such rows rewrite the
             # value already at their clamped slot instead
-            rows = torch.arange(b, device=x.device)
             slot = idx.clamp(max=t - 1).long()
             keep = (idx < t)[:, None, None]
             new_cache = {}
@@ -466,8 +481,13 @@ class LlamaBlock(nn.Module):
             if cfg.attn_backend == "blocked":
                 # the valid mask "position <= index" is active_len = index + 1
                 active = (idx + 1).to(torch.int32)
-                out = blocked_decode_attention(q, ck, cv, active, **scales)
+                out = blocked_decode_attention(q, ck, cv, active,
+                                               row_map=row_map, **scales)
             else:
+                if row_map is not None:
+                    ck, cv = ck[row_map], cv[row_map]
+                    scales = {name: val[row_map]
+                              for name, val in scales.items()}
                 if scales:
                     ck = _kv_dequantize(ck, scales["k_scale"], cfg.dtype)
                     cv = _kv_dequantize(cv, scales["v_scale"], cfg.dtype)
@@ -506,22 +526,29 @@ class LlamaModel(nn.Module):
         return [getattr(self, f"layer_{i}") for i in range(self.cfg.layers)]
 
     def forward(self, tokens, positions=None, mask=None, cache=None,
-                logit_positions=None):
+                logit_positions=None, exit_layer=None):
         """Returns ``(logits, new_cache)``.
 
         prefill: cache=None, tokens ``[b, s]`` -> float cache entries
         sized s. decode: cache = a decode cache (``init_decode_cache``
         layout), tokens ``[b, 1]``.
         logit_positions: optional ``[b]`` — the lm_head runs only at that
-        position per row (logits ``[b, 1, v]``)."""
+        position per row (logits ``[b, 1, v]``).
+        exit_layer: optional int — a shallow-exit forward (the speculative
+        draft head): the first ``exit_layer`` layers, then ``final_norm``
+        and the lm_head over that early hidden state; ``cache`` (when
+        given) is read for the layers run, and ``new_cache`` holds one
+        entry per layer run."""
         b, s = tokens.shape
         if positions is None:
             positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
         if mask is None:
             mask = torch.ones(b, s, dtype=torch.bool, device=tokens.device)
+        layers = self.cfg.layers if exit_layer is None else max(
+            1, min(int(exit_layer), self.cfg.layers))
         x = self.embed(tokens)
         new_cache = []
-        for i, block in enumerate(self.blocks()):
+        for i, block in enumerate(self.blocks()[:layers]):
             x, c = block(x, positions, mask,
                          None if cache is None else cache[i])
             new_cache.append(c)
@@ -587,7 +614,7 @@ def _leaves(entry: dict) -> dict:
     """A cache entry's K/V leaves (its tensors in the store layout),
     without the index and the paged step's entries."""
     return {name: val for name, val in entry.items()
-            if name not in PAGED_STEP_KEYS}
+            if name not in STEP_KEYS}
 
 
 def slice_cache_blocks(cache, start: int, width: int):
@@ -667,6 +694,27 @@ def page_kv_bytes(cfg: LlamaConfig, page: int) -> int:
 
 # the non-leaf entries of a paged cache entry (:class:`DecodeStep`)
 PAGED_STEP_KEYS = ("tables", "index", "write_page", "write_off", "active")
+# and of any decode cache entry: a verify forward's cache-row map too
+STEP_KEYS = PAGED_STEP_KEYS + ("rows",)
+
+
+def _page_of(entry: dict) -> int:
+    """The page width of a paged cache entry's arena leaves."""
+    return entry["k_int8" if "k_int8" in entry else "k"].shape[1]
+
+
+def page_address(tables, pos, page: int) -> dict:
+    """Paged write addresses of one-token rows at positions ``pos [n]``
+    through ``tables [n, nb]``: page ``tables[r, pos // page]`` at offset
+    ``pos % page``, or the null page for a position past the table (the
+    JAX scatter drops such a write; nothing reads the null page
+    unmasked), and the attention length ``pos + 1``."""
+    nb = tables.shape[1]
+    blk = torch.div(pos, page, rounding_mode="floor").long()
+    pid = tables.gather(1, blk.clamp(max=nb - 1)[:, None])[:, 0]
+    return {"write_page": torch.where(blk < nb, pid.long(), NULL_PAGE),
+            "write_off": torch.remainder(pos, page).long(),
+            "active": (pos + 1).to(torch.int32)}
 
 
 def _gather_page_cache(arena, tables, window: int, page: int, index):
@@ -759,38 +807,115 @@ def _token_logprob(lg, tok):
     return F.log_softmax(lg, dim=-1).gather(-1, tok[:, None])[:, 0]
 
 
-def row_generators(seeds, device):
-    """One ``torch.Generator`` per row, seeded from ``(seed, row)`` pairs
+# -- the sampled selection's randomness: counter-based noise ----------------
+#
+# A sampled row draws from a stream of its own: a 64-bit key (from the
+# row's ``(seed, row)`` pair alone, so its draws never depend on what
+# shares its batch) and a draw index, the selections made so far. The
+# noise of one draw is a hash of (key, draw index, vocab index), computed
+# with integer ops on the device, so it is a function of those three
+# alone: a graph replays it with no generator state, and a verify
+# chunk's position i draws what the one-token step would at index
+# ``draw + i``, its rejected tail rolled back by advancing the index by
+# the accepted count inside the program.
+
+_M32 = 0xFFFFFFFF
+
+
+def _fmix32(x):
+    """The murmur3 finalizer on int64 tensors holding 32-bit values:
+    every input bit moves every output bit (products keep their low 32
+    bits; an int64 product past 2**63 wraps, and the mask drops it)."""
+    x = x ^ (x >> 16)
+    x = (x * 0x85EBCA6B) & _M32
+    x = x ^ (x >> 13)
+    x = (x * 0xC2B2AE35) & _M32
+    return x ^ (x >> 16)
+
+
+def stream_bits(keys, draw):
+    """32 random bits per (row, draw): ``keys [..., 2]`` int64 (the key's
+    two 32-bit halves), ``draw [...]`` int64."""
+    return _fmix32(keys[..., 0] ^ _fmix32(keys[..., 1]
+                                          ^ _fmix32(draw & _M32)))
+
+
+def _to_uniform(bits):
+    """Bits in ``[0, 2**32)`` -> f32 uniforms in (0, 1), exact."""
+    return ((bits >> 8).float() + 0.5) * 2.0 ** -24
+
+
+def stream_uniform(keys, draw, v: int | None = None):
+    """Uniforms of a draw: one per (row, draw) (``v`` None), or one per
+    vocab entry ``[..., v]``, a hash of (key, draw, vocab index)."""
+    bits = stream_bits(keys, draw)
+    if v is None:
+        return _to_uniform(_fmix32(bits ^ 0x5BD1E995))
+    col = _fmix32((torch.arange(v, device=keys.device) * 0x9E3779B9
+                   + 0x7F4A7C15) & _M32)
+    return _to_uniform(_fmix32(bits[..., None] ^ col))
+
+
+def gumbel_noise(keys, draw, v: int):
+    """Gumbel noise ``[..., v]`` of one draw per row."""
+    return -torch.log(-torch.log(stream_uniform(keys, draw, v)))
+
+
+def row_key(seed: int, row: int) -> tuple[int, int]:
+    """A row's 64-bit key, as two 32-bit halves, from ``(seed, row)``."""
+    state = np.random.SeedSequence([seed % 2 ** 64, row]).generate_state(
+        2, np.uint32)
+    return int(state[0]), int(state[1])
+
+
+class RowStream:
+    """A row's sampling stream on the host: its key and the draws made.
+    A program that selects for the row copies both in and moves ``draw``
+    on by the selections it made; the decode step carries them on the
+    device from there."""
+
+    __slots__ = ("key", "draw")
+
+    def __init__(self, key: tuple[int, int], draw: int = 0):
+        self.key, self.draw = key, int(draw)
+
+
+def row_streams(seeds) -> list[RowStream]:
+    """One :class:`RowStream` per row, keyed from ``(seed, row)`` pairs
     alone (``seeds`` is a list of such pairs), so a row's draws never
     depend on what shares its batch."""
-    gens = []
-    for seed, row in seeds:
-        state = np.random.SeedSequence([seed % 2 ** 64, row]).generate_state(
-            1, np.uint64)[0]
-        gen = torch.Generator(device=device)
-        gen.manual_seed(int(state))
-        gens.append(gen)
-    return gens
+    return [RowStream(row_key(seed, row)) for seed, row in seeds]
 
 
-def select_tokens(lg, temperature, top_k, top_p, gens, sampled: bool):
+def streams_host(streams, rows: int) -> tuple:
+    """``(keys [rows, 2] int64, draw [rows] int64)`` host arrays of
+    ``streams`` (rows past them: key 0, draw 0)."""
+    keys = np.zeros((rows, 2), np.int64)
+    draw = np.zeros((rows,), np.int64)
+    for r, st in enumerate(streams[:rows]):
+        keys[r] = st.key
+        draw[r] = st.draw
+    return keys, draw
+
+
+def select_tokens(lg, temperature, top_k, top_p, streams, sampled: bool):
     """Token selection over per-row knob tensors ``[b]`` (temperature <= 0
     = greedy; top_k, top_p as :func:`filter_logits_runtime`):
-    ``(token [b], raw logprob [b])`` from f32 logits ``lg [b, v]``. Not
-    ``sampled`` (an all-greedy batch) skips the sampling path, its two
-    sorts and the noise draws, entirely, as the JAX ``lax.cond`` does.
-    Reads no host data, so a CUDA graph can capture it."""
+    ``(token [b], raw logprob [b])`` from f32 logits ``lg [b, v]``.
+    ``streams`` is ``(keys [b, 2], draw [b])``, device tensors: a sampled
+    row draws Gumbel-max noise of its draw index (the caller moves the
+    index on). Not ``sampled`` (an all-greedy batch) skips the sampling
+    path, its two sorts and the noise, entirely, as the JAX ``lax.cond``
+    does. Reads no host data, so a CUDA graph can capture it."""
     lg = lg.float()
     greedy = lg.argmax(dim=-1)
     if not sampled:
         return greedy, _token_logprob(lg, greedy)
     t = temperature.clamp(min=1e-6)[:, None]
     filt = filter_logits_runtime(lg / t, top_k, top_p)
-    # Gumbel-max: argmax(logits + Gumbel noise) is a categorical draw
-    u = torch.stack([torch.rand(lg.shape[-1], generator=g,
-                                device=lg.device) for g in gens])
-    draw = (filt - torch.log(-torch.log(u))).argmax(dim=-1)
-    tok = torch.where(temperature > 0, draw, greedy)
+    keys, draw = streams
+    draw_tok = (filt + gumbel_noise(keys, draw, lg.shape[-1])).argmax(dim=-1)
+    tok = torch.where(temperature > 0, draw_tok, greedy)
     return tok, _token_logprob(lg, tok)
 
 
@@ -818,9 +943,10 @@ class DecodeStep:
 
     - the carry: ``tok [b]``, ``lp [b]``, ``pos [b]`` int32, ``done [b]``
       and ``eos [b]`` (``< 0`` = none);
-    - the knobs ``temperature``, ``top_k``, ``top_p`` ``[b]`` and one
-      ``torch.Generator`` per row, which take a request's values and
-      states before a step (:meth:`set_knobs`, :meth:`set_generator`);
+    - the knobs ``temperature``, ``top_k``, ``top_p`` ``[b]``, set from
+      a request's values before a step (:meth:`set_knobs`), and each
+      row's sampling stream, ``keys [b, 2]`` and ``draw [b]`` (the draws
+      made; :meth:`set_stream`), carried on the device like the token;
     - the decode cache: ``cache``'s leaves (a contiguous cache, or the
       page arena with ``tables [b, nb]``), each layer's entry pointing at
       ``pos`` and, paged, at this step's write address.
@@ -841,7 +967,8 @@ class DecodeStep:
         self.eos = torch.full((rows,), -1, dtype=torch.long, device=dev)
         self.temperature, self.top_k = zeros(torch.float32), zeros(torch.long)
         self.top_p = torch.ones(rows, dtype=torch.float32, device=dev)
-        self.gens = row_generators([(0, r) for r in range(rows)], dev)
+        self.keys = torch.zeros(rows, 2, dtype=torch.long, device=dev)
+        self.draw = zeros(torch.long)
         step_keys = {"index": self.pos}
         if tables is not None:
             step_keys.update(tables=tables, write_page=zeros(torch.long),
@@ -860,22 +987,28 @@ class DecodeStep:
         for buf, val in zip(self.knobs(), (temperature, top_k, top_p)):
             to_device(buf, val)
 
-    def set_generator(self, row: int, gen) -> None:
-        """Row ``row`` draws on from where ``gen`` stands: its generator,
-        the one a graph registered, takes ``gen``'s state."""
-        self.gens[row].set_state(gen.get_state())
+    def streams(self) -> tuple:
+        """The stream buffers ``(keys, draw)``."""
+        return self.keys, self.draw
 
-    def load(self, first, lp0, pos, eos, gens) -> None:
+    def set_stream(self, row: int, stream: RowStream) -> None:
+        """Row ``row`` draws on from where ``stream`` stands."""
+        keys, draw = streams_host([stream], 1)
+        to_device(self.keys[row], keys[0])
+        to_device(self.draw[row:row + 1], draw)
+
+    def load(self, first, lp0, pos, eos, streams) -> None:
         """A prefill's carry: the first token and its logprob, the
         positions, eos per row (a tensor or host data; a row whose first
-        token is eos starts latched) and the rows' generators."""
+        token is eos starts latched) and the rows' streams."""
         self.tok.copy_(first)
         self.lp.copy_(lp0)
         self.pos.copy_(pos)
         to_device(self.eos, eos)
         self.done.copy_((self.eos >= 0) & (first == self.eos))
-        for r, gen in enumerate(gens):
-            self.set_generator(r, gen)
+        keys, draw = streams_host(streams, self.rows)
+        to_device(self.keys, keys)
+        to_device(self.draw, draw)
 
     def _write_address(self) -> None:
         """Paged: this step's write address for every layer, in place: page
@@ -884,15 +1017,9 @@ class DecodeStep:
         write; nothing reads the null page unmasked), and the attention
         length ``pos + 1``."""
         first = self.cache[0]
-        page = first["k_int8" if "k_int8" in first else "k"].shape[1]
-        nb = self.tables.shape[1]
-        pos = self.pos
-        blk = torch.div(pos, page, rounding_mode="floor").long()
-        pid = self.tables.gather(1, blk.clamp(max=nb - 1)[:, None])[:, 0]
-        first["write_page"].copy_(torch.where(blk < nb, pid.long(),
-                                              NULL_PAGE))
-        first["write_off"].copy_(torch.remainder(pos, page))
-        first["active"].copy_(pos + 1)
+        addr = page_address(self.tables, self.pos, _page_of(first))
+        for name, val in addr.items():
+            first[name].copy_(val)
 
     def step(self, sampled: bool) -> None:
         """One forward of every row at ``pos`` (writing its K/V into the
@@ -904,13 +1031,15 @@ class DecodeStep:
         logits, _ = self.model(self.tok[:, None],
                                positions=self.pos[:, None], cache=self.cache)
         nxt, nlp = select_tokens(logits[:, -1, :], self.temperature,
-                                 self.top_k, self.top_p, self.gens, sampled)
+                                 self.top_k, self.top_p, self.streams(),
+                                 sampled)
         nxt = torch.where(self.done, self.eos, nxt)
         nlp = torch.where(self.done, 0.0, nlp)
         self.done |= (self.eos >= 0) & (nxt == self.eos)
         self.tok.copy_(nxt)
         self.lp.copy_(nlp)
         self.pos += 1
+        self.draw += 1
 
     def nbytes(self) -> int:
         """Device bytes of the step's own decode cache (0 for the page
@@ -919,6 +1048,199 @@ class DecodeStep:
             return 0
         return sum(v.numel() * v.element_size() for entry in self.cache
                    for k, v in entry.items() if k != "index")
+
+
+class VerifyStep:
+    """A speculative verify segment on a :class:`DecodeStep`'s buffers (its
+    carry, knobs, streams and cache), the unit a CUDA graph captures per
+    ``kb`` (JAX ``_spec_seg_fn`` / ``_spec_pseg_fn``, ``llama.py:2265,
+    2426``; with ``exit_layer`` the model-draft twins ``_mspec_*``). It
+    owns the drafts ``[b, kb - 1]`` (raw; ``-1`` pads are never accepted)
+    and, with ``exit_layer``, the per-row ``use_model`` mask.
+
+    One verify scores each row's pending token and its ``kb - 1`` drafts
+    as ``b * kb`` ONE-TOKEN rows: row ``(r, j)`` at position ``pos[r] +
+    j``. Every int8 projection then takes the GEMV (one position per
+    row), attention runs the decode kernel over the row's own cache row
+    (a row map) or its repeated block table, with ``active_len = pos + j
+    + 1``, and every layer writes all ``b * kb`` positions' K/V before it
+    reads any. So each accepted position is bitwise the one-token step
+    the spec-off engine runs there. The chain verify
+    (``models/spec.py chain_verify``) selects at every position with draw
+    index ``draw + j`` and advances the carry (token, logprob, position,
+    draw index) by the accepted ``count`` in place; a rejected tail's
+    K/V lies past the new position, rewritten before anything reads it.
+    The verify does not latch eos (the host cuts a row at its eos).
+
+    :meth:`run` returns ``(tokens [b, kb], lps [b, kb], count [b], pending
+    [b])``: the first ``count`` columns are the emitted tokens and their
+    logprobs. :meth:`run_resample` is the solo sampled path's rejection
+    sampling (``models/spec.py accept_resample``) on a stream of its own
+    (``keys``, ``draw``, advanced by ``kb`` a step): target-distributed,
+    deterministic per seed, not the plain sampled stream."""
+
+    def __init__(self, step: DecodeStep, kb: int,
+                 exit_layer: int | None = None):
+        dev = step.model.device
+        b = step.rows
+        self.step, self.kb, self.exit_layer = step, kb, exit_layer
+        self.draft = torch.full((b, kb - 1), -1, dtype=torch.long,
+                                device=dev)
+        self.use_model = (torch.zeros(b, kb - 1, dtype=torch.bool,
+                                      device=dev) if exit_layer else None)
+        self.offsets = torch.arange(kb, dtype=torch.int32, device=dev)
+        self.keys = torch.zeros(b, 2, dtype=torch.long, device=dev)
+        self.draw = torch.zeros(b, dtype=torch.long, device=dev)
+
+    def set_drafts(self, draft, use_model=None) -> None:
+        """The drafts (host data ``[b, kb - 1]``, raw) and, for the model
+        tier, which positions take the in-program draft instead."""
+        to_device(self.draft, draft)
+        if self.use_model is not None:
+            to_device(self.use_model,
+                      np.zeros(self.draft.shape, bool) if use_model is None
+                      else use_model)
+
+    def _cache(self, positions, tables, layers: int | None = None):
+        """The step's cache entries for one-token rows at ``positions
+        [n]``: over the contiguous cache with the rows' cache-row map (n
+        a multiple of the step's rows, each row's ``n / b`` rows in
+        turn), or over the arena through ``tables [n, nb]`` with each
+        row's write address."""
+        step = self.step
+        entries = step.cache[:layers]
+        if step.tables is None:
+            n = positions.shape[0]
+            keys = {"index": positions}
+            if n != step.rows:
+                keys["rows"] = torch.arange(
+                    step.rows, dtype=torch.int32,
+                    device=positions.device).repeat_interleave(n // step.rows)
+        else:
+            keys = {"tables": tables, "index": positions,
+                    **page_address(tables, positions,
+                                   _page_of(step.cache[0]))}
+        return [{**_leaves(e), **keys} for e in entries]
+
+    def _shallow_draft(self):
+        """The model tier's draft chain (JAX ``_shallow_draft``,
+        ``llama.py:1317``): ``kb - 1`` one-token greedy forwards of the
+        first ``exit_layer`` layers off the carry token, each feeding the
+        next. Their K/V go into the real cache at ``pos .. pos + kb - 2``
+        of those layers (the JAX chain writes throwaway arrays): the
+        verify rewrites every one of those positions before any query
+        reads it, and a write past a row's pages lands in the null page."""
+        step = self.step
+        cur, drafts = step.tok, []
+        for j in range(self.kb - 1):
+            pos = step.pos + j
+            lg, _ = step.model(cur[:, None], positions=pos[:, None],
+                               cache=self._cache(pos, step.tables,
+                                                 self.exit_layer),
+                               exit_layer=self.exit_layer)
+            cur = lg[:, -1, :].float().argmax(dim=-1)
+            drafts.append(cur)
+        return torch.stack(drafts, dim=1)
+
+    def _forward(self):
+        """The drafts (the model tier's where ``use_model``), the chunk
+        ``[b, kb]`` (pending token, drafts clamped into the vocab for the
+        embedding) and its ``[b * kb, v]`` f32 logits, one row a
+        position."""
+        step, kb = self.step, self.kb
+        draft = self.draft
+        if self.exit_layer:
+            draft = torch.where(self.use_model, self._shallow_draft(), draft)
+        vocab = step.model.cfg.vocab_size
+        chunk = torch.cat([step.tok[:, None], draft.clamp(0, vocab - 1)],
+                          dim=1)
+        positions = (step.pos[:, None] + self.offsets).reshape(-1)
+        tables = (None if step.tables is None
+                  else step.tables.repeat_interleave(kb, dim=0))
+        logits, _ = step.model(chunk.reshape(-1, 1),
+                               positions=positions[:, None],
+                               cache=self._cache(positions, tables))
+        return draft, chunk, logits[:, -1, :].float()
+
+    def _advance(self, count, tok2, lp2, draw_by) -> None:
+        step = self.step
+        step.tok.copy_(tok2)
+        step.lp.copy_(lp2)
+        step.pos += count.to(torch.int32)
+        step.draw += draw_by
+
+    def _rows(self, x):
+        return x.repeat_interleave(self.kb, dim=0)
+
+    def run(self, sampled: bool):
+        """One chain verify (the engine's, and the solo greedy path's)."""
+        step, kb = self.step, self.kb
+        b = step.rows
+        draft, chunk, lg = self._forward()
+        draws = (step.draw[:, None] + self.offsets).reshape(-1)
+        tgt, tlp = select_tokens(
+            lg, *map(self._rows, step.knobs()),
+            (self._rows(step.keys), draws), sampled)
+        lps, count, tok2, lp2 = chain_verify(tgt.view(b, kb),
+                                             tlp.view(b, kb), draft, step.lp)
+        self._advance(count, tok2, lp2, count)
+        return chunk, lps, count, tok2
+
+    def run_resample(self):
+        """One rejection-sampling verify (the solo sampled path)."""
+        step, kb = self.step, self.kb
+        b = step.rows
+        draft, chunk, lg = self._forward()
+        vocab = lg.shape[-1]
+        temperature, top_k, top_p = map(self._rows, step.knobs())
+        filt = filter_logits_runtime(
+            lg / temperature.clamp(min=1e-6)[:, None], top_k, top_p)
+        probs = torch.softmax(filt, dim=-1).view(b, kb, vocab)
+        draws = self.draw[:, None] + self.offsets
+        u = stream_uniform(self.keys[:, None, :].expand(b, kb - 1, 2),
+                           draws[:, :kb - 1])
+        noise = gumbel_noise(self.keys, draws[:, kb - 1], vocab)
+        proposal = draft.clamp(0, vocab - 1)
+        m, tok2 = accept_resample(probs, proposal, u, noise)
+        lsm = F.log_softmax(lg, dim=-1).view(b, kb, vocab)
+        lp_draft = lsm[:, :kb - 1].gather(2, proposal[:, :, None])[:, :, 0]
+        lp2 = lsm.gather(1, m[:, None, None].expand(b, 1, vocab))[:, 0] \
+            .gather(1, tok2[:, None])[:, 0]
+        lps = torch.cat([step.lp[:, None], lp_draft], dim=1)
+        count = m + 1
+        self.draw += kb
+        self._advance(count, tok2, lp2, 0)
+        return chunk, lps, count, tok2
+
+
+class VerifyProgram(GraphProgram):
+    """A :class:`VerifyStep` run as a :class:`GraphProgram`: the chain
+    verify (greedy or ``sampled``) or, with ``resample``, the solo
+    sampled path's rejection sampling. Its runs count as decode steps
+    (``replays`` / ``eager_steps``); a capture's int8 GEMV counters cover
+    its ``rows * kb`` one-token rows."""
+
+    def __init__(self, vstep: VerifyStep, sampled: bool, resample: bool,
+                 graph_type, stats: GraphStats):
+        body = vstep.run_resample if resample else (
+            lambda: vstep.run(sampled))
+        super().__init__(body, vstep.step.model,
+                         vstep.step.rows * vstep.kb, graph_type, stats)
+        self.vstep = vstep
+
+
+def verify_program(entry: StepPrograms, kb: int, sampled: bool, *,
+                   exit_layer: int | None = None,
+                   resample: bool = False) -> VerifyProgram:
+    """The verify program of ``entry``'s decode step, made on first use
+    and kept in the entry, keyed by ``kb``, greedy or sampled, the
+    draft's exit layer (0: host drafts) and chain or rejection
+    sampling."""
+    key = ("verify", kb, _mode(sampled), exit_layer or 0,
+           "resample" if resample else "chain")
+    return entry.program(key, lambda: VerifyProgram(
+        VerifyStep(entry.step, kb, exit_layer), sampled, resample,
+        entry.graph_type, entry.stats))
 
 
 def _chunk_forward(model: LlamaModel, cache, chunk, last):
@@ -966,8 +1288,8 @@ class PrefillProgram:
     eager or a CUDA graph (:class:`~lambdipy_tpu_torch.models.graphs.
     GraphProgram`): the tokens ``[rows, width]``, each row's real length,
     the position ``index`` (0-dim), the knobs ``[rows]`` (its own, or a
-    decode step's buffers), eos, and one generator per row when
-    ``sampled``.
+    decode step's buffers), eos, and each row's stream (key and draw
+    index) when ``sampled``.
 
     - ``at_index`` False: a prompt from position 0, the lm_head at each
       row's last real position; its K/V written into the decode cache
@@ -980,11 +1302,11 @@ class PrefillProgram:
       :attr:`first`, :attr:`lp0`; at an index also :attr:`start`, the
       position after the chunk). A walk's chunk selects nothing.
 
-    :meth:`run` copies a request's tokens, lengths, index, knobs and eos
-    into the buffers (from pinned memory on the card), each generator's
-    state into the program's and, after the run, back out, so the
-    request's generators stand where an eager draw would have left
-    them. Outputs are overwritten by the next run."""
+    :meth:`run` copies a request's tokens, lengths, index, knobs, eos
+    and each row's stream (key and draw index) into the buffers (from
+    pinned memory on the card) and, after a selecting run, moves each
+    stream's draw index on by its one selection. Outputs are overwritten
+    by the next run."""
 
     def __init__(self, model: LlamaModel, rows: int, width: int, *,
                  sampled: bool = False, select: bool = True,
@@ -1003,11 +1325,10 @@ class PrefillProgram:
             torch.zeros(rows, dtype=torch.long, device=dev),
             torch.ones(rows, dtype=torch.float32, device=dev))
         self.own_knobs = knobs is None
-        self.gens = ([torch.Generator(device=dev) for _ in range(rows)]
-                     if sampled else [])
+        self.keys = torch.zeros(rows, 2, dtype=torch.long, device=dev)
+        self.draw = torch.zeros(rows, dtype=torch.long, device=dev)
         self.program = GraphProgram(
-            self._body, model, rows, sampled, self.gens, graph_type,
-            stats or GraphStats(),
+            self._body, model, rows, graph_type, stats or GraphStats(),
             events=("prefill_replays", "eager_prefills"))
 
     @property
@@ -1017,8 +1338,8 @@ class PrefillProgram:
     def close(self) -> None:
         self.program.close()
 
-    def _select(self, lg, gens):
-        return select_tokens(lg, *self.knobs, gens, self.sampled)
+    def _select(self, lg, streams):
+        return select_tokens(lg, *self.knobs, streams, self.sampled)
 
     def _body(self):
         model = self.model
@@ -1030,14 +1351,15 @@ class PrefillProgram:
                 return None
             first, lp0, _, start, _ = _continue_prefill(
                 model, cache, self.tokens, self.length, self._select,
-                self.gens, self.eos, self.width)
+                (self.keys, self.draw), self.eos, self.width)
             return first, lp0, start
         logits, pc = model(self.tokens, logit_positions=self.length - 1)
         if self.target is not None:
             write_prefill(model.cfg, self.target, pc)
         if not self.select:
             return None
-        first, lp0 = self._select(logits[:, 0, :].float(), self.gens)
+        first, lp0 = self._select(logits[:, 0, :].float(),
+                                  (self.keys, self.draw))
         if self.target is not None:
             return first, lp0
         return (first, lp0, *[t for e in pc for t in (e["k"], e["v"])])
@@ -1047,8 +1369,8 @@ class PrefillProgram:
         """One prefill of ``tokens [rows, width]`` (host data) and their
         real ``lengths``, at ``index`` (host int; checked against the
         target), under ``knobs`` (host data; only for a program with its
-        own knob buffers) drawing on from ``gens``; counters to
-        ``stats``."""
+        own knob buffers) drawing on from ``gens`` (the rows'
+        :class:`RowStream`\\ s); counters to ``stats``."""
         if self.at_index:
             t = cache_width(self.target)
             if index < 0 or index + self.width > t:
@@ -1063,11 +1385,14 @@ class PrefillProgram:
                 raise ValueError("this program reads a decode step's knobs")
             for buf, val in zip(self.knobs, knobs):
                 to_device(buf, val)
-        for mine, gen in zip(self.gens, gens):
-            mine.set_state(gen.get_state())
+        if self.sampled:
+            keys, draw = streams_host(gens, self.keys.shape[0])
+            to_device(self.keys, keys)
+            to_device(self.draw, draw)
         self.program.run(stats)
-        for mine, gen in zip(self.gens, gens):
-            gen.set_state(mine.get_state())
+        if self.select:
+            for stream in gens:
+                stream.draw += 1
 
     @property
     def first(self):
@@ -1201,6 +1526,9 @@ def _scan_decode(run, step: DecodeStep, decode_steps: int,
 
 
 MIN_BUCKET = 16  # the JAX server's default smallest prompt and decode bucket
+# the row of the solo sampled speculative stream's key, ``(seed,
+# SPEC_STREAM)``: a stream apart from the request's plain rows ``(seed, r)``
+SPEC_STREAM = 1 << 32
 
 
 def _next_bucket(n: int, lo: int) -> int:
@@ -1338,6 +1666,11 @@ class LlamaServer:
         self._prefixes: OrderedDict = OrderedDict()  # key -> (cache, len)
         self._prefix_lock = threading.Lock()
         self._prefix_inflight: dict[str, threading.Event] = {}
+        # speculative decoding's counters: the solo path's and the
+        # continuous engine's, one object (JAX ``llama.py:1389-1400``);
+        # spec_stats is the last solo request's
+        self.spec_metrics = SpecDecodeStats()
+        self.spec_stats: dict = {}
 
     def program_stats(self) -> dict:
         """The programs, as the JAX handler reports them:
@@ -1397,11 +1730,12 @@ class LlamaServer:
     def _knobs_host(self, temperature, top_k, top_p, seed, eos_id,
                     b: int = 1):
         """Per-row knobs as host arrays: ``(temperature [b] f32, top_k [b]
-        int64, top_p [b] f32, eos [b] int64, generators)``. Each knob is a
+        int64, top_p [b] f32, eos [b] int64, streams)``. Each knob is a
         scalar (broadcast; None = the disabled value) or a list of per-row
-        values padded with the disabled value. Row r's generator is seeded
-        from ``(seed_r, 0)`` for a list of seeds and ``(seed, r)`` for one
-        shared seed — a function of the row's own request alone."""
+        values padded with the disabled value. Row r's stream
+        (:class:`RowStream`) is keyed from ``(seed_r, 0)`` for a list of
+        seeds and ``(seed, r)`` for one shared seed — a function of the
+        row's own request alone."""
 
         def vec(x, default, dtype):
             if isinstance(x, (list, tuple, np.ndarray)):
@@ -1420,7 +1754,7 @@ class LlamaServer:
 
         return (vec(temperature, 0.0, np.float32), vec(top_k, 0, np.int64),
                 vec(top_p, 1.0, np.float32), vec(eos_id, -1, np.int64),
-                row_generators(pairs, self.device))
+                row_streams(pairs))
 
     def generate(self, prompt_tokens, *, max_new_tokens: int,
                  temperature: float = 0.0, top_k: int | None = None,
@@ -1431,7 +1765,7 @@ class LlamaServer:
         int32 numpy ``[b, max_new_tokens]`` (plus f32 logprobs when
         asked). Knobs may be scalars or per-row lists. A request that runs
         out of device memory evicts every idle program and runs once more
-        from its prefill (the same bits: its generators are seeded
+        from its prefill (the same bits: its streams are keyed
         anew).
 
         ``prefix``: shared-prefix tokens for a single-row request: their
@@ -1561,7 +1895,7 @@ class LlamaServer:
         """The continuous engine's ragged prefill of ``tokens [bb, sb]``
         (host data; caller holds the lock, inference mode) through the
         prefill program of its shape, each row under its own knobs and
-        generator: ``(first [bb], lp0 [bb], prefill cache)``, copied out of
+        stream: ``(first [bb], lp0 [bb], prefill cache)``, copied out of
         the program's buffers, since the rows are packed after the next
         request may have run it; counters to ``stats``."""
         cfg = self.model.cfg
@@ -1620,7 +1954,7 @@ class LlamaServer:
         chunks (``k <= segment``; ``(tokens, logprobs)`` pairs when
         asked) as they decode, stopping early once every row has latched
         eos. Concatenated chunks are exactly :meth:`generate`'s output
-        prefix: the same prefill and cache, the same per-row generators
+        prefix: the same prefill and cache, the same per-row streams
         (segment boundaries do not change a row's draws). The lock is
         held per segment, not across the yields; the stream holds its
         entry (step, cache, graphs) from its prefill to its end. A prefill
@@ -1928,6 +2262,212 @@ class LlamaServer:
         yield from self._stream(
             lambda: self._continue(cache, plen, rows[0], s, sbs, knobs), 1,
             max_new_tokens, segment, eos_id, return_logprobs)
+
+    # -- speculative decoding ----------------------------------------------
+
+    def _spec_args(self, prompt_tokens, max_new_tokens: int, k: int, prefix):
+        """The solo speculative request checked as JAX checks it: ``(row,
+        prefix entry or None, prefix length, kb, fallback)``; ``kb`` is
+        ``k`` bucketed to a power of two >= 2, and ``fallback`` says a
+        verify chunk would cross the window (or nothing is asked): the
+        request decodes plainly."""
+        rows, lengths = self._normalize_prompts(prompt_tokens)
+        if len(rows) != 1:
+            raise ValueError("speculative decoding is single-row")
+        plen, pentry = 0, None
+        if prefix is not None:
+            pentry = self._prefix_entry(prefix)
+            plen = pentry[1]
+        self._validate(plen + lengths[0], max_new_tokens)
+        kb = max(2, _next_bucket(max(2, int(k)), 2))
+        fallback = (max_new_tokens == 0 or plen + lengths[0]
+                    + max_new_tokens + kb > self.model.cfg.max_len)
+        return rows[0], pentry, plen, kb, fallback
+
+    def _spec_steps(self, row, max_new_tokens: int, kb: int, ngram_max: int,
+                    stats_out: dict, prefix=None, pentry=None,
+                    temperature: float = 0.0, top_k=None, top_p=None,
+                    seed: int = 0):
+        """The solo verify loop (JAX ``_spec_steps``, ``llama.py:2897``),
+        a generator of ``(tokens, logprobs)`` lists per verify step (the
+        accepted drafts and the corrected token, 1..kb tokens), filling
+        ``stats_out`` as it goes; the fused and the streamed paths both
+        consume it. The prefill (or, with ``prefix``, the continuation)
+        is the one plain :meth:`generate` runs, into the decode entry of
+        plain ``generate``'s key, and the verifies run on that entry's
+        step (:class:`VerifyStep`, a graph per ``kb`` on the card). Greedy:
+        the chain verify, so every token and logprob is bitwise plain
+        ``generate``'s. Sampled: rejection sampling on a stream of its own
+        keyed from ``(seed, SPEC_STREAM)``: target-distributed and
+        deterministic per seed. Drafts look the pending token up in the
+        prompt (the prefix included) and what was emitted."""
+        cfg = self.model.cfg
+        s = len(row)
+        sampled = (temperature or 0.0) > 0.0
+        # eos is the host's: the verify never latches
+        knobs = (temperature, top_k, top_p, seed, None)
+        context = ([int(t) for t in np.asarray(prefix).reshape(-1)]
+                   if prefix is not None else []) + [int(t) for t in row]
+        with self._lock, torch.inference_mode():
+            if prefix is not None:
+                cache, plen = pentry
+                steps = min(_next_bucket(max_new_tokens, self.min_bucket),
+                            cfg.max_len - plen - s)
+                sbs = min(_next_bucket(s, self.min_bucket),
+                          cfg.max_len - plen - steps)
+                entry, _ = self._continue(cache, plen, row, s, sbs, knobs)
+            else:
+                entry, _ = self._prefill([row], [s], max_new_tokens,
+                                         *knobs)
+        try:
+            with self._lock, torch.inference_mode():
+                prog = verify_program(entry, kb, sampled, resample=sampled)
+                vstep = prog.vstep
+                if sampled:
+                    keys, _ = streams_host(
+                        row_streams([(seed, SPEC_STREAM)]), 1)
+                    to_device(vstep.keys, keys)
+                    vstep.draw.zero_()
+                pending = int(entry.step.tok[0])
+            emitted = steps_run = 0
+            while emitted < max_new_tokens:
+                draft, hit = lookup_draft_hit(context + [pending], kb,
+                                              ngram_max=ngram_max)
+                with self._lock, torch.inference_mode():
+                    vstep.set_drafts([draft[:kb - 1]])
+                    prog.run()
+                    chunk, lps, count, pend = (t.cpu() for t in
+                                               prog.outputs)
+                cnt = int(count[0])
+                toks_step = chunk[0, :cnt].tolist()
+                lps_step = lps[0, :cnt].float().tolist()
+                steps_run += 1
+                emitted += cnt
+                context += toks_step
+                pending = int(pend[0])
+                stats_out.update(
+                    {"steps": steps_run, "emitted": emitted,
+                     "tokens_per_step": round(emitted / steps_run, 2),
+                     "k": kb})
+                self.spec_metrics.record_step(proposed=kb - 1,
+                                              accepted=cnt - 1,
+                                              emitted=cnt, hit=hit)
+                yield toks_step, lps_step
+        finally:
+            with self._lock:
+                self.programs.checkin(entry)
+
+    def generate_speculative_stream(self, prompt_tokens, *,
+                                    max_new_tokens: int, k: int = 8,
+                                    eos_id: int | None = None,
+                                    return_logprobs: bool = False,
+                                    ngram_max: int = 3, prefix=None,
+                                    temperature: float = 0.0,
+                                    top_k: int | None = None,
+                                    top_p: float | None = None,
+                                    seed: int = 0,
+                                    stats_out: dict | None = None):
+        """Streaming speculative decode (JAX ``llama.py:3011``): one
+        ``[1, c]`` chunk per verify step (``1 <= c <= kb``; ``(tokens,
+        logprobs)`` pairs when asked), ending at the first eos and at
+        ``max_new_tokens``; the chunks concatenate to
+        :meth:`generate_speculative`'s output up to its eos filler. Near
+        the window's end (no room for a verify chunk) it streams plain
+        decode instead, counted as a fallback. ``stats_out``: a dict that
+        receives the request's counters."""
+        row, pentry, plen, kb, fallback = self._spec_args(
+            prompt_tokens, max_new_tokens, k, prefix)
+        stats = {} if stats_out is None else stats_out
+        if fallback:
+            stats.update({"fallback": "plain", "steps": max_new_tokens,
+                          "emitted": max_new_tokens, "tokens_per_step": 1.0,
+                          "k": kb})
+            self.spec_metrics.record_fallback("near_window")
+            yield from self.generate_stream(
+                row, max_new_tokens=max_new_tokens, eos_id=eos_id,
+                prefix=prefix, temperature=temperature, top_k=top_k,
+                top_p=top_p, seed=seed, return_logprobs=return_logprobs)
+            return
+        emitted = 0
+        with contextlib.closing(self._spec_steps(
+                row, max_new_tokens, kb, ngram_max, stats, prefix=prefix,
+                pentry=pentry, temperature=temperature, top_k=top_k,
+                top_p=top_p, seed=seed)) as steps:
+            yield from self._spec_chunks(steps, max_new_tokens, eos_id,
+                                         return_logprobs)
+
+    @staticmethod
+    def _spec_chunks(steps, max_new_tokens: int, eos_id, return_logprobs):
+        """The verify steps' lists as stream chunks, cut at
+        ``max_new_tokens`` and after the first eos."""
+        emitted = 0
+        for toks_step, lps_step in steps:
+            take = min(len(toks_step), max_new_tokens - emitted)
+            chunk, lp_chunk = toks_step[:take], lps_step[:take]
+            if eos_id is not None and eos_id in chunk:
+                cut = chunk.index(eos_id) + 1
+                chunk, lp_chunk = chunk[:cut], lp_chunk[:cut]
+            emitted += len(chunk)
+            arr = np.asarray([chunk], np.int32)
+            yield ((arr, np.asarray([lp_chunk], np.float32))
+                   if return_logprobs else arr)
+            if eos_id is not None and eos_id in chunk:
+                return
+
+    def generate_speculative(self, prompt_tokens, *, max_new_tokens: int,
+                             k: int = 8, eos_id: int | None = None,
+                             return_logprobs: bool = False,
+                             return_stats: bool = False,
+                             ngram_max: int = 3, prefix=None,
+                             temperature: float = 0.0,
+                             top_k: int | None = None,
+                             top_p: float | None = None, seed: int = 0):
+        """Decode one row with prompt-lookup speculative verification (JAX
+        ``llama.py:3133``). Greedy: bitwise :meth:`generate`'s tokens and
+        logprobs (each accepted position is the one-token step plain
+        decode runs, :class:`VerifyStep`). ``temperature > 0``: rejection
+        sampling, target-distributed and deterministic per seed, but not
+        plain sampling's tokens. eos truncates and fills as ``generate``'s
+        latch does. Returns ``[1, max_new_tokens]`` (plus logprobs when
+        asked, plus the request's counters with ``return_stats``); the
+        counters also land in :attr:`spec_stats` and, cumulative, in
+        :attr:`spec_metrics`."""
+        row, pentry, plen, kb, fallback = self._spec_args(
+            prompt_tokens, max_new_tokens, k, prefix)
+        if fallback:
+            out = self.generate(row, max_new_tokens=max_new_tokens,
+                                eos_id=eos_id, prefix=prefix,
+                                temperature=temperature, top_k=top_k,
+                                top_p=top_p, seed=seed,
+                                return_logprobs=return_logprobs)
+            stats = {"fallback": "plain", "steps": max_new_tokens,
+                     "emitted": max_new_tokens, "tokens_per_step": 1.0,
+                     "k": kb}
+            self.spec_stats = stats
+            self.spec_metrics.record_fallback("near_window")
+            return (out, stats) if return_stats else out
+        toks: list[int] = []
+        lps: list[float] = []
+        stats: dict = {}
+        with contextlib.closing(self._spec_steps(
+                row, max_new_tokens, kb, ngram_max, stats, prefix=prefix,
+                pentry=pentry, temperature=temperature, top_k=top_k,
+                top_p=top_p, seed=seed)) as steps:
+            for toks_step, lps_step in steps:
+                toks += toks_step
+                lps += lps_step
+                if eos_id is not None and eos_id in toks_step:
+                    break
+        self.spec_stats = stats
+        toks, lps = toks[:max_new_tokens], lps[:max_new_tokens]
+        if eos_id is not None and eos_id in toks:
+            cut = toks.index(eos_id) + 1
+            toks = toks[:cut] + [eos_id] * (max_new_tokens - cut)
+            lps = lps[:cut] + [0.0] * (max_new_tokens - cut)
+        out = np.asarray([toks], np.int32)
+        if return_logprobs:
+            out = (out, np.asarray([lps], np.float32))
+        return (out, stats) if return_stats else out
 
     @staticmethod
     def _gather_pages_into(window: WindowEntry, arena, table, page: int,

@@ -100,7 +100,7 @@ def _library():
 def _launcher():
     """The C entry point of ``csrc/decode_attention.cu``."""
     fn = _library().decode_attention_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
                    + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -143,7 +143,7 @@ def int8_kv_decode_attention_reference(q, k, v, active_len, k_scale,
         dequantize_kv(v, v_scale, q.dtype), active_len)
 
 
-def _check(q, k, v, active_len, k_scale=None, v_scale=None):
+def _check(q, k, v, active_len, k_scale=None, v_scale=None, row_map=None):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"decode attention wants q [b,1,h,d] and k/v "
                          f"[b,t,kvh,d]; got {tuple(q.shape)}, "
@@ -151,15 +151,20 @@ def _check(q, k, v, active_len, k_scale=None, v_scale=None):
     b, s, h, d = q.shape
     if s != 1:
         raise ValueError(f"the decode kernel takes one query token, got {s}")
-    if k.shape[0] != b or k.shape[3] != d or h % k.shape[2]:
+    if (row_map is None and k.shape[0] != b) or k.shape[3] != d \
+            or h % k.shape[2]:
         raise ValueError(f"q {tuple(q.shape)} does not match k/v "
                          f"{tuple(k.shape)}")
+    if row_map is not None and (row_map.shape != (b,)
+                                or row_map.dtype != torch.int32):
+        raise ValueError("row_map must be [b] int32")
     if active_len.shape != (b,) or active_len.dtype != torch.int32:
         raise ValueError("active_len must be [b] int32")
     if (k_scale is None) != (v_scale is None):
         raise ValueError("int8 K/V needs both k_scale and v_scale")
     scales = () if k_scale is None else (k_scale, v_scale)
-    devices = {x.device for x in (q, k, v, active_len, *scales)}
+    maps = () if row_map is None else (row_map,)
+    devices = {x.device for x in (q, k, v, active_len, *scales, *maps)}
     if len(devices) != 1:
         raise ValueError(f"operands on different devices: {devices}")
     if not scales:
@@ -176,31 +181,46 @@ def _check(q, k, v, active_len, k_scale=None, v_scale=None):
                              f"float32, got {tuple(x.shape)} {x.dtype}")
 
 
+def map_rows(row_map, *caches):
+    """Each query row's cache row of every tensor in ``caches``: the
+    plain version's reading of a row map."""
+    return [x[row_map.long()] for x in caches]
+
+
 def blocked_decode_attention(q, k, v, active_len, *, k_scale=None,
-                             v_scale=None):
+                             v_scale=None, row_map=None):
     """The decode-attention kernel. Shapes as
     :func:`decode_attention_reference` with a single query token; with
-    ``k_scale``/``v_scale`` (``[b, t, kvh, 1]`` f32) k/v are int8. CUDA
-    tensors launch ``csrc/decode_attention.cu`` (q f32 or bf16,
-    contiguous, ``h // kvh <= 8``, ``d <= 256``; anything else raises);
-    CPU tensors run the plain version. Float-KV launches count on
-    ``launches``, int8-KV launches on ``launches_int8kv``."""
-    _check(q, k, v, active_len, k_scale, v_scale)
+    ``k_scale``/``v_scale`` (``[b, t, kvh, 1]`` f32) k/v are int8. With
+    ``row_map`` (``[b]`` int32) query row r attends cache row
+    ``row_map[r]`` of k/v ``[rows, t, kvh, d]``: a speculative verify
+    chunk's one-token rows over their sequence's cache row. CUDA tensors
+    launch ``csrc/decode_attention.cu`` (q f32 or bf16, contiguous, ``h //
+    kvh <= 8``, ``d <= 256``; anything else raises); CPU tensors run the
+    plain version. Float-KV launches count on ``launches``, int8-KV
+    launches on ``launches_int8kv``."""
+    _check(q, k, v, active_len, k_scale, v_scale, row_map)
     quant = k_scale is not None
     if q.device.type == "cpu":
+        if row_map is not None:
+            k, v = map_rows(row_map, k, v)
+            if quant:
+                k_scale, v_scale = map_rows(row_map, k_scale, v_scale)
         if quant:
             return int8_kv_decode_attention_reference(
                 q, k, v, active_len, k_scale, v_scale)
         return decode_attention_reference(q, k, v, active_len)
     b, _, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
-    _check_kernel_operands(q, k, v, (q, k, v, active_len, k_scale, v_scale))
+    _check_kernel_operands(q, k, v, (q, k, v, active_len, k_scale, v_scale,
+                                     row_map))
     out = torch.empty_like(q)
     scratch, acc, ml = _partials(q, b, kvh, h // kvh, d, t)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _launcher()(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), k_scale.data_ptr() if quant else None,
                       v_scale.data_ptr() if quant else None,
+                      row_map.data_ptr() if row_map is not None else None,
                       active_len.data_ptr(), out.data_ptr(), acc, ml,
                       b, t, kvh, h // kvh, d, d ** -0.5, stream)
     _build.check(err, "decode_attention")

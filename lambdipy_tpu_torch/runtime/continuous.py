@@ -7,13 +7,13 @@ SEGMENTS of ``segment`` steps and new requests join it at segment
 boundaries, packed into a free slot.
 
 - The engine owns a B-slot decode step (``models/llama.py DecodeStep``:
-  token, logprob, position, knobs and a ``torch.Generator`` per slot, at
-  fixed addresses) over either a dense B-slot cache of ``cache_len``
-  positions or a page arena (``runtime/pagepool.py``) read through a
+  token, logprob, position, knobs and a sampling stream (key and draw
+  index) per slot, at fixed addresses) over either a dense B-slot cache
+  of ``cache_len`` positions or a page arena (``runtime/pagepool.py``) read through a
   static block-table buffer. On the card every decode step is a replay
   of a CUDA graph of that step, one graph per greedy / sampled
-  (``models/graphs.py``); a joiner's generator state moves into its
-  slot's generator, the one the graphs registered.
+  (``models/graphs.py``); a joiner's stream (key and draw index) moves
+  into its slot's stream buffers.
   Slots are a host concept: every decode step runs all B rows, and
   empty slots compute garbage nobody reads (their position is reset to 0
   at each barrier, so their attention stays one position long).
@@ -81,7 +81,7 @@ boundaries, packed into a free slot.
   (decode steps and the grouped lm_head take it: one position per row;
   ``ops/quant.py::int8_route``), the tiled prefill's rows and flash
   prefill's rows do not depend on the group's size, and a
-  sampled row draws once per step from its own generator, which travels
+  sampled row draws once per step from its own stream, which travels
   with its slot.
 - Device work (prefills, packing, dispatches and the waits on a
   segment's event) holds the process's ``DEVICE_LOCK``, so no capture
@@ -118,7 +118,7 @@ boundaries, packed into a free slot.
   are reset to their admitted state and REPLAYED through a restarted
   engine, at most ``max_replays`` times (default 1, as in JAX), bitwise
   the first attempt, and the rest get the error. A row never packed
-  keeps its prefill; a packed one gets a fresh generator from its seed
+  keeps its prefill; a packed one gets a fresh stream from its seed
   and prefills again through the function that admitted it: short rows
   in the group prefill, long rows
   alone on the engine thread (plain or chunked), prefix rows continue
@@ -137,8 +137,30 @@ boundaries, packed into a free slot.
   failure, or a probe that succeeds, clears the wedge. Everything is
   published as ``EngineFaultStats`` under ``batching.faults``.
 
-Not ported yet (ROADMAP): window bucketing, speculation, long context and
-meshes.
+- Speculative decoding (``spec_k``, off by default, as in JAX): each
+  dispatch is ONE verify of width ``kb`` (``spec_k``, or the power-of-two
+  bucket of the live rows' adaptive k): the pending token and ``kb - 1``
+  drafts a row, scored as ``slots * kb`` one-token rows
+  (``models/llama.py VerifyStep``, a CUDA graph per key on the card), so
+  every accepted position is bitwise the spec-off step. The chain verify
+  accepts the longest draft prefix equal to the row's own select chain
+  (greedy or seeded-sampled: the sampled noise is a function of the
+  row's key and draw index, and the verify advances the index by the
+  accepted ``count`` on the device), so rows are bitwise the spec-off
+  engine's at any pipeline depth. Drafts: ``lookup`` (host prompt lookup
+  from fetched truth, extrapolated across the verifies still in flight:
+  "dispatch-time draft state") or ``model`` (the shallow-exit head of
+  ``draft_exit`` layers in the verify program; per-row adaptive k that
+  slow-starts at 2 and demotes a row model -> lookup -> off). A row's
+  ``disp`` books the whole ``kb`` at dispatch and the collector gives
+  back the rejected tail; a replayed row re-drafts from scratch. The
+  counters are ``batching.spec`` (the server's ``SpecDecodeStats``,
+  shared with the solo ``"speculative"`` path). The ``aux`` draft model
+  is not ported: ``draft_mode=aux`` serves lookup, as JAX does without a
+  provider.
+
+Not ported yet (ROADMAP): window bucketing, the ``aux`` draft tier, long
+context and meshes.
 """
 
 from __future__ import annotations
@@ -160,12 +182,15 @@ from lambdipy_tpu_torch.models.llama import (DecodeStep, _kv_store,
                                              _scan_decode, cache_width,
                                              init_decode_cache,
                                              pack_prefill_into_pages,
-                                             row_generators, to_device)
+                                             row_streams, to_device,
+                                             verify_program)
+from lambdipy_tpu_torch.models.spec import lookup_draft_hit
 from lambdipy_tpu_torch.runtime.faults import (EngineWatchdogTimeout,
                                                FaultPlan)
 from lambdipy_tpu_torch.runtime.metrics import (EngineFaultStats,
                                                 EngineStats, PipelineStats,
-                                                PrefillStats)
+                                                PrefillStats,
+                                                SpecDecodeStats)
 from lambdipy_tpu_torch.runtime.pagepool import PagesExhausted
 from lambdipy_tpu_torch.sched import (current_request_class,
                                       current_request_deadline_ms)
@@ -212,14 +237,21 @@ class ContinuousBatcher:
     off, the default, as in JAX), ``max_replays`` the replays of a row
     that delivered nothing, ``faults`` is the injection plan (shared with
     the pool when it has none); ``degrade_window_s`` and
-    ``degrade_clean_s`` drive the degradation ladder."""
+    ``degrade_clean_s`` drive the degradation ladder. ``spec_k`` (0: off,
+    the default) turns each dispatch into a speculative verify of up to
+    ``spec_k`` tokens a row (bucketed to a power of two), drafted by
+    ``draft_mode`` (``lookup``: prompt lookup over n-grams up to
+    ``spec_ngram``; ``model``: the shallow-exit head of ``draft_exit``
+    layers, per-row adaptive k; ``off``) as the module docstring says."""
 
     def __init__(self, server, *, slots: int = 8, segment: int = 16,
                  cache_len: int | None = None, page_pool=None, policy=None,
                  pipeline_depth: int = 2, watchdog_s: float = 0.0,
                  max_replays: int = 1, faults: FaultPlan | None = None,
                  degrade_window_s: float = 60.0,
-                 degrade_clean_s: float = 30.0):
+                 degrade_clean_s: float = 30.0, spec_k: int = 0,
+                 spec_ngram: int = 3, draft_mode: str = "lookup",
+                 draft_exit: int = 1):
         cfg = server.model.cfg
         self.server = server
         self.slots = max(1, int(slots))
@@ -288,6 +320,34 @@ class ContinuousBatcher:
         # CUDA-event waits that polled (a watchdog or an armed plan); the
         # default path synchronizes and never polls
         self.polled_waits = 0
+        # -- speculative decoding (JAX continuous.py:196-352) --------------
+        # spec_k >= 2: the verify width, a power of two; <= 1 is plain
+        # decode
+        self.spec_k = (max(2, _next_bucket(int(spec_k), 2))
+                       if spec_k and int(spec_k) >= 2 else 0)
+        self.spec_ngram = max(1, int(spec_ngram))
+        mode = str(draft_mode or "lookup").lower()
+        if mode == "auto":
+            mode = "model"
+        if mode == "aux":
+            # the aux draft model (a DraftProvider) is not ported: as JAX
+            # does without a provider, serve lookup
+            log.warning("draft_mode=aux needs a draft provider; using "
+                        "lookup")
+            mode = "lookup"
+        if mode not in ("model", "lookup", "off"):
+            log.warning("unknown draft_mode %r; using lookup", draft_mode)
+            mode = "lookup"
+        self.draft_mode = mode
+        self.draft_exit = max(1, min(int(draft_exit or 1), cfg.layers))
+        # the per-row adaptive k: EWMA weight, grow and shrink bands
+        self.spec_ewma_alpha = 0.3
+        self.spec_grow = 0.75
+        self.spec_shrink = 0.35
+        # one counter object with the server's solo speculative path
+        self.spec_metrics = getattr(server, "spec_metrics", None)
+        if self.spec_metrics is None:
+            self.spec_metrics = SpecDecodeStats()
         # the last failures: site, when (``time.monotonic``), rows
         # requeued, whether it wedged the engine, and for a watchdog trip
         # how long the wait had lasted
@@ -364,12 +424,16 @@ class ContinuousBatcher:
                              dtype=torch.int32, device=dev)
         return DecodeStep(server.model, arena, b, tables=tables)
 
-    def _program(self, sampled: bool) -> StepProgram:
-        """The step's greedy or sampled program, made on first use."""
+    def _entry(self) -> StepPrograms:
+        """The step's programs, made on first use."""
         if self._programs is None:
             self._programs = StepPrograms(self._step, self.server.graph_type,
                                           self.stats_counters)
-        return self._programs.decode(sampled)
+        return self._programs
+
+    def _program(self, sampled: bool) -> StepProgram:
+        """The step's greedy or sampled program, made on first use."""
+        return self._entry().decode(sampled)
 
     def _detach(self) -> StepPrograms | None:
         """Take the step and its programs off the engine (caller holds the
@@ -387,7 +451,7 @@ class ContinuousBatcher:
 
     def _prefill_rows(self, entries: list):
         """ONE ragged prefill of ``entries`` (rows of one prompt bucket),
-        each row under its own knobs and generator, through the server's
+        each row under its own knobs and stream, through the server's
         prefill program of its shape (caller holds ``DEVICE_LOCK``):
         ``(first [bb], lp0 [bb], prefill cache)``, copies that outlive the
         program's next run (a long row's waits for a later barrier). The
@@ -416,7 +480,7 @@ class ContinuousBatcher:
 
     def _pack(self, entry: dict, prefill, src: int, gen: int) -> None:
         """Row ``src`` of a prefill into the entry's slot: the first token,
-        its logprob, the position and the generator's state into the
+        its logprob, the position and the stream into the
         step's slot; the K/V into the slot's cache row (dense) or its pages
         (paged). A paged prefix row's K/V is in its pages already (no
         cache); a plain prefill's float K/V is stored in the cache's
@@ -427,7 +491,7 @@ class ContinuousBatcher:
         step.tok[slot] = first[src]
         step.lp[slot] = lp0[src]
         step.pos[slot] = entry["pos0"]
-        step.set_generator(slot, entry["gen"])
+        step.set_stream(slot, entry["gen"])
         cfg = self.server.model.cfg
         if cache is None:
             pass
@@ -527,8 +591,7 @@ class ContinuousBatcher:
                         if j["replays"] < self.max_replays:
                             j["replays"] += 1
                             j["slot"] = None
-                            j["gen"] = row_generators([(j["seed"], 0)],
-                                                      self.server.device)[0]
+                            j["gen"] = row_streams([(j["seed"], 0)])[0]
                             self._joiners.append(j)
                             retried += 1
                         else:
@@ -547,6 +610,44 @@ class ContinuousBatcher:
                 self._pack(e, e["prefill"], 0, gen)
                 e["prefill"] = None  # free the row's prefill cache
 
+    def _verify_width(self, rows: list) -> int:
+        """This dispatch's verify width ``kb`` (0: a plain segment): the
+        power-of-two bucket of the live rows' adaptive k, at most
+        ``spec_k``; 0 when speculation is off, every row's draft tier is
+        off or the ladder stands at level 2 or more (JAX pins the plain
+        program there)."""
+        if not self.spec_k or self.fault_stats.degrade_level >= 2:
+            return 0
+        kmax = max((e["k_row"] for _, e in rows
+                    if e["draft_mode"] != "off"), default=1)
+        return min(self.spec_k, _next_bucket(int(kmax), 2)) if kmax >= 2 \
+            else 0
+
+    def _drafts(self, rows: list, kb: int):
+        """The host half of a verify dispatch: ``(drafts [B, kb - 1],
+        use_model [B, kb - 1] or None, assumed)``. A lookup row drafts
+        from its fetched truth (:meth:`_spec_draft`); a model row marks
+        its positions for the in-program draft; everything else stays a
+        raw ``-1``, which the chain never accepts. ``assumed`` holds each
+        drafting row's provider, hit and width for the collector."""
+        draft = np.full((self.slots, kb - 1), -1, np.int64)
+        use_model = np.zeros((self.slots, kb - 1), bool)
+        assumed: dict = {}
+        for slot, e in rows:
+            if e["draft_mode"] == "off" or e["k_row"] < 2:
+                continue
+            krow = min(int(e["k_row"]), kb)
+            q = e["spec_inflight"]
+            e["spec_inflight"] += 1
+            if e["draft_mode"] == "model":
+                use_model[slot, :krow - 1] = True
+                assumed[slot] = ("model", True, krow)
+                continue
+            dv, hit = self._spec_draft(e, kb, q, k=krow)
+            draft[slot, :krow - 1] = np.asarray(dv, np.int64)[:krow - 1]
+            assumed[slot] = ("lookup", hit, krow)
+        return draft, (use_model if use_model.any() else None), assumed
+
     def _run_segment(self, live: list) -> dict:
         """Dispatch one segment (caller holds ``DEVICE_LOCK``): every slot
         advances ``k`` steps, ``k`` the undispatched quota of the live
@@ -554,14 +655,21 @@ class ContinuousBatcher:
         quota left take their knobs: one whose output is all dispatched
         decodes greedy garbage, as a finished row does, so the segment
         samples (and picks the sampled program) exactly when the depth-1
-        loop would. The ``[B, k]`` block goes to pinned host memory behind
-        a CUDA event on the card (on the CPU it is there already). Returns
+        loop would. Under ``spec_k`` every row not done takes its knobs (a
+        verify's advance is known only when it lands, so a row's dispatch
+        count is an upper bound) and the segment is one verify of width
+        ``kb`` (:meth:`_verify_width`; ``k`` is then ``kb``), its drafts
+        from :meth:`_drafts`. The block (and a verify's counts and pending
+        tokens) goes to pinned host memory behind a CUDA event on the card
+        (on the CPU it is copied out of the program's outputs). Returns
         the in-flight record :meth:`_collect` books; the caller moves the
         rows' ``disp`` by its ``k``."""
         step, b = self._step, self.slots
         rows = [(slot, e) for slot, e in live
-                if not e["done"] and e["disp"] < e["n"]]
-        k = min(self.segment, max(e["n"] - e["disp"] for _, e in rows))
+                if not e["done"] and (self.spec_k or e["disp"] < e["n"])]
+        kb = self._verify_width(rows)
+        k = kb or min(self.segment, max(e["n"] - e["disp"] for _, e in rows
+                                        if e["disp"] < e["n"]))
         temp = np.zeros((b,), np.float32)
         top_k = np.zeros((b,), np.int64)
         top_p = np.ones((b,), np.float32)
@@ -580,23 +688,43 @@ class ContinuousBatcher:
             to_device(step.tables, np.stack(
                 [self._table_row(e, nb) for e in self._active]))
             lock = self.pool.arena_lock
-        prog = self._program(bool((temp > 0).any()))
-        t_dispatch = time.monotonic()
-        with lock:
-            toks, lps = _scan_decode(prog.run, step, k, segment=True)
+        sampled = bool((temp > 0).any())
+        rec = {"rows": live, "k": k, "event": None}
+        if kb:
+            draft, use_model, rec["assumed"] = self._drafts(rows, kb)
+            exit_layer = self.draft_exit if use_model is not None else None
+            prog = verify_program(self._entry(), kb, sampled,
+                                  exit_layer=exit_layer)
+            prog.vstep.set_drafts(draft, use_model)
+            rec["t_dispatch"] = time.monotonic()
+            with lock:
+                prog.run()
+            out = prog.outputs  # overwritten by the next run
+            rec.update(spec=kb, counts=out[2], pending=out[3])
+            toks, lps = out[0], out[1]
+            if not toks.is_cuda:
+                toks, lps = toks.clone(), lps.clone()
+                rec.update(counts=out[2].clone(), pending=out[3].clone())
+            self.stats_counters.record_verify(
+                len(rows), kb, kb - 1 if exit_layer else 0,
+                beside_walk=self._walking > 0)
+        else:
+            prog = self._program(sampled)
+            rec["t_dispatch"] = time.monotonic()
+            with lock:
+                toks, lps = _scan_decode(prog.run, step, k, segment=True)
+            self.stats_counters.record_segment(
+                k, len(rows), beside_walk=self._walking > 0)
         need_lp = any(e["want_lp"] for _, e in rows)
-        rec = {"rows": live, "k": k, "t_dispatch": t_dispatch,
-               "toks": toks, "lps": lps if need_lp else None, "event": None}
+        rec.update(toks=toks, lps=lps if need_lp else None)
         if toks.is_cuda:
-            for key in ("toks", "lps"):
-                if rec[key] is not None:
+            for key in ("toks", "lps", "counts", "pending"):
+                if rec.get(key) is not None:
                     host = torch.empty(rec[key].shape, dtype=rec[key].dtype,
                                        pin_memory=True)
                     rec[key] = host.copy_(rec[key], non_blocking=True)
             rec["event"] = torch.cuda.Event()
             rec["event"].record()
-        self.stats_counters.record_segment(k, len(rows),
-                                           beside_walk=self._walking > 0)
         return rec
 
     def _wait(self, rec: dict, gen: int) -> None:
@@ -612,20 +740,30 @@ class ContinuousBatcher:
 
     @staticmethod
     def _fetch(rec: dict):
-        """The host arrays of a segment's block (its pinned copy is
-        complete once the wait returned)."""
+        """The host arrays of a segment's block, and of a verify's counts
+        and pending tokens (None for a plain segment); the pinned copies
+        are complete once the wait returned."""
         toks = rec["toks"].numpy()
         lps = rec["lps"].float().numpy() if rec["lps"] is not None else None
-        return toks, lps
+        if not rec.get("spec"):
+            return toks, lps, None, None
+        return toks, lps, rec["counts"].numpy(), rec["pending"].numpy()
 
     def _collect(self, rec: dict, gen: int) -> None:
         """Book a segment's block, read through the ``segment_fetch``
         site: each live row's tokens (and logprobs when some row asked),
         its first eos, and done at its eos or quota. A row already done
         when its block lands (finished behind the dispatch frontier)
-        books nothing: the block is counted as wasted. The first clean
-        fetch after a failure counts a recovery and clears a wedge."""
-        toks, lps = self._device_wait("segment_fetch", gen, self._fetch, rec)
+        books nothing: the block is counted as wasted. A verify's row
+        books its first ``count`` tokens (the rejected tail is never
+        booked, as an over-decoded block is not), gives back the
+        ``kb - count`` its dispatch count assumed, takes the pending token
+        as its next draft anchor and feeds its acceptance to the counters
+        and the adaptive k. The first clean fetch after a failure counts a
+        recovery and clears a wedge."""
+        toks, lps, counts, pending = self._device_wait(
+            "segment_fetch", gen, self._fetch, rec)
+        kb = rec.get("spec", 0)
         now = time.monotonic()
         # the JAX metric's interval: from the wait's return until the
         # host arrays exist (its device_get after block_until_ready)
@@ -641,16 +779,33 @@ class ContinuousBatcher:
                 self.fault_stats.record_recovery()
                 self.fault_stats.set_wedged(False)
             for slot, e in rec["rows"]:
+                c = int(counts[slot]) if kb else rec["k"]
+                info = rec["assumed"].pop(slot, None) if kb else None
+                if info is not None:
+                    e["spec_inflight"] -= 1
                 if e["done"]:
-                    wasted += rec["k"]
+                    wasted += c
                     continue
-                row = toks[slot].tolist()
+                row = toks[slot][:c].tolist()
                 base = len(e["toks"])
                 if base == 0:
                     e["ttft_s"] = now - e["t0"]
                 e["toks"].extend(row)
                 if lps is not None:
-                    e["lps"].extend(lps[slot].tolist())
+                    e["lps"].extend(lps[slot][:c].tolist())
+                if not kb:
+                    # a plain segment moved the row past its last
+                    # fetched pending token: the next draft guesses it
+                    e["spec_pend"] = None
+                else:
+                    e["disp"] -= kb - c
+                    e["spec_pend"] = int(pending[slot])
+                    if info is not None:
+                        provider, hit, k_used = info
+                        self.spec_metrics.record_step(
+                            proposed=k_used - 1, accepted=c - 1, emitted=c,
+                            hit=bool(hit), provider=provider, k=k_used)
+                        self._spec_adapt(e, provider, k_used, c)
                 eos_id = e["eos_id"]
                 if eos_id is not None and e["eos_at"] is None \
                         and eos_id in row:
@@ -666,6 +821,70 @@ class ContinuousBatcher:
         self.pipe_stats.record_collect(rec["t_dispatch"], rec["t_ready"],
                                        fetch_s=fetch_s, wait_s=rec["wait_s"],
                                        wasted=wasted)
+
+    # -- speculative decoding ------------------------------------------------
+
+    def _spec_draft(self, entry: dict, kb: int, q: int, k: int):
+        """A lookup row's draft for one verify (JAX ``_spec_draft``,
+        ``continuous.py:878``): extrapolated from fetched truth (the
+        prompt, its cached prefix included, the booked tokens and the last
+        fetched pending token) by lookup itself across the ``q`` verifies
+        still in flight, each assumed to accept all ``k`` of its tokens:
+        at depth 2 the next verify is drafted before the one in flight
+        lands. A wrong guess only misses. Returns ``(draft [k - 1],
+        hit)``."""
+        base = (entry["prefix_toks"] or []) + entry["row"] + entry["toks"]
+        pend = entry["spec_pend"]
+        if pend is not None:
+            ext, hit = lookup_draft_hit(base + [pend], (q + 1) * k - 1,
+                                        ngram_max=self.spec_ngram)
+            return ext[q * k: q * k + k - 1], hit
+        # the device holds the pending token, the host has none yet (a
+        # freshly packed row): ext[0] guesses the pending token itself
+        ext, hit = lookup_draft_hit(base, (q + 1) * k,
+                                    ngram_max=self.spec_ngram)
+        return ext[q * k + 1: (q + 1) * k], hit
+
+    def _spec_row_init(self) -> tuple:
+        """``(provider, k_row)`` a new row starts with: lookup at a fixed
+        ``spec_k``; the model tier slow-starts at k = 2."""
+        if not self.spec_k or self.draft_mode == "off":
+            return "off", 1
+        if self.draft_mode == "lookup":
+            return "lookup", self.spec_k
+        return self.draft_mode, 2
+
+    def _spec_adapt(self, entry: dict, provider: str, k_used: int,
+                    accepted_c: int) -> None:
+        """Per-row adaptive k (JAX ``_spec_adapt``, ``continuous.py:961``),
+        run by the collector: the step's accepted fraction into the row's
+        EWMA, then k doubled (up to ``spec_k``) above the grow band,
+        halved below the shrink band, and at k = 2 the row demoted along
+        model -> lookup -> off (counted under ``draft.fallbacks``). Inert
+        in lookup mode."""
+        if self.draft_mode in ("lookup", "off"):
+            return
+        if provider == "off" or k_used < 2:
+            return
+        frac = (accepted_c - 1) / float(k_used - 1)
+        ew = entry["accept_ewma"]
+        a = self.spec_ewma_alpha
+        ew = frac if ew is None else (1.0 - a) * ew + a * frac
+        entry["accept_ewma"] = ew
+        if entry["draft_mode"] != provider:
+            # demoted between this step's dispatch and its collect
+            return
+        if ew >= self.spec_grow and entry["k_row"] < self.spec_k:
+            entry["k_row"] = min(self.spec_k, max(2, entry["k_row"] * 2))
+        elif ew <= self.spec_shrink:
+            if entry["k_row"] > 2:
+                entry["k_row"] = max(2, entry["k_row"] // 2)
+            else:
+                nxt = "lookup" if provider == "model" else "off"
+                entry["draft_mode"] = nxt
+                entry["k_row"] = 2 if nxt != "off" else 1
+                entry["accept_ewma"] = None
+                self.spec_metrics.record_draft_fallback(f"{provider}->{nxt}")
 
     # -- fault isolation -----------------------------------------------------
 
@@ -865,7 +1084,7 @@ class ContinuousBatcher:
         watchdog trip). Done rows keep their results and release their
         pages; a row that has not streamed, is not abandoned and has
         replays left is reset to its admitted state and requeued (its
-        pages kept; a packed row also gets a fresh generator from its seed
+        pages kept; a packed row also gets a fresh stream from its seed
         and prefills again, a row never packed keeps its prefill); every
         other row gets the error. A CUDA runtime error replays nothing and
         wedges the engine. The ladder and the wedge update, and a
@@ -909,15 +1128,18 @@ class ContinuousBatcher:
                     entry["disp"] = 0
                     entry["eos_at"] = None
                     entry["slot"] = None
+                    # re-drafted from scratch: the chain verify keeps the
+                    # replay bitwise whatever its drafts propose
+                    entry["spec_pend"] = None
+                    entry["spec_inflight"] = 0
                     if entry["packed"]:
-                        # its generator was consumed: a fresh one from its
+                        # its stream was consumed: a fresh one from its
                         # seed, and a prefill again through its route
                         entry["packed"] = False
                         entry["prefill"] = None
-                        entry["gen"] = row_generators(
-                            [(entry["seed"], 0)], self.server.device)[0]
+                        entry["gen"] = row_streams([(entry["seed"], 0)])[0]
                     # a row never packed keeps its request-thread prefill
-                    # (and the generator that drew its first token)
+                    # (and the stream that drew its first token)
                     survivors.append(entry)
                 else:
                     entry["error"], entry["done"] = error, True
@@ -1325,10 +1547,15 @@ class ContinuousBatcher:
                  # group, row, chunked, prefix or paged_prefix
                  "route": "group",
                  "t0": t0, "ttft_s": None, "wall_s": None,
-                 # the row's own generator, seeded as generate seeds a
+                 # speculative drafting: the last fetched pending token
+                 # (the next draft's anchor), verifies in flight, the
+                 # row's draft tier, its adaptive k and acceptance EWMA
+                 "spec_pend": None, "spec_inflight": 0,
+                 "accept_ewma": None,
+                 # the row's own stream, keyed as generate keys a
                  # one-row request; it travels with the row's slot
-                 "gen": row_generators([(seed, 0)],
-                                       self.server.device)[0]}
+                 "gen": row_streams([(seed, 0)])[0]}
+        entry["draft_mode"], entry["k_row"] = self._spec_row_init()
         if prefix is not None:
             if not self._admit_prefix(entry, prefix, max_new_tokens):
                 return None
@@ -1486,6 +1713,11 @@ class ContinuousBatcher:
                    "pipeline": self.pipe_stats.report(),
                    "prefill_chunk": self.server.prefill_chunk,
                    "prefill": self.prefill_stats.report(),
+                   **({"spec": {"k": self.spec_k,
+                                "draft_mode": self.draft_mode,
+                                "draft_exit": self.draft_exit,
+                                **self.spec_metrics.report()}}
+                      if self.spec_k else {}),
                    "watchdog_s": self.watchdog_s,
                    "max_replays": self.max_replays,
                    "polled_waits": self.polled_waits,

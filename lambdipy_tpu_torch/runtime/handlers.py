@@ -10,9 +10,12 @@ JAX handler builds it. The server takes the JAX handler's ``decode_cap``,
 ``prefill_chunk`` and ``min_bucket`` extras, the engine its fault
 isolation extras (``engine_watchdog_s``, ``max_replays``, ``fault_spec``;
 one live fault plan serves the engine, the page pool and the prefix
-store), and the state carries the engine's fault state for ``/healthz``,
-the plan's control for ``POST /v1/debug/faults`` and the invariant sweep
-for ``GET /v1/debug/invariants``."""
+store) and its speculative decoding (``spec_k``, ``draft_mode``,
+``draft_exit``), and the state carries the engine's fault state for
+``/healthz``, the plan's control for ``POST /v1/debug/faults`` and the
+invariant sweep for ``GET /v1/debug/invariants``. A request's
+``"speculative": k`` decodes it alone through the server's speculative
+path, as the JAX handler does."""
 
 from __future__ import annotations
 
@@ -108,8 +111,6 @@ def kernel_launches() -> dict:
 # value each may take (the feature off), anything else raises
 _UNPORTED_ENGINE_EXTRAS = {
     "batch_window_bucketing": ("0", "false", "off"),
-    "spec_k": ("0", "1"),
-    "draft_mode": ("off",),
     "max_logical_ctx": ("0",),
     "long_prefill": ("0", "false", "off"),
     "prefill_mode": ("chunked",),
@@ -218,12 +219,28 @@ def fault_knobs(extra: dict) -> dict:
             "faults": FaultPlan.from_spec(spec) if spec.strip() else None}
 
 
+def spec_knobs(extra: dict) -> dict:
+    """The engine's speculative decoding, resolved as the JAX handler
+    resolves it (``handlers.py:538-560``), the extra before the
+    environment: ``spec_k`` (``LAMBDIPY_SPEC_K``, 0 = off), ``draft_mode``
+    (``LAMBDIPY_DRAFT_MODE``, ``lookup``) and ``draft_exit``
+    (``LAMBDIPY_DRAFT_EXIT``, 1)."""
+    sk = extra.get("spec_k", os.environ.get("LAMBDIPY_SPEC_K", "0"))
+    mode = extra.get("draft_mode", os.environ.get("LAMBDIPY_DRAFT_MODE",
+                                                  "lookup"))
+    dexit = extra.get("draft_exit", os.environ.get("LAMBDIPY_DRAFT_EXIT",
+                                                   "1"))
+    return {"spec_k": int(sk or 0), "draft_mode": str(mode or "lookup"),
+            "draft_exit": int(dexit or 1)}
+
+
 def make_engine(server, extra: dict) -> ContinuousBatcher:
     """The continuous engine the extras ask for: ``batch_max`` slots,
     ``batch_segment`` steps per segment, ``batch_cache_len`` positions
     per row (default ``max_len``), :func:`pipeline_depth` segments in
     flight, joiners ordered by :func:`sched_policy_name`, the fault
-    isolation of :func:`fault_knobs` and, with ``kv_paged``, a page arena
+    isolation of :func:`fault_knobs`, the speculative decoding of
+    :func:`spec_knobs` and, with ``kv_paged``, a page arena
     of ``kv_pages`` pages (default ``batch_max`` full windows plus the
     null page) whose page width is ``page_width(cache_len,
     prefix_block)`` (``prefix_block`` default 32)."""
@@ -248,7 +265,7 @@ def make_engine(server, extra: dict) -> ContinuousBatcher:
                              cache_len=cache_len, page_pool=pool,
                              policy=make_policy(sched_policy_name(extra)),
                              pipeline_depth=pipeline_depth(extra),
-                             **fault_knobs(extra))
+                             **fault_knobs(extra), **spec_knobs(extra))
 
 
 def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
@@ -321,7 +338,7 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
 
     def parse(req: dict):
         """Request -> (prompt, max_new, sample_kwargs, want_logprobs,
-        prefix), or an error dict."""
+        prefix, speculative k or None), or an error dict."""
         if req.get("session_id") is not None and str(req["session_id"]):
             raise ValueError("session_id needs the prefix store's session "
                              "pins, which the port does not have yet")
@@ -366,18 +383,18 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
                 return {"ok": False, "error": "empty prefix"}
             if len(prompt) != 1:
                 return {"ok": False, "error": "prefix caching is single-row"}
-        if req.get("speculative") is not None:
-            # validated as the JAX handler validates it; then refused
+        spec_k = req.get("speculative")
+        if spec_k is not None:
             try:
-                int(req["speculative"])
+                spec_k = int(spec_k)
             except (TypeError, ValueError):
                 return {"ok": False, "error": "speculative must be an "
                                               "integer draft length"}
-            return {"ok": False, "error": "speculative decoding is not "
-                                          "ported yet; send no "
-                                          "'speculative'"}
+            if len(prompt) != 1:
+                return {"ok": False, "error": "speculative decoding is "
+                                              "single-row"}
         return (prompt, max_new, sample_kwargs, bool(req.get("logprobs")),
-                prefix)
+                prefix, spec_k)
 
     def n_prompt(prompt, prefix) -> int:
         return int(sum(len(r) for r in prompt)
@@ -387,9 +404,17 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
         parsed = parse(req)
         if isinstance(parsed, dict):
             return parsed
-        prompt, max_new, sample_kwargs, want_lp, prefix = parsed
+        prompt, max_new, sample_kwargs, want_lp, prefix, spec_k = parsed
         prompt, prefix = _route_prefix(prompt, prefix)
-        if engine is not None and len(prompt) == 1:
+        spec_stats = None
+        if spec_k is not None:
+            # speculative decoding: prompt-lookup drafts verified in
+            # chunks, solo (the engine is bypassed, as in JAX); the
+            # request's counters come back with the call
+            out_, spec_stats = server.generate_speculative(
+                prompt, max_new_tokens=max_new, k=spec_k, prefix=prefix,
+                return_logprobs=want_lp, return_stats=True, **sample_kwargs)
+        elif engine is not None and len(prompt) == 1:
             out_ = engine.generate(prompt[0], max_new_tokens=max_new,
                                    prefix=prefix, return_logprobs=want_lp,
                                    **sample_kwargs)
@@ -408,6 +433,8 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
             out["eos_id"] = sample_kwargs["eos_id"]
         if prefix is not None:
             out["prefix_cached"] = True
+        if spec_stats is not None:
+            out["speculative"] = spec_stats
         return out
 
     def invoke_stream(req: dict):
@@ -418,9 +445,17 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
         if isinstance(parsed, dict):
             yield parsed
             return
-        prompt, max_new, sample_kwargs, want_lp, prefix = parsed
+        prompt, max_new, sample_kwargs, want_lp, prefix, spec_k = parsed
         prompt, prefix = _route_prefix(prompt, prefix)
-        if engine is not None and len(prompt) == 1:
+        spec_stats = None
+        if spec_k is not None:
+            # one chunk per verify step: its accepted tokens
+            spec_stats = {}
+            chunks = server.generate_speculative_stream(
+                prompt[0], max_new_tokens=max_new, k=spec_k, prefix=prefix,
+                return_logprobs=want_lp, stats_out=spec_stats,
+                **sample_kwargs)
+        elif engine is not None and len(prompt) == 1:
             # the engine's segment sets the chunk cadence
             chunks = engine.generate_stream(
                 prompt[0], max_new_tokens=max_new, prefix=prefix,
@@ -442,6 +477,8 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
             yield rec
         out = {"ok": True, "done": True, "n_new": n_new,
                "n_prompt": n_prompt(prompt, prefix)}
+        if spec_stats is not None:
+            out["speculative"] = spec_stats
         if sample_kwargs["eos_id"] is not None:
             out["eos_id"] = sample_kwargs["eos_id"]
         if prefix is not None:
@@ -499,6 +536,9 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
         out = {"kernels": kernel_launches(), **server.program_stats()}
         if engine is not None:
             out["batching"] = engine.stats()
+        # the solo "speculative" path's cumulative counters (the engine's
+        # batching.spec block reads the same object)
+        out["spec"] = server.spec_metrics.report()
         if store is not None:
             # hits, misses, hit_tokens, evictions, bytes and hit_rate: the
             # automatic radix reuse, with the assembled entries' bytes

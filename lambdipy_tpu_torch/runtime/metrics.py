@@ -243,6 +243,9 @@ class EngineStats:
     prefill_replays: int = 0
     eager_prefills: int = 0
     cancelled: int = 0
+    verify_segments: int = 0
+    verify_rows: int = 0
+    draft_forwards: int = 0
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
     def record(self, name: str, n: int = 1) -> None:
@@ -258,6 +261,20 @@ class EngineStats:
             self.steps += int(steps)
             self.rows_stepped += int(steps) * int(live_rows)
             self.walk_segments += int(beside_walk)
+
+    def record_verify(self, live_rows: int, kb: int, draft_forwards: int,
+                      beside_walk: bool = False) -> None:
+        """One speculative verify segment: a step (one forward of
+        ``slots * kb`` one-token rows), ``live_rows * kb`` rows verified,
+        and ``draft_forwards`` shallow-exit draft forwards before it."""
+        with self._lock:
+            self.segments += 1
+            self.steps += 1
+            self.rows_stepped += int(live_rows)
+            self.walk_segments += int(beside_walk)
+            self.verify_segments += 1
+            self.verify_rows += int(live_rows) * int(kb)
+            self.draft_forwards += int(draft_forwards)
 
     def record_group_prefill(self, rows: int) -> None:
         with self._lock:
@@ -312,7 +329,12 @@ class EngineStats:
                     "replays": self.replays,
                     "eager_steps": self.eager_steps,
                     "prefill_replays": self.prefill_replays,
-                    "eager_prefills": self.eager_prefills}
+                    "eager_prefills": self.eager_prefills,
+                    # speculative verifies (each one of the steps) and
+                    # the shallow-exit draft forwards before them
+                    "verify_segments": self.verify_segments,
+                    "verify_rows": self.verify_rows,
+                    "draft_forwards": self.draft_forwards}
 
 
 @dataclass
@@ -495,3 +517,120 @@ class PrefillStats:
             return {"mode": "chunked", "rounds": self.rounds,
                     "chunks": self.chunks, "walks": self.walks,
                     "critical_path_s": round(self.critical_path_s, 6)}
+
+
+@dataclass
+class SpecDecodeStats:
+    """Speculative decoding's counters, the JAX ``SpecDecodeStats``
+    (``lambdipy_tpu/runtime/metrics.py:364``): ``/metrics`` ``spec`` for
+    the solo ``"speculative": k`` path and ``batching.spec`` for the
+    engine's ``spec_k``, one object (``LlamaServer.spec_metrics``; the
+    engine shares its server's).
+
+    A step is one verify: ``proposed`` draft tokens offered, ``accepted``
+    of them equal to the target chain, ``emitted`` tokens delivered
+    (accepted plus the corrected token). ``acceptance_rate`` =
+    accepted / proposed; ``tokens_per_step`` = emitted / steps, the
+    speed-up's proxy (decode is bound by the bytes of the weights it
+    reads). ``wasted_verify_tokens``: proposed and rejected positions.
+    ``draft_hits`` / ``draft_misses``: steps whose lookup found an n-gram
+    or fell back. ``hist``: steps by tokens emitted. ``fallback_rows`` /
+    ``row_fallbacks``: requests that decoded plainly, by reason. The
+    ``draft`` block: per provider steps, proposals, acceptances and an
+    acceptance EWMA, the dispatched-k histogram and provider demotions.
+    The port has no sequence-parallel decode, so ``sp_standdown`` is 0."""
+
+    steps: int = 0
+    emitted_tokens: int = 0
+    proposed_tokens: int = 0
+    accepted_tokens: int = 0
+    wasted_verify_tokens: int = 0
+    draft_hits: int = 0
+    draft_misses: int = 0
+    fallback_rows: int = 0
+    row_fallbacks: dict = field(default_factory=dict)  # reason -> rows
+    hist: dict = field(default_factory=dict)           # emitted -> steps
+    providers: dict = field(default_factory=dict)      # name -> counters
+    k_hist: dict = field(default_factory=dict)         # k -> steps
+    draft_fallbacks: dict = field(default_factory=dict)  # edge -> rows
+    draft_ewma_alpha: float = 0.2
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def record_step(self, *, proposed: int, accepted: int, emitted: int,
+                    hit: bool, provider: str = "lookup",
+                    k: int | None = None) -> None:
+        with self._lock:
+            self.steps += 1
+            self.proposed_tokens += int(proposed)
+            self.accepted_tokens += int(accepted)
+            self.emitted_tokens += int(emitted)
+            self.wasted_verify_tokens += max(0, int(proposed) - int(accepted))
+            if hit:
+                self.draft_hits += 1
+            else:
+                self.draft_misses += 1
+            self.hist[int(emitted)] = self.hist.get(int(emitted), 0) + 1
+            p = self.providers.setdefault(
+                str(provider), {"steps": 0, "proposed": 0, "accepted": 0,
+                                "ewma": None})
+            p["steps"] += 1
+            p["proposed"] += int(proposed)
+            p["accepted"] += int(accepted)
+            if proposed > 0:
+                frac = int(accepted) / float(proposed)
+                a = self.draft_ewma_alpha
+                p["ewma"] = (frac if p["ewma"] is None
+                             else (1.0 - a) * p["ewma"] + a * frac)
+            if k is not None:
+                self.k_hist[int(k)] = self.k_hist.get(int(k), 0) + 1
+
+    def record_fallback(self, reason: str = "plain") -> None:
+        with self._lock:
+            self.fallback_rows += 1
+            self.row_fallbacks[str(reason)] = \
+                self.row_fallbacks.get(str(reason), 0) + 1
+
+    def record_draft_fallback(self, edge: str) -> None:
+        """One row demoted along the provider chain (``"model->lookup"``,
+        ``"lookup->off"``) by the engine's adaptive k."""
+        with self._lock:
+            self.draft_fallbacks[str(edge)] = \
+                self.draft_fallbacks.get(str(edge), 0) + 1
+
+    def report(self) -> dict:
+        with self._lock:
+            steps, proposed = self.steps, self.proposed_tokens
+            return {
+                "steps": steps,
+                "emitted_tokens": self.emitted_tokens,
+                "proposed_tokens": proposed,
+                "accepted_tokens": self.accepted_tokens,
+                "acceptance_rate": (round(self.accepted_tokens / proposed, 4)
+                                    if proposed else 0.0),
+                "tokens_per_step": (round(self.emitted_tokens / steps, 3)
+                                    if steps else 0.0),
+                "wasted_verify_tokens": self.wasted_verify_tokens,
+                "draft_hits": self.draft_hits,
+                "draft_misses": self.draft_misses,
+                "draft_hit_rate": (round(self.draft_hits / steps, 4)
+                                   if steps else 0.0),
+                "fallback_rows": self.fallback_rows,
+                "row_fallbacks": dict(self.row_fallbacks),
+                "tokens_per_step_hist": {str(n): c for n, c in
+                                         sorted(self.hist.items())},
+                "draft": {
+                    "providers": {
+                        name: {"steps": p["steps"],
+                               "proposed": p["proposed"],
+                               "accepted": p["accepted"],
+                               "acceptance_ewma": (
+                                   round(p["ewma"], 4)
+                                   if p["ewma"] is not None else None)}
+                        for name, p in sorted(self.providers.items())},
+                    "k_hist": {str(n): c for n, c in
+                               sorted(self.k_hist.items())},
+                    "fallbacks": dict(self.draft_fallbacks),
+                },
+                "sp_standdown": 0,
+                "sp_standdown_reasons": {},
+            }

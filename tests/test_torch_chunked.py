@@ -442,9 +442,13 @@ def test_handler_answers_match_the_jax_handler(weights, tmp_path):
     got, jgot = state.invoke(bad), jstate.invoke(bad)
     assert (got["ok"], got["error"]) == (jgot["ok"], jgot["error"]) == (
         False, "speculative must be an integer draft length")
-    # the port has no speculative decoding yet: refused, not served plain
-    spec = state.invoke({**bad, "speculative": 4})
-    assert not spec["ok"] and "not ported" in spec["error"]
+    # a well-formed one is served solo, speculatively, as JAX serves it:
+    # the same greedy tokens and the same verify counters
+    spec, jspec = (h.invoke({**bad, "speculative": 4})
+                   for h in (state, jstate))
+    assert spec["ok"] and jspec["ok"]
+    assert spec["tokens"] == jspec["tokens"]
+    assert spec["speculative"] == jspec["speculative"]
     rnd = {"random": True, "max_new_tokens": 4}
     out, jout = state.invoke(rnd), jstate.invoke(rnd)
     assert out["ok"] and jout["ok"]

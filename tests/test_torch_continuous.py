@@ -365,7 +365,8 @@ def test_handler_wiring(weights):
     assert {"paged_decode_attention", "paged_decode_attention_int8kv"} \
         <= set(stats["kernels"])
     for extra in ({"batch_mode": "continuous", "max_logical_ctx": "4096"},
-                  {"batch_mode": "continuous", "spec_k": "4"},
+                  {"batch_mode": "continuous",
+                   "batch_window_bucketing": "1"},
                   {"batch_mode": "window"},
                   {"session_pin_budget_mb": "64"},
                   {"session_ttl_s": "60"},

@@ -13,7 +13,7 @@ solo ``generate``: tokens exact, the first logprob exact, the rest within
 1e-5 (the CPU engine tests' bound: the plain attention softmaxes over the
 engine's window and the solo bucket). Greedy tokens equal the JAX
 engine's. Seeded sampled tokens are compared within each framework only
-(the port draws from ``torch.Generator``\\ s, JAX from threefry). The
+(the port draws counter-based noise, JAX from threefry). The
 ``faults`` block's counts equal the JAX engine's where the scenario is
 one request or rows admitted together. The port's last segment is
 shorter than JAX's, so fault rules arm at ``seg=1`` or ``seg=2``, where

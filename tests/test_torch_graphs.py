@@ -73,9 +73,13 @@ class FakeGraph:
 
 
 class NoDrawsGraph(FakeGraph):
-    """A graph type that cannot register generators."""
+    """A graph type that cannot register generators (the port's programs
+    register none)."""
 
     captures_draws = False
+
+    def register_generator_state(self, gen):
+        raise AssertionError("a program registered a generator")
 
 
 @pytest.fixture(scope="module")
@@ -105,9 +109,12 @@ def _old_select(temperature, top_k, top_p):
         t_row = torch.as_tensor(temperature, device=lg.device)
         t = t_row.clamp(min=1e-6)[:, None]
         filt = tl.filter_logits_runtime(lg / t, top_k, top_p)
-        u = torch.stack([torch.rand(lg.shape[-1], generator=g,
-                                    device=lg.device) for g in gens])
-        draw = (filt - torch.log(-torch.log(u))).argmax(dim=-1)
+        # each row's stream on the host: its key and draws so far
+        keys, draws = map(torch.as_tensor, tl.streams_host(gens, len(gens)))
+        for g in gens:
+            g.draw += 1
+        draw = (filt + tl.gumbel_noise(keys, draws,
+                                       lg.shape[-1])).argmax(dim=-1)
         tok = torch.where(t_row > 0, draw, greedy)
         return tok, tl._token_logprob(lg, tok)
 
@@ -409,9 +416,11 @@ def test_replays_add_what_the_capture_counted(weights):
 
 
 def test_sampled_steps_run_eagerly_where_draws_cannot_be_captured(weights):
-    """A graph type that cannot register generators: greedy steps and
-    prefills are still captured, sampled ones run eagerly and are
-    counted, with the same bits."""
+    """A graph type that cannot register generators: sampled draws are
+    counter-based noise on the program's own buffers, so nothing of a
+    sampled step lies outside the graph and, greedy and sampled alike,
+    every step and prefill is captured and replayed, with the bits of
+    the loop it replaced; none runs eagerly."""
     server = _server(weights, NoDrawsGraph)
     want = reference_generate(server, ROWS, 6, **SEEDED)
     got = server.generate(ROWS, max_new_tokens=6, return_logprobs=True,
@@ -419,9 +428,9 @@ def test_sampled_steps_run_eagerly_where_draws_cannot_be_captured(weights):
     np.testing.assert_array_equal(got[1], want[1])
     server.generate(ROWS, max_new_tokens=6)
     stats = server.program_stats()
-    assert stats["eager_steps"] == 5 and stats["replays"] == 5
-    assert stats["eager_prefills"] == 1 and stats["prefill_replays"] == 1
-    assert stats["compile_count"] == 2
+    assert stats["eager_steps"] == 0 and stats["replays"] == 10
+    assert stats["eager_prefills"] == 0 and stats["prefill_replays"] == 2
+    assert stats["compile_count"] == 4
 
 
 def test_interleaved_streams_of_one_bucket_get_their_own_programs(weights):

@@ -1265,3 +1265,191 @@ def test_chunked_engine_rows_are_bitwise_solo(cuda_device, monkeypatch,
     assert stats["replays"] == stats["steps"] > 0
     if eng.pool is not None:
         assert eng.pool.stats()["pages_live"] == 0
+
+
+# ------------------------------------------------ speculative decoding
+
+@DTYPES
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_decode_attention_row_map_matches_plain(cuda_device, dtype, quant):
+    """The contiguous kernel's row map (a verify chunk's one-token rows
+    over their sequence's cache row): each query row reads cache row
+    ``row_map[r]`` at its own length; the output is bitwise the kernel's
+    on K/V gathered row by row (only the origin of the reads moves) and
+    within ``ATTN_TOL`` of the plain version."""
+    rng = np.random.default_rng(7)
+    rows, t, h, kvh, d, kb = 3, 300, 32, 8, 128, 4
+    k, v = (torch.as_tensor(rng.normal(size=(rows, t, kvh, d))
+                            .astype(np.float32)).to(cuda_device)
+            for _ in range(2))
+    scales = {}
+    if quant:
+        (k, ks), (v, vs) = _kv_quantize(k), _kv_quantize(v)
+        scales = {"k_scale": ks, "v_scale": vs}
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    n = rows * kb
+    q = torch.as_tensor(rng.normal(size=(n, 1, h, d)).astype(np.float32)) \
+        .to(dtype).to(cuda_device)
+    row_map = torch.arange(rows, dtype=torch.int32,
+                           device=cuda_device).repeat_interleave(kb)
+    alen = (torch.tensor([5, 129, 250], dtype=torch.int32,
+                         device=cuda_device).repeat_interleave(kb)
+            + torch.arange(kb, dtype=torch.int32,
+                           device=cuda_device).repeat(rows))
+    counter = "launches_int8kv" if quant else "launches"
+    before = getattr(tda.blocked_decode_attention, counter)
+    out = tda.blocked_decode_attention(q, k, v, alen, row_map=row_map,
+                                       **scales)
+    gathered = {name: val[row_map.long()].contiguous()
+                for name, val in (("k", k), ("v", v), *scales.items())}
+    alone = tda.blocked_decode_attention(
+        q, gathered.pop("k"), gathered.pop("v"), alen, **gathered)
+    ref = tda.blocked_decode_attention(q.cpu(), k.cpu(), v.cpu(),
+                                       alen.cpu(), row_map=row_map.cpu(),
+                                       **{n_: s.cpu()
+                                          for n_, s in scales.items()})
+    torch.cuda.synchronize()
+    assert getattr(tda.blocked_decode_attention, counter) == before + 2
+    assert torch.equal(out, alone)
+    assert _row_rel_err(out.cpu(), ref) <= ATTN_TOL[dtype]
+
+
+SPEC_MODEL = {"vocab_size": 2048, "hidden": 512, "heads": 8, "kv_heads": 2,
+              "mlp": 1024, "layers": 3, "max_len": 512,
+              "matmul_backend": "pallas", "attn_backend": "blocked"}
+
+
+def _spec_model(cuda_device, kv_quant=None):
+    extra = {**SPEC_MODEL, **({"kv_quant": kv_quant} if kv_quant else {})}
+    adapter = registry.get("llama-tiny").build(dtype="bfloat16",
+                                               quant="int8", extra=extra)
+    return adapter.make_server(adapter.init_params(seed=5, device="cpu"),
+                               device=cuda_device)
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"], ids=["float", "int8kv"])
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_verify_forward_is_bitwise_the_one_token_steps(cuda_device, paged,
+                                                       kv_quant):
+    """A verify of 8 slots x kb = 8 (64 one-token rows: the GEMV's one
+    pass) is the 8 one-token steps it stands for, bitwise: the logits at
+    every chunk position, every layer's K/V at every verified position
+    (the whole cache), and, with drafts equal to the greedy chain, the
+    tokens, logprobs and carry."""
+    from lambdipy_tpu_torch.models import llama as tl
+
+    model = _spec_model(cuda_device, kv_quant).model
+    cfg = model.cfg
+    b, kb, width, page = 8, 8, 512, 32
+
+    def fresh():
+        if not paged:
+            return tl.DecodeStep(model, tl.init_decode_cache(
+                cfg, b, width, cuda_device), b)
+        arena = tl.init_page_arena(cfg, 1 + b * width // page, page,
+                                   cuda_device)
+        tables = torch.randperm(b * width // page, generator=torch.
+                                Generator().manual_seed(3)).add(1) \
+            .to(torch.int32).view(b, -1).to(cuda_device)
+        return tl.DecodeStep(model, arena, b, tables=tables)
+
+    start = torch.tensor([3, 40, 5, 129, 200, 17, 64, 300],
+                         dtype=torch.int32, device=cuda_device)
+    first = torch.arange(100, 100 + b, device=cuda_device)
+    streams = tl.row_streams([(1, r) for r in range(b)])
+    logits = []
+    real = model.forward
+
+    def recording(*args, **kw):
+        out = real(*args, **kw)
+        logits.append(out[0][:, -1, :].float().clone())
+        return out
+
+    with torch.inference_mode():
+        plain, spec = fresh(), fresh()
+        for step in (plain, spec):
+            step.load(first, torch.zeros(b, device=cuda_device), start,
+                      [-1] * b, streams)
+        model.forward = recording
+        try:
+            toks, lps = tl._scan_decode(lambda: plain.step(False), plain,
+                                        kb, segment=True)
+        finally:
+            model.forward = real
+        vstep = tl.VerifyStep(spec, kb)
+        vstep.set_drafts(toks[:, 1:].cpu().numpy())
+        _, _, lg = vstep._forward()
+        for j in range(kb):
+            assert torch.equal(lg.view(b, kb, -1)[:, j], logits[j]), j
+        for pe, se in zip(plain.cache, spec.cache):
+            for name, val in tl._leaves(pe).items():
+                assert torch.equal(se[name], val), name
+        again = fresh()
+        again.load(first, torch.zeros(b, device=cuda_device), start,
+                   [-1] * b, streams)
+        vstep = tl.VerifyStep(again, kb)
+        vstep.set_drafts(toks[:, 1:].cpu().numpy())
+        chunk, vlps, count, _ = vstep.run(False)
+        torch.cuda.synchronize()
+    assert count.tolist() == [kb] * b
+    assert torch.equal(chunk, toks) and torch.equal(vlps, lps)
+    for name in ("tok", "lp", "pos", "draw"):
+        assert torch.equal(getattr(again, name), getattr(plain, name)), name
+
+
+SPEC_REQS = [(list(range(1, 30)) * 2, 40, {}),
+             ([5, 6, 7, 8] * 6, 33, {}),
+             (list(range(50, 90)), 25, SAMPLED),
+             (list(range(9, 20)) * 3, 30, {"temperature": 1.1, "seed": 4})]
+
+
+@pytest.mark.parametrize("mode", ["lookup", "model"])
+@pytest.mark.parametrize("depth", ["1", "2"])
+@pytest.mark.parametrize("paged", ["1", "0"], ids=["paged", "dense"])
+def test_spec_engine_rows_are_bitwise_spec_off(cuda_device, paged, depth,
+                                               mode):
+    """The engine at ``spec_k = 8`` (lookup drafts; the model tier at
+    ``draft_exit`` 1) on the card, dense and paged, pipeline depths 1 and
+    2: every row, greedy and seeded-sampled, is bitwise the spec-off
+    engine's in tokens and logprobs; every verify is a graph replay."""
+    from lambdipy_tpu_torch.runtime.handlers import make_engine
+
+    server = _spec_model(cuda_device)
+    extra = {"batch_max": "4", "batch_segment": "4", "kv_paged": paged,
+             "pipeline_depth": depth}
+
+    def run(eng):
+        return _threads([lambda r=r: eng.generate(
+            r[0], max_new_tokens=r[1], return_logprobs=True, **r[2])
+            for r in SPEC_REQS])
+
+    want = run(make_engine(server, extra))
+    eng = make_engine(server, {**extra, "spec_k": "8", "draft_mode": mode})
+    got = run(eng)
+    for (t, lp), (wt, wlp) in zip(got, want):
+        np.testing.assert_array_equal(t, wt)
+        np.testing.assert_array_equal(lp, wlp)
+    stats = eng.stats()
+    assert stats["verify_segments"] >= 1 and stats["eager_steps"] == 0
+    assert stats["replays"] == stats["steps"]
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"], ids=["float", "int8kv"])
+def test_solo_greedy_speculative_is_bitwise_plain(cuda_device, kv_quant):
+    """Solo greedy speculation on the card: tokens and logprobs bitwise
+    plain ``generate``'s, fused and streamed, for k = 2 and 8; every
+    verify a replay."""
+    server = _spec_model(cuda_device, kv_quant)
+    prompt = [5, 6, 7, 8] * 5 + list(range(30, 50))
+    want = server.generate(prompt, max_new_tokens=48, return_logprobs=True)
+    for k in (2, 8):
+        got = server.generate_speculative(prompt, max_new_tokens=48, k=k,
+                                          return_logprobs=True)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        pairs = list(server.generate_speculative_stream(
+            prompt, max_new_tokens=48, k=k, return_logprobs=True))
+        np.testing.assert_array_equal(
+            np.concatenate([p[1] for p in pairs], axis=1), want[1])
+    assert server.program_stats()["eager_steps"] == 0
