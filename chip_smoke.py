@@ -106,7 +106,23 @@ Phases, each of which fails the run with a non-zero exit:
    beside D's; (d) E's traffic routed through a store over a second paged
    engine on the same server, every row bitwise its unfaulted routed run
    after ``segment_fetch:exception@seg=2``. Each phase's launch counters,
-   from 0, equal its engine steps and forwards;
+   from 0, equal its engine steps and forwards. Last, I: the prefix
+   store's ship, offload and session tiers on three handlers sharing one
+   copy of the weights (D's paged engine, the store at 512 MB): (a) A
+   exports E's 2,048-token head over ``/v1/kv/export`` (its body checked
+   against 2,048 x 32 x 2 x 8 x 128 x 2 B), B imports the frame and O
+   the same head as a chunked stream, and both route the head plus a
+   suffix with no walk, bitwise A's routed run; a truncated frame is a
+   400 that leaves the tree alone, an import into a full arena the 503
+   ``kv_import``; encode, decode, import and export to first token are
+   timed; (b) D's long joiners through O's small arena (``kv_offload``)
+   spill the head, its next request re-onlines it bitwise (timed per
+   page against a pinned ``copy_``), and under ``offload_stall`` the
+   head is walked again bitwise; (c) a three-turn ``x-session-id``
+   conversation on B hits its pinned head past other heads pushed over
+   the budget and an injected engine failure, a new session past the
+   pin budget is the 503 ``session_pins``, and ``DELETE`` brings the pin
+   gauges to 0; its launch counters equal 225 x forwards and 32 x steps;
 5. print the kernels' JSON line and, last, the device line.
 
 Details go to ``chiprun_out/chip_smoke.json``. With no CUDA device, or
@@ -4108,6 +4124,502 @@ def serve_spec_path(card: str) -> dict:
     return out
 
 
+# path I: the prefix store's ship, offload and session tiers over D's paged
+# engine, the store at the handler's default (512 MB): an exporter A (D's
+# arena), an importer B (D's arena) and an offload handler O, all on one
+# copy of the weights
+SHIP_HEAD = 2048  # E's head: 64 blocks, one frame of 268,435,456 body bytes
+SHIP_SUFFIX = 24  # within one block past the head: the route takes the head
+SHIP_NEW = 24
+SHIP_OTHER = 256  # a second head, for the import into a full arena
+# O: an arena D's long joiners (1,000, 2,000 and 4,000 tokens) overrun
+# together with E's head, and a host arena that holds everything spilled
+OFFLOAD_EXTRA = {"kv_offload": "1", "kv_offload_mb": "2048",
+                 "kv_pages": "320"}
+OFFLOAD_JOINERS = (1000, 2000, 4000)
+SESSION_HEAD = 1000  # the conversation's first turn
+SESSION_PUSH = (1500, 1500, 1500)  # other heads past the store's 512 MB
+
+
+def _post_raw(url: str, data: bytes, headers: dict | None = None,
+              method: str = "POST"):
+    """A raw request: (status, body bytes, headers); error statuses carry
+    their body too."""
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, resp.read(), dict(resp.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers)
+
+
+def _chunked_import(url: str, frames) -> tuple:
+    """``POST /v1/kv/import`` with the frames as a chunked body:
+    (status, JSON answer)."""
+    import http.client
+
+    host, port = url.split("//")[1].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=600)
+    try:
+        conn.request("POST", "/v1/kv/import", body=iter(frames),
+                     headers={"Transfer-Encoding": "chunked"},
+                     encode_chunked=True)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def _routed_direct(state, row) -> tuple:
+    """The handler's routed run of ``row`` (greedy, logprobs), driven
+    directly so the logprobs come back unrounded: (matched, (tokens,
+    logprobs)), the engine idle after it."""
+    m = state.prefix_store.route(row)
+    out = state.engine.generate(row[m:], prefix=row[:m],
+                                max_new_tokens=SHIP_NEW,
+                                return_logprobs=True)
+    _idle(state.engine)
+    return m, out
+
+
+def _bitwise(a, b) -> bool:
+    return bool(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]))
+
+
+def _spill_all(store) -> int:
+    """The pool's reclaim hook run until it frees nothing: every unshared,
+    unpinned page of the store spilled (or dropped). Returns the sweeps'
+    pages."""
+    freed = 0
+    while True:
+        n = store.reclaim_pages(64)
+        if not n:
+            return freed
+        freed += n
+
+
+def _head_resident(store, head) -> int:
+    """Blocks of ``head`` that hold a page in the arena now."""
+    with store._lock:
+        _, path = store._present_locked(head)
+    return sum(1 for n in path if n.page_id is not None)
+
+
+def ship_phase(a, b, o, head, prompt, card: str) -> dict:
+    """I (a): the head exported by A over HTTP (cold: A walks it) as one
+    frame; its bytes against the arithmetic; encode and decode timed; B
+    imports the frame, O the same head as a chunked stream; A's routed
+    run the reference, B's and O's routed runs bitwise it with no walk;
+    the streamed blocks bitwise the frame's; a truncated frame a 400 that
+    leaves B's tree alone; an import into B's arena made full a 503
+    ``kv_import`` with Retry-After; export to first token on B timed."""
+    from lambdipy_tpu_torch.runtime import kvwire
+
+    cfg = a.state.server.model.cfg
+    out: dict = {}
+    # a head of the same shape through A and B first: the walk's, the
+    # continuation's and the decode's graphs captured, so the times below
+    # are a warm replica's
+    rng = torch.Generator().manual_seed(32)
+    warm = torch.randint(1, cfg.vocab_size, (len(prompt),),
+                         generator=rng).tolist()
+    for state in (a.state, b.state):
+        _routed_direct(state, warm)
+    t0 = time.perf_counter()
+    code, frame, hdrs = _post_raw(a.url + "/v1/kv/export",
+                                  json.dumps({"tokens": head}).encode())
+    out["export_cold_ms"] = 1e3 * (time.perf_counter() - t0)
+    if code != 200:
+        raise SystemExit(f"path I (a): export answered {code}: {frame!r}")
+    (hlen,) = np.frombuffer(frame[4:8], "<u4")
+    body = len(frame) - 8 - int(hlen)
+    want_body = (SHIP_HEAD * cfg.layers * 2 * cfg.kv_heads * cfg.head_dim
+                 * torch.empty((), dtype=cfg.dtype).element_size())
+    out.update(frame_bytes=len(frame), body_bytes=body,
+               header_bytes=int(hlen))
+    log(f"path I (a): A exported the {SHIP_HEAD}-token head cold (a walk "
+        f"of warm graphs) in "
+        f"{out['export_cold_ms']:.1f} ms: a frame of {len(frame)} bytes, "
+        f"{body} of body ({SHIP_HEAD} x {cfg.layers} layers x 2 x "
+        f"{cfg.kv_heads} kv heads x {cfg.head_dim} x 2 B = {want_body}) "
+        f"and a {int(hlen)}-byte header")
+    if body != want_body:
+        raise SystemExit("path I (a): the frame's body is not the "
+                         "arithmetic's")
+    store_a = a.state.prefix_store
+    t1 = time.perf_counter()
+    h2, blocks = store_a.export_blocks(head)
+    read_ms = 1e3 * (time.perf_counter() - t1)
+    t1 = time.perf_counter()
+    frame2 = kvwire.encode_frame(h2, store_a.block, blocks)
+    out["encode_ms"] = 1e3 * (time.perf_counter() - t1)
+    t1 = time.perf_counter()
+    _, _, mono = kvwire.decode_frame(frame)
+    out["decode_ms"] = 1e3 * (time.perf_counter() - t1)
+    if frame2 != frame:
+        raise SystemExit("path I (a): a second export's frame differs")
+    log(f"path I (a): read of the 64 pages {read_ms:.1f} ms, encode "
+        f"{out['encode_ms']:.1f} ms, decode {out['decode_ms']:.1f} ms "
+        f"[{card}]")
+    m_a, want = _routed_direct(a.state, prompt)
+    rounds_b = b.state.prefix_store.prefill_stats.report()["rounds"]
+    # export to first token: a warm export from A, the import into B,
+    # then B's one-token run of the prompt (its wall is the TTFT)
+    t0 = time.perf_counter()
+    code, frame3, _ = _post_raw(a.url + "/v1/kv/export",
+                                json.dumps({"tokens": head}).encode())
+    t_export = time.perf_counter()
+    code_i, ans, _ = _post_raw(b.url + "/v1/kv/import", frame3)
+    t_import = time.perf_counter()
+    first = http_json(b.url + "/invoke", {"tokens": prompt,
+                                          "max_new_tokens": 1})
+    t_first = time.perf_counter()
+    out.update(export_warm_ms=1e3 * (t_export - t0),
+               import_ms=1e3 * (t_import - t_export),
+               ttft_ms=1e3 * (t_first - t_import),
+               export_to_first_token_ms=1e3 * (t_first - t0))
+    ans = json.loads(ans)
+    log(f"path I (a): export to first token on B "
+        f"{out['export_to_first_token_ms']:.1f} ms (warm export "
+        f"{out['export_warm_ms']:.1f}, import {out['import_ms']:.1f}, "
+        f"TTFT {out['ttft_ms']:.1f}) [{card}]")
+    if code_i != 200 or ans.get("inserted") != SHIP_HEAD // store_a.block \
+            or not first.get("prefix_cached") \
+            or first["tokens"][0] != want[0][0][:1].tolist():
+        raise SystemExit(f"path I (a): B's import or its first token "
+                         f"failed: {ans}, {first}")
+    m_b, got_b = _routed_direct(b.state, prompt)
+    # O takes the same head as a stream of chunks
+    code, raw, _ = _post_raw(a.url + "/v1/kv/export",
+                             json.dumps({"tokens": head,
+                                         "stream": True}).encode())
+    frames = [f for _, f in kvwire.FrameSplitter().feed(raw)]
+    _, _, streamed_blocks = kvwire.decode_stream(frames)
+    same_blocks = all(torch.equal(x[i][n], y[i][n])
+                      for x, y in zip(mono, streamed_blocks)
+                      for i in range(len(x)) for n in x[i])
+    code_o, ans_o = _chunked_import(o.url, frames)
+    m_o, got_o = _routed_direct(o.state, prompt)
+    walked = {"B": b.state.prefix_store.prefill_stats.report()["rounds"]
+              - rounds_b,
+              "O": o.state.prefix_store.prefill_stats.report()["rounds"]}
+    out.update(stream_frames=len(frames), streamed_bitwise=same_blocks,
+               b_bitwise=_bitwise(got_b, want), o_bitwise=_bitwise(got_o,
+                                                                  want),
+               walked=walked)
+    log(f"path I (a): routed {m_a}/{m_b}/{m_o} tokens on A/B/O; B (frame) "
+        f"bitwise A: {out['b_bitwise']}; O (stream of {len(frames)} "
+        f"frames) bitwise A: {out['o_bitwise']}; streamed blocks bitwise "
+        f"the frame's: {same_blocks}; walk chunks on B and O: {walked}")
+    if not (m_a == m_b == m_o == SHIP_HEAD and out["b_bitwise"]
+            and out["o_bitwise"] and same_blocks and code_o == 200
+            and ans_o.get("streamed") and walked == {"B": 0, "O": 0}):
+        raise SystemExit(f"path I (a): an imported head did not route "
+                         f"bitwise the exporter's run ({ans_o})")
+
+    # a truncated frame: 400, B's tree and pool unchanged
+    store_b, pool_b = b.state.prefix_store, b.state.engine.pool
+    before = (store_b.check_invariants()["pages"],
+              pool_b.stats()["pages_live"])
+    code, msg, _ = _post_raw(b.url + "/v1/kv/import", frame[:-1000])
+    after = (store_b.check_invariants()["pages"],
+             pool_b.stats()["pages_live"])
+    log(f"path I (a): a truncated frame answered {code} "
+        f"({json.loads(msg)['error'][:60]}...), tree unchanged: "
+        f"{before == after}")
+    if code != 400 or before != after:
+        raise SystemExit("path I (a): a truncated frame was not a 400 "
+                         "that left the tree alone")
+    # a full arena: every free page held, every live page shared
+    rng = torch.Generator().manual_seed(33)
+    other = torch.randint(1, cfg.vocab_size, (SHIP_OTHER,),
+                          generator=rng).tolist()
+    _, other_frame, _ = _post_raw(a.url + "/v1/kv/export",
+                                  json.dumps({"tokens": other}).encode())
+    held = pool_b.alloc(pool_b.free_count(), record_shed=False,
+                        reclaim=False)
+    live = [p for p in pool_b.snapshot_refs() if p != 0 and p not in held]
+    pool_b.retain(live)
+    try:
+        code, msg, hdrs = _post_raw(b.url + "/v1/kv/import", other_frame)
+    finally:
+        pool_b.release(live)
+        pool_b.release(held)
+    log(f"path I (a): an import into a full arena answered {code} "
+        f"{msg.decode()[:80]} Retry-After {hdrs.get('Retry-After')}")
+    if code != 503 or json.loads(msg).get("shed") != "kv_import" \
+            or not hdrs.get("Retry-After"):
+        raise SystemExit("path I (a): an import into a full arena was not "
+                         "the priced 503 kv_import")
+    out["want"] = want
+    return out
+
+
+def offload_phase(o, prompt, want, card: str) -> dict:
+    """I (b): D's long joiners through O's small arena sweep the head
+    (spilled to the host arena), the reclaim hook spills the rest; the
+    head's next request re-onlines every page and is bitwise the run
+    before the spill; the re-online timed per page against a plain pinned
+    copy of the same bytes; with ``offload_stall`` armed once the next
+    re-online fails, the head is walked again (64 recomputes) and the run
+    is still bitwise."""
+    state, store = o.state, o.state.prefix_store
+    cfg = state.server.model.cfg
+    head = prompt[:SHIP_HEAD]
+    rng = torch.Generator().manual_seed(34)
+    for n in OFFLOAD_JOINERS:
+        row = torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist()
+        r = http_json(o.url + "/invoke", {"tokens": row,
+                                          "max_new_tokens": SHIP_NEW})
+        if not r.get("ok"):
+            raise SystemExit(f"path I (b): a joiner failed: {r}")
+    _idle(state.engine)
+    swept = store.check_invariants()["offloaded_blocks"]
+    resident = _head_resident(store, head)
+    _spill_all(store)
+    log(f"path I (b): D's long joiners {OFFLOAD_JOINERS} through O's "
+        f"{OFFLOAD_EXTRA['kv_pages']}-page arena left {swept} blocks "
+        f"spilled and {resident} of the head's 64 resident; the reclaim "
+        f"hook spilled the rest: {_head_resident(store, head)} resident")
+    if _head_resident(store, head):
+        raise SystemExit("path I (b): the head did not leave the card")
+    off0 = state.engine.pool.stats()["kv_offload"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = store.route(prompt)
+    torch.cuda.synchronize()
+    reonline_s = time.perf_counter() - t0
+    _, got = _routed_direct(state, prompt)
+    off1 = state.engine.pool.stats()["kv_offload"]
+    pages = off1["reonline_pages"] - off0["reonline_pages"]
+    nbytes = pages * state.engine.pool.page_bytes
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    copy_ms = cuda_time(lambda _: dev.copy_(host, non_blocking=True))
+    del host, dev
+    out = {"reonline_pages": pages, "reonline_ms": 1e3 * reonline_s,
+           "reonline_ms_per_page": 1e3 * reonline_s / max(1, pages),
+           "reonline_gbps": nbytes / reonline_s / 1e9,
+           "pinned_copy_ms": copy_ms,
+           "pinned_copy_gbps": nbytes / copy_ms / 1e6,
+           "reonline_bitwise": _bitwise(got, want)}
+    log(f"path I (b): the head's next request re-onlined {pages} pages "
+        f"({nbytes} bytes) in {out['reonline_ms']:.1f} ms, "
+        f"{out['reonline_ms_per_page']:.3f} ms a page, "
+        f"{out['reonline_gbps']:.2f} GB/s host to device; a plain pinned "
+        f"copy_ of the same bytes {copy_ms:.2f} ms, "
+        f"{out['pinned_copy_gbps']:.2f} GB/s; bitwise the run before the "
+        f"spill: {out['reonline_bitwise']} [{card}]")
+    if m != SHIP_HEAD or pages != SHIP_HEAD // store.block \
+            or not out["reonline_bitwise"]:
+        raise SystemExit("path I (b): the re-onlined head was not bitwise "
+                         "its run before the spill")
+    _spill_all(store)
+    if _head_resident(store, head):
+        raise SystemExit("path I (b): the head did not spill again")
+    rounds0 = store.prefill_stats.report()["rounds"]
+    state.faults_admin_fn({"spec": "offload_stall:exception"})
+    _, got = _routed_direct(state, prompt)
+    state.faults_admin_fn({"clear": True})
+    off2 = state.engine.pool.stats()["kv_offload"]
+    out.update(stall_bitwise=_bitwise(got, want),
+               recomputes=off2["recomputes"] - off1["recomputes"],
+               stall_walk_chunks=store.prefill_stats.report()["rounds"]
+               - rounds0, kv_offload=off2)
+    log(f"path I (b): offload_stall armed once: {out['recomputes']} "
+        f"recomputes, the head walked again in {out['stall_walk_chunks']} "
+        f"chunks, bitwise: {out['stall_bitwise']}; kv_offload: spills "
+        f"{off2['spill_pages']} pages, re-onlines {off2['reonline_pages']}, "
+        f"recomputes {off2['recomputes']}, refusals "
+        f"{off2['spill_refusals']}, drops {off2['drops']}")
+    if not out["stall_bitwise"] or out["recomputes"] != SHIP_HEAD \
+            // store.block:
+        raise SystemExit("path I (b): the stalled re-online did not "
+                         "recompute bitwise")
+    return out
+
+
+def session_phase(b, card: str) -> dict:
+    """I (c) on B: a three-turn conversation under ``x-session-id``; other
+    heads pushed through the store past its 512 MB between turns; turns 2
+    and 3 hit the pinned head, turn 3 past an injected engine failure
+    (``segment_fetch:exception``, replayed at G's defaults); a new session
+    past the pin budget is a 503 ``session_pins`` with Retry-After;
+    ``DELETE`` brings the pin gauges to 0."""
+    state, store = b.state, b.state.prefix_store
+    cfg = state.server.model.cfg
+    rng = torch.Generator().manual_seed(35)
+
+    def tokens(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    hdr = {"Content-Type": "application/json", "x-session-id": "chat"}
+    turns, prompt, hits = [], tokens(SESSION_HEAD), []
+    for turn in range(3):
+        if turn:
+            st0 = store.stats()
+            for n in SESSION_PUSH:
+                # an export walks the head into the store and decodes
+                # nothing: the budget sweep may take the pushed head's own
+                # tail, which a generate would then serve solo
+                code, _, _ = _post_raw(b.url + "/v1/kv/export", json.dumps(
+                    {"tokens": tokens(n)}).encode())
+                if code != 200:
+                    raise SystemExit(f"path I (c): a push answered {code}")
+            pushed = store.stats()
+            if turn == 2:
+                state.faults_admin_fn(
+                    {"spec": "segment_fetch:exception@seg=1"})
+            faults0 = state.engine.stats()["faults"]
+        before = store.stats()
+        code, body, _ = _post_raw(b.url + "/invoke", json.dumps(
+            {"tokens": prompt, "max_new_tokens": SHIP_NEW}).encode(), hdr)
+        after = store.stats()
+        body = json.loads(body)
+        if code != 200 or not body.get("ok"):
+            raise SystemExit(f"path I (c): turn {turn + 1} failed: {body}")
+        rec = {"prompt": len(prompt), "pinned_leaves":
+               after["pinned_leaves"],
+               "hit_tokens": after["hit_tokens"] - before["hit_tokens"]}
+        if turn:
+            rec.update(evicted=pushed["evictions"] - st0["evictions"],
+                       pinned_before=before["pinned_leaves"])
+            hits.append(rec["hit_tokens"] >= before["pinned_leaves"]
+                        * store.block > 0 and rec["evicted"] > 0)
+        if turn == 2:
+            fd = _faults_delta({"faults": faults0}, state.engine.stats())
+            rec["replays"] = fd["replays"]
+            hits[-1] = hits[-1] and fd["replays"]["succeeded"] >= 1
+            state.faults_admin_fn({"clear": True})
+        turns.append(rec)
+        prompt = prompt + body["tokens"][0] + tokens(SHIP_SUFFIX)
+    log(f"path I (c): three turns under one session: {turns}")
+    if not all(hits):
+        raise SystemExit("path I (c): a later turn did not hit its pinned "
+                         "head past the pushed heads (or the failure was "
+                         "not replayed)")
+    code, body, hdrs = _post_raw(b.url + "/invoke", json.dumps(
+        {"tokens": tokens(SHIP_HEAD + SHIP_SUFFIX),
+         "max_new_tokens": 4}).encode(),
+        {"Content-Type": "application/json", "x-session-id": "big"})
+    body = json.loads(body)
+    log(f"path I (c): a new session past the pin budget "
+        f"({store.pin_budget_bytes} bytes) answered {code} {body} "
+        f"Retry-After {hdrs.get('Retry-After')}")
+    if code != 503 or body.get("shed") != "session_pins" \
+            or not hdrs.get("Retry-After"):
+        raise SystemExit("path I (c): the pin budget did not shed a new "
+                         "session with Retry-After")
+    code, body, _ = _post_raw(b.url + "/v1/sessions/chat", None,
+                              method="DELETE")
+    metrics = http_json(b.url + "/metrics")["handler"]
+    gauges = {"pinned_leaves": metrics["prefix_cache"]["pinned_leaves"],
+              "pinned_bytes": metrics["prefix_cache"]["pinned_bytes"],
+              "pinned_pages": metrics["batching"]["page_pool"][
+                  "pinned_pages"]}
+    log(f"path I (c): DELETE answered {code} {json.loads(body)}; pin "
+        f"gauges after it {gauges}")
+    if code != 200 or any(gauges.values()):
+        raise SystemExit("path I (c): DELETE did not release the pins")
+    return {"turns": turns, "gauges_after_delete": gauges}
+
+
+def serve_ship_path(card: str) -> dict:
+    """Path I: three handlers over llama3-8b (int8 weights, bf16 paged K/V,
+    the store at 512 MB) on one copy of the weights, each behind its own
+    HTTP server: I (a) the K/V ship A -> B (one frame) and A -> O (a
+    chunked stream), I (b) O's host offload tier, I (c) sessions on B.
+    Launch counters from 0 before the traffic: the int8 matmul 225 x the
+    forwards (walk chunks, continuations, engine forwards), the paged
+    decode attention 32 x the engine steps, summed over the three."""
+    from lambdipy_tpu_torch.runtime.handlers import (HandlerContext,
+                                                     generate_handler,
+                                                     kernel_launches)
+    from lambdipy_tpu_torch.runtime.server import BundleServer
+
+    spec = {"model": "llama3-8b", "dtype": "bfloat16", "quant": "int8",
+            "extra": dict(PREFIX_EXTRA)}
+    t0 = time.perf_counter()
+    a_state = generate_handler(spec, HandlerContext(device="cuda"))
+    weights = a_state.server.model.state_dict()
+    b_state = generate_handler(spec, HandlerContext(device="cuda",
+                                                    state_dict=weights))
+    o_state = generate_handler(
+        {**spec, "extra": {**PREFIX_EXTRA, **OFFLOAD_EXTRA}},
+        HandlerContext(device="cuda", state_dict=weights))
+    del weights
+    states = (a_state, b_state, o_state)
+    if any(s.prefix_store is None or s.prefix_store.pool is None
+           for s in states) or o_state.prefix_store.offload is None \
+            or next(iter(b_state.server.model.state_dict().values()))\
+            .data_ptr() != next(iter(a_state.server.model.state_dict()
+                                     .values())).data_ptr():
+        raise SystemExit("path I: the handlers are not paged stores on one "
+                         "copy of the weights")
+    log(f"path I: handlers A, B (8 slots, {a_state.engine.pool.n_pages} "
+        f"pages each) and O ({o_state.engine.pool.n_pages} pages, host "
+        f"offload {o_state.prefix_store.offload.budget_bytes >> 20} MiB) "
+        f"on one copy of the weights, built in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    servers = [BundleServer(s, port=0).start_background() for s in states]
+    a, b, o = servers
+    cfg = a_state.server.model.cfg
+    rng = torch.Generator().manual_seed(21)
+    head = torch.randint(1, cfg.vocab_size, (SHIP_HEAD,),
+                         generator=rng).tolist()
+    prompt = head + torch.randint(1, cfg.vocab_size, (SHIP_SUFFIX,),
+                                  generator=rng).tolist()
+    try:
+        set_launches_to_zero()  # counters to 0 just before the path
+        out = {"ship": ship_phase(a, b, o, head, prompt, card)}
+        want = out["ship"].pop("want")
+        out["offload"] = offload_phase(o, prompt, want, card)
+        out["sessions"] = session_phase(b, card)
+        for st in states:
+            _idle(st.engine)
+        launches = kernel_launches()
+    finally:
+        for srv in servers:
+            srv.stop()
+    # the forwards: the store's walk chunks and any solo run's prefills
+    # (the server's own prefill programs), a solo run's decode steps (the
+    # server's decode programs), the engine's continuations and forwards.
+    # A row whose pages the budget sweep took between its route and its
+    # admission runs solo, as in JAX: its decode reads kernel 1
+    forwards = steps = solo_steps = rounds = 0
+    for st in states:
+        es, ps = st.engine.stats(), st.server.program_stats()
+        solo_steps += ps["replays"] + ps["eager_steps"]
+        rounds += st.prefix_store.prefill_stats.report()["rounds"]
+        forwards += (ps["prefill_replays"] + ps["eager_prefills"]
+                     + ps["replays"] + ps["eager_steps"]
+                     + es["prefix_joins"] + es["forwards"])
+        steps += es["steps"]
+        st.engine.pool.check_invariants()
+        inv = st.prefix_store.check_invariants()
+        if not inv["ok"]:
+            raise SystemExit(f"path I: store invariants {inv}")
+    want_l = dict.fromkeys(KERNELS, 0)
+    want_l["int8_matmul"] = (7 * cfg.layers + 1) * forwards
+    want_l["paged_decode_attention"] = cfg.layers * steps
+    want_l["decode_attention"] = cfg.layers * solo_steps
+    log(f"path I launch counters: {launches}, implied {want_l} ({forwards} "
+        f"forwards: {rounds} walk chunks; {steps} engine steps; "
+        f"{solo_steps} decode steps of solo fallbacks, over A, B and O)")
+    if launches != want_l:
+        raise SystemExit(f"path I: launch counters {launches} != implied "
+                         f"{want_l}")
+    out["launches"] = launches
+    for st in states:
+        st.engine.release()
+    del states, a_state, b_state, o_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4165,6 +4677,11 @@ def main() -> int:
     t_path = time.perf_counter()
     paths["H"] = serve_spec_path(card)
     log(f"path H took {time.perf_counter() - t_path:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_path = time.perf_counter()
+    paths["I"] = serve_ship_path(card)
+    log(f"path I took {time.perf_counter() - t_path:.1f} s")
     # each kernel's launches: the sum over the paths, each path counted
     # from 0 just before it was driven
     for name, kern in kernels.items():

@@ -775,6 +775,80 @@ def pack_prefill_into_pages(cfg: LlamaConfig, arena, table_row,
     _scatter_page_cache(arena, table_row[None, :width // page], cache, page)
 
 
+def to_host(tensors: list) -> list:
+    """Host copies of device tensors, ordered after every write already
+    enqueued for them: the copies run on the current stream (the serving
+    stream, on which the engine's graphs replay) into pinned memory, and
+    the host waits on a CUDA event recorded after them, as the engine's
+    device wait does. A plain ``.cpu()`` is not used: the copies of many
+    tensors share one wait. The caller holds ``DEVICE_LOCK`` (no capture
+    may run beside the copies). CPU tensors come back cloned."""
+    out, event = [], None
+    for t in tensors:
+        if t.is_cuda:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            out.append(host.copy_(t, non_blocking=True))
+            event = event or torch.cuda.Event()
+        else:
+            out.append(t.clone())
+    if event is not None:
+        event.record()
+        event.synchronize()
+    return out
+
+
+def blocks_to_host(blocks) -> list:
+    """Block slices (a list over blocks of per-layer leaf dicts, as
+    :func:`slice_cache_blocks` returns) as host tensors, in one ordered
+    read (:func:`to_host`)."""
+    keys = [(b, i, name) for b, blk in enumerate(blocks)
+            for i, entry in enumerate(blk) for name in entry]
+    host = to_host([blocks[b][i][name] for b, i, name in keys])
+    out = [[{} for _ in blk] for blk in blocks]
+    for (b, i, name), t in zip(keys, host):
+        out[b][i][name] = t
+    return out
+
+
+def arena_page_slices(arena, pids) -> list:
+    """Host reads of arena pages, one block per page id, each a per-layer
+    list of ``{leaf: [1, page, kv_heads, d-or-1]}`` tensors, the block
+    shape of :func:`slice_cache_blocks`: the export and spill read of a
+    paged prefix store (``runtime/kvwire.py`` framing), the JAX
+    function's one-page read batched, one gather per leaf and one
+    ordered read for all pages (:func:`to_host`). The caller holds a pool
+    ref on every page (a released page could be reused mid-read) and
+    ``DEVICE_LOCK``."""
+    pids = [int(p) for p in pids]
+    if not pids:
+        return []
+    dev = next(iter(arena[0].values())).device
+    idx = torch.as_tensor(pids, dtype=torch.long, device=dev)
+    names = [list(entry) for entry in arena]
+    host = to_host([entry[name].index_select(0, idx)
+                    for entry, ns in zip(arena, names) for name in ns])
+    it = iter(host)
+    layers = [{name: next(it) for name in ns} for ns in names]
+    return [[{name: val[j:j + 1] for name, val in layer.items()}
+             for layer in layers] for j in range(len(pids))]
+
+
+def write_arena_pages(arena, pids, blocks) -> None:
+    """Write block slices (host or device tensors shaped as
+    :func:`arena_page_slices` returns them) into arena pages ``pids``, in
+    place, one indexed write per leaf: an import's or a re-online's page
+    write. The caller holds ``DEVICE_LOCK`` and the pool's arena lock."""
+    if not pids:
+        return
+    dev = next(iter(arena[0].values())).device
+    idx = torch.as_tensor([int(p) for p in pids], dtype=torch.long,
+                          device=dev)
+    for i, entry in enumerate(arena):
+        for name, val in entry.items():
+            src = torch.cat([blk[i][name] for blk in blocks])
+            val[idx] = src.to(device=dev, dtype=val.dtype)
+
+
 # ---------------------------------------------------------------- generation
 
 def filter_logits_runtime(logits, top_k, top_p):

@@ -363,32 +363,42 @@ class ContinuousBatcher:
         failure (an armed ``page_alloc`` fault) sheds this row as
         :class:`PagesExhausted` too, counted under its site, and leaves
         the engine alone. Charges and releases happen under the engine
-        lock, so their times order them as the pool saw them."""
+        lock, so their times order them as the pool saw them. The store's
+        reclaim runs before the lock is taken: with an offload tier it
+        reads the spilled pages on the card under ``DEVICE_LOCK``, which
+        the engine thread holds while it takes this lock; a reclaim that
+        a racer emptied meanwhile runs again."""
         shared = list(shared)
         page = self.pool.page
         need = -(-tokens // page) - len(shared)
-        with self._lock:
-            try:
-                fresh = self.pool.alloc(need,
-                                        tokens=tokens - len(shared) * page)
-            except PagesExhausted:
-                if shared:
-                    self.pool.release(shared)
-                raise
-            except Exception as e:  # noqa: BLE001 — an injected fault
-                if shared:
-                    self.pool.release(shared)
-                self.fault_stats.record_failure(
-                    getattr(e, "fault_site", "page_alloc"))
-                raise PagesExhausted(
-                    max(0, need), self.pool.free_count(),
-                    self.pool.retry_after_s(max(1, need))) from e
-            except BaseException:
-                if shared:
-                    self.pool.release(shared)
-                raise
-            entry["pages"] = shared + fresh
-            entry["charged_at"] = time.monotonic()
+        while True:
+            reclaimed = self.pool.reclaim(need)
+            with self._lock:
+                try:
+                    fresh = self.pool.alloc(
+                        need, tokens=tokens - len(shared) * page,
+                        reclaim=False)
+                except PagesExhausted:
+                    if reclaimed:
+                        continue
+                    if shared:
+                        self.pool.release(shared)
+                    raise
+                except Exception as e:  # noqa: BLE001 — an injected fault
+                    if shared:
+                        self.pool.release(shared)
+                    self.fault_stats.record_failure(
+                        getattr(e, "fault_site", "page_alloc"))
+                    raise PagesExhausted(
+                        max(0, need), self.pool.free_count(),
+                        self.pool.retry_after_s(max(1, need))) from e
+                except BaseException:
+                    if shared:
+                        self.pool.release(shared)
+                    raise
+                entry["pages"] = shared + fresh
+                entry["charged_at"] = time.monotonic()
+                return
 
     def _release_pages(self, entry: dict) -> None:
         """Idempotently return an entry's pages (caller holds the lock)."""

@@ -20,13 +20,16 @@ site                      where it fires
                           dispatch (an exception fails the walk open: the
                           request serves unrouted)
 ``page_alloc``            the paged-KV pool taking pages for an admission
+``session_pin``           the prefix store pinning a session's head (fails
+                          open: the turn serves unpinned, counted)
+``offload_stall``         the offload arena's batched re-online fetch (an
+                          exception makes the caller prefill again)
 ========================  ====================================================
 
 The registry lists the sites that have a call site in the port. The JAX
 package's fleet sites (``route_*``, ``probe``, ``kv_ship*``,
-``session_failover``) and its session and offload sites (``session_pin``,
-``offload_stall``) belong to layers the port does not have yet: a spec
-naming one raises ``ValueError`` saying so.
+``session_failover``) belong to the fleet router, which the port does not
+have yet: a spec naming one raises ``ValueError`` saying so.
 
 Each site can raise (``exception``), stall (``delay``, ``ms=``) or block
 (``hang``: until the plan is released or cleared, the watchdog aborts the
@@ -92,6 +95,14 @@ REGISTRY: dict[str, FaultSite] = {s.name: s for s in (
               "the wait on a segment's CUDA event before the host read"),
     FaultSite("page_alloc", "pool", _ENGINE_ENV,
               "the paged-KV pool taking pages for an admission"),
+    FaultSite("session_pin", "store", _ENGINE_ENV,
+              "the prefix store pinning a session's radix head (fails "
+              "OPEN: the turn serves unpinned, counted)"),
+    FaultSite("offload_stall", "store", _ENGINE_ENV,
+              "the host offload arena's batched page re-online (delay "
+              "= a slow fetch; exception = a FAILED re-online: the "
+              "caller prefills the range again, counted, never a wrong "
+              "token)"),
 )}
 
 # the JAX package's sites whose layers the port does not have yet, and
@@ -101,8 +112,6 @@ UNPORTED_SITES = {
     "route_latency": "the fleet router", "probe": "the fleet pool",
     "kv_ship": "the fleet router", "kv_ship_chunk": "the fleet router",
     "session_failover": "the fleet router",
-    "session_pin": "the prefix store's session pins",
-    "offload_stall": "the host offload arena",
 }
 
 SITES = tuple(REGISTRY)

@@ -15,7 +15,14 @@ store) and its speculative decoding (``spec_k``, ``draft_mode``,
 ``/healthz``, the plan's control for ``POST /v1/debug/faults`` and the
 invariant sweep for ``GET /v1/debug/invariants``. A request's
 ``"speculative": k`` decodes it alone through the server's speculative
-path, as the JAX handler does."""
+path, as the JAX handler does. The prefix store takes the JAX handler's
+session extras (``session_pin_budget_mb``, ``session_ttl_s``,
+``session_idle_s``) and, over a paged engine, its host offload tier
+(``kv_offload``, ``kv_offload_mb``); a request's ``session_id`` (and
+``session_ttl_s``) pins its conversation's head after routing, and the
+state carries the K/V ship surfaces (``kv_export``, ``kv_import``,
+``kv_probe`` and their streamed twins, ``runtime/kvwire.py`` frames) and
+the session close for the server."""
 
 from __future__ import annotations
 
@@ -35,7 +42,14 @@ from lambdipy_tpu_torch.ops.decode_attention import (blocked_decode_attention,
 from lambdipy_tpu_torch.ops.quant import int8_matmul
 from lambdipy_tpu_torch.runtime.continuous import ContinuousBatcher
 from lambdipy_tpu_torch.runtime.faults import FaultPlan
-from lambdipy_tpu_torch.runtime.pagepool import PagePool, page_width
+from lambdipy_tpu_torch.runtime.kvwire import (StreamDecoder, decode_frame,
+                                               dtype_name, encode_chunk,
+                                               encode_frame,
+                                               encode_stream_header)
+from lambdipy_tpu_torch.runtime.metrics import KvShipStats
+from lambdipy_tpu_torch.runtime.offload import OffloadArena
+from lambdipy_tpu_torch.runtime.pagepool import (PagePool, PagesExhausted,
+                                                 page_width)
 from lambdipy_tpu_torch.runtime.prefixstore import PrefixStore
 from lambdipy_tpu_torch.sched.policy import make_policy
 
@@ -67,6 +81,18 @@ class HandlerState:
     # host-only invariant sweep (GET /v1/debug/invariants): the pool's
     # conservation, the store's accounting, the engine's fault state
     debug_invariants_fn: Callable[[], dict] | None = None
+    # the K/V ship surfaces (runtime/kvwire.py frames over the prefix
+    # store; None without a store, and /v1/kv/* answers 404): export a
+    # request's whole-block head as a frame, import a frame as a radix
+    # insert, probe the head's present blocks; and the streamed twins, a
+    # generator of frames out and an iterator of body chunks in
+    kv_export_fn: Callable[[dict], Any] | None = None
+    kv_import_fn: Callable[[bytes], dict] | None = None
+    kv_probe_fn: Callable[[dict], dict] | None = None
+    kv_export_stream_fn: Callable[[dict], Any] | None = None
+    kv_import_stream_fn: Callable[..., dict] | None = None
+    # DELETE /v1/sessions/{id}: release the session's pins now
+    session_end_fn: Callable[[str], dict] | None = None
     # host-only fault control (POST /v1/debug/faults): arm a spec on the
     # live plan, or clear it
     faults_admin_fn: Callable[[dict], dict] | None = None
@@ -116,11 +142,6 @@ _UNPORTED_ENGINE_EXTRAS = {
     "prefill_mode": ("chunked",),
     "mesh": ("", "off"),
     "batch_window_ms": ("0",),
-    # the prefix store's session pins and host offload tier
-    "session_pin_budget_mb": ("",),
-    "session_ttl_s": ("",),
-    "session_idle_s": ("",),
-    "kv_offload": ("0", "false", "off", ""),
     # a bundle's tokenizer (text in, text out)
     "tokenizer_path": ("",),
 }
@@ -149,36 +170,214 @@ def prefix_block(extra: dict) -> int:
     return int(raw) if raw not in (None, "") else 32
 
 
+def _store_knob(extra: dict, key: str, env: str, default):
+    """A store knob as the JAX handler reads it: the environment (the serve
+    process's choice) first, then the extra, as a float; ``default`` when
+    neither is set."""
+    raw = os.environ.get(env)
+    if raw in (None, ""):
+        raw = extra.get(key)
+    return default if raw in (None, "") else float(raw)
+
+
 def make_prefix_store(server, engine, extra: dict) -> PrefixStore | None:
     """The automatic prefix KV cache, built as the JAX handler builds it
-    (``lambdipy_tpu/runtime/handlers.py:655-718``): on by default with a
-    512 MB budget (``prefix_cache_mb``, 0 = off); under ``kv_quant`` only
-    when ``prefix_cache_mb`` is set (the cached prefix reads back
-    quantized, so routed output agrees with unrouted only to the
-    quantization's tolerance); not at all where routing must stand down,
-    an engine narrower than the model's window (it cannot take a
-    full-window prefix row). A paged engine's store shares its arena:
-    blocks are pages, and a hit takes them by refcount bump."""
+    (``lambdipy_tpu/runtime/handlers.py:655-740``): on by default with a
+    512 MB budget (``LAMBDIPY_PREFIX_CACHE_MB``, then ``prefix_cache_mb``;
+    0 = off); under ``kv_quant`` only when that budget is set (the cached
+    prefix reads back quantized, so routed output agrees with unrouted
+    only to the quantization's tolerance); not at all where routing must
+    stand down, an engine narrower than the model's window (it cannot
+    take a full-window prefix row). A paged engine's store shares its
+    arena: blocks are pages, and a hit takes them by refcount bump.
+
+    Session pins: ``session_pin_budget_mb`` (default half the cache
+    budget, clamped to it), ``session_ttl_s`` (3600) and
+    ``session_idle_s`` (600), each after its ``LAMBDIPY_SESSION_*``
+    variable. Over a paged engine, ``kv_offload`` (the extra before
+    ``LAMBDIPY_KV_OFFLOAD``; off by default) attaches a host offload
+    arena of ``kv_offload_mb`` (``LAMBDIPY_KV_OFFLOAD_MB`` first; 256)."""
     cfg = server.model.cfg
     routable = engine is None or engine.cache_len == cfg.max_len
-    raw_mb = extra.get("prefix_cache_mb")
-    explicit = raw_mb not in (None, "")
-    mb = float(raw_mb) if explicit else 512.0
-    if not routable or mb <= 0 or (cfg.kv_quant is not None
-                                   and not explicit):
+    mb = _store_knob(extra, "prefix_cache_mb", "LAMBDIPY_PREFIX_CACHE_MB",
+                     None)
+    if not routable or (mb is not None and mb <= 0) \
+            or (cfg.kv_quant is not None and mb is None):
         return None
     pool = engine.pool if engine is not None else None
     # the store's cold walks and the engine's chunked prefills report in
     # one prefill block, as in the JAX handler
-    store = PrefixStore(server, block=prefix_block(extra), budget_mb=mb,
-                        pool=pool,
-                        prefill_stats=(engine.prefill_stats
-                                       if engine is not None else None),
-                        faults=(engine.faults if engine is not None
-                                else None))
+    store = PrefixStore(
+        server, block=prefix_block(extra),
+        budget_mb=512.0 if mb is None else mb, pool=pool,
+        prefill_stats=engine.prefill_stats if engine is not None else None,
+        faults=engine.faults if engine is not None else None,
+        pin_budget_mb=_store_knob(extra, "session_pin_budget_mb",
+                                  "LAMBDIPY_SESSION_PIN_BUDGET_MB", None),
+        session_ttl_s=_store_knob(extra, "session_ttl_s",
+                                  "LAMBDIPY_SESSION_TTL_S", 3600.0),
+        session_idle_s=_store_knob(extra, "session_idle_s",
+                                   "LAMBDIPY_SESSION_IDLE_S", 600.0))
     if pool is not None:
         engine.prefix_pages_fn = store.acquire_pages
+        if _on(extra.get("kv_offload",
+                         os.environ.get("LAMBDIPY_KV_OFFLOAD", "0"))):
+            store.attach_offload(OffloadArena(
+                page=pool.page, layers=cfg.layers,
+                budget_mb=_store_knob(extra, "kv_offload_mb",
+                                      "LAMBDIPY_KV_OFFLOAD_MB", 256.0),
+                faults=engine.faults))
     return store
+
+
+def _flat_tokens(req: dict):
+    """A request's ``tokens`` as a flat list of ints, or None."""
+    raw = req.get("tokens")
+    if not isinstance(raw, (list, tuple)) or not raw or \
+            not all(isinstance(t, int) for t in raw):
+        return None
+    return list(raw)
+
+
+def kv_ship_fns(store: PrefixStore, stats: KvShipStats) -> dict:
+    """The K/V ship surfaces over ``store``, as the JAX handler wires them
+    (``lambdipy_tpu/runtime/handlers.py:745-930``), counted in ``stats``
+    (``batching.disagg`` in ``/metrics``). A handler-level refusal comes
+    back as an error dict (the server answers 400); a garbage frame
+    raises ``ValueError`` (400) and a full arena :class:`PagesExhausted`
+    (the priced 503 ``kv_import``)."""
+
+    def leaves():
+        return [[name, dtype_name(dt), list(shape)]
+                for name, (shape, dt)
+                in sorted(store._leaf_template().items())]
+
+    def kv_export(req: dict):
+        """``{"tokens": [...]}`` -> one ``LKV1`` frame."""
+        raw = _flat_tokens(req)
+        if raw is None:
+            return {"ok": False,
+                    "error": "kv export wants a flat token id list"}
+        out = store.export_blocks(raw)
+        if out is None:
+            return {"ok": False, "error": "no whole-block prefix to export"}
+        head, blocks = out
+        frame = encode_frame(head, store.block, blocks)
+        stats.record_export(tokens=len(head), nbytes=len(frame))
+        return frame
+
+    def kv_import(data: bytes) -> dict:
+        """One ``LKV1`` frame -> a radix insert."""
+        try:
+            tokens, block, blocks = decode_frame(data)
+            if block != store.block:
+                raise ValueError(
+                    f"frame block width {block} != this replica's "
+                    f"prefix block {store.block}")
+            res = store.import_blocks(tokens, blocks)
+        except PagesExhausted:
+            stats.record_backpressure()
+            raise
+        except ValueError:
+            stats.record_rejected()
+            raise
+        stats.record_import(tokens=len(tokens), nbytes=len(data),
+                            inserted=res["inserted"],
+                            present=res["present"], mode=res["mode"])
+        return {"ok": True, **res}
+
+    def kv_probe(req: dict) -> dict:
+        """``{"tokens": [...]}`` -> the head tokens present in the tree
+        (host only)."""
+        raw = _flat_tokens(req)
+        if raw is None:
+            return {"ok": False,
+                    "error": "kv probe wants a flat token id list"}
+        return {"ok": True, "matched": store.present_len(raw),
+                "block": store.block}
+
+    def kv_export_stream(req: dict):
+        """``{"tokens": [...], "stream": true}`` -> a generator of frames:
+        the ``LKVS`` header, then one ``LKVC`` per block group as the
+        store produces it."""
+        raw = _flat_tokens(req)
+        if raw is None:
+            return {"ok": False,
+                    "error": "kv export wants a flat token id list"}
+        out = store.export_stream(raw)
+        if out is None:
+            return {"ok": False, "error": "no whole-block prefix to export"}
+        head, groups = out
+        layers = store.server.model.cfg.layers
+
+        def gen():
+            header = encode_stream_header(head, store.block, layers,
+                                          leaves())
+            nbytes, sent, chunks = len(header), 0, 0
+            yield header
+            for group in groups:
+                frame = encode_chunk(sent, group)
+                sent += len(group)
+                nbytes += len(frame)
+                chunks += 1
+                yield frame
+            # counted only when complete: a truncated export is the
+            # receiver's failure signal, not a served export
+            stats.record_export(tokens=len(head), nbytes=nbytes,
+                                chunks=chunks)
+
+        return gen()
+
+    def kv_import_stream(chunks_iter, commit_gate=None) -> dict:
+        """Body chunks off the wire -> per-chunk validation
+        (``StreamDecoder``) and staging -> one attach at the stream's end.
+        A failure rolls the staged pages back before it propagates.
+        ``commit_gate`` (a context manager) brackets only the commit."""
+        dec = StreamDecoder()
+        imp = None
+        nbytes = chunks = 0
+        try:
+            for data in chunks_iter:
+                nbytes += len(data)
+                for kind, payload in dec.feed(data):
+                    if kind == "header":
+                        if payload["block"] != store.block:
+                            raise ValueError(
+                                f"stream block width {payload['block']} "
+                                f"!= this replica's prefix block "
+                                f"{store.block}")
+                        imp = store.import_begin(payload["tokens"])
+                    elif imp is not None:
+                        chunks += 1
+                        imp.add_blocks(payload[1])
+            if imp is None:
+                raise ValueError("empty KV stream (no header)")
+            if not dec.complete:
+                raise ValueError(f"truncated KV stream: "
+                                 f"{dec.blocks_received} block(s) arrived")
+            if commit_gate is not None:
+                with commit_gate:
+                    res = imp.commit()
+            else:
+                res = imp.commit()
+        except BaseException as e:
+            if isinstance(e, PagesExhausted):
+                stats.record_backpressure()
+            elif isinstance(e, ValueError):
+                stats.record_rejected()
+            stats.record_stream_abort()
+            if imp is not None:
+                imp.abort()
+            raise
+        stats.record_import(tokens=len(imp.row), nbytes=nbytes,
+                            inserted=res["inserted"],
+                            present=res["present"], mode=res["mode"],
+                            chunks=chunks)
+        return {"ok": True, **res, "streamed": True}
+
+    return {"kv_export_fn": kv_export, "kv_import_fn": kv_import,
+            "kv_probe_fn": kv_probe, "kv_export_stream_fn": kv_export_stream,
+            "kv_import_stream_fn": kv_import_stream}
 
 
 def sched_policy_name(extra: dict) -> str:
@@ -317,20 +516,31 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
     store = make_prefix_store(server, engine, extra)
     default_new = int(extra.get("max_new_tokens", 16))
 
-    def _route_prefix(prompt, prefix):
+    def _route_prefix(prompt, prefix, sess=None):
         """Transparent radix reuse: a single-row prompt split into (suffix
         prompt, cached prefix tokens) when the store matches or extends a
         block-aligned head. An explicit ``prefix`` keeps the client's
         split; multi-row and sub-block prompts pass through; a store
         failure routes nothing (``route`` returns 0). At the engine's
         degradation level 3 routing stands down: the plainest path until
-        a clean interval restores it."""
+        a clean interval restores it.
+
+        ``sess`` = (session_id, ttl_s or None): after routing, the
+        conversation's whole-block head is pinned under the session's
+        lease (a budget refusal raises ``SessionPinsExceeded``, which the
+        server answers as the priced 503 ``session_pins``); a stand-down
+        only renews the lease."""
         if store is None or prefix is not None or len(prompt) != 1:
             return prompt, prefix
         if engine is not None and engine.degrade_level >= 3:
+            if sess is not None:
+                store.touch_session(sess[0])
             return prompt, prefix
         row = [int(t) for t in np.asarray(prompt[0]).reshape(-1)]
         m = store.route(row)
+        if sess is not None:
+            # after route: the head's blocks exist now
+            store.pin_session(sess[0], row, ttl_s=sess[1])
         if m <= 0:
             return prompt, prefix
         return ([np.asarray(row[m:], np.int32)],
@@ -338,10 +548,8 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
 
     def parse(req: dict):
         """Request -> (prompt, max_new, sample_kwargs, want_logprobs,
-        prefix, speculative k or None), or an error dict."""
-        if req.get("session_id") is not None and str(req["session_id"]):
-            raise ValueError("session_id needs the prefix store's session "
-                             "pins, which the port does not have yet")
+        prefix, speculative k or None, session or None), or an error
+        dict."""
         if req.get("warmup") or req.get("random"):
             prompt = np.asarray([[1, 2, 3, 4]], np.int32)
         elif req.get("text") is not None and req.get("tokens") is None:
@@ -393,8 +601,20 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
             if len(prompt) != 1:
                 return {"ok": False, "error": "speculative decoding is "
                                               "single-row"}
+        # a multi-turn session: ``session_id`` pins the conversation's
+        # prefix K/V under a lease; ``session_ttl_s`` may tighten it
+        sess = None
+        sid = req.get("session_id")
+        if sid is not None and str(sid):
+            try:
+                ttl = (float(req["session_ttl_s"])
+                       if req.get("session_ttl_s") is not None else None)
+            except (TypeError, ValueError):
+                return {"ok": False,
+                        "error": "session_ttl_s must be a number"}
+            sess = (str(sid), ttl)
         return (prompt, max_new, sample_kwargs, bool(req.get("logprobs")),
-                prefix, spec_k)
+                prefix, spec_k, sess)
 
     def n_prompt(prompt, prefix) -> int:
         return int(sum(len(r) for r in prompt)
@@ -404,8 +624,9 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
         parsed = parse(req)
         if isinstance(parsed, dict):
             return parsed
-        prompt, max_new, sample_kwargs, want_lp, prefix, spec_k = parsed
-        prompt, prefix = _route_prefix(prompt, prefix)
+        prompt, max_new, sample_kwargs, want_lp, prefix, spec_k, sess = \
+            parsed
+        prompt, prefix = _route_prefix(prompt, prefix, sess)
         spec_stats = None
         if spec_k is not None:
             # speculative decoding: prompt-lookup drafts verified in
@@ -445,8 +666,9 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
         if isinstance(parsed, dict):
             yield parsed
             return
-        prompt, max_new, sample_kwargs, want_lp, prefix, spec_k = parsed
-        prompt, prefix = _route_prefix(prompt, prefix)
+        prompt, max_new, sample_kwargs, want_lp, prefix, spec_k, sess = \
+            parsed
+        prompt, prefix = _route_prefix(prompt, prefix, sess)
         spec_stats = None
         if spec_k is not None:
             # one chunk per verify step: its accepted tokens
@@ -541,13 +763,19 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
         out["spec"] = server.spec_metrics.report()
         if store is not None:
             # hits, misses, hit_tokens, evictions, bytes and hit_rate: the
-            # automatic radix reuse, with the assembled entries' bytes
+            # automatic radix reuse, with the assembled entries' bytes and
+            # the session pins' gauges
             out["prefix_cache"] = store.stats()
+            # the K/V ship's counters, under batching as in JAX (with or
+            # without an engine)
+            out.setdefault("batching", {})["disagg"] = ship_stats.report()
         if live_faults is not None:
             # the live injection plan: a stray LAMBDIPY_FAULT shows here
             out["faults"] = {"armed": live_faults.armed()}
         return out
 
+    ship_stats = KvShipStats()
+    ship = kv_ship_fns(store, ship_stats) if store is not None else {}
     cfg = adapter.config
     return HandlerState(
         invoke_fn=invoke,
@@ -558,11 +786,15 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
               "kv_quant": cfg.kv_quant,
               "batch_mode": "continuous" if engine is not None else None,
               "kv_paged": engine is not None and engine.pool is not None,
-              "prefix_cache": store is not None},
+              "prefix_cache": store is not None,
+              "sessions": store is not None,
+              "kv_ship": store is not None},
         stats_fn=stats, server=server, invoke_stream_fn=invoke_stream,
         engine=engine, prefix_store=store,
         prefix_probe=store.match_len if store is not None else None,
         extra=extra,
         engine_fault_fn=engine.fault_state if engine is not None else None,
-        debug_invariants_fn=debug_invariants, faults_admin_fn=faults_admin)
+        debug_invariants_fn=debug_invariants, faults_admin_fn=faults_admin,
+        session_end_fn=store.end_session if store is not None else None,
+        **ship)
 

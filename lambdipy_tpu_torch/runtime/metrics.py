@@ -1,9 +1,10 @@
 """Counters the port's serving path reports under ``/metrics``: the
 port's copies of ``LatencyStats``, ``PipelineStats``, ``PagePoolStats``
 and ``PrefixCacheStats`` (``lambdipy_tpu/runtime/metrics.py``),
-``PrefillStats`` cut to the chunked walk, ``EngineFaultStats``, and the
-continuous engine's own counters (segments, decode steps, joins, rows per
-step)."""
+``PrefillStats`` cut to the chunked walk, ``EngineFaultStats``, the
+prefix store's tiers (``KvOffloadStats``, ``KvShipStats``, and the
+fleet router's ``SessionStats``), and the continuous engine's own
+counters (segments, decode steps, joins, rows per step)."""
 
 from __future__ import annotations
 
@@ -633,4 +634,277 @@ class SpecDecodeStats:
                 },
                 "sp_standdown": 0,
                 "sp_standdown_reasons": {},
+            }
+
+
+@dataclass
+class KvOffloadStats:
+    """Counters for the paged-KV host-offload tier (the ``kv.offload``
+    block on ``/metrics``; residency gauges ride on
+    :meth:`lambdipy_tpu_torch.runtime.offload.OffloadArena.gauges`, merged
+    into the pool's stats). ``spills``/``spill_pages`` count spill calls
+    and pages moved to host RAM, ``reonlines``/``reonline_pages`` the
+    batched fetch-and-write round trips back into the device arena
+    (``reonline_batches`` meters how well the prefetcher coalesces
+    them — one frame decode per batch, not per page), and
+    ``template_encodes`` every derivation of the kvwire leaf template
+    from live arrays — the hot loop must keep it at its attach-time
+    value (one), which ``tests/test_torch_offload.py`` asserts.
+    ``prefetch_hits`` are pages the decode-cursor prefetcher had
+    already re-onlined when attention demanded them; ``demand_misses``
+    stalled the dispatch (``stall_s`` accumulates that wait).
+    ``recomputes`` count failed re-onlines degraded to prefill
+    recompute — counted work, never a wrong token."""
+
+    spills: int = 0
+    spill_pages: int = 0
+    spill_bytes: int = 0
+    reonlines: int = 0
+    reonline_pages: int = 0
+    reonline_batches: int = 0
+    frame_decodes: int = 0
+    template_encodes: int = 0
+    prefetch_hits: int = 0
+    demand_misses: int = 0
+    stall_s: float = 0.0
+    stalls: int = 0
+    recomputes: int = 0
+    drops: int = 0
+    spill_refusals: int = 0
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def record_spill(self, pages: int, nbytes: int) -> None:
+        with self._lock:
+            self.spills += 1
+            self.spill_pages += int(pages)
+            self.spill_bytes += int(nbytes)
+
+    def record_spill_refusal(self) -> None:
+        with self._lock:
+            self.spill_refusals += 1
+
+    def record_reonline(self, pages: int, *, batches: int = 1,
+                        decodes: int = 1) -> None:
+        with self._lock:
+            self.reonlines += 1
+            self.reonline_pages += int(pages)
+            self.reonline_batches += int(batches)
+            self.frame_decodes += int(decodes)
+
+    def record_template_encode(self) -> None:
+        with self._lock:
+            self.template_encodes += 1
+
+    def record_prefetch(self, hits: int, misses: int) -> None:
+        with self._lock:
+            self.prefetch_hits += int(hits)
+            self.demand_misses += int(misses)
+
+    def record_stall(self, seconds: float) -> None:
+        with self._lock:
+            self.stalls += 1
+            self.stall_s += float(seconds)
+
+    def record_recompute(self, pages: int = 1) -> None:
+        with self._lock:
+            self.recomputes += int(pages)
+
+    def record_drop(self, pages: int = 1) -> None:
+        with self._lock:
+            self.drops += int(pages)
+
+    def report(self) -> dict:
+        with self._lock:
+            demanded = self.prefetch_hits + self.demand_misses
+            return {
+                "spills": self.spills,
+                "spill_pages": self.spill_pages,
+                "spill_bytes": self.spill_bytes,
+                "reonlines": self.reonlines,
+                "reonline_pages": self.reonline_pages,
+                "reonline_batches": self.reonline_batches,
+                "frame_decodes": self.frame_decodes,
+                "template_encodes": self.template_encodes,
+                "prefetch_hits": self.prefetch_hits,
+                "demand_misses": self.demand_misses,
+                "prefetch_hit_rate": (
+                    round(self.prefetch_hits / demanded, 4)
+                    if demanded else 1.0),
+                "stalls": self.stalls,
+                "stall_s": round(self.stall_s, 6),
+                "recomputes": self.recomputes,
+                "drops": self.drops,
+                "spill_refusals": self.spill_refusals,
+            }
+
+
+@dataclass
+class KvShipStats:
+    """Replica-side counters for the disaggregated-serving KV ship
+    surface (the ``batching.disagg`` block on ``/metrics``). Exports are
+    ``/v1/kv/export`` frames served (a prefill-class replica's output);
+    imports are ``/v1/kv/import`` frames registered in the radix tree.
+    ``import_blocks_present`` counts blocks an import found already
+    cached (the router's dedup missed, or two ships raced — the import
+    is idempotent); ``imports_zero_copy`` vs ``imports_assembled``
+    splits imports by how a later hit CONSUMES them: paged-mode imports
+    land in arena pages (a hit is an ``acquire_pages`` refcount bump,
+    zero copies), dense-mode imports are tree slices (a hit pays a
+    ``concat_cache_blocks`` assembly). ``import_backpressure`` counts
+    imports refused because the page arena was full — the priced-shed
+    path the router's fallback-to-mixed rides.
+
+    The ``*_stream``/``*_chunk`` counters cover the PIPELINED (chunked)
+    ship: streamed exports/imports are the subset that rode the
+    ``LKVS``/``LKVC`` frame stream, chunk counters are the wire frames
+    flushed/received, and ``import_stream_aborts`` counts chunked
+    imports that rolled their staged pages back (truncated stream,
+    garbage chunk, dead relay) — an abort touches nothing, so it is a
+    wasted transfer, never a corrupt tree."""
+
+    exports: int = 0
+    export_bytes: int = 0
+    export_tokens: int = 0
+    export_streams: int = 0
+    export_chunks: int = 0
+    imports: int = 0
+    import_bytes: int = 0
+    import_tokens: int = 0
+    import_streams: int = 0
+    import_chunks: int = 0
+    import_stream_aborts: int = 0
+    import_blocks_inserted: int = 0
+    import_blocks_present: int = 0
+    imports_zero_copy: int = 0
+    imports_assembled: int = 0
+    import_backpressure: int = 0
+    import_rejected: int = 0
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def record_export(self, *, tokens: int, nbytes: int,
+                      chunks: int = 0) -> None:
+        with self._lock:
+            self.exports += 1
+            self.export_tokens += int(tokens)
+            self.export_bytes += int(nbytes)
+            if chunks:
+                self.export_streams += 1
+                self.export_chunks += int(chunks)
+
+    def record_import(self, *, tokens: int, nbytes: int, inserted: int,
+                      present: int, mode: str, chunks: int = 0) -> None:
+        with self._lock:
+            self.imports += 1
+            self.import_tokens += int(tokens)
+            self.import_bytes += int(nbytes)
+            self.import_blocks_inserted += int(inserted)
+            self.import_blocks_present += int(present)
+            if chunks:
+                self.import_streams += 1
+                self.import_chunks += int(chunks)
+            if mode == "paged":
+                self.imports_zero_copy += 1
+            else:
+                self.imports_assembled += 1
+
+    def record_backpressure(self) -> None:
+        with self._lock:
+            self.import_backpressure += 1
+
+    def record_rejected(self) -> None:
+        with self._lock:
+            self.import_rejected += 1
+
+    def record_stream_abort(self) -> None:
+        with self._lock:
+            self.import_stream_aborts += 1
+
+    def report(self) -> dict:
+        with self._lock:
+            return {
+                "exports": self.exports,
+                "export_bytes": self.export_bytes,
+                "export_tokens": self.export_tokens,
+                "export_streams": self.export_streams,
+                "export_chunks": self.export_chunks,
+                "imports": self.imports,
+                "import_bytes": self.import_bytes,
+                "import_tokens": self.import_tokens,
+                "import_streams": self.import_streams,
+                "import_chunks": self.import_chunks,
+                "import_stream_aborts": self.import_stream_aborts,
+                "import_blocks": {
+                    "inserted": self.import_blocks_inserted,
+                    "present": self.import_blocks_present,
+                },
+                "imports_zero_copy": self.imports_zero_copy,
+                "imports_assembled": self.imports_assembled,
+                "import_backpressure": self.import_backpressure,
+                "import_rejected": self.import_rejected,
+            }
+
+
+@dataclass
+class SessionStats:
+    """Router-side counters for sticky multi-turn sessions — the
+    ``fleet.sessions`` block on the fleet ``/metrics``.
+
+    ``opened`` counts session ids first seen; ``sticky_hits`` turns that
+    landed on their recorded home replica, ``sticky_misses`` pick
+    attempts whose preferred home was unusable at pick time — a
+    saturation spill (the home past the outstanding threshold), or the
+    home vanishing between the sticky check and the pick. The turn
+    still serves and re-homes; under retries/spill a single turn can
+    count more than one miss, so hits/misses are attempt-level, not
+    turn-level.
+    ``failovers`` counts re-homings off a dead/drained home; ``reships``
+    the subset whose whole-block KV head was successfully re-shipped to
+    the new home (export from the old home → import on the new one), and
+    ``reship_fallbacks`` keys the rest by reason — the common SIGKILL
+    case is ``old_home_unreachable``: the KV died with the worker, so
+    the new home's counted local re-prefill IS the recovery path.
+    ``deletes`` counts explicit ``DELETE /v1/sessions/{id}`` closes.
+    ``drain_reships`` counts PROACTIVE re-ships fired by a home
+    replica's ``begin_drain`` (the session's pinned head moves to its
+    rendezvous successor BEFORE the next turn arrives, so the turn
+    after a rolling restart pays a sticky hit, not a failover
+    re-prefill); their failures land in ``reship_fallbacks`` like
+    turn-time ones. ``record_expiries`` counts sticky records swept by
+    the router's idle TTL — replica-side pin leases expire on their
+    own, and without the sweep the router's session gauge drifted
+    arbitrarily far from the fleet's real pinned state (a chaos-soak
+    find)."""
+
+    opened: int = 0
+    sticky_hits: int = 0
+    sticky_misses: int = 0
+    failovers: int = 0
+    reships: int = 0
+    drain_reships: int = 0
+    deletes: int = 0
+    record_expiries: int = 0
+    reship_fallbacks: dict = field(default_factory=dict)  # reason -> n
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def count(self, counter: str, n: int = 1) -> None:
+        with self._lock:
+            setattr(self, counter, getattr(self, counter) + n)
+
+    def record_fallback(self, reason: str) -> None:
+        with self._lock:
+            self.reship_fallbacks[str(reason)] = \
+                self.reship_fallbacks.get(str(reason), 0) + 1
+
+    def report(self) -> dict:
+        with self._lock:
+            return {
+                "opened": self.opened,
+                "sticky_hits": self.sticky_hits,
+                "sticky_misses": self.sticky_misses,
+                "failovers": self.failovers,
+                "reships": self.reships,
+                "drain_reships": self.drain_reships,
+                "deletes": self.deletes,
+                "record_expiries": self.record_expiries,
+                "reship_fallbacks": dict(self.reship_fallbacks),
             }

@@ -38,8 +38,13 @@ continuous engine uses:
   before any page leaves the free list, so an injected failure never
   leaks a partial allocation.
 
-Not ported yet: the ``pinned_fn`` hook of session pins, host offload and
-``reset_arena`` (the port's engine keeps its arena through a failure).
+- ``pinned_fn`` (the store's session-pin gauges) and ``offload`` (the host
+  offload arena, :meth:`PagePool.attach_offload`) report beside the
+  pool's own gauges in :meth:`PagePool.stats`, under ``kv_offload`` for
+  the latter.
+
+Not ported: ``reset_arena`` (the port's engine keeps its arena through a
+failure).
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from collections.abc import Callable
 from typing import Any
 
 from lambdipy_tpu_torch.runtime.metrics import PagePoolStats
+from lambdipy_tpu_torch.runtime.offload import PageTemperature
 
 log = logging.getLogger("lambdipy_tpu_torch.pagepool")
 
@@ -105,6 +111,14 @@ class PagePool:
         # admission (lock order store -> pool, never the reverse)
         self.reclaim_fn: Callable[[int], int] | None = None
         self.faults = faults  # FaultPlan | None; site "page_alloc"
+        # the prefix store's session-pin gauges, merged into stats()
+        # outside the pool lock (the provider takes the store lock)
+        self.pinned_fn: Callable[[], dict] | None = None
+        # the host offload arena (runtime/offload.py), reported as
+        # ``kv_offload``, and the page-temperature tracker its consumers
+        # share (:meth:`attach_offload`)
+        self.offload: Any = None
+        self.temperature: Any = None
         self.stats_counters = PagePoolStats()
         self._lock = threading.RLock()
         self.arena_lock = threading.RLock()
@@ -150,25 +164,23 @@ class PagePool:
         with self._lock:
             return len(self._free)
 
-    def alloc(self, n: int, *, tokens: int = 0,
-              record_shed: bool = True) -> list[int]:
+    def alloc(self, n: int, *, tokens: int = 0, record_shed: bool = True,
+              reclaim: bool = True) -> list[int]:
         """Take ``n`` pages (refcount 1 each); ``tokens`` is how many KV
         positions the caller will store across them. A short free list
-        first asks ``reclaim_fn`` to release cold store pages, then raises
-        :class:`PagesExhausted` (and counts a shed unless
-        ``record_shed=False``: the store caching less is not a refused
-        admission). An armed ``page_alloc`` fault fires first."""
+        first asks ``reclaim_fn`` to release cold store pages (unless
+        ``reclaim=False``: a caller holding a lock that the reclaim's
+        device read must not wait behind reclaims first, through
+        :meth:`reclaim`), then raises :class:`PagesExhausted` (and counts
+        a shed unless ``record_shed=False``: the store caching less is not
+        a refused admission). An armed ``page_alloc`` fault fires first."""
         n = int(n)
         if n <= 0:
             return []
         if self.faults is not None:
             self.faults.check("page_alloc")
-        if n > self.free_count() and self.reclaim_fn is not None:
-            try:
-                self.reclaim_fn(n - self.free_count())
-            except Exception as e:  # noqa: BLE001 — best effort: a broken
-                # reclaimer must not turn an honest shed into an error
-                log.error("page reclaim failed: %s", e)
+        if reclaim:
+            self.reclaim(n)
         with self._lock:
             if n > len(self._free):
                 if record_shed:
@@ -184,6 +196,19 @@ class PagePool:
             self._live_peak = max(self._live_peak, len(self._refs) - 1)
             self.stats_counters.record_alloc(n)
             return pids
+
+    def reclaim(self, n: int) -> int:
+        """Ask ``reclaim_fn`` for the pages ``n`` more than the free list
+        holds; returns the pages it freed (0 when none were short)."""
+        short = int(n) - self.free_count()
+        if short <= 0 or self.reclaim_fn is None:
+            return 0
+        try:
+            return int(self.reclaim_fn(short) or 0)
+        except Exception as e:  # noqa: BLE001 — best effort: a broken
+            # reclaimer must not turn an honest shed into an error
+            log.error("page reclaim failed: %s", e)
+            return 0
 
     def retain(self, pids) -> None:
         """Refcount bump: a second holder shares the pages, no copy."""
@@ -280,7 +305,28 @@ class PagePool:
                 "pages_live_peak": self._live_peak,
             }
         out.update(self.stats_counters.report())
+        if self.pinned_fn is not None:
+            try:
+                out.update(self.pinned_fn())
+            except Exception:  # noqa: BLE001 — gauges never break stats
+                pass
+        if self.offload is not None:
+            try:
+                out["kv_offload"] = self.offload.report()
+            except Exception:  # noqa: BLE001 — gauges never break stats
+                pass
         return out
+
+    def attach_offload(self, offload: Any, temperature: Any = None) -> None:
+        """Wire the host offload tier in: its counters and gauges report
+        in :meth:`stats` under ``kv_offload``, and the shared temperature
+        tracker (a fresh one when none is given) is this pool's spill
+        victim oracle."""
+        self.offload = offload
+        if temperature is not None:
+            self.temperature = temperature
+        elif self.temperature is None:
+            self.temperature = PageTemperature()
 
     def check_invariants(self) -> None:
         """Every page is free XOR live exactly once, refcounts are

@@ -16,7 +16,18 @@ of ``lambdipy_tpu/runtime/server.py``:
 - ``POST /shutdown``: drain, then stop;
 - ``POST /v1/debug/faults`` (arm a fault spec on the live plan, or
   clear it) and ``GET /v1/debug/invariants`` (the pool's and the store's
-  accounting), for loopback clients only.
+  accounting), for loopback clients only;
+- ``POST /v1/kv/export`` (a prompt head's K/V as one ``runtime/kvwire.py``
+  frame, or with ``"stream": true`` as a chunked ``LKVS``/``LKVC``
+  stream), ``POST /v1/kv/import`` (a frame, or a chunked body streamed
+  in, as a radix insert: a garbage frame is a 400, a full page arena the
+  priced 503 ``kv_import``) and ``POST /v1/kv/probe`` (the head tokens
+  present);
+- ``DELETE /v1/sessions/{id}``: release a session's pins now. A
+  session's turns name it in the body (``session_id``,
+  ``session_ttl_s``) or the headers ``x-session-id`` /
+  ``x-session-ttl-s`` (the body wins); a new session past the pin budget
+  is the priced 503 ``session_pins`` with ``Retry-After``.
 
 Every invoke passes the SLO scheduler (``sched/``): admission (per-tenant
 token buckets on ``x-api-key`` / ``x-tenant``, a bounded queue, deadline
@@ -27,8 +38,7 @@ batch or background). Overload is an explicit 429 or 503 with
 the engine cancelled at a barrier (its deadline passed), and a request
 that arrives while a wedged engine restarts (reason ``wedged``: a wedged
 engine with no restart in flight admits, since that request is its
-probe). The fleet surfaces (``/v1/kv/*``, ``/v1/sessions``,
-``/v1/debug/knobs``, ``/profile``) are not ported."""
+probe). Not ported: ``/v1/debug/knobs`` and ``/profile``."""
 
 from __future__ import annotations
 
@@ -42,8 +52,10 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from lambdipy_tpu_torch.runtime.continuous import RequestCancelled
 from lambdipy_tpu_torch.runtime.handlers import HandlerState
+from lambdipy_tpu_torch.runtime.kvwire import _MAX_CHUNK_BODY
 from lambdipy_tpu_torch.runtime.metrics import LatencyStats
 from lambdipy_tpu_torch.runtime.pagepool import PagesExhausted
+from lambdipy_tpu_torch.runtime.prefixstore import SessionPinsExceeded
 from lambdipy_tpu_torch.sched import (SchedConfig, Scheduler, Shed,
                                       clear_request_context,
                                       set_request_context)
@@ -284,12 +296,17 @@ class BundleServer:
             def _shed_failure(self, e: BaseException, *,
                               openai: bool = False) -> bool:
                 """A handler exception that is backpressure, not a fault:
-                a full page arena (``kv_pages``) or a row cancelled at a
-                barrier; counted through the admission controller and
-                answered as a shed. False for any other exception."""
+                a full page arena (``kv_pages``), a new session past the
+                pin budget (``session_pins``, priced by the lease
+                horizon) or a row cancelled at a barrier; counted through
+                the admission controller and answered as a shed. False
+                for any other exception."""
                 if isinstance(e, PagesExhausted):
                     shed, counter = Shed(503, "kv_pages",
                                          e.retry_after_s), "kv_pages"
+                elif isinstance(e, SessionPinsExceeded):
+                    shed, counter = Shed(503, "session_pins",
+                                         e.retry_after_s), "session_pins"
                 elif isinstance(e, RequestCancelled):
                     shed, counter = Shed(503, str(e), 1.0), "cancelled"
                 else:
@@ -561,6 +578,236 @@ class BundleServer:
                     out["queue_wait_ms"] = round(ticket.wait_ms, 3)
                 self._send(200, out)
 
+            def _session_header(self, request: dict) -> None:
+                """``x-session-id`` and ``x-session-ttl-s`` are the
+                header spelling of the body's session fields; the body
+                wins when both are present."""
+                sid = self.headers.get("x-session-id")
+                if sid and not request.get("session_id"):
+                    request["session_id"] = sid
+                ttl = self.headers.get("x-session-ttl-s")
+                if ttl and request.get("session_ttl_s") is None:
+                    request["session_ttl_s"] = ttl
+
+            def _kv_export(self, request: dict) -> None:
+                """``/v1/kv/export``: the request's whole-block prompt
+                head as one binary frame, or with ``"stream": true`` a
+                chunked stream of frames flushed as the store's walk
+                produces each block group. Missing blocks prefill here,
+                so the export passes the invoke's admission gate. A
+                failure after a stream's headers truncates it (no
+                terminal chunk), which the receiver detects."""
+                stream = bool(request.get("stream"))
+                fn = getattr(server.state, "kv_export_stream_fn"
+                             if stream else "kv_export_fn", None)
+                if fn is None:
+                    self._send(404, {"ok": False, "error":
+                                     "no KV export surface (prefix cache "
+                                     "off or unsupported handler)"})
+                    return
+                ticket = self._begin_invoke(request)
+                if ticket is None:
+                    return
+                t0 = time.monotonic()
+                committed, out = False, None
+                try:
+                    out = fn(request)
+                    if isinstance(out, dict):  # the handler refused
+                        server.stats.record(0.0, False)
+                        self._send(400, out)
+                        return
+                    self.send_response(200)
+                    if stream:
+                        self.send_header("Content-Type",
+                                         "application/x-lkv-stream")
+                        self.send_header("Transfer-Encoding", "chunked")
+                        self.end_headers()
+                        committed = True
+                        for frame in out:
+                            if not self._write_frame(frame):
+                                return  # client gone; generator closed
+                        self._end_frames()
+                    else:
+                        self.send_header("Content-Type",
+                                         "application/octet-stream")
+                        self.send_header("Content-Length", str(len(out)))
+                        self.end_headers()
+                        committed = True
+                        try:
+                            self.wfile.write(out)
+                        except OSError:
+                            self.close_connection = True
+                    server.stats.record(time.monotonic() - t0, True)
+                except Exception as e:  # noqa: BLE001 — answered below
+                    if committed:
+                        traceback.print_exc()
+                        server.stats.record(time.monotonic() - t0, False)
+                        self.close_connection = True
+                    elif not self._shed_failure(e):
+                        traceback.print_exc()
+                        server.stats.record(0.0, False)
+                        self._send(500, {"ok": False, "error": str(e),
+                                         "kind": type(e).__name__})
+                finally:
+                    if stream and out is not None \
+                            and not isinstance(out, dict):
+                        out.close()
+                    self._end_invoke(ticket, t0)
+
+            def _read_chunked_body(self):
+                """The chunks of a chunked-transfer request body (the
+                standard library does not de-chunk requests). Bad framing
+                raises ValueError, a connection dying mid-chunk
+                ConnectionError: both roll a streamed import back."""
+                while True:
+                    line = self.rfile.readline(66)
+                    if not line:
+                        raise ConnectionError(
+                            "connection closed mid-chunk-stream")
+                    try:
+                        size = int(line.strip().split(b";")[0], 16)
+                    except ValueError:
+                        raise ValueError(f"bad chunk size line {line!r}") \
+                            from None
+                    if size > _MAX_CHUNK_BODY + 4096:
+                        # bound the allocation a hostile length asks for
+                        # before the wire validator sees a byte
+                        raise ValueError(f"chunk size {size} exceeds the "
+                                         f"KV stream bound")
+                    if size == 0:
+                        self.rfile.readline()  # trailing CRLF
+                        return
+                    data = self.rfile.read(size)
+                    if len(data) < size:
+                        raise ConnectionError("connection closed "
+                                              "mid-chunk")
+                    self.rfile.read(2)  # the chunk's CRLF
+                    yield data
+
+            def _kv_import(self) -> None:
+                """``/v1/kv/import``: a frame (``Content-Length`` body) or
+                a chunked stream becomes a radix insert. A garbage frame
+                is a 400 and touches nothing; a full page arena the
+                priced 503 ``kv_import``. A stream's staging holds no run
+                slot: admission brackets only its commit."""
+                chunked = "chunked" in (self.headers.get(
+                    "Transfer-Encoding") or "").lower()
+                fn = getattr(server.state, "kv_import_stream_fn"
+                             if chunked else "kv_import_fn", None)
+                data = b""
+                if not chunked:
+                    # the body is read before any reply: on keep-alive the
+                    # unread frame would parse as the next request
+                    length = int(self.headers.get("Content-Length") or 0)
+                    data = self.rfile.read(length) if length > 0 else b""
+                if fn is None:
+                    self.close_connection = chunked  # an unread body
+                    self._send(404, {"ok": False, "error":
+                                     "no KV import surface (prefix cache "
+                                     "off or unsupported handler)"})
+                    return
+                t0 = time.monotonic()
+                handler = self
+
+                class _Shed(Exception):
+                    pass
+
+                class _Gate:
+                    """Admission around a streamed import's commit."""
+
+                    def __enter__(gate):
+                        gate.ticket = handler._begin_invoke(None)
+                        if gate.ticket is None:
+                            raise _Shed()  # the 503 is already sent
+                        gate.t0 = time.monotonic()
+                        return gate
+
+                    def __exit__(gate, *exc):
+                        handler._end_invoke(gate.ticket, gate.t0)
+                        return False
+
+                ticket = None
+                try:
+                    if chunked:
+                        out = fn(self._read_chunked_body(),
+                                 commit_gate=_Gate())
+                    else:
+                        ticket = self._begin_invoke(None)
+                        if ticket is None:
+                            return
+                        out = fn(data)
+                except _Shed:
+                    self.close_connection = True
+                    return
+                except PagesExhausted as e:
+                    self.close_connection = chunked
+                    server.sched.admission.count_shed("kv_import",
+                                                      self._cls())
+                    self._send_shed(Shed(503, "kv_import",
+                                         e.retry_after_s))
+                    return
+                except ValueError as e:
+                    self.close_connection = chunked
+                    server.stats.record(0.0, False)
+                    self._send(400, {"ok": False, "error":
+                                     f"bad KV {'stream' if chunked else 'frame'}"
+                                     f": {e}"})
+                    return
+                except ConnectionError:
+                    # the sender died mid-stream: the staging is rolled
+                    # back and nobody is left to answer
+                    self.close_connection = True
+                    return
+                except Exception as e:  # noqa: BLE001 — reported
+                    traceback.print_exc()
+                    self.close_connection = chunked
+                    server.stats.record(0.0, False)
+                    self._send(500, {"ok": False, "error": str(e),
+                                     "kind": type(e).__name__})
+                    return
+                finally:
+                    if ticket is not None:
+                        self._end_invoke(ticket, t0)
+                server.stats.record(time.monotonic() - t0, True)
+                self._send(200, out)
+
+            def _kv_probe(self, request: dict) -> None:
+                """``/v1/kv/probe``: the head tokens the tree holds. No
+                admission gate: a host-only walk of the tree."""
+                fn = getattr(server.state, "kv_probe_fn", None)
+                if fn is None:
+                    self._send(404, {"ok": False, "error":
+                                     "no KV probe surface (prefix cache "
+                                     "off or unsupported handler)"})
+                    return
+                try:
+                    out = fn(request)
+                except Exception as e:  # noqa: BLE001 — reported
+                    self._send(500, {"ok": False, "error": str(e)})
+                    return
+                self._send(200 if out.get("ok") else 400, out)
+
+            def do_DELETE(self):
+                """``DELETE /v1/sessions/{id}``: release the session's pins
+                now instead of at its lease's end."""
+                if not self.path.startswith("/v1/sessions/"):
+                    self._send(404, {"ok": False, "error": "not found"})
+                    return
+                sid = self.path[len("/v1/sessions/"):]
+                fn = getattr(server.state, "session_end_fn", None)
+                if fn is None or not sid:
+                    self._send(404, {"ok": False, "error":
+                                     "no session surface (prefix cache "
+                                     "off or unsupported handler)"})
+                    return
+                try:
+                    out = fn(sid)
+                except Exception as e:  # noqa: BLE001 — reported
+                    server.stats.record(0.0, False)
+                    self._send(500, {"ok": False, "error": str(e)})
+                    return
+                self._send(200, {"ok": True, "session": sid, **out})
+
             def _require_loopback(self) -> bool:
                 """Host-only endpoints refuse other clients with a 403
                 before reading the body, and close the connection."""
@@ -620,11 +867,21 @@ class BundleServer:
                         if request is not None:
                             self._debug("faults_admin_fn", request)
                     return
-                if self.path not in ("/invoke", "/v1/completions"):
+                if self.path == "/v1/kv/import":
+                    self._kv_import()
+                    return
+                if self.path not in ("/invoke", "/v1/completions",
+                                     "/v1/kv/export", "/v1/kv/probe"):
                     self._send(404, {"ok": False, "error": "not found"})
                     return
                 request = self._read_json()
                 if request is None:
+                    return
+                if self.path == "/v1/kv/export":
+                    self._kv_export(request)
+                    return
+                if self.path == "/v1/kv/probe":
+                    self._kv_probe(request)
                     return
                 openai = self.path == "/v1/completions"
                 if openai:
@@ -635,6 +892,7 @@ class BundleServer:
                             "message": err,
                             "type": "invalid_request_error"}})
                         return
+                self._session_header(request)
                 ticket = self._begin_invoke(request, openai=openai)
                 if ticket is None:
                     return

@@ -368,14 +368,21 @@ def test_handler_wiring(weights):
                   {"batch_mode": "continuous",
                    "batch_window_bucketing": "1"},
                   {"batch_mode": "window"},
-                  {"session_pin_budget_mb": "64"},
-                  {"session_ttl_s": "60"},
-                  {"session_idle_s": "30"},
-                  {"kv_offload": "1"},
                   {"tokenizer_path": "tokenizer/"}):
         with pytest.raises(ValueError, match="not"):
             generate_handler({"model": "llama-tiny", "extra": extra},
                              HandlerContext(device="cpu"))
+    # the store's session and offload extras build its pins and arena
+    pinned = generate_handler(
+        {"model": "llama-tiny",
+         "extra": {**ENGINES["paged"], "batch_mode": "continuous",
+                   "session_pin_budget_mb": "64", "session_ttl_s": "60",
+                   "session_idle_s": "30", "kv_offload": "1"}},
+        HandlerContext(device="cpu"))
+    ps = pinned.prefix_store
+    assert (ps.pin_budget_bytes, ps.session_ttl_s, ps.session_idle_s) \
+        == (64 << 20, 60.0, 30.0)
+    assert ps.offload is not None and ps.offload.budget_bytes == 256 << 20
     # the prefix store is ported: prefix_cache_mb sizes it
     built = generate_handler({"model": "llama-tiny",
                               "extra": {"prefix_cache_mb": "8"}},

@@ -249,7 +249,7 @@ def test_site_registry_metadata():
     assert engine == {"segment_dispatch", "segment_fetch", "transport",
                       "group_prefill", "prefix_assemble"}
     assert {s.name for s in tfaults.list_sites(owner="store")} \
-        == {"prefix_walk"}
+        == {"prefix_walk", "session_pin", "offload_stall"}
     assert {s.name for s in tfaults.list_sites(owner="pool")} \
         == {"page_alloc"}
 

@@ -1453,3 +1453,134 @@ def test_solo_greedy_speculative_is_bitwise_plain(cuda_device, kv_quant):
         np.testing.assert_array_equal(
             np.concatenate([p[1] for p in pairs], axis=1), want[1])
     assert server.program_stats()["eager_steps"] == 0
+
+
+# ------------------------------------------- K/V ship and host offload
+
+SHIP_ROW = list(range(3, 100)) + [7, 8]  # 99 tokens: 96 routed, 6 blocks
+SHIP_ENGINE = {"batch_max": "4", "batch_segment": "4", "kv_paged": "1",
+               "prefix_block": "16"}
+
+
+def _paged_store(server, **extra):
+    from lambdipy_tpu_torch.runtime.handlers import make_engine
+    from lambdipy_tpu_torch.runtime.prefixstore import PrefixStore
+
+    eng = make_engine(server, {**SHIP_ENGINE, **extra})
+    store = PrefixStore(server, block=16, pool=eng.pool)
+    eng.prefix_pages_fn = store.acquire_pages
+    return eng, store
+
+
+def _routed_run(eng, store, row, **kw):
+    """The routed row through the engine, and the engine idle after it
+    (the row's page refs dropped)."""
+    m = store.route(row)
+    out = eng.generate(row[m:], prefix=row[:m], max_new_tokens=12,
+                       return_logprobs=True, **kw)
+    deadline = time.monotonic() + 30
+    with eng._lock:
+        while eng._engine_running and time.monotonic() < deadline:
+            eng._lock.wait(0.05)
+    return m, out
+
+
+def _stream_frames(store, row) -> list:
+    """A streamed export of ``row``'s head as wire frames."""
+    from lambdipy_tpu_torch.runtime import kvwire
+
+    head, groups = store.export_stream(row)
+    leaves = [[name, kvwire.dtype_name(dt), list(shape)]
+              for name, (shape, dt) in sorted(store._leaf_template().items())]
+    frames = [kvwire.encode_stream_header(head, store.block,
+                                          store.server.model.cfg.layers,
+                                          leaves)]
+    sent = 0
+    for group in groups:
+        frames.append(kvwire.encode_chunk(sent, group))
+        sent += len(group)
+    return frames
+
+
+@pytest.mark.parametrize("streamed", [False, True],
+                         ids=["frame", "stream"])
+def test_imported_pages_route_bitwise_the_exporters_run(cuda_device,
+                                                        streamed):
+    """A head exported by one paged engine's store (one frame, or a stream
+    of chunks staged as they arrive) and imported into a second engine's
+    store on the same weights: the importer routes the prompt with no
+    walk, every block a hit, and its row is bitwise the exporter's
+    routed row."""
+    from lambdipy_tpu_torch.runtime import kvwire
+    from lambdipy_tpu_torch.runtime.kvwire import StreamDecoder
+
+    graph, _ = _graph_and_eager(cuda_device)
+    eng_a, store_a = _paged_store(graph)
+    m, want = _routed_run(eng_a, store_a, SHIP_ROW, **SAMPLED)
+    assert m == 96
+    eng_b, store_b = _paged_store(LlamaServer(graph.model))
+    if streamed:
+        dec, imp = StreamDecoder(), None
+        for frame in _stream_frames(store_a, SHIP_ROW):
+            for kind, payload in dec.feed(frame):
+                if kind == "header":
+                    imp = store_b.import_begin(payload["tokens"])
+                else:
+                    imp.add_blocks(payload[1])
+        res = imp.commit()
+    else:
+        head, blocks = store_a.export_blocks(SHIP_ROW)
+        tokens, _, blocks = kvwire.decode_frame(
+            kvwire.encode_frame(head, 16, blocks))
+        res = store_b.import_blocks(tokens, blocks)
+    assert res["inserted"] == 6 and res["mode"] == "paged"
+    m_b, got = _routed_run(eng_b, store_b, SHIP_ROW, **SAMPLED)
+    assert m_b == 96 and store_b.prefill_stats.report()["rounds"] == 0
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert store_b.check_invariants()["ok"]
+
+
+def test_reonlined_pages_are_bitwise_never_spilled(cuda_device):
+    """Every page of a routed head spilled to the host offload arena and
+    re-onlined by the next hit: the row is bitwise the row served before
+    the head left the card. With ``offload_stall`` armed the re-online
+    fails, the head is walked again from its first block (counted as a
+    recompute) and the row is still bitwise."""
+    from lambdipy_tpu_torch.runtime.offload import OffloadArena
+
+    graph, _ = _graph_and_eager(cuda_device)
+    eng, store = _paged_store(graph)
+    store.attach_offload(OffloadArena(page=16, layers=2, budget_mb=64,
+                                      faults=eng.faults))
+    m, want = _routed_run(eng, store, SHIP_ROW, **SAMPLED)
+    for armed in (False, True):
+        while store.reclaim_pages(16):
+            pass
+        assert store.check_invariants()["offloaded_blocks"] == 6
+        if armed:
+            eng.faults.arm("offload_stall:exception")
+        _, got = _routed_run(eng, store, SHIP_ROW, **SAMPLED)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    rep = eng.pool.stats()["kv_offload"]
+    assert rep["reonline_pages"] == 6 and rep["recomputes"] == 6
+    assert store.check_invariants()["ok"]
+
+
+def test_arena_page_read_is_ordered_on_the_serving_stream(cuda_device):
+    """A page read right after a write that the card has not run yet (a
+    long ``_sleep`` enqueued ahead of it) returns the written values: the
+    read is ordered on the serving stream, not on the host's clock."""
+    from lambdipy_tpu_torch.models.llama import (init_page_arena,
+                                                 arena_page_slices)
+
+    graph, _ = _graph_and_eager(cuda_device)
+    arena = init_page_arena(graph.model.cfg, 4, 16, cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of the card's clock
+    for entry in arena:
+        entry["k"][2].fill_(3.0)
+    block = arena_page_slices(arena, [2])[0]
+    assert all(bool((b["k"] == 3.0).all()) for b in block)
+    assert block[0]["k"].shape == (1, 16, 2, 64)

@@ -463,7 +463,7 @@ def test_handler_store_opt_in_under_kv_quant_and_stand_down(weights):
     """Under ``kv_quant`` the store is built only when ``prefix_cache_mb``
     is set (routed rows then attend the quantized prefix); an engine
     narrower than the window builds none; ``prefix_cache_mb=0`` turns it
-    off; a request that carries a session raises."""
+    off; a request that carries a session pins its routed head."""
     assert not _handler(weights, kv_quant="int8").meta["prefix_cache"]
     state = _handler(weights, kv_quant="int8", prefix_cache_mb="8")
     assert state.meta["prefix_cache"]
@@ -479,8 +479,11 @@ def test_handler_store_opt_in_under_kv_quant_and_stand_down(weights):
                       **ENGINES["paged"])
     assert not capped.meta["prefix_cache"] and capped.prefix_store is None
     assert not _handler(weights, prefix_cache_mb="0").meta["prefix_cache"]
-    with pytest.raises(ValueError, match="session"):
-        state.invoke({"tokens": row, "session_id": "chat-1"})
+    out = state.invoke({"tokens": row, "max_new_tokens": 8,
+                        "session_id": "chat-1"})
+    assert out["prefix_cached"] and out["tokens"][0] == ref["tokens"][0]
+    pc = state.stats()["prefix_cache"]
+    assert pc["sessions_active"] == 1 and pc["pinned_leaves"] == 1
 
 
 def test_store_fails_open(server, monkeypatch):
