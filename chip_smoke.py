@@ -122,7 +122,23 @@ Phases, each of which fails the run with a non-zero exit:
    conversation on B hits its pinned head past other heads pushed over
    the budget and an injected engine failure, a new session past the
    pin budget is the 503 ``session_pins``, and ``DELETE`` brings the pin
-   gauges to 0; its launch counters equal 225 x forwards and 32 x steps;
+   gauges to 0; its launch counters equal 225 x forwards and 32 x steps.
+   D's warm turns (after G, D's engine and programs released): D's
+   traffic over HTTP through fresh handlers on D's weights, after the
+   background warm (``warm_group_prefill`` on, ready by ``/healthz``) and
+   with it off, in turns warm, cold, warm, cold: tok/s, the joiners'
+   TTFT, the pool bytes before and after the warm against
+   ``program_cache_bytes``; every row D's, launches 32 x steps and 225 x
+   forwards (the warm's prefills counted). Last, J: the long-context tier
+   (``max_logical_ctx=32768``, a 4 GiB host offload arena, the store at
+   512 MB): (a) at base 0 a 6,000-token row through the runner bitwise
+   the engine's chunked row over the same chunk schedule; a 32,768-token
+   request (4x the window) over HTTP (b) twice, (c) churned under
+   ``resident_cap`` and (d) churned under an armed ``offload_stall``
+   (the run replays), each bitwise the first; (e) kernel 2 = 225 x
+   forwards, kernel 3 = 32 x decode steps; (f) no page leaked; TTFT,
+   decode tok/s past the window, spill and re-online throughput, stalls
+   and peak memory printed;
 5. print the kernels' JSON line and, last, the device line.
 
 Details go to ``chiprun_out/chip_smoke.json``. With no CUDA device, or
@@ -1541,7 +1557,10 @@ def serve_path(path: str, card: str) -> dict:
 # path D: the continuous engine over a paged KV arena
 ENGINE_EXTRA = {"attn_backend": "blocked", "matmul_backend": "pallas",
                 "batch_mode": "continuous", "kv_paged": "1",
-                "batch_max": "8", "batch_segment": "16"}
+                "batch_max": "8", "batch_segment": "16",
+                # the background warm (on by default) runs only in D's warm
+                # turns: elsewhere it would race the launch counters
+                "warm_group_prefill": "0"}
 # (prompt tokens, new tokens, kind): the burst of 8 concurrent requests,
 # then 4 that join while it decodes; (s, n) pairs are unique
 BURST = ((16, 128, "greedy"), (100, 64, "sampled"), (100, 48, "logprobs"),
@@ -1895,6 +1914,9 @@ def serve_engine_path(card: str) -> dict:
     t_fault = time.perf_counter()
     out["G"] = serve_fault_path(state, reqs, resp, solo_out, depths, card)
     log(f"path G took {time.perf_counter() - t_fault:.1f} s")
+    t_warm = time.perf_counter()
+    out["warm"] = warm_turns(state, reqs, resp, card)
+    log(f"path D's warm turns took {time.perf_counter() - t_warm:.1f} s")
     del state, engine, server
     gc.collect()
     torch.cuda.empty_cache()
@@ -4620,6 +4642,311 @@ def serve_ship_path(card: str) -> dict:
     return out
 
 
+# D's warm turns: D's burst over HTTP through fresh handlers on D's weights,
+# after the background warm has finished (judged by /healthz ready) and
+# with warm_group_prefill "0", in turns
+WARM_TURNS = ("warm", "cold", "warm", "cold")
+WARMUP_BODY = {"tokens": [1, 2, 3, 4], "max_new_tokens": 4}
+
+
+def _until_ready(url: str, timeout: float = 300.0) -> float:
+    """Seconds until ``/healthz`` reads ready."""
+    t0 = time.perf_counter()
+    while not http_json(url + "/healthz")["ready"]:
+        if time.perf_counter() - t0 > timeout:
+            raise SystemExit(f"not ready {timeout} s after the first invoke")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def warm_turn(weights, reqs, resp, warm: bool, card: str) -> dict:
+    """One turn: a fresh handler over ``weights`` (D's extras; the warm on
+    or off), its first invoke (a boot warmup: it captures the engine's
+    decode step and, warm, releases the warm), the wait for ready, then
+    D's traffic over HTTP. Every row's tokens (and logprobs) must be D's
+    HTTP burst's. Returns tok/s, the joiners' TTFT, the pool bytes before
+    and after the warm against ``program_cache_bytes``, and the engine's
+    counters."""
+    from lambdipy_tpu_torch.models.graphs import DEVICE_LOCK
+    from lambdipy_tpu_torch.runtime.handlers import (HandlerContext,
+                                                     generate_handler)
+    from lambdipy_tpu_torch.runtime.server import BundleServer
+
+    spec = {"model": "llama3-8b", "dtype": "bfloat16", "quant": "int8",
+            "extra": {**ENGINE_EXTRA, "max_new_tokens": "16",
+                      "prefix_cache_mb": "0",
+                      "warm_group_prefill": "1" if warm else "0"}}
+    state = generate_handler(spec, HandlerContext(device="cuda",
+                                                  state_dict=weights))
+    engine = state.engine
+    srv = BundleServer(state, port=0).start_background()
+    got = [None] * len(reqs)
+    try:
+        http_json(srv.url + "/invoke", WARMUP_BODY)
+        before = state.server.program_stats()
+        warm_s = _until_ready(srv.url)
+        after = state.server.program_stats()
+        warm_block = http_json(srv.url + "/metrics")["handler"].get(
+            "warm_buckets")
+        t_first = len(engine.request_log)
+
+        def send(i):
+            body = {k: v for k, v in reqs[i][1].items() if k != "stream"}
+            got[i] = http_json(srv.url + "/invoke", body)
+
+        _, burst_s = _drive(send, reqs)
+    finally:
+        srv.stop()
+    for (kind, _), r, want in zip(reqs, got, resp):
+        if r["tokens"] != want["tokens"] or r.get("logprobs", []) \
+                != want.get("logprobs", r.get("logprobs", [])):
+            raise SystemExit(f"path D warm turns: the {kind} row differs from "
+                             f"D's HTTP burst")
+    stats = engine.stats()
+    log_by = {(e["s"], e["n"]): e for e in list(engine.request_log)[t_first:]}
+    joiners = [log_by[(len(b["tokens"]), b["max_new_tokens"])]["ttft_s"]
+               for _, b in reqs[8:]]
+    out = {"warm": warm, "warm_s": warm_s, "burst_s": burst_s,
+           "decode_tok_s": new_tokens_of(reqs) / burst_s,
+           "joiner_ttft_s": joiners, "warm_buckets": warm_block,
+           "program_bytes_before_warm": before["program_bytes"],
+           "program_bytes_after_warm": after["program_bytes"],
+           "program_bytes_after_burst": state.server.program_stats()[
+               "program_bytes"],
+           "program_cache_bytes": after["program_cache_bytes"],
+           "program_evictions": state.server.program_stats()[
+               "program_evictions"],
+           "engine": {k: stats[k] for k in (
+               "steps", "forwards", "warm_prefills", "prefill_groups",
+               "row_prefills", "compile_count", "replays", "eager_steps",
+               "prefill_replays", "eager_prefills")}}
+    if stats["eager_steps"] or stats["eager_prefills"]:
+        raise SystemExit("path D warm turns: an engine step or prefill ran "
+                         "eagerly")
+    log(f"path D {'warm' if warm else 'cold'} turn: burst {burst_s:.3f} s, "
+        f"{out['decode_tok_s']:.1f} tok/s, joiners' TTFT "
+        f"{[round(t, 3) for t in joiners]} s, warm {warm_s:.3f} s "
+        f"({warm_block}), graph pools and caches "
+        f"{before['program_bytes'] / 2**30:.3f} GiB before the warm, "
+        f"{after['program_bytes'] / 2**30:.3f} after, "
+        f"{out['program_bytes_after_burst'] / 2**30:.3f} after the burst, of "
+        f"{after['program_cache_bytes'] / 2**30:.3f} "
+        f"(program_cache_bytes), {out['program_evictions']} evictions "
+        f"[{card}]")
+    engine.release()
+    with DEVICE_LOCK:
+        state.server.programs.drop_idle()
+    del state, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def warm_turns(d_state, reqs, resp, card: str) -> dict:
+    """D's warm turns (warm, cold, warm, cold) on D's weights, D's engine
+    and programs released first. The launch counters, from 0 before the
+    turns, must equal 32 x the turns' engine steps (kernel 3) and 225 x
+    their forwards, the warm's group prefills included (kernel 2)."""
+    from lambdipy_tpu_torch.models.graphs import DEVICE_LOCK
+    from lambdipy_tpu_torch.runtime.handlers import kernel_launches
+
+    weights = d_state.server.model.state_dict()
+    layers = d_state.server.model.cfg.layers
+    d_state.engine.release()
+    with DEVICE_LOCK:
+        d_state.server.programs.drop_idle()
+    gc.collect()
+    torch.cuda.empty_cache()
+    set_launches_to_zero()  # counters to 0 just before the turns
+    turns = [warm_turn(weights, reqs, resp, kind == "warm", card)
+             for kind in WARM_TURNS]
+    launches = kernel_launches()
+    want = dict.fromkeys(KERNELS, 0)
+    want["paged_decode_attention"] = layers * sum(t["engine"]["steps"]
+                                                  for t in turns)
+    want["int8_matmul"] = (7 * layers + 1) * sum(t["engine"]["forwards"]
+                                                 for t in turns)
+    log(f"path D warm turns launch counters: {launches}, implied {want}")
+    if launches != want:
+        raise SystemExit(f"path D warm turns: launch counters {launches} != "
+                         f"implied {want}")
+    for kind in ("warm", "cold"):
+        rates = [t["decode_tok_s"] for t in turns if t["warm"] == (kind == "warm")]
+        log(f"path D {kind} turns: {[round(r, 1) for r in rates]} tok/s "
+            f"[{card}]")
+    return {"turns": turns, "launches": launches, "implied": want}
+
+
+# path J: the long-context tier on llama3-8b at full width
+LC_WINDOW = 8192
+LC_NEW = 128
+LC_PROMPT = 4 * LC_WINDOW - LC_NEW  # the request: 32,768 tokens in all
+LC_BASE0 = 6000      # (a): a 4,096-token chunk and a 1,904-token tail
+LC_BASE0_NEW = 64
+LC_CAP_LESS = 8      # (c), (d): resident_cap = the view's pages less this
+LC_EXTRA = {**ENGINE_EXTRA, "max_new_tokens": "16", "kv_offload": "1",
+            # the runs' spilled history (~24,576 tokens x 128 KiB) fits
+            "kv_offload_mb": "4096",
+            "max_logical_ctx": str(4 * LC_WINDOW),
+            # (a): the engine's chunked row runs the runner's schedule
+            "prefill_chunk": "4096"}
+
+
+def serve_longctx_path(card: str) -> dict:
+    """Path J: the long-context tier (``runtime/longctx.py``) on llama3-8b
+    (int8 weights, bf16 paged K/V, ``blocked``, the store at 512 MB with a
+    4 GiB host offload arena), seeded random weights. A 32,768-token
+    request (4x the 8,192-position window: 32,640 + 128 new) through the
+    engine's route over HTTP. Checks: (a) at base 0 a 6,000-token row is
+    bitwise (tokens, logprobs) the engine's chunked row over the same
+    schedule (the routed bound against a one-pass prefill is D (h)'s);
+    (b) the request twice, bitwise; (c) churned (``resident_cap``) against
+    unchurned, bitwise; (d) churned under an armed ``offload_stall``: the
+    re-online fails, the run replays, bitwise; (e) kernel 2 = 225 x
+    forwards (prefill chunks and solo prefills counted), kernel 3 = 32 x
+    the runner's and the engine's decode steps, kernel 1 = 32 x the solo
+    decode steps; (f) zero pages leaked, no runner page left offloaded,
+    the pool's invariants."""
+    from lambdipy_tpu_torch.runtime.handlers import (HandlerContext,
+                                                     generate_handler,
+                                                     kernel_launches)
+    from lambdipy_tpu_torch.runtime.server import BundleServer
+
+    spec = {"model": "llama3-8b", "dtype": "bfloat16", "quant": "int8",
+            "extra": dict(LC_EXTRA)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = generate_handler(spec, HandlerContext(device="cuda"))
+    engine, server = state.engine, state.server
+    cfg = server.model.cfg
+    runner = engine._longctx_runner()
+    if runner is None or runner.window != LC_WINDOW:
+        raise SystemExit("path J: no long-context runner over the window")
+    log(f"path J: llama3-8b, window {runner.window} ({runner.n_view} pages "
+        f"of {engine.pool.page}), max_logical_ctx {runner.max_logical_ctx}, "
+        f"host offload {runner.offload.budget_bytes >> 20} MiB, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = torch.Generator().manual_seed(31)
+    long_row = torch.randint(1, cfg.vocab_size, (LC_PROMPT,),
+                             generator=rng).tolist()
+    short_row = torch.randint(1, cfg.vocab_size, (LC_BASE0,),
+                              generator=rng).tolist()
+    srv = BundleServer(state, port=0).start_background()
+    url = srv.url + "/invoke"
+    body = {"tokens": long_row, "max_new_tokens": LC_NEW, "logprobs": True}
+    runs = {}
+    try:
+        set_launches_to_zero()  # counters to 0 just before the path
+        # (a) base 0: the runner against the engine's chunked row
+        r_a = runner.generate(short_row, max_new_tokens=LC_BASE0_NEW,
+                              return_logprobs=True)
+        e_a = engine.generate(short_row, max_new_tokens=LC_BASE0_NEW,
+                              return_logprobs=True)
+        _idle(engine)
+        same_a = all(np.array_equal(r_a[j], e_a[j]) for j in (0, 1))
+        log(f"path J (a): at base 0 a {LC_BASE0}-token row through the runner "
+            f"is bitwise the engine's chunked row over the same schedule "
+            f"(tokens and logprobs): {same_a}")
+        if not same_a:
+            raise SystemExit("path J (a): the runner at base 0 differs from "
+                             "the engine's chunked row")
+        # (b) the request twice over HTTP
+        outs = []
+        for name, cap, fault in (("first", None, None),
+                                 ("second", None, None),
+                                 ("churned", runner.n_view - LC_CAP_LESS,
+                                  None),
+                                 ("replayed", runner.n_view - LC_CAP_LESS,
+                                  "offload_stall:exception")):
+            runner.resident_cap = cap
+            if fault:
+                http_json(srv.url + "/v1/debug/faults", {"spec": fault})
+            before = runner.report()
+            outs.append(http_json(url, body))
+            rep = runner.report()
+            runs[name] = {**runner.last_run, **{
+                k: rep[k] - before[k] for k in (
+                    "spill_pages", "spill_bytes", "reonline_pages",
+                    "prefetch_hits", "demand_misses", "stalls", "stall_s",
+                    "recomputes", "spill_s", "reonline_s", "chunks",
+                    "steps")}}
+            if fault:
+                http_json(srv.url + "/v1/debug/faults", {"clear": True})
+            run = runs[name]
+            log(f"path J {name} run: TTFT {run['ttft_s']:.3f} s, decode "
+                f"{LC_NEW / run['decode_s']:.1f} tok/s past the window "
+                f"({run['steps']} steps), {run['chunks']} chunks, spilled "
+                f"{run['spill_pages']} pages ({run['spill_bytes'] / 2**20:.1f}"
+                f" MiB, {run['spill_bytes'] / max(run['spill_s'], 1e-9) / 1e9:.3f}"
+                f" GB/s of spill wall), re-onlined {run['reonline_pages']} "
+                f"pages ({run['reonline_s']:.3f} s), prefetch hits "
+                f"{run['prefetch_hits']}, demand misses "
+                f"{run['demand_misses']}, stalls {run['stalls']} "
+                f"({run['stall_s']:.3f} s), recomputes {run['recomputes']} "
+                f"[{card}]")
+        runner.resident_cap = None
+        launches = kernel_launches()
+        metrics = http_json(srv.url + "/metrics")
+    finally:
+        srv.stop()
+    first, second, churned, replayed = outs
+    checks = {"(b) twice": second == first, "(c) churned": churned == first,
+              "(d) replayed": replayed == first}
+    log(f"path J (b)-(d): the second run, the churned run and the replay "
+        f"after a failed re-online bitwise the first (tokens and logprobs as "
+        f"served): {checks}")
+    if not all(checks.values()) or not first["ok"] \
+            or len(first["tokens"][0]) != LC_NEW:
+        raise SystemExit(f"path J: {checks}")
+    if runs["churned"]["prefetch_hits"] <= 0 \
+            or runs["replayed"]["recomputes"] <= 0:
+        raise SystemExit("path J: the churned run prefetched nothing or the "
+                         "armed run did not replay")
+    # (e) the launch identity
+    rep, es, ps = runner.report(), engine.stats(), server.program_stats()
+    solo_steps = ps["replays"] + ps["eager_steps"]
+    forwards = (rep["forwards"] + es["forwards"] + ps["prefill_replays"]
+                + ps["eager_prefills"] + solo_steps)
+    want = dict.fromkeys(KERNELS, 0)
+    want["int8_matmul"] = (7 * cfg.layers + 1) * forwards
+    want["paged_decode_attention"] = cfg.layers * (rep["steps"] + es["steps"])
+    want["decode_attention"] = cfg.layers * solo_steps
+    log(f"path J (e) launch counters: {launches}, implied {want} ({forwards} "
+        f"forwards: the runner's {rep['chunks']} chunks and {rep['steps']} "
+        f"steps, the engine's {es['forwards']}, the solo run's "
+        f"{ps['prefill_replays'] + ps['eager_prefills']} prefill and "
+        f"{solo_steps} steps)")
+    if launches != want:
+        raise SystemExit(f"path J (e): launch counters {launches} != {want}")
+    if rep["eager_steps"] or rep["replays"] != rep["steps"]:
+        raise SystemExit("path J: a runner decode step ran eagerly")
+    # (f) no page leaked
+    pool = engine.pool
+    pool.check_invariants()
+    page_stats = pool.stats()
+    log(f"path J (f): {page_stats['pages_live']} pages live after the runs "
+        f"(the store holds {state.prefix_store.stats()['blocks']} blocks), "
+        f"{page_stats['kv_offload']['offloaded_pages']} offloaded, pool "
+        f"invariants hold; peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB allocated [{card}]")
+    if page_stats["pages_live"] != state.prefix_store.stats()["blocks"] \
+            or page_stats["kv_offload"]["offloaded_pages"]:
+        raise SystemExit("path J (f): pages leaked")
+    log_pools("J (server)", ps["program_pools"])
+    out = {"spec": spec, "runs": runs, "launches": launches,
+           "implied": want, "runner": rep, "checks": checks,
+           "base0_bitwise_engine": same_a,
+           "long_context": metrics["handler"]["batching"]["long_context"],
+           "max_memory_allocated_gib": (torch.cuda.max_memory_allocated()
+                                        / 2**30), "card": card}
+    engine.release()
+    runner.release()
+    del state, engine, server, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4661,6 +4988,7 @@ def main() -> int:
     paths["F"] = paths["D"].pop("F")
     paths["G"] = paths["D"].pop("G")
     paths["D-chunked"] = paths["D"].pop("chunked")
+    paths["D-warm"] = paths["D"].pop("warm")
     log(f"paths D, F and G took {time.perf_counter() - t_path:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
@@ -4682,6 +5010,11 @@ def main() -> int:
     t_path = time.perf_counter()
     paths["I"] = serve_ship_path(card)
     log(f"path I took {time.perf_counter() - t_path:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_path = time.perf_counter()
+    paths["J"] = serve_longctx_path(card)
+    log(f"path J took {time.perf_counter() - t_path:.1f} s")
     # each kernel's launches: the sum over the paths, each path counted
     # from 0 just before it was driven
     for name, kern in kernels.items():

@@ -1027,11 +1027,20 @@ class DecodeStep:
 
     :meth:`step` runs one forward and the selection and writes the next
     carry in place. Host data never enters it, so the same step runs
-    eagerly (the CPU) or as a replay (the card)."""
+    eagerly (the CPU) or as a replay (the card).
 
-    def __init__(self, model: LlamaModel, cache, rows: int, tables=None):
+    ``base``: the long-context tier's step (``runtime/longctx.py``) also
+    owns ``base [b]`` int32, the logical position of the view's slot 0:
+    cache writes and the valid length follow the local ``pos``, RoPE sees
+    ``pos + base`` (JAX ``_scan_decode``'s ``pos_offset``). Every other
+    step has none, so its graphs keep their launches and bits."""
+
+    def __init__(self, model: LlamaModel, cache, rows: int, tables=None,
+                 base: bool = False):
         dev = model.device
         self.model, self.rows, self.tables = model, rows, tables
+        self.base = (torch.zeros(rows, dtype=torch.int32, device=dev)
+                     if base else None)
 
         def zeros(dtype):
             return torch.zeros(rows, dtype=dtype, device=dev)
@@ -1102,8 +1111,9 @@ class DecodeStep:
         place."""
         if self.tables is not None:
             self._write_address()
+        positions = self.pos if self.base is None else self.pos + self.base
         logits, _ = self.model(self.tok[:, None],
-                               positions=self.pos[:, None], cache=self.cache)
+                               positions=positions[:, None], cache=self.cache)
         nxt, nlp = select_tokens(logits[:, -1, :], self.temperature,
                                  self.top_k, self.top_p, self.streams(),
                                  sampled)
@@ -1317,15 +1327,19 @@ def verify_program(entry: StepPrograms, kb: int, sampled: bool, *,
         entry.graph_type, entry.stats))
 
 
-def _chunk_forward(model: LlamaModel, cache, chunk, last):
+def _chunk_forward(model: LlamaModel, cache, chunk, last, pos_offset=None):
     """A chunk ``[b, w]`` at the scalar index of ``cache``'s entries (a
     0-dim device tensor, or an ``int``), its K/V written there in place,
     the lm_head at ``last [b]``, each row's position in the chunk.
-    Returns the logits ``[b, 1, v]`` and the index as a device tensor."""
+    ``pos_offset`` (a 0-dim device tensor) moves RoPE's positions to
+    ``index + pos_offset + j`` while the writes stay at ``index + j`` (the
+    long-context view). Returns the logits ``[b, 1, v]`` and the index as
+    a device tensor."""
     b, w = chunk.shape
     dev = chunk.device
     idx = _device_index(cache[0]["index"], w, cache_width(cache), dev)
-    positions = (idx + torch.arange(w, device=dev))[None, :].expand(b, w)
+    rope0 = idx if pos_offset is None else idx + pos_offset
+    positions = (rope0 + torch.arange(w, device=dev))[None, :].expand(b, w)
     logits, _ = model(chunk, positions=positions,
                       cache=[{**_leaves(e), "index": idx} for e in cache],
                       logit_positions=last)
@@ -1333,7 +1347,7 @@ def _chunk_forward(model: LlamaModel, cache, chunk, last):
 
 
 def _continue_prefill(model: LlamaModel, cache, suffix, suffix_len,
-                      select, gens, eos, sbs: int):
+                      select, gens, eos, sbs: int, pos_offset=None):
     """Continuation prefill from a cached prefix K/V: the padded suffix
     ``[b, sbs]`` embedded at the positions after the cache's scalar index
     (a 0-dim device tensor or an ``int``; written in place into
@@ -1342,14 +1356,16 @@ def _continue_prefill(model: LlamaModel, cache, suffix, suffix_len,
     Returns the decode carry ``(first, lp0, cache, pos, done)`` with
     per-row ``[b]`` index and position, the shapes a prefill gives. The
     one source of the prefix continuation math: the solo, streaming and
-    engine prefix paths and a chunked row's tail all run it, eagerly or
-    captured (:class:`PrefillProgram`) (JAX ``llama.py:1141``)."""
+    engine prefix paths, a chunked row's tail and the long-context view's
+    last chunk (``pos_offset``, :func:`_chunk_forward`) all run it,
+    eagerly or captured (:class:`PrefillProgram`) (JAX
+    ``llama.py:1141``)."""
     b = suffix.shape[0]
     if isinstance(suffix_len, int):
         suffix_len = torch.full((b,), suffix_len, dtype=torch.long,
                                 device=suffix.device)
     logits, idx = _chunk_forward(model, cache, suffix[:, :sbs],
-                                 suffix_len - 1)
+                                 suffix_len - 1, pos_offset)
     start = (idx + suffix_len).to(torch.int32)
     new_cache = [{**_leaves(e), "index": start} for e in cache]
     first, lp0 = select(logits[:, 0, :].float(), gens)
@@ -1375,6 +1391,9 @@ class PrefillProgram:
     - ``select``: the first token and its logprob are selected (outputs
       :attr:`first`, :attr:`lp0`; at an index also :attr:`start`, the
       position after the chunk). A walk's chunk selects nothing.
+    - ``offset`` (at an index): a 0-dim ``base`` buffer moves RoPE's
+      positions to ``index + base + j`` (the long-context view's chunks,
+      :func:`_chunk_forward`); the other programs have none.
 
     :meth:`run` copies a request's tokens, lengths, index, knobs, eos
     and each row's stream (key and draw index) into the buffers (from
@@ -1385,7 +1404,8 @@ class PrefillProgram:
     def __init__(self, model: LlamaModel, rows: int, width: int, *,
                  sampled: bool = False, select: bool = True,
                  at_index: bool = False, target=None, knobs=None,
-                 graph_type=None, stats: GraphStats | None = None):
+                 graph_type=None, stats: GraphStats | None = None,
+                 offset: bool = False):
         dev = model.device
         self.model, self.width = model, width
         self.sampled, self.select, self.at_index = sampled, select, at_index
@@ -1393,6 +1413,8 @@ class PrefillProgram:
         self.tokens = torch.zeros(rows, width, dtype=torch.long, device=dev)
         self.length = torch.ones(rows, dtype=torch.int32, device=dev)
         self.index = torch.zeros((), dtype=torch.long, device=dev)
+        self.base = (torch.zeros((), dtype=torch.long, device=dev)
+                     if offset else None)
         self.eos = torch.full((rows,), -1, dtype=torch.long, device=dev)
         self.knobs = knobs or (
             torch.zeros(rows, dtype=torch.float32, device=dev),
@@ -1421,11 +1443,12 @@ class PrefillProgram:
             cache = [{**_leaves(e), "index": self.index}
                      for e in self.target]
             if not self.select:
-                _chunk_forward(model, cache, self.tokens, self.length - 1)
+                _chunk_forward(model, cache, self.tokens, self.length - 1,
+                               self.base)
                 return None
             first, lp0, _, start, _ = _continue_prefill(
                 model, cache, self.tokens, self.length, self._select,
-                (self.keys, self.draw), self.eos, self.width)
+                (self.keys, self.draw), self.eos, self.width, self.base)
             return first, lp0, start
         logits, pc = model(self.tokens, logit_positions=self.length - 1)
         if self.target is not None:
@@ -1439,12 +1462,13 @@ class PrefillProgram:
         return (first, lp0, *[t for e in pc for t in (e["k"], e["v"])])
 
     def run(self, tokens, lengths, *, index: int = 0, knobs=None, gens=(),
-            stats: GraphStats | None = None) -> None:
+            stats: GraphStats | None = None, base: int = 0) -> None:
         """One prefill of ``tokens [rows, width]`` (host data) and their
         real ``lengths``, at ``index`` (host int; checked against the
         target), under ``knobs`` (host data; only for a program with its
         own knob buffers) drawing on from ``gens`` (the rows'
-        :class:`RowStream`\\ s); counters to ``stats``."""
+        :class:`RowStream`\\ s), RoPE moved by ``base`` (an ``offset``
+        program's); counters to ``stats``."""
         if self.at_index:
             t = cache_width(self.target)
             if index < 0 or index + self.width > t:
@@ -1452,6 +1476,8 @@ class PrefillProgram:
                                  f"{index} crosses the cache's {t} "
                                  f"positions")
             to_device(self.index, np.int64(index))
+        if self.base is not None:
+            to_device(self.base, np.int64(base))
         to_device(self.tokens, tokens)
         to_device(self.length, lengths)
         if knobs is not None:
@@ -1542,15 +1568,15 @@ class WindowEntry(ProgramSet):
         return [{**{name: val.clone() for name, val in entry.items()},
                  "index": self.index} for entry in self.cache]
 
-    def _program(self, kind: str, width: int,
-                 sampled: bool = False) -> PrefillProgram:
-        key = (kind, width) + ((_mode(sampled),) if kind == "continue"
-                               else ())
+    def _program(self, kind: str, width: int, sampled: bool = False,
+                 offset: bool = False) -> PrefillProgram:
+        key = ((kind, width) + ((_mode(sampled),) if kind == "continue"
+                                else ()) + (("offset",) if offset else ()))
         return self.program(key, lambda: PrefillProgram(
             self.model, 1, width, sampled=sampled,
             select=kind == "continue", at_index=kind != "first",
             target=self.cache, graph_type=self.graph_type,
-            stats=self.stats))
+            stats=self.stats, offset=offset))
 
     def first(self, tokens, length: int) -> None:
         """A walk's first chunk: ``tokens [1, w]`` (host data, padded)
@@ -1560,21 +1586,26 @@ class WindowEntry(ProgramSet):
                                                     stats=self.stats)
         self.index = int(length)
 
-    def extend(self, tokens, n: int) -> None:
+    def extend(self, tokens, n: int, base: int | None = None) -> None:
         """One extension chunk ``tokens [1, w]`` (host data, ``n`` real)
-        written at the index; the index moves by ``n``."""
-        self._program("extend", tokens.shape[1]).run(
-            tokens, [n], index=self.index, stats=self.stats)
+        written at the index; the index moves by ``n``. ``base``: RoPE at
+        ``base`` past the index (the long-context view's program)."""
+        self._program("extend", tokens.shape[1],
+                      offset=base is not None).run(
+            tokens, [n], index=self.index, stats=self.stats, base=base or 0)
         self.index += int(n)
 
-    def cont(self, tokens, n: int, knobs, gens, sampled: bool):
+    def cont(self, tokens, n: int, knobs, gens, sampled: bool,
+             base: int | None = None):
         """The continuation of a suffix ``tokens [1, w]`` (host data, ``n``
         real) at the index, under ``knobs`` (host data) drawing from
         ``gens``: ``(first [1], lp0 [1])``, the program's outputs (copy
-        them to keep them past its next run). The index stays."""
-        prog = self._program("continue", tokens.shape[1], sampled)
+        them to keep them past its next run). The index stays. ``base``
+        as in :meth:`extend`."""
+        prog = self._program("continue", tokens.shape[1], sampled,
+                             offset=base is not None)
         prog.run(tokens, [n], index=self.index, knobs=knobs, gens=gens,
-                 stats=self.stats)
+                 stats=self.stats, base=base or 0)
         return prog.first, prog.lp0
 
 
@@ -1951,15 +1982,20 @@ class LlamaServer:
                                  graph_type=self.graph_type,
                                  stats=self.graph_stats))
 
-    def _checkout_window(self, width: int,
-                         stats: GraphStats | None = None) -> WindowEntry:
+    def _checkout_window(self, width: int, stats: GraphStats | None = None,
+                         graphs: bool = True) -> WindowEntry:
         """A one-row window of ``width`` positions, checked out for a walk
         or a continuation (caller holds the lock); its runs count on
-        ``stats`` (default: the server's)."""
+        ``stats`` (default: the server's). ``graphs=False``: a window of
+        its own whose programs run eagerly (the long-context tier's
+        half-window chunks, whose plain attention peaks at several GiB: a
+        graph's pool would hold that peak for good)."""
+        graph_type = self.graph_type if graphs else None
         window = self.programs.checkout(
-            ("window", width, *self._layout()),
+            ("window", width, *self._layout())
+            + (() if graphs else ("eager",)),
             decode_cache_bytes(self.model.cfg, 1, width),
-            lambda: WindowEntry(self.model, width, self.graph_type,
+            lambda: WindowEntry(self.model, width, graph_type,
                                 self.graph_stats), counted=False)
         window.stats = stats or self.graph_stats
         return window
@@ -2579,6 +2615,41 @@ class LlamaServer:
                        for entry in window.cache]
             _scatter_page_cache(arena, table[:, lo:hi], written, page)
             return first.clone(), lp0.clone()
+
+        return cont
+
+    def _lpaged_continue_fn(self, sbs: int, page: int):
+        """One chunk of the long-context prefill through the sliding view
+        (JAX ``_lpaged_continue_fn``, ``llama.py:2604``): ``cont(window,
+        arena, table [1, nb], local, base, chunk [1, sbs] host data, n,
+        knobs=None, gens=(), sampled=False)`` gathers the view's pages
+        into ``window`` (as wide as the view; the index at ``local``),
+        writes the chunk there with RoPE at its logical positions ``base
+        + local + j``, and scatters back the pages the chunk wrote, from
+        ``local // page`` on. With ``knobs`` the chunk is the prompt's
+        last and selects the first token (``(first, lp0)``, copies; the
+        rows' streams move on by one); without, it selects nothing and
+        returns None. JAX selects at every chunk from one unchanged rng
+        and keeps the last; a stream here moves on at a selection, so
+        only the last chunk selects. The caller holds the device and
+        arena locks."""
+        def cont(window, arena, table, local: int, base: int, chunk,
+                 n: int, knobs=None, gens=(), sampled: bool = False):
+            self._gather_pages_into(window, arena, table, page, local)
+            out = None
+            if knobs is None:
+                window.extend(chunk, n, base=base)
+            else:
+                first, lp0 = window.cont(chunk, n, knobs, gens, sampled,
+                                         base=base)
+                out = first.clone(), lp0.clone()
+            lo = local // page
+            hi = min(table.shape[1], -(-(local + sbs) // page))
+            written = [{name: val[:, lo * page:hi * page]
+                        for name, val in entry.items()}
+                       for entry in window.cache]
+            _scatter_page_cache(arena, table[:, lo:hi], written, page)
+            return out
 
         return cont
 

@@ -5,6 +5,7 @@ ported serving path exist so far (``llama3-8b``, ``llama-tiny``)."""
 from __future__ import annotations
 
 import dataclasses
+import os
 from collections.abc import Callable
 
 import torch
@@ -99,6 +100,11 @@ def _llama_overrides(extra: dict | None) -> dict:
 
     out = {k: coerce(k, v) for k, v in extra.items()
            if k in set(annotations) - {"dtype", "quant"}}
+    # the operator's backend switch (JAX registry.py:275-282): an explicit
+    # extra wins over LAMBDIPY_ATTN_BACKEND
+    env_backend = os.environ.get("LAMBDIPY_ATTN_BACKEND")
+    if env_backend and "attn_backend" not in out:
+        out["attn_backend"] = env_backend
     attn = out.get("attn_backend", LlamaConfig.attn_backend)
     if attn in _UNPORTED_ATTN_BACKENDS:
         raise ValueError(f"attn_backend {attn!r} is not ported yet; "

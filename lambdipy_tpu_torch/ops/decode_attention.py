@@ -83,6 +83,23 @@ def decode_attention_reference(q, k, v, active_len):
     return out.reshape(b, s, h, d)
 
 
+def windowed_decode_attention_reference(q, k, v, base, local_len,
+                                        window: int):
+    """Decode attention over a sliding logical window (JAX
+    ``windowed_decode_attention_reference``): k/v hold a row's whole
+    logical context ``[b, T, kvh, d]``; row r attends the view ``[base[r],
+    base[r] + window)`` with its first ``local_len[r]`` positions valid,
+    the view the long-context tier's block table maps. Sliced, then
+    :func:`decode_attention_reference`, so on the same values it is
+    bitwise what the view's gathered window computes. The tests' oracle,
+    not a kernel."""
+    b = q.shape[0]
+    base = torch.as_tensor(base, dtype=torch.long).expand(b).tolist()
+    k_win = torch.stack([k[r, base[r]:base[r] + window] for r in range(b)])
+    v_win = torch.stack([v[r, base[r]:base[r] + window] for r in range(b)])
+    return decode_attention_reference(q, k_win, v_win, local_len)
+
+
 @functools.cache
 def _library():
     """``csrc/decode_attention.cu``, built on first use; its split plan

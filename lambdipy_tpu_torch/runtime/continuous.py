@@ -159,8 +159,19 @@ boundaries, packed into a free slot.
   is not ported: ``draft_mode=aux`` serves lookup, as JAX does without a
   provider.
 
-Not ported yet (ROADMAP): window bucketing, the ``aux`` draft tier, long
-context and meshes.
+- The long-context tier (``max_logical_ctx``, off by default, as in JAX;
+  paged engines only, a dense engine stands it down at boot with a
+  warning): a row whose prompt plus budget passes ``cache_len`` and fits
+  the cap is served by a :class:`~lambdipy_tpu_torch.runtime.longctx.
+  LongContextRunner` over the engine's pool (built on the first such
+  row), from ``generate`` and ``generate_stream`` (its output delivered
+  at the engine's segment), reported as ``batching.long_context``.
+- ``warm_group_prefill`` runs the group-prefill programs a first burst
+  would otherwise capture at request time (the handler's background
+  warm).
+
+Not ported yet (ROADMAP): window bucketing, the ``aux`` draft tier and
+meshes.
 """
 
 from __future__ import annotations
@@ -175,8 +186,8 @@ from collections import deque
 import numpy as np
 import torch
 
-from lambdipy_tpu_torch.models.graphs import (DEVICE_LOCK, StepProgram,
-                                              StepPrograms)
+from lambdipy_tpu_torch.models.graphs import (DEVICE_LOCK, GraphStats,
+                                              StepProgram, StepPrograms)
 from lambdipy_tpu_torch.models.llama import (DecodeStep, _kv_store,
                                              _leaves, _next_bucket,
                                              _scan_decode, cache_width,
@@ -242,7 +253,10 @@ class ContinuousBatcher:
     ``spec_k`` tokens a row (bucketed to a power of two), drafted by
     ``draft_mode`` (``lookup``: prompt lookup over n-grams up to
     ``spec_ngram``; ``model``: the shallow-exit head of ``draft_exit``
-    layers, per-row adaptive k; ``off``) as the module docstring says."""
+    layers, per-row adaptive k; ``off``) as the module docstring says.
+    ``max_logical_ctx`` (0: off) turns the long-context tier on over a
+    paged engine; ``long_prefill`` asks the tier for ring-attention
+    prefill, which stands down counted."""
 
     def __init__(self, server, *, slots: int = 8, segment: int = 16,
                  cache_len: int | None = None, page_pool=None, policy=None,
@@ -251,7 +265,8 @@ class ContinuousBatcher:
                  degrade_window_s: float = 60.0,
                  degrade_clean_s: float = 30.0, spec_k: int = 0,
                  spec_ngram: int = 3, draft_mode: str = "lookup",
-                 draft_exit: int = 1):
+                 draft_exit: int = 1, max_logical_ctx: int = 0,
+                 long_prefill: bool = False):
         cfg = server.model.cfg
         self.server = server
         self.slots = max(1, int(slots))
@@ -352,6 +367,20 @@ class ContinuousBatcher:
         # requeued, whether it wedged the engine, and for a watchdog trip
         # how long the wait had lasted
         self.failure_log: deque = deque(maxlen=64)
+        # JAX's collector counters (continuous.py:1423, :1450): segments
+        # landed, and rows that took tokens from one, summed
+        self.segments_run = 0
+        self.rows_in_segments = 0
+        # -- the long-context tier (JAX continuous.py:400-425) -----------
+        self.max_logical_ctx = max(0, int(max_logical_ctx or 0))
+        self.long_prefill = bool(long_prefill)
+        self._longctx = None  # built on the first routed row
+        self._longctx_lock = threading.Lock()
+        if self.max_logical_ctx and page_pool is None:
+            log.warning("max_logical_ctx=%d needs paged KV (kv_paged); the "
+                        "long-context tier stands down",
+                        self.max_logical_ctx)
+            self.max_logical_ctx = 0
 
     # -- paged-KV helpers ----------------------------------------------------
 
@@ -788,6 +817,7 @@ class ContinuousBatcher:
                 self._had_failure = False
                 self.fault_stats.record_recovery()
                 self.fault_stats.set_wedged(False)
+            self.segments_run += 1
             for slot, e in rec["rows"]:
                 c = int(counts[slot]) if kb else rec["k"]
                 info = rec["assumed"].pop(slot, None) if kb else None
@@ -796,6 +826,7 @@ class ContinuousBatcher:
                 if e["done"]:
                     wasted += c
                     continue
+                self.rows_in_segments += 1
                 row = toks[slot][:c].tolist()
                 base = len(e["toks"])
                 if base == 0:
@@ -1623,6 +1654,13 @@ class ContinuousBatcher:
         entry = self._admit(prompt_row, max_new_tokens, temperature, top_k,
                             top_p, seed, eos_id, return_logprobs, prefix)
         if entry is None:
+            runner = self._route_longctx(prompt_row, max_new_tokens, prefix)
+            if runner is not None:
+                return runner.generate(
+                    prompt_row, max_new_tokens=max_new_tokens,
+                    temperature=temperature, top_k=top_k, top_p=top_p,
+                    seed=seed, eos_id=eos_id,
+                    return_logprobs=return_logprobs)
             return self.server.generate(
                 prompt_row, max_new_tokens=max_new_tokens,
                 temperature=temperature, top_k=top_k, top_p=top_p,
@@ -1649,21 +1687,42 @@ class ContinuousBatcher:
 
     def generate_stream(self, prompt_row, *, max_new_tokens: int,
                         temperature: float = 0.0, top_k=None, top_p=None,
-                        seed: int = 0, eos_id=None, prefix=None,
-                        return_logprobs: bool = False):
+                        seed: int = 0, eos_id=None, segment: int = 16,
+                        prefix=None, return_logprobs: bool = False):
         """Streaming over the shared engine: the row joins like any other
         and its slice of each segment is yielded as it lands, as ``[1,
         k]`` chunks, ``k <= segment`` (``(tokens, logprobs)`` pairs when
         asked). Concatenated chunks equal :meth:`generate`'s output up to
-        the chunk holding eos. The chunk cadence is the engine's segment,
-        also for a row that runs solo."""
+        the chunk holding eos. The chunk cadence is the engine's segment;
+        ``segment`` (the request's, as the handler clamps it) applies only
+        to a row that runs solo, as in JAX; a long-context row's output is
+        delivered at the engine's segment."""
         entry = self._admit(prompt_row, max_new_tokens, temperature, top_k,
                             top_p, seed, eos_id, return_logprobs, prefix)
         if entry is None:
+            runner = self._route_longctx(prompt_row, max_new_tokens, prefix)
+            if runner is not None:
+                # the runner decodes the whole row: its output in chunks
+                # of the engine's segment, the runner's tokens verbatim
+                # (eos filler included), ending at the chunk holding eos
+                res = runner.generate(
+                    prompt_row, max_new_tokens=max_new_tokens,
+                    temperature=temperature, top_k=top_k, top_p=top_p,
+                    seed=seed, eos_id=eos_id,
+                    return_logprobs=return_logprobs)
+                toks, lps = res if return_logprobs else (res, None)
+                step = self.segment
+                for c0 in range(0, toks.shape[1], step):
+                    chunk = toks[:, c0:c0 + step]
+                    yield ((chunk, lps[:, c0:c0 + step]) if return_logprobs
+                           else chunk)
+                    if eos_id is not None and eos_id in chunk[0]:
+                        return
+                return
             yield from self.server.generate_stream(
                 prompt_row, max_new_tokens=max_new_tokens,
                 temperature=temperature, top_k=top_k, top_p=top_p,
-                seed=seed, eos_id=eos_id, segment=self.segment,
+                seed=seed, eos_id=eos_id, segment=segment,
                 prefix=prefix, return_logprobs=return_logprobs)
             return
         try:
@@ -1709,6 +1768,97 @@ class ContinuousBatcher:
                 if not entry["done"]:
                     entry["abandoned"] = True
 
+    # -- the long-context tier -------------------------------------------------
+
+    def _longctx_runner(self):
+        """The long-context tier, built on first use (one per engine; it
+        serializes its own runs). A failed build stands the knob down,
+        loudly, and serving goes on."""
+        if self.pool is None or not self.max_logical_ctx:
+            return None
+        with self._longctx_lock:
+            if self._longctx is None:
+                from lambdipy_tpu_torch.runtime.longctx import \
+                    LongContextRunner
+
+                try:
+                    self._longctx = LongContextRunner(
+                        self.server, self.pool, window=self.cache_len,
+                        segment=self.segment,
+                        max_logical_ctx=self.max_logical_ctx,
+                        long_prefill=self.long_prefill, faults=self.faults,
+                        max_replays=max(1, self.max_replays),
+                        prefill_stats=self.prefill_stats,
+                        graph_stats=GraphStats())
+                except Exception as e:  # noqa: BLE001 — stand down, serve on
+                    log.error("long-context runner unavailable (the knob "
+                              "stands down): %s", e)
+                    self.max_logical_ctx = 0
+                    return None
+            return self._longctx
+
+    def _route_longctx(self, prompt_row, max_new_tokens: int, prefix):
+        """The long-context tier for a row the engine refused, when the
+        refusal was its window (prompt plus budget past ``cache_len``) and
+        the logical cap holds it (JAX ``continuous.py:2231``); None keeps
+        the solo fallback."""
+        if prefix is not None or not self.max_logical_ctx:
+            return None
+        try:
+            s = int(np.asarray(prompt_row).reshape(-1).shape[0])
+        except Exception:  # noqa: BLE001 — a malformed row fails solo
+            return None
+        if s + int(max_new_tokens) <= self.cache_len:
+            return None
+        runner = self._longctx_runner()
+        if runner is None or not runner.fits(s, int(max_new_tokens)):
+            return None
+        return runner
+
+    # -- the background warm ---------------------------------------------------
+
+    def warm_group_prefill(self) -> int:
+        """Run the group-prefill programs a first concurrent burst would
+        otherwise capture one at a time at request latency (JAX
+        ``continuous.py:769``): one per power-of-two joiner count from 2
+        up to ``slots`` (and ``slots`` itself when it is not a power of
+        two) at the smallest prompt bucket, and one at the longest prompt
+        bucket a group prefill takes at the largest count. Each takes
+        ``DEVICE_LOCK`` for its run (on the card, its capture). Returns
+        the programs run; meant for the handler's background warm. The
+        port has no AOT store, so nothing is saved afterwards."""
+        counts, bb = [], 2
+        while bb <= self.slots:
+            counts.append(bb)
+            bb *= 2
+        if self.slots > 1 and self.slots not in counts:
+            counts.append(self.slots)
+        seen: set = set()
+
+        def warm(count: int, row: list) -> None:
+            entries = [{"row": row, "s": len(row), "n": 1,
+                        "temperature": None, "top_k": None, "top_p": None,
+                        "seed": 0, "gen": row_streams([(0, 0)])[0]}
+                       for _ in range(count)]
+            with DEVICE_LOCK, torch.inference_mode():
+                self._prefill_rows(entries)
+            self.stats_counters.record_warm_prefill()
+
+        for count in counts:
+            if (key := _next_bucket(count, 1)) in seen:
+                continue
+            seen.add(key)
+            warm(count, [1, 2, 3])
+        n = len(seen)
+        # the long-prompt family: rows the engine admits top out near half
+        # its cache
+        s_warm = min(GROUP_PREFILL_MAX, max(1, self.cache_len // 2))
+        min_sb = _next_bucket(3, self.server.min_bucket)
+        if counts and _next_bucket(s_warm, self.server.min_bucket) != min_sb:
+            warm(max(counts), list(range(1, s_warm + 1)))
+            n += 1
+        return n
+
     def stats(self) -> dict:
         with self._lock:
             out = {"mode": "continuous", "slots": self.slots,
@@ -1720,6 +1870,8 @@ class ContinuousBatcher:
                    "active_rows": sum(e is not None for e in self._active),
                    "waiting_joiners": len(self._joiners),
                    **self.stats_counters.report(),
+                   "segments_run": self.segments_run,
+                   "rows_in_segments": self.rows_in_segments,
                    "pipeline": self.pipe_stats.report(),
                    "prefill_chunk": self.server.prefill_chunk,
                    "prefill": self.prefill_stats.report(),
@@ -1734,6 +1886,8 @@ class ContinuousBatcher:
                    "faults": self.fault_stats.report(),
                    **({"fault_plan": self.faults.describe()}
                       if self.faults.active() else {})}
+        if self._longctx is not None:
+            out["long_context"] = self._longctx.report()
         if self.pool is not None:
             out["page_pool"] = self.pool.stats()
         return out

@@ -22,12 +22,20 @@ session extras (``session_pin_budget_mb``, ``session_ttl_s``,
 ``session_ttl_s``) pins its conversation's head after routing, and the
 state carries the K/V ship surfaces (``kv_export``, ``kv_import``,
 ``kv_probe`` and their streamed twins, ``runtime/kvwire.py`` frames) and
-the session close for the server."""
+the session close for the server. A paged engine takes the long-context
+tier's extras (``max_logical_ctx``, ``long_prefill``), the state the
+live knob control for ``POST /v1/debug/knobs``, and after the first
+invoke a background thread warms the buckets ``warm_buckets`` lists and
+the engine's group prefill (``warm_group_prefill``, on by default), as
+the JAX handler does; ``/healthz`` reads ``warming`` meanwhile. Each
+extra the JAX handler also takes from a ``LAMBDIPY_*`` variable is
+resolved with the JAX handler's precedence."""
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 from collections.abc import Callable, Iterator
 from typing import Any
 
@@ -96,6 +104,12 @@ class HandlerState:
     # host-only fault control (POST /v1/debug/faults): arm a spec on the
     # live plan, or clear it
     faults_admin_fn: Callable[[dict], dict] | None = None
+    # host-only knob control (POST /v1/debug/knobs): retune the engine's
+    # pipeline_depth, spec_k, draft_mode and max_logical_ctx live
+    knobs_admin_fn: Callable[[dict], dict] | None = None
+    # O(1) read: the background warm is running (/healthz "warming", and
+    # "ready" false meanwhile)
+    warming_fn: Callable[[], bool] | None = None
 
     def invoke(self, request: dict) -> dict:
         return self.invoke_fn(request)
@@ -137,14 +151,17 @@ def kernel_launches() -> dict:
 # value each may take (the feature off), anything else raises
 _UNPORTED_ENGINE_EXTRAS = {
     "batch_window_bucketing": ("0", "false", "off"),
-    "max_logical_ctx": ("0",),
-    "long_prefill": ("0", "false", "off"),
     "prefill_mode": ("chunked",),
     "mesh": ("", "off"),
     "batch_window_ms": ("0",),
     # a bundle's tokenizer (text in, text out)
     "tokenizer_path": ("",),
 }
+# the variables the JAX handler reads for those features when their extra
+# is unset (the extra wins): a value that turns the feature on raises too
+_UNPORTED_ENV = {"LAMBDIPY_MESH": "mesh",
+                 "LAMBDIPY_WINDOW_BUCKETING": "batch_window_bucketing",
+                 "LAMBDIPY_PREFILL_MODE": "prefill_mode"}
 
 
 def _check_unported_extras(extra: dict) -> None:
@@ -153,6 +170,14 @@ def _check_unported_extras(extra: dict) -> None:
             raise ValueError(
                 f"extra {key}={extra[key]!r} needs a feature the port does "
                 f"not have yet; supported: {key} in {list(off)} or unset")
+    for env, key in _UNPORTED_ENV.items():
+        raw = os.environ.get(env)
+        if key not in extra and raw is not None \
+                and raw.strip().lower() not in _UNPORTED_ENGINE_EXTRAS[key]:
+            raise ValueError(
+                f"{env}={raw!r} needs a feature the port does not have "
+                f"yet; supported: {list(_UNPORTED_ENGINE_EXTRAS[key])} or "
+                f"unset")
     mode = str(extra.get("batch_mode") or "").lower()
     if mode not in ("", "none", "continuous"):
         raise ValueError(f"batch_mode {mode!r} is not ported; supported: "
@@ -165,8 +190,12 @@ def _on(value) -> bool:
 
 def prefix_block(extra: dict) -> int:
     """The one resolution of the prefix block width, shared by the page
-    pool (its page width) and the prefix store (its radix block)."""
-    raw = extra.get("prefix_block")
+    pool (its page width) and the prefix store (its radix block): the
+    ``LAMBDIPY_PREFIX_BLOCK`` environment first, then the extra, then 32
+    (JAX ``handlers.py:483-487``)."""
+    raw = os.environ.get("LAMBDIPY_PREFIX_BLOCK")
+    if raw in (None, ""):
+        raw = extra.get("prefix_block")
     return int(raw) if raw not in (None, "") else 32
 
 
@@ -433,25 +462,39 @@ def spec_knobs(extra: dict) -> dict:
             "draft_exit": int(dexit or 1)}
 
 
+def longctx_knobs(extra: dict) -> dict:
+    """The long-context tier, resolved as the JAX handler resolves it
+    (``handlers.py:560-571``), the extra before the environment:
+    ``max_logical_ctx`` (``LAMBDIPY_MAX_LOGICAL_CTX``, 0 = off) and
+    ``long_prefill`` (``LAMBDIPY_LONG_PREFILL``, off)."""
+    mlc = extra.get("max_logical_ctx",
+                    os.environ.get("LAMBDIPY_MAX_LOGICAL_CTX", "0"))
+    lpf = extra.get("long_prefill",
+                    os.environ.get("LAMBDIPY_LONG_PREFILL", "0"))
+    return {"max_logical_ctx": int(mlc or 0), "long_prefill": _on(lpf)}
+
+
 def make_engine(server, extra: dict) -> ContinuousBatcher:
     """The continuous engine the extras ask for: ``batch_max`` slots,
     ``batch_segment`` steps per segment, ``batch_cache_len`` positions
     per row (default ``max_len``), :func:`pipeline_depth` segments in
     flight, joiners ordered by :func:`sched_policy_name`, the fault
     isolation of :func:`fault_knobs`, the speculative decoding of
-    :func:`spec_knobs` and, with ``kv_paged``, a page arena
-    of ``kv_pages`` pages (default ``batch_max`` full windows plus the
+    :func:`spec_knobs`, the long-context tier of :func:`longctx_knobs`
+    and, with ``kv_paged`` (the extra before ``LAMBDIPY_KV_PAGED``), a
+    page arena of ``kv_pages`` pages (the extra before
+    ``LAMBDIPY_KV_PAGES``; default ``batch_max`` full windows plus the
     null page) whose page width is ``page_width(cache_len,
-    prefix_block)`` (``prefix_block`` default 32)."""
+    prefix_block)`` (:func:`prefix_block`, default 32)."""
     cfg = server.model.cfg
     slots = int(extra.get("batch_max", 8))
     bcl = extra.get("batch_cache_len")
     cache_len = min(int(bcl) if bcl else cfg.max_len, cfg.max_len)
     pool = None
-    if _on(extra.get("kv_paged", "0")):
+    if _on(extra.get("kv_paged", os.environ.get("LAMBDIPY_KV_PAGED", "0"))):
         page = page_width(cache_len, prefix_block(extra))
         window_pages = cache_len // page
-        raw = extra.get("kv_pages")
+        raw = extra.get("kv_pages", os.environ.get("LAMBDIPY_KV_PAGES"))
         n_pages = max(2, int(raw) if raw not in (None, "")
                       else slots * window_pages + 1)
         pool = PagePool(
@@ -464,7 +507,8 @@ def make_engine(server, extra: dict) -> ContinuousBatcher:
                              cache_len=cache_len, page_pool=pool,
                              policy=make_policy(sched_policy_name(extra)),
                              pipeline_depth=pipeline_depth(extra),
-                             **fault_knobs(extra), **spec_knobs(extra))
+                             **fault_knobs(extra), **spec_knobs(extra),
+                             **longctx_knobs(extra))
 
 
 def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
@@ -624,6 +668,14 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
         parsed = parse(req)
         if isinstance(parsed, dict):
             return parsed
+        try:
+            return _invoke_parsed(parsed)
+        finally:
+            # the first completed invoke (the boot warmup) releases the
+            # background warm
+            _maybe_start_warm()
+
+    def _invoke_parsed(parsed) -> dict:
         prompt, max_new, sample_kwargs, want_lp, prefix, spec_k, sess = \
             parsed
         prompt, prefix = _route_prefix(prompt, prefix, sess)
@@ -669,6 +721,10 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
         prompt, max_new, sample_kwargs, want_lp, prefix, spec_k, sess = \
             parsed
         prompt, prefix = _route_prefix(prompt, prefix, sess)
+        # a pow-2 segment in [4, 64], as the JAX handler clamps it: a
+        # program key, so a request cannot grow the program cache
+        segment = min(64, _next_bucket(max(4, int(req.get("segment") or 16)),
+                                       4))
         spec_stats = None
         if spec_k is not None:
             # one chunk per verify step: its accepted tokens
@@ -678,13 +734,12 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
                 return_logprobs=want_lp, stats_out=spec_stats,
                 **sample_kwargs)
         elif engine is not None and len(prompt) == 1:
-            # the engine's segment sets the chunk cadence
+            # the engine's segment sets the chunk cadence; the request's
+            # reaches a row the engine sends solo
             chunks = engine.generate_stream(
-                prompt[0], max_new_tokens=max_new, prefix=prefix,
-                return_logprobs=want_lp, **sample_kwargs)
+                prompt[0], max_new_tokens=max_new, segment=segment,
+                prefix=prefix, return_logprobs=want_lp, **sample_kwargs)
         else:
-            # a pow-2 segment in [4, 64], as the JAX handler clamps it
-            segment = min(64, _next_bucket(int(req.get("segment") or 16), 4))
             chunks = server.generate_stream(
                 prompt, max_new_tokens=max_new, segment=segment,
                 prefix=prefix, return_logprobs=want_lp, **sample_kwargs)
@@ -706,6 +761,8 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
         if prefix is not None:
             out["prefix_cached"] = True
         yield out
+        # a streaming-only workload releases the warm too
+        _maybe_start_warm()
 
     # one live fault plan serves the engine (and through it the pool and
     # the store): armed and cleared at run time, reported in /metrics
@@ -752,6 +809,161 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
             return {"ok": False, "error": str(e)}
         return {"ok": True, "added": added, "armed": live_faults.armed()}
 
+    # whether speculation was on at boot: the knob resizes it, never
+    # turns it on
+    spec_boot_on = engine is not None and engine.spec_k >= 2
+
+    def knobs_admin(req: dict) -> dict:
+        """``POST /v1/debug/knobs`` (host-only): retune the engine's
+        per-dispatch knobs live, with the JAX handler's clamps and
+        refusals (``handlers.py:996-1097``): ``pipeline_depth`` in [1, 8];
+        ``spec_k`` 0 or a power of two in [2, 8], resizing speculation
+        that was on at boot and never turning it on; ``draft_mode``
+        model / lookup / off (``auto`` is model; ``aux`` needs a draft
+        provider, which the port has not); ``max_logical_ctx`` (paged KV
+        only; 0 stops routing). ``prefill_mode`` takes ``chunked`` only:
+        its ``sp`` mode waits for parallelism."""
+        if engine is None:
+            return {"ok": False,
+                    "error": "no continuous engine on this handler "
+                             "(pipeline_depth/spec_k are engine knobs)"}
+        known = {"pipeline_depth", "spec_k", "draft_mode",
+                 "max_logical_ctx", "prefill_mode"}
+        unknown = sorted(set(req) - known)
+        if unknown or not (set(req) & known):
+            return {"ok": False,
+                    "error": f"want a subset of {sorted(known)}, got "
+                             f"{sorted(req) or 'nothing'}"}
+        if "pipeline_depth" in req:
+            try:
+                d = int(req["pipeline_depth"])
+            except (TypeError, ValueError):
+                return {"ok": False, "error": "pipeline_depth wants an int"}
+            if not 1 <= d <= 8:
+                return {"ok": False,
+                        "error": f"pipeline_depth {d} out of range [1, 8]"}
+            engine.pipeline_depth = d
+            engine.pipe_stats.depth = d
+        if "spec_k" in req:
+            try:
+                k = int(req["spec_k"])
+            except (TypeError, ValueError):
+                return {"ok": False, "error": "spec_k wants an int"}
+            if k != 0 and not spec_boot_on:
+                return {"ok": False,
+                        "error": "spec_k was off at boot: live retune only "
+                                 "resizes speculation, never enables it"}
+            if k != 0:
+                k = min(8, max(2, _next_bucket(k, 2)))
+            engine.spec_k = k
+        if "draft_mode" in req:
+            dm = str(req["draft_mode"] or "").lower()
+            if dm == "auto":
+                dm = "model"
+            if dm not in ("model", "lookup", "aux", "off"):
+                return {"ok": False,
+                        "error": "draft_mode wants one of "
+                                 "model|lookup|aux|off"}
+            if dm in ("model", "aux") and not spec_boot_on:
+                return {"ok": False,
+                        "error": "spec was off at boot: draft_mode "
+                                 "retune steers a live draft tier, "
+                                 "never enables one"}
+            if dm == "aux":
+                return {"ok": False,
+                        "error": "draft_mode=aux needs a draft_provider "
+                                 "wired at boot"}
+            # rows admitted from here on; rows in flight keep theirs
+            engine.draft_mode = dm
+        if "prefill_mode" in req:
+            pm = str(req["prefill_mode"] or "").lower()
+            if pm not in ("chunked", "sp"):
+                return {"ok": False,
+                        "error": "prefill_mode wants chunked|sp"}
+            if pm != "chunked":
+                return {"ok": False,
+                        "error": "prefill_mode=sp needs an sp mesh, which "
+                                 "the port does not have yet"}
+        if "max_logical_ctx" in req:
+            try:
+                m = int(req["max_logical_ctx"])
+            except (TypeError, ValueError):
+                return {"ok": False,
+                        "error": "max_logical_ctx wants an int"}
+            if m != 0 and engine.pool is None:
+                return {"ok": False,
+                        "error": "max_logical_ctx needs paged KV "
+                                 "(kv_paged) at boot"}
+            m = max(0, m)
+            engine.max_logical_ctx = m
+            if engine._longctx is not None and m:
+                # a live runner reads its admission cap again; 0 only
+                # stops routing
+                engine._longctx.max_logical_ctx = m
+        return {"ok": True,
+                "pipeline_depth": engine.pipeline_depth,
+                "spec_k": engine.spec_k,
+                "draft_mode": engine.draft_mode,
+                "max_logical_ctx": engine.max_logical_ctx,
+                "prefill_mode": "chunked"}
+
+    # the background warm (JAX handlers.py:1100-1172): after the first
+    # invoke completes, never at init, a daemon thread runs one generate
+    # per bucket that warm_buckets lists, then the engine's group prefill
+    # (warm_group_prefill, on unless "0"). On the card each run captures
+    # its graphs under DEVICE_LOCK, as every capture does; they land in the
+    # server's program cache, bounded by program_cache_bytes.
+    # "in_flight" is the readiness signal /healthz reads.
+    warm_state = {"requested": [], "done": [], "errors": [],
+                  "in_flight": False}
+    raw_buckets = extra.get("warm_buckets")
+    if raw_buckets:
+        warm_state["requested"] = sorted(
+            {int(tok) for tok in str(raw_buckets).split(",") if tok.strip()})
+    warm_lock = threading.Lock()
+    warm_started = False
+    warm_group = (engine is not None
+                  and str(extra.get("warm_group_prefill", "1")) != "0")
+
+    def _maybe_start_warm():
+        nonlocal warm_started
+        if not warm_state["requested"] and not warm_group:
+            return
+        with warm_lock:  # one warm thread
+            if warm_started:
+                return
+            warm_started = True
+            # set before the thread exists: no probe reads ready while the
+            # warm is committed
+            warm_state["in_flight"] = True
+
+        def _warm():
+            for size in warm_state["requested"]:
+                try:
+                    server.generate([list(range(1, size + 1))],
+                                    max_new_tokens=default_new)
+                    with warm_lock:
+                        warm_state["done"].append(size)
+                except Exception as e:  # noqa: BLE001 — background, never
+                    # fatal, and one bad bucket leaves the rest
+                    with warm_lock:
+                        warm_state["errors"].append(f"bucket {size}: {e}")
+            if warm_group:
+                try:
+                    n = engine.warm_group_prefill()
+                    with warm_lock:
+                        warm_state["done"].append(f"group_prefill:{n}")
+                except Exception as e:  # noqa: BLE001 — as above
+                    with warm_lock:
+                        warm_state["errors"].append(f"group_prefill: {e}")
+            # JAX saves the programs to its AOT store here; a CUDA graph
+            # does not outlive its process, so the port has nothing to save
+            with warm_lock:
+                warm_state["in_flight"] = False
+
+        threading.Thread(target=_warm, daemon=True,
+                         name="bucket-warm").start()
+
     def stats() -> dict:
         # decode_buckets, compile_count, program_evictions as the JAX
         # handler reports them, plus replays and eager_steps
@@ -772,6 +984,12 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
         if live_faults is not None:
             # the live injection plan: a stray LAMBDIPY_FAULT shows here
             out["faults"] = {"armed": live_faults.armed()}
+        if warm_state["requested"] or warm_group:
+            # what was asked, visible while it runs
+            with warm_lock:
+                out["warm_buckets"] = {
+                    k: list(v) if isinstance(v, list) else v
+                    for k, v in warm_state.items()}
         return out
 
     ship_stats = KvShipStats()
@@ -795,6 +1013,9 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
         extra=extra,
         engine_fault_fn=engine.fault_state if engine is not None else None,
         debug_invariants_fn=debug_invariants, faults_admin_fn=faults_admin,
+        knobs_admin_fn=knobs_admin,
+        # a bare dict read: what a health probe may cost
+        warming_fn=lambda: bool(warm_state["in_flight"]),
         session_end_fn=store.end_session if store is not None else None,
         **ship)
 

@@ -214,7 +214,9 @@ class EngineStats:
     alone on their request thread, a chunked row's continuation
     included), ``prefill_chunks`` (the chunk forwards of chunked row
     prefills), ``walk_segments`` (segments dispatched while a chunked
-    walk was in progress), ``requests_served``, ``cancelled``
+    walk was in progress), ``warm_prefills`` (the background warm's
+    group prefills, counted among the forwards), ``requests_served``,
+    ``cancelled``
     (rows failed with ``RequestCancelled`` at a barrier: deadline passed
     or waiter gone), and the programs' ``captures`` (CUDA graphs
     captured, decode and prefill, reported as ``compile_count``),
@@ -247,6 +249,7 @@ class EngineStats:
     verify_segments: int = 0
     verify_rows: int = 0
     draft_forwards: int = 0
+    warm_prefills: int = 0
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
     def record(self, name: str, n: int = 1) -> None:
@@ -294,6 +297,10 @@ class EngineStats:
         with self._lock:
             self.joins += 1
 
+    def record_warm_prefill(self) -> None:
+        with self._lock:
+            self.warm_prefills += 1
+
     def record_served(self) -> None:
         with self._lock:
             self.requests_served += 1
@@ -320,10 +327,14 @@ class EngineStats:
                     "row_prefills": self.row_prefills,
                     "prefill_chunks": self.prefill_chunks,
                     "walk_segments": self.walk_segments,
+                    # the background warm's group prefills
+                    "warm_prefills": self.warm_prefills,
                     # forwards the engine ran: decode steps, one per
-                    # prefill (grouped or alone) and one per walk chunk
+                    # prefill (grouped, alone or warming) and one per walk
+                    # chunk
                     "forwards": (self.steps + self.prefill_groups
-                                 + self.row_prefills + self.prefill_chunks),
+                                 + self.row_prefills + self.prefill_chunks
+                                 + self.warm_prefills),
                     "requests_served": self.requests_served,
                     "cancelled": self.cancelled,
                     "compile_count": self.captures,

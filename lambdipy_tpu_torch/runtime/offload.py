@@ -17,16 +17,17 @@ fetch instead of prefilling the range again.
   surfaces as wire frames.
 - :class:`PageTemperature`, the LRU tick tracker a pool and its
   consumers share to pick spill victims.
+- :class:`Prefetcher`, the per-row page state machine (RESIDENT /
+  OFFLOADED / INFLIGHT) the long-context runner (``runtime/longctx.py``)
+  drives from its decode cursor: pages it yields spill, the prefetch
+  after a dispatch plans them back, the demand check before the next
+  dispatch scores hits and misses.
 
 Failure story: ``offload_stall`` is a ``runtime/faults.py`` site, checked
 at every :meth:`OffloadArena.fetch_many`. A delay is a slow re-online; an
 exception (or a key the arena dropped under budget pressure,
 :class:`OffloadMiss`) makes the caller prefill the lost K/V again, counted
 under ``kv_offload.recomputes``, never a wrong token.
-
-Not ported yet: the ``Prefetcher``, the per-row page state machine that
-the long-context runner drives from its decode cursor (ROADMAP queue 1,
-item 8).
 """
 
 from __future__ import annotations
@@ -243,4 +244,76 @@ class OffloadArena:
         """Gauges + counters — the ``kv.offload`` metrics block."""
         out = self.gauges()
         out.update(self.stats.report())
+        return out
+
+
+# Prefetcher page states: absent from the map = the page was never
+# offloaded (always resident: not a prefetch hit, not a miss; only pages
+# that LEFT the device count toward the hit rate).
+OFFLOADED = "offloaded"
+INFLIGHT = "inflight"
+RESIDENT = "resident"
+
+
+class Prefetcher:
+    """Per-row page-residency state machine, keyed off the decode cursor
+    (JAX ``offload.py:279-344``).
+
+    The runner drives it: ``spill(keys)`` when a page yields to pressure;
+    ``plan(upcoming)`` right AFTER dispatching a segment (the offloaded
+    subset of the pages the next dispatch needs, marked inflight: the
+    caller fetches them while the card is busy, then ``complete(keys)``);
+    ``demand(needed)`` right BEFORE the next dispatch (counts hits, pages
+    the prefetch brought home, against misses, which the caller must
+    fetch now, stalling the dispatch)."""
+
+    def __init__(self, stats: KvOffloadStats | None = None):
+        self.stats = stats if stats is not None else KvOffloadStats()
+        self._state: dict[Any, str] = {}
+
+    def state(self, key) -> str:
+        return self._state.get(key, RESIDENT)
+
+    def spill(self, keys) -> None:
+        for k in keys:
+            self._state[k] = OFFLOADED
+
+    def plan(self, upcoming) -> list:
+        """Offloaded pages among ``upcoming``, marked inflight."""
+        todo = [k for k in upcoming if self._state.get(k) == OFFLOADED]
+        for k in todo:
+            self._state[k] = INFLIGHT
+        return todo
+
+    def complete(self, keys) -> None:
+        """Fetched-and-written pages come home resident."""
+        for k in keys:
+            if k in self._state:
+                self._state[k] = RESIDENT
+
+    def demand(self, needed) -> list:
+        """Residency check at dispatch time: returns the keys still not
+        resident (the caller fetches them now, a timed stall) and records
+        the hit/miss split. A page that went offloaded and is resident
+        again by demand time is a prefetch hit; a hit key leaves the
+        tracker, so each spill scores at most one hit."""
+        needed = list(needed)
+        misses = [k for k in needed
+                  if self._state.get(k) in (OFFLOADED, INFLIGHT)]
+        hit_keys = [k for k in needed if self._state.get(k) == RESIDENT]
+        self.stats.record_prefetch(len(hit_keys), len(misses))
+        for k in hit_keys:
+            del self._state[k]
+        for k in misses:
+            self._state[k] = INFLIGHT
+        return misses
+
+    def forget(self, keys) -> None:
+        for k in keys:
+            self._state.pop(k, None)
+
+    def counts(self) -> dict:
+        out = {OFFLOADED: 0, INFLIGHT: 0, RESIDENT: 0}
+        for s in self._state.values():
+            out[s] += 1
         return out

@@ -2,9 +2,9 @@
 of ``lambdipy_tpu/runtime/server.py``:
 
 - ``GET /healthz``: liveness (always 200), the handler's meta, ``ready``
-  (false once draining or while the engine is wedged), ``wedged`` and the
-  engine's fault state (``engine``), and the scheduler's policy and queue
-  depth;
+  (false once draining, while the handler's background warm runs or while
+  the engine is wedged), ``warming``, ``wedged`` and the engine's fault
+  state (``engine``), and the scheduler's policy and queue depth;
 - ``GET /metrics``: the server's counters and latency percentiles, the
   scheduler's report (``sched``) and the handler's stats (each kernel's
   launch counter, the continuous engine, its page pool and pipeline);
@@ -15,7 +15,8 @@ of ``lambdipy_tpu/runtime/server.py``:
   ``data: [DONE]``;
 - ``POST /shutdown``: drain, then stop;
 - ``POST /v1/debug/faults`` (arm a fault spec on the live plan, or
-  clear it) and ``GET /v1/debug/invariants`` (the pool's and the store's
+  clear it), ``POST /v1/debug/knobs`` (retune the engine's knobs live)
+  and ``GET /v1/debug/invariants`` (the pool's and the store's
   accounting), for loopback clients only;
 - ``POST /v1/kv/export`` (a prompt head's K/V as one ``runtime/kvwire.py``
   frame, or with ``"stream": true`` as a chunked ``LKVS``/``LKVC``
@@ -38,7 +39,7 @@ batch or background). Overload is an explicit 429 or 503 with
 the engine cancelled at a barrier (its deadline passed), and a request
 that arrives while a wedged engine restarts (reason ``wedged``: a wedged
 engine with no restart in flight admits, since that request is its
-probe). Not ported: ``/v1/debug/knobs`` and ``/profile``."""
+probe). Not ported: ``/profile``."""
 
 from __future__ import annotations
 
@@ -837,9 +838,12 @@ class BundleServer:
                 if self.path == "/healthz":
                     engine = server.engine_fault_state()
                     wedged = bool(engine.get("wedged"))
+                    warming = server.warming()
                     self._send(200, {
                         "ok": True, **server.state.meta,
-                        "ready": not server.draining and not wedged,
+                        "ready": (not server.draining and not warming
+                                  and not wedged),
+                        "warming": warming,
                         "wedged": wedged,
                         **({"engine": engine} if engine else {}),
                         "draining": server.draining,
@@ -861,11 +865,13 @@ class BundleServer:
                     threading.Thread(target=server.stop,
                                      daemon=True).start()
                     return
-                if self.path == "/v1/debug/faults":
+                if self.path in ("/v1/debug/faults", "/v1/debug/knobs"):
                     if self._require_loopback():
                         request = self._read_json()
                         if request is not None:
-                            self._debug("faults_admin_fn", request)
+                            self._debug("faults_admin_fn"
+                                        if self.path.endswith("faults")
+                                        else "knobs_admin_fn", request)
                     return
                 if self.path == "/v1/kv/import":
                     self._kv_import()
@@ -912,6 +918,15 @@ class BundleServer:
     def _leave(self) -> None:
         with self._inflight_lock:
             self._inflight -= 1
+
+    def warming(self) -> bool:
+        """The handler's O(1) warm flag (False without one); never
+        raises."""
+        fn = getattr(self.state, "warming_fn", None)
+        try:
+            return bool(fn()) if fn is not None else False
+        except Exception:  # noqa: BLE001 — health must never fail
+            return False
 
     def engine_fault_state(self) -> dict:
         """The engine's O(1) fault state (empty without one); never

@@ -395,7 +395,8 @@ def _jax_handler(extra):
 def _handler(weights, extra):
     return generate_handler(
         {"model": "llama-tiny", "dtype": "float32",
-         "extra": {**EXTRA, "prefix_cache_mb": "0", **extra}},
+         "extra": {**EXTRA, "prefix_cache_mb": "0", "warm_group_prefill": "0",
+                   **extra}},
         HandlerContext(device="cpu", state_dict=weights[2]))
 
 

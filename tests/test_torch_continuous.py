@@ -299,7 +299,7 @@ def test_full_arena_sheds_503_kv_pages_over_http(weights):
     state = generate_handler(
         {"model": "llama-tiny", "dtype": "float32",
          "extra": {**EXTRA, **ENGINES["paged"], "batch_mode": "continuous",
-                   "kv_pages": "9"}},
+                   "kv_pages": "9", "warm_group_prefill": "0"}},
         HandlerContext(device="cpu", state_dict=weights[2]))
     pool = state.engine.pool
     held = pool.alloc(6)  # another tenant holds most of the arena
@@ -347,7 +347,7 @@ def test_handler_wiring(weights):
     state = generate_handler(
         {"model": "llama-tiny", "dtype": "float32",
          "extra": {**EXTRA, **ENGINES["paged"], "batch_mode": "continuous",
-                   "prefix_block": "32"}},
+                   "prefix_block": "32", "warm_group_prefill": "0"}},
         HandlerContext(device="cpu", state_dict=weights[2]))
     engine = state.engine
     assert state.meta["batch_mode"] == "continuous" and state.meta["kv_paged"]
@@ -364,7 +364,7 @@ def test_handler_wiring(weights):
     assert stats["batching"]["page_pool"]["pages_total"] == 16
     assert {"paged_decode_attention", "paged_decode_attention_int8kv"} \
         <= set(stats["kernels"])
-    for extra in ({"batch_mode": "continuous", "max_logical_ctx": "4096"},
+    for extra in ({"batch_mode": "continuous", "mesh": "tp=2"},
                   {"batch_mode": "continuous",
                    "batch_window_bucketing": "1"},
                   {"batch_mode": "window"},

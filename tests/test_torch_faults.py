@@ -590,7 +590,8 @@ def test_prefix_walk_fault_serves_unrouted(weights):
     run, and the next request walks and routes."""
     state = generate_handler(
         {"model": "llama-tiny",
-         "extra": {**PAGED, "batch_mode": "continuous"}},
+         "extra": {**PAGED, "batch_mode": "continuous",
+                   "warm_group_prefill": "0"}},
         HandlerContext(device="cpu", state_dict=weights))
     assert state.prefix_store.faults is state.engine.faults
     prompt = [(3 * j) % 300 + 2 for j in range(40)]
@@ -884,7 +885,8 @@ def test_ladder_level_three_bypasses_the_prefix_store(weights):
     prefix store; the request serves unrouted, bitwise."""
     state = generate_handler(
         {"model": "llama-tiny",
-         "extra": {**PAGED, "batch_mode": "continuous"}},
+         "extra": {**PAGED, "batch_mode": "continuous",
+                   "warm_group_prefill": "0"}},
         HandlerContext(device="cpu", state_dict=weights))
     prompt = [(11 * j) % 300 + 3 for j in range(40)]
     want = state.server.generate(prompt, max_new_tokens=5).tolist()
@@ -924,7 +926,7 @@ def test_server_healthz_wedged_and_admission_accept_hole(tiny_server,
     state = generate_handler(
         {"model": "llama-tiny",
          "extra": {"batch_mode": "continuous", "batch_max": "2",
-                   "batch_segment": "4",
+                   "batch_segment": "4", "warm_group_prefill": "0",
                    "engine_watchdog_s": str(WATCHDOG_S),
                    "max_replays": "8", "prefix_cache_mb": "0",
                    "fault_spec": "segment_fetch:hang@seg=2,n=2"}},
@@ -993,7 +995,8 @@ def test_debug_faults_and_invariants_endpoints(weights):
     the pool and the store, and ``/metrics`` shows ``faults.armed``."""
     state = generate_handler(
         {"model": "llama-tiny",
-         "extra": {**PAGED, "batch_mode": "continuous"}},
+         "extra": {**PAGED, "batch_mode": "continuous",
+                   "warm_group_prefill": "0"}},
         HandlerContext(device="cpu", state_dict=weights))
     srv = BundleServer(state, port=0).start_background()
     base = srv.url

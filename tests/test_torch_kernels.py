@@ -1584,3 +1584,102 @@ def test_arena_page_read_is_ordered_on_the_serving_stream(cuda_device):
     block = arena_page_slices(arena, [2])[0]
     assert all(bool((b["k"] == 3.0).all()) for b in block)
     assert block[0]["k"].shape == (1, 16, 2, 64)
+
+
+# -- the long-context tier on the card -----------------------------------------
+
+
+def _longctx_engine(cuda_device, monkeypatch, **extra):
+    """SMALL's bf16 int8 model (window 256) behind a paged engine with the
+    long-context tier on, on a server that walks 128-token chunks (the
+    runner's half-window schedule); long joiners past 8 tokens chunk."""
+    from lambdipy_tpu_torch.runtime import continuous
+    from lambdipy_tpu_torch.runtime.handlers import make_engine
+
+    monkeypatch.setattr(continuous, "GROUP_PREFILL_MAX", 8)
+    adapter = registry.get("llama-tiny").build(
+        dtype="bfloat16", quant="int8", extra={**SMALL, **GRAPH_PATHS["A"]})
+    server = adapter.make_server(adapter.init_params(seed=3, device="cpu"),
+                                 device=cuda_device, prefill_chunk=128)
+    return make_engine(server, {"batch_max": "2", "batch_segment": "8",
+                                "kv_paged": "1", "prefix_block": "16",
+                                "max_logical_ctx": str(8 * 256), **extra})
+
+
+def _lc_row(n, seed):
+    return np.random.default_rng(seed).integers(5, 500, size=n).tolist()
+
+
+def test_long_context_runner_identities(cuda_device, monkeypatch):
+    """At base 0 a 200-token row through the runner (a 128-token chunk,
+    then the tail) is bitwise the engine's chunked row over the same
+    schedule; at 3x the window the second run, a churned run
+    (``resident_cap``) and a replay after an ``offload_stall`` re-online
+    failure are bitwise the first run (tokens and logprobs); every
+    decode step of the runner is a graph replay, the prefill chunks run
+    eagerly; no page leaks."""
+    eng = _longctx_engine(cuda_device, monkeypatch)
+    runner = eng._longctx_runner()
+    short = _lc_row(200, 1)
+    got = runner.generate(short, max_new_tokens=24, return_logprobs=True)
+    want = eng.generate(short, max_new_tokens=24, return_logprobs=True)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    row = _lc_row(3 * 256, 2)
+    first = runner.generate(row, max_new_tokens=24, return_logprobs=True)
+    runs = [runner.generate(row, max_new_tokens=24, return_logprobs=True)]
+    runner.resident_cap = runner.n_view - 3
+    runs.append(runner.generate(row, max_new_tokens=24,
+                                return_logprobs=True))
+    rep = runner.report()
+    assert rep["prefetch_hits"] > 0 and rep["recomputes"] == 0
+    # the engine's plan reaches the runner's arena (the pool's)
+    eng.faults.arm("offload_stall:exception")
+    runs.append(runner.generate(row, max_new_tokens=24,
+                                return_logprobs=True))
+    assert runner.report()["recomputes"] > 0
+    for run in runs:
+        for a, b in zip(run, first):
+            np.testing.assert_array_equal(a, b)
+    rep = runner.report()
+    assert rep["replays"] == rep["steps"] and rep["eager_steps"] == 0
+    assert rep["eager_prefills"] == rep["chunks"] \
+        and rep["prefill_replays"] == 0
+    assert eng.pool.free_count() == eng.pool.capacity_pages
+    eng.pool.check_invariants()
+
+
+def test_long_context_spill_reads_what_the_card_wrote(cuda_device,
+                                                      monkeypatch):
+    """A slide's spill reads the pages right after the chunk or segment
+    that wrote them was enqueued: with a ~0.1 s ``_sleep`` enqueued ahead
+    of every slide the spilled bytes are the bytes of a run without it
+    (the read is ordered on the serving stream), and so are the tokens."""
+    eng = _longctx_engine(cuda_device, monkeypatch)
+    runner = eng._longctx_runner()
+    row = _lc_row(3 * 256, 3)
+    spilled = []
+    spill = runner.offload.spill
+
+    def record(key, tokens, block):
+        spilled[-1].append(b"".join(
+            v.contiguous().view(torch.uint8).numpy().tobytes()
+            for entry in block for _, v in sorted(entry.items())))
+        return spill(key, tokens, block)
+
+    monkeypatch.setattr(runner.offload, "spill", record)
+    slide = runner._slide
+
+    def slept(st, k):
+        torch.cuda._sleep(200_000_000)
+        return slide(st, k)
+
+    outs = []
+    for fn in (slide, slept):
+        spilled.append([])
+        monkeypatch.setattr(runner, "_slide", fn)
+        outs.append(runner.generate(row, max_new_tokens=24,
+                                    return_logprobs=True))
+    assert spilled[0] and spilled[0] == spilled[1]
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)

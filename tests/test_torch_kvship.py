@@ -299,7 +299,7 @@ def _serve(weights, **extra):
     state = generate_handler(
         {"model": "llama-tiny",
          "extra": {**EXTRA, **PAGED, "batch_mode": "continuous",
-                   "prefix_cache_mb": "8", **extra}},
+                   "prefix_cache_mb": "8", "warm_group_prefill": "0", **extra}},
         HandlerContext(device="cpu", state_dict=weights[2]))
     return state, BundleServer(state, port=0).start_background()
 

@@ -316,7 +316,8 @@ def test_handler_builds_the_arena_as_jax_does(weights, monkeypatch, extra,
         if not paged:
             eng.pop("kv_paged")
         state = generate_handler({"model": "llama-tiny",
-                                  "extra": {**EXTRA, **eng, **extra}},
+                                  "extra": {**EXTRA, **eng, "warm_group_prefill": "0",
+                                            **extra}},
                                  HandlerContext(device="cpu",
                                                 state_dict=weights))
         arena = state.prefix_store.offload

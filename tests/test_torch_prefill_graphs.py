@@ -429,7 +429,7 @@ def test_prefill_counters_reach_metrics(weights):
     state = generate_handler(
         {"model": "llama-tiny", "dtype": "float32",
          "extra": {**EXTRA, "batch_mode": "continuous", "batch_max": "2",
-                   "prefix_cache_mb": "0"}},
+                   "prefix_cache_mb": "0", "warm_group_prefill": "0"}},
         HandlerContext(device="cpu", state_dict=weights[2]))
     state.server.graph_type = FakeGraph
     for n in (3, 4):

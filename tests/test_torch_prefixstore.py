@@ -418,7 +418,7 @@ def test_continue_prefill_matches_jax(weights, jax_server, server):
 def _handler(weights, **extra):
     return generate_handler(
         {"model": "llama-tiny", "dtype": "float32",
-         "extra": {**EXTRA, **extra}},
+         "extra": {**EXTRA, "warm_group_prefill": "0", **extra}},
         HandlerContext(device="cpu", state_dict=weights[2]))
 
 

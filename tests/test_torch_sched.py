@@ -432,6 +432,13 @@ def test_unloaded_server_sheds_nothing(state, serve):
         status, body, _ = _post(srv.url, BODY)
         assert status == 200 and body["ok"]
     metrics = _get(srv.url, "/metrics")
+    # the server books a request's completion just after it has written
+    # the response, so the last one may land a moment after the client
+    # read it
+    deadline = time.monotonic() + 10
+    while metrics["sched"]["completed"] < 5 and time.monotonic() < deadline:
+        time.sleep(0.01)
+        metrics = _get(srv.url, "/metrics")
     assert metrics["server"]["requests"] == 5
     assert metrics["server"]["errors"] == 0
     assert metrics["server"]["latency"]["count"] == 5

@@ -34,7 +34,7 @@ def state():
         {"model": "llama-tiny", "dtype": "float32",
          "extra": {"attn_backend": "blocked", "batch_mode": "continuous",
                    "kv_paged": "1", "batch_max": "4", "batch_segment": "4",
-                   "prefix_block": "16"}},
+                   "prefix_block": "16", "warm_group_prefill": "0"}},
         HandlerContext(device="cpu"))
 
 
@@ -224,9 +224,12 @@ def test_shutdown_drains_then_refuses(state, serve):
     with 200, a request sent while it drains is shed 503 ``draining``,
     and once drained the server no longer listens."""
     invoke = state.invoke_fn
+    # the request in flight is held until the test has seen the 503, so
+    # the drain cannot finish first on a loaded machine
+    release = threading.Event()
 
     def slow(req):
-        time.sleep(0.6)
+        release.wait(timeout=30)
         return invoke(req)
 
     srv = serve(dataclasses.replace(state, invoke_fn=slow))
@@ -241,6 +244,7 @@ def test_shutdown_drains_then_refuses(state, serve):
     code, out, _ = _post(srv.url + "/shutdown", {})
     assert (code, out) == (200, {"ok": True, "draining": True})
     code, out, hdrs = _post(srv.url + "/invoke", body)
+    release.set()
     assert code == 503 and out["shed"] == "draining"
     assert int(hdrs["Retry-After"]) >= 1
     first.join(timeout=30)

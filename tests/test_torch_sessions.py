@@ -504,7 +504,7 @@ def test_server_session_headers_delete_and_gauges(weights):
     state = generate_handler(
         {"model": "llama-tiny",
          "extra": {**EXTRA, **PAGED, "batch_mode": "continuous",
-                   "prefix_cache_mb": "8"}},
+                   "prefix_cache_mb": "8", "warm_group_prefill": "0"}},
         HandlerContext(device="cpu", state_dict=weights[2]))
     srv = BundleServer(state, port=0).start_background()
     try:

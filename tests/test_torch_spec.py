@@ -640,7 +640,8 @@ def test_spec_decode_stats_report_matches_jax():
 def _handler(weights, extra):
     return generate_handler(
         {"model": "llama-tiny", "dtype": "float32",
-         "extra": {**EXTRA, "prefix_cache_mb": "0", **extra}},
+         "extra": {**EXTRA, "prefix_cache_mb": "0", "warm_group_prefill": "0",
+                   **extra}},
         HandlerContext(device="cpu", state_dict=weights[2]))
 
 
