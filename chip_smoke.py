@@ -138,7 +138,22 @@ Phases, each of which fails the run with a non-zero exit:
    (the run replays), each bitwise the first; (e) kernel 2 = 225 x
    forwards, kernel 3 = 32 x decode steps; (f) no page leaked; TTFT,
    decode tok/s past the window, spill and re-online throughput, stalls
-   and peak memory printed;
+   and peak memory printed. Last, K: the port serves a bundle written
+   without JAX (D's paged engine, the warm on): (a) ``params.fpk`` from
+   seeded random weights under the flax paths, ``manifest.json`` with the
+   payload JAX's builder writes, ``handler.py`` in its template's text,
+   in a temporary directory (free space, bytes and write time printed);
+   (b) ``load_bundle`` on the card: every tensor equal to the one it was
+   written from, 4 prompts greedy and seeded sampled (logprobs on)
+   bitwise a handler built from the same weights; (c) ``python -m
+   lambdipy_tpu_torch serve <bundle> --port 0`` twice (beside the walls
+   of fresh interpreters importing torch and the port's server): spawn
+   to the readiness line and its cold-start stages, spawn to ``/healthz``
+   ready, the boot fields (``skew``: the host's own check of the
+   manifest's record, ``handler_meta``), 30 invokes of 100 tokens in and 16 out (p50, p99) bitwise
+   (b)'s, the kernels' counters from ``/metrics``, and SIGTERM with a
+   request in flight: it finishes 200 and the process exits 0; (d) ``POST
+   /profile`` writes a trace (its device kernel events counted);
 5. print the kernels' JSON line and, last, the device line.
 
 Details go to ``chiprun_out/chip_smoke.json``. With no CUDA device, or
@@ -151,6 +166,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -1427,7 +1443,8 @@ def serve_path(path: str, card: str) -> dict:
     server = BundleServer(state, port=0).start_background()
     try:
         health = http_json(server.url + "/healthz")
-        if not health.get("ok") or health.get("kv_quant") != cfg.kv_quant:
+        if not health.get("ok") \
+                or health["handler_meta"].get("kv_quant") != cfg.kv_quant:
             raise SystemExit(f"/healthz not ok: {health}")
         rng = torch.Generator().manual_seed(11)  # the same prompts per path
 
@@ -1722,7 +1739,7 @@ def serve_engine_path(card: str) -> dict:
 
     try:
         health = http_json(server.url + "/healthz")
-        if not (health.get("ok") and health.get("kv_paged")):
+        if not (health.get("ok") and health["handler_meta"].get("kv_paged")):
             raise SystemExit(f"path D: /healthz not ok: {health}")
         set_launches_to_zero()  # counters to 0 just before the path
         walls, burst_s = _drive(send, reqs)
@@ -4947,6 +4964,359 @@ def serve_longctx_path(card: str) -> dict:
     return out
 
 
+# path K: the port boots a bundle written without JAX (params.fpk,
+# manifest.json, handler.py in the JAX builder's text) in process and as
+# a CLI process
+BUNDLE_EXTRA = {**{k: v for k, v in ENGINE_EXTRA.items()
+                   if k != "warm_group_prefill"},  # the warm on by default
+                "max_new_tokens": "16", "prefix_cache_mb": "0"}
+BUNDLE_PROMPTS = (100, 24, 300, 700)  # (b)'s prompts; the first is (c)'s
+BUNDLE_NEW = 16
+BUNDLE_INVOKES = 30
+BUNDLE_RUNS = 2
+# the JAX builder's handler template (lambdipy_tpu/bundle/package.py:29-47)
+HANDLER_TEMPLATE = '''\
+"""Generated bundle entrypoint ({recipe}).
+
+The serve runtime imports this module with the bundle site tree and base
+layer on sys.path, calls ``init(ctx)`` once at boot (cold start), then
+``invoke(state, request)`` per request.
+"""
+
+from {module} import {attr} as _build_handler
+
+_SPEC = {spec!r}
+
+
+def init(ctx):
+    return _build_handler(_SPEC, ctx)
+
+
+def invoke(state, request):
+    return state.invoke(request)
+'''
+# the versions of the jax-tpu layer's JAX distributions a JAX build of
+# this repository records (its CPU tests' bundles): K's manifest names the
+# layer as a JAX-built bundle does, so the skew check runs as it would
+JAX_BUILD_VERSIONS = {"jax": "0.9.0", "jaxlib": "0.9.0", "flax": "0.12.3",
+                      "orbax-checkpoint": "0.11.32", "ml-dtypes": "0.5.4"}
+
+
+def write_bundle(bundle: Path, state_dict: dict, card: str) -> dict:
+    """A llama3-8b bundle without JAX: ``params/params.fpk`` from
+    ``state_dict`` under the flax paths (the port's writer), ``handler.py``
+    in the JAX template's text, ``manifest.json`` with the payload JAX's
+    ``materialize_payload`` writes (``bundle/package.py:57-109``)."""
+    import shutil
+
+    from lambdipy_tpu_torch.bundle import flatpack
+    from lambdipy_tpu_torch.bundle.baselayer import base_layer_versions
+    from lambdipy_tpu_torch.bundle.format import write_manifest
+
+    (bundle / "params").mkdir(parents=True)
+    free = shutil.disk_usage(bundle).free
+    need = sum(t.numel() * t.element_size() for t in state_dict.values())
+    log(f"path K (a): {free / 2**30:.1f} GiB free in {bundle.parent}, the "
+        f"params need {need / 2**30:.2f} GiB")
+    if free < need * 1.05:
+        raise SystemExit("path K: not enough disk for the bundle's params")
+    tree: dict = {"params": {}}
+    for key, t in state_dict.items():
+        node = tree["params"]
+        *parents, leaf = key.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+    t0 = time.perf_counter()
+    info = flatpack.save(bundle / "params" / "params.fpk", tree)
+    write_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in state_dict.values())
+    params_info = {"format": "fpk", "n_params": n_params, "seed": 0,
+                   "serving_cast": {"applied": False,
+                                    "reason": "written by the port"}}
+    (bundle / "params" / "info.json").write_text(
+        json.dumps({"model": "llama3-8b", **params_info}))
+    spec = {"recipe": "chip-smoke-llama3-8b", "model": "llama3-8b",
+            "params": "init", "dtype": "bfloat16", "batch_size": 1,
+            "mesh": {}, "quant": "int8", "extra": dict(BUNDLE_EXTRA),
+            "device": "any"}
+    (bundle / "handler.py").write_text(HANDLER_TEMPLATE.format(
+        recipe=spec["recipe"], module="lambdipy_tpu.runtime.handlers",
+        attr="generate_handler", spec=spec))
+    t0 = time.perf_counter()
+    write_manifest(
+        bundle, artifact_id="chip-smoke-llama3-8b",
+        provenance={"recipe": spec["recipe"], "built_at": time.time(),
+                    "python": f"{sys.version_info.major}."
+                              f"{sys.version_info.minor}",
+                    "skipped_optional": []},
+        base_layer={"name": "jax-tpu",
+                    "versions": {**base_layer_versions("jax-tpu"),
+                                 **JAX_BUILD_VERSIONS}},
+        payload={**spec, "params": "params", "params_info": params_info},
+        runtime={"entry": "handler.py"})
+    manifest_s = time.perf_counter() - t0
+    log(f"path K (a): params.fpk {info['bytes']:,} B ({info['n_tensors']} "
+        f"tensors) written in {write_s:.2f} s "
+        f"({info['bytes'] / write_s / 1e9:.2f} GB/s from the card), "
+        f"manifest (sha256 of every file) in {manifest_s:.2f} s [{card}]")
+    return {"bytes": info["bytes"], "n_tensors": info["n_tensors"],
+            "write_s": write_s, "manifest_s": manifest_s,
+            "free_bytes": free}
+
+
+def _bundle_requests(vocab: int) -> list:
+    rng = torch.Generator().manual_seed(17)
+    reqs = []
+    for n in BUNDLE_PROMPTS:
+        toks = torch.randint(1, vocab, (n,), generator=rng).tolist()
+        for knobs in ({}, KNOBS["sampled"]):
+            reqs.append({"tokens": toks, "max_new_tokens": BUNDLE_NEW,
+                         "logprobs": True, **knobs})
+    return reqs
+
+
+def _until_warm(state, timeout: float = 300.0) -> None:
+    t0 = time.perf_counter()
+    while state.warming_fn():
+        if time.perf_counter() - t0 > timeout:
+            raise SystemExit("path K: the background warm never ended")
+        time.sleep(0.02)
+
+
+def boot_in_process(bundle: Path, state_dict: dict, spec: dict,
+                    card: str) -> dict:
+    """(b): ``load_bundle`` on the card; every tensor equal to the one it
+    was written from; 4 prompts greedy and seeded sampled, logprobs on,
+    bitwise a handler built from ``state_dict`` directly."""
+    from lambdipy_tpu_torch.runtime.handlers import (HandlerContext,
+                                                     generate_handler,
+                                                     kernel_launches)
+    from lambdipy_tpu_torch.runtime.loader import load_bundle
+
+    set_launches_to_zero()  # counters to 0 just before the path
+    t0 = time.perf_counter()
+    boot = load_bundle(bundle, device="cuda")
+    boot_s = time.perf_counter() - t0
+    # the warmup released the background warm, whose captures would
+    # refuse a device call from this thread: compare after it
+    _until_warm(boot.state)
+    loaded = boot.state.server.model.state_dict()
+    unequal = [k for k, t in state_dict.items()
+               if loaded[k].dtype != t.dtype or not torch.equal(loaded[k], t)]
+    log(f"path K (b): load_bundle in {boot_s:.2f} s, stages "
+        f"{boot.stages}; {len(state_dict) - len(unequal)} of "
+        f"{len(state_dict)} tensors torch.equal to the written ones "
+        f"[{card}]")
+    if unequal or set(loaded) != set(state_dict):
+        raise SystemExit(f"path K (b): tensors differ: {unequal[:5]}")
+    ref = generate_handler(spec, HandlerContext(device="cuda",
+                                                state_dict=state_dict))
+    reqs = _bundle_requests(ref.server.model.cfg.vocab_size)
+    got = [boot.state.invoke(r) for r in reqs]
+    want = [ref.invoke(r) for r in reqs]
+    same = [g["tokens"] == w["tokens"] and g["logprobs"] == w["logprobs"]
+            for g, w in zip(got, want)]
+    log(f"path K (b): {sum(same)} of {len(reqs)} requests (4 prompts x "
+        f"greedy / seeded sampled, logprobs on) bitwise the handler built "
+        f"from the state_dict")
+    if not all(same) or not all(g["ok"] for g in got):
+        raise SystemExit("path K (b): the booted bundle's rows differ")
+    _until_warm(ref)
+    launches = kernel_launches()
+    out = {"boot_s": boot_s, "stages": boot.stages,
+           "skew": {k: list(v) for k, v in boot.skew.items()},
+           "launches": launches, "greedy": got[0]["tokens"],
+           "meta": boot.state.meta}
+    del boot, ref, loaded
+    return out
+
+
+def _percentile(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(math.ceil(q * len(xs))) - 1)]
+
+
+def serve_cli(bundle: Path, prompt: list, want: list, run: int,
+              card: str) -> dict:
+    """(c) and, on the last run, (d): ``python -m lambdipy_tpu_torch serve
+    <bundle> --port 0``: spawn to the readiness line, its cold-start
+    stages, spawn to ``/healthz`` ready; the boot fields; 30 invokes
+    (100 in, 16 out), each bitwise (b)'s; the kernels' counters from
+    ``/metrics``; ``POST /profile``; SIGTERM with a request in flight."""
+    import os
+    import signal
+
+    from lambdipy_tpu_torch.bundle.baselayer import check_skew
+    from lambdipy_tpu_torch.bundle.format import load_manifest
+
+    base = load_manifest(bundle)["base_layer"]
+    skew = {k: list(v) for k, v in
+            check_skew(base["versions"], base["name"]).items()}
+    err_path = OUT_DIR / f"path_k_cli_{run}.log"
+    OUT_DIR.mkdir(exist_ok=True)
+    with open(err_path, "w") as err:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "lambdipy_tpu_torch", "serve",
+             str(bundle), "--port", "0"],
+            stdout=subprocess.PIPE, stderr=err, text=True,
+            env={**os.environ, "LAMBDIPY_LOG_LEVEL": "WARNING"})
+    try:
+        line = proc.stdout.readline()
+        spawn_s = time.perf_counter() - t0
+        if not line:
+            proc.wait(timeout=60)
+            raise SystemExit(f"path K (c): no readiness line, exit "
+                             f"{proc.returncode}: "
+                             f"{err_path.read_text()[-3000:]}")
+        ready = json.loads(line)
+        url = f"http://127.0.0.1:{ready['port']}"
+        ready_s = spawn_s + _until_ready(url)
+        log(f"path K (c) run {run}: spawn to readiness line {spawn_s:.3f} s "
+            f"(target < 10 s), cold_start {ready['cold_start']}; spawn to "
+            f"/healthz ready (the background warm done) {ready_s:.3f} s "
+            f"[{card}]")
+        health = http_json(url + "/healthz")
+        meta = health["handler_meta"]
+        checks = {
+            "pid": health["pid"] == proc.pid,
+            "bundle": health["bundle"] == str(bundle),
+            "stages": list(health["cold_start"]) == [
+                "manifest", "syspath", "compile_cache", "handler_import",
+                "init", "warmup", "total"],
+            # the host's own check on the manifest's record: whatever
+            # of the jax-tpu layer this host lacks reads <absent>
+            "skew": health["skew"] == skew and all(
+                live == "<absent>" or live != want
+                for want, live in skew.values()),
+            "handler_meta": meta["kv_paged"] and meta["model"] == "llama3-8b",
+            # a bundle naming no tokenizer serves token ids
+            "tokenizer": meta["tokenizer"] is False
+            and "tokenizer_error" not in meta,
+            "debug_flags": health["debug_flags"] == {},
+            "warm": health["warm"] is None}
+        log(f"path K (c) run {run}: /healthz skew {health['skew']}, checks "
+            f"{checks}")
+        if not all(checks.values()):
+            raise SystemExit(f"path K (c): /healthz boot fields: {health}")
+        walls, same = [], 0
+        for _ in range(BUNDLE_INVOKES):
+            t1 = time.perf_counter()
+            out = http_json(url + "/invoke", {"tokens": prompt,
+                                              "max_new_tokens": BUNDLE_NEW})
+            walls.append(time.perf_counter() - t1)
+            same += out["tokens"] == want
+        p50, p99 = _percentile(walls, 0.5), _percentile(walls, 0.99)
+        log(f"path K (c) run {run}: {BUNDLE_INVOKES} invokes (100 in, 16 "
+            f"out): p50 {p50 * 1e3:.1f} ms, p99 {p99 * 1e3:.1f} ms, "
+            f"{same} bitwise (b)'s [{card}]")
+        if same != BUNDLE_INVOKES:
+            raise SystemExit("path K (c): the CLI's tokens differ from (b)'s")
+        profile = None
+        if run == BUNDLE_RUNS:
+            profile = http_json(url + "/profile", {"invokes": 3})
+            if not profile["ok"] or "trace.json" not in profile["files"]:
+                raise SystemExit(f"path K (d): no trace: {profile}")
+            events = json.loads((Path(profile["dir"]) / "trace.json")
+                                .read_text())["traceEvents"]
+            profile["kernel_events"] = sum(e.get("cat") == "kernel"
+                                           for e in events)
+            log(f"path K (d): /profile ok {profile['ok']}, "
+                f"{len(profile['files'])} files: {profile['files']}; "
+                f"{len(events)} trace events, {profile['kernel_events']} of "
+                f"them device kernels")
+        launches = http_json(url + "/metrics")["handler"]["kernels"]
+        log(f"path K (c) run {run}: kernel launches in the process "
+            f"(boot, warm, invokes{', profile' if profile else ''}): "
+            f"{launches}")
+        if not (launches["int8_matmul"]
+                and launches["paged_decode_attention"]):
+            raise SystemExit("path K (c): the process ran no kernel")
+        # SIGTERM with a request in flight (its first chunk read): the
+        # request finishes 200, then the process exits 0
+        req = urllib.request.Request(
+            url + "/invoke", headers={"Content-Type": "application/json"},
+            data=json.dumps({"tokens": prompt, "max_new_tokens": 64,
+                             "stream": True}).encode())
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            first = json.loads(resp.readline())
+            t1 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rest = [json.loads(x) for x in resp.read().splitlines() if x]
+            status = resp.status
+        code = proc.wait(timeout=120)
+        exit_s = time.perf_counter() - t1
+        drained = (status == 200 and first["ok"] and rest[-1].get("done")
+                   and rest[-1]["n_new"] == 64 and code == 0)
+        log(f"path K (c) run {run}: SIGTERM in flight: the request "
+            f"{status} with {rest[-1].get('n_new')} tokens, exit {code} "
+            f"{exit_s:.2f} s after the signal")
+        if not drained:
+            raise SystemExit(f"path K (c): drain on SIGTERM failed (exit "
+                             f"{code}): {err_path.read_text()[-3000:]}")
+        return {"spawn_to_ready_s": spawn_s, "spawn_to_healthz_ready_s":
+                ready_s, "cold_start": ready["cold_start"],
+                "invoke_ms": [w * 1e3 for w in walls], "p50_ms": p50 * 1e3,
+                "p99_ms": p99 * 1e3, "launches": launches,
+                "profile": profile, "sigterm_exit_s": exit_s}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+
+
+def import_walls(card: str) -> dict:
+    """What a CLI process spends before its first boot stage: the wall of
+    a fresh interpreter that imports torch, and one that also imports the
+    CLI's server module (the port's modules)."""
+    out = {}
+    for name, code in (("python", "pass"), ("torch", "import torch"),
+                       ("server", "import torch, "
+                                  "lambdipy_tpu_torch.runtime.server")):
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", code], check=True,
+                       timeout=300)
+        out[name] = time.perf_counter() - t0
+    log(f"path K (c): a fresh interpreter {out['python']:.3f} s, importing "
+        f"torch {out['torch']:.3f} s, torch and the port's server module "
+        f"{out['server']:.3f} s [{card}]")
+    return out
+
+
+def serve_bundle_path(card: str) -> dict:
+    """Path K: llama3-8b (int8 weights, bf16, D's paged engine, the warm
+    on) booted from a bundle the port wrote: (a) the bundle, (b) in
+    process, (c) as a CLI process twice, (d) ``/profile``."""
+    import shutil
+    import tempfile
+
+    from lambdipy_tpu_torch.models import registry
+
+    spec = {"model": "llama3-8b", "dtype": "bfloat16", "quant": "int8",
+            "extra": dict(BUNDLE_EXTRA)}
+    adapter = registry.get("llama3-8b").build(
+        dtype="bfloat16", quant="int8", extra=spec["extra"])
+    bundle = Path(tempfile.mkdtemp(prefix="lambdipy-bundle-")) / "bundle"
+    try:
+        state_dict = adapter.init_params(seed=0, device="cuda")
+        made = write_bundle(bundle, state_dict, card)
+        inproc = boot_in_process(bundle, state_dict, spec, card)
+        del state_dict
+        gc.collect()
+        torch.cuda.empty_cache()
+        prompt = _bundle_requests(adapter.config.vocab_size)[0]["tokens"]
+        imports = import_walls(card)
+        runs = [serve_cli(bundle, prompt, inproc["greedy"], run, card)
+                for run in range(1, BUNDLE_RUNS + 1)]
+    finally:
+        shutil.rmtree(bundle.parent, ignore_errors=True)
+    launches = {k: inproc["launches"][k] + sum(r["launches"][k] for r in runs)
+                for k in KERNELS}
+    return {"bundle": made, "in_process": inproc, "import_walls": imports,
+            "cli": runs, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5015,6 +5385,11 @@ def main() -> int:
     t_path = time.perf_counter()
     paths["J"] = serve_longctx_path(card)
     log(f"path J took {time.perf_counter() - t_path:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_path = time.perf_counter()
+    paths["K"] = serve_bundle_path(card)
+    log(f"path K took {time.perf_counter() - t_path:.1f} s")
     # each kernel's launches: the sum over the paths, each path counted
     # from 0 just before it was driven
     for name, kern in kernels.items():

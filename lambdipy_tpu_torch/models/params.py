@@ -1,14 +1,16 @@
 """Weights for the port's :class:`~lambdipy_tpu_torch.models.llama.LlamaModel`.
 
 ``from_jax_params`` maps a flax param tree (numpy leaves) onto the
-port's ``state_dict``; ``init_params`` makes seeded random weights
-directly on the device, with the magnitudes of the JAX package's
-random init, for runs that have no checkpoint.
+port's ``state_dict``; ``load_params`` reads a bundle's ``params.fpk``
+onto the device; ``init_params`` makes seeded random weights directly on
+the device, with the magnitudes of the JAX package's random init, for
+runs that have no checkpoint.
 """
 
 from __future__ import annotations
 
 import math
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -45,6 +47,43 @@ def from_jax_params(tree) -> dict[str, torch.Tensor]:
 
     walk(tree, "")
     return out
+
+
+def load_params(params_dir: Path, cfg: LlamaConfig,
+                device=None) -> dict[str, torch.Tensor]:
+    """A bundle's ``params/params.fpk`` as the ``state_dict`` of a model of
+    ``cfg``, on ``device`` (the card by default), the twin of JAX's
+    ``registry.load_params``. The keys and shapes must be the model's;
+    a leaf the JAX builder stored in another float type (its
+    ``serving_cast``) is cast to the model's. A params directory with only
+    an ``orbax/`` checkpoint raises: the port reads flatpack alone."""
+    from lambdipy_tpu_torch.bundle import flatpack
+    from lambdipy_tpu_torch.bundle.format import BundleError
+
+    params_dir = Path(params_dir)
+    fpk = params_dir / "params.fpk"
+    if not fpk.is_file():
+        what = ("only an orbax/ checkpoint" if (params_dir / "orbax").is_dir()
+                else "no params.fpk")
+        raise BundleError(
+            f"{params_dir} holds {what}; the port reads params.fpk: rebuild "
+            "the bundle with the JAX builder's params_format 'fpk' or "
+            "'both'")
+    state_dict = flatpack.load_state_dict(fpk, resolve_device(device))
+    want = LlamaModel(cfg, device="meta").state_dict()
+    missing = sorted(set(want) - set(state_dict))
+    unexpected = sorted(set(state_dict) - set(want))
+    if missing or unexpected:
+        raise BundleError(f"{fpk} does not fit the model: missing "
+                          f"{missing[:5]}, unexpected {unexpected[:5]}")
+    for key, ref in want.items():
+        t = state_dict[key]
+        if tuple(t.shape) != tuple(ref.shape):
+            raise BundleError(f"{fpk}: {key} has shape {tuple(t.shape)}, "
+                              f"the model {tuple(ref.shape)}")
+        if t.dtype != ref.dtype:
+            state_dict[key] = t.to(ref.dtype)
+    return state_dict
 
 
 def init_params(cfg: LlamaConfig, seed: int = 0,

@@ -37,6 +37,7 @@ import dataclasses
 import os
 import threading
 from collections.abc import Callable, Iterator
+from pathlib import Path
 from typing import Any
 
 import numpy as np
@@ -44,6 +45,7 @@ import numpy as np
 from lambdipy_tpu_torch.models import registry
 from lambdipy_tpu_torch.models.llama import (_next_bucket, init_page_arena,
                                              page_kv_bytes)
+from lambdipy_tpu_torch.models.params import load_params
 from lambdipy_tpu_torch.ops.attention import flash_attention
 from lambdipy_tpu_torch.ops.decode_attention import (blocked_decode_attention,
                                                      paged_decode_attention)
@@ -125,12 +127,22 @@ class HandlerState:
 
 @dataclasses.dataclass
 class HandlerContext:
-    """Where the handler's weights come from: ``state_dict`` (e.g. from
-    ``models/params.py from_jax_params``) or, when None, random weights
-    made on the device from seed 0. ``device`` None means the card."""
+    """What a handler gets at init, JAX's fields (``runtime/loader.py``)
+    beside the port's. The weights come from ``state_dict`` (e.g. from
+    ``models/params.py from_jax_params``), else from the bundle's
+    ``params_dir`` (its ``params.fpk``), else random weights made on the
+    device from seed 0. ``device`` None means the card."""
 
     device: Any = None
     state_dict: dict | None = None
+    bundle_dir: Path | None = None
+    manifest: dict = dataclasses.field(default_factory=dict)
+    params_dir: Path | None = None
+    spec: dict = dataclasses.field(default_factory=dict)  # the payload
+
+    def degraded(self) -> list[str]:
+        return list(self.manifest.get("provenance", {})
+                    .get("skipped_optional", []))
 
 
 def kernel_launches() -> dict:
@@ -154,8 +166,6 @@ _UNPORTED_ENGINE_EXTRAS = {
     "prefill_mode": ("chunked",),
     "mesh": ("", "off"),
     "batch_window_ms": ("0",),
-    # a bundle's tokenizer (text in, text out)
-    "tokenizer_path": ("",),
 }
 # the variables the JAX handler reads for those features when their extra
 # is unset (the extra wins): a value that turns the feature on raises too
@@ -528,10 +538,21 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
     served from a cached prefix says ``"prefix_cached": true``."""
     extra = dict(spec.get("extra") or {})
     _check_unported_extras(extra)
+    # a converted checkpoint records its architecture in the manifest; it
+    # overrides the builder's defaults for the model alone, as in JAX
+    # (handlers.py:172-180)
+    payload = ctx.manifest.get("payload") or {}
+    model_extra = {**extra,
+                   **((payload.get("params_info") or {}).get("config") or {})}
     # dtype and quant fall back to the builder's defaults when the spec
     # leaves them out (llama3-8b: bfloat16, int8)
     adapter = registry.get(spec["model"]).build(
-        extra=extra, **{k: spec[k] for k in ("dtype", "quant") if k in spec})
+        extra=model_extra,
+        **{k: spec[k] for k in ("dtype", "quant") if k in spec})
+    state_dict = ctx.state_dict
+    if state_dict is None and ctx.params_dir is not None:
+        # the bundle's params.fpk, straight onto the device
+        state_dict = load_params(ctx.params_dir, adapter.config, ctx.device)
     server_kw = {}
     if extra.get("program_cache_max") is not None:
         # LRU bound on the decode programs (a CUDA graph and its decode
@@ -552,13 +573,36 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
     if extra.get("min_bucket") is not None:
         server_kw["min_bucket"] = int(extra["min_bucket"])
     # on the card every decode step replays a captured CUDA graph
-    server = adapter.make_server(ctx.state_dict, device=ctx.device,
+    server = adapter.make_server(state_dict, device=ctx.device,
                                  **server_kw)
     engine = (make_engine(server, extra)
               if str(extra.get("batch_mode") or "").lower() == "continuous"
               else None)
     store = make_prefix_store(server, engine, extra)
     default_new = int(extra.get("max_new_tokens", 16))
+
+    # text in, text out (JAX handlers.py:1176-1192): a tokenizer shipped
+    # in the bundle, loaded with transformers if it is installed; absent,
+    # the handler serves token ids and says why in its meta
+    tokenizer, tok_err = None, None
+    tok_path = extra.get("tokenizer_path")
+    if tok_path:
+        resolved = Path(tok_path)
+        if not resolved.is_absolute() and ctx.bundle_dir is not None:
+            resolved = Path(ctx.bundle_dir) / resolved
+        try:
+            from transformers import AutoTokenizer
+
+            tokenizer = AutoTokenizer.from_pretrained(
+                str(resolved), local_files_only=True)
+        except Exception as e:  # noqa: BLE001 — degrade, recorded in meta
+            tok_err = str(e)
+
+    def decode_text(row: list, eos) -> str:
+        """``row`` cut before its eos, as text."""
+        if eos is not None and eos in row:
+            row = row[:row.index(eos)]
+        return tokenizer.decode(row)
 
     def _route_prefix(prompt, prefix, sess=None):
         """Transparent radix reuse: a single-row prompt split into (suffix
@@ -592,14 +636,21 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
 
     def parse(req: dict):
         """Request -> (prompt, max_new, sample_kwargs, want_logprobs,
-        prefix, speculative k or None, session or None), or an error
-        dict."""
+        prefix, speculative k or None, session or None, from_text), or an
+        error dict."""
+        from_text = False
         if req.get("warmup") or req.get("random"):
             prompt = np.asarray([[1, 2, 3, 4]], np.int32)
-        elif req.get("text") is not None and req.get("tokens") is None:
-            # the JAX handler's answer when its bundle has no tokenizer
-            return {"ok": False,
-                    "error": "bundle has no tokenizer; send 'tokens'"}
+        elif req.get("text") is not None:
+            if tokenizer is None:
+                return {"ok": False,
+                        "error": "bundle has no tokenizer; send 'tokens'"}
+            ids = tokenizer(req["text"])["input_ids"]
+            if not ids:
+                return {"ok": False,
+                        "error": "prompt tokenized to zero tokens"}
+            prompt = np.asarray([ids], np.int32)
+            from_text = True
         else:
             raw = req.get("tokens")
             if raw is None:
@@ -628,6 +679,10 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
             "seed": int(req.get("seed") or 0),
             "eos_id": int(req["eos_id"]) if req.get("eos_id") is not None else None,
         }
+        if sample_kwargs["eos_id"] is None and from_text and \
+                tokenizer.eos_token_id is not None:
+            # a text prompt stops at the tokenizer's eos
+            sample_kwargs["eos_id"] = int(tokenizer.eos_token_id)
         prefix = req.get("prefix")
         if prefix is not None:
             prefix = np.asarray(prefix, np.int32).reshape(-1)
@@ -658,7 +713,7 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
                         "error": "session_ttl_s must be a number"}
             sess = (str(sid), ttl)
         return (prompt, max_new, sample_kwargs, bool(req.get("logprobs")),
-                prefix, spec_k, sess)
+                prefix, spec_k, sess, from_text)
 
     def n_prompt(prompt, prefix) -> int:
         return int(sum(len(r) for r in prompt)
@@ -676,8 +731,8 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
             _maybe_start_warm()
 
     def _invoke_parsed(parsed) -> dict:
-        prompt, max_new, sample_kwargs, want_lp, prefix, spec_k, sess = \
-            parsed
+        (prompt, max_new, sample_kwargs, want_lp, prefix, spec_k, sess,
+         from_text) = parsed
         prompt, prefix = _route_prefix(prompt, prefix, sess)
         spec_stats = None
         if spec_k is not None:
@@ -708,6 +763,9 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
             out["prefix_cached"] = True
         if spec_stats is not None:
             out["speculative"] = spec_stats
+        if from_text:
+            out["completion"] = decode_text(toks[0].tolist(),
+                                            sample_kwargs["eos_id"])
         return out
 
     def invoke_stream(req: dict):
@@ -718,8 +776,8 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
         if isinstance(parsed, dict):
             yield parsed
             return
-        prompt, max_new, sample_kwargs, want_lp, prefix, spec_k, sess = \
-            parsed
+        (prompt, max_new, sample_kwargs, want_lp, prefix, spec_k, sess,
+         from_text) = parsed
         prompt, prefix = _route_prefix(prompt, prefix, sess)
         # a pow-2 segment in [4, 64], as the JAX handler clamps it: a
         # program key, so a request cannot grow the program cache
@@ -744,13 +802,29 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
                 prompt, max_new_tokens=max_new, segment=segment,
                 prefix=prefix, return_logprobs=want_lp, **sample_kwargs)
         n_new = 0
+        row0, text_emitted, chunked = [], "", False
         for chunk in chunks:
+            chunked = True
             chunk, lp_chunk = chunk if want_lp else (chunk, None)
             n_new += int(chunk.shape[1])
             rec = {"ok": True, "tokens": chunk.tolist()}
             if lp_chunk is not None:
                 rec["logprobs"] = [[round(float(x), 5) for x in row]
                                    for row in lp_chunk]
+            if from_text:
+                # the delta since the last chunk (JAX handlers.py:1531-
+                # 1552): the whole row decoded each time, a trailing
+                # incomplete UTF-8 sequence held back; when decoding
+                # changes text already sent, nothing, and the summary's
+                # tail closes the gap
+                row0.extend(rec["tokens"][0])
+                full = decode_text(row0, sample_kwargs["eos_id"]).rstrip(
+                    "\ufffd")
+                if full.startswith(text_emitted):
+                    rec["text"] = full[len(text_emitted):]
+                    text_emitted = full
+                else:
+                    rec["text"] = ""
             yield rec
         out = {"ok": True, "done": True, "n_new": n_new,
                "n_prompt": n_prompt(prompt, prefix)}
@@ -760,6 +834,13 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
             out["eos_id"] = sample_kwargs["eos_id"]
         if prefix is not None:
             out["prefix_cached"] = True
+        if from_text and chunked:
+            completion = decode_text(row0, sample_kwargs["eos_id"])
+            out["completion"] = completion
+            # the tail a delta-concatenating client still needs: at most
+            # the span that diverged from the text sent repeats
+            out["text"] = completion[len(os.path.commonprefix(
+                [completion, text_emitted])):]
         yield out
         # a streaming-only workload releases the warm too
         _maybe_start_warm()
@@ -1006,7 +1087,9 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
               "kv_paged": engine is not None and engine.pool is not None,
               "prefix_cache": store is not None,
               "sessions": store is not None,
-              "kv_ship": store is not None},
+              "kv_ship": store is not None,
+              "tokenizer": tokenizer is not None,
+              **({"tokenizer_error": tok_err} if tok_err else {})},
         stats_fn=stats, server=server, invoke_stream_fn=invoke_stream,
         engine=engine, prefix_store=store,
         prefix_probe=store.match_len if store is not None else None,

@@ -1,10 +1,13 @@
 """A threaded HTTP server for a port handler, the twin of the serving front
 of ``lambdipy_tpu/runtime/server.py``:
 
-- ``GET /healthz``: liveness (always 200), the handler's meta, ``ready``
-  (false once draining, while the handler's background warm runs or while
-  the engine is wedged), ``warming``, ``wedged`` and the engine's fault
-  state (``engine``), and the scheduler's policy and queue depth;
+- ``GET /healthz``: liveness (always 200), ``ready`` (false once
+  draining, while the handler's background warm runs or while the engine
+  is wedged), ``warming``, ``wedged`` and the engine's fault state
+  (``engine``), JAX's boot fields (``pid``, ``bundle``, ``uptime_s``,
+  ``cold_start``, ``skew``, ``handler_meta``: the handler's meta,
+  ``warm``: the manifest's, ``debug_flags``), and the scheduler's policy
+  and queue depth;
 - ``GET /metrics``: the server's counters and latency percentiles, the
   scheduler's report (``sched``) and the handler's stats (each kernel's
   launch counter, the continuous engine, its page pool and pipeline);
@@ -13,7 +16,11 @@ of ``lambdipy_tpu/runtime/server.py``:
 - ``POST /v1/completions``: the OpenAI completions shape over the same
   handler, ``"stream": true`` as server-sent events closed by
   ``data: [DONE]``;
-- ``POST /shutdown``: drain, then stop;
+- ``POST /shutdown``: drain, then stop (admission closes before the
+  answer);
+- ``POST /profile``: ``{"invokes": N}`` (1-100, default 3) warmup-shaped
+  invokes under ``torch.profiler``, the trace written into
+  ``<bundle>/profiles/<ts>/`` (503 when the profiler did not start);
 - ``POST /v1/debug/faults`` (arm a fault spec on the live plan, or
   clear it), ``POST /v1/debug/knobs`` (retune the engine's knobs live)
   and ``GET /v1/debug/invariants`` (the pool's and the store's
@@ -39,20 +46,30 @@ batch or background). Overload is an explicit 429 or 503 with
 the engine cancelled at a barrier (its deadline passed), and a request
 that arrives while a wedged engine restarts (reason ``wedged``: a wedged
 engine with no restart in flight admits, since that request is its
-probe). Not ported: ``/profile``."""
+probe).
+
+:meth:`BundleServer.from_bundle` boots a bundle directory
+(``runtime/loader.py``); ``python -m lambdipy_tpu_torch.runtime.server
+<bundle_dir> [port]`` serves one (:func:`main`)."""
 
 from __future__ import annotations
 
+import functools
 import itertools
 import json
 import math
+import os
+import signal
+import sys
 import threading
 import time
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
 
 from lambdipy_tpu_torch.runtime.continuous import RequestCancelled
 from lambdipy_tpu_torch.runtime.handlers import HandlerState
+from lambdipy_tpu_torch.runtime.loader import BootReport, load_bundle
 from lambdipy_tpu_torch.runtime.kvwire import _MAX_CHUNK_BODY
 from lambdipy_tpu_torch.runtime.metrics import LatencyStats
 from lambdipy_tpu_torch.runtime.pagepool import PagesExhausted
@@ -228,11 +245,17 @@ class BundleServer:
     ``sched``. The continuous engine's joiners follow the scheduler's
     policy. ``start_background()`` runs it on a thread; ``stop()`` drains
     (new invokes are shed 503 ``draining``; those admitted finish) and
-    closes the socket."""
+    closes the socket. ``boot`` is the report of the bundle the state was
+    booted from (:meth:`from_bundle`), for ``/healthz`` and
+    ``/profile``."""
 
     def __init__(self, state: HandlerState, *, host: str = "127.0.0.1",
-                 port: int = 0, sched: dict | None = None):
+                 port: int = 0, sched: dict | None = None,
+                 boot: BootReport | None = None):
         self.state = state
+        self.boot = boot
+        self.started = time.time()
+        self._profile_lock = threading.Lock()
         self.stats = _Stats()
         self.sched = Scheduler(sched_config(
             dict(getattr(state, "extra", None) or {}), sched))
@@ -249,10 +272,99 @@ class BundleServer:
         self.httpd = ThreadingHTTPServer((host, port), self._handler_class())
         self.httpd.daemon_threads = True
 
+    @classmethod
+    def from_bundle(cls, bundle_dir: Path, *, host: str = "127.0.0.1",
+                    port: int = 0, sched: dict | None = None,
+                    warmup: bool = True, device=None) -> "BundleServer":
+        """Boot ``bundle_dir`` (``runtime/loader.py load_bundle``) and serve
+        its handler. The handler builds its engine inside the boot, so the
+        scheduler's policy is resolved first (the bundle's extra, then
+        ``sched``) and handed over through ``LAMBDIPY_SCHED_POLICY``, as
+        the JAX server does. A user's own handler's state is served
+        through its module's ``invoke``."""
+        bundle_dir = Path(bundle_dir)
+        try:  # best effort: the boot reads the manifest for real
+            pre_extra = (json.loads((bundle_dir / "manifest.json")
+                                    .read_text()).get("payload")
+                         or {}).get("extra") or {}
+        except (OSError, ValueError):
+            pre_extra = {}
+        policy = SchedConfig.from_extra(pre_extra, **(sched or {})).policy
+        prev = os.environ.get("LAMBDIPY_SCHED_POLICY")
+        os.environ["LAMBDIPY_SCHED_POLICY"] = policy
+        try:
+            boot = load_bundle(bundle_dir, warmup=warmup, device=device)
+        finally:
+            if prev is None:
+                os.environ.pop("LAMBDIPY_SCHED_POLICY", None)
+            else:
+                os.environ["LAMBDIPY_SCHED_POLICY"] = prev
+        state = boot.state
+        if not isinstance(state, HandlerState):
+            state = HandlerState(
+                invoke_fn=functools.partial(boot.handler.invoke, boot.state),
+                meta=dict(getattr(boot.state, "meta", None) or {}),
+                extra=dict((boot.manifest.get("payload") or {})
+                           .get("extra") or {}))
+        return cls(state, host=host, port=port, sched=sched, boot=boot)
+
+    @property
+    def port(self) -> int:
+        return self.httpd.server_address[1]
+
     @property
     def url(self) -> str:
         host, port = self.httpd.server_address[:2]
         return f"http://{host}:{port}"
+
+    def health(self) -> dict:
+        """The ``/healthz`` document; never raises."""
+        engine = self.engine_fault_state()
+        wedged = bool(engine.get("wedged"))
+        warming = self.warming()
+        boot = self.boot
+        return {
+            "ok": True,
+            "ready": not self.draining and not warming and not wedged,
+            "warming": warming,
+            "wedged": wedged,
+            **({"engine": engine} if engine else {}),
+            "pid": os.getpid(),
+            "draining": self.draining,
+            "bundle": str(boot.bundle_dir) if boot is not None else None,
+            "uptime_s": round(time.time() - self.started, 1),
+            "cold_start": boot.stages if boot is not None else {},
+            "skew": boot.skew if boot is not None else {},
+            "handler_meta": getattr(self.state, "meta", {}),
+            # the build-time warm's outcome, from the manifest
+            "warm": boot.manifest.get("warm") if boot is not None else None,
+            "debug_flags": boot.debug_flags if boot is not None else {},
+            "sched": {"policy": self.sched.policy.name,
+                      "queued": self.sched.queue.depth()}}
+
+    def profile(self, request: dict) -> tuple[int, dict]:
+        """``POST /profile``: (HTTP code, body). Serialised: one trace at a
+        time."""
+        from lambdipy_tpu_torch.utils.trace import (latest_trace_files,
+                                                    profile_trace)
+
+        try:
+            n = max(1, min(int(request.get("invokes", 3)), 100))
+        except (TypeError, ValueError):
+            return 400, {"ok": False, "error": "invokes must be an integer"}
+        if self.boot is None:
+            return 404, {"ok": False, "error": "no bundle directory to "
+                                               "write a profile into"}
+        out_dir = self.boot.bundle_dir / "profiles" / str(int(time.time()))
+        with self._profile_lock:
+            with profile_trace(out_dir) as capture:
+                for _ in range(n):
+                    self.state.invoke({"warmup": True})
+        payload = {"ok": capture.started, "dir": str(out_dir),
+                   "files": latest_trace_files(out_dir)}
+        if capture.error:
+            payload["error"] = capture.error
+        return (200 if capture.started else 503), payload
 
     def _handler_class(self):
         server = self
@@ -477,8 +589,9 @@ class BundleServer:
                         + b"\n\n"
                     return self._write_frame(body)
 
-                def chunk_event(tokens, finish=None, logprobs=None) -> bool:
-                    choice = {"index": 0, "text": "", "tokens": tokens,
+                def chunk_event(tokens, text="", finish=None,
+                                logprobs=None) -> bool:
+                    choice = {"index": 0, "text": text, "tokens": tokens,
                               "finish_reason": finish}
                     if logprobs is not None:
                         choice["logprobs"] = {
@@ -504,7 +617,9 @@ class BundleServer:
                             final = payload
                             continue
                         emitted.extend(payload["tokens"][0])
+                        # a text prompt's chunk carries its text delta
                         if not chunk_event(payload["tokens"][0],
+                                           text=payload.get("text", ""),
                                            logprobs=(payload.get("logprobs")
                                                      or [None])[0]):
                             server.stats.record(time.monotonic() - t0,
@@ -522,7 +637,8 @@ class BundleServer:
                 eos = final.get("eos_id", internal.get("eos_id"))
                 finish = ("stop" if eos is not None and eos in emitted
                           else "length")
-                chunk_event([], finish=finish)
+                # the last event completes the text: the handler's tail
+                chunk_event([], text=final.get("text", ""), finish=finish)
                 server.stats.record(time.monotonic() - t0, True)
                 if event(b"[DONE]"):
                     self._end_frames()
@@ -836,19 +952,7 @@ class BundleServer:
 
             def do_GET(self):
                 if self.path == "/healthz":
-                    engine = server.engine_fault_state()
-                    wedged = bool(engine.get("wedged"))
-                    warming = server.warming()
-                    self._send(200, {
-                        "ok": True, **server.state.meta,
-                        "ready": (not server.draining and not warming
-                                  and not wedged),
-                        "warming": warming,
-                        "wedged": wedged,
-                        **({"engine": engine} if engine else {}),
-                        "draining": server.draining,
-                        "sched": {"policy": server.sched.policy.name,
-                                  "queued": server.sched.queue.depth()}})
+                    self._send(200, server.health())
                 elif self.path == "/v1/debug/invariants":
                     if self._require_loopback():
                         self._debug("debug_invariants_fn")
@@ -861,9 +965,23 @@ class BundleServer:
 
             def do_POST(self):
                 if self.path == "/shutdown":
+                    # admission closes before the answer: an invoke sent
+                    # after the 200 can never be admitted ahead of the
+                    # thread that runs stop()
+                    with server._inflight_lock:
+                        server.draining = True
                     self._send(200, {"ok": True, "draining": True})
                     threading.Thread(target=server.stop,
                                      daemon=True).start()
+                    return
+                if self.path == "/profile":
+                    request = self._read_json()
+                    if request is not None:
+                        try:
+                            self._send(*server.profile(request))
+                        except Exception as e:  # noqa: BLE001 — reported
+                            traceback.print_exc()
+                            self._send(500, {"ok": False, "error": str(e)})
                     return
                 if self.path in ("/v1/debug/faults", "/v1/debug/knobs"):
                     if self._require_loopback():
@@ -967,3 +1085,47 @@ class BundleServer:
         if self._thread is not None \
                 and self._thread is not threading.current_thread():
             self._thread.join(timeout=10)
+
+
+def serve_until_term(server: BundleServer, ready: dict) -> None:
+    """Print the readiness line ``ready`` on stdout and serve until
+    stopped: SIGTERM drains (``stop``) off the serving thread, which
+    ``shutdown`` would deadlock."""
+    stoppers = []
+
+    def _term(signum, frame):
+        stopper = threading.Thread(target=server.stop, daemon=True)
+        stoppers.append(stopper)
+        stopper.start()
+
+    signal.signal(signal.SIGTERM, _term)
+    print(json.dumps(ready), flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        server.stop()
+    for stopper in stoppers:
+        stopper.join(timeout=30)
+
+
+def main(argv=None) -> int:
+    """``python -m lambdipy_tpu_torch.runtime.server <bundle_dir> [port]``:
+    boot the bundle on the card (``LAMBDIPY_PLATFORM=cpu``: on the CPU),
+    print ``{"ready": true, "pid", "port", "cold_start"}`` and serve until
+    SIGTERM, which drains."""
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv:
+        print("usage: server <bundle_dir> [port]", file=sys.stderr)
+        return 2
+    device = "cpu" if os.environ.get("LAMBDIPY_PLATFORM") == "cpu" else None
+    server = BundleServer.from_bundle(
+        Path(argv[0]), port=int(argv[1]) if len(argv) > 1 else 0,
+        device=device)
+    serve_until_term(server, {"ready": True, "pid": os.getpid(),
+                              "port": server.port,
+                              "cold_start": server.boot.stages})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -455,15 +455,16 @@ def test_handler_answers_match_the_jax_handler(weights, tmp_path):
     assert out["ok"] and jout["ok"]
     assert out["tokens"] == jout["tokens"]
     assert out["n_prompt"] == jout["n_prompt"] == 4
-    # a tokenizer the JAX handler cannot load degrades to token ids; the
-    # port has no tokenizer and refuses the extra at build
+    # a tokenizer neither handler can load degrades to token ids, with
+    # the same answer to a text request and the reason in the meta
     missing = str(tmp_path / "no-such-tokenizer")
     jtok = _jax_handler({"tokenizer_path": missing})
-    jgot = jtok.invoke({"text": "hi"})
-    assert (jgot["ok"], jgot["error"]) == (
+    tok = _handler(weights, {"tokenizer_path": missing})
+    jgot, got = jtok.invoke({"text": "hi"}), tok.invoke({"text": "hi"})
+    assert (got["ok"], got["error"]) == (jgot["ok"], jgot["error"]) == (
         False, "bundle has no tokenizer; send 'tokens'")
-    with pytest.raises(ValueError, match="does not have yet"):
-        _handler(weights, {"tokenizer_path": missing})
+    assert tok.meta["tokenizer"] is jtok.meta["tokenizer"] is False
+    assert tok.meta["tokenizer_error"] and jtok.meta["tokenizer_error"]
 
 
 class _SleepyEvent:

@@ -367,11 +367,16 @@ def test_handler_wiring(weights):
     for extra in ({"batch_mode": "continuous", "mesh": "tp=2"},
                   {"batch_mode": "continuous",
                    "batch_window_bucketing": "1"},
-                  {"batch_mode": "window"},
-                  {"tokenizer_path": "tokenizer/"}):
+                  {"batch_mode": "window"}):
         with pytest.raises(ValueError, match="not"):
             generate_handler({"model": "llama-tiny", "extra": extra},
                              HandlerContext(device="cpu"))
+    # a tokenizer that does not load degrades to token ids, as in JAX
+    no_tok = generate_handler(
+        {"model": "llama-tiny", "extra": {"tokenizer_path": "tokenizer/"}},
+        HandlerContext(device="cpu"))
+    assert no_tok.meta["tokenizer"] is False
+    assert no_tok.meta["tokenizer_error"]
     # the store's session and offload extras build its pins and arena
     pinned = generate_handler(
         {"model": "llama-tiny",

@@ -143,7 +143,8 @@ def test_http_invoke_matches_jax_generate(weights, jax_server):
                                             state_dict=weights[2]))
     server = BundleServer(state, port=0).start_background()
     try:
-        assert _get(server.url + "/healthz")["device"] == "cpu"
+        assert _get(server.url + "/healthz")["handler_meta"]["device"] \
+            == "cpu"
         code, out = _post(server.url + "/invoke", {
             "tokens": ROWS, "max_new_tokens": 6, "logprobs": True})
         assert code == 200

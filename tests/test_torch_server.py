@@ -5,7 +5,7 @@ non-streamed completion, the OpenAI request and response translation
 against the JAX server's functions, a string prompt answered as the JAX
 server answers it without a tokenizer, a deadline cancelled mid-decode
 answered 503, and ``/shutdown`` letting the request in flight finish
-while refusing the next.
+while refusing the next, and closing admission before it answers.
 
 Every comparison is exact: the same handler serves both routes, so the
 tokens are equal, and the translation functions are plain Python."""
@@ -22,6 +22,7 @@ import pytest
 from lambdipy_tpu.runtime import server as jax_server_mod
 from lambdipy_tpu_torch.runtime import server as server_mod
 from lambdipy_tpu_torch.runtime.handlers import (HandlerContext,
+                                                 HandlerState,
                                                  generate_handler)
 from lambdipy_tpu_torch.runtime.server import BundleServer
 
@@ -261,3 +262,29 @@ def test_shutdown_drains_then_refuses(state, serve):
         pytest.fail("the server still answers after its drain")
     # the requests sent while draining were shed, nothing else was
     assert set(srv.sched.report()["shed"]["by_reason"]) == {"draining"}
+
+
+def test_shutdown_refuses_the_next_invoke_at_once(serve):
+    """``POST /shutdown`` closes admission before it answers: an
+    ``/invoke`` sent right after its 200 is shed 503 ``draining`` even
+    while the thread that runs ``stop`` has not started yet (held back
+    here until the 503 is seen), 20 times over, and the handler is never
+    called."""
+    calls = []
+    state = HandlerState(
+        invoke_fn=lambda req: calls.append(req) or {"ok": True}, meta={})
+    for _ in range(20):
+        srv = serve(state)
+        answered = threading.Event()
+
+        def late_stop(real=srv.stop, answered=answered, **kw):
+            answered.wait(timeout=30)
+            real(**kw)
+
+        srv.stop = late_stop
+        code, out, _ = _post(srv.url + "/shutdown", {})
+        assert (code, out) == (200, {"ok": True, "draining": True})
+        code, out, _ = _post(srv.url + "/invoke", {"tokens": [1, 2, 3]})
+        answered.set()
+        assert code == 503 and out["shed"] == "draining"
+    assert calls == []
