@@ -153,8 +153,24 @@ Phases, each of which fails the run with a non-zero exit:
    manifest's record, ``handler_meta``), 30 invokes of 100 tokens in and 16 out (p50, p99) bitwise
    (b)'s, the kernels' counters from ``/metrics``, and SIGTERM with a
    request in flight: it finishes 200 and the process exits 0; (d) ``POST
-   /profile`` writes a trace (its device kernel events counted);
-5. print the kernels' JSON line and, last, the device line.
+   /profile`` writes a trace (its device kernel events counted). Last, L:
+   the BASELINE's configs 1-4 from bundles written without JAX at the
+   recipes' widths: (a) ``resnet50`` (224 x 224 x 3, bf16, seeded batch
+   norms so that every residual branch counts), ``bert-base`` (128
+   tokens, bf16), ``bert-base-torch`` (``model.pt``, f32), ``hello`` and,
+   where sklearn and joblib import, ``tabular``; (b) each booted in
+   process on the card: every tensor equal to the one written, the
+   compiled forward (a CUDA graph) bitwise the eager card forward, the
+   card's logits against the port's CPU f32 forward of the same weights
+   within ``L_CPU_BOUND`` with the top-1 equal, one forward's device time
+   replayed and eager against its bound; (c) ResNet-50 and BERT-base as
+   ``python -m lambdipy_tpu_torch serve <bundle>`` processes: spawn to
+   the readiness line and its stages, 50 and 30 invokes of a
+   ``{"random": true}`` body and of a real one (p50, p99, against the <
+   15 ms and < 10 s targets), every answer (b)'s, SIGTERM exits 0; the
+   kernels' counters read 0 (no TPU kernel is on this path);
+5. print the whole script's time, the kernels' JSON line and, last, the
+   device line.
 
 Details go to ``chiprun_out/chip_smoke.json``. With no CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
@@ -5002,64 +5018,74 @@ JAX_BUILD_VERSIONS = {"jax": "0.9.0", "jaxlib": "0.9.0", "flax": "0.12.3",
                       "orbax-checkpoint": "0.11.32", "ml-dtypes": "0.5.4"}
 
 
-def write_bundle(bundle: Path, state_dict: dict, card: str) -> dict:
-    """A llama3-8b bundle without JAX: ``params/params.fpk`` from
-    ``state_dict`` under the flax paths (the port's writer), ``handler.py``
-    in the JAX template's text, ``manifest.json`` with the payload JAX's
-    ``materialize_payload`` writes (``bundle/package.py:57-109``)."""
+def write_bundle(bundle: Path, spec: dict, attr: str, card: str,
+                 tree: dict | None = None, params_info: dict | None = None,
+                 base: str = "jax-tpu", label: str = "K") -> dict:
+    """A bundle without JAX, for any model: ``params/params.fpk`` from
+    ``tree`` (a variables tree in the flax layout, ``{"params": ...}`` and,
+    for a ResNet, ``"batch_stats"``; the port's writer), ``handler.py`` in
+    the JAX template's text naming ``lambdipy_tpu.runtime.handlers:attr``,
+    ``manifest.json`` with the payload JAX's ``materialize_payload`` writes
+    (``bundle/package.py:57-109``), ``params_info`` in it. With no tree,
+    ``params/`` is what the caller put there (a ``model.pt``, a
+    ``model.joblib``) or absent. ``base`` names the base layer; a
+    ``jax-tpu`` layer records the JAX build's versions, so the skew check
+    runs as it would on a JAX-built bundle."""
     import shutil
 
     from lambdipy_tpu_torch.bundle import flatpack
     from lambdipy_tpu_torch.bundle.baselayer import base_layer_versions
     from lambdipy_tpu_torch.bundle.format import write_manifest
 
-    (bundle / "params").mkdir(parents=True)
+    bundle.mkdir(parents=True, exist_ok=True)
+    info, write_s = {"bytes": 0, "n_tensors": 0}, 0.0
     free = shutil.disk_usage(bundle).free
-    need = sum(t.numel() * t.element_size() for t in state_dict.values())
-    log(f"path K (a): {free / 2**30:.1f} GiB free in {bundle.parent}, the "
-        f"params need {need / 2**30:.2f} GiB")
-    if free < need * 1.05:
-        raise SystemExit("path K: not enough disk for the bundle's params")
-    tree: dict = {"params": {}}
-    for key, t in state_dict.items():
-        node = tree["params"]
-        *parents, leaf = key.split(".")
-        for part in parents:
-            node = node.setdefault(part, {})
-        node[leaf] = t
-    t0 = time.perf_counter()
-    info = flatpack.save(bundle / "params" / "params.fpk", tree)
-    write_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in state_dict.values())
-    params_info = {"format": "fpk", "n_params": n_params, "seed": 0,
-                   "serving_cast": {"applied": False,
-                                    "reason": "written by the port"}}
-    (bundle / "params" / "info.json").write_text(
-        json.dumps({"model": "llama3-8b", **params_info}))
-    spec = {"recipe": "chip-smoke-llama3-8b", "model": "llama3-8b",
-            "params": "init", "dtype": "bfloat16", "batch_size": 1,
-            "mesh": {}, "quant": "int8", "extra": dict(BUNDLE_EXTRA),
-            "device": "any"}
+    if tree is not None:
+        (bundle / "params").mkdir(exist_ok=True)
+        leaves = []
+
+        def walk(node):
+            for v in node.values():
+                walk(v) if isinstance(v, dict) else leaves.append(v)
+
+        walk(tree)
+        need = sum(t.numel() * t.element_size() for t in leaves)
+        log(f"path {label} (a): {free / 2**30:.1f} GiB free in "
+            f"{bundle.parent}, the params need {need / 2**30:.2f} GiB")
+        if free < need * 1.05:
+            raise SystemExit(f"path {label}: not enough disk for the "
+                             f"bundle's params")
+        t0 = time.perf_counter()
+        info = flatpack.save(bundle / "params" / "params.fpk", tree)
+        write_s = time.perf_counter() - t0
+    if params_info is not None:
+        (bundle / "params" / "info.json").write_text(
+            json.dumps({"model": spec["model"], **params_info}))
     (bundle / "handler.py").write_text(HANDLER_TEMPLATE.format(
         recipe=spec["recipe"], module="lambdipy_tpu.runtime.handlers",
-        attr="generate_handler", spec=spec))
+        attr=attr, spec=spec))
+    versions = base_layer_versions(base)
+    if base == "jax-tpu":
+        versions = {**versions, **JAX_BUILD_VERSIONS}
+    payload = dict(spec)
+    if params_info is not None:
+        payload.update(params="params", params_info=params_info)
     t0 = time.perf_counter()
     write_manifest(
-        bundle, artifact_id="chip-smoke-llama3-8b",
+        bundle, artifact_id=spec["recipe"],
         provenance={"recipe": spec["recipe"], "built_at": time.time(),
                     "python": f"{sys.version_info.major}."
                               f"{sys.version_info.minor}",
                     "skipped_optional": []},
-        base_layer={"name": "jax-tpu",
-                    "versions": {**base_layer_versions("jax-tpu"),
-                                 **JAX_BUILD_VERSIONS}},
-        payload={**spec, "params": "params", "params_info": params_info},
-        runtime={"entry": "handler.py"})
+        base_layer={"name": base, "versions": versions},
+        payload=payload, runtime={"entry": "handler.py"})
     manifest_s = time.perf_counter() - t0
-    log(f"path K (a): params.fpk {info['bytes']:,} B ({info['n_tensors']} "
-        f"tensors) written in {write_s:.2f} s "
-        f"({info['bytes'] / write_s / 1e9:.2f} GB/s from the card), "
-        f"manifest (sha256 of every file) in {manifest_s:.2f} s [{card}]")
+    if tree is not None:
+        log(f"path {label} (a): params.fpk {info['bytes']:,} B "
+            f"({info['n_tensors']} tensors) written in {write_s:.2f} s "
+            f"({info['bytes'] / write_s / 1e9:.2f} GB/s from the card), "
+            f"manifest (sha256 of every file) in {manifest_s:.2f} s "
+            f"[{card}]")
     return {"bytes": info["bytes"], "n_tensors": info["n_tensors"],
             "write_s": write_s, "manifest_s": manifest_s,
             "free_bytes": free}
@@ -5292,6 +5318,7 @@ def serve_bundle_path(card: str) -> dict:
     import tempfile
 
     from lambdipy_tpu_torch.models import registry
+    from lambdipy_tpu_torch.models.params import to_flax_tree
 
     spec = {"model": "llama3-8b", "dtype": "bfloat16", "quant": "int8",
             "extra": dict(BUNDLE_EXTRA)}
@@ -5300,7 +5327,16 @@ def serve_bundle_path(card: str) -> dict:
     bundle = Path(tempfile.mkdtemp(prefix="lambdipy-bundle-")) / "bundle"
     try:
         state_dict = adapter.init_params(seed=0, device="cuda")
-        made = write_bundle(bundle, state_dict, card)
+        n_params = sum(t.numel() for t in state_dict.values())
+        made = write_bundle(
+            bundle, {"recipe": "chip-smoke-llama3-8b", **spec,
+                     "params": "init", "batch_size": 1, "mesh": {},
+                     "device": "any"},
+            "generate_handler", card,
+            tree=to_flax_tree(adapter.config, state_dict),
+            params_info={"format": "fpk", "n_params": n_params, "seed": 0,
+                         "serving_cast": {"applied": False,
+                                          "reason": "written by the port"}})
         inproc = boot_in_process(bundle, state_dict, spec, card)
         del state_dict
         gc.collect()
@@ -5317,7 +5353,398 @@ def serve_bundle_path(card: str) -> dict:
             "cli": runs, "launches": launches}
 
 
+# path L: the BASELINE's configs 1-4 served from bundles the port writes
+# without JAX: hello (numpy, scipy), tabular (sklearn), ResNet-50 image
+# classification and BERT-base text classification (bf16, the handlers'
+# forward a CUDA graph), and the torch BERT-base (f32, eager)
+L_BUNDLES = {  # name: (handler, dtype, base layer)
+    "resnet50": ("image_classify_handler", "bfloat16", "jax-tpu"),
+    "bert-base": ("text_classify_handler", "bfloat16", "jax-tpu"),
+    "bert-base-torch": ("torch_text_classify_handler", "float32", "torch"),
+    "hello": ("hello_handler", "float32", "none"),
+    "tabular": ("tabular_handler", "float32", "none"),
+}
+L_INVOKES = {"resnet50": 50, "bert-base": 30}  # BASELINE.json's counts
+L_P50_TARGET_MS = 15.0   # BASELINE.json's p50 target (set on a TPU)
+L_COLD_TARGET_S = 10.0   # and its cold-start target
+L_IMAGE = 224
+L_TOKENS = 128
+# bounds on max |card - CPU| / max |CPU| of the logits: the card's forward
+# against the port's CPU forward of the same weights in f32. bf16: the
+# card rounds every activation to bf16 (one ulp is 2^-8 of a value), the
+# CPU reference does not. A random BERT's two logits are small beside its
+# hidden state, so the noise its last hidden state carries is a larger
+# share of them; that state is held too (L_HIDDEN_BOUND). Measured on an
+# H100 (NVIDIA H100 80GB HBM3, 700 W): ResNet-50 2.3e-3, BERT-base 0.13
+# (its last hidden state 1.4e-2), the torch BERT (f32: the card's fused
+# attention and summation order) 4.3e-4
+L_CPU_BOUND = {"resnet50": 1e-2, "bert-base": 0.3, "bert-base-torch": 5e-3}
+L_HIDDEN_BOUND = 0.05  # BERT-base's last hidden state, the same measure
+
+
+def _perturb_norms(state_dict: dict, seed: int) -> None:
+    """Seeded batch-norm statistics, scales and biases, LayerNorm scales
+    and dense biases in place of the init's constants: a random ResNet's
+    ``bn3`` scales start at 0, which zeroes every residual branch."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for key, t in state_dict.items():
+        leaf = key.rsplit(".", 1)[-1]
+        if t.dim() != 1 or leaf not in ("scale", "bias", "mean", "var"):
+            continue
+        r = torch.rand(t.shape, generator=gen, device=t.device)
+        n = torch.randn(t.shape, generator=gen, device=t.device)
+        val = {"scale": (0.3 * n if key.endswith("bn3.scale")
+                         else 0.5 + r),
+               "bias": 0.1 * n, "mean": 0.1 * n, "var": 0.5 + r}[leaf]
+        t.copy_(val.to(t.dtype))
+
+
+def _classify_bodies(name: str) -> dict:
+    """(the random body, a real one): a 224 x 224 x 3 image as JSON lists
+    (3 decimals) or 128 token ids, made from a seed."""
+    rng = np.random.default_rng(18)
+    if name == "resnet50":
+        real = {"image": np.round(rng.uniform(
+            0, 1, (L_IMAGE, L_IMAGE, 3)), 3).tolist()}
+    else:
+        real = {"input_ids": rng.integers(1, 30522, L_TOKENS).tolist()}
+    return {"random": {"random": True}, "real": real}
+
+
+def _logits(name: str, out: dict) -> np.ndarray:
+    """What an answer says of the logits: ResNet's top-5 and max, BERT's
+    logits."""
+    if name == "resnet50":
+        return np.asarray(out["top5"][0] + [out["logit_max"]])
+    return np.asarray(out["logits"])
+
+
+def forward_bound(model, inputs) -> dict:
+    """One forward's bound: the bytes it must move (weights, inputs and
+    output, each once; of an embedding table, the rows the ids gather)
+    over 3.35 TB/s against its matmul and convolution operations (counted
+    by ``torch.utils.flop_counter`` on this forward) over 989 bf16
+    TFLOP/s."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter, torch.no_grad():
+        out = model(*inputs)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in [*model.state_dict().values(), *inputs, out])
+    # an embedding table is read only at the rows this run's ids gather
+    rows = inputs[0].numel()
+    for mod in model.modules():
+        table = getattr(mod, "embedding", None)
+        if isinstance(table, torch.Tensor) and table.dim() == 2:
+            nbytes -= max(0, table.shape[0] - rows) * table.shape[1] * \
+                table.element_size()
+    ms, by = bound(nbytes, counter.get_total_flops())
+    return {"bytes": nbytes, "flops": counter.get_total_flops(),
+            "bound_ms": ms, "bound_by": by}
+
+
+def _rel_err(out, ref) -> float:
+    out, ref = out.float(), ref.float()
+    return ((out - ref).abs().max() / ref.abs().max()).item()
+
+
+def check_classify_boot(name: str, bundle: Path, state_dict: dict,
+                        card: str) -> dict:
+    """(b) for ResNet-50, BERT-base and the torch BERT: ``load_bundle`` on
+    the card; every tensor equal to the one written; the graph replay (a
+    real input and the random body) bitwise the eager card forward; the
+    card's logits against the port's CPU forward of the same weights in
+    f32, within ``L_CPU_BOUND`` and with the top-1 equal (BERT-base's last
+    hidden state within ``L_HIDDEN_BOUND``); one forward's
+    device time replayed and eager (``device_time``), against its bound."""
+    from lambdipy_tpu_torch.models import registry
+    from lambdipy_tpu_torch.models.graphs import DEVICE_LOCK
+    from lambdipy_tpu_torch.runtime.handlers import _pad_ids
+    from lambdipy_tpu_torch.runtime.loader import load_bundle
+
+    t0 = time.perf_counter()
+    boot = load_bundle(bundle, device="cuda")
+    boot_s = time.perf_counter() - t0
+    program = boot.state.forward
+    model = program.model
+    loaded = model.state_dict()
+    unequal = [k for k, t in state_dict.items()
+               if loaded[k].dtype != t.dtype or not torch.equal(loaded[k], t)]
+    log(f"path L (b) {name}: load_bundle in {boot_s:.2f} s, stages "
+        f"{boot.stages}; {len(state_dict) - len(unequal)} of "
+        f"{len(state_dict)} tensors torch.equal to the written ones, "
+        f"forward {program.mode} [{card}]")
+    if unequal or set(loaded) != set(state_dict):
+        raise SystemExit(f"path L (b) {name}: tensors differ: {unequal[:5]}")
+    real = _classify_bodies(name)["real"]
+    if name == "resnet50":
+        x = torch.tensor(real["image"], dtype=torch.float32)[None]
+        inputs = (x,)
+    else:
+        inputs = _pad_ids({"input_ids": real["input_ids"]},
+                          model.cfg.max_len if name == "bert-base"
+                          else model.max_len)
+    dev_inputs = [a.to(t.device, t.dtype)
+                  for a, t in zip(inputs, program.inputs)]
+    got = program(*inputs)
+    with torch.no_grad():
+        eager = model(*dev_inputs).cpu()
+        eager_random = model(*program.example).cpu()
+    graph_ok = torch.equal(got, eager) and torch.equal(
+        program(*program.example), eager_random)
+    # the same widths in f32 on the CPU, the same weights (bf16 ones are
+    # exact in f32)
+    cpu = registry.get(name).build(dtype="float32").make_model(
+        {k: v.float().cpu() for k, v in loaded.items()}, device="cpu")
+    with torch.no_grad():
+        ref = cpu(*inputs).float()
+        hidden_err = (_rel_err(model.encoder(*dev_inputs).cpu(),
+                               cpu.encoder(*inputs))
+                      if name == "bert-base" else 0.0)
+    err = _rel_err(got, ref)
+    top1 = bool((got.argmax(-1) == ref.argmax(-1)).all())
+    out = {"boot_s": boot_s, "stages": boot.stages, "mode": program.mode,
+           "graph_bitwise_eager": graph_ok, "cpu_f32_rel_err": err,
+           "cpu_f32_hidden_rel_err": hidden_err, "cpu_top1_equal": top1,
+           "meta": boot.state.meta}
+    log(f"path L (b) {name}: {program.mode} forward bitwise the eager "
+        f"card forward (a real input and the random body): {graph_ok}; "
+        f"against the CPU f32 forward of the same weights: max |diff| / "
+        f"max |ref| {err:.3e} (bound {L_CPU_BOUND[name]})"
+        + (f", last hidden state {hidden_err:.3e} (bound "
+           f"{L_HIDDEN_BOUND})" if name == "bert-base" else "")
+        + f", top-1 equal {top1}")
+    if not graph_ok or err > L_CPU_BOUND[name] or not top1 \
+            or hidden_err > L_HIDDEN_BOUND:
+        raise SystemExit(f"path L (b) {name}: the card's forward failed "
+                         f"its checks: {out}")
+    if program.uses_graph:
+        with DEVICE_LOCK:
+            out["replay_ms"] = device_time(lambda i: program.run())
+        with torch.no_grad():
+            out["eager_ms"] = device_time(lambda i: model(*dev_inputs),
+                                          calls=1)
+        out.update(forward_bound(model, dev_inputs))
+        log(f"path L (b) {name}: one forward's device time, replayed "
+            f"{out['replay_ms']:.4f} ms, eager {out['eager_ms']:.4f} ms; "
+            f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}: "
+            f"{out['bytes']:,} B, {out['flops']:,} flop) [{card}]")
+    out["answers"] = {kind: boot.state.invoke(body) for kind, body in
+                      _classify_bodies(name).items()}
+    del boot, program, model, cpu
+    return out
+
+
+def serve_classify_cli(name: str, bundle: Path, want: dict,
+                       card: str) -> dict:
+    """(c): ``python -m lambdipy_tpu_torch serve <bundle> --port 0``:
+    spawn to the readiness line, its cold-start stages, spawn to
+    ``/healthz`` ready; ``L_INVOKES`` sequential invokes of the random body
+    and of the real one (p50, p99), each answer (b)'s; the kernels'
+    counters and the forward's from ``/metrics``; SIGTERM, exit 0."""
+    import os
+    import signal
+
+    err_path = OUT_DIR / f"path_l_cli_{name}.log"
+    OUT_DIR.mkdir(exist_ok=True)
+    with open(err_path, "w") as err:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "lambdipy_tpu_torch", "serve",
+             str(bundle), "--port", "0"],
+            stdout=subprocess.PIPE, stderr=err, text=True,
+            env={**os.environ, "LAMBDIPY_LOG_LEVEL": "WARNING"})
+    try:
+        line = proc.stdout.readline()
+        spawn_s = time.perf_counter() - t0
+        if not line:
+            proc.wait(timeout=60)
+            raise SystemExit(f"path L (c) {name}: no readiness line, exit "
+                             f"{proc.returncode}: "
+                             f"{err_path.read_text()[-3000:]}")
+        ready = json.loads(line)
+        url = f"http://127.0.0.1:{ready['port']}"
+        ready_s = spawn_s + _until_ready(url)
+        health = http_json(url + "/healthz")
+        meta = health["handler_meta"]
+        stages = ready["cold_start"]
+        log(f"path L (c) {name}: spawn to readiness line {spawn_s:.3f} s "
+            f"(target < {L_COLD_TARGET_S:.0f} s: "
+            f"{'met' if spawn_s < L_COLD_TARGET_S else 'not met'}), "
+            f"cold_start {stages}; spawn to /healthz ready {ready_s:.3f} "
+            f"s; handler_meta {meta} [{card}]")
+        if meta.get("aot") != "graph" or list(stages) != [
+                "manifest", "syspath", "compile_cache", "handler_import",
+                "init", "warmup", "total"]:
+            raise SystemExit(f"path L (c) {name}: /healthz: {health}")
+        out = {"spawn_to_ready_s": spawn_s, "spawn_to_healthz_ready_s":
+               ready_s, "cold_start": stages, "meta": meta}
+        for kind, body in _classify_bodies(name).items():
+            data = json.dumps(body).encode()
+            walls, same, bitwise = [], 0, 0
+            for _ in range(L_INVOKES[name]):
+                t1 = time.perf_counter()
+                status, raw, _ = _post_raw(
+                    url + "/invoke", data,
+                    {"Content-Type": "application/json"})
+                walls.append(time.perf_counter() - t1)
+                got = json.loads(raw)
+                if status != 200 or not got["ok"]:
+                    raise SystemExit(f"path L (c) {name}: {status} {got}")
+                ref = want[kind]
+                key = "top5" if name == "resnet50" else "labels"
+                same += got[key] == ref[key]
+                bitwise += bool(np.array_equal(_logits(name, got),
+                                               _logits(name, ref)))
+            p50, p99 = _percentile(walls, 0.5), _percentile(walls, 0.99)
+            log(f"path L (c) {name}: {L_INVOKES[name]} invokes of the "
+                f"{kind} body ({len(data):,} B): p50 {p50 * 1e3:.2f} ms "
+                f"(target < {L_P50_TARGET_MS:.0f} ms: "
+                f"{'met' if p50 * 1e3 < L_P50_TARGET_MS else 'not met'}), "
+                f"p99 {p99 * 1e3:.2f} ms; {same} with (b)'s "
+                f"{'top-5' if name == 'resnet50' else 'labels'}, {bitwise} "
+                f"bitwise (b)'s [{card}]")
+            if same != L_INVOKES[name]:
+                raise SystemExit(f"path L (c) {name}: answers differ from "
+                                 f"(b)'s")
+            out[kind] = {"body_bytes": len(data), "p50_ms": p50 * 1e3,
+                         "p99_ms": p99 * 1e3, "bitwise": bitwise,
+                         "invoke_ms": [w * 1e3 for w in walls]}
+        handler = http_json(url + "/metrics")["handler"]
+        out["launches"], out["forward"] = handler["kernels"], \
+            handler["forward"]
+        log(f"path L (c) {name}: /metrics forward {handler['forward']}, "
+            f"kernel launches {handler['kernels']}")
+        if handler["forward"]["replays"] < 2 * L_INVOKES[name] or \
+                handler["forward"]["eager_runs"]:
+            raise SystemExit(f"path L (c) {name}: not every invoke replayed "
+                             f"the forward: {handler['forward']}")
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=120)
+        if code != 0:
+            raise SystemExit(f"path L (c) {name}: exit {code} on SIGTERM: "
+                             f"{err_path.read_text()[-3000:]}")
+        return out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+
+
+def serve_classify_path(card: str) -> dict:
+    """Path L: (a) a ``resnet50``, a ``bert-base``, a ``bert-base-torch``
+    (``model.pt``), a ``hello`` and, where sklearn and joblib import, a
+    ``tabular`` bundle written without JAX at the recipes' widths; (b)
+    each booted in process on the card (``check_classify_boot``; hello and
+    tabular against their handler and estimator); (c) ResNet-50 and
+    BERT-base as CLI processes (``serve_classify_cli``). The kernels'
+    counters must read 0: no TPU kernel is on this path."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    from lambdipy_tpu_torch.models import registry
+    from lambdipy_tpu_torch.models.params import to_flax_tree
+    from lambdipy_tpu_torch.runtime.handlers import (HandlerContext,
+                                                     hello_handler,
+                                                     kernel_launches)
+    from lambdipy_tpu_torch.runtime.loader import load_bundle
+
+    set_launches_to_zero()  # counters to 0 just before the path
+    has_sklearn = all(importlib.util.find_spec(m) is not None
+                      for m in ("sklearn", "joblib"))
+    log(f"path L: sklearn and joblib "
+        f"{'import' if has_sklearn else 'do not import'} on this host: the "
+        f"tabular bundle {'runs' if has_sklearn else 'is left out'}")
+    root = Path(tempfile.mkdtemp(prefix="lambdipy-classify-"))
+    out: dict = {"tabular_ran": has_sklearn}
+    try:
+        written = {}
+        for name, (attr, dtype, base) in L_BUNDLES.items():
+            if name == "tabular" and not has_sklearn:
+                continue
+            bundle = root / name
+            spec = {"recipe": f"chip-smoke-{name}", "model": name,
+                    "params": "none" if name == "hello" else "init",
+                    "dtype": dtype, "batch_size": 1,
+                    "mesh": {"dp": 1, "tp": 1} if base == "jax-tpu" else {},
+                    "quant": None, "extra": {}, "device": "any"}
+            adapter = (None if name == "hello"
+                       else registry.get(name).build(dtype=dtype))
+            tree, info = None, None
+            if name in ("resnet50", "bert-base"):
+                sd = adapter.init_params(seed=0, device="cuda")
+                _perturb_norms(sd, seed=18)
+                tree = to_flax_tree(adapter.config, sd)
+                info = {"format": "fpk", "seed": 0,
+                        "n_params": sum(t.numel() for t in sd.values()),
+                        "serving_cast": {"applied": False,
+                                         "reason": "written by the port"}}
+            elif name == "bert-base-torch":
+                sd = adapter.init_params(seed=0, device="cuda")
+                (bundle / "params").mkdir(parents=True)
+                torch.save({k: v.cpu() for k, v in sd.items()},
+                           bundle / "params" / "model.pt")
+                info = {"format": "torch",
+                        "n_params": sum(t.numel() for t in sd.values())}
+            elif name == "tabular":
+                import joblib
+
+                sd = adapter.init_params(seed=0)
+                (bundle / "params").mkdir(parents=True)
+                joblib.dump(sd, bundle / "params" / "model.joblib")
+                info = {"format": "joblib",
+                        "n_features": adapter.config.n_features}
+            else:
+                sd = None
+            made = write_bundle(bundle, spec, attr, card, tree=tree,
+                                params_info=info, base=base, label="L")
+            nbytes = sum(f.stat().st_size for f in bundle.rglob("*")
+                         if f.is_file())
+            log(f"path L (a) {name}: {nbytes:,} B in the bundle, manifest "
+                f"in {made['manifest_s']:.2f} s")
+            written[name] = (bundle, sd, spec)
+        for name in ("resnet50", "bert-base", "bert-base-torch"):
+            bundle, sd, _ = written[name]
+            out[name] = check_classify_boot(name, bundle, sd, card)
+        boot = load_bundle(written["hello"][0], device="cuda")
+        req = {"n": 64, "seed": 3}
+        want = hello_handler({}, HandlerContext(device="cuda")).invoke(req)
+        got = boot.state.invoke(req)
+        log(f"path L (b) hello: stages {boot.stages}, the answer equal to "
+            f"a handler built directly: {got == want}")
+        if got != want or not got["ok"]:
+            raise SystemExit(f"path L (b) hello: {got} != {want}")
+        out["hello"] = {"stages": boot.stages, "answer": got}
+        if has_sklearn:
+            bundle, clf, _ = written["tabular"]
+            boot = load_bundle(bundle, device="cuda")
+            rows = np.random.default_rng(2).normal(size=(4, 16))
+            got = boot.state.invoke({"instances": rows.tolist()})
+            same = got["probabilities"] == clf.predict_proba(rows).tolist()
+            log(f"path L (b) tabular: stages {boot.stages}, probabilities "
+                f"equal to the fitted estimator's: {same}")
+            if not same:
+                raise SystemExit("path L (b) tabular: answers differ")
+            out["tabular"] = {"stages": boot.stages}
+        launches = kernel_launches()
+        for name in L_INVOKES:
+            out[name]["cli"] = serve_classify_cli(
+                name, written[name][0], out[name].pop("answers"), card)
+            for k, v in out[name]["cli"]["launches"].items():
+                launches[k] += v
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = {k: launches[k] for k in KERNELS}
+    log(f"path L: kernel launches in process and in the CLI processes "
+        f"{out['launches']}")
+    if any(out["launches"].values()):
+        raise SystemExit("path L: a TPU kernel's twin was launched")
+    return out
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -5390,6 +5817,11 @@ def main() -> int:
     t_path = time.perf_counter()
     paths["K"] = serve_bundle_path(card)
     log(f"path K took {time.perf_counter() - t_path:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_path = time.perf_counter()
+    paths["L"] = serve_classify_path(card)
+    log(f"path L took {time.perf_counter() - t_path:.1f} s")
     # each kernel's launches: the sum over the paths, each path counted
     # from 0 just before it was driven
     for name, kern in kernels.items():
@@ -5400,6 +5832,8 @@ def main() -> int:
         {"card": card, "torch": torch.__version__, "build_s": build_s,
          "kernels": list(kernels.values()), "small_model": small,
          "main_path": paths}, indent=1))
+    log(f"the whole script took {time.perf_counter() - t_script:.1f} s "
+        f"[{card}]")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}

@@ -323,13 +323,17 @@ class GraphProgram:
         _add_counts(self._counts)
         stats.record(self.events[0])
 
+    def prepare(self) -> None:
+        """What the capture must find done, run on the capture stream
+        just before it (:func:`prepare_capture` for a Llama program)."""
+        prepare_capture(self.model, self.rows)
+
     def _capture(self, stats: GraphStats) -> None:
         graph = self.graph_type(self.model.device)
         with DEVICE_LOCK:
             before = _read_counts()
             try:
-                graph.capture(self._call,
-                              lambda: prepare_capture(self.model, self.rows))
+                graph.capture(self._call, self.prepare)
             except BaseException:
                 self.outputs = None  # the failed capture's, never computed
                 raise
@@ -346,6 +350,70 @@ class GraphProgram:
             with DEVICE_LOCK:
                 self._graph.reset()
         self._graph = self.body = self.outputs = None
+
+
+class ForwardProgram(GraphProgram):
+    """A classifier's forward ``model(*example)`` at the example's shapes,
+    the twin of the JAX handlers' compiled forward (``_aot_or_jit``): on
+    the card a CUDA graph captured when the program is made and replayed
+    by every call at those shapes; a call at other shapes runs the model
+    eagerly, as JAX's dispatch falls back to ``jax.jit``. On the CPU, or
+    with ``graphs=False``, example-shaped calls run the same body eagerly.
+    :attr:`mode` is ``"graph"`` or ``"eager"`` (the handlers'
+    ``meta["aot"]``). Calls hold :data:`DEVICE_LOCK`: the program's input
+    and output buffers are shared."""
+
+    def __init__(self, model, example: tuple, *, graphs: bool = True,
+                 graph_type=None):
+        self.example = tuple(example)
+        self.inputs = tuple(t.clone() for t in example)
+        if graph_type is None and graphs and model.device.type == "cuda":
+            graph_type = CudaGraph
+        super().__init__(self._forward, model, example[0].shape[0],
+                         graph_type, GraphStats())
+        self.other_shapes = 0
+        if self.uses_graph:
+            self(*self.example)  # the capture, now
+
+    @property
+    def mode(self) -> str:
+        return "graph" if self.uses_graph else "eager"
+
+    def _forward(self):
+        with torch.no_grad():
+            return (self.model(*self.inputs),)
+
+    def prepare(self) -> None:
+        # one eager forward on the capture stream: cuDNN's and cuBLAS's
+        # first calls at these shapes (handles, workspaces, the choice of
+        # algorithm) must not land in the capture
+        self._forward()
+
+    def __call__(self, *args) -> torch.Tensor:
+        """The model's output for ``args`` (host or device tensors, cast
+        to the example's dtypes), as a host tensor of its own: the next
+        call overwrites the program's output buffer, on the CPU too."""
+        with DEVICE_LOCK:
+            if [a.shape for a in args] == [t.shape for t in self.inputs]:
+                for buf, a in zip(self.inputs, args):
+                    buf.copy_(a)
+                self.run()
+                out = self.outputs[0]
+            else:
+                with torch.no_grad():
+                    out = self.model(*(a.to(t.device, t.dtype) for a, t in
+                                       zip(args, self.inputs)))
+                self.other_shapes += 1
+            return out.to("cpu", copy=True)
+
+    def report(self) -> dict:
+        """``mode``; ``compile_count`` (captures), ``replays``,
+        ``eager_runs`` (example-shaped calls run eagerly) and
+        ``other_shapes`` (calls at other shapes)."""
+        s = self.stats.report()
+        return {"mode": self.mode, "compile_count": s["compile_count"],
+                "replays": s["replays"], "eager_runs": s["eager_steps"],
+                "other_shapes": self.other_shapes}
 
 
 class StepProgram(GraphProgram):

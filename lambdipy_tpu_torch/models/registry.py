@@ -1,18 +1,29 @@
 """Model registry of the port: name -> builder, as in
-``lambdipy_tpu/models/registry.py``. Only the Llama builders on the
-ported serving path exist so far (``llama3-8b``, ``llama-tiny``)."""
+``lambdipy_tpu/models/registry.py``: ``llama3-8b`` and ``llama-tiny``
+(generation), ``resnet50`` and ``resnet50-tiny`` (image classification),
+``bert-base`` and ``bert-tiny`` (text classification), ``bert-base-torch``
+(the torch BERT) and ``tabular`` (sklearn), with JAX's arguments and
+``extra`` keys."""
 
 from __future__ import annotations
 
 import dataclasses
 import os
 from collections.abc import Callable
+from pathlib import Path
+from typing import Any
 
+import numpy as np
 import torch
 
+from lambdipy_tpu_torch.models import params
+from lambdipy_tpu_torch.models.bert import BERT_BASE, BERT_TINY
 from lambdipy_tpu_torch.models.llama import (LLAMA3_8B, LLAMA_TINY,
                                              LlamaConfig, LlamaServer)
-from lambdipy_tpu_torch.models.params import build_model, init_params
+from lambdipy_tpu_torch.models.resnet import (RESNET50, RESNET_TINY,
+                                              ResNetConfig)
+from lambdipy_tpu_torch.models.torch_bert import TorchBertConfig
+from lambdipy_tpu_torch.utils.platform import resolve_device
 
 
 class ModelError(KeyError):
@@ -28,21 +39,50 @@ class ModelSpec:
 
 @dataclasses.dataclass(frozen=True)
 class TorchModel:
-    """What a builder returns: the config and the ways to make weights,
-    a model and a server from it. ``device`` defaults to the card."""
+    """What a builder returns, one shape for every family: the config
+    (``LlamaConfig``, ``ResNetConfig``, ``BertConfig``,
+    ``TorchBertConfig`` or ``params.TabularConfig``), and the ways to make
+    its example batch, weights and a model from it (``models/params.py``).
+    ``device`` defaults to the card. A Llama also makes a server."""
 
-    config: LlamaConfig
+    config: Any
 
-    def init_params(self, seed: int = 0, device=None) -> dict:
-        return init_params(self.config, seed, device)
+    def example_batch(self, batch_size: int = 1, device=None) -> tuple:
+        """The inputs a serving program is built for, as JAX's
+        ``example_batch``: zero images ``[b, size, size, 3]`` in the
+        model dtype; zero token ids and an all-ones mask ``[b, max_len]``;
+        zero tokens ``[b, 16]`` for a Llama; zero features (a host array)
+        for tabular."""
+        cfg = self.config
+        if isinstance(cfg, params.TabularConfig):
+            return (np.zeros((batch_size, cfg.n_features)),)
+        device = resolve_device(device)
+        if isinstance(cfg, ResNetConfig):
+            size = cfg.image_size
+            return (torch.zeros(batch_size, size, size, 3, dtype=cfg.dtype,
+                                device=device),)
+        if isinstance(cfg, LlamaConfig):
+            return (torch.zeros(batch_size, 16, dtype=torch.long,
+                                device=device),)
+        shape = (batch_size, cfg.max_len)
+        return (torch.zeros(shape, dtype=torch.long, device=device),
+                torch.ones(shape, dtype=torch.long, device=device))
+
+    def init_params(self, seed: int = 0, device=None):
+        return params.init_params(self.config, seed, device)
+
+    def load_params(self, params_dir: Path, device=None):
+        return params.load_params(params_dir, self.config, device)
 
     def make_model(self, state_dict=None, *, device=None):
-        return build_model(self.config, state_dict, device=device)
+        return params.build_model(self.config, state_dict, device=device)
 
     def make_server(self, state_dict=None, *, device=None,
                     **server_kw) -> LlamaServer:
-        """``server_kw``: :class:`LlamaServer`'s ``graphs``,
-        ``program_cache_max`` and ``program_cache_bytes``."""
+        """A Llama's server; ``server_kw``: :class:`LlamaServer`'s
+        ``graphs``, ``program_cache_max`` and ``program_cache_bytes``."""
+        if not isinstance(self.config, LlamaConfig):
+            raise TypeError(f"{type(self.config).__name__} has no server")
         return LlamaServer(self.make_model(state_dict, device=device),
                            **server_kw)
 
@@ -136,3 +176,57 @@ def _build_llama_tiny(dtype: str = "float32", quant: str | None = None,
     return TorchModel(dataclasses.replace(
         LLAMA_TINY, dtype=_dtype(dtype), quant=quant,
         **_llama_overrides(extra)))
+
+
+# ----------------------------------------------------------------------
+# the classify families (BASELINE.json configs 2-4); builders take the
+# JAX registry's arguments and extra keys (registry.py:93-198, :459-505)
+
+
+@register("resnet50", "ResNet-50 image classifier (config 3)")
+def _build_resnet50(dtype: str = "bfloat16", quant: str | None = None,
+                    extra: dict | None = None) -> TorchModel:
+    extra = extra or {}
+    return TorchModel(dataclasses.replace(
+        RESNET50, dtype=_dtype(dtype),
+        num_classes=int(extra.get("num_classes", 1000)),
+        image_size=int(extra.get("image_size", 224))))
+
+
+@register("resnet50-tiny", "tiny ResNet for tests and dry runs")
+def _build_resnet_tiny(dtype: str = "float32", quant: str | None = None,
+                       extra: dict | None = None) -> TorchModel:
+    return TorchModel(dataclasses.replace(RESNET_TINY, dtype=_dtype(dtype)))
+
+
+@register("bert-base", "BERT-base text classifier (config 4)")
+def _build_bert_base(dtype: str = "bfloat16", quant: str | None = None,
+                     extra: dict | None = None) -> TorchModel:
+    extra = extra or {}
+    return TorchModel(dataclasses.replace(
+        BERT_BASE, dtype=_dtype(dtype),
+        max_len=int(extra.get("max_len", 128)),
+        num_classes=int(extra.get("num_classes", 2))))
+
+
+@register("bert-tiny", "tiny BERT for tests and dry runs")
+def _build_bert_tiny(dtype: str = "float32", quant: str | None = None,
+                     extra: dict | None = None) -> TorchModel:
+    return TorchModel(dataclasses.replace(BERT_TINY, dtype=_dtype(dtype)))
+
+
+@register("tabular", "sklearn tabular classifier (config 2)")
+def _build_tabular(dtype: str = "float32", quant: str | None = None,
+                   extra: dict | None = None) -> TorchModel:
+    extra = extra or {}
+    return TorchModel(params.TabularConfig(
+        n_features=int(extra.get("n_features", 16))))
+
+
+@register("bert-base-torch", "torch BERT-base, f32 (config 4, torch path)")
+def _build_bert_torch(dtype: str = "float32", quant: str | None = None,
+                      extra: dict | None = None) -> TorchModel:
+    extra = extra or {}
+    return TorchModel(TorchBertConfig(**{
+        f.name: int(extra.get(f.name, f.default))
+        for f in dataclasses.fields(TorchBertConfig)}))

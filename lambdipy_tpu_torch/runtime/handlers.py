@@ -34,6 +34,7 @@ resolved with the JAX handler's precedence."""
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import threading
 from collections.abc import Callable, Iterator
@@ -41,8 +42,10 @@ from pathlib import Path
 from typing import Any
 
 import numpy as np
+import torch
 
 from lambdipy_tpu_torch.models import registry
+from lambdipy_tpu_torch.models.graphs import ForwardProgram
 from lambdipy_tpu_torch.models.llama import (_next_bucket, init_page_arena,
                                              page_kv_bytes)
 from lambdipy_tpu_torch.models.params import load_params
@@ -62,6 +65,8 @@ from lambdipy_tpu_torch.runtime.pagepool import (PagePool, PagesExhausted,
                                                  page_width)
 from lambdipy_tpu_torch.runtime.prefixstore import PrefixStore
 from lambdipy_tpu_torch.sched.policy import make_policy
+from lambdipy_tpu_torch.utils.logs import get_logger
+from lambdipy_tpu_torch.utils.platform import resolve_device
 
 
 @dataclasses.dataclass
@@ -112,6 +117,10 @@ class HandlerState:
     # O(1) read: the background warm is running (/healthz "warming", and
     # "ready" false meanwhile)
     warming_fn: Callable[[], bool] | None = None
+    # a classify handler's compiled forward (models/graphs.py
+    # ForwardProgram; its model is .model), for callers that drive it
+    # directly
+    forward: Any = None
 
     def invoke(self, request: dict) -> dict:
         return self.invoke_fn(request)
@@ -1102,3 +1111,188 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
         session_end_fn=store.end_session if store is not None else None,
         **ship)
 
+
+
+# ----------------------------------------------------------------------
+# BASELINE.json configs 1-4: hello, tabular, image and text classification
+# (JAX handlers.py:117-346, :1677-1731)
+
+
+def hello_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
+    """Config 1: numpy and scipy hello world, a small deterministic linalg
+    op on the host, as in JAX."""
+    from scipy import linalg
+
+    def invoke(req: dict) -> dict:
+        n = int(req.get("n", 64))
+        rng = np.random.default_rng(int(req.get("seed", 0)))
+        a = rng.normal(size=(n, n))
+        sign, logdet = np.linalg.slogdet(a @ a.T + n * np.eye(n))
+        lu = linalg.lu_factor(a + n * np.eye(n))[0]
+        return {"ok": True, "n": n, "logdet": float(logdet * sign),
+                "lu_trace": float(np.trace(lu)), "numpy": np.__version__}
+
+    return HandlerState(invoke_fn=invoke, meta={"model": "hello"})
+
+
+def tabular_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
+    """Config 2: sklearn tabular inference on the host, as in JAX: the
+    bundle's ``model.joblib`` (a seeded fit without a params directory);
+    ``degraded`` lists the optional packages the build skipped."""
+    adapter = registry.get("tabular").build(extra=spec.get("extra"))
+    clf = (adapter.load_params(ctx.params_dir) if ctx.params_dir is not None
+           else adapter.init_params(seed=0))
+    n_features = getattr(clf, "n_features_in_", 16)
+    degraded = ctx.degraded()
+
+    def invoke(req: dict) -> dict:
+        if req.get("warmup") or req.get("random"):
+            x = np.zeros((1, n_features))
+        else:
+            x = np.asarray(req["instances"], dtype=float)
+            if x.ndim == 1:
+                x = x[None, :]
+        proba = clf.predict_proba(x)
+        return {"ok": True, "predictions": proba.argmax(1).tolist(),
+                "probabilities": proba.tolist(), "degraded": degraded}
+
+    return HandlerState(invoke_fn=invoke,
+                        meta={"model": "tabular", "n_features": n_features})
+
+
+def _adapter_and_params(spec: dict, ctx: HandlerContext, device):
+    """The twin of JAX's ``_jax_adapter_and_params``: the manifest's
+    ``params_info.config`` (a converted checkpoint's architecture) over
+    the spec's ``extra``; the weights from ``ctx.state_dict``, else the
+    bundle's params, else seeded random weights."""
+    extra = dict(spec.get("extra") or {})
+    payload = ctx.manifest.get("payload") or {}
+    extra.update((payload.get("params_info") or {}).get("config") or {})
+    adapter = registry.get(spec["model"]).build(
+        dtype=spec.get("dtype", "bfloat16"), quant=spec.get("quant"),
+        extra=extra)
+    if ctx.state_dict is not None:
+        return adapter, ctx.state_dict
+    if ctx.params_dir is not None:
+        return adapter, adapter.load_params(ctx.params_dir, device)
+    return adapter, adapter.init_params(seed=0, device=device)
+
+
+def _single_device(spec: dict) -> None:
+    """A payload mesh needs more than the one device the port serves on:
+    serve on one, loudly, as JAX does on a host with too few devices
+    (``meta.sharded`` false)."""
+    mesh = {k: v for k, v in (spec.get("mesh") or {}).items() if v > 1}
+    if mesh:
+        get_logger("lambdipy.handlers").warning(
+            "mesh %s needs %d devices but the port serves on one: "
+            "degrading to SINGLE-DEVICE serving (meta.sharded=false)",
+            mesh, math.prod(mesh.values()))
+
+
+def _classify_program(spec: dict, ctx: HandlerContext, device):
+    adapter, state_dict = _adapter_and_params(spec, ctx, device)
+    _single_device(spec)
+    model = adapter.make_model(state_dict, device=device)
+    example = adapter.example_batch(int(spec.get("batch_size", 1)), device)
+    return adapter, ForwardProgram(model, example)
+
+
+def image_classify_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
+    """Config 3: ResNet-50 image classification. The forward at the
+    spec's example shape is a CUDA graph on the card (captured here);
+    requests of another shape run eagerly. ``image`` is ``[h, w, 3]`` or
+    ``[b, h, w, 3]``."""
+    device = resolve_device(ctx.device)
+    _, program = _classify_program(spec, ctx, device)
+
+    def invoke(req: dict) -> dict:
+        if req.get("warmup") or req.get("random"):
+            logits = program(*program.example)
+        else:
+            x = torch.from_numpy(np.asarray(req["image"], dtype=np.float32))
+            logits = program(x[None] if x.dim() == 3 else x)
+        logits = logits.float().numpy()
+        top = np.argsort(-logits, axis=-1)[:, :5]
+        return {"ok": True, "top5": top.tolist(),
+                "top1": top[:, 0].tolist(),
+                "logit_max": float(logits.max())}
+
+    return HandlerState(
+        invoke_fn=invoke, forward=program,
+        stats_fn=lambda: _forward_stats(program),
+        meta={"model": spec["model"], "batch": program.rows,
+              "sharded": False, "aot": program.mode,
+              "platform": "gpu" if device.type == "cuda" else device.type})
+
+
+def _forward_stats(program: ForwardProgram) -> dict:
+    """A classify handler's ``/metrics``: the kernels' counters (no TPU
+    kernel is on these paths: they stay 0) and the forward's."""
+    return {"kernels": kernel_launches(), "forward": program.report()}
+
+
+def _pad_ids(req: dict, max_len: int) -> tuple:
+    """A request's ``input_ids`` (one row or rows) padded to ``max_len``
+    with their mask, as host tensors."""
+    raw = np.asarray(req["input_ids"], dtype=np.int64)
+    if raw.ndim == 1:
+        raw = raw[None, :]
+    ids = np.zeros((raw.shape[0], max_len), np.int64)
+    mask = np.zeros((raw.shape[0], max_len), np.int64)
+    n = min(max_len, raw.shape[1])
+    ids[:, :n] = raw[:, :n]
+    mask[:, :n] = 1
+    return torch.from_numpy(ids), torch.from_numpy(mask)
+
+
+def text_classify_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
+    """Config 4: BERT text classification; ``input_ids`` padded to
+    ``max_len``. The forward at the spec's example shape is a CUDA graph
+    on the card (captured here); other batch sizes run eagerly."""
+    device = resolve_device(ctx.device)
+    adapter, program = _classify_program(spec, ctx, device)
+    max_len = adapter.config.max_len
+
+    def invoke(req: dict) -> dict:
+        if req.get("warmup") or req.get("random"):
+            logits = program(*program.example)
+        else:
+            logits = program(*_pad_ids(req, max_len))
+        logits = logits.float().numpy()
+        return {"ok": True, "labels": logits.argmax(-1).tolist(),
+                "logits": logits.tolist()}
+
+    return HandlerState(
+        invoke_fn=invoke, forward=program,
+        stats_fn=lambda: _forward_stats(program),
+        meta={"model": spec["model"], "max_len": max_len, "sharded": False,
+              "aot": program.mode})
+
+
+def torch_text_classify_handler(spec: dict,
+                                ctx: HandlerContext) -> HandlerState:
+    """Config 4, the torch path: the stock ``torch.nn`` BERT from the
+    bundle's ``model.pt``, f32, run eagerly on the card (JAX runs it on a
+    torch-xla device and degrades to the CPU without one; the port runs
+    on the CPU only when the caller asks). ``device`` in the response and
+    the meta is the device's type."""
+    device = resolve_device(ctx.device)
+    adapter, state_dict = _adapter_and_params(spec, ctx, device)
+    model = adapter.make_model(state_dict, device=device)
+    program = ForwardProgram(model, adapter.example_batch(1, device),
+                             graphs=False)
+    max_len = adapter.config.max_len
+
+    def invoke(req: dict) -> dict:
+        if req.get("warmup") or req.get("random"):
+            logits = program(*program.example)
+        else:
+            logits = program(*_pad_ids(req, max_len))
+        return {"ok": True, "labels": logits.numpy().argmax(-1).tolist(),
+                "device": device.type}
+
+    return HandlerState(
+        invoke_fn=invoke, forward=program,
+        stats_fn=lambda: _forward_stats(program),
+        meta={"model": spec["model"], "device": device.type})

@@ -15,7 +15,9 @@ JAX's order):
    the JAX package: the port reads that file with ``ast`` instead of
    running it, takes ``_SPEC`` with ``ast.literal_eval`` and maps the
    handler to the port's ``lambdipy_tpu_torch.runtime.handlers:<attr>``.
-   Only ``generate_handler`` is ported; another raises at ``init``. A
+   Every handler the JAX builder names is ported (:data:`PORTED_HANDLERS`:
+   generation, hello, tabular, image and text classification, the torch
+   BERT); another name raises at ``init``. A
    ``handler.py`` that imports nothing of ``lambdipy_tpu`` is a user's own
    and runs as JAX runs it;
 5. ``init``: ``init(ctx)`` with a :class:`HandlerContext` naming the
@@ -45,7 +47,9 @@ log = get_logger("lambdipy.runtime")
 
 _JAX_HANDLERS = "lambdipy_tpu.runtime.handlers"
 # the JAX package's handlers the port has a twin of
-PORTED_HANDLERS = ("generate_handler",)
+PORTED_HANDLERS = ("generate_handler", "hello_handler", "tabular_handler",
+                   "image_classify_handler", "text_classify_handler",
+                   "torch_text_classify_handler")
 
 
 @dataclass

@@ -182,7 +182,7 @@ def _break(bundle, tmp_path, how):
     elif how == "unported_handler":
         text = (out / "handler.py").read_text()
         (out / "handler.py").write_text(text.replace(
-            "import generate_handler as", "import text_classify_handler as"))
+            "import generate_handler as", "import _aot_or_jit as"))
     elif how == "no_manifest":
         (out / "manifest.json").unlink()
     elif how == "unknown_schema":

@@ -384,16 +384,18 @@ def state():
         HandlerContext(device="cpu"))
 
 
-def _slowed(state, service_s: float, **changes):
-    """The handler with every invoke held ``service_s`` seconds first:
-    long enough that concurrent requests queue behind it."""
+def _held(state, release: threading.Event, **changes):
+    """The handler with every invoke held until ``release`` is set: the
+    requests behind the one running queue however far apart their
+    threads start."""
     invoke = state.invoke_fn
 
-    def slow(req):
-        time.sleep(service_s)
+    def held(req):
+        if not release.wait(timeout=60):
+            raise TimeoutError("the test never released the invoke")
         return invoke(req)
 
-    return dataclasses.replace(state, invoke_fn=slow, **changes)
+    return dataclasses.replace(state, invoke_fn=held, **changes)
 
 
 @pytest.fixture()
@@ -454,7 +456,8 @@ def test_overload_sheds_explicitly_with_retry_after(state, serve):
     """12 concurrent requests against 1 run slot and a queue of 3: the
     queue stays bounded, the excess is shed 503 with Retry-After, and
     /metrics counts the sheds by reason and the waits by class."""
-    srv = serve(_slowed(state, 0.25),
+    release = threading.Event()
+    srv = serve(_held(state, release),
                 sched={"max_concurrency": 1, "queue_cap": 3,
                        "policy": "fair"})
     results = []
@@ -474,20 +477,37 @@ def test_overload_sheds_explicitly_with_retry_after(state, serve):
     threads = [threading.Thread(target=fire, args=(i,)) for i in range(12)]
     for t in threads:
         t.start()
-    time.sleep(0.3)
-    mid = _get(srv.url, "/metrics")["sched"]
+    # the run slot is held: wait until 3 requests queue behind it and the
+    # other 8 are answered, then release it
+    deadline = time.monotonic() + 30
+    while True:
+        mid = _get(srv.url, "/metrics")["sched"]
+        with lock:
+            answered = len(results)
+        if (mid["running"], sum(mid["queued"].values()), answered) \
+                == (1, 3, 8) or time.monotonic() > deadline:
+            break
+        time.sleep(0.01)
+    release.set()
     assert sum(mid["queued"].values()) <= 3 and mid["running"] <= 1
+    assert (mid["running"], sum(mid["queued"].values()), answered) \
+        == (1, 3, 8), (mid, answered)
     for t in threads:
         t.join()
     codes = [status for status, _, _ in results]
-    assert codes.count(200) >= 4
+    assert codes.count(200) == 4
     shed = [r for r in results if r[0] in (429, 503)]
     assert shed, codes
     for status, body, headers in shed:
         assert int(headers["Retry-After"]) >= 1
         assert body["shed"] in ("queue_full", "deadline")
         assert body["retry_after_s"] > 0
+    # a completion is booked just after its response is written
     metrics = _get(srv.url, "/metrics")
+    deadline = time.monotonic() + 10
+    while metrics["sched"]["completed"] < 4 and time.monotonic() < deadline:
+        time.sleep(0.01)
+        metrics = _get(srv.url, "/metrics")
     sched = metrics["sched"]
     assert sched["shed"]["total"] == len(shed)
     assert sched["shed"]["by_reason"].get("queue_full", 0) > 0
