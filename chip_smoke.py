@@ -168,7 +168,28 @@ Phases, each of which fails the run with a non-zero exit:
    the readiness line and its stages, 50 and 30 invokes of a
    ``{"random": true}`` body and of a real one (p50, p99, against the <
    15 ms and < 10 s targets), every answer (b)'s, SIGTERM exits 0; the
-   kernels' counters read 0 (no TPU kernel is on this path);
+   kernels' counters read 0 (no TPU kernel is on this path). Last, M:
+   the bundle lifecycle through ``python -m lambdipy_tpu_torch``, every
+   command a process under a fresh ``HOME`` and an empty kernel build
+   cache (``LAMBDIPY_KERNEL_CACHE``): (b) ``recipes`` lists the ten
+   twins; (c) ``build`` of ``hello-numpy``, ``jax-resnet50`` and
+   ``jax-bert`` into the registry (wall, stages, bytes, prune savings,
+   the warm record), a second build the cache hit; (d) each deployed by
+   name under the watchdog (``deploy_wall_s``, ``cold_start``),
+   ``bench`` 20 / 50 / 30 times (p50, p99), its answers bitwise an
+   in-process boot of the same bundle; (e) the ResNet server SIGKILLed,
+   respawned on the same port, the time to ``/healthz`` ready, answers
+   as before; (f) ``publish`` to a protected store (refused without the
+   token), ``releases`` lists both assets, a second pack the asset's
+   bytes, a fresh registry's ``build jax-resnet50`` fetching the
+   prebuilt and its ``deploy``; (g) ``jax-llama3-8b`` built with
+   ``--out`` (8.56 GB, the warm on), deployed by directory, 30 invokes
+   of 100 in and 16 out, greedy tokens and logprobs bitwise an
+   in-process ``generate`` on the bundle's weights, ``int8_matmul`` =
+   225 x forwards from ``/metrics``, the bundle deleted; (h) ``doctor``
+   reads the card and every deployment healthy, ``stop`` each, no
+   deployment, no server process, the card's free memory back within 1
+   GiB; (i) ``package`` of numpy (a recipe) and einops (plain);
 5. print the whole script's time, the kernels' JSON line and, last, the
    device line.
 
@@ -5743,6 +5764,468 @@ def serve_classify_path(card: str) -> dict:
     return out
 
 
+# path M: the bundle lifecycle through the port's CLI, each command a
+# process of its own under a fresh HOME: recipes, build (registry, cache
+# hit, prebuilt fetch, --out), deploy under the watchdog, bench, invoke,
+# a killed server respawned, publish / releases to a protected store,
+# llama3-8b built and served at full width, doctor, stop, package. The
+# host-only phases run in a thread beside a card build (hello's build
+# beside the card recipes'; publish, a second pack and package beside
+# the llama's), so they add little wall time; every phase that times a
+# deploy, an invoke or a respawn runs alone
+M_TWINS = ("certifi", "hello-numpy", "jax-bert", "jax-llama-micro",
+           "jax-llama3-8b", "jax-resnet50", "numpy", "numpy-src",
+           "tabular-sklearn", "torch-xla-bert")
+# BASELINE.json's invoke counts (configs 1, 3 and 4) and bodies
+M_BENCH = {"hello-numpy": 20, "jax-resnet50": 50, "jax-bert": 30}
+M_BODY = {"hello-numpy": {"n": 64, "seed": 3},
+          "jax-resnet50": {"random": True}, "jax-bert": {"random": True}}
+M_MODEL = {"jax-resnet50": "resnet50", "jax-bert": "bert-base"}
+M_LLAMA_INVOKES = 30
+M_FREE_SLACK = 1 << 30  # the card's free memory after M, against before
+
+
+class Cli:
+    """``python -m lambdipy_tpu_torch <args>`` as a process, from the
+    checkout's root, under ``home`` (the registry, the deployments, the
+    asset and source caches start empty) and a kernel build cache of its
+    own (empty too: the first boot on the card builds the kernels)."""
+
+    def __init__(self, root: Path):
+        import os
+
+        self.root = root
+        self.env = {**os.environ, "HOME": str(root / "home"),
+                    "LAMBDIPY_KERNEL_CACHE": str(root / "kernels"),
+                    "PYTHONPATH": str(Path(__file__).resolve().parent),
+                    "LAMBDIPY_LOG_LEVEL": "WARNING"}
+        self.env.pop("LAMBDIPY_RELEASE_STORE", None)
+        self.env.pop("LAMBDIPY_RELEASE_TOKEN", None)
+        (root / "home").mkdir(parents=True)
+
+    def __call__(self, *args, ok: bool = True, env: dict | None = None,
+                 timeout: float = 900.0) -> dict:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "lambdipy_tpu_torch", *map(str, args)],
+            capture_output=True, text=True, timeout=timeout,
+            env={**self.env, **(env or {})},
+            cwd=Path(__file__).resolve().parent)
+        out = {"rc": proc.returncode, "stdout": proc.stdout,
+               "stderr": proc.stderr, "wall_s": time.perf_counter() - t0}
+        if ok and proc.returncode != 0:
+            raise SystemExit(f"path M: `{' '.join(map(str, args))}` exited "
+                             f"{proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+        if not ok and proc.returncode == 0:
+            raise SystemExit(f"path M: `{' '.join(map(str, args))}` "
+                             f"should have failed:\n{proc.stdout[-2000:]}")
+        return out
+
+    def json(self, *args, **kw):
+        """The command's stdout, one JSON document."""
+        return json.loads(self(*args, **kw)["stdout"])
+
+    def registry_bundle(self, recipe: str) -> Path:
+        from lambdipy_tpu_torch.recipes import builtin_store
+
+        aid = builtin_store().get(recipe).artifact_id(
+            f"{sys.version_info.major}.{sys.version_info.minor}")
+        return (self.root / "home" / ".lambdipy-tpu-torch" / "registry"
+                / "artifacts" / aid / "bundle")
+
+
+def _build_record(cli: Cli, recipe: str, bundle: Path, wall: float,
+                  card: str, beside: str = "") -> dict:
+    """(c): a build's wall time, its stages, the bundle's bytes, the prune
+    savings and the warm record, from the manifest."""
+    from lambdipy_tpu_torch.bundle.format import load_manifest
+    from lambdipy_tpu_torch.utils.fsutil import dir_size
+
+    m = load_manifest(bundle)
+    prov = m["provenance"]
+    rec = {"wall_s": wall, "stages": prov["timings"],
+           "bytes": dir_size(bundle), "prune": prov["prune"],
+           "vendored": [v["name"] for v in prov["vendored"]],
+           "base_provided": [v["name"] for v in prov["base_provided"]],
+           "warm": m.get("warm")}
+    log(f"path M (c) build {recipe}: {wall:.2f} s{beside}, stages "
+        f"{prov['timings']}, "
+        f"{rec['bytes']:,} B in the bundle, prune saved "
+        f"{prov['prune']['bytes_saved']:,} B of {prov['prune']['bytes_before']:,}"
+        f", vendored {rec['vendored']}, base layer {rec['base_provided']}; "
+        f"warm {rec['warm']} [{card}]")
+    if not (rec["warm"] or {}).get("ok"):
+        raise SystemExit(f"path M (c): {recipe}'s warm failed: {rec['warm']}")
+    return rec
+
+
+def _answers_equal(recipe: str, got: dict, want: dict) -> tuple:
+    """(top-1 equal, bitwise): ResNet's top-5 and largest logit, BERT's
+    labels and logits; hello's whole answer."""
+    if recipe == "jax-resnet50":
+        return got["top1"] == want["top1"], got == want
+    if recipe == "jax-bert":
+        return got["labels"] == want["labels"], got == want
+    return got == want, got == want
+
+
+def _deploy_checks(cli: Cli, recipe: str, card: str) -> dict:
+    """(d): deploy by name under the watchdog, its wall and readiness
+    stages; ``bench`` at BASELINE.json's count; the deployment's answers
+    against an in-process boot of the same bundle on the card, top-1 and
+    bitwise (the same program on the same card: the graph of the
+    forward, or the host's numpy)."""
+    from lambdipy_tpu_torch.runtime.loader import load_bundle
+
+    dep = cli("deploy", recipe)
+    ready = json.loads(dep["stdout"].strip().splitlines()[-1])
+    log(f"path M (d) deploy {recipe}: deploy_wall_s {dep['wall_s']:.3f} "
+        f"(target < 10 s), cold_start {ready['cold_start']} [{card}]")
+    bench = cli.json("bench", recipe, "-n", M_BENCH[recipe], "--data",
+                     json.dumps(M_BODY[recipe]))
+    log(f"path M (d) bench {recipe}: {bench} [{card}]")
+    bodies = ({"body": M_BODY[recipe]} if recipe == "hello-numpy"
+              else _classify_bodies(M_MODEL[recipe]))
+    boot = load_bundle(cli.registry_bundle(recipe), device="cuda")
+    checks = {}
+    for kind, body in bodies.items():
+        want = boot.state.invoke(body)
+        got = http_json(ready["url"] + "/invoke", body)
+        checks[kind] = _answers_equal(recipe, got, want)
+    log(f"path M (d) {recipe}: (top-1 equal, bitwise) against an in-process "
+        f"boot of the same bundle: {checks}")
+    if not all(top and bits for top, bits in checks.values()):
+        raise SystemExit(f"path M (d) {recipe}: answers differ: {checks}")
+    answers = {kind: http_json(ready["url"] + "/invoke", body)
+               for kind, body in bodies.items()}
+    del boot
+    return {"deploy_wall_s": dep["wall_s"], "url": ready["url"],
+            "cold_start": ready["cold_start"], "bench": bench,
+            "checks": checks, "answers": answers, "bodies": bodies}
+
+
+def _watchdog(cli: Cli, dep: dict, card: str) -> dict:
+    """(e): SIGKILL the ResNet deployment's server; the supervisor
+    respawns it on the same port; the time from the kill to ``/healthz``
+    ready under a new pid; the next invoke answers bitwise as before."""
+    import os
+    import signal
+
+    url = dep["url"]
+    old = http_json(url + "/healthz")["pid"]
+    t0 = time.perf_counter()
+    os.kill(old, signal.SIGKILL)
+    while True:
+        try:
+            health = http_json(url + "/healthz", timeout=5)
+            if health["pid"] != old and health["ready"]:
+                break
+        except OSError:
+            pass
+        if time.perf_counter() - t0 > 180:
+            raise SystemExit("path M (e): the server was not respawned")
+        time.sleep(0.05)
+    recovery = time.perf_counter() - t0
+    same = {kind: http_json(url + "/invoke", body) == dep["answers"][kind]
+            for kind, body in dep["bodies"].items()}
+    log(f"path M (e) watchdog: server {old} SIGKILLed, respawned as "
+        f"{health['pid']} on the same port, /healthz ready after "
+        f"{recovery:.3f} s; answers bitwise as before: {same} [{card}]")
+    if not all(same.values()):
+        raise SystemExit(f"path M (e): answers after the respawn differ")
+    return {"recovery_s": recovery, "old_pid": old, "new_pid": health["pid"],
+            "same": same}
+
+
+def _publish(cli: Cli, say) -> dict:
+    """(f), host side: publish hello-numpy and jax-resnet50 to a protected
+    store (a publish without the token fails), ``releases`` lists both, a
+    second pack of the bundle gives the asset's bytes. ``say`` takes the
+    log lines (this runs in a thread, beside the llama build)."""
+    from lambdipy_tpu_torch.resolve.releases import ReleaseStore, pack_bundle
+    from lambdipy_tpu_torch.utils.fsutil import hash_file
+
+    store = ReleaseStore.create(cli.root / "releases", protected=True)
+    denied = cli("publish", "jax-resnet50", "--release-store", store.root,
+                 ok=False)
+    if "protected" not in denied["stderr"]:
+        raise SystemExit(f"path M (f): {denied['stderr']}")
+    token = {"LAMBDIPY_RELEASE_TOKEN": "chip-smoke"}
+    pub = cli("publish", "hello-numpy", "jax-resnet50", "--release-store",
+              store.root, env=token)
+    listed = cli("releases", "--release-store", store.root)["stdout"]
+    say(f"path M (f) publish without the token: exit {denied['rc']} "
+        f"({denied['stderr'].strip().splitlines()[-1]}); with it "
+        f"{pub['wall_s']:.2f} s (beside the llama build):\n"
+        f"{pub['stdout'].strip()}\nreleases:\n{listed.strip()}")
+    assets = {a.recipe: a for a in store.list_assets()}
+    if set(assets) != {"hello-numpy", "jax-resnet50"} or \
+            not all(a.artifact_id in listed for a in assets.values()):
+        raise SystemExit(f"path M (f): the store lists {sorted(assets)}")
+    asset = assets["jax-resnet50"]
+    t0 = time.perf_counter()
+    again = pack_bundle(cli.registry_bundle("jax-resnet50"),
+                        cli.root / "again.tar.gz")
+    pack_s = time.perf_counter() - t0
+    same_bytes = hash_file(again) == asset.hash
+    say(f"path M (f) a second pack of jax-resnet50's bundle: {pack_s:.2f} s, "
+        f"{again.stat().st_size:,} B, the asset's bytes: {same_bytes}")
+    if not same_bytes:
+        raise SystemExit("path M (f): two packs of one bundle differ")
+    again.unlink()
+    return {"store": store.root, "publish_s": pub["wall_s"],
+            "pack_s": pack_s, "asset_bytes": asset.size}
+
+
+def _prebuilt(cli: Cli, rel: dict, deps: dict, card: str) -> dict:
+    """(f), card side: against a fresh registry, ``build jax-resnet50``
+    fetches the prebuilt without building, and ``deploy`` serves it, its
+    answers bitwise the built one's."""
+    fresh = cli.root / "fresh-registry"
+    fetched = cli("build", "jax-resnet50", "--registry", fresh,
+                  "--release-store", rel["store"])
+    if "fetched prebuilt" not in fetched["stdout"] or \
+            "built" in fetched["stdout"].replace("fetched prebuilt", ""):
+        raise SystemExit(f"path M (f): {fetched['stdout']}")
+    dep = cli("deploy", "jax-resnet50", "--registry", fresh, "--name",
+              "resnet-prebuilt")
+    ready = json.loads(dep["stdout"].strip().splitlines()[-1])
+    same = {kind: http_json(ready["url"] + "/invoke", body)
+            == deps["jax-resnet50"]["answers"][kind]
+            for kind, body in deps["jax-resnet50"]["bodies"].items()}
+    log(f"path M (f) a fresh registry's build: {fetched['wall_s']:.2f} s, "
+        f"{fetched['stdout'].strip()}; deploy {dep['wall_s']:.3f} s, "
+        f"cold_start {ready['cold_start']}; answers bitwise the built "
+        f"bundle's: {same} [{card}]")
+    if not all(same.values()):
+        raise SystemExit("path M (f): the prebuilt bundle answers otherwise")
+    return {**{k: v for k, v in rel.items() if k != "store"},
+            "fetch_build_s": fetched["wall_s"],
+            "prebuilt_deploy_wall_s": dep["wall_s"],
+            "prebuilt_cold_start": ready["cold_start"]}
+
+
+def _llama(cli: Cli, card: str, beside) -> tuple:
+    """(g): ``build jax-llama3-8b --out`` (int8, warm on), with ``beside``
+    (host-only work: no card, no latency measured) in a thread during the
+    build and joined before the deploy; deployed by directory (the prefix
+    store off, ``LAMBDIPY_PREFIX_CACHE_MB=0``, so a row is the engine's
+    and bitwise solo ``generate``); 30 invokes of 100 in, 16 out through
+    ``bench``; greedy tokens and logprobs bitwise an in-process
+    ``generate`` on the bundle's weights; ``/metrics``
+    ``handler.kernels``: ``int8_matmul`` 225 x forwards, the decode
+    attention 32 x decode steps; the bundle deleted. Returns the stats
+    and what ``beside`` returned."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from lambdipy_tpu_torch.bundle.format import load_manifest
+    from lambdipy_tpu_torch.models import registry
+    from lambdipy_tpu_torch.runtime.handlers import kernel_launches
+
+    out = cli.root / "llama" / "bundle"
+    try:
+        with ThreadPoolExecutor(1) as pool:
+            host = pool.submit(beside)
+            built = cli("build", "jax-llama3-8b", "--out", out)
+            host_out = host.result()
+        rec = _build_record(cli, "jax-llama3-8b", out, built["wall_s"], card)
+        log(f"path M (g) build (beside (f)'s publish and (i)'s package): "
+            f"{built['stdout'].strip()}")
+        nocache = {"LAMBDIPY_PREFIX_CACHE_MB": "0"}
+        dep = cli("deploy", out, "--name", "llama", env=nocache)
+        ready = json.loads(dep["stdout"].strip().splitlines()[-1])
+        url = ready["url"]
+        log(f"path M (g) deploy llama3-8b by directory: deploy_wall_s "
+            f"{dep['wall_s']:.3f}, cold_start {ready['cold_start']} (the "
+            f"warm built {rec['warm'].get('kernels_built')}: compile_cache "
+            f"{ready['cold_start']['compile_cache']:.4f} s, a hit) [{card}]")
+        payload = load_manifest(out)["payload"]
+        adapter = registry.get(payload["model"]).build(
+            dtype=payload["dtype"], quant=payload["quant"],
+            extra=dict(payload["extra"]))
+        prompt = torch.randint(1, adapter.config.vocab_size, (100,),
+                               generator=torch.Generator().manual_seed(19)
+                               ).tolist()
+        body = {"tokens": prompt, "max_new_tokens": 16}
+        bench = cli.json("bench", "llama", "-n", M_LLAMA_INVOKES, "--data",
+                         json.dumps(body))
+        log(f"path M (g) bench: {M_LLAMA_INVOKES} invokes, 100 in, 16 out: "
+            f"{bench} [{card}]")
+        served = http_json(url + "/invoke", {**body, "logprobs": True})
+        _until_ready(url)  # the handler's background warm ended
+        metrics = http_json(url + "/metrics")["handler"]
+        server = adapter.make_server(
+            adapter.load_params(out / "params", "cuda"), device="cuda")
+        toks, lps = server.generate([prompt], max_new_tokens=16,
+                                    return_logprobs=True)
+        bitwise = (served["tokens"] == toks.tolist()
+                   and served["logprobs"] == _as_served(lps).tolist())
+        log(f"path M (g) the deployment's greedy tokens and logprobs bitwise "
+            f"an in-process generate on the bundle's weights: {bitwise}")
+        if not bitwise:
+            raise SystemExit("path M (g): the deployment's row differs")
+        layers = adapter.config.layers
+        del server, adapter
+        gc.collect()
+        torch.cuda.empty_cache()
+        es = metrics.get("batching") or {}
+        forwards = (metrics["prefill_replays"] + metrics["eager_prefills"]
+                    + metrics["replays"] + metrics["eager_steps"]
+                    + es.get("prefix_joins", 0) + es.get("forwards", 0))
+        launches = metrics["kernels"]
+        want = {"int8_matmul": (7 * layers + 1) * forwards,
+                "decode_attention": layers * (es.get("steps", 0)
+                                              + metrics["replays"]
+                                              + metrics["eager_steps"])}
+        log(f"path M (g) /metrics handler.kernels {launches}; implied "
+            f"{want} ({forwards} forwards, {es.get('steps')} engine steps, "
+            f"{metrics['replays'] + metrics['eager_steps']} solo steps)")
+        if any(launches[k] != want[k] for k in want):
+            raise SystemExit("path M (g): the launch identity fails")
+        stats = {"build": rec, "deploy_wall_s": dep["wall_s"],
+                 "cold_start": ready["cold_start"], "bench": bench,
+                 "bitwise": bitwise, "launches": launches,
+                 "implied": want, "in_process": kernel_launches()}
+        cli("stop", "llama")
+    finally:
+        shutil.rmtree(out.parent, ignore_errors=True)
+    return stats, host_out
+
+
+def _server_processes(root: Path) -> list:
+    """This run's server and supervisor processes: the port's, serving a
+    bundle under ``root`` (every bundle path M deploys is under it), so
+    another checkout's deployments on the host are neither counted nor
+    killed."""
+    mine = str(root.resolve()).encode()
+    found = []
+    for entry in Path("/proc").iterdir():
+        if not entry.name.isdigit():
+            continue
+        try:
+            cmd = (entry / "cmdline").read_bytes().replace(b"\0", b" ")
+            state = (entry / "stat").read_text().rsplit(")", 1)[1].split()[0]
+        except OSError:
+            continue
+        if state != "Z" and mine in cmd and (
+                b"lambdipy_tpu_torch.runtime.server" in cmd
+                or b"lambdipy_tpu_torch.runtime.supervisor" in cmd):
+            found.append(int(entry.name))
+    return found
+
+
+def _package(cli: Cli, say) -> dict:
+    """(i): a requirements file naming numpy (the numpy recipe covers it)
+    and einops (plain) packaged into one site tree holding both (in a
+    thread beside the llama build: ``say`` takes the log line)."""
+    req = cli.root / "requirements.txt"
+    req.write_text("numpy\neinops\n")
+    tree = cli.root / "package"
+    res = cli("package", req, "--out", tree)
+    site = tree / "site"
+    holds = {"numpy": (site / "numpy" / "__init__.py").is_file(),
+             "einops": (site / "einops" / "__init__.py").is_file()}
+    say(f"path M (i) package: {res['wall_s']:.2f} s (beside the llama "
+        f"build), {res['stdout'].strip()}; the tree holds {holds}")
+    if not all(holds.values()):
+        raise SystemExit(f"path M (i): the tree lacks {holds}")
+    return {"wall_s": res["wall_s"], "holds": holds}
+
+
+def serve_lifecycle_path(card: str) -> dict:
+    """Path M: the bundle lifecycle through the CLI on the card, (a)-(i)
+    (see ``Cli`` and the helpers above); every failure exits non-zero."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from lambdipy_tpu_torch.runtime.handlers import kernel_launches
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    set_launches_to_zero()  # counters to 0 just before the path
+    free_before = torch.cuda.mem_get_info()[0]
+    cli = Cli(Path(tempfile.mkdtemp(prefix="lambdipy-lifecycle-")))
+    out: dict = {}
+    try:
+        names = [ln.split()[0] for ln in cli("recipes")["stdout"]
+                 .splitlines() if ln.strip()]
+        log(f"path M (b) recipes: {names}")
+        if sorted(names) != sorted(M_TWINS):
+            raise SystemExit(f"path M (b): recipes lists {names}")
+        log("path M (c): tabular-sklearn left out (no sklearn on this "
+            "host), certifi and numpy-src too (sdist recipes: no source "
+            "archive here)")
+        out["builds"] = {}
+        # hello's build (host only: a cpu recipe, its warm on the CPU) in
+        # a thread beside the card recipes' builds, one after the other
+        # (the first warm fills the kernel cache the second hits)
+        with ThreadPoolExecutor(1) as pool:
+            hello = pool.submit(cli, "build", "hello-numpy")
+            for recipe in ("jax-resnet50", "jax-bert"):
+                res = cli("build", recipe)
+                out["builds"][recipe] = _build_record(
+                    cli, recipe, cli.registry_bundle(recipe), res["wall_s"],
+                    card, " (hello-numpy's build beside it)")
+            res = hello.result()
+        out["builds"]["hello-numpy"] = _build_record(
+            cli, "hello-numpy", cli.registry_bundle("hello-numpy"),
+            res["wall_s"], card, " (beside the card recipes' builds)")
+        hit = cli("build", "jax-resnet50")
+        log(f"path M (c) a second build: {hit['stdout'].strip()} "
+            f"({hit['wall_s']:.2f} s)")
+        if not hit["stdout"].startswith("cache hit:"):
+            raise SystemExit(f"path M (c): no cache hit: {hit['stdout']}")
+        out["deploys"] = {r: _deploy_checks(cli, r, card) for r in M_BENCH}
+        out["watchdog"] = _watchdog(cli, out["deploys"]["jax-resnet50"],
+                                    card)
+        lines: list = []  # the host-only phases' log, printed after them
+
+        def host_only():  # (f)'s publish and (i): no card, no latency
+            return _publish(cli, lines.append), _package(cli, lines.append)
+
+        out["llama"], (rel, out["package"]) = _llama(cli, card, host_only)
+        for line in lines:
+            log(line)
+        out["releases"] = _prebuilt(cli, rel, out["deploys"], card)
+        doctor = cli.json("doctor", "--probe-timeout", 120)
+        healthy = {d["name"]: d.get("healthy") for d in doctor["deployments"]}
+        log(f"path M (h) doctor: device {doctor['device']}, cuda "
+            f"{doctor['cuda']}, kernels {doctor['kernels']}, registry "
+            f"{doctor['registry']}, deployments {healthy}")
+        if not doctor["device"]["ok"] or not all(healthy.values()) or \
+                set(healthy) != {*M_BENCH, "resnet-prebuilt"}:
+            raise SystemExit(f"path M (h): doctor {doctor}")
+        for name in healthy:
+            cli("stop", name)
+        left = cli("deployments")["stdout"].strip()
+        procs = _server_processes(cli.root)
+        gc.collect()
+        torch.cuda.empty_cache()
+        free_after = torch.cuda.mem_get_info()[0]
+        log(f"path M (h) stopped {sorted(healthy)}; deployments lists "
+            f"{left!r}; server processes alive {procs}; the card's free "
+            f"memory {free_before / 2**30:.2f} GiB before M, "
+            f"{free_after / 2**30:.2f} GiB after [{card}]")
+        if left or procs or free_after < free_before - M_FREE_SLACK:
+            raise SystemExit("path M (h): teardown left deployments, "
+                             "processes or card memory behind")
+        out["teardown"] = {"free_before": free_before,
+                           "free_after": free_after, "doctor": doctor}
+    finally:
+        for pid in _server_processes(cli.root):  # a failed phase's leftovers
+            subprocess.run(["kill", "-9", str(pid)], check=False)
+        shutil.rmtree(cli.root, ignore_errors=True)
+    local = kernel_launches()
+    deployed = out["llama"]["launches"]
+    out["launches"] = {k: local[k] + deployed[k] for k in KERNELS}
+    log(f"path M: kernel launches in process and in the llama deployment "
+        f"{out['launches']}")
+    return out
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5822,6 +6305,11 @@ def main() -> int:
     t_path = time.perf_counter()
     paths["L"] = serve_classify_path(card)
     log(f"path L took {time.perf_counter() - t_path:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_path = time.perf_counter()
+    paths["M"] = serve_lifecycle_path(card)
+    log(f"path M took {time.perf_counter() - t_path:.1f} s")
     # each kernel's launches: the sum over the paths, each path counted
     # from 0 just before it was driven
     for name, kern in kernels.items():

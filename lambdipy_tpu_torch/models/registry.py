@@ -3,7 +3,8 @@
 (generation), ``resnet50`` and ``resnet50-tiny`` (image classification),
 ``bert-base`` and ``bert-tiny`` (text classification), ``bert-base-torch``
 (the torch BERT) and ``tabular`` (sklearn), with JAX's arguments and
-``extra`` keys."""
+``extra`` keys; and :func:`save_init_params`, a bundle's seeded params at
+build time."""
 
 from __future__ import annotations
 
@@ -230,3 +231,79 @@ def _build_bert_torch(dtype: str = "float32", quant: str | None = None,
     return TorchModel(TorchBertConfig(**{
         f.name: int(extra.get(f.name, f.default))
         for f in dataclasses.fields(TorchBertConfig)}))
+
+
+# ----------------------------------------------------------------------
+# build time: a bundle's params (JAX registry.py:580-634)
+
+
+def save_init_params(model: str, params_dir: Path, *, dtype: str = "bfloat16",
+                     quant: str | None = None, extra: dict | None = None,
+                     seed: int = 0, params_format: str = "both",
+                     device=None) -> dict:
+    """Seeded random weights of ``model`` saved into a bundle's params
+    directory, the twin of JAX's ``save_init_params``; returns the info
+    recorded in the manifest (JAX's keys), also written to
+    ``info.json``.
+
+    The flax families go to ``params.fpk`` (the flax tree,
+    ``params.to_flax_tree``, through ``bundle/flatpack.save``): with
+    ``params_format`` ``"both"`` or ``"fpk"`` alike, recorded as
+    ``"fpk"``, since the card's host has no orbax; ``"orbax"`` raises.
+    The torch BERT goes to ``model.pt``, tabular to ``model.joblib``.
+    The weights are made on ``device`` (the card by default: an 8B init
+    on the CPU takes minutes), recorded as ``init_device`` (the card's
+    and the CPU's generators draw other values from one seed), and that
+    memory is freed before this returns, so the build's warm process
+    finds the card free."""
+    if params_format == "orbax":
+        raise ValueError(
+            f"model {model}: params_format 'orbax' cannot be built by the "
+            "port: its host has no orbax, and the port reads params.fpk "
+            "alone; use 'fpk' or 'both' (which writes params.fpk)")
+    if params_format not in ("both", "fpk"):
+        raise ValueError(f"model {model}: unknown params_format "
+                         f"{params_format!r}; supported: 'both', 'fpk'")
+    import json
+
+    from lambdipy_tpu_torch.bundle import flatpack
+
+    adapter = get(model).build(dtype=dtype, quant=quant, extra=extra)
+    cfg = adapter.config
+    params_dir = Path(params_dir)
+    params_dir.mkdir(parents=True, exist_ok=True)
+    if isinstance(cfg, params.TabularConfig):
+        import joblib
+
+        joblib.dump(adapter.init_params(seed=seed),
+                    params_dir / "model.joblib")
+        info = {"format": "joblib", "n_features": cfg.n_features,
+                "init_device": "cpu"}
+    else:
+        device = resolve_device(device)
+        state_dict = adapter.init_params(seed=seed, device=device)
+        n_params = sum(t.numel() for t in state_dict.values())
+        if isinstance(cfg, TorchBertConfig):
+            torch.save({k: v.cpu() for k, v in state_dict.items()},
+                       params_dir / "model.pt")
+            # torch.nn's own init, drawn on the host (params.init_params)
+            info = {"format": "torch", "n_params": n_params,
+                    "init_device": "cpu"}
+        else:
+            flatpack.save(params_dir / "params.fpk",
+                          params.to_flax_tree(cfg, state_dict))
+            info = {"format": "fpk", "n_params": n_params, "seed": seed,
+                    # JAX casts f32 kernels to the serving dtype when a
+                    # forward proves it inert; the port's init already
+                    # makes every leaf in the dtype its model holds
+                    "serving_cast": {"applied": False,
+                                     "reason": "made in the model's dtypes"},
+                    # one seed draws other values on the card and on the
+                    # CPU: where these were drawn
+                    "init_device": device.type}
+        del state_dict
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    (params_dir / "info.json").write_text(json.dumps({"model": model,
+                                                       **info}))
+    return info

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library
 with a plain C interface and loaded with :mod:`ctypes` — no PyTorch
 headers, so a build takes seconds. Libraries go into
-``lambdipy_tpu_torch/_build/`` (listed in ``.gitignore``), named by a
-hash of the source and the flags, so an edited source rebuilds and a
-stale library is never loaded. Nothing is built at import time: the
+``lambdipy_tpu_torch/_build/`` (listed in ``.gitignore``; the directory
+``LAMBDIPY_KERNEL_CACHE`` names instead, when set), named by a hash of
+the source and the flags, so an edited source rebuilds and a stale
+library is never loaded. Nothing is built at import time: the
 first launch of a kernel builds it, or :func:`build_all` builds every
 source at once, one ``nvcc`` process per source, all started together.
 """
@@ -23,7 +24,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+BUILD_DIR = Path(os.environ.get("LAMBDIPY_KERNEL_CACHE")
+                 or _PKG / "_build")
 SOURCES = ("decode_attention", "int8_matmul", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
