@@ -71,7 +71,7 @@ Phases, each of which fails the run with a non-zero exit:
    D runs at the serving defaults: every request passes the SLO
    scheduler (``fair``) into an engine at pipeline depth 2; D (f) holds
    every row of a depth-1 engine bitwise the depth-2 engines', and the
-   same burst is driven directly at depths 2, 1, 1, 2 (tok/s and TTFT
+   same burst is driven directly at depths 2, then 1 (tok/s and TTFT
    printed), with the depth-2 engine's ``pipeline`` block. D's chunked
    turns drive the same burst through paged depth-2 engines with
    ``prefill_chunk`` off, 512, 512, off (the long rows walk 512-token
@@ -126,7 +126,7 @@ Phases, each of which fails the run with a non-zero exit:
    D's warm turns (after G, D's engine and programs released): D's
    traffic over HTTP through fresh handlers on D's weights, after the
    background warm (``warm_group_prefill`` on, ready by ``/healthz``) and
-   with it off, in turns warm, cold, warm, cold: tok/s, the joiners'
+   with it off, warm then cold: tok/s, the joiners'
    TTFT, the pool bytes before and after the warm against
    ``program_cache_bytes``; every row D's, launches 32 x steps and 225 x
    forwards (the warm's prefills counted). Last, J: the long-context tier
@@ -146,7 +146,7 @@ Phases, each of which fails the run with a non-zero exit:
    (b) ``load_bundle`` on the card: every tensor equal to the one it was
    written from, 4 prompts greedy and seeded sampled (logprobs on)
    bitwise a handler built from the same weights; (c) ``python -m
-   lambdipy_tpu_torch serve <bundle> --port 0`` twice (beside the walls
+   lambdipy_tpu_torch serve <bundle> --port 0`` once (beside the walls
    of fresh interpreters importing torch and the port's server): spawn
    to the readiness line and its cold-start stages, spawn to ``/healthz``
    ready, the boot fields (``skew``: the host's own check of the
@@ -173,9 +173,9 @@ Phases, each of which fails the run with a non-zero exit:
    command a process under a fresh ``HOME`` and an empty kernel build
    cache (``LAMBDIPY_KERNEL_CACHE``): (b) ``recipes`` lists the ten
    twins; (c) ``build`` of ``hello-numpy``, ``jax-resnet50`` and
-   ``jax-bert`` into the registry (wall, stages, bytes, prune savings,
+   ``jax-bert`` at once into the registry (wall, stages, bytes, prune savings,
    the warm record), a second build the cache hit; (d) each deployed by
-   name under the watchdog (``deploy_wall_s``, ``cold_start``),
+   name under the watchdog, the three at once (``deploy_wall_s``, ``cold_start``),
    ``bench`` 20 / 50 / 30 times (p50, p99), its answers bitwise an
    in-process boot of the same bundle; (e) the ResNet server SIGKILLed,
    respawned on the same port, the time to ``/healthz`` ready, answers
@@ -186,10 +186,32 @@ Phases, each of which fails the run with a non-zero exit:
    ``--out`` (8.56 GB, the warm on), deployed by directory, 30 invokes
    of 100 in and 16 out, greedy tokens and logprobs bitwise an
    in-process ``generate`` on the bundle's weights, ``int8_matmul`` =
-   225 x forwards from ``/metrics``, the bundle deleted; (h) ``doctor``
+   225 x forwards from ``/metrics``, the bundle kept for N; (h) ``doctor``
    reads the card and every deployment healthy, ``stop`` each, no
    deployment, no server process, the card's free memory back within 1
-   GiB; (i) ``package`` of numpy (a recipe) and einops (plain);
+   GiB; (i) ``package`` of numpy (a recipe) and einops (plain). Last, N:
+   the fleet, ``python -m lambdipy_tpu_torch fleet`` over M (g)'s bundle
+   (a twin whose manifest and ``handler.py`` give the model the engine's
+   2,048-position window, so the prefix store runs), two decode-class
+   replicas and one prefill-class, ``LAMBDIPY_KV_PAGED=1``, the
+   controller in dry run: (a) the readiness line, each replica's
+   ``cold_start``, the card's free memory; (b) 8 requests on one
+   1,024-token head all on the port's ``pick_replica``, its store's hits,
+   greedy tokens equal an in-process ``generate``, the first logprob
+   within 0.05; (c) a cold head shipped, pipelined, to the decode
+   replica, whose answer is bitwise the prefill replica's; (d) two
+   three-turn sessions, the home's worker SIGKILLed, the failed-over
+   turn bitwise the other session's, ejection and readmission timed,
+   pins 0 after ``DELETE``; (e) D's burst (prompts cut to the window)
+   through the router, then again with a decode worker SIGKILLed in
+   flight: every non-streamed request answered, the broken stream an
+   error (the same burst to one replica alone is left out for time); (f) a second router over the same replicas
+   with the ``kv_ship`` and ``route_connect`` sites armed: the fallback
+   and the retry counted; (g) the controller's decisions and no
+   snapshot field None beyond the ROADMAP's list; (h) the replicas'
+   ``handler.kernels`` = 225 x forwards and 32 x decode steps; (i)
+   SIGTERM leaves no replica process and the card's memory back within 1
+   GiB;
 5. print the whole script's time, the kernels' JSON line and, last, the
    device line.
 
@@ -1335,20 +1357,24 @@ def log_pools(path: str, pools) -> None:
 
 
 RATE_TOKENS = 256
+# the eager server's rate: its steps are the host's launches (~16-23 tok/s
+# on an H100's host), so 31 steps read the rate 255 do in an eighth of the
+# time
+EAGER_RATE_TOKENS = 32
 
 
-def decode_rate(generate, rows) -> float:
-    """Decode tokens per second of ``rows``: rows x 255 / (wall of a
-    256-token request - wall of a 1-token request); over 255 steps a slow
-    short request moves the rate by a few percent, not past the device
-    bound."""
+def decode_rate(generate, rows, tokens: int = RATE_TOKENS) -> float:
+    """Decode tokens per second of ``rows``: rows x (tokens - 1) / (wall
+    of a ``tokens``-token request - wall of a 1-token request); over 255
+    steps a slow short request moves the rate by a few percent, not past
+    the device bound."""
     walls = []
-    for n in (1, RATE_TOKENS):
+    for n in (1, tokens):
         t0 = time.perf_counter()
         generate(rows, max_new_tokens=n)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    return len(rows) * (RATE_TOKENS - 1) / (walls[1] - walls[0])
+    return len(rows) * (tokens - 1) / (walls[1] - walls[0])
 
 
 def prefill_carry(server, rows, knobs) -> tuple:
@@ -1416,10 +1442,11 @@ def graph_vs_eager(path: str, server, requests: dict, p100, ragged,
     weights (``LlamaServer(model, graphs=False)``): tokens and logprobs
     bitwise for each request ``name -> (rows, knobs)`` of 32 new tokens;
     the prefills alone (:func:`prefill_twins`) at 100 and ~4,000 tokens;
-    then batch-1 decode tok/s on the 100-token prompt over 255 steps
-    (:func:`decode_rate`), graph and eager in turns (graph, eager, eager,
-    graph), the host's noise moving a rate 30-70% between runs, and the
-    graph server's ragged batch-4 tok/s, twice."""
+    then batch-1 decode tok/s on the 100-token prompt (:func:`decode_rate`;
+    the graph's over 255 steps, the eager server's over 31), graph and
+    eager in turns (graph, eager, eager, graph), the host's noise moving a
+    rate 30-70% between runs, and the graph server's ragged batch-4
+    tok/s."""
     from lambdipy_tpu_torch.models.llama import LlamaServer
 
     eager = LlamaServer(server.model, graphs=False)
@@ -1442,12 +1469,14 @@ def graph_vs_eager(path: str, server, requests: dict, p100, ragged,
     # the 256-token key's graph captured before the first timed reading
     server.generate([p100], max_new_tokens=RATE_TOKENS)
     for kind in ("graph", "eager", "eager", "graph"):
-        rates[kind].append(decode_rate(
-            (server if kind == "graph" else eager).generate, [p100]))
-    log(f"path {path} batch-1 decode tok/s, graph {rates['graph']} / eager "
-        f"{rates['eager']} (in turns) [{card}]")
+        rates[kind].append(
+            decode_rate(server.generate, [p100]) if kind == "graph"
+            else decode_rate(eager.generate, [p100], EAGER_RATE_TOKENS))
+    log(f"path {path} batch-1 decode tok/s, graph {rates['graph']} (255 "
+        f"steps) / eager {rates['eager']} ({EAGER_RATE_TOKENS - 1} steps) "
+        f"(in turns) [{card}]")
     server.generate(ragged, max_new_tokens=RATE_TOKENS)  # captured first
-    ragged_rate = [decode_rate(server.generate, ragged) for _ in range(2)]
+    ragged_rate = [decode_rate(server.generate, ragged)]
     log(f"path {path} ragged batch-4 decode tok/s, graph {ragged_rate} "
         f"[{card}]")
     del eager
@@ -2072,17 +2101,17 @@ def eager_engine_burst(server, reqs, charges):
 def depth_bursts(server, engine, reqs, charges, card: str) -> dict:
     """D's traffic driven directly through the depth-2 paged engine (the
     HTTP run's) and a depth-1 paged engine on the same weights (its own
-    arena of the pages the traffic charges plus the null page), in turns
-    2, 1, 1, 2: each burst's wall, tok/s and the rows' TTFT (from
-    admission), and the first depth-1 burst's rows ``(tokens,
-    logprobs)`` under ``out``."""
+    arena of the pages the traffic charges plus the null page), depth 2
+    then 1: each burst's wall, tok/s and the rows' TTFT (from admission),
+    and the depth-1 burst's rows ``(tokens, logprobs)`` under ``out``."""
     from lambdipy_tpu_torch.runtime.handlers import make_engine
 
     sync = make_engine(server, {**ENGINE_EXTRA, "pipeline_depth": "1",
                                 "kv_pages": str(sum(charges) + 1)})
     out = {"out": [None] * len(reqs)}
-    for turn, eng in enumerate((engine, sync, sync, engine)):
-        keep = turn == 1
+    turns = (engine, sync)
+    for turn, eng in enumerate(turns):
+        keep = eng is sync
 
         def send(i, eng=eng, keep=keep):
             _, body = reqs[i]
@@ -2112,7 +2141,8 @@ def depth_bursts(server, engine, reqs, charges, card: str) -> dict:
              "segments": after["segments"] - before["segments"],
              "wasted_overdecode_tokens": wasted, "drains": drains})
         log(f"path D burst driven directly at pipeline depth "
-            f"{eng.pipeline_depth} (turn {turn + 1} of 4): {burst_s:.3f} s, "
+            f"{eng.pipeline_depth} (turn {turn + 1} of {len(turns)}): "
+            f"{burst_s:.3f} s, "
             f"{new_tokens_of(reqs) / burst_s:.1f} tok/s, engine TTFT mean "
             f"{np.mean(ttfts):.3f} s max {max(ttfts):.3f} s; {steps} steps "
             f"in {after['segments'] - before['segments']} segments, "
@@ -3845,6 +3875,10 @@ SPEC_PROMPT = 200   # the solo prompt: a phrase of 24 tokens repeated
 SPEC_SUFFIX = 64    # the suffix after the shared prefix
 SPEC_PREFIX = 2048
 SPEC_MODES = (("lookup", 1), ("model", 1), ("model", 32))
+# the engines' pipeline depths by kv_paged: the dense engine at depth 2
+# only (the paged engines hold depth 1 against depth 2 under every draft
+# mode, and D (f) holds a depth-1 engine's rows against depth 2's)
+SPEC_DEPTHS = {"1": ("2", "1"), "0": ("2",)}
 SPEC_TIMED_PROMPT = 512  # the 8-slot timing's prompts, cut to this
 SPEC_SAMPLED = {"temperature": 0.8, "top_p": 0.9, "seed": 7}
 
@@ -4038,8 +4072,9 @@ def spec_burst(engine, reqs) -> tuple:
 def spec_engines(card: str) -> dict:
     """Path H's engines: D's burst (its 8 concurrent requests) over HTTP
     through a handler at ``spec_k = 8`` (paged, depth 2, lookup), then
-    directly through paged and dense engines at depths 2 and 1, spec off
-    and at ``spec_k = 8`` with lookup drafts and the model tier at
+    directly through paged engines at depths 2 and 1 and a dense one at
+    depth 2, spec off and at ``spec_k = 8`` with lookup drafts and the
+    model tier at
     ``draft_exit`` 1 and 32: every row, greedy and seeded-sampled,
     bitwise the spec-off engine's (tokens and logprobs); the launch
     counters the steps, verifies and draft forwards imply; every step
@@ -4106,7 +4141,7 @@ def spec_engines(card: str) -> dict:
     for paged in ("1", "0"):
         attn = "paged_decode_attention" if paged == "1" else \
             "decode_attention"
-        for depth in ("2", "1"):
+        for depth in SPEC_DEPTHS[paged]:
             base = {**ENGINE_EXTRA, "kv_paged": paged,
                     "pipeline_depth": depth,
                     "kv_pages": str(sum(charges) + 1)}
@@ -4699,7 +4734,7 @@ def serve_ship_path(card: str) -> dict:
 # D's warm turns: D's burst over HTTP through fresh handlers on D's weights,
 # after the background warm has finished (judged by /healthz ready) and
 # with warm_group_prefill "0", in turns
-WARM_TURNS = ("warm", "cold", "warm", "cold")
+WARM_TURNS = ("warm", "cold")
 WARMUP_BODY = {"tokens": [1, 2, 3, 4], "max_new_tokens": 4}
 
 
@@ -4797,7 +4832,7 @@ def warm_turn(weights, reqs, resp, warm: bool, card: str) -> dict:
 
 
 def warm_turns(d_state, reqs, resp, card: str) -> dict:
-    """D's warm turns (warm, cold, warm, cold) on D's weights, D's engine
+    """D's warm turns (warm, then cold) on D's weights, D's engine
     and programs released first. The launch counters, from 0 before the
     turns, must equal 32 x the turns' engine steps (kernel 3) and 225 x
     their forwards, the warm's group prefills included (kernel 2)."""
@@ -5010,7 +5045,7 @@ BUNDLE_EXTRA = {**{k: v for k, v in ENGINE_EXTRA.items()
 BUNDLE_PROMPTS = (100, 24, 300, 700)  # (b)'s prompts; the first is (c)'s
 BUNDLE_NEW = 16
 BUNDLE_INVOKES = 30
-BUNDLE_RUNS = 2
+BUNDLE_RUNS = 1
 # the JAX builder's handler template (lambdipy_tpu/bundle/package.py:29-47)
 HANDLER_TEMPLATE = '''\
 """Generated bundle entrypoint ({recipe}).
@@ -5334,7 +5369,7 @@ def import_walls(card: str) -> dict:
 def serve_bundle_path(card: str) -> dict:
     """Path K: llama3-8b (int8 weights, bf16, D's paged engine, the warm
     on) booted from a bundle the port wrote: (a) the bundle, (b) in
-    process, (c) as a CLI process twice, (d) ``/profile``."""
+    process, (c) as a CLI process, (d) ``/profile``."""
     import shutil
     import tempfile
 
@@ -5870,18 +5905,18 @@ def _answers_equal(recipe: str, got: dict, want: dict) -> tuple:
     return got == want, got == want
 
 
-def _deploy_checks(cli: Cli, recipe: str, card: str) -> dict:
-    """(d): deploy by name under the watchdog, its wall and readiness
-    stages; ``bench`` at BASELINE.json's count; the deployment's answers
-    against an in-process boot of the same bundle on the card, top-1 and
-    bitwise (the same program on the same card: the graph of the
-    forward, or the host's numpy)."""
+def _deploy_checks(cli: Cli, recipe: str, dep: dict, card: str) -> dict:
+    """(d): ``dep``, the recipe deployed by name under the watchdog (its
+    wall and readiness stages); ``bench`` at BASELINE.json's count; the
+    deployment's answers against an in-process boot of the same bundle on
+    the card, top-1 and bitwise (the same program on the same card: the
+    graph of the forward, or the host's numpy)."""
     from lambdipy_tpu_torch.runtime.loader import load_bundle
 
-    dep = cli("deploy", recipe)
     ready = json.loads(dep["stdout"].strip().splitlines()[-1])
     log(f"path M (d) deploy {recipe}: deploy_wall_s {dep['wall_s']:.3f} "
-        f"(target < 10 s), cold_start {ready['cold_start']} [{card}]")
+        f"(target < 10 s; {len(M_BENCH)} deploys at once), cold_start "
+        f"{ready['cold_start']} [{card}]")
     bench = cli.json("bench", recipe, "-n", M_BENCH[recipe], "--data",
                      json.dumps(M_BODY[recipe]))
     log(f"path M (d) bench {recipe}: {bench} [{card}]")
@@ -6006,91 +6041,87 @@ def _prebuilt(cli: Cli, rel: dict, deps: dict, card: str) -> dict:
             "prebuilt_cold_start": ready["cold_start"]}
 
 
-def _llama(cli: Cli, card: str, beside) -> tuple:
-    """(g): ``build jax-llama3-8b --out`` (int8, warm on), with ``beside``
-    (host-only work: no card, no latency measured) in a thread during the
+def _llama(cli: Cli, card: str, beside, out: Path) -> tuple:
+    """(g): ``build jax-llama3-8b --out <out>`` (int8, warm on), with
+    ``beside`` (host-only work: no card, no latency measured) in a thread
+    during the
     build and joined before the deploy; deployed by directory (the prefix
     store off, ``LAMBDIPY_PREFIX_CACHE_MB=0``, so a row is the engine's
     and bitwise solo ``generate``); 30 invokes of 100 in, 16 out through
     ``bench``; greedy tokens and logprobs bitwise an in-process
     ``generate`` on the bundle's weights; ``/metrics``
     ``handler.kernels``: ``int8_matmul`` 225 x forwards, the decode
-    attention 32 x decode steps; the bundle deleted. Returns the stats
-    and what ``beside`` returned."""
-    import shutil
+    attention 32 x decode steps; the bundle kept for path N (the caller
+    deletes it). Returns the stats and what ``beside`` returned."""
     from concurrent.futures import ThreadPoolExecutor
 
     from lambdipy_tpu_torch.bundle.format import load_manifest
     from lambdipy_tpu_torch.models import registry
     from lambdipy_tpu_torch.runtime.handlers import kernel_launches
 
-    out = cli.root / "llama" / "bundle"
-    try:
-        with ThreadPoolExecutor(1) as pool:
-            host = pool.submit(beside)
-            built = cli("build", "jax-llama3-8b", "--out", out)
-            host_out = host.result()
-        rec = _build_record(cli, "jax-llama3-8b", out, built["wall_s"], card)
-        log(f"path M (g) build (beside (f)'s publish and (i)'s package): "
-            f"{built['stdout'].strip()}")
-        nocache = {"LAMBDIPY_PREFIX_CACHE_MB": "0"}
-        dep = cli("deploy", out, "--name", "llama", env=nocache)
-        ready = json.loads(dep["stdout"].strip().splitlines()[-1])
-        url = ready["url"]
-        log(f"path M (g) deploy llama3-8b by directory: deploy_wall_s "
-            f"{dep['wall_s']:.3f}, cold_start {ready['cold_start']} (the "
-            f"warm built {rec['warm'].get('kernels_built')}: compile_cache "
-            f"{ready['cold_start']['compile_cache']:.4f} s, a hit) [{card}]")
-        payload = load_manifest(out)["payload"]
-        adapter = registry.get(payload["model"]).build(
-            dtype=payload["dtype"], quant=payload["quant"],
-            extra=dict(payload["extra"]))
-        prompt = torch.randint(1, adapter.config.vocab_size, (100,),
-                               generator=torch.Generator().manual_seed(19)
-                               ).tolist()
-        body = {"tokens": prompt, "max_new_tokens": 16}
-        bench = cli.json("bench", "llama", "-n", M_LLAMA_INVOKES, "--data",
-                         json.dumps(body))
-        log(f"path M (g) bench: {M_LLAMA_INVOKES} invokes, 100 in, 16 out: "
-            f"{bench} [{card}]")
-        served = http_json(url + "/invoke", {**body, "logprobs": True})
-        _until_ready(url)  # the handler's background warm ended
-        metrics = http_json(url + "/metrics")["handler"]
-        server = adapter.make_server(
-            adapter.load_params(out / "params", "cuda"), device="cuda")
-        toks, lps = server.generate([prompt], max_new_tokens=16,
-                                    return_logprobs=True)
-        bitwise = (served["tokens"] == toks.tolist()
-                   and served["logprobs"] == _as_served(lps).tolist())
-        log(f"path M (g) the deployment's greedy tokens and logprobs bitwise "
-            f"an in-process generate on the bundle's weights: {bitwise}")
-        if not bitwise:
-            raise SystemExit("path M (g): the deployment's row differs")
-        layers = adapter.config.layers
-        del server, adapter
-        gc.collect()
-        torch.cuda.empty_cache()
-        es = metrics.get("batching") or {}
-        forwards = (metrics["prefill_replays"] + metrics["eager_prefills"]
-                    + metrics["replays"] + metrics["eager_steps"]
-                    + es.get("prefix_joins", 0) + es.get("forwards", 0))
-        launches = metrics["kernels"]
-        want = {"int8_matmul": (7 * layers + 1) * forwards,
-                "decode_attention": layers * (es.get("steps", 0)
-                                              + metrics["replays"]
-                                              + metrics["eager_steps"])}
-        log(f"path M (g) /metrics handler.kernels {launches}; implied "
-            f"{want} ({forwards} forwards, {es.get('steps')} engine steps, "
-            f"{metrics['replays'] + metrics['eager_steps']} solo steps)")
-        if any(launches[k] != want[k] for k in want):
-            raise SystemExit("path M (g): the launch identity fails")
-        stats = {"build": rec, "deploy_wall_s": dep["wall_s"],
-                 "cold_start": ready["cold_start"], "bench": bench,
-                 "bitwise": bitwise, "launches": launches,
-                 "implied": want, "in_process": kernel_launches()}
-        cli("stop", "llama")
-    finally:
-        shutil.rmtree(out.parent, ignore_errors=True)
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(beside)
+        built = cli("build", "jax-llama3-8b", "--out", out)
+        host_out = host.result()
+    rec = _build_record(cli, "jax-llama3-8b", out, built["wall_s"], card)
+    log(f"path M (g) build (beside (f)'s publish and (i)'s package): "
+        f"{built['stdout'].strip()}")
+    nocache = {"LAMBDIPY_PREFIX_CACHE_MB": "0"}
+    dep = cli("deploy", out, "--name", "llama", env=nocache)
+    ready = json.loads(dep["stdout"].strip().splitlines()[-1])
+    url = ready["url"]
+    log(f"path M (g) deploy llama3-8b by directory: deploy_wall_s "
+        f"{dep['wall_s']:.3f}, cold_start {ready['cold_start']} (the "
+        f"warm built {rec['warm'].get('kernels_built')}: compile_cache "
+        f"{ready['cold_start']['compile_cache']:.4f} s, a hit) [{card}]")
+    payload = load_manifest(out)["payload"]
+    adapter = registry.get(payload["model"]).build(
+        dtype=payload["dtype"], quant=payload["quant"],
+        extra=dict(payload["extra"]))
+    prompt = torch.randint(1, adapter.config.vocab_size, (100,),
+                           generator=torch.Generator().manual_seed(19)
+                           ).tolist()
+    body = {"tokens": prompt, "max_new_tokens": 16}
+    bench = cli.json("bench", "llama", "-n", M_LLAMA_INVOKES, "--data",
+                     json.dumps(body))
+    log(f"path M (g) bench: {M_LLAMA_INVOKES} invokes, 100 in, 16 out: "
+        f"{bench} [{card}]")
+    served = http_json(url + "/invoke", {**body, "logprobs": True})
+    _until_ready(url)  # the handler's background warm ended
+    metrics = http_json(url + "/metrics")["handler"]
+    server = adapter.make_server(
+        adapter.load_params(out / "params", "cuda"), device="cuda")
+    toks, lps = server.generate([prompt], max_new_tokens=16,
+                                return_logprobs=True)
+    bitwise = (served["tokens"] == toks.tolist()
+               and served["logprobs"] == _as_served(lps).tolist())
+    log(f"path M (g) the deployment's greedy tokens and logprobs bitwise "
+        f"an in-process generate on the bundle's weights: {bitwise}")
+    if not bitwise:
+        raise SystemExit("path M (g): the deployment's row differs")
+    layers = adapter.config.layers
+    del server, adapter
+    gc.collect()
+    torch.cuda.empty_cache()
+    es = metrics.get("batching") or {}
+    forwards = (metrics["prefill_replays"] + metrics["eager_prefills"]
+                + metrics["replays"] + metrics["eager_steps"]
+                + es.get("prefix_joins", 0) + es.get("forwards", 0))
+    launches = metrics["kernels"]
+    want = {"int8_matmul": (7 * layers + 1) * forwards,
+            "decode_attention": layers * (es.get("steps", 0)
+                                          + metrics["replays"]
+                                          + metrics["eager_steps"])}
+    log(f"path M (g) /metrics handler.kernels {launches}; implied "
+        f"{want} ({forwards} forwards, {es.get('steps')} engine steps, "
+        f"{metrics['replays'] + metrics['eager_steps']} solo steps)")
+    if any(launches[k] != want[k] for k in want):
+        raise SystemExit("path M (g): the launch identity fails")
+    stats = {"build": rec, "deploy_wall_s": dep["wall_s"],
+             "cold_start": ready["cold_start"], "bench": bench,
+             "bitwise": bitwise, "launches": launches,
+             "implied": want, "in_process": kernel_launches()}
+    cli("stop", "llama")
     return stats, host_out
 
 
@@ -6134,9 +6165,11 @@ def _package(cli: Cli, say) -> dict:
     return {"wall_s": res["wall_s"], "holds": holds}
 
 
-def serve_lifecycle_path(card: str) -> dict:
+def serve_lifecycle_path(card: str, llama: Path) -> dict:
     """Path M: the bundle lifecycle through the CLI on the card, (a)-(i)
-    (see ``Cli`` and the helpers above); every failure exits non-zero."""
+    (see ``Cli`` and the helpers above); every failure exits non-zero.
+    (g) builds the llama bundle into ``llama`` and leaves it there for
+    path N."""
     import shutil
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
@@ -6158,27 +6191,28 @@ def serve_lifecycle_path(card: str) -> dict:
         log("path M (c): tabular-sklearn left out (no sklearn on this "
             "host), certifi and numpy-src too (sdist recipes: no source "
             "archive here)")
-        out["builds"] = {}
-        # hello's build (host only: a cpu recipe, its warm on the CPU) in
-        # a thread beside the card recipes' builds, one after the other
-        # (the first warm fills the kernel cache the second hits)
-        with ThreadPoolExecutor(1) as pool:
-            hello = pool.submit(cli, "build", "hello-numpy")
-            for recipe in ("jax-resnet50", "jax-bert"):
-                res = cli("build", recipe)
-                out["builds"][recipe] = _build_record(
-                    cli, recipe, cli.registry_bundle(recipe), res["wall_s"],
-                    card, " (hello-numpy's build beside it)")
-            res = hello.result()
-        out["builds"]["hello-numpy"] = _build_record(
-            cli, "hello-numpy", cli.registry_bundle("hello-numpy"),
-            res["wall_s"], card, " (beside the card recipes' builds)")
+        # the three builds at once, a process each (hello's warm on the
+        # CPU, the card recipes' on the card; the kernel cache's writes
+        # are atomic, so both card warms may build the kernels)
+        recipes = ("jax-resnet50", "jax-bert", "hello-numpy")
+        with ThreadPoolExecutor(len(recipes)) as pool:
+            builds = {r: pool.submit(cli, "build", r) for r in recipes}
+            builds = {r: f.result() for r, f in builds.items()}
+        out["builds"] = {r: _build_record(
+            cli, r, cli.registry_bundle(r), builds[r]["wall_s"], card,
+            " (the three builds at once)") for r in recipes}
         hit = cli("build", "jax-resnet50")
         log(f"path M (c) a second build: {hit['stdout'].strip()} "
             f"({hit['wall_s']:.2f} s)")
         if not hit["stdout"].startswith("cache hit:"):
             raise SystemExit(f"path M (c): no cache hit: {hit['stdout']}")
-        out["deploys"] = {r: _deploy_checks(cli, r, card) for r in M_BENCH}
+        # the deploys at once (each process imports torch and boots),
+        # then each deployment's bench and checks in turn
+        with ThreadPoolExecutor(len(M_BENCH)) as pool:
+            deps = {r: pool.submit(cli, "deploy", r) for r in M_BENCH}
+            deps = {r: f.result() for r, f in deps.items()}
+        out["deploys"] = {r: _deploy_checks(cli, r, deps[r], card)
+                          for r in M_BENCH}
         out["watchdog"] = _watchdog(cli, out["deploys"]["jax-resnet50"],
                                     card)
         lines: list = []  # the host-only phases' log, printed after them
@@ -6186,7 +6220,8 @@ def serve_lifecycle_path(card: str) -> dict:
         def host_only():  # (f)'s publish and (i): no card, no latency
             return _publish(cli, lines.append), _package(cli, lines.append)
 
-        out["llama"], (rel, out["package"]) = _llama(cli, card, host_only)
+        out["llama"], (rel, out["package"]) = _llama(cli, card, host_only,
+                                                     llama)
         for line in lines:
             log(line)
         out["releases"] = _prebuilt(cli, rel, out["deploys"], card)
@@ -6215,7 +6250,8 @@ def serve_lifecycle_path(card: str) -> dict:
         out["teardown"] = {"free_before": free_before,
                            "free_after": free_after, "doctor": doctor}
     finally:
-        for pid in _server_processes(cli.root):  # a failed phase's leftovers
+        # a failed phase's leftovers
+        for pid in _server_processes(cli.root) + _bundle_processes(llama):
             subprocess.run(["kill", "-9", str(pid)], check=False)
         shutil.rmtree(cli.root, ignore_errors=True)
     local = kernel_launches()
@@ -6223,6 +6259,786 @@ def serve_lifecycle_path(card: str) -> dict:
     out["launches"] = {k: local[k] + deployed[k] for k in KERNELS}
     log(f"path M: kernel launches in process and in the llama deployment "
         f"{out['launches']}")
+    return out
+
+
+# path N: the fleet through the port's CLI, ``python -m lambdipy_tpu_torch
+# fleet`` over M (g)'s jax-llama3-8b bundle at full width (int8 weights,
+# bf16 paged K/V): two decode-class replicas and one prefill-class behind
+# the router, the elastic controller in dry run. The sizes are the
+# card's; ``serve_fleet_path(..., sizes=...)`` takes smaller ones for a
+# rehearsal of the same checks on the CPU with a tiny bundle
+N_SIZES = {
+    "block": 32,          # the recipe's prefix_block and the router's
+    "head": 1024,         # 32 blocks: half the engine's 2,048-token window
+    "tails": (16, 23, 30, 37, 44, 51, 58, 64),
+    "new": 16,
+    "user": 32,           # the tokens a session turn adds
+    "window": 2048,       # the recipe's batch_cache_len
+    "burst_scale": 1,     # D's burst prompt lengths are divided by this
+}
+N_DECODE = 2
+N_PREFILL = 1
+N_PIN_MB = 384  # a session's three turns over a 1,024-token head pin ~140 MB
+N_PROBE_S = 0.25
+N_RETRY_BUDGET = 1.0  # a killed replica's in-flight requests all retry
+N_FAULTS = "kv_ship:exception@n=1;route_connect:exception@n=1"
+N_KILL_STREAM_NEW = 256  # (e)'s streamed row, in flight through the kill
+N_LP_GAP = ROUTED_LOGPROB_GAP  # a routed row's first logprob against solo
+N_BOOT_S = 900.0
+N_FREE_SLACK = 1 << 30
+# snapshot fields the port's replicas leave None in this configuration
+# (ROADMAP.md §3): no speculative decoding and no long-context tier here
+N_NONE_FIELDS = ("spec_k", "acceptance", "draft_mode", "draft_acceptance",
+                 "offload_stall_frac", "prefetch_hit_rate",
+                 "max_logical_ctx", "compiled_window", "boot_logical_ctx")
+
+
+class FleetProc:
+    """A ``python -m lambdipy_tpu_torch fleet`` process in a session of
+    its own, from the checkout's root: its readiness line, its URL, and
+    SIGTERM."""
+
+    def __init__(self, root: Path, tag: str, args: list, env: dict):
+        import select
+
+        self.log_path = root / f"{tag}.fleet.log"
+        t0 = time.perf_counter()
+        with open(self.log_path, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "lambdipy_tpu_torch", "fleet",
+                 *map(str, args)],
+                stdout=subprocess.PIPE, stderr=err, text=True, env=env,
+                cwd=Path(__file__).resolve().parent, start_new_session=True)
+        ready = None
+        while ready is None and time.perf_counter() - t0 < N_BOOT_S:
+            if not select.select([self.proc.stdout], [], [], 1.0)[0]:
+                if self.proc.poll() is not None:
+                    break
+                continue
+            line = self.proc.stdout.readline()
+            if not line:
+                break
+            try:
+                doc = json.loads(line)
+            except json.JSONDecodeError:
+                continue
+            if isinstance(doc, dict) and doc.get("ready"):
+                ready = doc
+        if ready is None:
+            self.proc.kill()
+            self.proc.wait(60)
+            raise SystemExit(f"path N: the {tag} fleet gave no readiness "
+                             f"line (rc {self.proc.returncode}):\n"
+                             f"{self.log_path.read_text()[-3000:]}")
+        self.ready = ready
+        self.wall_s = time.perf_counter() - t0
+        self.url = f"http://127.0.0.1:{ready['port']}"
+
+    def metrics(self) -> dict:
+        return http_json(self.url + "/metrics")
+
+    def states(self) -> dict:
+        return http_json(self.url + "/healthz")["replicas"]
+
+    def stop(self, timeout: float = 300.0) -> tuple:
+        """SIGTERM, then the exit code and the seconds to it."""
+        import signal
+
+        t0 = time.perf_counter()
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait(60)
+        return rc, time.perf_counter() - t0
+
+
+def _bundle_processes(bundle: Path) -> list:
+    """The live server and supervisor processes of the port serving
+    ``bundle`` (the replicas, whatever fleet spawned them)."""
+    mine = str(bundle.resolve()).encode()
+    found = []
+    for entry in Path("/proc").iterdir():
+        if not entry.name.isdigit():
+            continue
+        try:
+            cmd = (entry / "cmdline").read_bytes().replace(b"\0", b" ")
+            state = (entry / "stat").read_text().rsplit(")", 1)[1].split()[0]
+        except OSError:
+            continue
+        if state != "Z" and mine in cmd and (
+                b"lambdipy_tpu_torch.runtime.server" in cmd
+                or b"lambdipy_tpu_torch.runtime.supervisor" in cmd):
+            found.append(int(entry.name))
+    return found
+
+
+def _wait_state(fleet: FleetProc, name: str, state: str, t0: float,
+                timeout: float = 300.0) -> float:
+    """Seconds from ``t0`` until the router's pool reads ``state`` for
+    ``name``."""
+    while fleet.states().get(name) != state:
+        if time.perf_counter() - t0 > timeout:
+            raise SystemExit(f"path N: {name} not {state} {timeout} s on")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def _until_routable(fleet: FleetProc, n: int, timeout: float = 600.0
+                    ) -> float:
+    """Seconds until ``n`` replicas are routable (every background warm
+    over: a warming replica reads not ready)."""
+    t0 = time.perf_counter()
+    while http_json(fleet.url + "/healthz")["routable"] < n:
+        if time.perf_counter() - t0 > timeout:
+            raise SystemExit(f"path N: fewer than {n} replicas routable "
+                             f"{timeout} s on")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def _served(out: dict) -> tuple:
+    """A non-streamed answer's (tokens, logprobs) of its one row."""
+    if not out.get("ok"):
+        raise SystemExit(f"path N: a request failed: {str(out)[:500]}")
+    return out["tokens"][0], (out.get("logprobs") or [None])[0]
+
+
+def _stream(url: str, body: dict, on_first=None) -> dict:
+    """``/invoke`` with ``"stream": true``: the records, seconds to the
+    first and to the end, and the error if the stream broke before its
+    ``done`` record. ``on_first`` runs when the first record lands."""
+    req = urllib.request.Request(
+        url + "/invoke", data=json.dumps({**body, "stream": True}).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    records, first, error = [], None, None
+    try:
+        with urllib.request.urlopen(req, timeout=900) as resp:
+            for line in resp:
+                if line.strip():
+                    if first is None:
+                        first = time.perf_counter() - t0
+                        if on_first is not None:
+                            on_first()
+                    records.append(json.loads(line))
+    except Exception as e:  # noqa: BLE001 — a broken stream is the answer
+        error = repr(e)
+    done = bool(records) and bool(records[-1].get("done"))
+    if error is None and not done:
+        error = f"no done record: {str(records[-1:])[:300]}"
+    return {"records": records, "ttft_s": first,
+            "wall_s": time.perf_counter() - t0, "error": error,
+            "tokens": [t for r in records if not r.get("done")
+                       for t in (r.get("tokens") or [[]])[0]]}
+
+
+def _post_h(url: str, body: dict, headers: dict) -> dict:
+    req = urllib.request.Request(
+        url, data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **headers})
+    with urllib.request.urlopen(req, timeout=900) as resp:
+        return json.loads(resp.read())
+
+
+def _replica_metrics(fleet: FleetProc) -> dict:
+    return fleet.metrics()["replicas"]
+
+
+def _routed(fleet: FleetProc) -> dict:
+    return {n: r["routed"] for n, r in fleet.metrics()["pool"].items()}
+
+
+def _pc(metrics: dict, name: str) -> dict:
+    return metrics[name]["handler"]["prefix_cache"]
+
+
+def _burst_bodies(draw, sizes: dict) -> list:
+    """D's burst and joiners (prompt length, new tokens, kind) with the
+    prompts cut to the engine's window; eos rows sample without the eos."""
+    out = []
+    for s_len, n, kind in BURST + JOINERS:
+        s_len = min(max(4, s_len // sizes["burst_scale"]),
+                    sizes["window"] - n)
+        body = {"tokens": draw(s_len), "max_new_tokens": n,
+                **KNOBS.get(kind, {})}
+        if kind in ("logprobs", "stream"):
+            body["logprobs"] = True
+        out.append((kind, body))
+    return out
+
+
+def _fleet_burst(url: str, reqs: list, *, streamed: bool) -> dict:
+    """The burst through ``url``: 8 requests at once, the 4 joiners half
+    a second on; every request streamed (the time to its first record)
+    or not (the ``stream`` kind streamed all the same). Per request: its
+    answer or its error."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def send(i):
+        kind, body = reqs[i]
+        time.sleep(0.0 if i < 8 else 0.5)
+        if streamed or kind == "stream":
+            return _stream(url, body)
+        t1 = time.perf_counter()
+        try:
+            out = http_json(url + "/invoke", body)
+            return {"out": out, "wall_s": time.perf_counter() - t1,
+                    "error": None if out.get("ok") else str(out)[:300]}
+        except Exception as e:  # noqa: BLE001 — counted by the caller
+            return {"error": repr(e)}
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(reqs)) as pool:
+        res = list(pool.map(send, range(len(reqs))))
+    wall = time.perf_counter() - t0
+    new = sum(len(r["tokens"]) if "records" in r
+              else r["out"]["n_new"] if r.get("out") else 0 for r in res)
+    ttft = sorted(r["ttft_s"] for r in res if r.get("ttft_s") is not None)
+    return {"results": res, "wall_s": wall, "new_tokens": new,
+            "tok_s": new / wall,
+            "ttft_p50_s": _percentile(ttft, 0.50) if ttft else None,
+            "ttft_p99_s": _percentile(ttft, 0.99) if ttft else None}
+
+
+def _ship_ms(before: dict, after: dict) -> float:
+    """One ship's ms out of ``ship_ms_ewma`` (alpha 0.2) before and after
+    it."""
+    if before["ships"] == 0:
+        return after["ship_ms_ewma"]
+    return (after["ship_ms_ewma"] - 0.8 * before["ship_ms_ewma"]) / 0.2
+
+
+def _launch_identity(metrics: dict, layers: int) -> tuple:
+    """Summed over the replicas' ``/metrics`` ``handler``: the kernels'
+    counters and what the forwards and decode steps imply (path M (g)'s
+    count: prefill programs, including the prefix store's walk and export
+    chunks, solo decode steps, the engine's continuations and forwards)."""
+    got = dict.fromkeys(KERNELS, 0)
+    want = dict.fromkeys(KERNELS, 0)
+    forwards = steps = solo = 0
+    for rep in metrics.values():
+        h = rep["handler"]
+        es = h.get("batching") or {}
+        for k in KERNELS:
+            got[k] += h["kernels"][k]
+        forwards += (h["prefill_replays"] + h["eager_prefills"]
+                     + h["replays"] + h["eager_steps"]
+                     + es.get("prefix_joins", 0) + es.get("forwards", 0))
+        steps += es.get("steps", 0)
+        solo += h["replays"] + h["eager_steps"]
+    want["int8_matmul"] = (7 * layers + 1) * forwards
+    want["paged_decode_attention"] = layers * steps
+    want["decode_attention"] = layers * solo
+    return got, want, {"forwards": forwards, "engine_steps": steps,
+                       "solo_steps": solo}
+
+
+def _snapshot_nones(fleet: FleetProc, metrics: dict) -> dict:
+    """The elastic controller's snapshot of ``metrics`` (one router
+    ``/metrics``), built by the port's ``FleetController`` over a pool
+    attached to the same replicas: each replica's fields that are None."""
+    from types import SimpleNamespace
+
+    from lambdipy_tpu_torch.fleet import FleetController, ReplicaPool
+
+    pool = ReplicaPool()
+    for name, cls in fleet.ready["classes"].items():
+        pool.attach(name, fleet.ready["urls"][name], role=cls)
+    # what build_snapshot reads of a router: its pool and ship window
+    router = SimpleNamespace(pool=pool, ship_window=4, controller=None)
+    snap = FleetController(router, dry_run=True).build_snapshot(metrics)
+    fields = [f.name for f in dataclasses.fields(snap.replicas[0])]
+    return {v.name: sorted(f for f in fields if getattr(v, f) is None)
+            for v in snap.replicas}
+
+
+def _window_bundle(bundle: Path, root: Path) -> Path:
+    """``bundle`` as the fleet serves it. The recipe's engine holds 2,048
+    positions (``batch_cache_len``) of llama3-8b's 8,192-position window,
+    and the prefix store stands down under an engine narrower than the
+    model's window (JAX's rule, ``runtime/handlers.py
+    make_prefix_store``): with no store there is no affinity hit, no
+    ship and no session. So the fleet serves a twin of the bundle whose
+    files are hard links to its own but for the manifest, whose extra
+    gives the model the engine's window (``max_len`` = ``batch_cache_len``)
+    in the manifest's payload and in ``handler.py``'s ``_SPEC``, which the
+    boot reads; a bundle with no ``batch_cache_len`` is served as it is."""
+    import ast
+    import os
+    import shutil
+
+    manifest = json.loads((bundle / "manifest.json").read_text())
+    extra = manifest["payload"].get("extra") or {}
+    if extra.get("batch_cache_len") in (None, ""):
+        return bundle
+    out = root / "bundle"
+    shutil.copytree(bundle, out, copy_function=os.link)
+    window = {"max_len": extra["batch_cache_len"]}
+    manifest["payload"]["extra"] = {**extra, **window}
+    lines = (bundle / "handler.py").read_text().splitlines(keepends=True)
+    for i, line in enumerate(lines):
+        if line.startswith("_SPEC = "):
+            spec = ast.literal_eval(line[len("_SPEC = "):])
+            spec["extra"] = {**spec["extra"], **window}
+            lines[i] = f"_SPEC = {spec!r}\n"
+    for name, text in (("manifest.json", json.dumps(manifest, indent=2)),
+                       ("handler.py", "".join(lines))):
+        (out / name).unlink()  # a hard link to the source's file
+        (out / name).write_text(text)
+    return out
+
+
+def _fleet_references(bundle: Path, device: str, bodies: dict) -> tuple:
+    """In-process rows on the bundle's weights (its manifest's model and
+    extra): ``bodies`` maps a key to (body, with logprobs); returns the
+    rows, keyed alike, and the model's layer count."""
+    from lambdipy_tpu_torch.bundle.format import load_manifest
+    from lambdipy_tpu_torch.models import registry
+
+    payload = load_manifest(bundle)["payload"]
+    adapter = registry.get(payload["model"]).build(
+        dtype=payload["dtype"], quant=payload.get("quant"),
+        extra=dict(payload.get("extra") or {}))
+    server = adapter.make_server(adapter.load_params(bundle / "params",
+                                                     device), device=device)
+    refs = {}
+    for key, (body, lps) in bodies.items():
+        got = server.generate([body["tokens"]],
+                              max_new_tokens=body["max_new_tokens"],
+                              return_logprobs=lps)
+        refs[key] = ((got[0][0].tolist(), _as_served(got[1])[0].tolist())
+                     if lps else got[0].tolist())
+    layers = adapter.config.layers
+    del server, adapter
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return refs, layers
+
+
+def serve_fleet_path(card: str, bundle: Path, *, device: str = "cuda",
+                     sizes: dict | None = None) -> dict:
+    """Path N: the fleet over ``bundle`` (its window twin, see
+    ``_window_bundle``), (a)-(i); every failure exits non-zero.
+    ``device="cpu"`` (a rehearsal on a tiny bundle) leaves out the
+    card's memory and the launch identity."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from lambdipy_tpu_torch.bundle.format import load_manifest
+    from lambdipy_tpu_torch.fleet import affinity
+    from lambdipy_tpu_torch.models import registry
+    from lambdipy_tpu_torch.runtime.handlers import kernel_launches
+
+    sz = {**N_SIZES, **(sizes or {})}
+    cuda = device == "cuda"
+    block, new = sz["block"], sz["new"]
+    root = Path(tempfile.mkdtemp(prefix="lambdipy-fleet-"))
+    (root / "home").mkdir()
+    served = _window_bundle(bundle, root)
+    if served != bundle:
+        log(f"path N serves a twin of {bundle}: its manifest and handler.py "
+            f"give the model the engine's window (max_len "
+            f"{load_manifest(served)['payload']['extra']['max_len']}); the "
+            f"recipe's bundle as built would serve the fleet with no prefix "
+            f"store (no affinity hit, no ship, no session), so every number "
+            f"below is the twin's")
+    payload = load_manifest(served)["payload"]
+    cfg = registry.get(payload["model"]).build(
+        dtype=payload["dtype"], quant=payload.get("quant"),
+        extra=dict(payload.get("extra") or {})).config
+    rng = torch.Generator().manual_seed(23)
+
+    def draw(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist()
+
+    head = draw(sz["head"])
+    b_bodies = [{"tokens": head + draw(t), "max_new_tokens": new,
+                 "logprobs": True} for t in sz["tails"]]
+    c_body = {"tokens": draw(sz["head"]) + draw(24), "max_new_tokens": new,
+              "logprobs": True}
+    users = [draw(sz["user"]) for _ in range(3)]
+    bursts = {k: _burst_bodies(draw, sz) for k in ("fleet", "kill")}
+    f_body = {"tokens": draw(sz["head"]) + draw(24), "max_new_tokens": new}
+    ref_bodies = {("b", i): (b, True) for i, b in enumerate(b_bodies)}
+    ref_bodies["f"] = (f_body, False)
+    ref_bodies.update({("e", i): (b, False)
+                       for i, (k, b) in enumerate(bursts["kill"])
+                       if k == "greedy"})
+
+    env = {**os.environ, "HOME": str(root / "home"),
+           "PYTHONPATH": str(Path(__file__).resolve().parent),
+           "LAMBDIPY_KV_PAGED": "1", "LAMBDIPY_LOG_LEVEL": "WARNING"}
+    if not cuda:
+        env["LAMBDIPY_PLATFORM"] = "cpu"
+    dev_args = [] if cuda else ["--device", "cpu"]
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+        set_launches_to_zero()  # counters to 0 just before the path
+    free_before = torch.cuda.mem_get_info()[0] if cuda else 0
+    out: dict = {}
+    fleet = faults = faults_boot = None
+    boot_pool = ThreadPoolExecutor(2)
+    try:
+        # (a) boot, with the in-process references computed meanwhile
+        booting = boot_pool.submit(FleetProc, root, "main", [
+            served, "--replicas", N_DECODE,
+            "--prefill-replicas", N_PREFILL, "--port", 0,
+            "--name", "fleet", "--block", block,
+            "--probe-interval", N_PROBE_S, "--retries", 3,
+            "--retry-budget", N_RETRY_BUDGET,
+            "--session-pin-budget", N_PIN_MB, "--autoscale-dry-run",
+            "--autoscale-interval", 1.0, *dev_args], env)
+        t0 = time.perf_counter()
+        try:
+            refs, layers = _fleet_references(served, device, ref_bodies)
+            log(f"path N: in-process references ({len(refs)} rows) on "
+                f"the bundle's weights in "
+                f"{time.perf_counter() - t0:.1f} s, beside the boot")
+        finally:
+            fleet = booting.result()
+        ready = fleet.ready
+        urls = ready["urls"]
+        decs = sorted(n for n, c in ready["classes"].items() if c == "decode")
+        pre = next(n for n, c in ready["classes"].items() if c == "prefill")
+        cold = {n: http_json(u + "/healthz")["cold_start"]
+                for n, u in urls.items()}
+        free_boot = torch.cuda.mem_get_info()[0] if cuda else 0
+        log(f"path N (a) readiness line {json.dumps(ready)}")
+        log(f"path N (a) spawn to the readiness line {fleet.wall_s:.2f} s "
+            f"(three replicas at once, beside the references); cold_start "
+            f"{json.dumps(cold)}; the card's free memory "
+            f"{free_before / 2**30:.2f} GiB before, "
+            f"{free_boot / 2**30:.2f} GiB after the boot [{card}]")
+        # each replica's first invoke starts its background warm (a
+        # warming replica is not routable): warm all three, then route
+        with ThreadPoolExecutor(3) as pool:
+            list(pool.map(lambda u: http_json(u + "/invoke", WARMUP_BODY),
+                          urls.values()))
+        warm_s = _until_routable(fleet, N_DECODE + N_PREFILL)
+        # (f)'s router, attached to the same replicas, boots beside (b)-(d)
+        faults_boot = boot_pool.submit(FleetProc, root, "faults", [
+            "-", "--replicas", 0, "--port", 0, "--name", "faults",
+            "--block", block, "--probe-interval", N_PROBE_S,
+            "--retries", 3, "--fault-spec", N_FAULTS,
+            *[a for n, c in ready["classes"].items()
+              for a in ("--attach", f"{n}={urls[n]}:{c}")]], env)
+        log(f"path N (a) the replicas' background warm after their first "
+            f"invoke: {warm_s:.2f} s until all routable")
+        out["boot"] = {"ready": ready, "wall_s": fleet.wall_s,
+                       "cold_start": cold, "warm_s": warm_s,
+                       "free_before": free_before, "free_boot": free_boot}
+
+        # (b) affinity
+        want = affinity.pick_replica(
+            affinity.prefix_key(b_bodies[0], block=block), decs)
+        other = next(n for n in decs if n != want)
+        m0 = fleet.metrics()
+        t1 = time.perf_counter()
+        answers = [http_json(fleet.url + "/invoke", b_bodies[0])]
+        first_s = time.perf_counter() - t1
+        with ThreadPoolExecutor(7) as pool:
+            answers += list(pool.map(
+                lambda b: http_json(fleet.url + "/invoke", b), b_bodies[1:]))
+        b_wall = time.perf_counter() - t1
+        m1 = fleet.metrics()
+        routed = {n: m1["pool"][n]["routed"] - m0["pool"][n]["routed"]
+                  for n in urls}
+        hits = {n: _pc(m1["replicas"], n)["hits"]
+                - _pc(m0["replicas"], n)["hits"] for n in decs}
+        same = gap = 0
+        for i, ans in enumerate(answers):
+            toks, lps = _served(ans)
+            rt, rl = refs[("b", i)]
+            same += toks == rt
+            gap = max(gap, abs(lps[0] - rl[0]))
+        log(f"path N (b) 8 requests on one {sz['head']}-token head (the "
+            f"first alone, {first_s:.2f} s with its ship, then 7 at once, "
+            f"{b_wall - first_s:.2f} s) [{card}]: routed "
+            f"{routed}, the port's pick_replica {want}; prefix-cache hits "
+            f"{hits}; greedy tokens equal in-process generate {same} of 8, "
+            f"first-token logprob gap {gap:.5f} (bound {N_LP_GAP}); "
+            f"router affinity {m1['router']['affinity']}")
+        if routed[want] != 8 or routed[other] or hits[want] < 7 \
+                or hits[other] or same != 8 or gap > N_LP_GAP:
+            raise SystemExit("path N (b): affinity, hits or tokens differ")
+        out["affinity"] = {"routed": routed, "hits": hits, "want": want,
+                           "gap": gap, "first_s": first_s, "wall_s": b_wall,
+                           "first_ship_ms": m1["fleet"]["disagg"]
+                           ["ship_ms_ewma"]}
+
+        # (c) the phase split: a new cold head
+        c_want = affinity.pick_replica(
+            affinity.prefix_key(c_body, block=block), decs)
+        d0 = m1["fleet"]["disagg"]
+        walks0 = _pc(m1["replicas"], c_want)["prefill"]["walks"]
+        t1 = time.perf_counter()
+        c_toks, c_lps = _served(http_json(fleet.url + "/invoke", c_body))
+        c_wall = time.perf_counter() - t1
+        m2 = fleet.metrics()
+        d1 = m2["fleet"]["disagg"]
+        walks1 = _pc(m2["replicas"], c_want)["prefill"]["walks"]
+        direct = _served(http_json(urls[pre] + "/invoke", c_body))
+        ship = {"bytes": d1["ship_bytes_total"] - d0["ship_bytes_total"],
+                "ms": _ship_ms(d0, d1), "ship_ms_ewma": d1["ship_ms_ewma"],
+                "decode_dispatches": d1["decode_dispatches"]
+                - d0["decode_dispatches"],
+                "ships_pipelined": d1["ships_pipelined"]
+                - d0["ships_pipelined"], "walks": walks1 - walks0,
+                "request_s": c_wall}
+        frame = (sz["head"] * layers * 2 * cfg.kv_heads * cfg.head_dim
+                 * torch.empty((), dtype=cfg.dtype).element_size())
+        c_same = (c_toks, c_lps) == direct
+        log(f"path N (c) a cold {sz['head']}-token head: ship {ship} "
+            f"({ship['bytes']} bytes against {frame} of K/V; pipelined, "
+            f"ship_window 4); the decode replica {c_want}'s walks "
+            f"{ship['walks']}; tokens and logprobs bitwise the prefill "
+            f"replica's answer sent to it directly: {c_same} [{card}]")
+        if ship["decode_dispatches"] != 1 or ship["ships_pipelined"] != 1 \
+                or ship["walks"] or not c_same:
+            raise SystemExit("path N (c): the phase split differs")
+        out["ship"] = ship
+
+        # (d) sessions and failover: two sessions of three turns on the
+        # (b) head, each turn the last prompt, its completion and new user
+        # tokens, sent with x-session-id
+        def turn(sid: str, prompt: list) -> tuple:
+            before = _routed(fleet)
+            row = _served(_post_h(fleet.url + "/invoke",
+                                  {"tokens": prompt, "max_new_tokens": new,
+                                   "logprobs": True}, {"x-session-id": sid}))
+            after = _routed(fleet)
+            return row, [n for n in after if after[n] > before[n]]
+
+        def prompts_after(rows):
+            p = head + users[0]
+            for k, row in enumerate(rows):
+                p = p + row[0] + users[k + 1]
+            return p
+
+        s0 = fleet.metrics()["fleet"]["sessions"]
+        s1_rows, s1_lands = [], []
+        for k in range(3):
+            row, land = turn("n-s1", prompts_after(s1_rows))
+            s1_rows.append(row)
+            s1_lands.append(land)
+        s2_rows, s2_lands = [], []
+        for k in range(2):
+            row, land = turn("n-s2", prompts_after(s2_rows))
+            s2_rows.append(row)
+            s2_lands.append(land)
+        home = s2_lands[0][0] if s2_lands[0] else None
+        pins = {n: _pc(fleet.metrics()["replicas"], n)["pinned_leaves"]
+                for n in decs}
+        log(f"path N (d) session 1 turns on {s1_lands}, session 2's first "
+            f"two on {s2_lands} (home {home}); pinned leaves {pins}")
+        if any(land != [home] for land in s1_lands + s2_lands) \
+                or not pins[home]:
+            raise SystemExit("path N (d): a turn left its home, or no pins")
+        pid = http_json(urls[home] + "/healthz")["pid"]
+        t_kill = time.perf_counter()
+        os.kill(pid, signal.SIGKILL)
+        ejected_s = _wait_state(fleet, home, "ejected", t_kill)
+        row, land = turn("n-s2", prompts_after(s2_rows))
+        s2_rows.append(row)
+        readmitted_s = _wait_state(fleet, home, "ready", t_kill)
+        s1 = fleet.metrics()["fleet"]["sessions"]
+        tok_same = row[0] == s1_rows[2][0]
+        lp_gap = max(abs(a - b) for a, b in zip(row[1], s1_rows[2][1]))
+        log(f"path N (d) SIGKILL of {home}'s worker (pid {pid}): ejected "
+            f"{ejected_s:.3f} s on, readmitted {readmitted_s:.2f} s on "
+            f"(the supervisor's respawn and boot) [{card}]; session 2's "
+            f"third turn on {land}: tokens equal session 1's third turn "
+            f"{tok_same}, logprobs bitwise {row[1] == s1_rows[2][1]} (max "
+            f"gap {lp_gap:.6f}); sessions {s1}")
+        if land == [home] or not land or not tok_same or lp_gap > N_LP_GAP \
+                or s1["failovers"] - s0["failovers"] != 1:
+            raise SystemExit("path N (d): the failover differs")
+        _until_routable(fleet, N_DECODE + N_PREFILL)
+        for sid in ("n-s1", "n-s2"):
+            req = urllib.request.Request(fleet.url + f"/v1/sessions/{sid}",
+                                         method="DELETE")
+            urllib.request.urlopen(req, timeout=60).read()
+        pins = {n: _pc(fleet.metrics()["replicas"], n)["pinned_leaves"]
+                for n in urls}
+        log(f"path N (d) DELETE /v1/sessions/n-s1 and n-s2: pinned leaves "
+            f"{pins}")
+        if any(pins.values()):
+            raise SystemExit("path N (d): pins left after the DELETEs")
+        out["sessions"] = {"home": home, "failover_to": land,
+                           "ejected_s": ejected_s,
+                           "readmitted_s": readmitted_s,
+                           "logprobs_bitwise": row[1] == s1_rows[2][1],
+                           "lp_gap": lp_gap}
+
+        # (f) fleet faults: the second router over the same replicas, with
+        # the kv_ship and route_connect sites armed (booted beside (b)-(d))
+        faults = faults_boot.result()
+        _until_routable(faults, N_DECODE + N_PREFILL)
+        f_toks = _served(http_json(faults.url + "/invoke", f_body))[0]
+        fm = faults.metrics()
+        fb, rr = fm["fleet"]["disagg"]["fallbacks"], fm["router"]
+        log(f"path N (f) fault spec {N_FAULTS!r}: fallbacks {fb}, retries "
+            f"{rr['retries']}, failovers {rr['failovers']}, retry budget "
+            f"{rr.get('retry_budget')}; greedy tokens equal in-process "
+            f"generate: {f_toks == refs['f']}")
+        if fb != {"ship_fault": 1} or rr["retries"] != 1 \
+                or f_toks != refs["f"] \
+                or rr["retry_budget"]["allowed"] != 1:
+            raise SystemExit("path N (f): the fleet faults differ")
+        rc, _ = faults.stop()
+        faults = None
+        out["faults"] = {"fallbacks": fb, "retries": rr["retries"],
+                         "retry_budget": rr["retry_budget"], "rc": rc}
+
+        # (e) D's burst through the router, then again with a decode
+        # worker SIGKILLed while it is in flight
+        e1 = _fleet_burst(fleet.url, bursts["fleet"], streamed=True)
+        errs = [r["error"] for r in e1["results"] if r["error"]]
+        log(f"path N (e) D's burst ({len(bursts['fleet'])} requests, "
+            f"prompts cut to {sz['window']}) through the router: "
+            f"{e1['tok_s']:.1f} tok/s, time to the first streamed record "
+            f"p50 {e1['ttft_p50_s']:.3f} s, p99 {e1['ttft_p99_s']:.3f} s, "
+            f"wall {e1['wall_s']:.2f} s [{card}]")
+        if errs:
+            raise SystemExit(f"path N (e): burst errors {errs[:3]}")
+        kill_reqs = bursts["kill"]
+        s_idx = next(i for i, (k, _) in enumerate(kill_reqs) if k == "stream")
+        # the streamed row decodes N_KILL_STREAM_NEW tokens here, so that
+        # it is still in flight when the other rows reach its replica
+        s_body = {**kill_reqs[s_idx][1], "max_new_tokens": min(
+            N_KILL_STREAM_NEW,
+            sz["window"] - len(kill_reqs[s_idx][1]["tokens"]))}
+        victim = affinity.pick_replica(
+            affinity.prefix_key(s_body, block=block), decs)
+        vpid = http_json(urls[victim] + "/healthz")["pid"]
+        first, killed = threading.Event(), {}
+        r0 = fleet.metrics()["router"]
+        with ThreadPoolExecutor(2) as pool:
+            strm = pool.submit(_stream, fleet.url, s_body, first.set)
+            first.wait(300)
+            rest = [r for i, r in enumerate(kill_reqs) if i != s_idx]
+            burst = pool.submit(_fleet_burst, fleet.url, rest,
+                                streamed=False)
+            # the kill: once the victim holds a non-streamed row besides
+            # the stream (its router-side outstanding count)
+            t1 = time.perf_counter()
+            while not strm.done() and time.perf_counter() - t1 < 60:
+                if fleet.metrics()["pool"][victim]["outstanding"] >= 2:
+                    break
+                time.sleep(0.02)
+            killed["outstanding"] = \
+                fleet.metrics()["pool"][victim]["outstanding"]
+            killed["t"] = time.perf_counter()
+            os.kill(vpid, signal.SIGKILL)
+            e3, strm = burst.result(), strm.result()
+        r1 = fleet.metrics()["router"]
+        idx = [i for i in range(len(kill_reqs)) if i != s_idx]
+        answered = sum(1 for r in e3["results"] if r["error"] is None)
+        wrong = [i for j, i in enumerate(idx) if ("e", i) in refs
+                 and e3["results"][j].get("out")
+                 and e3["results"][j]["out"]["tokens"][0] != refs[("e", i)]]
+        retries = r1["retries"] - r0["retries"]
+        readmit2 = _wait_state(fleet, victim, "ready", killed["t"])
+        log(f"path N (e) the burst again, {victim}'s worker (pid {vpid}) "
+            f"SIGKILLed after the streamed row's first record, with "
+            f"{killed['outstanding']} rows in flight there: {answered} of "
+            f"{len(rest)} non-streamed requests answered (greedy rows "
+            f"against in-process generate: {len(wrong)} differ), retries "
+            f"{retries}, failovers {r1['failovers'] - r0['failovers']}; "
+            f"the stream {len(strm['records'])} records, then "
+            f"{str(strm['error'])[:160]!r}; {victim} readmitted "
+            f"{readmit2:.2f} s after the kill")
+        if answered != len(rest) or wrong or not retries \
+                or strm["error"] is None or not strm["records"]:
+            raise SystemExit("path N (e): a request was lost, none was "
+                             "retried, or the broken stream did not error")
+        out["burst"] = {"fleet": {k: v for k, v in e1.items()
+                                  if k != "results"},
+                        "kill": {"answered": answered, "of": len(rest),
+                                 "retries": retries,
+                                 "in_flight": killed["outstanding"],
+                                 "stream_error": strm["error"],
+                                 "readmitted_s": readmit2}}
+
+        # (g) the controller in dry run over (b)-(f), once every replica's
+        # background warm is over
+        _until_routable(fleet, N_DECODE + N_PREFILL)
+        m4 = fleet.metrics()
+        ctl = m4["fleet"]["controller"]
+        nones = _snapshot_nones(fleet, m4)
+        extra_none = {n: [f for f in v if f not in N_NONE_FIELDS]
+                      for n, v in nones.items()}
+        log(f"path N (g) fleet.controller: ticks {ctl['ticks']}, errors "
+            f"{ctl['errors']}, intents {ctl['intents']}, actions "
+            f"{ctl['actions']}, last decision {ctl['last_decision']}; "
+            f"snapshot fields None beyond ROADMAP.md's list: {extra_none}")
+        if not ctl["ticks"] or ctl["errors"] or ctl["actions"] \
+                or any(extra_none.values()):
+            raise SystemExit("path N (g): the controller's run differs")
+        out["controller"] = {"ticks": ctl["ticks"],
+                             "intents": ctl["intents"], "nones": nones}
+
+        # (h) the launch identity over the replicas' processes (read again
+        # while an engine still books its last segment)
+        programs = {n: r["handler"]["program_bytes"]
+                    for n, r in m4["replicas"].items()}
+        free_traffic = torch.cuda.mem_get_info()[0] if cuda else 0
+        got, implied, counts = _launch_identity(m4["replicas"], layers)
+        for _ in range(10 if cuda else 0):
+            if got == implied:
+                break
+            time.sleep(0.5)
+            got, implied, counts = _launch_identity(_replica_metrics(fleet),
+                                                    layers)
+        log(f"path N (h) handler.kernels over the three replicas {got}, "
+            f"implied {implied} ({counts}); program_bytes {programs}; the "
+            f"card's free memory after the traffic "
+            f"{free_traffic / 2**30:.2f} GiB [{card}]")
+        if cuda and got != implied:
+            raise SystemExit("path N (h): the launch identity fails")
+        local = kernel_launches()
+        out["launches"] = {k: local[k] + got[k] for k in KERNELS}
+        out["programs"] = programs
+    finally:
+        if faults is None and faults_boot is not None:
+            try:
+                faults = faults_boot.result()
+            except BaseException:  # noqa: BLE001 — its boot failed
+                pass
+        boot_pool.shutdown(wait=True)
+        for proc in (faults, fleet):
+            if proc is not None and proc.proc.poll() is None:
+                rc, stop_s = proc.stop()
+                if proc is fleet:
+                    out["stop"] = {"rc": rc, "s": stop_s}
+        left = _bundle_processes(served)
+        for pid in left:  # a failed phase's leftovers
+            subprocess.run(["kill", "-9", str(pid)], check=False)
+        shutil.rmtree(root, ignore_errors=True)
+    # (i) teardown
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    free_after = torch.cuda.mem_get_info()[0] if cuda else 0
+    log(f"path N (i) SIGTERM: the fleet exited {out['stop']['rc']} in "
+        f"{out['stop']['s']:.2f} s; replica processes alive {left}; the "
+        f"card's free memory {free_before / 2**30:.2f} GiB before N, "
+        f"{free_after / 2**30:.2f} GiB after [{card}]")
+    if out["stop"]["rc"] != 0 or left or \
+            (cuda and free_after < free_before - N_FREE_SLACK):
+        raise SystemExit("path N (i): the teardown left processes or card "
+                         "memory behind")
+    out["teardown"] = {"free_after": free_after, "left": left}
     return out
 
 
@@ -6307,9 +7123,22 @@ def main() -> int:
     log(f"path L took {time.perf_counter() - t_path:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
-    t_path = time.perf_counter()
-    paths["M"] = serve_lifecycle_path(card)
-    log(f"path M took {time.perf_counter() - t_path:.1f} s")
+    import shutil
+    import tempfile
+
+    # M (g) builds the llama bundle that N's fleet serves; N deletes it
+    llama_root = Path(tempfile.mkdtemp(prefix="lambdipy-llama-"))
+    try:
+        t_path = time.perf_counter()
+        paths["M"] = serve_lifecycle_path(card, llama_root / "bundle")
+        log(f"path M took {time.perf_counter() - t_path:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_path = time.perf_counter()
+        paths["N"] = serve_fleet_path(card, llama_root / "bundle")
+        log(f"path N took {time.perf_counter() - t_path:.1f} s")
+    finally:
+        shutil.rmtree(llama_root, ignore_errors=True)
     # each kernel's launches: the sum over the paths, each path counted
     # from 0 just before it was driven
     for name, kern in kernels.items():

@@ -25,7 +25,12 @@ with JAX's commands, flags and output lines.
 - ``doctor``: torch and CUDA versions, the card (name, power limit,
   compute capability; probed in a subprocess with a timeout), ``nvcc``
   and the kernel build cache, the registry and the deployments;
-- ``serve``: a bundle in the foreground until SIGTERM, which drains.
+- ``serve``: a bundle in the foreground until SIGTERM, which drains;
+- ``fleet``: a bundle from N supervised replicas behind one router
+  (``fleet/``): prefix affinity, retries, hedges, the spill queue, the
+  phase split (``--prefill-replicas``), sticky sessions and the elastic
+  controller (``--autoscale``, ``--autoscale-dry-run``), with JAX's
+  flags, defaults and readiness line; SIGTERM stops every replica.
 
 ``serve`` and ``deploy`` resolve their target in JAX's order: a bundle
 directory (holding ``manifest.json``), a recipe with a built artifact,
@@ -40,10 +45,11 @@ its config, e.g. ``kv_quant=int8``, ``attn_backend=flash``,
 the JAX CLI prints it.
 
 Everything runs on the card through the port's kernels; ``--device cpu``
-(``deploy``, ``serve``, ``doctor``; or ``LAMBDIPY_PLATFORM=cpu``) runs
+(``deploy``, ``serve``, ``fleet``, ``doctor``; or
+``LAMBDIPY_PLATFORM=cpu``) runs
 their plain PyTorch versions on the CPU instead. With no card and no CPU
-request, ``deploy`` and ``serve`` exit non-zero before any readiness
-line. ``build`` makes a card recipe's weights and warms its bundle on
+request, ``deploy``, ``serve`` and ``fleet`` exit non-zero before any
+readiness line. ``build`` makes a card recipe's weights and warms its bundle on
 the card, and fails without one (and under ``LAMBDIPY_PLATFORM=cpu``:
 the CPU would draw other weights under the same artifact id); a recipe
 whose device is not the card builds and warms on the CPU, as JAX keeps
@@ -54,8 +60,7 @@ ported. The scheduler's reach the server; the others set the
 ``LAMBDIPY_*`` variables the handler reads, with JAX's precedence
 (``lambdipy_tpu/cli.py:584-612``). ``--mesh`` and ``--prefill-mode sp``
 ask for features the port does not have and exit before boot. ``POST
-/shutdown`` drains and stops the server. ``fleet`` and ``train`` are not
-ported.
+/shutdown`` drains and stops the server. ``train`` is not ported.
 """
 
 from __future__ import annotations
@@ -595,6 +600,164 @@ def cmd_stop(args) -> None:
     _echo(f"stopped {args.name}")
 
 
+# -- fleet ------------------------------------------------------------------
+
+
+def cmd_fleet(args) -> None:
+    """Serve a bundle from N supervised replicas behind one router
+    (``lambdipy_tpu/cli.py:638-916``): spawns the replicas (decode-class
+    with ``--prefill-replicas`` > 0, mixed otherwise, then the prefill
+    class as ``NAME-p0..M-1``), attaches ``--attach`` replicas, probes
+    them (eject on failure, readmit on recovery), and serves ``/invoke``
+    and ``/v1/completions`` on ``--port`` with prefix affinity, retries,
+    the phase split and sticky sessions. The readiness line is JAX's;
+    SIGTERM stops the router and then every replica. The replicas run on
+    the card unless ``--device cpu``."""
+    import signal
+    import threading
+
+    from lambdipy_tpu_torch.fleet import (DECODE, MIXED, PREFILL, FleetError,
+                                          FleetRouter, ReplicaPool,
+                                          parse_attach_spec)
+    from lambdipy_tpu_torch.runtime.deploy import LocalRuntime
+    from lambdipy_tpu_torch.runtime.faults import FaultPlan
+
+    if args.replicas < 1 and not args.attach:
+        raise CliError("--replicas must be >= 1 (or pass --attach for an "
+                       "attach-only fleet)")
+    if args.prefill_replicas < 0:
+        raise CliError("--prefill-replicas must be >= 0")
+    attached: list[tuple[str, str, str]] = []
+    for spec in args.attach:
+        try:
+            attached.append(parse_attach_spec(spec))
+        except FleetError as e:
+            raise CliError(str(e)) from None
+    try:
+        fleet_faults = (FaultPlan.from_spec(args.fault_spec)
+                        if args.fault_spec is not None
+                        else FaultPlan.from_env(var="LAMBDIPY_FLEET_FAULT"))
+    except ValueError as e:
+        raise CliError(str(e)) from None
+    hedge_ms: float | str = 0
+    if args.hedge not in ("off", "0", ""):
+        if args.hedge == "p95":
+            hedge_ms = "p95"
+        else:
+            try:
+                hedge_ms = float(args.hedge)
+            except ValueError:
+                raise CliError(f"--hedge must be 'off', 'p95' or a "
+                               f"threshold in ms, got {args.hedge!r}"
+                               ) from None
+    # an attach-only fleet never deploys the bundle: it need not resolve
+    bundle_dir = None
+    if args.replicas >= 1 or args.prefill_replicas >= 1:
+        bundle_dir = _resolve_bundle(args.bundle, args.registry)
+        if bundle_dir is None:
+            raise _neither(args.bundle)
+    fleet_name = args.name or args.bundle.rstrip("/").split("/")[-1]
+    pool = ReplicaPool(probe_interval=args.probe_interval,
+                       fail_threshold=args.fail_threshold,
+                       readmit_passes=args.readmit_passes,
+                       faults=fleet_faults)
+    replica_env = {}
+    if args.engine_watchdog is not None:
+        replica_env["LAMBDIPY_ENGINE_WATCHDOG_S"] = str(args.engine_watchdog)
+    if args.session_pin_budget is not None:
+        replica_env["LAMBDIPY_SESSION_PIN_BUDGET_MB"] = \
+            str(args.session_pin_budget)
+    if args.session_ttl is not None:
+        replica_env["LAMBDIPY_SESSION_TTL_S"] = str(args.session_ttl)
+    replica_env = replica_env or None
+    device = args.device
+    spawned = []
+    controller = None
+    try:
+        runtime = LocalRuntime()
+        # with a prefill class the serve replicas are decode-class (the
+        # phase split is the point); otherwise they stay mixed. All boot
+        # at once and register in JAX's order: r0..rN-1, then p0..pM-1
+        role = DECODE if args.prefill_replicas else MIXED
+        specs = [(f"{fleet_name}-r{i}", role)
+                 for i in range(max(0, args.replicas))]
+        specs += [(f"{fleet_name}-p{i}", PREFILL)
+                  for i in range(args.prefill_replicas)]
+        if specs:
+            spawned = pool.spawn_all(bundle_dir, specs, runtime=runtime,
+                                     env=replica_env,
+                                     ready_timeout=args.timeout,
+                                     device=device)
+        for aname, aurl, arole in attached:
+            pool.probe_one(pool.attach(aname, aurl, role=arole))
+        pool.start()
+        # inside the guard: a router that cannot bind its port must not
+        # leak the replicas
+        router = FleetRouter(pool, port=args.port,
+                             affinity_on=args.affinity, block=args.block,
+                             max_retries=args.retries,
+                             saturation=args.saturation, hedge_ms=hedge_ms,
+                             spill_cap=args.spill_cap,
+                             spill_max_wait_s=args.spill_max_wait,
+                             breaker_fails=args.breaker_fails,
+                             breaker_open_s=args.breaker_open_s,
+                             retry_budget=args.retry_budget,
+                             ship_window=args.ship_window,
+                             faults=fleet_faults)
+        autoscale = args.autoscale or args.autoscale_dry_run
+        if autoscale:
+            from lambdipy_tpu_torch.fleet import (FleetController,
+                                                  PolicyConfig)
+
+            spawner = None
+            if bundle_dir is not None:
+                counter = iter(range(len(spawned), 10_000))
+
+                def spawner(role):
+                    nm = f"{fleet_name}-a{next(counter)}"
+                    pool.spawn(nm, bundle_dir, runtime=runtime,
+                               env=replica_env, ready_timeout=args.timeout,
+                               role=role, device=device)
+                    return nm
+
+            controller = FleetController(
+                router, config=PolicyConfig(slo_p99_ms=args.slo_p99_ms),
+                interval_s=args.autoscale_interval,
+                dry_run=args.autoscale_dry_run, spawner=spawner).start()
+    except BaseException:
+        # a half-spawned fleet leaks no process, Ctrl-C mid-boot included
+        if controller is not None:
+            controller.close()
+        pool.stop_all()
+        raise
+    _echo(json.dumps({
+        "ready": True, "port": router.port, "replicas": len(spawned),
+        "prefill_replicas": args.prefill_replicas,
+        "attached": [a for a, _, _ in attached],
+        "classes": {r.name: r.role for r in pool.replicas.values()},
+        "affinity": args.affinity, "block": args.block,
+        "spill_cap": args.spill_cap, "breaker_fails": args.breaker_fails,
+        "retry_budget": args.retry_budget,
+        "autoscale": bool(autoscale),
+        "autoscale_dry_run": bool(args.autoscale_dry_run),
+        "slo_p99_ms": args.slo_p99_ms,
+        "urls": {r.name: r.url for r in spawned},
+    }))
+
+    def _term(signum, frame):
+        threading.Thread(target=router.stop, daemon=True).start()
+
+    signal.signal(signal.SIGTERM, _term)
+    try:
+        router.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if controller is not None:
+            controller.close()
+        pool.stop_all()
+
+
 # -- doctor -----------------------------------------------------------------
 
 # the card probe, run in a fresh interpreter; LAMBDIPY_DOCTOR_WEDGE hangs
@@ -900,6 +1063,97 @@ def parser() -> argparse.ArgumentParser:
                        help="tensor-parallel serving; not ported (only "
                             "'off')")
 
+    p = add("fleet", cmd_fleet, "serve a bundle from N supervised replicas "
+                                "behind one router")
+    p.add_argument("bundle")
+    p.add_argument("--replicas", "-n", type=int, default=2,
+                   help="supervised replicas (decode-class when "
+                        "--prefill-replicas > 0, mixed otherwise; default 2)")
+    p.add_argument("--prefill-replicas", type=int, default=0,
+                   help="additional prefill-class replicas (NAME-p0..M-1): "
+                        "cold prefills run there (/v1/kv/export) and their "
+                        "K/V ships to the affinity-chosen decode replica; "
+                        "0 = no phase split")
+    p.add_argument("--port", type=int, default=8080,
+                   help="router port, 0 picks a free one (replicas pick "
+                        "their own; default 8080)")
+    p.add_argument("--name", default=None,
+                   help="fleet name; replicas deploy as NAME-r0..N-1")
+    registry_flag(p)
+    p.add_argument("--affinity", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="route by a rendezvous hash of the prompt's "
+                        "leading token blocks (default on)")
+    p.add_argument("--block", type=int, default=32,
+                   help="affinity block width in tokens: keep equal to the "
+                        "bundle's prefix_block (default 32)")
+    p.add_argument("--probe-interval", type=float, default=1.0,
+                   help="seconds between /healthz probes (default 1)")
+    p.add_argument("--fail-threshold", type=int, default=1,
+                   help="consecutive failures before ejection (default 1)")
+    p.add_argument("--readmit-passes", type=int, default=2,
+                   help="consecutive probe passes before an ejected "
+                        "replica takes traffic again (default 2)")
+    p.add_argument("--retries", type=int, default=2,
+                   help="max re-sends onto different replicas (default 2)")
+    p.add_argument("--saturation", type=int, default=8,
+                   help="outstanding requests at which the affinity target "
+                        "is bypassed (default 8)")
+    p.add_argument("--hedge", default="off",
+                   help="duplicate slow non-streamed requests: 'off', "
+                        "'p95' or a threshold in ms (default off)")
+    p.add_argument("--timeout", type=float, default=300.0,
+                   help="per-replica deploy ready timeout, seconds")
+    p.add_argument("--engine-watchdog", type=float, default=None,
+                   help="per-replica engine watchdog, seconds: a wedged "
+                        "replica is ejected at probe speed")
+    p.add_argument("--attach", action="append", default=[],
+                   metavar="NAME=URL[:class]",
+                   help="attach an externally managed replica (probed, "
+                        "ejected, readmitted, never restarted); repeatable; "
+                        "class prefill|decode|mixed (default mixed)")
+    p.add_argument("--spill-cap", type=int, default=64,
+                   help="router spill-queue capacity; 0 disables "
+                        "(default 64)")
+    p.add_argument("--spill-max-wait", type=float, default=30.0,
+                   help="max seconds a spilled request waits (default 30)")
+    p.add_argument("--breaker-fails", type=int, default=5,
+                   help="consecutive forward failures that open a "
+                        "replica's breaker; 0 disables (default 5)")
+    p.add_argument("--breaker-open-s", type=float, default=2.0,
+                   help="seconds a breaker stays open before its "
+                        "half-open probe (default 2)")
+    p.add_argument("--retry-budget", type=float, default=0.2,
+                   help="fleet-wide retry-to-primary ratio; 0 disables "
+                        "(default 0.2)")
+    p.add_argument("--fault-spec", default=None,
+                   help="fleet fault injection (runtime/faults.py grammar "
+                        "over route_connect, route_body, route_latency, "
+                        "probe, kv_ship, kv_ship_chunk, session_failover); "
+                        "default $LAMBDIPY_FLEET_FAULT")
+    p.add_argument("--session-pin-budget", type=float, default=None,
+                   help="per-replica MB of prefix cache open sessions may "
+                        "pin")
+    p.add_argument("--session-ttl", type=float, default=None,
+                   help="per-replica absolute session pin lease, seconds")
+    p.add_argument("--ship-window", type=int, default=4,
+                   help="chunk frames in flight between a ship's export "
+                        "and import legs; 0 = one blocking frame "
+                        "(default 4)")
+    p.add_argument("--autoscale", action=argparse.BooleanOptionalAction,
+                   default=False,
+                   help="run the elastic controller (promote, demote, "
+                        "spawn, retire, knob retunes)")
+    p.add_argument("--autoscale-dry-run", action="store_true",
+                   help="run the controller but only log its decisions "
+                        "as intents")
+    p.add_argument("--slo-p99-ms", type=float, default=250.0,
+                   help="autoscale target: interactive queue-wait P99 "
+                        "(default 250)")
+    p.add_argument("--autoscale-interval", type=float, default=5.0,
+                   help="seconds between controller ticks (default 5)")
+    device_flag(p, "run the replicas")
+
     p = add("invoke", cmd_invoke, "invoke a deployment")
     p.add_argument("name")
     p.add_argument("--data", default="{}", help="JSON request body")
@@ -930,6 +1184,7 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     from lambdipy_tpu_torch.bundle.format import BundleError
+    from lambdipy_tpu_torch.fleet.pool import FleetError
     from lambdipy_tpu_torch.recipes.schema import RecipeError
     from lambdipy_tpu_torch.resolve.registry import RegistryError
     from lambdipy_tpu_torch.resolve.releases import ReleaseError
@@ -940,7 +1195,7 @@ def main(argv=None) -> int:
     try:
         args.fn(args)
     except (CliError, RecipeError, BundleError, RegistryError, ReleaseError,
-            ResolutionError, DeployError) as e:
+            ResolutionError, DeployError, FleetError) as e:
         # printed as the JAX CLI prints its ClickExceptions
         _echo(f"Error: {e}", err=True)
         return 1

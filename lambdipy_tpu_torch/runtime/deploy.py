@@ -10,12 +10,17 @@ variable the port's server reads). With no card and no CPU request
 :meth:`LocalRuntime.deploy` raises before it spawns anything. The state
 file defaults to ``~/.lambdipy-tpu-torch/deployments.json`` (JAX's is
 ``~/.lambdipy-tpu/``), so neither package stops the other's deployments;
-each deployment's server log is ``<name>.serve.log`` beside it.
+each deployment's server log is ``<name>.serve.log`` beside it. Each
+read-modify-write of the state file holds an ``flock`` on
+``deployments.lock`` beside it, so deploys and stops in several
+processes (a ``deploy`` beside a ``fleet``) lose no entry.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import json
 import os
 import signal
@@ -108,6 +113,12 @@ class LocalRuntime:
     def _save(self, state: dict) -> None:
         atomic_write_text(self.state_path, json.dumps(state, indent=1))
 
+    @contextlib.contextmanager
+    def _state_lock(self):
+        with open(self.state_path.with_suffix(".lock"), "a") as f:
+            fcntl.flock(f, fcntl.LOCK_EX)  # released when f closes
+            yield
+
     def deploy(self, name: str, bundle_dir: Path, *, port: int = 0,
                ready_timeout: float = 300.0, env: dict | None = None,
                watchdog: bool = True, device: str | None = None
@@ -193,11 +204,34 @@ class LocalRuntime:
         dep = Deployment(name=name, bundle_dir=str(bundle_dir), pid=proc.pid,
                          port=ready_line["port"],
                          cold_start=ready_line.get("cold_start", {}))
-        state[name] = dep.__dict__
-        self._save(state)
+        with self._state_lock():
+            state = self._load()
+            taken = name in state  # a deploy of the same name won the race
+            if not taken:
+                state[name] = dep.__dict__
+                self._save(state)
+        if taken:
+            _signal_group(proc.pid, signal.SIGKILL)
+            raise DeployError(
+                f"deployment {name!r} already exists; stop it first")
         log_event(log, "deployed", name=name, port=dep.port,
                   cold_start=dep.cold_start)
         return dep
+
+    def restart(self, name: str, *, ready_timeout: float = 300.0,
+                env: dict | None = None, watchdog: bool = True,
+                grace: float = 5.0, device: str | None = None
+                ) -> Deployment:
+        """Drain and stop, then redeploy the same bundle on the SAME
+        port, so whatever holds the deployment's URL (the fleet router's
+        replica table) stays valid: the rolling-restart primitive of
+        ``fleet/pool.py``. :meth:`stop` waits for the old process group
+        to exit, so its card memory is free before the new one boots."""
+        dep = self.get(name)
+        self.stop(name, grace=grace)
+        return self.deploy(name, Path(dep.bundle_dir), port=dep.port,
+                           ready_timeout=ready_timeout, env=env,
+                           watchdog=watchdog, device=device)
 
     def list(self) -> list[Deployment]:
         return [Deployment(**v) for v in self._load().values()]
@@ -250,9 +284,10 @@ class LocalRuntime:
         if not _wait_group_gone(dep.pid, grace):
             _signal_group(dep.pid, signal.SIGKILL)  # an orphaned child
             _wait_group_gone(dep.pid, grace)
-        state = self._load()
-        state.pop(name, None)
-        self._save(state)
+        with self._state_lock():
+            state = self._load()
+            state.pop(name, None)
+            self._save(state)
         # the per-deployment serve.log dies with its deployment entry
         (self.state_path.parent / f"{name}.serve.log").unlink(missing_ok=True)
         log_event(log, "stopped", name=name)

@@ -24,12 +24,27 @@ site                      where it fires
                           open: the turn serves unpinned, counted)
 ``offload_stall``         the offload arena's batched re-online fetch (an
                           exception makes the caller prefill again)
+``route_connect``         the fleet router opening a replica connection
+``route_body``            the router reading a replica's response body
+``route_latency``         the router's forward path (network latency)
+``probe``                 the replica pool's health probe of one replica
+``kv_ship``               the router's prefill->decode K/V ship, once per
+                          attempt, before the export leg
+``kv_ship_chunk``         the pipelined ship relay, once per relayed chunk
+                          frame (an exception is a mid-stream transfer
+                          failure: the import aborts its staged pages and
+                          the request serves mixed; a delay is per-chunk
+                          wire time)
+``session_failover``      the router re-homing a session off a dead or
+                          draining replica (an exception skips the
+                          re-ship: the new home prefills again, counted)
 ========================  ====================================================
 
-The registry lists the sites that have a call site in the port. The JAX
-package's fleet sites (``route_*``, ``probe``, ``kv_ship*``,
-``session_failover``) belong to the fleet router, which the port does not
-have yet: a spec naming one raises ``ValueError`` saying so.
+The registry equals the JAX package's, site for site. The ``route_*``,
+``probe``, ``kv_ship*`` and ``session_failover`` sites live in the fleet
+layer (``fleet/router.py``, ``fleet/pool.py``) and are armed in the fleet
+process by ``LAMBDIPY_FLEET_FAULT`` (or ``fleet --fault-spec``); a
+replica's plan accepts them too, where they never fire.
 
 Each site can raise (``exception``), stall (``delay``, ``ms=``) or block
 (``hang``: until the plan is released or cleared, the watchdog aborts the
@@ -56,6 +71,7 @@ identically run after run. Plans can be armed and cleared at run time
 from __future__ import annotations
 
 import math
+import os
 import threading
 import time
 from dataclasses import dataclass
@@ -64,8 +80,8 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class FaultSite:
     """One registered injection point: ``owner`` is the layer whose plan
-    drives it (engine, store or pool), ``env`` the variable that arms it
-    in a serving process, ``note`` what it does. A test asserts that
+    drives it (engine, store, pool or router), ``env`` the variable that
+    arms it in a serving process, ``note`` what it does. A test asserts that
     every ``.check("...")`` and ``_device_wait("...")`` call site of the
     port is registered here, and that every site here has one."""
 
@@ -76,6 +92,7 @@ class FaultSite:
 
 
 _ENGINE_ENV = "LAMBDIPY_FAULT"
+_FLEET_ENV = "LAMBDIPY_FLEET_FAULT"
 
 REGISTRY: dict[str, FaultSite] = {s.name: s for s in (
     FaultSite("segment_dispatch", "engine", _ENGINE_ENV,
@@ -93,7 +110,7 @@ REGISTRY: dict[str, FaultSite] = {s.name: s for s in (
               "prefill device time)"),
     FaultSite("transport", "engine", _ENGINE_ENV,
               "the wait on a segment's CUDA event before the host read"),
-    FaultSite("page_alloc", "pool", _ENGINE_ENV,
+    FaultSite("page_alloc", "store", _ENGINE_ENV,
               "the paged-KV pool taking pages for an admission"),
     FaultSite("session_pin", "store", _ENGINE_ENV,
               "the prefix store pinning a session's radix head (fails "
@@ -103,16 +120,25 @@ REGISTRY: dict[str, FaultSite] = {s.name: s for s in (
               "= a slow fetch; exception = a FAILED re-online: the "
               "caller prefills the range again, counted, never a wrong "
               "token)"),
+    # the fleet layer's network sites (router and pool)
+    FaultSite("route_connect", "router", _FLEET_ENV,
+              "the fleet router opening a replica connection"),
+    FaultSite("route_body", "router", _FLEET_ENV,
+              "the router reading a replica response body"),
+    FaultSite("route_latency", "router", _FLEET_ENV,
+              "the router's forward path (network latency site)"),
+    FaultSite("probe", "pool", _FLEET_ENV,
+              "the replica pool's per-replica health probe"),
+    FaultSite("kv_ship", "router", _FLEET_ENV,
+              "the router's prefill->decode KV ship, once per attempt"),
+    FaultSite("kv_ship_chunk", "router", _FLEET_ENV,
+              "the pipelined ship relay, once per relayed KV chunk "
+              "frame (exception = mid-stream transfer failure; delay = "
+              "per-chunk synthetic wire time)"),
+    FaultSite("session_failover", "router", _FLEET_ENV,
+              "the router re-homing a session off a dead/drained "
+              "replica (exception skips the re-ship, counted)"),
 )}
-
-# the JAX package's sites whose layers the port does not have yet, and
-# the layer each waits for
-UNPORTED_SITES = {
-    "route_connect": "the fleet router", "route_body": "the fleet router",
-    "route_latency": "the fleet router", "probe": "the fleet pool",
-    "kv_ship": "the fleet router", "kv_ship_chunk": "the fleet router",
-    "session_failover": "the fleet router",
-}
 
 SITES = tuple(REGISTRY)
 KINDS = ("exception", "delay", "hang")
@@ -176,8 +202,8 @@ class FaultRule:
 
 
 def parse_spec(spec: str | None) -> list[FaultRule]:
-    """A spec string as rules; a malformed spec, an unknown site or kind,
-    or a site the port does not have yet raises ``ValueError``."""
+    """A spec string as rules; a malformed spec or an unknown site or
+    kind raises ``ValueError``."""
     rules: list[FaultRule] = []
     for part in (spec or "").split(";"):
         part = part.strip()
@@ -187,10 +213,6 @@ def parse_spec(spec: str | None) -> list[FaultRule]:
         site, sep, kind = head.partition(":")
         site, kind = site.strip(), kind.strip().lower()
         kind = _KIND_ALIASES.get(kind, kind)
-        if site in UNPORTED_SITES:
-            raise ValueError(
-                f"fault site {site!r} in {part!r} is not ported: it needs "
-                f"{UNPORTED_SITES[site]}, which the port does not have yet")
         if not sep or site not in SITES or kind not in KINDS:
             raise ValueError(
                 f"bad fault spec {part!r}: want site:kind with site in "
@@ -235,6 +257,15 @@ class FaultPlan:
     @classmethod
     def from_spec(cls, spec: str | None) -> "FaultPlan":
         return cls(parse_spec(spec))
+
+    @classmethod
+    def from_env(cls, environ=None, *, var: str = _ENGINE_ENV
+                 ) -> "FaultPlan":
+        """The plan ``var`` arms: a replica's engine reads
+        ``LAMBDIPY_FAULT``, the fleet process ``LAMBDIPY_FLEET_FAULT``,
+        so arming a replica's sites never arms the router in the same
+        shell."""
+        return cls.from_spec((environ or os.environ).get(var))
 
     def check(self, site: str, interrupt: threading.Event | None = None
               ) -> None:

@@ -343,10 +343,12 @@ class FrameSplitter:
     against the leaf template by :class:`StreamDecoder`), and block counts
     are tracked against the stream header, so the relay knows whether the
     stream it forwarded was complete without trusting the transport's
-    end of file."""
+    end of file. The buffer is a ``bytearray`` that whole frames are cut
+    from, so a stream fed in small reads costs linear time (a ``bytes``
+    buffer grown by concatenation copies itself whole on every read)."""
 
     def __init__(self):
-        self._buf = b""
+        self._buf = bytearray()
         self.total_blocks: int | None = None
         self.blocks_seen = 0
 
@@ -359,7 +361,7 @@ class FrameSplitter:
         """Buffer ``data``; return every whole frame now available.
         Raises ValueError on garbage (bad magic, lying lengths, chunks
         past the declared total, frames after completion)."""
-        self._buf += bytes(data)
+        self._buf += data
         out: list[tuple[str, bytes]] = []
         while True:
             frame = self._next_frame()
@@ -371,7 +373,7 @@ class FrameSplitter:
         buf = self._buf
         if len(buf) < 4:
             return None
-        magic = buf[:4]
+        magic = bytes(buf[:4])
         if self.total_blocks is None:
             if magic != STREAM_MAGIC:
                 raise ValueError(
@@ -388,8 +390,7 @@ class FrameSplitter:
                     from None
             if self.total_blocks <= 0:
                 raise ValueError("KV stream header: no blocks")
-            self._buf = buf[end:]
-            return "header", buf[:end]
+            return "header", self._cut(end)
         if self.complete:
             raise ValueError("trailing bytes after a complete KV stream")
         if magic != CHUNK_MAGIC:
@@ -417,8 +418,13 @@ class FrameSplitter:
         if len(buf) < end:
             return None
         self.blocks_seen += n_blocks
-        self._buf = buf[end:]
-        return "chunk", buf[:end]
+        return "chunk", self._cut(end)
+
+    def _cut(self, end: int) -> bytes:
+        """The buffer's first ``end`` bytes as a frame, dropped from it."""
+        frame = bytes(self._buf[:end])
+        del self._buf[:end]
+        return frame
 
 
 class StreamDecoder:

@@ -2,9 +2,12 @@
 port's copies of ``LatencyStats``, ``PipelineStats``, ``PagePoolStats``
 and ``PrefixCacheStats`` (``lambdipy_tpu/runtime/metrics.py``),
 ``PrefillStats`` cut to the chunked walk, ``EngineFaultStats``, the
-prefix store's tiers (``KvOffloadStats``, ``KvShipStats``, and the
-fleet router's ``SessionStats``), and the continuous engine's own
-counters (segments, decode steps, joins, rows per step)."""
+prefix store's tiers (``KvOffloadStats``, ``KvShipStats``), the fleet's
+(``DisaggStats``, ``SessionStats``, ``RouterStats``, ``ControllerStats``:
+the router's ``fleet.disagg``, ``fleet.sessions``, ``router`` and
+``fleet.controller`` blocks, with JAX's keys and EWMAs), and the
+continuous engine's own counters (segments, decode steps, joins, rows
+per step)."""
 
 from __future__ import annotations
 
@@ -918,4 +921,275 @@ class SessionStats:
                 "deletes": self.deletes,
                 "record_expiries": self.record_expiries,
                 "reship_fallbacks": dict(self.reship_fallbacks),
+            }
+
+
+@dataclass
+class DisaggStats:
+    """Router-side counters for phase-split (disaggregated) serving —
+    the ``fleet.disagg`` block on the fleet ``/metrics``.
+
+    ``prefill_dispatches`` counts export legs that completed on a
+    prefill-class replica; ``decode_dispatches`` counts full ships
+    (export + import both landed, so the decode replica serves the
+    request from shipped KV). ``ship_skips`` are requests whose prefix
+    the router already shipped to that decode replica (the per-replica
+    shipped-key LRU). ``fallbacks`` keys every path back to MIXED-mode
+    local prefill by reason — a fallback is a slower request, never a
+    lost one. The byte/latency EWMAs (alpha 0.2) price the transfer the
+    way the page pool prices its backpressure.
+
+    PIPELINED shipping: ``ships_pipelined`` counts ships that rode the
+    chunked relay (export frames pumped to the import leg while later
+    prefill chunks were still running), ``chunks_relayed`` the ``LKVC``
+    frames pumped, and ``mid_stream_failures`` ships that died AFTER
+    the stream opened (truncated export, dead import leg, injected
+    ``kv_ship_chunk`` fault) — every one also lands in ``fallbacks``
+    by reason, because a mid-stream death degrades to mixed-mode like
+    any other ship failure.
+
+    ``util`` is the per-replica-class busy-fraction EWMA (alpha 0.3)
+    the router folds from pool occupancy at scrape time — the
+    observability basis for sizing the prefill pool: a prefill class
+    pinned near 1.0 while decode idles wants more prefill replicas
+    (and vice versa)."""
+
+    prefill_dispatches: int = 0
+    decode_dispatches: int = 0
+    ships: int = 0
+    ships_pipelined: int = 0
+    chunks_relayed: int = 0
+    mid_stream_failures: int = 0
+    ship_skips: int = 0
+    ship_bytes_total: int = 0
+    ship_bytes_ewma: float = 0.0
+    ship_ms_ewma: float = 0.0
+    import_blocks_inserted: int = 0
+    import_blocks_present: int = 0
+    imports_zero_copy: int = 0
+    imports_assembled: int = 0
+    fallbacks: dict = field(default_factory=dict)  # reason -> n
+    util: dict = field(default_factory=dict)       # class -> busy EWMA
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def count(self, counter: str, n: int = 1) -> None:
+        with self._lock:
+            setattr(self, counter, getattr(self, counter) + n)
+
+    def record_fallback(self, reason: str) -> None:
+        with self._lock:
+            self.fallbacks[str(reason)] = \
+                self.fallbacks.get(str(reason), 0) + 1
+
+    def record_ship(self, *, nbytes: int, ms: float, chunks: int = 0,
+                    pipelined: bool = False) -> None:
+        with self._lock:
+            self.ships += 1
+            if chunks:
+                self.chunks_relayed += int(chunks)
+            if pipelined:
+                # explicitly flagged, NOT inferred from chunks: the
+                # blocking buffer-then-relay baseline ships chunk
+                # frames too but overlaps nothing
+                self.ships_pipelined += 1
+            self.ship_bytes_total += int(nbytes)
+            a = 0.2
+            if self.ships == 1:
+                self.ship_bytes_ewma = float(nbytes)
+                self.ship_ms_ewma = float(ms)
+            else:
+                self.ship_bytes_ewma = ((1 - a) * self.ship_bytes_ewma
+                                        + a * float(nbytes))
+                self.ship_ms_ewma = ((1 - a) * self.ship_ms_ewma
+                                     + a * float(ms))
+
+    def record_util(self, cls: str, busy_frac: float) -> None:
+        """Fold one busy-fraction sample (0..1) for a replica class
+        into its EWMA — called by the router at scrape time from the
+        pool's time-weighted occupancy accounting."""
+        frac = min(1.0, max(0.0, float(busy_frac)))
+        with self._lock:
+            prev = self.util.get(str(cls))
+            self.util[str(cls)] = (frac if prev is None
+                                   else 0.7 * prev + 0.3 * frac)
+
+    def record_import_result(self, *, inserted: int, present: int,
+                             mode: str) -> None:
+        with self._lock:
+            self.import_blocks_inserted += int(inserted)
+            self.import_blocks_present += int(present)
+            if mode == "paged":
+                self.imports_zero_copy += 1
+            else:
+                self.imports_assembled += 1
+
+    def report(self) -> dict:
+        with self._lock:
+            return {
+                "prefill_dispatches": self.prefill_dispatches,
+                "decode_dispatches": self.decode_dispatches,
+                "ships": self.ships,
+                "ships_pipelined": self.ships_pipelined,
+                "chunks_relayed": self.chunks_relayed,
+                "mid_stream_failures": self.mid_stream_failures,
+                "ship_skips": self.ship_skips,
+                "ship_bytes_total": self.ship_bytes_total,
+                "ship_bytes_ewma": round(self.ship_bytes_ewma, 1),
+                "ship_ms_ewma": round(self.ship_ms_ewma, 3),
+                "util": {cls: round(v, 4)
+                         for cls, v in sorted(self.util.items())},
+                "import_blocks": {
+                    "inserted": self.import_blocks_inserted,
+                    "present": self.import_blocks_present,
+                },
+                "imports_zero_copy": self.imports_zero_copy,
+                "imports_assembled": self.imports_assembled,
+                "fallbacks": dict(self.fallbacks),
+            }
+
+
+
+
+@dataclass
+class RouterStats:
+    """Counters for the fleet front-door (fleet/router.py), exported on
+    the router's ``/metrics`` under ``router``. ``retries`` counts
+    re-sends after a retryable failure (connection loss or a 429/503
+    shed), ``failovers`` the subset caused by a dead connection;
+    ``hedges``/``hedge_wins`` track duplicate sends for slow requests
+    and how often the duplicate answered first. The ``affinity_*``
+    counters measure prefix-affinity routing: a hit means the request
+    reached its rendezvous-hash target; fallbacks record why it did not
+    (target ejected/busy). ``latency`` is the router-observed end-to-end
+    distribution — the P9x basis for the hedging threshold.
+
+    The ``spill_*`` counters track the router's fleet-wide-overload
+    parking lot (fleet/spill.py): ``spilled`` = requests parked at
+    least once, ``spill_drained`` = grants back into the retry loop,
+    ``spill_expired``/``spill_overflow`` = the queue's own sheds (the
+    live depth/wait gauges ride on the spill queue's report in the
+    router ``/metrics``). ``retry_budget_denied`` counts re-sends the
+    fleet-wide retry budget refused; ``warmed_prefixes`` counts hot
+    radix prefixes replayed into a readmitted/attached replica's
+    cache."""
+
+    requests: int = 0
+    completed: int = 0
+    errors: int = 0
+    retries: int = 0
+    failovers: int = 0
+    hedges: int = 0
+    hedge_wins: int = 0
+    no_replica: int = 0
+    spilled: int = 0
+    spill_drained: int = 0
+    spill_expired: int = 0
+    spill_overflow: int = 0
+    retry_budget_denied: int = 0
+    warmed_prefixes: int = 0
+    affinity_requests: int = 0
+    affinity_hits: int = 0
+    affinity_fallbacks: dict = field(default_factory=dict)  # reason -> n
+    latency: LatencyStats = field(default_factory=LatencyStats)
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def count(self, counter: str, n: int = 1) -> None:
+        with self._lock:
+            setattr(self, counter, getattr(self, counter) + n)
+
+    def count_affinity(self, outcome: str) -> None:
+        """``outcome``: 'hit', or a fallback reason ('saturated',
+        'ejected', ...). Every call is one affinity-keyed request."""
+        with self._lock:
+            self.affinity_requests += 1
+            if outcome == "hit":
+                self.affinity_hits += 1
+            else:
+                self.affinity_fallbacks[outcome] = \
+                    self.affinity_fallbacks.get(outcome, 0) + 1
+
+    def report(self) -> dict:
+        with self._lock:
+            aff = dict(self.affinity_fallbacks)
+            out = {
+                "requests": self.requests,
+                "completed": self.completed,
+                "errors": self.errors,
+                "retries": self.retries,
+                "failovers": self.failovers,
+                "hedges": self.hedges,
+                "hedge_wins": self.hedge_wins,
+                "no_replica": self.no_replica,
+                "spill": {
+                    "spilled": self.spilled,
+                    "drained": self.spill_drained,
+                    "expired": self.spill_expired,
+                    "overflow": self.spill_overflow,
+                },
+                "retry_budget_denied": self.retry_budget_denied,
+                "warmed_prefixes": self.warmed_prefixes,
+                "affinity": {
+                    "requests": self.affinity_requests,
+                    "hits": self.affinity_hits,
+                    "hit_rate": (round(self.affinity_hits
+                                       / self.affinity_requests, 4)
+                                 if self.affinity_requests else 0.0),
+                    "fallbacks": aff,
+                },
+            }
+        out["latency"] = self.latency.report()
+        return out
+
+
+@dataclass
+class ControllerStats:
+    """Counters for the elastic fleet control loop
+    (fleet/controller.py) — the ``fleet.controller`` block on the
+    fleet ``/metrics``.
+
+    ``actions`` counts APPLIED actions by kind (promote/demote/spawn/
+    retire/set_knob); ``intents`` counts decisions that were logged but
+    NOT applied — every decision in dry-run mode, plus live decisions
+    whose actuator refused (e.g. a spawn with no spawner wired).
+    ``last_decision`` is the most recent non-empty decision trace
+    (tick time, the signal values that drove it, the rendered
+    actions) so an operator can answer "why did the fleet just
+    resize" from one scrape. ``targets`` echoes the loop's current
+    goal posts (SLO, bands, dry_run) — the knobs the controller is
+    steering TOWARD, as opposed to the per-replica knobs it steers."""
+
+    ticks: int = 0
+    errors: int = 0
+    actions: dict = field(default_factory=dict)   # kind -> applied n
+    intents: dict = field(default_factory=dict)   # kind -> logged-only n
+    last_decision: dict = field(default_factory=dict)
+    targets: dict = field(default_factory=dict)
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def count(self, counter: str, n: int = 1) -> None:
+        with self._lock:
+            setattr(self, counter, getattr(self, counter) + n)
+
+    def record_action(self, kind: str, *, applied: bool) -> None:
+        with self._lock:
+            book = self.actions if applied else self.intents
+            book[str(kind)] = book.get(str(kind), 0) + 1
+
+    def record_decision(self, trace: dict) -> None:
+        with self._lock:
+            self.last_decision = dict(trace)
+
+    def set_targets(self, **targets) -> None:
+        with self._lock:
+            self.targets.update(targets)
+
+    def report(self) -> dict:
+        with self._lock:
+            return {
+                "ticks": self.ticks,
+                "errors": self.errors,
+                "actions": dict(sorted(self.actions.items())),
+                "intents": dict(sorted(self.intents.items())),
+                "last_decision": dict(self.last_decision),
+                "targets": dict(sorted(self.targets.items())),
             }

@@ -238,20 +238,51 @@ def test_fault_plan_clear_releases_hangs_without_poisoning_later_ones(mod):
 
 
 def test_site_registry_metadata():
-    """The port's registry: every site with an owner, the engine's arming
-    variable and a note; ``list_sites`` filters as the JAX one does."""
+    """The port's registry: every site with an owner, the arming variable
+    its owner implies (replica sites ``LAMBDIPY_FAULT``, fleet sites
+    ``LAMBDIPY_FLEET_FAULT``) and a note; ``list_sites`` filters as the
+    JAX one does."""
     assert tuple(tfaults.REGISTRY) == tfaults.SITES
     for site in tfaults.REGISTRY.values():
-        assert site.owner in ("engine", "store", "pool"), site
-        assert site.env == "LAMBDIPY_FAULT" and site.note
+        assert site.owner in ("engine", "store", "pool", "router"), site
+        want = ("LAMBDIPY_FAULT" if site.owner in ("engine", "store")
+                else "LAMBDIPY_FLEET_FAULT")
+        assert site.env == want and site.note, site
         assert site.name in jfaults.REGISTRY
     engine = {s.name for s in tfaults.list_sites(owner="engine")}
     assert engine == {"segment_dispatch", "segment_fetch", "transport",
                       "group_prefill", "prefix_assemble"}
     assert {s.name for s in tfaults.list_sites(owner="store")} \
-        == {"prefix_walk", "session_pin", "offload_stall"}
-    assert {s.name for s in tfaults.list_sites(owner="pool")} \
-        == {"page_alloc"}
+        == {"prefix_walk", "session_pin", "offload_stall", "page_alloc"}
+    assert {s.name for s in tfaults.list_sites(owner="pool")} == {"probe"}
+    assert {s.name for s in tfaults.list_sites(owner="router")} \
+        == {"route_connect", "route_body", "route_latency", "kv_ship",
+            "kv_ship_chunk", "session_failover"}
+    fleet = {s.name for s in tfaults.list_sites(env="LAMBDIPY_FLEET_FAULT")}
+    assert "route_connect" in fleet and "prefix_walk" not in fleet
+
+
+def test_port_registry_equals_the_jax_registry():
+    """Site for site: the same names in the same order, each with JAX's
+    owner and arming variable."""
+    assert tfaults.SITES == jfaults.SITES
+    for name, site in jfaults.REGISTRY.items():
+        port = tfaults.REGISTRY[name]
+        assert (port.name, port.owner, port.env) \
+            == (site.name, site.owner, site.env), name
+
+
+@pytest.mark.parametrize("var", ["LAMBDIPY_FAULT", "LAMBDIPY_FLEET_FAULT"])
+def test_from_env_reads_its_own_variable(var):
+    """``FaultPlan.from_env`` reads the variable it is given, as JAX's
+    does: the fleet's plan never picks up a replica's spec."""
+    environ = {var: "route_connect:exception@n=1"}
+    for mod in (jfaults, tfaults):
+        got = mod.FaultPlan.from_env(environ, var=var).describe()
+        other = ("LAMBDIPY_FLEET_FAULT" if var == "LAMBDIPY_FAULT"
+                 else "LAMBDIPY_FAULT")
+        assert got == ["route_connect:exception@seg=1,n=1"]
+        assert mod.FaultPlan.from_env(environ, var=other).describe() == []
 
 
 def test_every_fire_site_in_the_port_is_registered():
@@ -281,16 +312,6 @@ def test_port_site_specs_parse_as_the_jax_parser_does(site):
     for spec in specs:
         assert tfaults.FaultPlan.from_spec(spec).describe() \
             == jfaults.FaultPlan.from_spec(spec).describe()
-
-
-@pytest.mark.parametrize("site", sorted(set(jfaults.REGISTRY)
-                                        - set(tfaults.REGISTRY)))
-def test_jax_only_sites_raise_not_ported(site):
-    jfaults.FaultPlan.from_spec(f"{site}:exception")  # a JAX site
-    with pytest.raises(ValueError, match="not ported"):
-        tfaults.FaultPlan.from_spec(f"{site}:exception")
-    with pytest.raises(ValueError, match="not ported"):
-        tfaults.FaultPlan.empty().arm(f"transport:delay;{site}:hang")
 
 
 # -- the engine: page_alloc --------------------------------------------------
@@ -1004,10 +1025,15 @@ def test_debug_faults_and_invariants_endpoints(weights):
         out = _post(base, "/v1/debug/faults",
                     {"spec": "segment_fetch:exception@seg=1"})
         assert out["ok"] and out["armed"]["sites"] == ["segment_fetch"]
+        # a fleet site arms on a replica's plan as on JAX's replica, and
+        # never fires there; a bad spec is a 400 that changes nothing
+        out = _post(base, "/v1/debug/faults", {"spec": "probe:exception"})
+        assert out["ok"] and out["armed"]["sites"] \
+            == ["probe", "segment_fetch"]
         with pytest.raises(urllib.error.HTTPError) as exc:
-            _post(base, "/v1/debug/faults", {"spec": "probe:exception"})
+            _post(base, "/v1/debug/faults", {"spec": "probe:nope"})
         assert exc.value.code == 400
-        assert "not ported" in json.loads(exc.value.read())["error"]
+        assert "bad fault spec" in json.loads(exc.value.read())["error"]
         r = _post(base, "/invoke", {"tokens": list(range(1, 41)),
                                     "max_new_tokens": 6})
         assert r["ok"] and r["tokens"] == state.server.generate(
@@ -1017,7 +1043,7 @@ def test_debug_faults_and_invariants_endpoints(weights):
         assert m["handler"]["batching"]["faults"]["replays"] \
             == {"attempted": 1, "succeeded": 1}
         out = _post(base, "/v1/debug/faults", {"clear": True})
-        assert out["ok"] and out["cleared"] == 1
+        assert out["ok"] and out["cleared"] == 2
         assert not out["armed"]["active"]
         assert _until(lambda: not state.engine._engine_running, 10)
         inv = _get(base, "/v1/debug/invariants")
