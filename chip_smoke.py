@@ -211,7 +211,31 @@ Phases, each of which fails the run with a non-zero exit:
    snapshot field None beyond the ROADMAP's list; (h) the replicas'
    ``handler.kernels`` = 225 x forwards and 32 x decode steps; (i)
    SIGTERM leaves no replica process and the card's memory back within 1
-   GiB;
+   GiB. Last, O: the chaos soak (``lambdipy_tpu_torch/chaos/``) on a
+   twin of M (g)'s bundle with JAX's soak extras (4 slots, segment 8, 8
+   new tokens, 32-token blocks, ``max_len`` the engine's 2,048; the
+   store's and the offload arena's MB scaled from JAX's tiny soak to as
+   many blocks of llama3-8b K/V): (a) ``SoakFleet``, r0 dense and r1
+   paged (64 pages, ``LAMBDIPY_KV_OFFLOAD=1``) spawned at once, the
+   in-process reference answering the plan beside the boot; (b)-(e) one
+   window, seed 11, 12 s, ``offload_stall`` in the schedule, JAX's whole
+   oracle: every request delivered bitwise or an explicit failure (0
+   silent), the SIGKILL and the drain applied, >= 2 faults overlapping
+   for >= 1 s, quiesce converged, the post-storm completion bitwise, the
+   canary, the timeline JAX's for the seed, the kill's respawn timed; (f)
+   the post-storm row on each replica alone; (g) each process's
+   ``handler.kernels`` = 225 x forwards and 32 x decode steps; (h)
+   teardown leaves no process and the card's memory back within 1 GiB.
+   O runs under a ceiling of its own (120 s), checked at the end of each
+   stage (boot, references, window, quiesce, teardown).
+
+   Cut for time: B, C, E, H, I and J serve llama3-8b at its published
+   widths with 8 of its 32 layers (``CUT_LAYERS``), every check kept, each
+   byte budget (store, offload arena, pins) scaled with the depth so that
+   it holds the same blocks; A, D-G and K-O run at full depth. After each
+   path the script prints the seconds since it started; at 1,150 s a
+   guard prints the path and stage in progress, stops every process the
+   script started and exits 3;
 5. print the whole script's time, the kernels' JSON line and, last, the
    device line.
 
@@ -226,6 +250,8 @@ import dataclasses
 import gc
 import json
 import math
+import os
+import signal
 import subprocess
 import sys
 import threading
@@ -243,8 +269,76 @@ OUT_DIR = Path("chiprun_out")
 L2_DEFEAT_BYTES = 160 << 20  # rotate input copies past the 50 MB L2
 
 
+# the whole script's guard: past this many seconds it names the path and
+# stage in progress, stops every process it started and exits non-zero
+# (the limit the script runs under is 1,200 s)
+SCRIPT_GUARD_S = 1150.0
+# what runs now, for the guard: the path, its stage where it names one, and
+# the last line printed
+PROGRESS = {"t0": time.perf_counter(), "path": "start", "stage": "",
+            "last": ""}
+
+
 def log(*args):
-    print(*args, flush=True)
+    text = " ".join(str(a) for a in args)
+    PROGRESS["last"] = text[:300]
+    print(text, flush=True)
+
+
+def took(what: str, t_start: float) -> None:
+    """The line after a path: its seconds and the script's running total."""
+    now = time.perf_counter()
+    log(f"{what} took {now - t_start:.1f} s; {now - PROGRESS['t0']:.1f} s "
+        f"since the script started")
+
+
+def _descendants() -> list:
+    """Every live process below this one, parents before their children."""
+    kids: dict = {}
+    for entry in Path("/proc").iterdir():
+        if not entry.name.isdigit():
+            continue
+        try:
+            status = (entry / "status").read_text()
+        except OSError:
+            continue
+        for line in status.splitlines():
+            if line.startswith("PPid:"):
+                kids.setdefault(int(line.split()[1]), []).append(
+                    int(entry.name))
+                break
+    out, todo = [], [os.getpid()]
+    while todo:
+        for pid in sorted(kids.get(todo.pop(0), ())):
+            out.append(pid)
+            todo.append(pid)
+    return out
+
+
+def start_guard(limit_s: float = SCRIPT_GUARD_S) -> None:
+    """At ``limit_s`` since the script started: print the path and stage in
+    progress, SIGKILL every process below this one (twice: a supervisor
+    killed between the passes respawns nothing) and exit 3."""
+    def fire():
+        elapsed = time.perf_counter() - PROGRESS["t0"]
+        text = (f"chip_smoke: {elapsed:.1f} s since the script started, past "
+                f"its {limit_s:.0f} s guard, in path {PROGRESS['path']} "
+                f"(stage {PROGRESS['stage'] or '-'}; last line "
+                f"{PROGRESS['last']!r}); exiting")
+        print(text, flush=True)
+        print(text, file=sys.stderr, flush=True)
+        for _ in range(2):
+            for pid in _descendants():
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except OSError:
+                    pass
+        os._exit(3)
+
+    timer = threading.Timer(
+        max(0.0, limit_s - (time.perf_counter() - PROGRESS["t0"])), fire)
+    timer.daemon = True
+    timer.start()
 
 
 def cuda_time(fn, n_copies: int = 1) -> float:
@@ -1276,12 +1370,40 @@ KERNELS = ("decode_attention", "decode_attention_int8kv",
            "int8_matmul", "flash_attention")
 
 
-def path_spec(path: str) -> dict:
+# Cut for time: these paths serve llama3-8b at its published widths with
+# CUT_LAYERS of its 32 layers, every check kept (the launch identities are
+# written in the model's layer count); A, D-G, K-O run at full depth
+CUT_LAYERS = 8
+FULL_LAYERS = 32
+CUT_PATHS = ("B", "C", "E", "H", "I", "J")
+STORE_MB = 512  # the handler's default prefix store
+# the byte budgets of an extra, scaled with the depth so that each holds as
+# many blocks, pages and heads at CUT_LAYERS as at FULL_LAYERS
+# (a session's pin budget is half the store's by default)
+CUT_BUDGETS = ("prefix_cache_mb", "kv_offload_mb")
+
+
+def cut(extra: dict) -> dict:
+    """``extra`` at the cut depth: ``layers`` and each byte budget scaled
+    (the store's default made explicit first)."""
+    out = {"prefix_cache_mb": str(STORE_MB), **extra,
+           "layers": str(CUT_LAYERS)}
+    for key in CUT_BUDGETS:
+        if key in out:
+            out[key] = str(int(out[key]) * CUT_LAYERS // FULL_LAYERS)
+    return out
+
+
+def path_spec(path: str, depth_cut: bool | None = None) -> dict:
     # the prefix store off, so the path's counts and numbers compare with
-    # the slices before it; path E drives the store
+    # the slices before it; path E drives the store. ``depth_cut``: at
+    # CUT_LAYERS (default: the path is one of CUT_PATHS)
+    extra = {**PATHS[path], "matmul_backend": "pallas",
+             "max_new_tokens": "16", "prefix_cache_mb": "0"}
+    if path in CUT_PATHS if depth_cut is None else depth_cut:
+        extra = cut(extra)
     return {"model": "llama3-8b", "dtype": "bfloat16", "quant": "int8",
-            "extra": {**PATHS[path], "matmul_backend": "pallas",
-                      "max_new_tokens": "16", "prefix_cache_mb": "0"}}
+            "extra": extra}
 
 
 def implied_launches(path: str, layers: int, news) -> dict:
@@ -1993,13 +2115,13 @@ def serve_engine_path(card: str) -> dict:
            "sched": sched, "chunked": chunked}
     t_front = time.perf_counter()
     out["F"] = serve_front_path(state, card)
-    log(f"path F took {time.perf_counter() - t_front:.1f} s")
+    took("path F", t_front)
     t_fault = time.perf_counter()
     out["G"] = serve_fault_path(state, reqs, resp, solo_out, depths, card)
-    log(f"path G took {time.perf_counter() - t_fault:.1f} s")
+    took("path G", t_fault)
     t_warm = time.perf_counter()
     out["warm"] = warm_turns(state, reqs, resp, card)
-    log(f"path D's warm turns took {time.perf_counter() - t_warm:.1f} s")
+    took("path D's warm turns", t_warm)
     del state, engine, server
     gc.collect()
     torch.cuda.empty_cache()
@@ -3508,7 +3630,7 @@ def serve_prefix_path(card: str) -> dict:
     from lambdipy_tpu_torch.runtime.server import BundleServer
 
     spec = {"model": "llama3-8b", "dtype": "bfloat16", "quant": "int8",
-            "extra": dict(PREFIX_EXTRA)}
+            "extra": cut(PREFIX_EXTRA)}
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3874,7 +3996,8 @@ SPEC_NEW = 256
 SPEC_PROMPT = 200   # the solo prompt: a phrase of 24 tokens repeated
 SPEC_SUFFIX = 64    # the suffix after the shared prefix
 SPEC_PREFIX = 2048
-SPEC_MODES = (("lookup", 1), ("model", 1), ("model", 32))
+# (draft mode, draft exit): 0 = the exit at the model's depth
+SPEC_MODES = (("lookup", 1), ("model", 1), ("model", 0))
 # the engines' pipeline depths by kv_paged: the dense engine at depth 2
 # only (the paged engines hold depth 1 against depth 2 under every draft
 # mode, and D (f) holds a depth-1 engine's rows against depth 2's)
@@ -3942,7 +4065,8 @@ def solo_spec(path: str, card: str) -> dict:
                                                      kernel_launches)
     from lambdipy_tpu_torch.runtime.server import BundleServer
 
-    state = generate_handler(path_spec(path), HandlerContext(device="cuda"))
+    state = generate_handler(path_spec(path, depth_cut=True),
+                             HandlerContext(device="cuda"))
     server, cfg = state.server, state.server.model.cfg
     layers = cfg.layers
     attn = "decode_attention_int8kv" if path == "B" else "decode_attention"
@@ -4075,7 +4199,8 @@ def spec_engines(card: str) -> dict:
     directly through paged engines at depths 2 and 1 and a dense one at
     depth 2, spec off and at ``spec_k = 8`` with lookup drafts and the
     model tier at
-    ``draft_exit`` 1 and 32: every row, greedy and seeded-sampled,
+    ``draft_exit`` 1 and the model's depth: every row, greedy and
+    seeded-sampled,
     bitwise the spec-off engine's (tokens and logprobs); the launch
     counters the steps, verifies and draft forwards imply; every step
     and verify a replay, none eager; the pool drained. Prints acceptance,
@@ -4088,7 +4213,8 @@ def spec_engines(card: str) -> dict:
     from lambdipy_tpu_torch.runtime.metrics import SpecDecodeStats
     from lambdipy_tpu_torch.runtime.server import BundleServer
 
-    extra = {**ENGINE_EXTRA, "max_new_tokens": "16", "prefix_cache_mb": "0"}
+    extra = cut({**ENGINE_EXTRA, "max_new_tokens": "16",
+                 "prefix_cache_mb": "0"})
     state = generate_handler(
         {"model": "llama3-8b", "dtype": "bfloat16", "quant": "int8",
          "extra": {**extra, "spec_k": str(SPEC_K)}},
@@ -4145,7 +4271,8 @@ def spec_engines(card: str) -> dict:
             base = {**ENGINE_EXTRA, "kv_paged": paged,
                     "pipeline_depth": depth,
                     "kv_pages": str(sum(charges) + 1)}
-            runs = [("off", 0, 0)] + [(m, SPEC_K, x) for m, x in SPEC_MODES]
+            runs = [("off", 0, 0)] + [(m, SPEC_K, x or layers)
+                                      for m, x in SPEC_MODES]
             if paged == "1" and depth == "2":
                 runs.append(("off", 0, 0))  # spec off, timed warm
             for mode, k, exit_layer in runs:
@@ -4650,14 +4777,14 @@ def serve_ship_path(card: str) -> dict:
     from lambdipy_tpu_torch.runtime.server import BundleServer
 
     spec = {"model": "llama3-8b", "dtype": "bfloat16", "quant": "int8",
-            "extra": dict(PREFIX_EXTRA)}
+            "extra": cut(PREFIX_EXTRA)}
     t0 = time.perf_counter()
     a_state = generate_handler(spec, HandlerContext(device="cuda"))
     weights = a_state.server.model.state_dict()
     b_state = generate_handler(spec, HandlerContext(device="cuda",
                                                     state_dict=weights))
     o_state = generate_handler(
-        {**spec, "extra": {**PREFIX_EXTRA, **OFFLOAD_EXTRA}},
+        {**spec, "extra": cut({**PREFIX_EXTRA, **OFFLOAD_EXTRA})},
         HandlerContext(device="cuda", state_dict=weights))
     del weights
     states = (a_state, b_state, o_state)
@@ -4902,7 +5029,7 @@ def serve_longctx_path(card: str) -> dict:
     from lambdipy_tpu_torch.runtime.server import BundleServer
 
     spec = {"model": "llama3-8b", "dtype": "bfloat16", "quant": "int8",
-            "extra": dict(LC_EXTRA)}
+            "extra": cut(LC_EXTRA)}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = generate_handler(spec, HandlerContext(device="cuda"))
@@ -6516,10 +6643,11 @@ def _launch_identity(metrics: dict, layers: int) -> tuple:
     """Summed over the replicas' ``/metrics`` ``handler``: the kernels'
     counters and what the forwards and decode steps imply (path M (g)'s
     count: prefill programs, including the prefix store's walk and export
-    chunks, solo decode steps, the engine's continuations and forwards)."""
+    chunks, solo decode steps, the engine's continuations and forwards).
+    A paged engine's steps launch kernel 3, a dense engine's kernel 1."""
     got = dict.fromkeys(KERNELS, 0)
     want = dict.fromkeys(KERNELS, 0)
-    forwards = steps = solo = 0
+    forwards = steps = dense = solo = 0
     for rep in metrics.values():
         h = rep["handler"]
         es = h.get("batching") or {}
@@ -6528,13 +6656,16 @@ def _launch_identity(metrics: dict, layers: int) -> tuple:
         forwards += (h["prefill_replays"] + h["eager_prefills"]
                      + h["replays"] + h["eager_steps"]
                      + es.get("prefix_joins", 0) + es.get("forwards", 0))
-        steps += es.get("steps", 0)
+        if es.get("paged", True):
+            steps += es.get("steps", 0)
+        else:
+            dense += es.get("steps", 0)
         solo += h["replays"] + h["eager_steps"]
     want["int8_matmul"] = (7 * layers + 1) * forwards
     want["paged_decode_attention"] = layers * steps
-    want["decode_attention"] = layers * solo
-    return got, want, {"forwards": forwards, "engine_steps": steps,
-                       "solo_steps": solo}
+    want["decode_attention"] = layers * (solo + dense)
+    return got, want, {"forwards": forwards, "engine_steps": steps + dense,
+                       "dense_engine_steps": dense, "solo_steps": solo}
 
 
 def _snapshot_nones(fleet: FleetProc, metrics: dict) -> dict:
@@ -6556,7 +6687,8 @@ def _snapshot_nones(fleet: FleetProc, metrics: dict) -> dict:
             for v in snap.replicas}
 
 
-def _window_bundle(bundle: Path, root: Path) -> Path:
+def _window_bundle(bundle: Path, root: Path,
+                   changes: dict | None = None) -> Path:
     """``bundle`` as the fleet serves it. The recipe's engine holds 2,048
     positions (``batch_cache_len``) of llama3-8b's 8,192-position window,
     and the prefix store stands down under an engine narrower than the
@@ -6566,18 +6698,20 @@ def _window_bundle(bundle: Path, root: Path) -> Path:
     files are hard links to its own but for the manifest, whose extra
     gives the model the engine's window (``max_len`` = ``batch_cache_len``)
     in the manifest's payload and in ``handler.py``'s ``_SPEC``, which the
-    boot reads; a bundle with no ``batch_cache_len`` is served as it is."""
+    boot reads, with ``changes`` over it; a bundle with no
+    ``batch_cache_len`` and no ``changes`` is served as it is."""
     import ast
-    import os
     import shutil
 
     manifest = json.loads((bundle / "manifest.json").read_text())
     extra = manifest["payload"].get("extra") or {}
-    if extra.get("batch_cache_len") in (None, ""):
+    if extra.get("batch_cache_len") in (None, "") and not changes:
         return bundle
     out = root / "bundle"
     shutil.copytree(bundle, out, copy_function=os.link)
-    window = {"max_len": extra["batch_cache_len"]}
+    window = ({} if extra.get("batch_cache_len") in (None, "")
+              else {"max_len": extra["batch_cache_len"]})
+    window.update(changes or {})
     manifest["payload"]["extra"] = {**extra, **window}
     lines = (bundle / "handler.py").read_text().splitlines(keepends=True)
     for i, line in enumerate(lines):
@@ -7042,11 +7176,262 @@ def serve_fleet_path(card: str, bundle: Path, *, device: str = "cuda",
     return out
 
 
+# path O: the chaos soak (lambdipy_tpu_torch/chaos/) on the card, one window
+# of it over a 2-replica fleet of a twin of M (g)'s llama3-8b bundle
+O_SEED = 11
+O_SECONDS = 12.0     # generate_timeline's floor
+O_CEILING_S = 120.0  # the leg's own wall ceiling, checked at each stage
+# the oracle's waiter bound, the wait for both replicas routable after the
+# window and the nemesis's join past it (the entry point's defaults, for
+# the CPU: 90, 240 and 60 s)
+O_WAITER_S = 60.0
+O_RECOVERY_S = 60.0
+O_JOIN_S = 10.0
+# JAX's soak bundle (lambdipy_tpu/chaos/soak.py:327-336) over the recipe's
+# extra: the engine's slots and segment, new tokens, the store's block and
+# the session lease
+O_EXTRA = {"max_new_tokens": "8", "prefix_block": "32", "batch_max": "4",
+           "batch_segment": "8", "session_idle_s": "60",
+           "warm_group_prefill": "0", "serve_aot": "0"}
+O_BLOCK = 32
+O_NEW = 8
+# JAX's soak budgets on llama-tiny (f32): its store's 64 MB and the host
+# offload arena's default 256 MB; O gives each the MB that holds as many
+# 32-token blocks of llama3-8b K/V
+O_TINY_MB = {"prefix_cache_mb": 64, "kv_offload_mb": 256}
+O_FREE_SLACK = 1 << 30
+
+
+def _block_bytes(cfg, block: int) -> int:
+    return (block * cfg.layers * 2 * cfg.kv_heads * cfg.head_dim
+            * torch.empty((), dtype=cfg.dtype).element_size())
+
+
+def _soak_budgets(cfg) -> dict:
+    """O_TINY_MB scaled from llama-tiny's block bytes to ``cfg``'s."""
+    from lambdipy_tpu_torch.models import registry
+
+    tiny = registry.get("llama-tiny").build().config
+    per = _block_bytes(tiny, O_BLOCK)
+    big = _block_bytes(cfg, O_BLOCK)
+    return {k: str(-(-(mb << 20) // per * big >> 20))
+            for k, mb in O_TINY_MB.items()}
+
+
+class _Routable:
+    """Polls the pool every 50 ms from the window's start: each replica's
+    routable and pid transitions, seconds from the start."""
+
+    def __init__(self, pool):
+        self.pool, self.t0 = pool, time.perf_counter()
+        self.events: list = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        last: dict = {}
+        while not self._stop.wait(0.05):
+            for name, r in list(self.pool.replicas.items()):
+                now = (r.routable, r.pid)
+                if last.get(name) != now:
+                    last[name] = now
+                    self.events.append((round(time.perf_counter() - self.t0,
+                                              3), name, *now))
+
+    def stop(self) -> list:
+        self._stop.set()
+        self._thread.join(5)
+        return self.events
+
+
+def serve_soak_path(card: str, bundle: Path, *, device: str = "cuda") -> dict:
+    """Path O: one window of the chaos soak (``chaos/soak.py``) on the card
+    over a twin of ``bundle`` carrying JAX's soak extras (``O_EXTRA``, the
+    store and offload MB of ``_soak_budgets``): ``SoakFleet`` (r0 dense, r1
+    paged with ``LAMBDIPY_KV_OFFLOAD=1`` and 64 pages, spawned at once,
+    the in-process reference answering the plan's requests beside the
+    boot), ``run_window`` at seed 11 for 12 s with ``offload_stall`` in the
+    schedule, JAX's whole oracle; then the post-storm row sent to each
+    replica alone, bitwise the reference's; each process's launch identity;
+    SIGTERM leaves no process and the card's memory back within 1 GiB. A
+    wall ceiling of ``O_CEILING_S`` is checked at the end of each stage
+    (boot, references, window, quiesce, teardown): past it the path exits
+    naming the stage. ``device="cpu"`` rehearses it on a small bundle (the
+    launch identity and the card's memory left out)."""
+    import shutil
+    import tempfile
+
+    from lambdipy_tpu_torch.bundle.format import load_manifest
+    from lambdipy_tpu_torch.chaos import soak
+    from lambdipy_tpu_torch.chaos.nemesis import (generate_timeline,
+                                                  timeline_properties)
+    from lambdipy_tpu_torch.models import registry
+    from lambdipy_tpu_torch.runtime.handlers import kernel_launches
+
+    cuda = device == "cuda"
+    t0 = time.perf_counter()
+    stages: dict = {}
+    marks = [0.0]
+
+    def stage(name: str) -> None:
+        now = time.perf_counter() - t0
+        stages[name] = round(now - marks[-1], 2)
+        marks.append(now)
+        following = {"boot": "references", "references": "window",
+                     "window": "quiesce", "quiesce": "teardown"}
+        PROGRESS["stage"] = following.get(name, "")
+        if now > O_CEILING_S:
+            raise SystemExit(f"path O: past its {O_CEILING_S:.0f} s ceiling "
+                             f"at the end of stage {name} ({now:.1f} s; "
+                             f"stages {stages})")
+
+    PROGRESS["stage"] = "boot"
+    root = Path(tempfile.mkdtemp(prefix="lambdipy-soak-"))
+    payload = load_manifest(bundle)["payload"]
+    cfg = registry.get(payload["model"]).build(
+        dtype=payload["dtype"], quant=payload.get("quant"),
+        extra=dict(payload.get("extra") or {})).config
+    budgets = _soak_budgets(cfg)
+    served = _window_bundle(bundle, root, {**O_EXTRA, **budgets})
+    extra = load_manifest(served)["payload"]["extra"]
+    log(f"path O serves a twin of {bundle} with JAX's soak extras: "
+        f"max_len {extra['max_len']} (the engine's window), "
+        f"{ {k: extra[k] for k in O_EXTRA} }; the store "
+        f"{budgets['prefix_cache_mb']} MB and the offload arena "
+        f"{budgets['kv_offload_mb']} MB, JAX's {O_TINY_MB} on llama-tiny "
+        f"scaled to as many {O_BLOCK}-token blocks of {payload['model']}'s "
+        f"K/V ({_block_bytes(cfg, O_BLOCK)} bytes a block)")
+    timeline = generate_timeline(seed=O_SEED, duration_s=O_SECONDS,
+                                 replicas=list(soak.REPLICAS),
+                                 must_include="offload_stall")
+    log(f"path O: seed {O_SEED}, {O_SECONDS:.0f} s: "
+        f"{timeline_properties(timeline)}")
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+        set_launches_to_zero()  # counters to 0 just before the path
+    free_before = torch.cuda.mem_get_info()[0] if cuda else 0
+    out: dict = {"budgets": budgets}
+    fleet = left = None
+    try:
+        fleet = soak.SoakFleet(
+            bundle=served, device=device, block=O_BLOCK, n_new=O_NEW,
+            plan_seeds=((O_SEED, O_SECONDS),), ready_timeout=O_CEILING_S)
+        free_boot = torch.cuda.mem_get_info()[0] if cuda else 0
+        cold = {n: http_json(r.url + "/healthz")["cold_start"]
+                for n, r in fleet.pool.replicas.items()}
+        stage("boot")
+        log(f"path O (a) SoakFleet {list(soak.REPLICAS)} (r1 paged, 64 "
+            f"pages, the offload tier) and the in-process reference: "
+            f"{stages['boot']:.2f} s, {fleet.boot_s} [{card}]; cold_start "
+            f"{json.dumps(cold)}; the card's free memory "
+            f"{free_before / 2**30:.2f} GiB before, {free_boot / 2**30:.2f} "
+            f"GiB after the boot")
+        watch = _Routable(fleet.pool)
+        rec = soak.run_window(fleet, seed=O_SEED, duration_s=O_SECONDS,
+                              waiter_bound_s=O_WAITER_S,
+                              recovery_s=O_RECOVERY_S, join_slack_s=O_JOIN_S,
+                              on_stage=stage)
+        events = watch.stop()
+        kill = next(e for e in timeline if e.action == "kill")
+        log(f"path O (b) seed {O_SEED}, {O_SECONDS:.0f} s: ok {rec['ok']}, "
+            f"{rec['requests']} requests, tallies {rec['tallies']}, "
+            f"violations {rec['violations']}")
+        log(f"path O (c) timeline {rec['timeline_props']}, nemesis "
+            f"{rec['nemesis_applied']} events applied, errors "
+            f"{rec['nemesis_errors']}; JAX's timeline for the seed: "
+            f"{rec['timeline'] == soak.render_timeline(timeline)}")
+        log(f"path O (d) {kill.target} SIGKILLed at {kill.t:.3f} s; routable "
+            f"and pid by the pool, seconds from the window's start: {events}; "
+            f"recovery_s {rec['recovery_s']}, window_wall_s "
+            f"{rec['window_wall_s']}, stages {stages} [{card}]")
+        log(f"path O (e) canary {rec['canary']}, spill depth "
+            f"{rec['spill_depth']}")
+        if not rec["ok"] or rec["tallies"]["silent"] \
+                or rec["canary"] != {"normal_ok": True,
+                                     "suppressed_fails": True} \
+                or rec["timeline"] != soak.render_timeline(timeline):
+            raise SystemExit("path O (b)-(e): the soak window failed JAX's "
+                             "oracle")
+        # (f) the post-storm row on each replica alone, against the
+        # reference, so that both replicas' engines run after the storm
+        probe = [3, 1, 4, 1, 5, 9, 2, 6]
+        want = fleet.ref_completion(probe, {}, O_NEW)
+        alone = {}
+        for name, r in fleet.pool.replicas.items():
+            got = http_json(r.url + "/v1/completions",
+                            {"prompt": probe, "max_tokens": O_NEW,
+                             "temperature": 0})["choices"][0]["tokens"]
+            alone[name] = got == want
+        log(f"path O (f) the post-storm row sent to each replica alone, "
+            f"bitwise the reference's: {alone}")
+        if not all(alone.values()):
+            raise SystemExit("path O (f): a replica's post-storm row differs")
+        # (g) each process's launch identity: 225 x forwards, 32 x steps
+        urls = {n: r.url for n, r in fleet.pool.replicas.items()}
+        urls["reference"] = fleet.ref_url
+        got, implied = {}, {}
+        for _ in range(20 if cuda else 1):
+            metrics = {n: http_json(u + "/metrics") for n, u in urls.items()}
+            ids = {n: _launch_identity({n: m}, cfg.layers)
+                   for n, m in metrics.items()}
+            got = {n: v[0] for n, v in ids.items()}
+            implied = {n: v[1] for n, v in ids.items()}
+            if got == implied:
+                break
+            time.sleep(0.5)
+        for n in ids:
+            log(f"path O (g) {n}: handler.kernels {got[n]}, implied "
+                f"{implied[n]} ({ids[n][2]})")
+        if cuda and (got != implied or not all(
+                got[n][k] for n, k in (
+                    (soak.REPLICAS[0], "decode_attention"),
+                    (soak.REPLICAS[1], "paged_decode_attention"),
+                    (soak.REPLICAS[0], "int8_matmul"),
+                    (soak.REPLICAS[1], "int8_matmul")))):
+            raise SystemExit("path O (g): the launch identity fails, or a "
+                             "replica launched none of its kernels")
+        local = kernel_launches()
+        out["launches"] = {k: local[k] + sum(got[n][k] for n in soak.REPLICAS)
+                           for k in KERNELS}
+        out.update(record=rec,
+                   routable=events, alone=alone, cold_start=cold,
+                   boot_s=fleet.boot_s, free_before=free_before,
+                   free_boot=free_boot)
+    finally:
+        if fleet is not None:
+            fleet.close()
+            shutil.rmtree(fleet.tmp, ignore_errors=True)
+        left = _bundle_processes(served)
+        for pid in left:  # a failed stage's leftovers
+            subprocess.run(["kill", "-9", str(pid)], check=False)
+        shutil.rmtree(root, ignore_errors=True)
+    # (h) teardown
+    del fleet
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    free_after = torch.cuda.mem_get_info()[0] if cuda else 0
+    stage("teardown")
+    log(f"path O (h) SoakFleet.close: soak processes alive {left}; the "
+        f"card's free memory {free_before / 2**30:.2f} GiB before O, "
+        f"{free_after / 2**30:.2f} GiB after [{card}]; stages {stages}, "
+        f"{time.perf_counter() - t0:.1f} s of the {O_CEILING_S:.0f} s "
+        f"ceiling")
+    if left or (cuda and free_after < free_before - O_FREE_SLACK):
+        raise SystemExit("path O (h): the teardown left processes or card "
+                         "memory behind")
+    out.update(stages=stages, free_after=free_after, left=left)
+    return out
+
+
 def main() -> int:
-    t_script = time.perf_counter()
+    t_script = PROGRESS["t0"]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    start_guard()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -7060,12 +7445,14 @@ def main() -> int:
 
     from lambdipy_tpu_torch.ops import _build
 
+    PROGRESS["path"] = "the kernels' build"
     build_s = _build.build_all()
     log(f"kernels built in {build_s:.1f} s")
     for name, text in _build.build_logs.items():
         log(f"--- nvcc {name}.cu\n{text.strip()}")
 
     t_phase = time.perf_counter()
+    PROGRESS["path"] = "the kernel checks"
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = {"decode_attention": check_decode_attention(gen, quant=False),
                "decode_attention_int8kv": check_decode_attention(gen,
@@ -7074,10 +7461,11 @@ def main() -> int:
                "int8_matmul": check_int8_matmul(gen),
                "flash_attention": check_flash_attention(gen)}
     small = check_small_model()
-    log(f"kernel checks took {time.perf_counter() - t_phase:.1f} s")
+    took("kernel checks", t_phase)
 
     # path D first: its times come before any profiler session
     t_path = time.perf_counter()
+    PROGRESS["path"] = "D, F and G"
     paths = {"D": serve_engine_path(card)}
     # path F ran on D's handler, after D's numbers; D's chunked turns are
     # counted apart from its HTTP burst
@@ -7085,58 +7473,73 @@ def main() -> int:
     paths["G"] = paths["D"].pop("G")
     paths["D-chunked"] = paths["D"].pop("chunked")
     paths["D-warm"] = paths["D"].pop("warm")
-    log(f"paths D, F and G took {time.perf_counter() - t_path:.1f} s")
+    took("paths D, F and G", t_path)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"after paths D, F and G: {torch.cuda.memory_allocated() / 2**30:.2f}"
         f" GiB still allocated, threads alive: "
         f"{sorted(t.name for t in threading.enumerate())}")
+    def begin(path: str) -> float:
+        PROGRESS.update(path=path, stage="")
+        if path in CUT_PATHS:
+            log(f"path {path}: llama3-8b at {CUT_LAYERS} of its "
+                f"{FULL_LAYERS} layers, its published widths (a cut for time; "
+                f"every check kept, its figures not comparable with 32-layer "
+                f"ones)")
+        return time.perf_counter()
+
     for path in PATHS:
-        t_path = time.perf_counter()
+        t_path = begin(path)
         paths[path] = serve_path(path, card)
-        log(f"path {path} took {time.perf_counter() - t_path:.1f} s")
-    t_path = time.perf_counter()
+        took(f"path {path}", t_path)
+    t_path = begin("E")
     paths["E"] = serve_prefix_path(card)
-    log(f"path E took {time.perf_counter() - t_path:.1f} s")
-    t_path = time.perf_counter()
+    took("path E", t_path)
+    t_path = begin("H")
     paths["H"] = serve_spec_path(card)
-    log(f"path H took {time.perf_counter() - t_path:.1f} s")
+    took("path H", t_path)
     gc.collect()
     torch.cuda.empty_cache()
-    t_path = time.perf_counter()
+    t_path = begin("I")
     paths["I"] = serve_ship_path(card)
-    log(f"path I took {time.perf_counter() - t_path:.1f} s")
+    took("path I", t_path)
     gc.collect()
     torch.cuda.empty_cache()
-    t_path = time.perf_counter()
+    t_path = begin("J")
     paths["J"] = serve_longctx_path(card)
-    log(f"path J took {time.perf_counter() - t_path:.1f} s")
+    took("path J", t_path)
     gc.collect()
     torch.cuda.empty_cache()
-    t_path = time.perf_counter()
+    t_path = begin("K")
     paths["K"] = serve_bundle_path(card)
-    log(f"path K took {time.perf_counter() - t_path:.1f} s")
+    took("path K", t_path)
     gc.collect()
     torch.cuda.empty_cache()
-    t_path = time.perf_counter()
+    t_path = begin("L")
     paths["L"] = serve_classify_path(card)
-    log(f"path L took {time.perf_counter() - t_path:.1f} s")
+    took("path L", t_path)
     gc.collect()
     torch.cuda.empty_cache()
     import shutil
     import tempfile
 
-    # M (g) builds the llama bundle that N's fleet serves; N deletes it
+    # M (g) builds the llama bundle that N's and O's fleets serve; it is
+    # deleted after O
     llama_root = Path(tempfile.mkdtemp(prefix="lambdipy-llama-"))
     try:
-        t_path = time.perf_counter()
+        t_path = begin("M")
         paths["M"] = serve_lifecycle_path(card, llama_root / "bundle")
-        log(f"path M took {time.perf_counter() - t_path:.1f} s")
+        took("path M", t_path)
         gc.collect()
         torch.cuda.empty_cache()
-        t_path = time.perf_counter()
+        t_path = begin("N")
         paths["N"] = serve_fleet_path(card, llama_root / "bundle")
-        log(f"path N took {time.perf_counter() - t_path:.1f} s")
+        took("path N", t_path)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_path = begin("O")
+        paths["O"] = serve_soak_path(card, llama_root / "bundle")
+        took("path O", t_path)
     finally:
         shutil.rmtree(llama_root, ignore_errors=True)
     # each kernel's launches: the sum over the paths, each path counted
@@ -7149,6 +7552,7 @@ def main() -> int:
         {"card": card, "torch": torch.__version__, "build_s": build_s,
          "kernels": list(kernels.values()), "small_model": small,
          "main_path": paths}, indent=1))
+    PROGRESS.update(path="the result", stage="")
     log(f"the whole script took {time.perf_counter() - t_script:.1f} s "
         f"[{card}]")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

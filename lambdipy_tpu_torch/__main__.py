@@ -1184,7 +1184,6 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     from lambdipy_tpu_torch.bundle.format import BundleError
-    from lambdipy_tpu_torch.fleet.pool import FleetError
     from lambdipy_tpu_torch.recipes.schema import RecipeError
     from lambdipy_tpu_torch.resolve.registry import RegistryError
     from lambdipy_tpu_torch.resolve.releases import ReleaseError
@@ -1194,8 +1193,16 @@ def main(argv=None) -> int:
     args = parser().parse_args(argv)
     try:
         args.fn(args)
-    except (CliError, RecipeError, BundleError, RegistryError, ReleaseError,
-            ResolutionError, DeployError, FleetError) as e:
+    except Exception as e:
+        # a FleetError can come only from a command that loaded the fleet:
+        # importing it here would import torch (through the router) into
+        # every command, `recipes` and `stop` included
+        pool = sys.modules.get("lambdipy_tpu_torch.fleet.pool")
+        if not isinstance(e, (CliError, RecipeError, BundleError,
+                              RegistryError, ReleaseError, ResolutionError,
+                              DeployError)) \
+                and not (pool and isinstance(e, pool.FleetError)):
+            raise
         # printed as the JAX CLI prints its ClickExceptions
         _echo(f"Error: {e}", err=True)
         return 1

@@ -1001,9 +1001,13 @@ class FleetRouter:
             except Exception as e:  # noqa: BLE001 — writer classifies
                 rd_err.append(e)
             finally:
+                # the end marker waits for room as a frame does: dropped
+                # while the writer is still sending the window, it would
+                # leave the writer waiting for it until the deadline
+                # (JAX's relay waits 1 s, then drops it)
                 try:
-                    frames_q.put(None, timeout=1.0)
-                except Full:  # writer already gone; nothing drains
+                    q_put(None)
+                except _ShipStalled:  # writer gone, or past the deadline
                     pass
 
         if self.ship_pipelined:

@@ -193,6 +193,24 @@ def test_recipes_and_show(recipe_dir, capsys):
     assert rc == 1 and "no recipe named" in err
 
 
+@pytest.mark.parametrize("argv", [["recipes"], ["deployments"],
+                                  ["stop", "nothing"], ["releases"]])
+def test_a_command_that_needs_no_model_imports_no_torch(argv, tmp_path):
+    """The CLI's own errors are caught without importing the fleet (whose
+    router imports torch): a command that serves nothing starts in the
+    time of its own imports, not of torch's."""
+    code = ("import sys\n"
+            "from lambdipy_tpu_torch.__main__ import main\n"
+            f"rc = main({argv!r})\n"
+            "print(rc, 'torch' in sys.modules)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "HOME": str(tmp_path)})
+    rc, has_torch = proc.stdout.split()[-2:]
+    assert has_torch == "False", proc.stdout + proc.stderr
+    assert rc in ("0", "1"), proc.stdout + proc.stderr
+
+
 def test_build_publishes_then_hits_the_cache(recipe_dir, tmp_path, capsys):
     reg = tmp_path / "registry"
     args = ["build", "tiny-resnet", "--recipe-dir", recipe_dir, "--registry",

@@ -1251,3 +1251,31 @@ def test_retry_budget_states_are_jaxs_under_one_event_sequence(seed):
         traces.append(trace)
     assert traces[0] == traces[1]
     assert traces[1][-1][1]["denied"] > 0 and traces[1][-1][1]["allowed"]
+
+
+def test_relay_end_marker_waits_for_a_slow_writer(disagg_pair):
+    """The relay's reader finishes while the writer is still sending: the
+    end marker waits for room in the window as a frame does, so the ship
+    ends when the writer is done. (Dropped after a 1 s wait, it left the
+    writer waiting for it until the request timeout, and the ship failed
+    as stalled.) A 1.5 s delay on the second of three chunks, a window
+    of one frame."""
+    dec, pre, pool = disagg_pair
+    frames = _stub_stream_frames()
+    pre.cfg["kv_stream_frames"] = frames
+    plan = FaultPlan.from_spec("kv_ship_chunk:delay@ms=1500,seg=2,n=1")
+    router = _router(pool, faults=plan, ship_window=1, request_timeout=20.0)
+    try:
+        base = f"http://127.0.0.1:{router.port}"
+        t0 = time.monotonic()
+        out = _post(f"{base}/invoke", {"tokens": list(range(1, 13)),
+                                       "max_new_tokens": 2})
+        wall = time.monotonic() - t0
+        assert out["ok"]
+        rep = router.disagg.report()
+        assert rep["ships"] == 1 and rep["chunks_relayed"] == 3
+        assert rep["mid_stream_failures"] == 0 and not rep["fallbacks"]
+        assert dec.imports == [b"".join(frames)]
+        assert 1.5 <= wall < 10.0
+    finally:
+        router.stop()
