@@ -51,7 +51,11 @@ Phases, each of which fails the run with a non-zero exit:
    steps and forwards, and the pool must drain to 0 live pages. Then A
    ``attn_backend="blocked"`` (float KV), B ``blocked`` with
    ``kv_quant="int8"``, C ``attn_backend="flash"``, B and C with a
-   ~4,000-token prompt. Around each path the kernels' launch counters
+   ~4,000-token prompt; A (m): 4 concurrent requests (greedy and seeded
+   sampled, 20-31 prompt tokens, 16-32 new) through a MicroBatcher
+   handler (``batch_window_ms = 2``, ``batch_max = 4``) on A's weights,
+   every row bitwise its solo ``generate``, fewer calls than rows, the
+   wall against the 4 one after another. Around each path the kernels' launch counters
    are set to 0 and must then equal what the path implies, and every
    decode step must have been a graph replay (the replays counted in the
    launch counters); each path's rows must be bitwise (tokens and
@@ -72,7 +76,18 @@ Phases, each of which fails the run with a non-zero exit:
    scheduler (``fair``) into an engine at pipeline depth 2; D (f) holds
    every row of a depth-1 engine bitwise the depth-2 engines', and the
    same burst is driven directly at depths 2, then 1 (tok/s and TTFT
-   printed), with the depth-2 engine's ``pipeline`` block. D's chunked
+   printed), with the depth-2 engine's ``pipeline`` block. D's engine
+   buckets its decode windows (the handler's default, as in JAX): its
+   ``decode_window`` is printed, ``savings_ratio`` < 1; D (j) drives the
+   burst through a paged engine with ``batch_window_bucketing = "0"``:
+   every row bitwise the bucketing engines', the full window its only
+   bucket, tok/s and ``compile_count`` beside the bucketing engine's;
+   D (k) boots a 1-layer bf16 twin of llama3-8b (``draft_twin``) and
+   drives the burst of 8 through a paged engine at ``spec_k = 8``,
+   ``draft_mode = "aux"``: every row bitwise spec off, the launches 225 x
+   the target's forwards, 32 x its steps and 1 x the twin's decode steps
+   on kernel 1; the aux counters, tok/s, the twin's boot and memory and a
+   proposal's wall printed. D's chunked
    turns drive the same burst through paged depth-2 engines with
    ``prefill_chunk`` off, 512, 512, off (the long rows walk 512-token
    chunks between the engine's segments): tok/s, steps, segments
@@ -102,7 +117,9 @@ Phases, each of which fails the run with a non-zero exit:
    returns; with ``max_replays=0`` the waiter gets the timeout within the
    same bound and the self-probe clears the wedge; (c) two failures step
    the ladder to 1, the replay runs at depth 1 bitwise, a clean interval
-   restores it; (e) D's burst at the defaults (no wait polled), its tok/s
+   restores it; (f) three failures step it to 2, where the replay's
+   segments run at the full window alone, bitwise solo, and a clean
+   interval restores it; (e) D's burst at the defaults (no wait polled), its tok/s
    beside D's; (d) E's traffic routed through a store over a second paged
    engine on the same server, every row bitwise its unfaulted routed run
    after ``segment_fetch:exception@seg=2``. Each phase's launch counters,
@@ -290,6 +307,14 @@ def took(what: str, t_start: float) -> None:
     now = time.perf_counter()
     log(f"{what} took {now - t_start:.1f} s; {now - PROGRESS['t0']:.1f} s "
         f"since the script started")
+
+
+def _timed(what: str, fn, *args):
+    """``fn(*args)``, its seconds logged as :func:`took` logs them."""
+    t_start = time.perf_counter()
+    out = fn(*args)
+    took(what, t_start)
+    return out
 
 
 def _descendants() -> list:
@@ -1607,6 +1632,124 @@ def graph_vs_eager(path: str, server, requests: dict, p100, ragged,
             "ragged4_decode_tok_s": ragged_rate, "card": card}
 
 
+# A (m): 4 concurrent requests through a MicroBatcher handler on A's
+# weights, (prompt tokens, new tokens, knobs): greedy and seeded sampled,
+# prompts of one prefill width (the 32-token bucket: the port fuses a row
+# only at its own width) and of different lengths and budgets
+MICRO_REQS = ((20, 32, {}),
+              (24, 24, {"temperature": 0.8, "top_p": 0.9, "seed": 7}),
+              (27, 32, {}),
+              (31, 16, {"temperature": 0.7, "top_k": 50, "seed": 3}))
+MICRO_EXTRA = {"batch_window_ms": "2", "batch_max": "4"}
+
+
+def micro_batcher_leg(state, card: str) -> dict:
+    """A (m): the MicroBatcher (``runtime/batching.py``). A handler built
+    with A's extras and ``batch_window_ms = 2``, ``batch_max = 4`` over
+    A's weights (the same tensors, a server of its own) takes
+    ``MICRO_REQS`` at once, twice (the first through ``invoke``, its
+    served logprobs rounded as D's; the second straight into its
+    batcher, unrounded and timed): every row bitwise its solo
+    ``generate`` (tokens and logprobs), the batcher's counters a fused
+    call (fewer calls than rows), the wall of the second burst against
+    the 4 requests served one after another by solo ``generate``; the
+    launches 225 x forwards and 32 x decode steps, every prefill and
+    decode step a replay."""
+    import threading
+
+    from lambdipy_tpu_torch.runtime.handlers import (HandlerContext,
+                                                     generate_handler,
+                                                     kernel_launches)
+
+    PROGRESS["stage"] = "A (m): the MicroBatcher"
+    spec = path_spec("A")
+    spec["extra"].update(MICRO_EXTRA)
+    handler = generate_handler(spec, HandlerContext(
+        device="cuda", state_dict=state.server.model.state_dict()))
+    server, batcher = handler.server, handler.batcher
+    cfg = server.model.cfg
+    rng = torch.Generator().manual_seed(23)
+    reqs = [(torch.randint(1, cfg.vocab_size, (s,), generator=rng).tolist(),
+             n, kw) for s, n, kw in MICRO_REQS]
+    set_launches_to_zero()
+    before = server.program_stats()
+    solo, seq_wall = [], []
+    for p, n, kw in reqs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solo.append(server.generate(p, max_new_tokens=n,
+                                    return_logprobs=True, **kw))
+        seq_wall.append(time.perf_counter() - t0)
+
+    def burst(call):
+        out, errors = [None] * len(reqs), []
+        gate = threading.Barrier(len(reqs))
+
+        def run(i):
+            gate.wait(timeout=60)
+            try:
+                out[i] = call(*reqs[i])
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        b0 = batcher.stats()
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(reqs))]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        wall = time.perf_counter() - t0
+        b1 = batcher.stats()
+        if errors or any(o is None for o in out):
+            raise SystemExit(f"path A (m): a request failed: {errors!r}")
+        return out, wall, {k: b1[k] - b0[k]
+                           for k in ("batches_run", "rows_served")}
+
+    served, _, calls1 = burst(lambda p, n, kw: handler.invoke(
+        {"tokens": p, "max_new_tokens": n, "logprobs": True, **kw}))
+    direct, wall, calls2 = burst(lambda p, n, kw: batcher.generate(
+        p, max_new_tokens=n, return_logprobs=True, **kw))
+    launches = kernel_launches()
+    after = server.program_stats()
+    steps = sum(after[k] - before[k] for k in ("replays", "eager_steps"))
+    prefills = sum(after[k] - before[k]
+                   for k in ("prefill_replays", "eager_prefills"))
+    want = dict.fromkeys(KERNELS, 0)
+    want["int8_matmul"] = (7 * cfg.layers + 1) * (steps + prefills)
+    want["decode_attention"] = cfg.layers * steps
+    same_http = all(r["ok"] and r["tokens"] == s_[0].tolist()
+                    and np.array_equal(np.asarray(r["logprobs"]),
+                                       _as_served(s_[1]))
+                    for r, s_ in zip(served, solo))
+    same = all(_rows_equal(d, s_) for d, s_ in zip(direct, solo))
+    log(f"path A (m): 4 concurrent requests through a MicroBatcher handler "
+        f"(batch_window_ms {MICRO_EXTRA['batch_window_ms']}, batch_max "
+        f"{batcher.max_batch}): calls {calls1} (invoke) and {calls2} "
+        f"(direct); the direct burst {wall:.4f} s against "
+        f"{sum(seq_wall):.4f} s for the 4 one after another by solo "
+        f"generate ({[round(w, 4) for w in seq_wall]}); rows bitwise solo: "
+        f"{same} (direct), {same_http} (invoke, logprobs rounded as "
+        f"served); {steps} decode steps, {prefills} prefills, "
+        f"compile_count {after['compile_count']}; launches {launches} "
+        f"implied {want} [{card}]")
+    if not (same and same_http and launches == want
+            and after["eager_steps"] == before["eager_steps"]
+            and after["eager_prefills"] == before["eager_prefills"]
+            and all(c["rows_served"] == len(reqs)
+                    and c["batches_run"] < len(reqs)
+                    for c in (calls1, calls2))):
+        raise SystemExit("path A (m): the MicroBatcher failed its checks")
+    del handler, server, batcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"burst_wall_s": wall, "sequential_wall_s": sum(seq_wall),
+            "sequential_walls_s": seq_wall, "calls": [calls1, calls2],
+            "decode_steps": steps, "prefills": prefills,
+            "launches": launches, "implied": want}
+
+
 def serve_path(path: str, card: str) -> dict:
     """Phase 4 for one path: ``path_spec(path)`` served over HTTP on the
     card from a fresh handler; the handler is freed before returning."""
@@ -1752,6 +1895,8 @@ def serve_path(path: str, card: str) -> dict:
            "plain_agreement": agree, "trace": trace,
            "tokens": {k: v.get("tokens") for k, v in resp.items()
                       if "long" not in k}}
+    if path == "A":
+        out["micro"] = _timed("path A (m)", micro_batcher_leg, state, card)
     # free this path's model before the next one is built
     del state, server
     gc.collect()
@@ -1988,6 +2133,17 @@ def serve_engine_path(card: str) -> dict:
     log(f"path D (a): all {len(reqs)} rows equal solo generation; "
         f"logprob max |diff| {lp_diff:.3e} (HTTP logprobs are rounded to 5 "
         f"decimals, compared with solo's rounded alike)")
+    # window bucketing, on at the handler's defaults: the burst's segments
+    # by window
+    win = stats["decode_window"]
+    log(f"path D decode_window (window bucketing "
+        f"{stats['window_bucketing']}): {win['segments']} segments, "
+        f"buckets {win['buckets']}, savings_ratio {win['savings_ratio']}, "
+        f"attended_ratio {win['attended_ratio']} [{card}]")
+    if not (stats["window_bucketing"] and win["segments"]
+            and win["savings_ratio"] < 1):
+        raise SystemExit(f"path D: the handler's engine did not bucket its "
+                         f"windows: {win}")
 
     # (b) the same traffic through a dense engine on the same weights
     dense = ContinuousBatcher(state.server, slots=engine.slots,
@@ -2053,6 +2209,12 @@ def serve_engine_path(card: str) -> dict:
                              f"engines'")
     log(f"path D (f): a depth-1 paged engine gives every row's tokens and "
         f"logprobs bitwise the depth-2 engines' (dense and eager paged)")
+    # (j) window bucketing off, beside the bucketing engine; (k) the aux
+    # draft tier over the burst of 8
+    window = _timed("path D (j)", window_off_burst, state.server, engine,
+                    reqs, charges, dense_out, depths, card)
+    aux = _timed("path D (k)", aux_burst, state.server, reqs[:8],
+                 charges[:8], dense_out[:8], card)
     del dense_out, e_out
     # (g)-(i) the same burst with chunked prefill, off and on in turns
     chunked = chunked_turns(state.server, reqs, charges, solo_out, card)
@@ -2112,7 +2274,7 @@ def serve_engine_path(card: str) -> dict:
            "peak_held_pages": peak, "logprob_diff_http_vs_solo": lp_diff,
            "logprob_diff_dense_vs_solo": dense_solo, "perf": perf,
            "requests": rows, "trace": trace, "card": card,
-           "sched": sched, "chunked": chunked}
+           "sched": sched, "chunked": chunked, "window": window, "aux": aux}
     t_front = time.perf_counter()
     out["F"] = serve_front_path(state, card)
     took("path F", t_front)
@@ -2300,6 +2462,157 @@ def steady_decode(engine, card: str) -> dict:
         f"{STEADY_NEW} tokens in {wall:.3f} s, TTFT {ttft:.3f} s, "
         f"{step_ms:.3f} ms per decode step after it [{card}]")
     return {"wall_s": wall, "ttft_s": ttft, "step_ms": step_ms}
+
+
+def window_off_burst(server, engine, reqs, charges, ref_out, depths,
+                     card: str) -> dict:
+    """D (j): window bucketing, on at the handler's defaults. D's traffic
+    driven directly through a paged engine with ``batch_window_bucketing
+    = "0"`` (its own arena): every row bitwise the bucketing engines'
+    (``ref_out``, D (b)'s dense engine); its only ``decode_window`` bucket
+    the full window; its launches 32 x steps and 225 x forwards. Beside
+    it, D's bucketing engine: its ``decode_window``, and tok/s of its
+    depth-2 burst driven directly in this call (``depths``) against the
+    off engine's, with each engine's ``compile_count``: under ``blocked``
+    a window replays the full-window program, so bucketing adds no
+    capture."""
+    from lambdipy_tpu_torch.runtime.handlers import (kernel_launches,
+                                                     make_engine)
+
+    PROGRESS["stage"] = "D (j): window bucketing off"
+    layers = server.model.cfg.layers
+    off = make_engine(server, {**ENGINE_EXTRA,
+                               "batch_window_bucketing": "0",
+                               "kv_pages": str(sum(charges) + 1)})
+    out = [None] * len(reqs)
+
+    def send(i):
+        _, body = reqs[i]
+        out[i] = off.generate(body["tokens"],
+                              max_new_tokens=body["max_new_tokens"],
+                              return_logprobs=True, **_knobs(body))
+
+    set_launches_to_zero()
+    _, wall = _drive(send, reqs)
+    _idle(off)
+    launches = kernel_launches()
+    stats, on = off.stats(), engine.stats()
+    want = dict.fromkeys(KERNELS, 0)
+    want["paged_decode_attention"] = layers * stats["steps"]
+    want["int8_matmul"] = (7 * layers + 1) * stats["forwards"]
+    same = all(_rows_equal(a, b) for a, b in zip(out, ref_out))
+    off_tok_s = new_tokens_of(reqs) / wall
+    on_tok_s = depths["depth2"][0]["decode_tok_s"]
+    log(f"path D (j): window bucketing off: {wall:.3f} s, {off_tok_s:.1f} "
+        f"tok/s, compile_count {stats['compile_count']}, decode_window "
+        f"{stats['decode_window']}; bucketing on (D's engine, its depth-2 "
+        f"burst driven directly in this call): {on_tok_s:.1f} tok/s, "
+        f"compile_count {on['compile_count']}; rows bitwise the bucketing "
+        f"engines': {same}; launches {launches} implied {want} [{card}]")
+    if not (same and launches == want and not stats["window_bucketing"]
+            and list(stats["decode_window"]["buckets"])
+            == [str(off.cache_len)] and stats["eager_steps"] == 0
+            and off.pool.stats()["pages_live"] == 0):
+        raise SystemExit("path D (j): the engine with window bucketing off "
+                         "failed its checks")
+    off.release()
+    del off
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "tok_s": off_tok_s, "on_tok_s": on_tok_s,
+            "compile_count": stats["compile_count"],
+            "on_compile_count": on["compile_count"],
+            "decode_window": stats["decode_window"],
+            "on_decode_window": on["decode_window"], "launches": launches,
+            "implied": want}
+
+
+AUX_SPEC_K = 8
+AUX_LAYERS = 1
+
+
+def aux_burst(server, reqs, charges, ref_out, card: str) -> dict:
+    """D (k): the aux draft tier. A twin of D's model
+    (``models/registry.py draft_twin``: llama3-8b's widths and
+    vocabulary, ``AUX_LAYERS`` layer, bf16, no int8) boots on the card
+    beside D's server (seconds and GiB printed), and D's 8-request burst
+    runs through a paged engine at ``spec_k = 8`` with ``draft_mode =
+    "aux"`` and ``AuxModelDraft`` over the twin: every row bitwise the
+    spec-off rows (``ref_out``); the launches 225 x the target's forwards
+    (a verify is one), 32 x its steps on kernel 3, and ``AUX_LAYERS`` x
+    the twin's decode steps on kernel 1 (the twin serves float K/V and
+    float weights: no kernel 2); every step a replay; no proposal raised
+    (``draft_errors`` 0). Prints the
+    ``providers["aux"]`` counters, acceptance, the provider demotions,
+    tok/s, the proposals and their mean host wall beside the engine's mean
+    wall per segment (a proposal runs on the engine thread and, on the
+    card, waits for the segment in flight)."""
+    from lambdipy_tpu_torch.models import registry
+    from lambdipy_tpu_torch.runtime.continuous import AuxModelDraft
+    from lambdipy_tpu_torch.runtime.handlers import (kernel_launches,
+                                                     make_engine)
+    from lambdipy_tpu_torch.runtime.metrics import SpecDecodeStats
+
+    PROGRESS["stage"] = "D (k): the aux draft tier"
+    layers = server.model.cfg.layers
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    twin = registry.draft_twin(registry.TorchModel(server.model.cfg),
+                               layers=AUX_LAYERS, device="cuda")
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    twin_gib = (torch.cuda.memory_allocated() - mem0) / 2**30
+    prov = AuxModelDraft(twin)
+    eng = make_engine(server, {**ENGINE_EXTRA, "spec_k": str(AUX_SPEC_K),
+                               "kv_pages": str(sum(charges) + 1)})
+    eng.draft_provider, eng.draft_mode = prov, "aux"
+    eng.spec_metrics = SpecDecodeStats()
+    tw0 = twin.program_stats()
+    set_launches_to_zero()
+    out, wall = spec_burst(eng, reqs)
+    launches = kernel_launches()
+    tw1 = twin.program_stats()
+    twin_steps = sum(tw1[k] - tw0[k] for k in ("replays", "eager_steps"))
+    stats = eng.stats()
+    want = spec_launches(layers, "paged_decode_attention", stats["forwards"],
+                         stats["steps"])
+    want["decode_attention"] += AUX_LAYERS * twin_steps
+    rep = stats["spec"]
+    aux = rep["draft"]["providers"].get("aux")
+    same = all(_rows_equal(a, b) for a, b in zip(out, ref_out))
+    new = new_tokens_of(reqs)
+    pipe = stats["pipeline"]
+    seg_ms = 1e3 * pipe["wall_s"] / max(1, stats["segments"])
+    prop_ms = 1e3 * prov.propose_s / max(1, prov.proposals)
+    log(f"path D (k): the aux draft twin ({AUX_LAYERS} layer, hidden "
+        f"{twin.model.cfg.hidden}, vocab {twin.model.cfg.vocab_size}, "
+        f"{twin.model.cfg.dtype}) booted in {boot_s:.2f} s, {twin_gib:.2f} "
+        f"GiB; D's burst at spec_k={AUX_SPEC_K}, draft_mode=aux: {new} "
+        f"tokens in {wall:.3f} s, {new / wall:.1f} tok/s; "
+        f"providers['aux'] {aux}, acceptance {rep['acceptance_rate']}, "
+        f"tokens_per_step {rep['tokens_per_step']}, demotions "
+        f"{rep['draft']['fallbacks']}; {prov.proposals} proposals, mean "
+        f"{prop_ms:.2f} ms of host wall each ({eng.draft_errors} raised), "
+        f"against {seg_ms:.2f} ms of engine wall per segment; "
+        f"{stats['steps']} steps "
+        f"({stats['verify_segments']} verifies), twin decode steps "
+        f"{twin_steps}, twin compile_count {tw1['compile_count']}; bitwise "
+        f"spec off: {same}; launches {launches} implied {want} [{card}]")
+    if not (same and aux and aux["steps"] > 0 and prov.proposals > 0
+            and eng.draft_errors == 0 and launches == want and stats["replays"] == stats["steps"]
+            and stats["eager_steps"] == 0
+            and eng.pool.stats()["pages_live"] == 0):
+        raise SystemExit("path D (k): the aux engine failed its checks")
+    eng.release()
+    del eng, prov, twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"twin_boot_s": boot_s, "twin_gib": twin_gib, "wall_s": wall,
+            "tok_s": new / wall, "aux": aux, "spec": rep,
+            "propose_mean_ms": prop_ms, "segment_mean_ms": seg_ms,
+            "twin_decode_steps": twin_steps, "launches": launches,
+            "implied": want}
 
 
 # D's chunked turns: the server's prefill_chunk (llama3-8b's window of
@@ -3108,6 +3421,72 @@ def fault_ladder(url, engine, reqs, solo_out, layers, card) -> dict:
             "launches": launches}
 
 
+def _bucket_delta(before: dict, after: dict) -> dict:
+    """The ``decode_window`` buckets that segments collected between two
+    engine stats dispatched at."""
+    a, b = (x["decode_window"]["buckets"] for x in (after, before))
+    return {w: n - b.get(w, 0) for w, n in a.items() if n != b.get(w, 0)}
+
+
+def fault_ladder_two(url, engine, reqs, solo_out, layers, card) -> dict:
+    """(f) ``segment_fetch:exception@seg=1,n=3`` with ``max_replays=3``: the
+    attempt and two replays fail inside ``FAULT_WINDOW_S``, the ladder
+    reaches level 2, and the third replay runs there, at depth 1 and the
+    full window: its segments' only ``decode_window`` bucket is
+    ``cache_len`` (JAX pins the full-window program at level 2), and the
+    row is bitwise solo; after ``degrade_clean_s`` the next request
+    restores level 0 and is dispatched at narrower windows again."""
+    PROGRESS["stage"] = "G (f): ladder level 2"
+    last = engine.failure_log[-1]["at"]
+    time.sleep(max(0.0, last + FAULT_WINDOW_S + 0.1 - time.monotonic()))
+    engine.degrade_window_s = FAULT_WINDOW_S
+    engine.degrade_clean_s = FAULT_CLEAN_S
+    engine.max_replays = 3
+    _http(url + "/v1/debug/faults",
+          {"spec": "segment_fetch:exception@seg=1,n=3"})
+    before = engine.stats()
+    set_launches_to_zero()
+    _, body = reqs[0]
+    got = engine.generate(body["tokens"],
+                          max_new_tokens=body["max_new_tokens"],
+                          return_logprobs=True)
+    _idle(engine)
+    stepped = engine.stats()
+    _http(url + "/v1/debug/faults", {"clear": True})
+    time.sleep(FAULT_CLEAN_S + 0.2)
+    _, body1 = reqs[1]
+    got1 = engine.generate(body1["tokens"],
+                           max_new_tokens=body1["max_new_tokens"],
+                           return_logprobs=True, **_knobs(body1))
+    _idle(engine)
+    after = engine.stats()
+    launches = _engine_launches("f", before, after, layers)
+    engine.max_replays = 1
+    engine.degrade_window_s = 60.0
+    engine.degrade_clean_s = 30.0
+    d1, d2 = _faults_delta(before, stepped), _faults_delta(stepped, after)
+    w1, w2 = _bucket_delta(before, stepped), _bucket_delta(stepped, after)
+    full = str(engine.cache_len)
+    bitwise = all(np.array_equal(a[j], b[j]) for a, b in
+                  ((got, solo_out[0]), (got1, solo_out[1])) for j in (0, 1))
+    log(f"path G (f): failures {d1['failures']}, level {d1['degrade_level']}"
+        f" (steps {d1['degrade_steps']}), replays {d1['replays']}; the "
+        f"level-2 replay's segments by window {w1}; after {FAULT_CLEAN_S} s "
+        f"clean: level {d2['degrade_level']}, restores {d2['restores']}, "
+        f"the next request's windows {w2}; rows bitwise solo {bitwise} "
+        f"[{card}]")
+    if not (bitwise and d1["degrade_level"] == 2
+            and d1["degrade_steps"] == {"1": 1, "2": 1}
+            and d1["replays"] == {"attempted": 3, "succeeded": 1}
+            and list(w1) == [full] and w1[full] > 0
+            and d2["degrade_level"] == 0 and d2["restores"] == 1
+            and any(int(w) < engine.cache_len for w in w2)):
+        raise SystemExit(f"path G (f): {d1}, {d2}, windows {w1} {w2}, "
+                         f"bitwise {bitwise}")
+    return {"stepped": d1, "restored": d2, "windows_at_level_2": w1,
+            "windows_after": w2, "launches": launches}
+
+
 def fault_default(engine, reqs, depths, layers, card) -> dict:
     """(e) D's burst driven directly at the defaults (no watchdog, an
     empty plan, one replay): tok/s beside D's own depth-2 bursts of this
@@ -3224,7 +3603,8 @@ def fault_prefix(server, layers, card) -> dict:
 def serve_fault_path(state, reqs, d_resp, solo_out, depths, card) -> dict:
     """Phase 4, path G: the engine's fault isolation on D's handler
     (served over HTTP by a fresh server), D's engine and D's weights:
-    (a) a replay, (b) the watchdog on a real wait, (c) the ladder, (e) the
+    (a) a replay, (b) the watchdog on a real wait, (c) the ladder, (f) its
+    level 2 and the full window, (e) the
     default path, then (d) prefix rows on a second paged engine over the
     same server. Each phase sets the launch counters to 0 just before it
     and checks them after; the path's launches are their sum."""
@@ -3242,7 +3622,9 @@ def serve_fault_path(state, reqs, d_resp, solo_out, depths, card) -> dict:
                "b": fault_watchdog(http.url, engine, reqs, solo_out, layers,
                                    card),
                "c": fault_ladder(http.url, engine, reqs, solo_out, layers,
-                                 card)}
+                                 card),
+               "f": _timed("path G (f)", fault_ladder_two, http.url,
+                           engine, reqs, solo_out, layers, card)}
         metrics = http_json(http.url + "/metrics")
     finally:
         http.stop()
@@ -3259,7 +3641,7 @@ def serve_fault_path(state, reqs, d_resp, solo_out, depths, card) -> dict:
         f"{out['prefills']}")
     if estats["eager_prefills"]:
         raise SystemExit("path G: a prefill ran eagerly")
-    out["launches"] = {k: sum(out[p]["launches"][k] for p in "abcde")
+    out["launches"] = {k: sum(out[p]["launches"][k] for p in "abcdef")
                        for k in KERNELS}
     return out
 
@@ -7473,6 +7855,8 @@ def main() -> int:
     paths["G"] = paths["D"].pop("G")
     paths["D-chunked"] = paths["D"].pop("chunked")
     paths["D-warm"] = paths["D"].pop("warm")
+    paths["D-window"] = paths["D"].pop("window")
+    paths["D-aux"] = paths["D"].pop("aux")
     took("paths D, F and G", t_path)
     gc.collect()
     torch.cuda.empty_cache()
@@ -7491,6 +7875,9 @@ def main() -> int:
     for path in PATHS:
         t_path = begin(path)
         paths[path] = serve_path(path, card)
+        if path == "A":
+            # A (m), the MicroBatcher on A's weights, counted apart
+            paths["A-micro"] = paths[path].pop("micro")
         took(f"path {path}", t_path)
     t_path = begin("E")
     paths["E"] = serve_prefix_path(card)

@@ -57,6 +57,7 @@ weights (``models/params.py from_jax_params``). Differences:
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import hashlib
 import math
@@ -1039,6 +1040,7 @@ class DecodeStep:
                  base: bool = False):
         dev = model.device
         self.model, self.rows, self.tables = model, rows, tables
+        self.window = None  # a narrowed view's width (:meth:`narrowed`)
         self.base = (torch.zeros(rows, dtype=torch.int32, device=dev)
                      if base else None)
 
@@ -1125,10 +1127,43 @@ class DecodeStep:
         self.pos += 1
         self.draw += 1
 
+    def narrowed(self, window: int) -> "DecodeStep":
+        """This step over the first ``window`` positions of its cache, the
+        window-bucketed step of the plain attention, whose ``_attend``
+        reads the whole width it is given (JAX ``_windowed_seg_fn``,
+        ``llama.py:2223``). It shares the carry, knobs and streams (the
+        same tensors). Dense: the cache's leaves viewed at ``[:, :window]``,
+        so its K/V writes land in the full cache; a write at or past
+        ``window`` is dropped, as one past the full width is. Paged: a
+        block table of ``window // page`` entries and a write address of
+        its own (the caller fills the table), over the same arena. The
+        kernel backend never takes a view: its kernel reads a row only up
+        to ``active_len`` and refuses strided operands."""
+        view = copy.copy(self)
+        view.window = window
+        if self.tables is None:
+            view.cache = [{name: val if name == "index" else val[:, :window]
+                           for name, val in entry.items()}
+                          for entry in self.cache]
+            return view
+        dev = self.model.device
+        page = _page_of(self.cache[0])
+        view.tables = torch.zeros((self.rows, window // page),
+                                  dtype=torch.int32, device=dev)
+        keys = {"index": self.pos, "tables": view.tables,
+                **{name: torch.zeros(self.rows, dtype=dtype, device=dev)
+                   for name, dtype in (("write_page", torch.long),
+                                       ("write_off", torch.long),
+                                       ("active", torch.int32))}}
+        view.cache = [{**{k: v for k, v in entry.items()
+                          if k not in PAGED_STEP_KEYS}, **keys}
+                      for entry in self.cache]
+        return view
+
     def nbytes(self) -> int:
         """Device bytes of the step's own decode cache (0 for the page
-        arena, which the pool owns)."""
-        if self.tables is not None:
+        arena, which the pool owns, and for a :meth:`narrowed` view)."""
+        if self.tables is not None or self.window is not None:
             return 0
         return sum(v.numel() * v.element_size() for entry in self.cache
                    for k, v in entry.items() if k != "index")
@@ -1315,15 +1350,20 @@ class VerifyProgram(GraphProgram):
 
 def verify_program(entry: StepPrograms, kb: int, sampled: bool, *,
                    exit_layer: int | None = None,
-                   resample: bool = False) -> VerifyProgram:
-    """The verify program of ``entry``'s decode step, made on first use
-    and kept in the entry, keyed by ``kb``, greedy or sampled, the
-    draft's exit layer (0: host drafts) and chain or rejection
-    sampling."""
+                   resample: bool = False,
+                   step: DecodeStep | None = None) -> VerifyProgram:
+    """The verify program of ``entry``'s decode step (or of ``step``, a
+    :meth:`DecodeStep.narrowed` view of it), made on first use and kept
+    in the entry, keyed by ``kb``, greedy or sampled, the draft's exit
+    layer (0: host drafts), chain or rejection sampling and the view's
+    window."""
+    step = step or entry.step
     key = ("verify", kb, _mode(sampled), exit_layer or 0,
            "resample" if resample else "chain")
+    if step.window is not None:
+        key += (step.window,)
     return entry.program(key, lambda: VerifyProgram(
-        VerifyStep(entry.step, kb, exit_layer), sampled, resample,
+        VerifyStep(step, kb, exit_layer), sampled, resample,
         entry.graph_type, entry.stats))
 
 

@@ -3,8 +3,8 @@
 (generation), ``resnet50`` and ``resnet50-tiny`` (image classification),
 ``bert-base`` and ``bert-tiny`` (text classification), ``bert-base-torch``
 (the torch BERT) and ``tabular`` (sklearn), with JAX's arguments and
-``extra`` keys; and :func:`save_init_params`, a bundle's seeded params at
-build time."""
+``extra`` keys; :func:`draft_twin`, the aux draft tier's small Llama; and
+:func:`save_init_params`, a bundle's seeded params at build time."""
 
 from __future__ import annotations
 
@@ -177,6 +177,45 @@ def _build_llama_tiny(dtype: str = "float32", quant: str | None = None,
     return TorchModel(dataclasses.replace(
         LLAMA_TINY, dtype=_dtype(dtype), quant=quant,
         **_llama_overrides(extra)))
+
+
+def draft_twin(adapter: TorchModel, *, layers: int = 2,
+               hidden: int | None = None, seed: int = 0, params=None,
+               mesh=None, device=None, **caps) -> LlamaServer:
+    """A small same-family draft server for the aux draft tier (JAX
+    ``registry.py:401-450``): a ``LlamaServer`` over a shrunken copy of
+    ``adapter``'s config: the same vocabulary (drafts are token ids of the
+    target's), ``layers`` layers, optionally a narrower ``hidden`` (the
+    head count scales so the head dim stays the target's), and ``quant``
+    and ``kv_quant`` off (the twin serves float: its decode takes the
+    float decode-attention kernel under ``blocked``, its projections no
+    int8 kernel). ``params`` None draws the twin's weights from ``seed``
+    on ``device``; a deployment passes distilled weights (a JAX twin's
+    through ``models/params.py from_jax_params``). Wrap the server in
+    :class:`~lambdipy_tpu_torch.runtime.continuous.AuxModelDraft` and hand
+    it to the engine as ``draft_provider`` with ``draft_mode="aux"``.
+    ``caps`` go to the server (e.g. ``prefix_cache_max``). A ``mesh``
+    raises: the port has no parallelism yet (ROADMAP)."""
+    cfg = adapter.config
+    if not isinstance(cfg, LlamaConfig):
+        raise ModelError("draft_twin needs a llama-family adapter "
+                         "(adapter.config must be a LlamaConfig)")
+    if mesh is not None:
+        raise ValueError("draft_twin: a mesh needs parallelism, which the "
+                         "port does not have yet")
+    overrides: dict[str, Any] = {
+        "layers": max(1, min(int(layers), cfg.layers)),
+        "quant": None, "kv_quant": None}
+    if hidden is not None:
+        head_dim = max(1, cfg.hidden // cfg.heads)
+        heads = max(1, int(hidden) // head_dim)
+        overrides.update(hidden=heads * head_dim, heads=heads,
+                         kv_heads=max(1, min(cfg.kv_heads, heads)),
+                         mlp=2 * heads * head_dim)
+    twin = TorchModel(dataclasses.replace(cfg, **overrides))
+    if params is None:
+        params = twin.init_params(seed=seed, device=device)
+    return twin.make_server(params, device=device, **caps)
 
 
 # ----------------------------------------------------------------------

@@ -130,8 +130,9 @@ boundaries, packed into a free slot.
   runtime or the watchdog. A CUDA runtime error is sticky: it wedges the
   engine, replays nothing and drops the server's idle prefill programs
   too. Two failures inside ``degrade_window_s`` step the DEGRADATION
-  LADDER (1: depth 1; 2: the full-window program, which is all the port
-  has; 3: the prefix store bypassed, in the handler), and ``degrade_clean_s`` without a failure restores it. A
+  LADDER (1: depth 1; 2: the full-window program pinned and speculation
+  off; 3: the prefix store bypassed, in the handler), and
+  ``degrade_clean_s`` without a failure restores it. A
   wedged idle engine runs a self-probe, a trivial device round trip on a
   disposable thread under the watchdog; the first clean fetch after a
   failure, or a probe that succeeds, clears the wedge. Everything is
@@ -155,9 +156,30 @@ boundaries, packed into a free slot.
   ``disp`` books the whole ``kb`` at dispatch and the collector gives
   back the rejected tail; a replayed row re-drafts from scratch. The
   counters are ``batching.spec`` (the server's ``SpecDecodeStats``,
-  shared with the solo ``"speculative"`` path). The ``aux`` draft model
-  is not ported: ``draft_mode=aux`` serves lookup, as JAX does without a
-  provider.
+  shared with the solo ``"speculative"`` path). ``aux``: a host-side
+  :class:`DraftProvider` (``draft_provider=``, e.g. :class:`AuxModelDraft`
+  over ``models/registry.py draft_twin``) proposes the drafts, extrapolated
+  as lookup's are, adaptive as the model tier; a short or failing proposal
+  pads with raw ``-1``. Without a provider ``aux`` serves lookup, as in
+  JAX. The proposal runs on the engine thread inside its
+  ``DEVICE_LOCK`` hold (the lock is reentrant, so the twin's own device
+  work takes it again); on the card it waits for the segment in flight
+  before its first read.
+
+- Window bucketing (``window_bucketing``, on by default, as in JAX): a
+  segment is dispatched at the window ``min(pow2 >= max(positions) +
+  advance (16 at least), cache_len)`` (paged: the occupied slots'
+  positions, at least one page; the full window from ladder level 2),
+  JAX's rule (``continuous.py:1876-1897``), counted in ``decode_window``
+  (:class:`~lambdipy_tpu_torch.runtime.metrics.DecodeWindowStats`). Under
+  the plain attention (``dense``, and the decode of ``flash``), which
+  reads the whole width it is given, the segment runs a
+  :meth:`~lambdipy_tpu_torch.models.llama.DecodeStep.narrowed` view of
+  the step: its first ``window`` positions, a program of its own in the
+  engine's entry. The decode kernels (``blocked``) read a row only up
+  to its ``active_len``, so a narrower program would launch the same
+  blocks over the same positions: they replay the full-window program,
+  and only the counters see the window.
 
 - The long-context tier (``max_logical_ctx``, off by default, as in JAX;
   paged engines only, a dense engine stands it down at boot with a
@@ -170,8 +192,7 @@ boundaries, packed into a free slot.
   would otherwise capture at request time (the handler's background
   warm).
 
-Not ported yet (ROADMAP): window bucketing, the ``aux`` draft tier and
-meshes.
+Not ported yet (ROADMAP): meshes.
 """
 
 from __future__ import annotations
@@ -189,7 +210,7 @@ import torch
 from lambdipy_tpu_torch.models.graphs import (DEVICE_LOCK, GraphStats,
                                               StepProgram, StepPrograms)
 from lambdipy_tpu_torch.models.llama import (DecodeStep, _kv_store,
-                                             _leaves, _next_bucket,
+                                             _leaves, _mode, _next_bucket,
                                              _scan_decode, cache_width,
                                              init_decode_cache,
                                              pack_prefill_into_pages,
@@ -198,7 +219,8 @@ from lambdipy_tpu_torch.models.llama import (DecodeStep, _kv_store,
 from lambdipy_tpu_torch.models.spec import lookup_draft_hit
 from lambdipy_tpu_torch.runtime.faults import (EngineWatchdogTimeout,
                                                FaultPlan)
-from lambdipy_tpu_torch.runtime.metrics import (EngineFaultStats,
+from lambdipy_tpu_torch.runtime.metrics import (DecodeWindowStats,
+                                                EngineFaultStats,
                                                 EngineStats, PipelineStats,
                                                 PrefillStats,
                                                 SpecDecodeStats)
@@ -222,6 +244,47 @@ class RequestCancelled(RuntimeError):
 class _StaleEngine(Exception):
     """Raised in an engine thread whose generation a failure superseded:
     it exits without touching the restarted engine's state."""
+
+
+class DraftProvider:
+    """Host-side draft source behind the engine's provider seam
+    (``draft_mode="aux"``, JAX ``continuous.py:144-159``): given a row's
+    confirmed context, propose up to ``k`` continuation tokens for the
+    chain verify to score. A provider is only ever a proposal source:
+    acceptance is the target's own chain, so a wrong (or short, padded
+    with ``-1``) proposal costs wasted verify positions, never a wrong
+    token. The in-program shallow-exit head (``draft_mode="model"``)
+    does not go through this interface."""
+
+    def propose(self, context, k: int) -> list:
+        raise NotImplementedError
+
+
+class AuxModelDraft(DraftProvider):
+    """A separate small draft model behind :class:`DraftProvider` (JAX
+    ``continuous.py:162-180``): any ``generate``-shaped server (e.g. the
+    twin :func:`lambdipy_tpu_torch.models.registry.draft_twin` builds)
+    greedily continues the context by ``k`` tokens, prefilling the whole
+    context at every call. ``proposals`` and ``propose_s`` count its
+    calls and their host wall (on the card a call waits for the engine's
+    segment in flight before its first read)."""
+
+    def __init__(self, server):
+        self.server = server
+        self.proposals = 0
+        self.propose_s = 0.0
+
+    def propose(self, context, k: int) -> list:
+        ctx = [int(t) for t in np.asarray(context).reshape(-1)]
+        if not ctx or k <= 0:
+            return []
+        t0 = time.monotonic()
+        try:
+            out = self.server.generate(ctx, max_new_tokens=int(k))
+        finally:
+            self.proposals += 1
+            self.propose_s += time.monotonic() - t0
+        return [int(t) for t in np.asarray(out).reshape(-1)[:k]]
 
 
 def is_cuda_error(error: BaseException) -> bool:
@@ -253,20 +316,24 @@ class ContinuousBatcher:
     ``spec_k`` tokens a row (bucketed to a power of two), drafted by
     ``draft_mode`` (``lookup``: prompt lookup over n-grams up to
     ``spec_ngram``; ``model``: the shallow-exit head of ``draft_exit``
-    layers, per-row adaptive k; ``off``) as the module docstring says.
+    layers, per-row adaptive k; ``aux``: ``draft_provider``'s proposals,
+    adaptive as ``model``; ``off``) as the module docstring says.
+    ``window_bucketing`` (on, as in JAX) dispatches each segment at the
+    window its rows need.
     ``max_logical_ctx`` (0: off) turns the long-context tier on over a
     paged engine; ``long_prefill`` asks the tier for ring-attention
     prefill, which stands down counted."""
 
     def __init__(self, server, *, slots: int = 8, segment: int = 16,
                  cache_len: int | None = None, page_pool=None, policy=None,
+                 window_bucketing: bool = True,
                  pipeline_depth: int = 2, watchdog_s: float = 0.0,
                  max_replays: int = 1, faults: FaultPlan | None = None,
                  degrade_window_s: float = 60.0,
                  degrade_clean_s: float = 30.0, spec_k: int = 0,
                  spec_ngram: int = 3, draft_mode: str = "lookup",
-                 draft_exit: int = 1, max_logical_ctx: int = 0,
-                 long_prefill: bool = False):
+                 draft_exit: int = 1, draft_provider=None,
+                 max_logical_ctx: int = 0, long_prefill: bool = False):
         cfg = server.model.cfg
         self.server = server
         self.slots = max(1, int(slots))
@@ -275,6 +342,13 @@ class ContinuousBatcher:
         self.pipeline_depth = max(1, int(pipeline_depth))
         self.pipe_stats = PipelineStats(depth=self.pipeline_depth)
         self.cache_len = min(cache_len or cfg.max_len, cfg.max_len)
+        # length-aware decode: each segment at the window its rows need
+        # (JAX continuous.py:189); the plain attention runs a narrowed view
+        # of the step per window, the decode kernels the full program
+        self.window_bucketing = bool(window_bucketing)
+        self.window_stats = DecodeWindowStats()
+        self._narrow = cfg.attn_backend != "blocked"
+        self._views: dict[int, DecodeStep] = {}
         self.pool = page_pool
         if page_pool is not None:
             if self.cache_len % page_pool.page:
@@ -344,14 +418,13 @@ class ContinuousBatcher:
         mode = str(draft_mode or "lookup").lower()
         if mode == "auto":
             mode = "model"
-        if mode == "aux":
-            # the aux draft model (a DraftProvider) is not ported: as JAX
-            # does without a provider, serve lookup
-            log.warning("draft_mode=aux needs a draft provider; using "
-                        "lookup")
-            mode = "lookup"
-        if mode not in ("model", "lookup", "off"):
+        if mode not in ("model", "lookup", "aux", "off"):
             log.warning("unknown draft_mode %r; using lookup", draft_mode)
+            mode = "lookup"
+        self.draft_provider = draft_provider
+        self.draft_errors = 0  # proposals that raised, padded with -1
+        if mode == "aux" and draft_provider is None:
+            log.warning("draft_mode=aux needs draft_provider=; using lookup")
             mode = "lookup"
         self.draft_mode = mode
         self.draft_exit = max(1, min(int(draft_exit or 1), cfg.layers))
@@ -470,14 +543,47 @@ class ContinuousBatcher:
                                           self.stats_counters)
         return self._programs
 
-    def _program(self, sampled: bool) -> StepProgram:
-        """The step's greedy or sampled program, made on first use."""
-        return self._entry().decode(sampled)
+    def _program(self, sampled: bool, view: DecodeStep | None = None
+                 ) -> StepProgram:
+        """The step's greedy or sampled program, or that of a narrowed
+        ``view`` of it (kept in the entry by its window), made on first
+        use."""
+        entry = self._entry()
+        if view is None:
+            return entry.decode(sampled)
+        return entry.program(
+            ("window", view.window, _mode(sampled)),
+            lambda: StepProgram(view, sampled, entry.graph_type,
+                                entry.stats))
+
+    def _window(self, positions: list, advance: int) -> int:
+        """The window a segment is dispatched at (JAX
+        ``continuous.py:1876-1897``): the power-of-two bucket (16 at
+        least) of ``max(positions) + advance`` capped at ``cache_len``,
+        the furthest write of the segment inside it; at least one page
+        when paged; the full window with bucketing off or from ladder
+        level 2 on. Under speculation the positions are post-accept
+        upper bounds and ``advance`` is the verify width."""
+        window = self.cache_len
+        if self.window_bucketing and positions \
+                and self.fault_stats.degrade_level < 2:
+            window = min(_next_bucket(max(positions) + advance, 16),
+                         self.cache_len)
+        if self.pool is not None:
+            window = max(window, self.pool.page)
+        return window
+
+    def _view(self, window: int) -> DecodeStep:
+        """The step narrowed to ``window`` positions, made on first use."""
+        if window not in self._views:
+            self._views[window] = self._step.narrowed(window)
+        return self._views[window]
 
     def _detach(self) -> StepPrograms | None:
         """Take the step and its programs off the engine (caller holds the
         lock); the caller closes the programs once it let go of it."""
         programs, self._programs, self._step = self._programs, None, None
+        self._views = {}
         return programs
 
     def release(self) -> None:
@@ -664,8 +770,8 @@ class ContinuousBatcher:
 
     def _drafts(self, rows: list, kb: int):
         """The host half of a verify dispatch: ``(drafts [B, kb - 1],
-        use_model [B, kb - 1] or None, assumed)``. A lookup row drafts
-        from its fetched truth (:meth:`_spec_draft`); a model row marks
+        use_model [B, kb - 1] or None, assumed)``. A lookup or aux row
+        drafts from its fetched truth (:meth:`_spec_draft`); a model row marks
         its positions for the in-program draft; everything else stays a
         raw ``-1``, which the chain never accepts. ``assumed`` holds each
         drafting row's provider, hit and width for the collector."""
@@ -673,18 +779,22 @@ class ContinuousBatcher:
         use_model = np.zeros((self.slots, kb - 1), bool)
         assumed: dict = {}
         for slot, e in rows:
-            if e["draft_mode"] == "off" or e["k_row"] < 2:
+            provider = e["draft_mode"]
+            if provider == "off" or e["k_row"] < 2:
                 continue
             krow = min(int(e["k_row"]), kb)
             q = e["spec_inflight"]
             e["spec_inflight"] += 1
-            if e["draft_mode"] == "model":
+            if provider == "model":
                 use_model[slot, :krow - 1] = True
                 assumed[slot] = ("model", True, krow)
                 continue
-            dv, hit = self._spec_draft(e, kb, q, k=krow)
+            if provider == "aux" and self.draft_provider is not None:
+                dv, hit = self._aux_draft(e, q, krow)
+            else:
+                dv, hit = self._spec_draft(e, kb, q, k=krow)
             draft[slot, :krow - 1] = np.asarray(dv, np.int64)[:krow - 1]
-            assumed[slot] = ("lookup", hit, krow)
+            assumed[slot] = (provider, hit, krow)
         return draft, (use_model if use_model.any() else None), assumed
 
     def _run_segment(self, live: list) -> dict:
@@ -700,15 +810,27 @@ class ContinuousBatcher:
         ``kb`` (:meth:`_verify_width`; ``k`` is then ``kb``), its drafts
         from :meth:`_drafts`. The block (and a verify's counts and pending
         tokens) goes to pinned host memory behind a CUDA event on the card
-        (on the CPU it is copied out of the program's outputs). Returns
-        the in-flight record :meth:`_collect` books; the caller moves the
-        rows' ``disp`` by its ``k``."""
+        (on the CPU it is copied out of the program's outputs). The
+        segment runs at :meth:`_window`'s window: through a narrowed view
+        of the step under the plain attention, the full program under the
+        decode kernels; the record carries JAX's window sums for
+        ``decode_window``. Returns the in-flight record :meth:`_collect`
+        books; the caller moves the rows' ``disp`` by its ``k``."""
         step, b = self._step, self.slots
         rows = [(slot, e) for slot, e in live
                 if not e["done"] and (self.spec_k or e["disp"] < e["n"])]
         kb = self._verify_width(rows)
         k = kb or min(self.segment, max(e["n"] - e["disp"] for _, e in rows
                                         if e["disp"] < e["n"]))
+        # the window (JAX's sums, continuous.py:1977-1981): live rows'
+        # dispatch positions; paged, every occupied slot's, since a done
+        # row still writes through its table
+        positions = [e["pos0"] + e["disp"] for _, e in live if not e["done"]]
+        window = self._window(
+            [e["pos0"] + e["disp"] for _, e in live]
+            if self.pool is not None else positions, k)
+        view = (self._view(window)
+                if self._narrow and window < self.cache_len else None)
         temp = np.zeros((b,), np.float32)
         top_k = np.zeros((b,), np.int64)
         top_p = np.ones((b,), np.float32)
@@ -723,17 +845,21 @@ class ContinuousBatcher:
         if self.pool is not None:
             # every occupied slot's table, finished rows' too: their
             # garbage steps write into their own pages or the null page
-            nb = self.cache_len // self.pool.page
-            to_device(step.tables, np.stack(
-                [self._table_row(e, nb) for e in self._active]))
+            tables = (view or step).tables
+            to_device(tables, np.stack(
+                [self._table_row(e, tables.shape[1]) for e in self._active]))
             lock = self.pool.arena_lock
         sampled = bool((temp > 0).any())
-        rec = {"rows": live, "k": k, "event": None}
+        rec = {"rows": live, "k": k, "event": None, "window": {
+            "attended": sum(k * p + k * (k + 1) // 2 for p in positions),
+            "window_read": len(positions) * k * window,
+            "full_window": len(positions) * k * self.cache_len,
+            "window": window}}
         if kb:
             draft, use_model, rec["assumed"] = self._drafts(rows, kb)
             exit_layer = self.draft_exit if use_model is not None else None
             prog = verify_program(self._entry(), kb, sampled,
-                                  exit_layer=exit_layer)
+                                  exit_layer=exit_layer, step=view)
             prog.vstep.set_drafts(draft, use_model)
             rec["t_dispatch"] = time.monotonic()
             with lock:
@@ -748,7 +874,7 @@ class ContinuousBatcher:
                 len(rows), kb, kb - 1 if exit_layer else 0,
                 beside_walk=self._walking > 0)
         else:
-            prog = self._program(sampled)
+            prog = self._program(sampled, view)
             rec["t_dispatch"] = time.monotonic()
             with lock:
                 toks, lps = _scan_decode(prog.run, step, k, segment=True)
@@ -802,6 +928,7 @@ class ContinuousBatcher:
         recovery and clears a wedge."""
         toks, lps, counts, pending = self._device_wait(
             "segment_fetch", gen, self._fetch, rec)
+        self.window_stats.record_segment(**rec["window"])
         kb = rec.get("spec", 0)
         now = time.monotonic()
         # the JAX metric's interval: from the wait's return until the
@@ -865,6 +992,12 @@ class ContinuousBatcher:
 
     # -- speculative decoding ------------------------------------------------
 
+    @staticmethod
+    def _context(entry: dict) -> list:
+        """A row's fetched truth: its cached prefix, prompt and booked
+        tokens."""
+        return (entry["prefix_toks"] or []) + entry["row"] + entry["toks"]
+
     def _spec_draft(self, entry: dict, kb: int, q: int, k: int):
         """A lookup row's draft for one verify (JAX ``_spec_draft``,
         ``continuous.py:878``): extrapolated from fetched truth (the
@@ -874,7 +1007,7 @@ class ContinuousBatcher:
         at depth 2 the next verify is drafted before the one in flight
         lands. A wrong guess only misses. Returns ``(draft [k - 1],
         hit)``."""
-        base = (entry["prefix_toks"] or []) + entry["row"] + entry["toks"]
+        base = self._context(entry)
         pend = entry["spec_pend"]
         if pend is not None:
             ext, hit = lookup_draft_hit(base + [pend], (q + 1) * k - 1,
@@ -886,9 +1019,34 @@ class ContinuousBatcher:
                                     ngram_max=self.spec_ngram)
         return ext[q * k + 1: (q + 1) * k], hit
 
+    def _aux_draft(self, entry: dict, q: int, k: int):
+        """An aux row's draft (the aux branch of JAX ``_spec_draft``,
+        ``continuous.py:912-934``): the engine's :class:`DraftProvider`
+        proposes the whole extrapolation across the ``q`` verifies in
+        flight, as lookup extrapolates, and this verify takes its slice.
+        A short or failing proposal pads with raw ``-1``, never accepted,
+        so a misbehaving provider degrades to plain decode, not to a wrong
+        token; a failure is counted in ``draft_errors`` and logged.
+        Returns ``(draft [k - 1], hit)``."""
+        pend = entry["spec_pend"]
+        need = (q + 1) * k - (1 if pend is not None else 0)
+        try:
+            ext = [int(t) for t in self.draft_provider.propose(
+                self._context(entry) + ([pend] if pend is not None else []),
+                need)]
+        except Exception as e:  # noqa: BLE001 — a proposal, not a result
+            self.draft_errors += 1
+            log.warning("draft provider failed (padded with -1): %s", e)
+            ext = []
+        hit = len(ext) >= need
+        ext += [-1] * (need - len(ext))
+        if pend is not None:
+            return ext[q * k: q * k + k - 1], hit
+        return ext[q * k + 1: (q + 1) * k], hit
+
     def _spec_row_init(self) -> tuple:
         """``(provider, k_row)`` a new row starts with: lookup at a fixed
-        ``spec_k``; the model tier slow-starts at k = 2."""
+        ``spec_k``; the model and aux tiers slow-start at k = 2."""
         if not self.spec_k or self.draft_mode == "off":
             return "off", 1
         if self.draft_mode == "lookup":
@@ -901,7 +1059,7 @@ class ContinuousBatcher:
         run by the collector: the step's accepted fraction into the row's
         EWMA, then k doubled (up to ``spec_k``) above the grow band,
         halved below the shrink band, and at k = 2 the row demoted along
-        model -> lookup -> off (counted under ``draft.fallbacks``). Inert
+        model or aux -> lookup -> off (counted under ``draft.fallbacks``). Inert
         in lookup mode."""
         if self.draft_mode in ("lookup", "off"):
             return
@@ -921,7 +1079,7 @@ class ContinuousBatcher:
             if entry["k_row"] > 2:
                 entry["k_row"] = max(2, entry["k_row"] // 2)
             else:
-                nxt = "lookup" if provider == "model" else "off"
+                nxt = "lookup" if provider in ("model", "aux") else "off"
                 entry["draft_mode"] = nxt
                 entry["k_row"] = 2 if nxt != "off" else 1
                 entry["accept_ewma"] = None
@@ -1863,6 +2021,7 @@ class ContinuousBatcher:
         with self._lock:
             out = {"mode": "continuous", "slots": self.slots,
                    "segment": self.segment, "cache_len": self.cache_len,
+                   "window_bucketing": self.window_bucketing,
                    "paged": self.pool is not None,
                    "pipeline_depth": self.pipeline_depth,
                    "policy": (self.policy.name if self.policy is not None
@@ -1873,6 +2032,7 @@ class ContinuousBatcher:
                    "segments_run": self.segments_run,
                    "rows_in_segments": self.rows_in_segments,
                    "pipeline": self.pipe_stats.report(),
+                   "decode_window": self.window_stats.report(),
                    "prefill_chunk": self.server.prefill_chunk,
                    "prefill": self.prefill_stats.report(),
                    **({"spec": {"k": self.spec_k,

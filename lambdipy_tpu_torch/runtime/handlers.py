@@ -27,9 +27,12 @@ tier's extras (``max_logical_ctx``, ``long_prefill``), the state the
 live knob control for ``POST /v1/debug/knobs``, and after the first
 invoke a background thread warms the buckets ``warm_buckets`` lists and
 the engine's group prefill (``warm_group_prefill``, on by default), as
-the JAX handler does; ``/healthz`` reads ``warming`` meanwhile. Each
-extra the JAX handler also takes from a ``LAMBDIPY_*`` variable is
-resolved with the JAX handler's precedence."""
+the JAX handler does; ``/healthz`` reads ``warming`` meanwhile. The
+engine buckets its decode windows (``batch_window_bucketing``, on by
+default, as in JAX); without the engine, ``batch_window_ms > 0`` fuses
+concurrent single-row requests in the MicroBatcher
+(``runtime/batching.py``). Each extra the JAX handler also takes from a
+``LAMBDIPY_*`` variable is resolved with the JAX handler's precedence."""
 
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ from lambdipy_tpu_torch.ops.attention import flash_attention
 from lambdipy_tpu_torch.ops.decode_attention import (blocked_decode_attention,
                                                      paged_decode_attention)
 from lambdipy_tpu_torch.ops.quant import int8_matmul
+from lambdipy_tpu_torch.runtime.batching import MicroBatcher
 from lambdipy_tpu_torch.runtime.continuous import ContinuousBatcher
 from lambdipy_tpu_torch.runtime.faults import FaultPlan
 from lambdipy_tpu_torch.runtime.kvwire import (StreamDecoder, decode_frame,
@@ -82,6 +86,9 @@ class HandlerState:
     invoke_stream_fn: Callable[[dict], Iterator[dict]] | None = None
     # the continuous engine behind invoke_fn, when batch_mode=continuous
     engine: Any = None
+    # the MicroBatcher behind invoke_fn, when batch_window_ms > 0 and no
+    # engine
+    batcher: Any = None
     # the automatic prefix KV cache, when one is built
     prefix_store: Any = None
     # prompt ids -> tokens the prefix store would reuse: the scheduler
@@ -168,18 +175,16 @@ def kernel_launches() -> dict:
             "flash_attention": flash_attention.launches}
 
 
-# engine extras of the JAX handler whose features are not ported: the
-# value each may take (the feature off), anything else raises
+# engine extras of the JAX handler whose features need a mesh, which the
+# port does not have yet (ROADMAP): the value each may take (the feature
+# off), anything else raises
 _UNPORTED_ENGINE_EXTRAS = {
-    "batch_window_bucketing": ("0", "false", "off"),
     "prefill_mode": ("chunked",),
     "mesh": ("", "off"),
-    "batch_window_ms": ("0",),
 }
 # the variables the JAX handler reads for those features when their extra
 # is unset (the extra wins): a value that turns the feature on raises too
 _UNPORTED_ENV = {"LAMBDIPY_MESH": "mesh",
-                 "LAMBDIPY_WINDOW_BUCKETING": "batch_window_bucketing",
                  "LAMBDIPY_PREFILL_MODE": "prefill_mode"}
 
 
@@ -197,10 +202,6 @@ def _check_unported_extras(extra: dict) -> None:
                 f"{env}={raw!r} needs a feature the port does not have "
                 f"yet; supported: {list(_UNPORTED_ENGINE_EXTRAS[key])} or "
                 f"unset")
-    mode = str(extra.get("batch_mode") or "").lower()
-    if mode not in ("", "none", "continuous"):
-        raise ValueError(f"batch_mode {mode!r} is not ported; supported: "
-                         "continuous (or unset)")
 
 
 def _on(value) -> bool:
@@ -228,15 +229,18 @@ def _store_knob(extra: dict, key: str, env: str, default):
     return default if raw in (None, "") else float(raw)
 
 
-def make_prefix_store(server, engine, extra: dict) -> PrefixStore | None:
+def make_prefix_store(server, engine, extra: dict,
+                      batcher=None) -> PrefixStore | None:
     """The automatic prefix KV cache, built as the JAX handler builds it
     (``lambdipy_tpu/runtime/handlers.py:655-740``): on by default with a
     512 MB budget (``LAMBDIPY_PREFIX_CACHE_MB``, then ``prefix_cache_mb``;
     0 = off); under ``kv_quant`` only when that budget is set (the cached
     prefix reads back quantized, so routed output agrees with unrouted
     only to the quantization's tolerance); not at all where routing must
-    stand down, an engine narrower than the model's window (it cannot
-    take a full-window prefix row). A paged engine's store shares its
+    stand down: an engine narrower than the model's window (it cannot
+    take a full-window prefix row), or a MicroBatcher (``batcher``),
+    which has no prefix path, so routing would serialize the concurrent
+    traffic it fuses. A paged engine's store shares its
     arena: blocks are pages, and a hit takes them by refcount bump.
 
     Session pins: ``session_pin_budget_mb`` (default half the cache
@@ -246,7 +250,8 @@ def make_prefix_store(server, engine, extra: dict) -> PrefixStore | None:
     ``LAMBDIPY_KV_OFFLOAD``; off by default) attaches a host offload
     arena of ``kv_offload_mb`` (``LAMBDIPY_KV_OFFLOAD_MB`` first; 256)."""
     cfg = server.model.cfg
-    routable = engine is None or engine.cache_len == cfg.max_len
+    routable = batcher is None and (engine is None
+                                    or engine.cache_len == cfg.max_len)
     mb = _store_knob(extra, "prefix_cache_mb", "LAMBDIPY_PREFIX_CACHE_MB",
                      None)
     if not routable or (mb is not None and mb <= 0) \
@@ -504,7 +509,10 @@ def make_engine(server, extra: dict) -> ContinuousBatcher:
     page arena of ``kv_pages`` pages (the extra before
     ``LAMBDIPY_KV_PAGES``; default ``batch_max`` full windows plus the
     null page) whose page width is ``page_width(cache_len,
-    prefix_block)`` (:func:`prefix_block`, default 32)."""
+    prefix_block)`` (:func:`prefix_block`, default 32). Window bucketing
+    is on unless ``batch_window_bucketing`` (the extra before
+    ``LAMBDIPY_WINDOW_BUCKETING``) says ``0``, ``false`` or ``off``, as in
+    JAX."""
     cfg = server.model.cfg
     slots = int(extra.get("batch_max", 8))
     bcl = extra.get("batch_cache_len")
@@ -521,10 +529,14 @@ def make_engine(server, extra: dict) -> ContinuousBatcher:
             make_arena=lambda: init_page_arena(cfg, n_pages, page,
                                                server.device),
             window_pages=window_pages)
+    wb = extra.get("batch_window_bucketing",
+                   os.environ.get("LAMBDIPY_WINDOW_BUCKETING", "1"))
     return ContinuousBatcher(server, slots=slots,
                              segment=int(extra.get("batch_segment", 16)),
                              cache_len=cache_len, page_pool=pool,
                              policy=make_policy(sched_policy_name(extra)),
+                             window_bucketing=str(wb).lower()
+                             not in ("0", "false", "off"),
                              pipeline_depth=pipeline_depth(extra),
                              **fault_knobs(extra), **spec_knobs(extra),
                              **longctx_knobs(extra))
@@ -535,7 +547,9 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
     top_k, top_p, seed and eos_id for sampled decode, ``logprobs``, and
     ``stream`` (through :meth:`HandlerState.invoke_stream`). With
     ``batch_mode="continuous"`` single-row requests share the continuous
-    engine (:func:`make_engine`); multi-row requests run as one batch.
+    engine (:func:`make_engine`); otherwise, with ``batch_window_ms > 0``,
+    concurrent single-row requests fuse in the MicroBatcher
+    (``runtime/batching.py``); multi-row requests run as one batch.
     On the card decode steps replay CUDA graphs, at most
     ``program_cache_max`` programs (extra) beside the engine's; a
     ``{"warmup": true}`` request captures its bucket's graph.
@@ -584,10 +598,19 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
     # on the card every decode step replays a captured CUDA graph
     server = adapter.make_server(state_dict, device=ctx.device,
                                  **server_kw)
-    engine = (make_engine(server, extra)
-              if str(extra.get("batch_mode") or "").lower() == "continuous"
-              else None)
-    store = make_prefix_store(server, engine, extra)
+    # batch formation as in JAX (handlers.py:460-650): batch_mode
+    # continuous builds the engine; otherwise batch_window_ms > 0 builds
+    # the MicroBatcher, whose ragged calls single-row requests share;
+    # otherwise each request runs alone
+    engine = micro = None
+    if str(extra.get("batch_mode") or "").lower() == "continuous":
+        engine = make_engine(server, extra)
+    elif float(extra.get("batch_window_ms", 0) or 0) > 0:
+        micro = MicroBatcher(server,
+                             window_ms=float(extra["batch_window_ms"]),
+                             max_batch=int(extra.get("batch_max", 8)),
+                             policy=make_policy(sched_policy_name(extra)))
+    store = make_prefix_store(server, engine, extra, batcher=micro)
     default_new = int(extra.get("max_new_tokens", 16))
 
     # text in, text out (JAX handlers.py:1176-1192): a tokenizer shipped
@@ -649,6 +672,15 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
         error dict."""
         from_text = False
         if req.get("warmup") or req.get("random"):
+            if req.get("warmup") and micro is not None:
+                # every batch bucket the MicroBatcher can form, up to the
+                # one max_batch rounds up to, run now (JAX
+                # handlers.py:1286-1297): a first burst finds its programs
+                bb, top = 2, _next_bucket(micro.max_batch, 1)
+                while bb <= top:
+                    server.generate([[1, 2, 3, 4]] * bb,
+                                    max_new_tokens=default_new)
+                    bb *= 2
             prompt = np.asarray([[1, 2, 3, 4]], np.int32)
         elif req.get("text") is not None:
             if tokenizer is None:
@@ -755,6 +787,11 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
             out_ = engine.generate(prompt[0], max_new_tokens=max_new,
                                    prefix=prefix, return_logprobs=want_lp,
                                    **sample_kwargs)
+        elif micro is not None and len(prompt) == 1 and prefix is None:
+            # the MicroBatcher has no prefix path: a prefix request runs
+            # alone, as in JAX
+            out_ = micro.generate(prompt[0], max_new_tokens=max_new,
+                                  return_logprobs=want_lp, **sample_kwargs)
         else:
             out_ = server.generate(prompt, max_new_tokens=max_new,
                                    prefix=prefix, return_logprobs=want_lp,
@@ -909,8 +946,8 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
         refusals (``handlers.py:996-1097``): ``pipeline_depth`` in [1, 8];
         ``spec_k`` 0 or a power of two in [2, 8], resizing speculation
         that was on at boot and never turning it on; ``draft_mode``
-        model / lookup / off (``auto`` is model; ``aux`` needs a draft
-        provider, which the port has not); ``max_logical_ctx`` (paged KV
+        model / lookup / aux / off (``auto`` is model; ``aux`` needs the
+        engine's ``draft_provider``); ``max_logical_ctx`` (paged KV
         only; 0 stops routing). ``prefill_mode`` takes ``chunked`` only:
         its ``sp`` mode waits for parallelism."""
         if engine is None:
@@ -959,7 +996,7 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
                         "error": "spec was off at boot: draft_mode "
                                  "retune steers a live draft tier, "
                                  "never enables one"}
-            if dm == "aux":
+            if dm == "aux" and engine.draft_provider is None:
                 return {"ok": False,
                         "error": "draft_mode=aux needs a draft_provider "
                                  "wired at boot"}
@@ -1058,8 +1095,8 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
         # decode_buckets, compile_count, program_evictions as the JAX
         # handler reports them, plus replays and eager_steps
         out = {"kernels": kernel_launches(), **server.program_stats()}
-        if engine is not None:
-            out["batching"] = engine.stats()
+        if engine is not None or micro is not None:
+            out["batching"] = (engine or micro).stats()
         # the solo "speculative" path's cumulative counters (the engine's
         # batching.spec block reads the same object)
         out["spec"] = server.spec_metrics.report()
@@ -1092,7 +1129,8 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
               "attn_backend": cfg.attn_backend,
               "matmul_backend": cfg.matmul_backend,
               "kv_quant": cfg.kv_quant,
-              "batch_mode": "continuous" if engine is not None else None,
+              "batch_mode": ("continuous" if engine is not None
+                             else "window" if micro is not None else None),
               "kv_paged": engine is not None and engine.pool is not None,
               "prefix_cache": store is not None,
               "sessions": store is not None,
@@ -1100,7 +1138,7 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
               "tokenizer": tokenizer is not None,
               **({"tokenizer_error": tok_err} if tok_err else {})},
         stats_fn=stats, server=server, invoke_stream_fn=invoke_stream,
-        engine=engine, prefix_store=store,
+        engine=engine, batcher=micro, prefix_store=store,
         prefix_probe=store.match_len if store is not None else None,
         extra=extra,
         engine_fault_fn=engine.fault_state if engine is not None else None,

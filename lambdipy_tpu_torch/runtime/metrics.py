@@ -1,7 +1,8 @@
 """Counters the port's serving path reports under ``/metrics``: the
 port's copies of ``LatencyStats``, ``PipelineStats``, ``PagePoolStats``
 and ``PrefixCacheStats`` (``lambdipy_tpu/runtime/metrics.py``),
-``PrefillStats`` cut to the chunked walk, ``EngineFaultStats``, the
+``PrefillStats`` cut to the chunked walk, ``DecodeWindowStats``,
+``EngineFaultStats``, the
 prefix store's tiers (``KvOffloadStats``, ``KvShipStats``), the fleet's
 (``DisaggStats``, ``SessionStats``, ``RouterStats``, ``ControllerStats``:
 the router's ``fleet.disagg``, ``fleet.sessions``, ``router`` and
@@ -63,6 +64,50 @@ class LatencyStats:
             "p90_ms": self._percentile(samples, 90),
             "p99_ms": self._percentile(samples, 99),
         }
+
+
+@dataclass
+class DecodeWindowStats:
+    """Counters for length-aware decode (the ``decode_window`` block of
+    the engine's ``/metrics``): how many KV positions each decode step
+    ATTENDED, how many the dispatched window READ and what the full
+    static window would have read. ``savings_ratio`` = read / full: < 1
+    means window bucketing cut the window a segment was dispatched at;
+    1.0 means every step paid the whole allocated window. ``buckets``
+    histograms the windows segments dispatched at. The keys are JAX's
+    (``lambdipy_tpu/runtime/metrics.py:72-110``)."""
+
+    attended_tokens: int = 0   # sum over rows x steps of positions attended
+    window_tokens: int = 0     # sum of positions the program actually read
+    full_tokens: int = 0       # what the full static window would have read
+    segments: int = 0
+    buckets: dict = field(default_factory=dict)  # window -> segment count
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def record_segment(self, *, attended: int, window_read: int,
+                       full_window: int, window: int) -> None:
+        with self._lock:
+            self.attended_tokens += int(attended)
+            self.window_tokens += int(window_read)
+            self.full_tokens += int(full_window)
+            self.segments += 1
+            self.buckets[int(window)] = self.buckets.get(int(window), 0) + 1
+
+    def report(self) -> dict:
+        with self._lock:
+            full = self.full_tokens
+            return {
+                "attended_tokens": self.attended_tokens,
+                "window_tokens": self.window_tokens,
+                "full_tokens": full,
+                "savings_ratio": (round(self.window_tokens / full, 4)
+                                  if full else 1.0),
+                "attended_ratio": (round(self.attended_tokens / full, 4)
+                                   if full else 1.0),
+                "segments": self.segments,
+                "buckets": {str(w): n
+                            for w, n in sorted(self.buckets.items())},
+            }
 
 
 @dataclass

@@ -225,14 +225,16 @@ def sched_config(extra: dict, sched: dict | None = None) -> SchedConfig:
     """The scheduler's configuration, as the JAX server resolves it: the
     extra's ``sched_*`` keys, ``LAMBDIPY_SCHED_POLICY``, then ``sched``
     (the constructor's or the CLI's). Unless ``max_concurrency`` is
-    pinned, a continuous engine's ``batch_max`` floors it, so every slot
-    of the engine can fill."""
+    pinned, a batching handler's ``batch_max`` (the continuous engine's,
+    or the MicroBatcher's under ``batch_window_ms > 0``) floors it, so
+    every slot of the batch can fill."""
     sched = sched or {}
     cfg = SchedConfig.from_extra(extra, **sched)
     pinned = (extra.get("sched_max_concurrency") is not None
               or sched.get("max_concurrency") is not None)
-    if not pinned and str(extra.get("batch_mode", "")).lower() \
-            == "continuous":
+    batching = (str(extra.get("batch_mode", "")).lower() == "continuous"
+                or float(extra.get("batch_window_ms", 0) or 0) > 0)
+    if not pinned and batching:
         cfg.max_concurrency = max(cfg.max_concurrency,
                                   int(extra.get("batch_max", 8)))
     return cfg

@@ -19,6 +19,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -28,6 +29,8 @@ from lambdipy_tpu.models import registry as jreg
 from lambdipy_tpu.models.llama import init_page_arena as jax_init_page_arena
 from lambdipy_tpu.models.llama import page_kv_bytes as jax_page_kv_bytes
 from lambdipy_tpu.runtime.continuous import ContinuousBatcher as JaxBatcher
+from lambdipy_tpu.runtime.handlers import \
+    generate_handler as jax_generate_handler
 from lambdipy_tpu.runtime.pagepool import PagePool as JaxPagePool
 from lambdipy_tpu_torch.models import registry as treg
 from lambdipy_tpu_torch.models.params import from_jax_params
@@ -342,8 +345,8 @@ def test_handler_wiring(weights):
     """``batch_mode=continuous`` + ``kv_paged`` build the engine and its
     arena; single rows ride the engine, multi-row requests run as one
     batch; ``/metrics`` carries the engine, its pool and the paged kernel
-    counters; extras of features the port lacks raise, and
-    ``prefix_cache_mb`` builds the prefix store."""
+    counters; a mesh raises; window bucketing and the MicroBatcher build
+    as in JAX; and ``prefix_cache_mb`` builds the prefix store."""
     state = generate_handler(
         {"model": "llama-tiny", "dtype": "float32",
          "extra": {**EXTRA, **ENGINES["paged"], "batch_mode": "continuous",
@@ -364,13 +367,41 @@ def test_handler_wiring(weights):
     assert stats["batching"]["page_pool"]["pages_total"] == 16
     assert {"paged_decode_attention", "paged_decode_attention_int8kv"} \
         <= set(stats["kernels"])
-    for extra in ({"batch_mode": "continuous", "mesh": "tp=2"},
-                  {"batch_mode": "continuous",
-                   "batch_window_bucketing": "1"},
-                  {"batch_mode": "window"}):
-        with pytest.raises(ValueError, match="not"):
-            generate_handler({"model": "llama-tiny", "extra": extra},
-                             HandlerContext(device="cpu"))
+    with pytest.raises(ValueError, match="not"):
+        generate_handler({"model": "llama-tiny",
+                          "extra": {"batch_mode": "continuous",
+                                    "mesh": "tp=2"}},
+                         HandlerContext(device="cpu"))
+    # window bucketing (on unless the extra turns it off) and the
+    # MicroBatcher (batch_window_ms > 0 without the engine) build what
+    # the JAX handler builds: the same batching blocks in /metrics
+    for extra, want in (
+            ({"batch_mode": "continuous", "batch_window_bucketing": "1"},
+             True),
+            ({"batch_mode": "continuous"}, True),
+            ({"batch_mode": "continuous", "batch_window_bucketing": "0"},
+             False)):
+        built = generate_handler({"model": "llama-tiny", "extra": extra},
+                                 HandlerContext(device="cpu"))
+        jbatching = _jax_handler_stats(extra)["batching"]
+        assert built.engine.window_bucketing is want \
+            is jbatching["window_bucketing"]
+        assert set(built.stats()["batching"]["decode_window"]) \
+            == set(jbatching["decode_window"])
+    for extra in ({"batch_mode": "window", "batch_window_ms": "2"},
+                  {"batch_window_ms": "2"}):
+        built = generate_handler({"model": "llama-tiny", "extra": extra},
+                                 HandlerContext(device="cpu"))
+        assert built.engine is None and built.prefix_store is None
+        assert built.meta["batch_mode"] == "window"
+        assert built.stats()["batching"] == \
+            _jax_handler_stats(extra)["batching"]
+    unbatched = generate_handler(
+        {"model": "llama-tiny", "extra": {"batch_mode": "window"}},
+        HandlerContext(device="cpu"))
+    assert unbatched.engine is None and unbatched.batcher is None
+    assert "batching" not in _jax_handler_stats({"batch_mode": "window",
+                                                 "prefix_cache_mb": "0"})
     # a tokenizer that does not load degrades to token ids, as in JAX
     no_tok = generate_handler(
         {"model": "llama-tiny", "extra": {"tokenizer_path": "tokenizer/"}},
@@ -409,6 +440,15 @@ def test_handler_wiring(weights):
     assert fe.faults.describe() == ["segment_fetch:exception@seg=3,n=1"]
     assert fe.pool.faults is fe.faults
     assert faulty.prefix_store.faults is fe.faults
+
+
+def _jax_handler_stats(extra):
+    """The JAX handler's ``/metrics`` block for ``extra`` (llama-tiny,
+    f32, its AOT store off)."""
+    ctx = SimpleNamespace(params_dir=None, bundle_dir=None, manifest=None)
+    return jax_generate_handler(
+        {"model": "llama-tiny", "dtype": "float32",
+         "extra": {"serve_aot": "0", **extra}}, ctx).stats_fn()
 
 
 def test_greedy_tokens_equal_the_jax_engine(weights, server):

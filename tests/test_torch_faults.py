@@ -748,11 +748,12 @@ def test_degradation_ladder_steps_and_restores(tiny_server, server):
 
 def test_ladder_level_two_is_counted_and_serves_as_level_one(tiny_server,
                                                              server):
-    """Three failures in the window step the ladder to 2. JAX pins its
-    full-window program there; the port has no window variants (nor
-    speculation), so level 2 serves exactly as level 1: the replay is
-    bitwise, at depth 1, and the ``faults`` block equals JAX's."""
-    reports, outs = {}, {}
+    """Three failures in the window step the ladder to 2, where both
+    engines pin the full window (the level-2 replay's segments are its
+    only ``decode_window`` bucket, equal to JAX's) and serve as at level
+    1 otherwise: the replay is bitwise, at depth 1, and the ``faults``
+    block equals JAX's."""
+    reports, outs, windows = {}, {}, {}
     for name, cls, srv, mod in (
             ("jax", JaxBatcher, tiny_server, jfaults),
             ("port", ContinuousBatcher, server, tfaults)):
@@ -761,6 +762,8 @@ def test_ladder_level_two_is_counted_and_serves_as_level_one(tiny_server,
                      "segment_fetch:exception@seg=1,n=3"))
         outs[name] = np.asarray(cb.generate([2, 7, 1, 8], max_new_tokens=12))
         reports[name] = cb.stats()["faults"]
+        windows[name] = cb.stats()["decode_window"]
+        assert windows[name]["buckets"] == {str(cb.cache_len): 3}
         assert reports[name]["degrade_level"] == 2
         assert reports[name]["degrade_steps"] == {"1": 1, "2": 1}
         if name == "port":
@@ -771,6 +774,7 @@ def test_ladder_level_two_is_counted_and_serves_as_level_one(tiny_server,
     np.testing.assert_array_equal(
         outs["port"], server.generate([2, 7, 1, 8], max_new_tokens=12))
     assert reports["port"] == reports["jax"]
+    assert windows["port"] == windows["jax"]
 
 
 def test_abandoned_stream_cancels_and_counts_in_faults(tiny_server, server):

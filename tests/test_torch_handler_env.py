@@ -7,10 +7,10 @@ over):
   unset resolves to what the JAX handler resolves, with its precedence
   (``LAMBDIPY_KV_PAGED``, ``LAMBDIPY_KV_PAGES``,
   ``LAMBDIPY_PREFIX_BLOCK``, ``LAMBDIPY_ATTN_BACKEND``,
-  ``LAMBDIPY_MAX_LOGICAL_CTX``, ``LAMBDIPY_LONG_PREFILL``), and the
-  variables of features the port lacks (``LAMBDIPY_MESH``,
-  ``LAMBDIPY_WINDOW_BUCKETING``, ``LAMBDIPY_PREFILL_MODE``) raise where
-  their value turns the feature on and the extra is unset;
+  ``LAMBDIPY_MAX_LOGICAL_CTX``, ``LAMBDIPY_LONG_PREFILL``,
+  ``LAMBDIPY_WINDOW_BUCKETING``), and the variables of features the port
+  lacks (``LAMBDIPY_MESH``, ``LAMBDIPY_PREFILL_MODE``) raise where their
+  value turns the feature on and the extra is unset;
 - a row the engine sends solo streams at the request's ``segment``
   clamped to a power of two in [4, 64], the JAX handler's chunks;
 - ``batching.segments_run`` and ``rows_in_segments`` count as JAX counts
@@ -140,11 +140,24 @@ def test_long_prefill_variable(weights, monkeypatch, env, extra, want):
     assert eng.long_prefill == jeng.long_prefill == want
 
 
+@pytest.mark.parametrize("env,extra,want", [
+    (None, {}, True), ("0", {}, False), ("1", {}, True),
+    ("0", {"batch_window_bucketing": "1"}, True),
+], ids=["unset", "off", "window-bucketing", "extra-first"])
+def test_window_bucketing_variable(weights, monkeypatch, env, extra, want):
+    """Window bucketing is on unless turned off; the extra wins over
+    ``LAMBDIPY_WINDOW_BUCKETING``, as in JAX (``handlers.py:509-511``)."""
+    if env is not None:
+        monkeypatch.setenv("LAMBDIPY_WINDOW_BUCKETING", env)
+    state, eng, jeng = _engines(weights, {**BASE, **extra})
+    assert eng.window_bucketing is jeng.window_bucketing is want
+    assert state.stats()["batching"]["window_bucketing"] is want
+
+
 @pytest.mark.parametrize("var,on,off,key", [
     ("LAMBDIPY_MESH", "tp=2", "off", "mesh"),
-    ("LAMBDIPY_WINDOW_BUCKETING", "1", "0", "batch_window_bucketing"),
     ("LAMBDIPY_PREFILL_MODE", "sp", "chunked", "prefill_mode"),
-], ids=["mesh", "window-bucketing", "prefill-mode"])
+], ids=["mesh", "prefill-mode"])
 def test_unported_feature_variables_raise(weights, monkeypatch, var, on,
                                           off, key):
     """A value that turns the feature on raises, as the extra does; the

@@ -1747,3 +1747,54 @@ def test_classify_graph_replay_is_bitwise_eager(cuda_device, name):
     err = ((got - ref).abs().max() / ref.abs().max()).item()
     assert err <= CLASSIFY_CPU_BOUND[name]
     assert torch.equal(got.argmax(-1), ref.argmax(-1))
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"], ids=["float", "int8kv"])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_windowed_step_is_bitwise_the_full_window_step(cuda_device, paged,
+                                                       kv_quant):
+    """Why the windowed engine replays its full-window program under the
+    decode kernels: 16 steps of 8 rows over a 64-position window (a
+    contiguous cache of 64 positions, or the first 64 // page entries of
+    the rows' tables) give the tokens, logprobs and written K/V of the
+    same steps over the full 512 positions, bitwise: the kernels read a
+    row only up to its active length. (The plain attention's narrowed
+    view is held on the CPU, ``tests/test_torch_window.py``.)"""
+    from lambdipy_tpu_torch.models import llama as tl
+
+    model = _spec_model(cuda_device, kv_quant).model
+    cfg = model.cfg
+    b, width, window, page, steps = 8, 512, 64, 32, 16
+    tables = torch.randperm(b * width // page, generator=torch.Generator()
+                            .manual_seed(5)).add(1).to(torch.int32) \
+        .view(b, -1).to(cuda_device)
+
+    def fresh(w):
+        if not paged:
+            return tl.DecodeStep(model, tl.init_decode_cache(
+                cfg, b, w, cuda_device), b)
+        arena = tl.init_page_arena(cfg, 1 + b * width // page, page,
+                                   cuda_device)
+        return tl.DecodeStep(model, arena, b,
+                             tables=tables[:, :w // page].contiguous())
+
+    start = torch.tensor([3, 40, 5, 20, 33, 17, 6, 30], dtype=torch.int32,
+                         device=cuda_device)
+    first = torch.arange(100, 100 + b, device=cuda_device)
+    streams = tl.row_streams([(1, r) for r in range(b)])
+    out = {}
+    with torch.inference_mode():
+        for w in (width, window):
+            step = fresh(w)
+            step.load(first, torch.zeros(b, device=cuda_device), start,
+                      [-1] * b, streams)
+            out[w] = (step, *tl._scan_decode(lambda s=step: s.step(False),
+                                             step, steps, segment=True))
+        torch.cuda.synchronize()
+    (full, ft, fl), (narrow, nt, nl) = out[width], out[window]
+    assert torch.equal(ft, nt) and torch.equal(fl, nl)
+    assert int(start.max()) + steps <= window
+    for fe, ne in zip(full.cache, narrow.cache):
+        for name, val in tl._leaves(ne).items():
+            ref = tl._leaves(fe)[name]
+            assert torch.equal(ref if paged else ref[:, :window], val), name
