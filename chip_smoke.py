@@ -185,7 +185,29 @@ Phases, each of which fails the run with a non-zero exit:
    the readiness line and its stages, 50 and 30 invokes of a
    ``{"random": true}`` body and of a real one (p50, p99, against the <
    15 ms and < 10 s targets), every answer (b)'s, SIGTERM exits 0; the
-   kernels' counters read 0 (no TPU kernel is on this path). Last, M:
+   kernels' counters read 0 (no TPU kernel is on this path). Then P:
+   Llama-3-8B's HF checkpoint at its published widths, 2 of its 32
+   layers (vocabulary 128,256, untied), bf16, written by the script's
+   own safetensors writer (2 shards and their index, ~2.97 GB) in a
+   thread beside the kernel checks, which also builds the bundle's
+   params from it (``models/convert.py save_hf_params(quant="int8")``)
+   and holds the converted tree bitwise the written tensors transposed;
+   (c) ``params.fpk`` bitwise ``quantize_params`` on the card; (d) the
+   bundle (``llama-hf``, ``params = "hf"``) booted in process; (e) 4
+   concurrent requests through its paged engine bitwise their solo
+   ``generate``, the tokens and logprobs bitwise a 2-layer ``llama3-8b``
+   server loading the same ``params.fpk`` through ``models/params.py``,
+   each phase's launches 15 int8 matmuls a forward and 2 decode-attention
+   launches a step. Then Q: ``llama3-8b`` with ``moe_experts = 8`` (
+   Mixtral-8x7B's experts: top 2, 4,096 x 14,336) in int8 at 2 of 32
+   layers, the weights drawn on the card: (a) a 200-token prefill and 16
+   decode steps finite, ``blocked`` / ``pallas`` against ``dense`` /
+   ``xla`` (logit cosine and max |diff| against ``Q_COSINE_MIN``,
+   ``Q_REL_MAX``); (b) each layer's seats against an independent count
+   (seated + dropped = top_k x tokens); (c) a burst of 4 concurrent
+   requests through a paged engine completes, 9 int8 matmuls a forward
+   (the experts are einsums) and 2 decode-attention launches a step; (d)
+   the batch-1 step time and the experts' per-call dequantisation. Last, M:
    the bundle lifecycle through ``python -m lambdipy_tpu_torch``, every
    command a process under a fresh ``HOME`` and an empty kernel build
    cache (``LAMBDIPY_KERNEL_CACHE``): (b) ``recipes`` lists the ten
@@ -249,7 +271,8 @@ Phases, each of which fails the run with a non-zero exit:
    Cut for time: B, C, E, H, I and J serve llama3-8b at its published
    widths with 8 of its 32 layers (``CUT_LAYERS``), every check kept, each
    byte budget (store, offload arena, pins) scaled with the depth so that
-   it holds the same blocks; A, D-G and K-O run at full depth. After each
+   it holds the same blocks; P and Q at 2 (``HF_LAYERS``); A, D-G and
+   K-O run at full depth. After each
    path the script prints the seconds since it started; at 1,150 s a
    guard prints the path and stage in progress, stops every process the
    script started and exits 3;
@@ -7808,6 +7831,603 @@ def serve_soak_path(card: str, bundle: Path, *, device: str = "cuda") -> dict:
     return out
 
 
+# path P: a HuggingFace checkpoint at Llama-3-8B's published widths, cut to
+# HF_LAYERS of its 32 layers, written by the script's own safetensors
+# writer beside the kernel checks, converted at build by the port
+# (models/convert.py save_hf_params, int8) and served from the bundle
+HF_LAYERS = 2
+HF_CONFIG = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+             "vocab_size": 128256, "hidden_size": 4096,
+             "intermediate_size": 14336, "num_hidden_layers": HF_LAYERS,
+             "num_attention_heads": 32, "num_key_value_heads": 8,
+             "head_dim": 128, "max_position_embeddings": 8192,
+             "rope_theta": 500000.0, "rms_norm_eps": 1e-5,
+             "tie_word_embeddings": False, "attention_bias": False,
+             "mlp_bias": False, "hidden_act": "silu",
+             "torch_dtype": "bfloat16", "bos_token_id": 128000,
+             "eos_token_id": 128001}
+HF_SEED = 24
+HF_PROMPTS = (37, 100, 300, 700)  # P's 4 concurrent requests
+HF_NEW = 16
+HF_EXTRA = {**ENGINE_EXTRA, "max_new_tokens": str(HF_NEW),
+            "prefix_cache_mb": "0"}
+# one forward of a dense HF_LAYERS-layer Llama: 7 projections a layer and
+# the lm_head on the int8 kernel; a decode step: one decode-attention
+# launch a layer
+HF_MATMULS = 7 * HF_LAYERS + 1
+
+
+def hf_tensors(seed: int) -> dict:
+    """Llama-3-8B's HF tensors (``modeling_llama`` names, ``[out, in]``
+    Linear weights) at ``HF_LAYERS`` layers, bf16, on the host: seeded
+    normals, ``1/sqrt(in)`` for the projections and the lm_head, 0.02 for
+    the embedding, norm gains near 1."""
+    gen = torch.Generator().manual_seed(seed)
+    h, m, v = HF_CONFIG["hidden_size"], HF_CONFIG["intermediate_size"], \
+        HF_CONFIG["vocab_size"]
+    kv = HF_CONFIG["num_key_value_heads"] * HF_CONFIG["head_dim"]
+
+    def lin(n_out, n_in):
+        return (torch.randn(n_out, n_in, generator=gen)
+                / math.sqrt(n_in)).to(torch.bfloat16)
+
+    def gain():
+        return (1.0 + 0.1 * torch.randn(h, generator=gen)).to(torch.bfloat16)
+
+    out = {"model.embed_tokens.weight":
+           (0.02 * torch.randn(v, h, generator=gen)).to(torch.bfloat16)}
+    for i in range(HF_LAYERS):
+        p = f"model.layers.{i}"
+        out.update({
+            f"{p}.input_layernorm.weight": gain(),
+            f"{p}.self_attn.q_proj.weight": lin(h, h),
+            f"{p}.self_attn.k_proj.weight": lin(kv, h),
+            f"{p}.self_attn.v_proj.weight": lin(kv, h),
+            f"{p}.self_attn.o_proj.weight": lin(h, h),
+            f"{p}.post_attention_layernorm.weight": gain(),
+            f"{p}.mlp.gate_proj.weight": lin(m, h),
+            f"{p}.mlp.up_proj.weight": lin(m, h),
+            f"{p}.mlp.down_proj.weight": lin(h, m)})
+    out["model.norm.weight"] = gain()
+    out["lm_head.weight"] = lin(v, h)
+    return out
+
+
+def write_safetensors(path: Path, tensors: dict) -> int:
+    """The safetensors format by hand: an 8-byte little-endian header
+    length, the JSON header (dtype, shape, ``data_offsets``), padded with
+    spaces to 8 bytes, then each bf16 tensor's raw bytes in order.
+    Returns the file's bytes."""
+    import struct
+
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": "BF16", "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    header["__metadata__"] = {"format": "pt"}
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.contiguous().view(torch.int16).numpy().data)
+    return 8 + len(raw) + off
+
+
+class HfCheckpointWriter(threading.Thread):
+    """Path P's host work, beside the kernel checks: writes the checkpoint
+    into ``root`` (``config.json``, two safetensors shards, the embedding
+    and layer 0 then the rest, and ``model.safetensors.index.json``),
+    builds the bundle's params from it (``save_hf_params(quant="int8")``
+    into ``root.parent / "bundle" / "params"``) and holds the converted
+    float tree against the written tensors transposed.
+    :meth:`result` joins it and returns ``(tensors, record)``."""
+
+    def __init__(self, root: Path):
+        super().__init__(name="hf-checkpoint-writer", daemon=True)
+        self.root, self.error, self.out = root, None, None
+
+    def run(self):
+        try:
+            from lambdipy_tpu_torch.models.convert import (import_hf_llama,
+                                                           save_hf_params)
+            from lambdipy_tpu_torch.models.params import from_jax_params
+
+            t0 = time.perf_counter()
+            tensors = hf_tensors(HF_SEED)
+            draw_s = time.perf_counter() - t0
+            self.root.mkdir(parents=True, exist_ok=True)
+            (self.root / "config.json").write_text(json.dumps(HF_CONFIG))
+            names = list(tensors)
+            cut_at = names.index("model.layers.1.input_layernorm.weight")
+            shards = {"model-00001-of-00002.safetensors": names[:cut_at],
+                      "model-00002-of-00002.safetensors": names[cut_at:]}
+            total, weight_map = 0, {}
+            for shard, keys in shards.items():
+                total += write_safetensors(self.root / shard,
+                                           {k: tensors[k] for k in keys})
+                weight_map.update(dict.fromkeys(keys, shard))
+            (self.root / "model.safetensors.index.json").write_text(
+                json.dumps({"metadata": {"total_size": sum(
+                    t.numel() * t.element_size() for t in tensors.values())},
+                    "weight_map": weight_map}))
+            wall_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            info = save_hf_params(self.root,
+                                  self.root.parent / "bundle" / "params",
+                                  quant="int8")
+            build_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = from_jax_params(import_hf_llama(self.root)[1])
+            want = hf_port_keys(tensors)
+            unequal = sorted(set(got) ^ set(want)) + [
+                k for k in want if k in got and (
+                    got[k].dtype != want[k].dtype
+                    or not torch.equal(got[k], want[k]))]
+            del got
+            self.out = (tensors, {
+                "bytes": total, "draw_s": draw_s, "wall_s": wall_s,
+                "build_s": build_s, "params_info": info,
+                "tree_tensors": len(want), "tree_unequal": unequal,
+                "tree_check_s": time.perf_counter() - t0})
+        except BaseException as e:  # noqa: BLE001 - reported by result()
+            self.error = e
+
+    def result(self) -> tuple:
+        self.join()
+        if self.error is not None:
+            raise SystemExit(f"path P: the checkpoint's writer or build "
+                             f"failed: {type(self.error).__name__}: "
+                             f"{self.error}")
+        return self.out
+
+
+def hf_port_keys(tensors: dict) -> dict:
+    """The written HF tensors under the port's keys in the flax layout
+    (kernels ``[in, out]``): the mapping written out here, not through
+    ``models/convert.py``."""
+    out = {"embed.embedding": tensors["model.embed_tokens.weight"],
+           "final_norm.scale": tensors["model.norm.weight"],
+           "lm_head.kernel": tensors["lm_head.weight"].T}
+    names = {"attn_norm.scale": "input_layernorm.weight",
+             "mlp_norm.scale": "post_attention_layernorm.weight",
+             **{f"{p}_proj.kernel": f"self_attn.{p}_proj.weight"
+                for p in "qkvo"},
+             **{f"{p}_proj.kernel": f"mlp.{p}_proj.weight"
+                for p in ("gate", "up", "down")}}
+    for i in range(HF_LAYERS):
+        for ours, theirs in names.items():
+            t = tensors[f"model.layers.{i}.{theirs}"]
+            out[f"layer_{i}.{ours}"] = t.T if ours.endswith("kernel") else t
+    return out
+
+
+def nested(flat: dict) -> dict:
+    """Port keys (``layer_0.q_proj.kernel``) as the nested tree the JAX
+    layout's functions take."""
+    tree: dict = {}
+    for key, t in flat.items():
+        *parents, leaf = key.split(".")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+    return tree
+
+
+def _concurrent_engine(engine, prompts, n_new: int) -> list:
+    """``prompts`` through ``engine.generate`` at once, one thread each,
+    logprobs on."""
+    out = [None] * len(prompts)
+
+    def run(i):
+        try:
+            out[i] = engine.generate(prompts[i], max_new_tokens=n_new,
+                                     return_logprobs=True)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            out[i] = e
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    for o in out:
+        if not isinstance(o, tuple):
+            raise SystemExit(f"an engine request failed: {o!r}")
+    return out
+
+
+def _launch_delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in KERNELS}
+
+
+def _check_launches(what: str, got: dict, want: dict) -> None:
+    want = {k: want.get(k, 0) for k in KERNELS}
+    log(f"{what} launch counters: {got}, implied {want}")
+    if got != want:
+        raise SystemExit(f"{what}: launch counters {got} != implied {want}")
+
+
+def serve_hf_path(card: str, writer: HfCheckpointWriter) -> dict:
+    """Path P: (a) the checkpoint written beside the kernel checks; (b)
+    the bundle built from it (``save_hf_params(quant="int8")``, manifest,
+    ``handler.py``); (c) the converted tree bitwise the written tensors
+    transposed, the int8 params bitwise ``quantize_params`` on the card;
+    (d) ``load_bundle`` on the card (``llama-hf`` rebuilt from
+    ``params_info.config``); (e) 4 concurrent requests through its engine
+    bitwise their solo ``generate``, and the tokens bitwise a
+    ``HF_LAYERS``-layer ``llama3-8b`` server loading the same
+    ``params.fpk`` through ``models/params.py``; the launch identity of
+    each phase."""
+    import shutil
+
+    from lambdipy_tpu_torch.bundle import flatpack
+    from lambdipy_tpu_torch.models import registry
+    from lambdipy_tpu_torch.models.llama import quantize_params
+    from lambdipy_tpu_torch.models.params import from_jax_params
+    from lambdipy_tpu_torch.runtime.handlers import kernel_launches
+    from lambdipy_tpu_torch.runtime.loader import load_bundle
+
+    tensors, wrote = writer.result()
+    ckpt = writer.root
+    info = wrote["params_info"]
+    log(f"path P (a): Llama-3-8B's HF checkpoint at {HF_LAYERS} layers, bf16: "
+        f"{wrote['bytes']:,} B in 2 safetensors shards and their index, "
+        f"drawn in {wrote['draw_s']:.2f} s, drawn and written in "
+        f"{wrote['wall_s']:.2f} s beside the kernel checks")
+    bundle = ckpt.parent / "bundle"
+    try:
+        fpk = bundle / "params" / "params.fpk"
+        log(f"path P (b): save_hf_params(quant='int8') read, converted, "
+            f"quantized and wrote {fpk.stat().st_size:,} B of params.fpk in "
+            f"{wrote['build_s']:.2f} s beside the kernel checks; "
+            f"params_info.config {info['config']}")
+        spec = {"recipe": "chip-smoke-hf-llama3-8b", "model": "llama-hf",
+                "params": "hf", "dtype": "bfloat16", "batch_size": 1,
+                "mesh": {}, "quant": "int8",
+                "extra": {**HF_EXTRA, "hf_path": str(ckpt)}, "device": "any"}
+        write_bundle(bundle, spec, "generate_handler", card,
+                     params_info=info, base="torch", label="P")
+
+        PROGRESS["stage"] = "trees"
+        t0 = time.perf_counter()
+        unequal = wrote["tree_unequal"]
+        q_want = from_jax_params(quantize_params(nested(
+            {k: v.to("cuda") for k, v in hf_port_keys(tensors).items()})))
+        q_got = flatpack.load_state_dict(fpk, "cuda")
+        q_unequal = [k for k in q_want if q_got[k].dtype != q_want[k].dtype
+                     or not torch.equal(q_got[k], q_want[k])]
+        n_tree = wrote["tree_tensors"]
+        log(f"path P (c): converted tree {n_tree - len(unequal)} of "
+            f"{n_tree} tensors bitwise the written ones "
+            f"transposed (checked in {wrote['tree_check_s']:.2f} s beside the "
+            f"kernel checks); params.fpk {len(q_want) - len(q_unequal)} of "
+            f"{len(q_want)} tensors bitwise quantize_params on the card "
+            f"({time.perf_counter() - t0:.2f} s)")
+        if unequal or set(q_got) != set(q_want) or q_unequal:
+            raise SystemExit(f"path P (c): trees differ: {unequal[:3]} "
+                             f"{q_unequal[:3]}")
+        del tensors
+        gc.collect()
+
+        PROGRESS["stage"] = "boot"
+        set_launches_to_zero()  # counters to 0 just before the path
+        t0 = time.perf_counter()
+        boot = load_bundle(bundle, device="cuda")
+        boot_s = time.perf_counter() - t0
+        state = boot.state
+        server, engine = state.server, state.engine
+        cfg = server.model.cfg
+        arch = {f: getattr(cfg, f) for f in info["config"]}
+        arch["rope_scaling"] = None if cfg.rope_scaling is None \
+            else list(cfg.rope_scaling)
+        loaded = server.model.state_dict()
+        l_unequal = [k for k, t in q_want.items()
+                     if not torch.equal(loaded[k], t.to(loaded[k].dtype))]
+        log(f"path P (d): load_bundle in {boot_s:.2f} s (stages "
+            f"{boot.stages}); llama-hf at {cfg.layers} layers, "
+            f"{cfg.hidden} wide, vocab {cfg.vocab_size}, "
+            f"{cfg.attn_backend} / {cfg.matmul_backend}; "
+            f"{len(q_want) - len(l_unequal)} of {len(q_want)} tensors the "
+            f"written ones")
+        if arch != info["config"] or l_unequal or engine is None:
+            raise SystemExit(f"path P (d): the booted model is not the "
+                             f"checkpoint's: {arch} {l_unequal[:3]}")
+        del q_got, q_want, loaded
+
+        PROGRESS["stage"] = "engine"
+        rng = torch.Generator().manual_seed(HF_SEED)
+        prompts = [torch.randint(1, cfg.vocab_size, (n,),
+                                 generator=rng).tolist() for n in HF_PROMPTS]
+        l0 = kernel_launches()
+        before = engine.stats()
+        t0 = time.perf_counter()
+        rows = _concurrent_engine(engine, prompts, HF_NEW)
+        burst_s = time.perf_counter() - t0
+        after = engine.stats()
+        l1 = kernel_launches()
+        steps = after["steps"] - before["steps"]
+        forwards = after["forwards"] - before["forwards"]
+        _check_launches("path P (e) engine", _launch_delta(l0, l1), {
+            "int8_matmul": HF_MATMULS * forwards,
+            "paged_decode_attention": HF_LAYERS * steps})
+        solo = [server.generate(p, max_new_tokens=HF_NEW,
+                                return_logprobs=True) for p in prompts]
+        l2 = kernel_launches()
+        _check_launches("path P (e) solo", _launch_delta(l1, l2), {
+            "int8_matmul": HF_MATMULS * HF_NEW * len(prompts),
+            "decode_attention": HF_LAYERS * (HF_NEW - 1) * len(prompts)})
+        same = [np.array_equal(r[0], s[0]) and np.array_equal(r[1], s[1])
+                for r, s in zip(rows, solo)]
+        log(f"path P (e): 4 concurrent requests ({HF_PROMPTS} prompt "
+            f"tokens, {HF_NEW} new) through the paged engine in "
+            f"{burst_s:.2f} s ({steps} steps, {forwards} forwards): "
+            f"{sum(same)} of 4 rows bitwise their solo generate (tokens "
+            f"and logprobs) [{card}]")
+        if not all(same):
+            raise SystemExit("path P (e): engine rows differ from solo")
+        del boot, state, server, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        PROGRESS["stage"] = "llama3-8b"
+        ref_adapter = registry.get("llama3-8b").build(
+            dtype="bfloat16", quant="int8",
+            extra={"layers": str(HF_LAYERS)})
+        ref = ref_adapter.make_server(
+            ref_adapter.load_params(bundle / "params", device="cuda"),
+            device="cuda")
+        ref_rows = [ref.generate(p, max_new_tokens=HF_NEW,
+                                 return_logprobs=True) for p in prompts]
+        l3 = kernel_launches()
+        _check_launches("path P (e) llama3-8b", _launch_delta(l2, l3), {
+            "int8_matmul": HF_MATMULS * HF_NEW * len(prompts),
+            "decode_attention": HF_LAYERS * (HF_NEW - 1) * len(prompts)})
+        ref_same = [np.array_equal(r[0], s[0]) and np.array_equal(r[1], s[1])
+                    for r, s in zip(ref_rows, solo)]
+        log(f"path P (e): {sum(ref_same)} of 4 rows of a {HF_LAYERS}-layer "
+            f"llama3-8b server loading the same params.fpk through "
+            f"models/params.py bitwise llama-hf's (tokens and logprobs); "
+            f"greedy tokens of the first {solo[0][0][0][:8].tolist()}")
+        if not all(ref_same):
+            raise SystemExit("path P (e): llama-hf and llama3-8b differ")
+        del ref
+    finally:
+        shutil.rmtree(ckpt.parent, ignore_errors=True)
+    return {"checkpoint": {k: v for k, v in wrote.items()
+                           if k != "params_info"},
+            "boot_s": boot_s, "burst_s": burst_s, "params_info": info,
+            "steps": steps,
+            "forwards": forwards, "launches": l3}
+
+
+# path Q: llama3-8b (int8, bf16) with Mixtral-8x7B's experts: 8, top 2,
+# hidden 4,096, expert width 14,336, at HF_LAYERS of its 32 layers, the
+# weights drawn on the card
+Q_EXTRA = {"moe_experts": "8", "layers": str(HF_LAYERS)}
+Q_NEW = 16
+Q_PROMPT = 200
+Q_PLAIN = {"attn_backend": "dense", "matmul_backend": "xla"}
+# the kernel routes against the plain ones, last-position logits of the
+# prefill and of 16 teacher-forced decode steps (measured on the card)
+Q_COSINE_MIN, Q_REL_MAX = 0.999, 0.05
+# one forward of the MoE model: q, k, v, o a layer and the lm_head on the
+# int8 kernel; the experts dequantize into a bf16 einsum
+Q_MATMULS = 4 * HF_LAYERS + 1
+
+
+def q_route_counts(model, toks, mask) -> dict:
+    """Each MoE layer's routing of a prefill's tokens, padding included
+    (as JAX): the seats ``route`` takes against an independent count, per
+    group and expert, of the valid tokens that pick the expert: seated =
+    sum(min(demand, capacity)), dropped = sum(max(demand - capacity, 0)),
+    seated + dropped = top_k x valid tokens."""
+    from lambdipy_tpu_torch.models.moe import _top_k
+
+    seen = {}
+    hooks = [blk.moe.register_forward_pre_hook(
+        lambda mod, args, i=i: seen.__setitem__(i, args[0]))
+        for i, blk in enumerate(model.blocks())]
+    try:
+        with torch.inference_mode():
+            model(toks, mask=mask)
+    finally:
+        for h in hooks:
+            h.remove()
+    out = []
+    with torch.inference_mode():
+        for i, x in sorted(seen.items()):
+            moe = model.blocks()[i].moe
+            b, s, hidden = x.shape
+            t = b * s
+            gs, g, cap = moe.capacity(t)
+            dispatch, _, _ = moe.route(x)
+            probs = torch.softmax(x.reshape(t, hidden).float() @ moe.router,
+                                  -1)
+            _, idx = _top_k(probs, moe.top_k)
+            idx = torch.nn.functional.pad(idx, (0, 0, 0, g * gs - t),
+                                          value=-1).reshape(g, gs, -1)
+            demand = torch.stack([(idx == e).sum((1, 2)) for e in
+                                  range(moe.num_experts)], -1)  # [g, e]
+            seated = int(dispatch.sum())
+            want = int(demand.clamp(max=cap).sum())
+            dropped = int((demand - cap).clamp(min=0).sum())
+            one_seat = bool(dispatch.sum(1).max() <= 1)
+            out.append({"layer": i, "tokens": t, "groups": g,
+                        "capacity": cap, "seated": seated,
+                        "dropped": dropped, "seated_expected": want,
+                        "one_token_per_seat": one_seat})
+            if seated != want or seated + dropped != moe.top_k * t \
+                    or not one_seat:
+                raise SystemExit(f"path Q (b): layer {i} routes {seated} "
+                                 f"seats, {dropped} dropped, against "
+                                 f"{want} of {moe.top_k} x {t}")
+    return out
+
+
+def q_compare(served, plain, tokens) -> dict:
+    """Last-position logits of the prefill and of ``Q_NEW`` teacher-forced
+    decode steps, the kernel routes against the plain ones on the same
+    weights: every value finite, cosine and max |diff| / max |logit|."""
+    from lambdipy_tpu_torch.models.llama import prefill_into_cache
+
+    dev = served.device
+    toks = torch.tensor([tokens], device=dev)
+    s = toks.shape[1]
+    last = torch.tensor([s - 1], device=dev)
+    cos_min, rel_max, argmax_same, finite = 1.0, 0.0, 0, True
+    with torch.inference_mode():
+        caches, logits = {}, {}
+        for name, model in (("served", served), ("plain", plain)):
+            lg, pc = model(toks, logit_positions=last)
+            caches[name] = prefill_into_cache(model.cfg, pc, 1, s + Q_NEW, s)
+            logits[name] = lg[:, -1].float()
+            del pc
+        nxt = logits["plain"].argmax(-1)
+        for step in range(Q_NEW + 1):
+            a, b = logits["served"].flatten(), logits["plain"].flatten()
+            finite = finite and bool(torch.isfinite(a).all())
+            cos = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+            rel = ((a - b).abs().max() / b.abs().max()).item()
+            cos_min, rel_max = min(cos_min, cos), max(rel_max, rel)
+            argmax_same += int(a.argmax() == b.argmax())
+            if step == Q_NEW:
+                break
+            pos = torch.full((1,), s + step, dtype=torch.int32, device=dev)
+            for name, model in (("served", served), ("plain", plain)):
+                for entry in caches[name]:
+                    entry["index"] = pos
+                lg, _ = model(nxt[:, None], positions=pos[:, None],
+                              cache=caches[name])
+                logits[name] = lg[:, -1].float()
+            nxt = logits["plain"].argmax(-1)
+    return {"finite": finite, "cosine_min": cos_min, "rel_max": rel_max,
+            "argmax_same": argmax_same, "positions": Q_NEW + 1}
+
+
+def serve_moe_path(card: str) -> dict:
+    """Path Q: (a) the prefill and 16 decode steps finite, the kernel
+    routes against the plain ones on the card; (b) each layer's route
+    counts exact; (c) a burst of 4 concurrent requests through a handler's
+    paged engine completes, its launch identity 9 int8 matmuls a forward
+    and 2 decode-attention launches a step; (d) the step time and the
+    experts' per-call dequantisation."""
+    from lambdipy_tpu_torch.models import registry
+    from lambdipy_tpu_torch.runtime.handlers import (HandlerContext,
+                                                     generate_handler,
+                                                     kernel_launches)
+
+    set_launches_to_zero()  # counters to 0 just before the path
+    adapter = registry.get("llama3-8b").build(dtype="bfloat16",
+                                              quant="int8", extra=Q_EXTRA)
+    cfg = adapter.config
+    t0 = time.perf_counter()
+    sd = adapter.init_params(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    experts = sum(t.numel() for k, t in sd.items() if ".moe.experts_" in k
+                  and k.endswith("_int8"))
+    total = sum(t.numel() * t.element_size() for t in sd.values())
+    log(f"path Q: llama3-8b with moe_experts {cfg.moe_experts}, top "
+        f"{cfg.moe_top_k}, expert width {cfg.mlp}, {cfg.layers} layers, "
+        f"int8: experts {experts:,} B, the model {total:,} B, drawn on the "
+        f"card in {init_s:.2f} s")
+    served = adapter.make_model(sd, device="cuda")
+    plain = registry.get("llama3-8b").build(
+        dtype="bfloat16", quant="int8", extra={**Q_EXTRA, **Q_PLAIN}
+    ).make_model(sd, device="cuda")
+    rng = torch.Generator().manual_seed(31)
+    prompt = torch.randint(1, cfg.vocab_size, (Q_PROMPT,),
+                           generator=rng).tolist()
+
+    PROGRESS["stage"] = "kernel vs plain"
+    cmp = q_compare(served, plain, prompt)
+    log(f"path Q (a): prefill of {Q_PROMPT} tokens and {Q_NEW} decode "
+        f"steps finite: {cmp['finite']}; blocked / pallas against dense / "
+        f"xla: logit cosine min {cmp['cosine_min']:.6f} (tolerance >= "
+        f"{Q_COSINE_MIN}), max |diff| / max |logit| {cmp['rel_max']:.4f} "
+        f"(tolerance <= {Q_REL_MAX}), argmax equal at {cmp['argmax_same']} "
+        f"of {cmp['positions']} positions [{card}]")
+    if not cmp["finite"] or cmp["cosine_min"] < Q_COSINE_MIN \
+            or cmp["rel_max"] > Q_REL_MAX:
+        raise SystemExit("path Q (a): the kernel routes disagree with the "
+                         "plain ones")
+
+    PROGRESS["stage"] = "route counts"
+    toks = torch.randint(1, cfg.vocab_size, (2, 300), generator=rng).cuda()
+    mask = torch.ones_like(toks, dtype=torch.bool)
+    mask[1, 180:] = False
+    counts = q_route_counts(served, toks, mask)
+    log(f"path Q (b): route counts exact in every layer: " + "; ".join(
+        f"layer {c['layer']}: {c['seated']} seated + {c['dropped']} "
+        f"dropped = {cfg.moe_top_k} x {c['tokens']} tokens ({c['groups']} "
+        f"groups, capacity {c['capacity']})" for c in counts))
+    del plain
+    gc.collect()
+
+    PROGRESS["stage"] = "burst"
+    spec = {"model": "llama3-8b", "dtype": "bfloat16", "quant": "int8",
+            "extra": {**ENGINE_EXTRA, **Q_EXTRA, "prefix_cache_mb": "0",
+                      "max_new_tokens": str(Q_NEW)}}
+    state = generate_handler(spec, HandlerContext(device="cuda",
+                                                  state_dict=sd))
+    engine = state.engine
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist()
+               for n in (24, 100, 300, 700)]
+    l0 = kernel_launches()
+    before = engine.stats()
+    t0 = time.perf_counter()
+    rows = _concurrent_engine(engine, prompts, Q_NEW)
+    burst_s = time.perf_counter() - t0
+    after = engine.stats()
+    steps = after["steps"] - before["steps"]
+    forwards = after["forwards"] - before["forwards"]
+    _check_launches("path Q (c) engine", _launch_delta(l0, kernel_launches()),
+                    {"int8_matmul": Q_MATMULS * forwards,
+                     "paged_decode_attention": HF_LAYERS * steps})
+    done = [r[0].shape == (1, Q_NEW) and bool(np.isfinite(r[1]).all())
+            for r in rows]
+    log(f"path Q (c): a burst of 4 concurrent requests (24-700 prompt "
+        f"tokens, {Q_NEW} new) through the paged engine completed in "
+        f"{burst_s:.2f} s: {sum(done)} of 4 rows whole and finite "
+        f"({steps} steps, {forwards} forwards) [{card}]")
+    if not all(done):
+        raise SystemExit("path Q (c): the burst did not complete")
+
+    PROGRESS["stage"] = "step time"
+    server = state.server
+    rate = decode_rate(server.generate, [prompt], tokens=64)
+    step_ms = 1e3 / rate
+    moes = [blk.moe for blk in server.model.blocks()]
+
+    def dequant(_):
+        for moe in moes:
+            for name in ("experts_gate", "experts_up", "experts_down"):
+                moe.expert_weight(name)
+
+    with torch.inference_mode():
+        dequant_ms = cuda_time(dequant)
+    log(f"path Q (d): batch-1 decode {rate:.1f} tok/s, {step_ms:.3f} ms a "
+        f"step (graphs); the experts' per-call dequantisation "
+        f"{dequant_ms:.3f} ms a step ({HF_LAYERS} layers x 3 stacks of "
+        f"{cfg.moe_experts} x {cfg.hidden} x {cfg.mlp} int8 to bf16), "
+        f"{dequant_ms / step_ms:.2f} of the step [{card}]")
+    launches = kernel_launches()
+    del state, server, engine, served, sd, moes
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"init_s": init_s, "expert_bytes": experts, "model_bytes": total,
+            "compare": cmp, "route_counts": counts, "burst_s": burst_s,
+            "steps": steps, "forwards": forwards, "decode_tok_s": rate,
+            "step_ms": step_ms, "dequant_ms": dequant_ms,
+            "launches": launches}
+
+
 def main() -> int:
     t_script = PROGRESS["t0"]
     if not torch.cuda.is_available():
@@ -7833,6 +8453,16 @@ def main() -> int:
     for name, text in _build.build_logs.items():
         log(f"--- nvcc {name}.cu\n{text.strip()}")
 
+    import atexit
+    import shutil
+    import tempfile
+
+    # path P's checkpoint, drawn and written on the host beside the kernel
+    # checks; deleted after P
+    hf_root = Path(tempfile.mkdtemp(prefix="lambdipy-hf-"))
+    atexit.register(shutil.rmtree, hf_root, True)
+    hf_writer = HfCheckpointWriter(hf_root / "ckpt")
+    hf_writer.start()
     t_phase = time.perf_counter()
     PROGRESS["path"] = "the kernel checks"
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -7870,6 +8500,9 @@ def main() -> int:
                 f"{FULL_LAYERS} layers, its published widths (a cut for time; "
                 f"every check kept, its figures not comparable with 32-layer "
                 f"ones)")
+        if path in ("P", "Q"):
+            log(f"path {path}: {HF_LAYERS} of {FULL_LAYERS} layers at the "
+                f"published widths (a cut for time; every check kept)")
         return time.perf_counter()
 
     for path in PATHS:
@@ -7907,8 +8540,19 @@ def main() -> int:
     took("path L", t_path)
     gc.collect()
     torch.cuda.empty_cache()
-    import shutil
-    import tempfile
+    t_path = begin("P")
+    try:
+        paths["P"] = serve_hf_path(card, hf_writer)
+    finally:
+        shutil.rmtree(hf_root, ignore_errors=True)
+    took("path P", t_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_path = begin("Q")
+    paths["Q"] = serve_moe_path(card)
+    took("path Q", t_path)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # M (g) builds the llama bundle that N's and O's fleets serve; it is
     # deleted after O

@@ -15,7 +15,10 @@ with ``ast`` (``runtime/loader.py``). Params differ by design:
   ``init_device``;
 - ``params_format``: ``"both"`` writes ``params.fpk`` alone and records
   ``"fpk"`` (the card's host has no orbax); ``"orbax"`` raises;
-- ``params = "hf"`` raises: ``models/convert.py`` is not ported yet;
+- ``params = "hf"``: the local HF checkpoint named by ``[payload.extra]
+  hf_path`` converted by the port (``models/convert.py save_hf_params``,
+  int8 under ``quant = "int8"``) into ``params.fpk``, its architecture
+  recorded in ``params_info.config`` for ``llama-hf`` to rebuild;
 - a checkpoint path (a params directory holding ``params.fpk``, or a
   ``.fpk`` file) is hardlinked into the bundle, copied across
   filesystems, as in JAX.
@@ -135,10 +138,17 @@ def materialize_payload(recipe: Recipe, bundle_dir: Path) -> dict:
         manifest_payload["params"] = "params"
         manifest_payload["params_info"] = info
     elif payload.params == "hf":
-        raise NotImplementedError(
-            f"recipe {recipe.name}: params = 'hf' (a HuggingFace checkpoint "
-            "converted at build) is not ported yet: models/convert.py "
-            "(ROADMAP.md queue 1, other models)")
+        # real weights: a local HuggingFace checkpoint converted at build
+        from lambdipy_tpu_torch.models.convert import save_hf_params
+
+        hf_path = dict(payload.extra or ()).get("hf_path")
+        if not hf_path:
+            raise ValueError(f"recipe {recipe.name}: params='hf' needs "
+                             "[payload.extra] hf_path")
+        info = save_hf_params(hf_path, params_dir, quant=payload.quant,
+                              params_format=payload.params_format)
+        manifest_payload["params"] = "params"
+        manifest_payload["params_info"] = info
     elif payload.params not in ("init", "none", ""):
         # a checkpoint path: a params dir holding params.fpk, or a bare
         # .fpk file; hardlinked when source and bundle share a filesystem

@@ -74,6 +74,7 @@ from lambdipy_tpu_torch.models.graphs import (DEVICE_LOCK, CudaGraph,
                                               GraphProgram, GraphStats,
                                               ProgramCache, ProgramSet,
                                               StepPrograms)
+from lambdipy_tpu_torch.models.moe import EXPERT_KEYS, MoEMLP, moe_aux_loss
 from lambdipy_tpu_torch.models.spec import (accept_resample, chain_verify,
                                             lookup_draft_hit)
 from lambdipy_tpu_torch.ops.attention import flash_attention
@@ -115,6 +116,12 @@ class LlamaConfig:
     # plain matmul, the reference); the names follow the JAX package's
     # config, whose defaults are the plain ones
     matmul_backend: str = "pallas"
+    # Sparse MoE FFN (Mixtral-style, ``models/moe.py``): > 0 replaces the
+    # dense SwiGLU with ``moe_experts`` top-k routed experts
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_group_size: int = 256  # routing-group size
 
     @property
     def head_dim(self) -> int:
@@ -327,9 +334,15 @@ class LlamaBlock(nn.Module):
         self.v_proj = dense(cfg.hidden, cfg.kv_heads * d)
         self.o_proj = dense(cfg.heads * d, cfg.hidden)
         self.mlp_norm = RMSNorm(cfg.hidden, cfg.norm_eps, device)
-        self.gate_proj = dense(cfg.hidden, cfg.mlp)
-        self.up_proj = dense(cfg.hidden, cfg.mlp)
-        self.down_proj = dense(cfg.mlp, cfg.hidden)
+        if cfg.moe_experts:
+            self.moe = MoEMLP(cfg.hidden, cfg.moe_experts, cfg.mlp,
+                              cfg.moe_top_k, cfg.moe_capacity_factor,
+                              cfg.dtype, cfg.quant, cfg.moe_group_size,
+                              device)
+        else:
+            self.gate_proj = dense(cfg.hidden, cfg.mlp)
+            self.up_proj = dense(cfg.hidden, cfg.mlp)
+            self.down_proj = dense(cfg.mlp, cfg.hidden)
 
     def _prefill_attend(self, q, k, v, mask):
         """Causal prefill attention. ``flash`` ignores the padding mask,
@@ -419,7 +432,7 @@ class LlamaBlock(nn.Module):
         valid = (keys[None, None, :] <= slots[None, :, None]).expand(b, s, t)
         return _attend(q, ck, cv, valid), new_cache
 
-    def forward(self, x, positions, mask, cache):
+    def forward(self, x, positions, mask, cache, aux=None):
         """cache: None (prefill over all of x), a decode-cache entry for a
         one-token decode step (the ``_kv_store`` leaves and a per-row
         ``[b]`` index), a paged entry (arena leaves, block ``tables`` and
@@ -428,7 +441,8 @@ class LlamaBlock(nn.Module):
         (:meth:`_chunk_attend`). Returns
         ``(y, new_cache_entry)``; a cache is written in place. The
         prefill entry is float K/V; ``prefill_into_cache`` stores it in
-        the cache's layout."""
+        the cache's layout. ``aux``: a list that an MoE block appends its
+        load-balance loss to (None: not computed)."""
         cfg = self.cfg
         d = cfg.head_dim
         h = self.attn_norm(x)
@@ -499,8 +513,14 @@ class LlamaBlock(nn.Module):
         out = out.reshape(b, s, cfg.heads * d)
         x = x + self.o_proj(out)
         h = self.mlp_norm(x)
-        x = x + self.down_proj(F.silu(self.gate_proj(h)) * self.up_proj(h))
-        return x, new_cache
+        if not cfg.moe_experts:
+            y = self.down_proj(F.silu(self.gate_proj(h)) * self.up_proj(h))
+        elif aux is None:
+            y = self.moe(h)
+        else:
+            y, loss = self.moe(h, with_aux=True)
+            aux.append(loss)
+        return x + y, new_cache
 
 
 class LlamaModel(nn.Module):
@@ -527,8 +547,11 @@ class LlamaModel(nn.Module):
         return [getattr(self, f"layer_{i}") for i in range(self.cfg.layers)]
 
     def forward(self, tokens, positions=None, mask=None, cache=None,
-                logit_positions=None, exit_layer=None):
-        """Returns ``(logits, new_cache)``.
+                logit_positions=None, exit_layer=None, with_aux=False):
+        """Returns ``(logits, new_cache)``, and ``(logits, new_cache,
+        aux)`` with ``with_aux``: ``aux`` the MoE layers' load-balance
+        loss summed (``models/moe.py moe_aux_loss``; 0 for a dense model),
+        the value JAX's forward sows.
 
         prefill: cache=None, tokens ``[b, s]`` -> float cache entries
         sized s. decode: cache = a decode cache (``init_decode_cache``
@@ -549,15 +572,66 @@ class LlamaModel(nn.Module):
             1, min(int(exit_layer), self.cfg.layers))
         x = self.embed(tokens)
         new_cache = []
+        aux = [] if with_aux else None
         for i, block in enumerate(self.blocks()[:layers]):
             x, c = block(x, positions, mask,
-                         None if cache is None else cache[i])
+                         None if cache is None else cache[i], aux)
             new_cache.append(c)
         x = self.final_norm(x)
         if logit_positions is not None:
             x = x[torch.arange(b, device=x.device), logit_positions.long()]
             x = x[:, None, :]
+        if with_aux:
+            return self.lm_head(x), new_cache, moe_aux_loss(aux).to(x.device)
         return self.lm_head(x), new_cache
+
+
+def _quantize(w, axis: int) -> tuple:
+    """JAX's int8 rule in f32: ``scale = max(max|w| / 127, 1e-8)`` over
+    ``axis`` (kept), ``round(w / scale)`` half to even."""
+    if not torch.is_tensor(w):  # numpy, ml_dtypes' bf16 too (exact in f32)
+        w = torch.from_numpy(np.asarray(w).astype(np.float32))
+    w = w.to(torch.float32)
+
+    def const(v):
+        # a tensor on w's device: PyTorch's CUDA division by a Python
+        # scalar multiplies by its reciprocal, which is not IEEE division
+        return torch.tensor(v, dtype=torch.float32, device=w.device)
+
+    scale = torch.maximum(w.abs().amax(axis, keepdim=True) / const(127.0),
+                          const(1e-8))
+    return torch.round(w / scale).to(torch.int8), scale
+
+
+def quantize_params(float_params):
+    """A float Llama params tree in the JAX layout (``{"params": ...}`` or
+    the inner dict; numpy or torch leaves) in the int8 layout, the twin of
+    JAX's ``quantize_params`` (``llama.py:840-876``): each 2-D ``kernel``
+    becomes ``kernel_int8`` and a per-output-channel f32 ``scale`` ``[1,
+    out]``, each 3-D MoE expert stack ``<name>_int8`` and a per-(expert,
+    channel) ``<name>_scale`` ``[e, 1, out]``; embeddings, norms and the
+    router stay as they are. Bitwise JAX's on the same weights (f32 math,
+    rounding half to even). New leaves are torch tensors on the weight's
+    device; ``models/params.py from_jax_params`` takes the tree."""
+
+    def convert(tree):
+        if not isinstance(tree, dict):
+            return tree
+        if "kernel" in tree and getattr(tree["kernel"], "ndim", 0) == 2:
+            out = dict(tree)
+            out["kernel_int8"], out["scale"] = _quantize(out.pop("kernel"),
+                                                         0)
+            return out
+        if any(getattr(tree.get(k), "ndim", 0) == 3 for k in EXPERT_KEYS):
+            out = dict(tree)
+            for k in EXPERT_KEYS:
+                if getattr(out.get(k), "ndim", 0) == 3:  # [e, in, out]
+                    out[f"{k}_int8"], out[f"{k}_scale"] = _quantize(
+                        out.pop(k), 1)
+            return {k: convert(v) for k, v in out.items()}
+        return {k: convert(v) for k, v in tree.items()}
+
+    return convert(float_params)
 
 
 def _empty_cache_entry(cfg: LlamaConfig, batch: int, max_len: int,
@@ -1706,13 +1780,21 @@ def decode_cache_bytes(cfg: LlamaConfig, batch: int, max_len: int) -> int:
 def prefill_bytes(cfg: LlamaConfig, rows: int, width: int) -> int:
     """About the device bytes a captured prefill of ``rows x width``
     tokens keeps in its graph's pool: its float K/V, one layer's MLP
-    activations and, but under ``flash``, one layer's f32 attention
+    activations (an MoE layer's seats, and its dequantized int8 expert
+    stacks) and, but under ``flash``, one layer's f32 attention
     scores, masked and softmaxed (``_attend``). What a new entry is
     expected to take before its first capture says."""
     item = torch.empty((), dtype=cfg.dtype).element_size()
     tokens = rows * width
     kv = 2 * cfg.layers * tokens * cfg.kv_heads * cfg.head_dim * item
     mlp = 3 * tokens * cfg.mlp * item
+    if cfg.moe_experts:
+        # the seats' activations, and int8 expert stacks dequantized per
+        # call (one layer's at a time)
+        seats = math.ceil(cfg.moe_capacity_factor * cfg.moe_top_k * tokens)
+        mlp = 3 * seats * cfg.mlp * item
+        if cfg.quant == "int8":
+            mlp += 3 * cfg.moe_experts * cfg.hidden * cfg.mlp * item
     scores = (0 if cfg.attn_backend == "flash"
               else 3 * rows * cfg.heads * width * width * 4)
     return kv + mlp + scores

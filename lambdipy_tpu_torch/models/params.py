@@ -28,6 +28,7 @@ import torch
 
 from lambdipy_tpu_torch.models import bert, resnet
 from lambdipy_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from lambdipy_tpu_torch.models.moe import EXPERT_KEYS
 from lambdipy_tpu_torch.models.torch_bert import (TorchBertClassifier,
                                                   TorchBertConfig)
 from lambdipy_tpu_torch.utils.platform import resolve_device
@@ -48,6 +49,8 @@ class TabularConfig:
 
 
 def _to_tensor(arr) -> torch.Tensor:
+    if torch.is_tensor(arr):  # a converted checkpoint's leaves (convert.py)
+        return arr
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":  # ml_dtypes bf16: reinterpret the bits
         bits = np.ascontiguousarray(arr).view(np.int16)
@@ -92,8 +95,9 @@ def to_flax_tree(cfg, state_dict: dict) -> dict:
 
 def from_jax_params(tree) -> dict[str, torch.Tensor]:
     """Flax variables (``{"params": {...}}``, ``{"params": ...,
-    "batch_stats": ...}`` or the inner dict; numpy or array-like leaves)
-    -> ``state_dict`` of CPU tensors. Keys are the flax paths joined by
+    "batch_stats": ...}`` or the inner dict; numpy, array-like or torch
+    leaves, the last kept as they are) -> ``state_dict`` of tensors (numpy
+    leaves become CPU tensors). Keys are the flax paths joined by
     ``.`` with the collection dropped (``layer_0/q_proj/kernel_int8`` ->
     ``layer_0.q_proj.kernel_int8``); convolution kernels are mapped to
     torch's layout (:func:`to_torch_layout`), every other leaf keeps its
@@ -212,13 +216,31 @@ def _llama_init(cfg: LlamaConfig, gen, device) -> dict:
     kernels lecun (fan-in the first axis); int8 kernels ``round(63.5 *
     clip(N(0,1), -2, 2))`` (the per-column max of a 2-sigma-truncated
     normal maps to 127) with the JAX init's constant scale ``1 / (127
-    sqrt(in))``."""
+    sqrt(in))``. MoE (``models/moe.py``): the f32 router lecun (fan-in
+    hidden); the expert stacks ``[e, in, out]`` by the same rules with
+    fan-in ``in`` (JAX's ``lecun_normal(batch_axis=(0,))``), their scales
+    ``[e, 1, out]``."""
     shapes = LlamaModel(cfg, device="meta").state_dict()
     out = {}
     for key in sorted(shapes):
         ref = shapes[key]
         name = key.rsplit(".", 1)[-1]
-        if name == "embedding":
+        stack = name.removesuffix("_int8").removesuffix("_scale")
+        if stack in EXPERT_KEYS:
+            if name.endswith("_scale"):
+                fan_in = shapes[key.removesuffix("_scale") + "_int8"].shape[1]
+                out[key] = torch.full(ref.shape, 1.0 / (127.0 * fan_in ** 0.5),
+                                      dtype=ref.dtype, device=device)
+            elif name.endswith("_int8"):
+                w = torch.randn(ref.shape, generator=gen, device=device)
+                out[key] = (w.clamp_(-2.0, 2.0) * 63.5).round_().to(torch.int8)
+            else:
+                out[key] = _lecun_normal(gen, ref.shape, ref.shape[1],
+                                         device).to(ref.dtype)
+        elif name == "router":
+            out[key] = _lecun_normal(gen, ref.shape, ref.shape[0],
+                                     device).to(ref.dtype)
+        elif name == "embedding":
             w = torch.randn(ref.shape, generator=gen, device=device)
             out[key] = (w / math.sqrt(ref.shape[0])).to(ref.dtype)
         elif name == "scale" and ref.dim() == 1:  # RMSNorm gain

@@ -1,9 +1,11 @@
 """Model registry of the port: name -> builder, as in
-``lambdipy_tpu/models/registry.py``: ``llama3-8b`` and ``llama-tiny``
-(generation), ``resnet50`` and ``resnet50-tiny`` (image classification),
-``bert-base`` and ``bert-tiny`` (text classification), ``bert-base-torch``
-(the torch BERT) and ``tabular`` (sklearn), with JAX's arguments and
-``extra`` keys; :func:`draft_twin`, the aux draft tier's small Llama; and
+``lambdipy_tpu/models/registry.py``: ``llama3-8b``, ``llama-tiny``,
+``llama-hf`` (the architecture of an imported HF checkpoint, from
+``extra``) and ``llama-moe-tiny`` (generation), ``resnet50`` and
+``resnet50-tiny`` (image classification), ``bert-base`` and
+``bert-tiny`` (text classification), ``bert-base-torch`` (the torch
+BERT) and ``tabular`` (sklearn), with JAX's arguments and ``extra``
+keys; :func:`draft_twin`, the aux draft tier's small Llama; and
 :func:`save_init_params`, a bundle's seeded params at build time."""
 
 from __future__ import annotations
@@ -87,6 +89,22 @@ class TorchModel:
         return LlamaServer(self.make_model(state_dict, device=device),
                            **server_kw)
 
+    @property
+    def forward_with_aux(self):
+        """JAX's ``forward_with_aux`` (``registry.py:318-325``): for a
+        Llama with ``moe_experts > 0``, ``fn(model, tokens) -> (logits,
+        aux)``, the forward and its MoE load-balance loss, for a train
+        step to read; None for every other model."""
+        cfg = self.config
+        if not (isinstance(cfg, LlamaConfig) and cfg.moe_experts):
+            return None
+
+        def forward_with_aux(model, tokens):
+            logits, _, aux = model(tokens, with_aux=True)
+            return logits, aux
+
+        return forward_with_aux
+
 
 _MODELS: dict[str, ModelSpec] = {}
 
@@ -116,19 +134,34 @@ _ATTN_BACKENDS = ("blocked", "dense", "flash")
 _UNPORTED_ATTN_BACKENDS = ("ring",)
 _MATMUL_BACKENDS = ("pallas", "xla")
 _KV_QUANTS = (None, "int8")
+# the fields of the JAX package's LlamaConfig (``llama.py:28-86``), held
+# against it by tests/test_torch_moe.py: an extra naming one the port's
+# config lacks raises, and an extra naming none of them is ignored, as JAX
+# ignores it
+JAX_LLAMA_FIELDS = (
+    "vocab_size", "hidden", "layers", "heads", "kv_heads", "mlp", "max_len",
+    "rope_theta", "rope_scaling", "norm_eps", "dtype", "quant", "kv_quant",
+    "attn_backend", "moe_experts", "moe_top_k", "moe_capacity_factor",
+    "moe_group_size", "matmul_backend")
 
 
 def _llama_overrides(extra: dict | None) -> dict:
     """Filter ``extra`` down to LlamaConfig fields, coerce recipe strings
     by the field's annotation (``kv_quant="int8"`` stays a string), and
     validate the backend and ``kv_quant`` knobs: a misspelled or unported
-    value raises instead of serving another path."""
+    value raises instead of serving another path, and so does a field of
+    the JAX config that the port's lacks (:data:`JAX_LLAMA_FIELDS`)."""
     extra = dict(extra or {})
+    annotations = {f.name: f.type for f in dataclasses.fields(LlamaConfig)}
+    unported = sorted(k for k in extra
+                      if k in JAX_LLAMA_FIELDS and k not in annotations)
+    if unported:
+        raise ValueError(f"LlamaConfig field(s) {unported} are not ported "
+                         "yet; the port would serve another model")
     if extra.get("rope_scaling"):
         if isinstance(extra["rope_scaling"], str):
             raise ValueError("rope_scaling cannot be given as a string")
         extra["rope_scaling"] = tuple(extra["rope_scaling"])
-    annotations = {f.name: f.type for f in dataclasses.fields(LlamaConfig)}
 
     def coerce(name: str, v):
         if isinstance(v, str):
@@ -168,6 +201,27 @@ def _build_llama3_8b(dtype: str = "bfloat16", quant: str | None = "int8",
                      extra: dict | None = None) -> TorchModel:
     return TorchModel(dataclasses.replace(
         LLAMA3_8B, dtype=_dtype(dtype), quant=quant,
+        **_llama_overrides(extra)))
+
+
+@register("llama-hf", "Llama with the architecture of an imported HF "
+          "checkpoint")
+def _build_llama_hf(dtype: str = "bfloat16", quant: str | None = None,
+                    extra: dict | None = None) -> TorchModel:
+    """Every architecture field comes from ``extra``: a bundle's
+    ``params_info.config``, written by ``models/convert.py
+    save_hf_params``, so the model fits the converted weights."""
+    return TorchModel(LlamaConfig(dtype=_dtype(dtype), quant=quant,
+                                  **_llama_overrides(extra)))
+
+
+@register("llama-moe-tiny", "tiny MoE Llama for tests and dry runs")
+def _build_llama_moe_tiny(dtype: str = "float32", quant: str | None = None,
+                          extra: dict | None = None) -> TorchModel:
+    extra = dict(extra or {})
+    extra.setdefault("moe_experts", 4)
+    return TorchModel(dataclasses.replace(
+        LLAMA_TINY, dtype=_dtype(dtype), quant=quant,
         **_llama_overrides(extra)))
 
 

@@ -518,7 +518,7 @@ def _payload_recipe(device="any", **payload):
 
 @pytest.mark.parametrize("payload,error,match", [
     ({"params_format": "orbax"}, ValueError, "orbax"),
-    ({"params": "hf"}, NotImplementedError, "not ported"),
+    ({"params": "hf"}, ValueError, "needs \\[payload.extra\\] hf_path"),
     ({"params": "/definitely/missing"}, ValueError, "neither"),
 ])
 def test_unbuildable_params_raise_at_build(payload, error, match, tmp_path):

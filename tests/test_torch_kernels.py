@@ -1798,3 +1798,87 @@ def test_windowed_step_is_bitwise_the_full_window_step(cuda_device, paged,
         for name, val in tl._leaves(ne).items():
             ref = tl._leaves(fe)[name]
             assert torch.equal(ref if paged else ref[:, :window], val), name
+
+
+# path Q's MoE FFN (chip_smoke.py): Mixtral-8x7B's experts at llama3-8b's
+# width, int8. On the card the stacks dequantize to bf16 and the einsums
+# run in bf16 with f32 sums; on the CPU the same int8 weights dequantize
+# to f32. The same bf16-rounded input routes the same tokens in both (the
+# f32 router); the outputs differ by the bf16 roundings of the weights
+# and of the activations, each up to 2^-8 relative, summed over 14,336
+# products: within 0.03 of the output's peak
+MOE_REL_TOL = 0.03
+
+
+def test_moe_mlp_on_the_card_matches_its_cpu_result(cuda_device):
+    from lambdipy_tpu_torch.models.moe import MoEMLP
+
+    e, h, m = 8, 4096, 14336
+    gen = torch.Generator().manual_seed(5)
+    card = MoEMLP(h, e, m, 2, 1.25, torch.bfloat16, "int8", 256,
+                  device=cuda_device)
+    cpu = MoEMLP(h, e, m, 2, 1.25, torch.float32, "int8", 256, device="cpu")
+    weights = {"router": torch.randn(h, e, generator=gen) / h ** 0.5}
+    for name, n_in in (("experts_gate", h), ("experts_up", h),
+                       ("experts_down", m)):
+        w = getattr(cpu, f"{name}_int8")
+        weights[f"{name}_int8"] = torch.randint(-127, 128, w.shape,
+                                                generator=gen,
+                                                dtype=torch.int8)
+        weights[f"{name}_scale"] = torch.full(
+            getattr(cpu, f"{name}_scale").shape, 1 / (127 * n_in ** 0.5))
+    cpu.load_state_dict(weights)
+    card.load_state_dict(weights)
+    x = torch.randn(2, 64, h, generator=gen).to(torch.bfloat16)
+    with torch.inference_mode():
+        d_card, _, _ = card.route(x.to(cuda_device))
+        d_cpu, _, _ = cpu.route(x.float())
+        out = card(x.to(cuda_device)).float().cpu()
+        ref = cpu(x.float())
+    assert torch.equal(d_card.cpu(), d_cpu)  # the same seats
+    assert torch.isfinite(out).all()
+    rel = ((out - ref).abs().max() / ref.abs().max()).item()
+    assert rel <= MOE_REL_TOL, rel
+
+
+def test_moe_graph_replay_is_bitwise_eager(cuda_device):
+    """Routing captures into the decode and prefill graphs (static shapes,
+    no host sync): an MoE server's greedy and sampled rows, replayed, are
+    bitwise its eager twin's."""
+    adapter = registry.get("llama-moe-tiny").build(
+        dtype="bfloat16", quant="int8",
+        extra={"hidden": "256", "mlp": "512", "heads": "4",
+               "kv_heads": "2"})
+    model = adapter.make_model(adapter.init_params(seed=2, device="cuda"),
+                               device="cuda")
+    graph, eager = LlamaServer(model), LlamaServer(model, graphs=False)
+    prompts = [[5, 9, 2, 77, 31], [8, 1, 400, 3, 3, 3, 9, 12, 40]]
+    for knobs in ({}, {"temperature": 0.8, "seed": 3}):
+        for _ in range(2):
+            got = graph.generate(prompts, max_new_tokens=12,
+                                 return_logprobs=True, **knobs)
+            want = eager.generate(prompts, max_new_tokens=12,
+                                  return_logprobs=True, **knobs)
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b)
+    assert graph.program_stats()["replays"] > 0
+
+
+def test_quantize_params_on_the_card_is_bitwise_the_cpus(cuda_device):
+    """``quantize_params`` on card tensors gives the CPU's bits (the
+    CPU's are JAX's, ``tests/test_torch_moe.py``): its scale is an IEEE
+    division on both (a CUDA division by a Python scalar would multiply
+    by the reciprocal)."""
+    from lambdipy_tpu_torch.models.llama import quantize_params
+
+    gen = torch.Generator().manual_seed(9)
+    tree = {"q_proj": {"kernel": torch.randn(512, 384, generator=gen)
+                       .to(torch.bfloat16)},
+            "moe": {"experts_up": torch.randn(4, 256, 128, generator=gen),
+                    "router": torch.randn(256, 4, generator=gen)}}
+    cpu = quantize_params(tree)
+    card = quantize_params({k: {n: t.to(cuda_device) for n, t in v.items()}
+                            for k, v in tree.items()})
+    for k, node in cpu.items():
+        for n, t in node.items():
+            assert torch.equal(card[k][n].cpu(), t), (k, n)
