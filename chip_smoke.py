@@ -207,7 +207,17 @@ Phases, each of which fails the run with a non-zero exit:
    (seated + dropped = top_k x tokens); (c) a burst of 4 concurrent
    requests through a paged engine completes, 9 int8 matmuls a forward
    (the experts are einsums) and 2 decode-attention launches a step; (d)
-   the batch-1 step time and the experts' per-call dequantisation. Last, M:
+   the batch-1 step time and the experts' per-call dequantisation. Then R,
+   training: llama3-8b at its published widths, 2 of 32 layers, bf16
+   float weights drawn on the card, batch 4 x 512 tokens from a token
+   file the script writes, through the port's ``Trainer`` (adamw, the
+   clip at 1.0): (a) eight steps, the loss falls, each step's wall, the
+   median after the first, tokens/s, 6 N T a step over 989 TFLOP/s, the
+   peak memory; (b) 4 steps, a checkpoint and a new ``Trainer`` resuming
+   to 8, bitwise (a) (params, optimizer state, logged rows), the
+   checkpoint's bytes and its save and restore times; (c) the f32
+   ``llama-tiny`` four steps on the card against the CPU within
+   ``R_TINY_TOL``; (d) no kernel launched. Last, M:
    the bundle lifecycle through ``python -m lambdipy_tpu_torch``, every
    command a process under a fresh ``HOME`` and an empty kernel build
    cache (``LAMBDIPY_KERNEL_CACHE``): (b) ``recipes`` lists the ten
@@ -271,7 +281,8 @@ Phases, each of which fails the run with a non-zero exit:
    Cut for time: B, C, E, H, I and J serve llama3-8b at its published
    widths with 8 of its 32 layers (``CUT_LAYERS``), every check kept, each
    byte budget (store, offload arena, pins) scaled with the depth so that
-   it holds the same blocks; P and Q at 2 (``HF_LAYERS``); A, D-G and
+   it holds the same blocks; P, Q and R at 2 (``HF_LAYERS``,
+   ``R_LAYERS``); A, D-G and
    K-O run at full depth. After each
    path the script prints the seconds since it started; at 1,150 s a
    guard prints the path and stage in progress, stops every process the
@@ -8428,6 +8439,210 @@ def serve_moe_path(card: str) -> dict:
             "launches": launches}
 
 
+# path R: training at llama3-8b's widths, 2 of its 32 layers, bf16 float
+# weights (JAX trains float models only), batch 4 x 512 tokens
+R_LAYERS = 2
+R_EXTRA = {"layers": str(R_LAYERS)}
+R_BATCH, R_SEQ, R_STEPS = 4, 512, 8
+R_LR = 3e-4
+# (c): the f32 llama-tiny on the card against the CPU, four steps; the
+# same f32 math (TF32 off) in another summation order
+R_TINY_TOL = 1e-4
+
+
+class _StepClock:
+    """A trainer's step function, timed: each call synchronized and its
+    wall recorded (the script's instrumentation; the trainer syncs on its
+    logging steps anyway, and R logs every step)."""
+
+    def __init__(self, fn):
+        self.fn, self.walls = fn, []
+
+    def __call__(self, state, batch):
+        t0 = time.perf_counter()
+        out = self.fn(state, batch)
+        torch.cuda.synchronize()
+        self.walls.append(time.perf_counter() - t0)
+        return out
+
+
+def _r_trainer(adapter, weights, tokens_path: Path, total: int,
+               ckpt_dir=None, *, device="cuda", seed: int = 0,
+               batch: int = R_BATCH, seq: int = R_SEQ, lr: float = R_LR):
+    from lambdipy_tpu_torch.data import ShardedLoader, TokenSource
+    from lambdipy_tpu_torch.models.params import train_params
+    from lambdipy_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    loader = ShardedLoader(TokenSource(tokens_path, seq), batch, seed=seed)
+    # one checkpoint kept: the directory's first offered step saves (orbax's
+    # cadence), so (b) writes three, and at most two are on disk at once
+    cfg = TrainerConfig(total_steps=total, log_every=1, ckpt_every=R_STEPS,
+                        keep_ckpts=1, learning_rate=lr, grad_clip=1.0)
+    trainer = Trainer(adapter.train_forward, train_params(weights), loader,
+                      cfg, device=device, ckpt_dir=ckpt_dir)
+    trainer.step_fn = _StepClock(trainer.step_fn)
+    return trainer
+
+
+def _state_equal(a, b) -> bool:
+    """Two train states bitwise: every param, every optimizer leaf, the
+    step."""
+    from lambdipy_tpu_torch.train.checkpoint import tree_paths
+
+    la, lb = dict(tree_paths(a)), dict(tree_paths(b))
+    return la.keys() == lb.keys() and all(torch.equal(la[k], lb[k])
+                                          for k in la)
+
+
+def serve_train_path(card: str) -> dict:
+    """Path R, training: (a) eight steps of llama3-8b at its published
+    widths, 2 of 32 layers, bf16, from one seed, through the port's
+    ``Trainer`` on a token file the script writes: the loss falls; each
+    step's wall, the median after the first, tokens/s, 6 N T over the
+    step at 989 TFLOP/s and the peak memory; (b) the same eight steps as
+    4, a checkpoint and a new ``Trainer`` resuming to 8: params, optimizer
+    state and logged rows bitwise (a)'s; the checkpoint's bytes, save and
+    restore times; (c) the f32 ``llama-tiny`` trained four steps on the
+    card and on the CPU from one state: losses and grad norms within
+    ``R_TINY_TOL``; (d) every kernel's launch counter moves by 0."""
+    import shutil
+    import statistics
+    import tempfile
+
+    from lambdipy_tpu_torch.models import registry
+    from lambdipy_tpu_torch.runtime.handlers import kernel_launches
+    from lambdipy_tpu_torch.train import checkpoint
+
+    set_launches_to_zero()  # counters to 0 just before the path
+    root = Path(tempfile.mkdtemp(prefix="lambdipy-train-"))
+    log(f"path R: {shutil.disk_usage(root).free:,} B free where the "
+        f"checkpoints go")
+    try:
+        adapter = registry.get("llama3-8b").build(dtype="bfloat16",
+                                                  quant=None, extra=R_EXTRA)
+        cfg = adapter.config
+        rng = np.random.default_rng(0)
+        tokens = root / "tokens.npy"
+        np.save(tokens, rng.integers(0, cfg.vocab_size,
+                                     2 * R_STEPS * R_BATCH * (R_SEQ + 1))
+                .astype(np.int32))
+        t0 = time.perf_counter()
+        weights = adapter.init_params(seed=0, device="cuda")
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in weights.values())
+        n_matmul = n_params - weights["embed.embedding"].numel()
+        log(f"path R: llama3-8b at {R_LAYERS} of {FULL_LAYERS} layers, its "
+            f"published widths, bf16 float weights ({n_params:,} params, "
+            f"{sum(t.numel() * t.element_size() for t in weights.values()):,}"
+            f" B), drawn on the card in {time.perf_counter() - t0:.2f} s; "
+            f"batch {R_BATCH} x {R_SEQ} tokens, adamw at lr {R_LR} with the "
+            f"clip at 1.0")
+
+        PROGRESS["stage"] = "(a) eight steps"
+        torch.cuda.reset_peak_memory_stats()
+        solo = _r_trainer(adapter, weights, tokens, R_STEPS)
+        solo_report = solo.run()
+        peak = torch.cuda.max_memory_allocated()
+        walls = solo.step_fn.walls
+        losses = [r["loss"] for r in solo_report.history]
+        step_s = statistics.median(walls[1:])
+        tok_s = R_BATCH * R_SEQ / step_s
+        flop = 6 * n_matmul * R_BATCH * R_SEQ
+        log(f"path R (a): losses {losses}; step walls "
+            f"{[round(w * 1e3, 2) for w in walls]} ms; median after the "
+            f"first {step_s * 1e3:.2f} ms, {tok_s:,.0f} tokens/s, 6 N T = "
+            f"{flop / 1e12:.2f} TFLOP a step (N = {n_matmul:,} params "
+            f"outside the embedding) at {flop / step_s / BF16_PEAK:.3f} of "
+            f"989 TFLOP/s; peak memory allocated {peak / 2**30:.2f} GiB "
+            f"[{card}]")
+        if not (losses[-1] < losses[0] and all(np.isfinite(losses))):
+            raise SystemExit("path R (a): the loss did not fall")
+
+        PROGRESS["stage"] = "(b) checkpoint and resume"
+        ck = root / "ck"
+        times = {"save": [], "restore": []}
+        save, restore = (checkpoint.TrainCheckpointer.save,
+                         checkpoint.TrainCheckpointer.restore)
+
+        def timed(fn, key):
+            # the calls that wrote or read a checkpoint (the cadence
+            # declines most offered steps; a fresh directory restores none)
+            def run(*args, **kw):
+                t = time.perf_counter()
+                out = fn(*args, **kw)
+                if out is True or (isinstance(out, tuple)
+                                   and out[0] is not None):
+                    times[key].append(time.perf_counter() - t)
+                return out
+            return run
+
+        checkpoint.TrainCheckpointer.save = timed(save, "save")
+        checkpoint.TrainCheckpointer.restore = timed(restore, "restore")
+        try:
+            first = _r_trainer(adapter, weights, tokens, R_STEPS // 2, ck)
+            first_rows = first.run().history
+            del first
+            second = _r_trainer(adapter, weights, tokens, R_STEPS, ck,
+                                seed=999)
+            rows = second.run().history
+        finally:
+            checkpoint.TrainCheckpointer.save = save
+            checkpoint.TrainCheckpointer.restore = restore
+        ck_bytes = (ck / str(R_STEPS) / checkpoint.STATE_FILE).stat().st_size
+        same = (second.resumed_from == R_STEPS // 2
+                and first_rows + rows == solo_report.history
+                and _state_equal(second.state, solo.state))
+        log(f"path R (b): 4 steps, a checkpoint, a new Trainer resumed at "
+            f"{second.resumed_from} to {R_STEPS}: params, optimizer state "
+            f"and logged rows bitwise the uninterrupted run: {same}; a "
+            f"checkpoint {ck_bytes:,} B, saves "
+            f"{[round(t, 2) for t in times['save']]} s (steps "
+            f"{sorted(int(p.name) for p in ck.iterdir())} kept), restores "
+            f"{[round(t, 2) for t in times['restore']]} s [{card}]")
+        if not same:
+            raise SystemExit("path R (b): the resumed run is not bitwise "
+                             "the uninterrupted one")
+        del solo, second, weights
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        PROGRESS["stage"] = "(c) card against CPU"
+        tiny = registry.get("llama-tiny").build()
+        tiny_sd = tiny.init_params(seed=0, device="cpu")
+        tiny_tokens = root / "tiny.npy"
+        np.save(tiny_tokens, rng.integers(0, tiny.config.vocab_size, 8000)
+                .astype(np.int32))
+        runs = {}
+        for device in ("cuda", "cpu"):
+            runs[device] = _r_trainer(tiny, tiny_sd, tiny_tokens, 4,
+                                      device=device, batch=4, seq=32,
+                                      lr=3e-3).run().history
+        worst = max(abs(g[k] - w[k]) / abs(w[k])
+                    for g, w in zip(runs["cuda"], runs["cpu"])
+                    for k in ("loss", "grad_norm"))
+        log(f"path R (c): the f32 llama-tiny, four steps on the card and on "
+            f"the CPU from one state: losses {[r['loss'] for r in runs['cuda']]}"
+            f" / {[r['loss'] for r in runs['cpu']]}, the largest relative "
+            f"difference of a loss or grad norm {worst:.2e} (tolerance "
+            f"{R_TINY_TOL})")
+        if not worst <= R_TINY_TOL:
+            raise SystemExit("path R (c): the card's training disagrees "
+                             "with the CPU's")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    launches = kernel_launches()
+    log(f"path R (d): launch counters over R {launches} (training runs the "
+        f"plain ops, as JAX's runs its dense / xla path)")
+    if any(launches.values()):
+        raise SystemExit("path R (d): a kernel launched during training")
+    return {"step_walls_s": walls, "step_s": step_s, "tokens_per_s": tok_s,
+            "flop_per_step": flop, "peak_bytes": peak, "losses": losses,
+            "ckpt_bytes": ck_bytes, "save_s": times["save"],
+            "restore_s": times["restore"], "tiny_rel_diff": worst,
+            "launches": launches}
+
+
 def main() -> int:
     t_script = PROGRESS["t0"]
     if not torch.cuda.is_available():
@@ -8551,6 +8766,11 @@ def main() -> int:
     t_path = begin("Q")
     paths["Q"] = serve_moe_path(card)
     took("path Q", t_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_path = begin("R")
+    paths["R"] = serve_train_path(card)
+    took("path R", t_path)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -60,7 +60,16 @@ ported. The scheduler's reach the server; the others set the
 ``LAMBDIPY_*`` variables the handler reads, with JAX's precedence
 (``lambdipy_tpu/cli.py:584-612``). ``--mesh`` and ``--prefill-mode sp``
 ask for features the port does not have and exit before boot. ``POST
-/shutdown`` drains and stops the server. ``train`` is not ported.
+/shutdown`` drains and stops the server.
+
+``train`` is JAX's: ``--model``, ``--data``, ``--steps``, ``--batch``,
+``--seq-len``, ``--lr``, ``--ckpt-dir`` (a re-run resumes), ``--ckpt-every``,
+``--mesh`` and ``--seed``, with ``--device cpu`` as on the other commands;
+the last line holds JAX's keys (``model``, ``final_step``, ``steps_run``,
+``resumed_from``, ``mesh``, ``final_metrics``). One device: a ``--mesh``
+of more than one is refused. The weights are the port's seeded draws,
+not JAX's, and checkpoints are the port's own format
+(``train/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -874,6 +883,65 @@ def cmd_doctor(args) -> None:
 # -- the parser -------------------------------------------------------------
 
 
+def _mesh_shape(spec: str | None) -> dict:
+    """``--mesh`` as ``{axis: size}``, JAX's parse and message; the
+    default puts the one device on ``dp``. ``-1`` fills with the devices
+    left: one here. A mesh of more than one device raises."""
+    if not spec:
+        return {"dp": 1}
+    shape = {}
+    for part in spec.split(","):
+        axis, eq, size = part.partition("=")
+        try:
+            if not eq:
+                raise ValueError("missing '='")
+            shape[axis.strip()] = int(size)
+        except ValueError as e:
+            raise CliError(f"bad --mesh entry {part!r} (want axis=size, e.g. "
+                           f"dp=2,tp=4): {e}") from e
+    shape = {axis: 1 if size == -1 else size for axis, size in shape.items()}
+    if math.prod(shape.values()) != 1:
+        raise CliError(f"train: --mesh {spec!r} names "
+                       f"{math.prod(shape.values())} devices; a mesh of more "
+                       "than one device is not ported yet (ROADMAP queue 1, "
+                       "item 3: parallelism)")
+    return shape
+
+
+def cmd_train(args) -> None:
+    """JAX's ``train``: a registry model with seeded random weights (the
+    port's draws), trained on a token file by the resumable ``Trainer``
+    on one device; the last line is JAX's summary."""
+    if not Path(args.data).exists():
+        raise CliError(f"--data: path {args.data!r} does not exist")
+    mesh = _mesh_shape(args.mesh)
+    from lambdipy_tpu_torch.data import ShardedLoader, TokenSource
+    from lambdipy_tpu_torch.models import registry as model_registry
+    from lambdipy_tpu_torch.models.params import train_params
+    from lambdipy_tpu_torch.train.loop import Trainer, TrainerConfig
+    from lambdipy_tpu_torch.utils.platform import resolve_device
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        raise CliError(f"train: {e}") from None
+    adapter = model_registry.get(args.model).build()
+    params = train_params(adapter.init_params(seed=args.seed, device=device))
+    loader = ShardedLoader(TokenSource(args.data, args.seq_len), args.batch,
+                           seed=args.seed)
+    cfg = TrainerConfig(total_steps=args.steps, learning_rate=args.lr,
+                        ckpt_every=args.ckpt_every)
+    with Trainer(adapter.train_forward, params, loader, cfg, device=device,
+                 mesh=mesh, ckpt_dir=args.ckpt_dir,
+                 model_apply_aux=adapter.train_forward_with_aux) as trainer:
+        report = trainer.run()
+    last = report.history[-1] if report.history else {}
+    _echo(json.dumps({
+        "model": args.model, "final_step": report.final_step,
+        "steps_run": report.steps_run, "resumed_from": report.resumed_from,
+        "mesh": mesh, "final_metrics": last}))
+
+
 def parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m lambdipy_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -1153,6 +1221,27 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--autoscale-interval", type=float, default=5.0,
                    help="seconds between controller ticks (default 5)")
     device_flag(p, "run the replicas")
+
+    p = add("train", cmd_train, "train a registry model on a token file "
+                                "(resumable)")
+    p.add_argument("--model", default="llama-tiny",
+                   help="registry model (llama-tiny / llama3-8b / "
+                        "llama-moe-tiny ...)")
+    p.add_argument("--data", required=True,
+                   help="token file (.npy or raw int32 binary)")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--seq-len", type=int, default=128)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--ckpt-dir", default=None,
+                   help="checkpoint dir; re-running resumes from the latest "
+                        "step")
+    p.add_argument("--ckpt-every", type=int, default=50)
+    p.add_argument("--mesh", default=None,
+                   help='mesh axes, e.g. "dp=1" (default: the one device on '
+                        'dp); more than one device is refused')
+    p.add_argument("--seed", type=int, default=0)
+    device_flag(p, "train")
 
     p = add("invoke", cmd_invoke, "invoke a deployment")
     p.add_argument("name")

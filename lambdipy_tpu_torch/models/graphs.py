@@ -204,31 +204,44 @@ class CudaGraph:
         self.pool_bytes = 0
 
     def capture(self, fn, prepare) -> None:
-        stream = capture_stream(self.device)
-        main = torch.cuda.current_stream(self.device)
-        stream.wait_stream(main)
-        # capture_begin / capture_end, not the ``torch.cuda.graph`` context:
-        # that one empties PyTorch's cache first, and the next request's
-        # prefill then waits on fresh cudaMallocs. The garbage collector
-        # is held off while the capture runs: a graph it finalised there
-        # (one of a dropped server's programs) would reset inside the
-        # capture, which invalidates it
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.stream(stream):
-                prepare()
-                reserved = torch.cuda.memory_reserved(self.device)
-                self.graph.capture_begin()
-                try:
-                    fn()
-                finally:
-                    self.graph.capture_end()
-        finally:
-            if collecting:
-                gc.enable()
-        main.wait_stream(stream)
-        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        """Capture ``fn`` on the capture stream after ``prepare`` ran there,
+        holding :data:`DEVICE_LOCK` (reentrant: a caller may hold it
+        already), so one capture at a time uses the stream, and nothing
+        else ever enqueues on it. The capture runs in CUDA's
+        ``thread_local`` mode: only this thread's unsafe calls (a sync, a
+        ``cudaMalloc``, an event query) may invalidate it. In the default
+        ``global`` mode any thread's did, and a request thread's device
+        call beside an engine capture failed the capture with
+        ``cudaErrorStreamCaptureInvalidated``."""
+        with DEVICE_LOCK:
+            stream = capture_stream(self.device)
+            main = torch.cuda.current_stream(self.device)
+            stream.wait_stream(main)
+            # capture_begin / capture_end, not the ``torch.cuda.graph``
+            # context: that one empties PyTorch's cache first, and the next
+            # request's prefill then waits on fresh cudaMallocs. The
+            # garbage collector is held off while the capture runs: a
+            # graph it finalised there (one of a dropped server's
+            # programs) would reset inside the capture, which invalidates
+            # it
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.stream(stream):
+                    prepare()
+                    reserved = torch.cuda.memory_reserved(self.device)
+                    self.graph.capture_begin(
+                        capture_error_mode="thread_local")
+                    try:
+                        fn()
+                    finally:
+                        self.graph.capture_end()
+            finally:
+                if collecting:
+                    gc.enable()
+            main.wait_stream(stream)
+            self.pool_bytes = (torch.cuda.memory_reserved(self.device)
+                               - reserved)
 
     def replay(self) -> None:
         self.graph.replay()

@@ -323,6 +323,31 @@ def init_params(cfg, seed: int = 0, device=None):
     return _flax_init(cfg, gen, device)
 
 
+def _quant_scale(key: str, sd: dict) -> bool:
+    """An int8 weight's f32 scale: an expert stack's ``<name>_scale`` or a
+    ``QDense``'s ``scale`` beside its ``kernel_int8``."""
+    owner, _, leaf = key.rpartition(".")
+    return leaf.endswith("_scale") or (leaf == "scale"
+                                       and f"{owner}.kernel_int8" in sd)
+
+
+def train_params(model_or_state_dict) -> dict[str, torch.Tensor]:
+    """The trainable weights of a model (its ``state_dict``) or of a
+    ``state_dict``: one fresh leaf tensor that requires grad per float
+    weight, keyed as the ``state_dict`` is, on the weight's device and in
+    its dtype. Int8 weights and their scales are left out (JAX cannot
+    differentiate them either). The model keeps its weights as buffers and
+    serving keeps ``requires_grad_(False)``:
+    :attr:`~lambdipy_tpu_torch.models.registry.TorchModel.train_forward`
+    runs the serving module over these tensors."""
+    sd = (model_or_state_dict.state_dict()
+          if isinstance(model_or_state_dict, torch.nn.Module)
+          else model_or_state_dict)
+    return {k: v.detach().clone().requires_grad_(True)
+            for k, v in sd.items()
+            if v.is_floating_point() and not _quant_scale(k, sd)}
+
+
 def build_model(cfg, state_dict=None, *, device=None):
     """A model of ``cfg`` on ``device`` holding ``state_dict`` (moved to
     the device), or random weights from seed 0 when it is None; in

@@ -105,6 +105,59 @@ class TorchModel:
 
         return forward_with_aux
 
+    def _trainable(self) -> torch.nn.Module:
+        """The module a train forward runs over: the serving ``LlamaModel``
+        built on the meta device (shapes alone), every weight supplied by
+        the caller's params. Raises where JAX's training cannot run: int8
+        weights (``TypeError``, as ``jax.grad`` raises on int8 inputs) and
+        ``attn_backend="flash"`` (the flash kernel has no backward; JAX's
+        ``pallas_call`` has none either and its grad fails)."""
+        cfg = self.config
+        if not isinstance(cfg, LlamaConfig):
+            raise TypeError(f"{type(cfg).__name__} has no train forward")
+        if cfg.quant == "int8":
+            raise TypeError("int8 weights cannot be trained: grad requires "
+                            "real-valued inputs, as jax.grad does; train a "
+                            "float model and quantize it for serving")
+        if cfg.attn_backend == "flash":
+            raise NotImplementedError(
+                "attn_backend 'flash' has no backward (the flash kernel is "
+                "forward-only, as the JAX package's pallas_call is); train "
+                "under 'blocked' or 'dense'")
+        return params.empty_model(cfg, device="meta")
+
+    @property
+    def train_forward(self):
+        """JAX's ``forward`` for training: ``fn(params, tokens) ->
+        logits``, the serving ``LlamaModel``'s prefill forward run by
+        ``torch.func.functional_call`` over ``params`` (a dict keyed as the
+        ``state_dict``, :func:`models.params.train_params`), so autograd
+        reaches the tensors in ``params`` and the module keeps its weights
+        as buffers. Raises for what cannot train (:meth:`_trainable`)."""
+        model = self._trainable()
+
+        def train_forward(weights, tokens):
+            return torch.func.functional_call(model, weights, (tokens,))[0]
+
+        return train_forward
+
+    @property
+    def train_forward_with_aux(self):
+        """JAX's ``forward_with_aux`` for training: ``fn(params, tokens)
+        -> (logits, aux)`` for a Llama with ``moe_experts > 0`` (``aux``
+        the MoE layers' balance loss summed), None for a dense model."""
+        cfg = self.config
+        if not (isinstance(cfg, LlamaConfig) and cfg.moe_experts):
+            return None
+        model = self._trainable()
+
+        def train_forward_with_aux(weights, tokens):
+            logits, _, aux = torch.func.functional_call(
+                model, weights, (tokens,), {"with_aux": True})
+            return logits, aux
+
+        return train_forward_with_aux
+
 
 _MODELS: dict[str, ModelSpec] = {}
 

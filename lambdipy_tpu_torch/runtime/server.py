@@ -646,24 +646,28 @@ class BundleServer:
                     self._end_frames()
 
             def _invoke(self, request: dict, t0: float) -> None:
-                """``/invoke`` past admission: the handler's result, or a
-                shed, a 400 for a bad request, a 500 for a fault."""
+                """``/invoke`` past admission, answered as JAX's
+                (``server.py:587-594``): the handler's result with 200
+                whatever its ``ok`` (a refusal such as an empty prompt is
+                the handler's answer, counted as served), a shed, or a 500
+                with ``{"ok", "error", "kind"}`` for any other exception
+                (counted as an error)."""
                 if request.get("stream"):
                     self._send_stream(request, t0)
                     return
                 try:
                     result = server.state.invoke(request)
-                    code = 200 if result.get("ok") else 400
                 except Exception as e:  # noqa: BLE001 — report, keep serving
                     if self._shed_failure(e):
                         return
-                    if isinstance(e, (ValueError, TypeError, KeyError)):
-                        result, code = {"ok": False, "error": str(e)}, 400
-                    else:
+                    if not isinstance(e, (ValueError, TypeError, KeyError)):
                         traceback.print_exc()
-                        result, code = {"ok": False, "error": repr(e)}, 500
-                server.stats.record(time.monotonic() - t0, code == 200)
-                self._send(code, result)
+                    server.stats.record(time.monotonic() - t0, False)
+                    self._send(500, {"ok": False, "error": str(e),
+                                     "kind": type(e).__name__})
+                    return
+                server.stats.record(time.monotonic() - t0, True)
+                self._send(200, result)
 
             def _completions(self, internal: dict, ticket,
                              t0: float) -> None:

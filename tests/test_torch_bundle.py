@@ -295,6 +295,38 @@ def jax_server_url(srv) -> str:
     return f"http://127.0.0.1:{srv.port}"
 
 
+@pytest.mark.parametrize("body,status", [
+    ({"tokens": [], "max_new_tokens": 4}, 200),          # the handler refuses
+    ({"tokens": PROMPT, "max_new_tokens": "x"}, 500),    # ValueError
+    ({"tokens": PROMPT, "max_new_tokens": [4]}, 500),    # TypeError
+    ({"tokens": PROMPT, "max_new_tokens": 4}, 200),      # served
+], ids=["empty", "value_error", "type_error", "good"])
+def test_invoke_status_and_body_are_jaxs(jax_server, port_server, body,
+                                         status):
+    """``/invoke`` answers as the JAX server does: a handler's ``{"ok":
+    false}`` with 200, a handler's exception with 500 and ``{"ok",
+    "error", "kind"}``; the same status, the same body keys, and the same
+    body where it does not hold generated tokens. The port's server
+    counts the refusal as served and the exception as an error, as JAX's
+    ``stats.record`` / ``record_error`` do. JAX's ``HandlerState.invoke``
+    adds ``latency_ms`` to a handler's result and the port's does not
+    (ROADMAP §3), so that key is left out of the comparison."""
+    want_code, want = _http(jax_server_url(jax_server) + "/invoke", body)
+    want.pop("latency_ms", None)
+    before = port_server.stats.report()
+    code, got = _http(port_server.url + "/invoke", body)
+    after = port_server.stats.report()
+    assert code == want_code
+    assert set(got) == set(want)
+    if not want["ok"]:
+        assert got == want
+    assert want_code == status
+    if status == 500:
+        assert set(want) == {"ok", "error", "kind"}
+    assert after["requests"] - before["requests"] == 1
+    assert after["errors"] - before["errors"] == (want_code == 500)
+
+
 def test_bundle_modules_import_no_ml_dtypes_click_or_orbax(bundle, tmp_path):
     """Every module of the port imported, a bf16 and int8 params file read
     and the CLI's parser built, in a fresh interpreter: no ``ml_dtypes``,

@@ -1882,3 +1882,142 @@ def test_quantize_params_on_the_card_is_bitwise_the_cpus(cuda_device):
     for k, node in cpu.items():
         for n, t in node.items():
             assert torch.equal(card[k][n].cpu(), t), (k, n)
+
+
+# ------------------------------------------------ captures beside threads
+
+def test_capture_survives_device_calls_on_another_thread(cuda_device):
+    """One thread captures a ``CudaGraph`` 20 times while another loops
+    over device calls: an ``.item()`` (a copy and a stream sync), a fresh
+    allocation of a new size, a pinned host copy waited on through an
+    event, each without the device lock, as the port's request threads
+    make them, and a device-wide ``torch.cuda.synchronize()`` under
+    ``DEVICE_LOCK``, the port's rule for a wait on every stream. Neither
+    thread fails and every replay equals the eager run. In CUDA's default
+    ``global`` capture mode the first three invalidated the capture
+    (``cudaErrorStreamCaptureInvalidated``); ``thread_local`` mode takes
+    them, and a device-wide sync still invalidates any capture, which the
+    lock the capture holds keeps apart."""
+    from lambdipy_tpu_torch.models.graphs import DEVICE_LOCK, CudaGraph
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    a = torch.randn(256, 256, generator=gen, device=cuda_device) / 16
+    x = torch.randn(256, 256, generator=gen, device=cuda_device)
+    out = torch.empty_like(x)
+
+    def fn():
+        y = x
+        for _ in range(48):
+            y = torch.tanh(y @ a)
+        out.copy_(y)
+
+    def prepare():
+        torch.mm(a, a)  # cuBLAS's handle for the capture stream
+
+    fn()
+    want = out.clone()
+    stop, errors, rounds = threading.Event(), [], [0]
+
+    def busy():
+        i = 0
+        try:
+            while not stop.is_set():
+                z = torch.ones(64, device=cuda_device)
+                assert float(z.sum().item()) == 64.0
+                fresh = torch.empty((1 + i % 48) << 18, dtype=torch.uint8,
+                                    device=cuda_device)
+                host = torch.empty(fresh.shape, dtype=torch.uint8,
+                                   pin_memory=True)
+                host.copy_(fresh.fill_(1), non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+                done.synchronize()
+                assert int(host[:8].sum()) == 8
+                with DEVICE_LOCK:
+                    torch.cuda.synchronize()
+                i += 1
+                rounds[0] = i
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    worker = threading.Thread(target=busy, daemon=True)
+    worker.start()
+    try:
+        for _ in range(20):
+            graph = CudaGraph(cuda_device)
+            out.zero_()
+            graph.capture(fn, prepare)
+            graph.replay()
+            torch.cuda.current_stream().synchronize()
+            torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+            graph.reset()
+    finally:
+        stop.set()
+        worker.join(timeout=60)
+    assert not worker.is_alive()
+    assert not errors, errors
+    assert rounds[0] > 0
+
+
+# ------------------------------------------------------------- training
+
+def _train_trainer(device, total, ckpt_dir=None, seed=5):
+    from lambdipy_tpu_torch.data import ShardedLoader, TokenSource
+    from lambdipy_tpu_torch.models.params import train_params
+    from lambdipy_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    adapter = registry.get("llama-tiny").build()
+    sd = adapter.init_params(seed=0, device="cpu")
+    tokens = np.random.default_rng(3).integers(0, 512, 8000).astype(np.int32)
+    loader = ShardedLoader(TokenSource(tokens, 32), 4, seed=seed)
+    cfg = TrainerConfig(total_steps=total, log_every=1, ckpt_every=2,
+                        learning_rate=3e-3, grad_clip=1.0, warmup_steps=2)
+    return Trainer(adapter.train_forward, train_params(sd), loader, cfg,
+                   device=device, ckpt_dir=ckpt_dir)
+
+
+# card against CPU: the same f32 math, other kernels and summation order
+# (TF32 off); measured well inside these
+TRAIN_METRIC_TOL = 1e-4
+TRAIN_PARAM_TOL = 1e-4
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """Four steps of the f32 ``llama-tiny`` from one state on the card
+    and on the CPU: every logged metric within ``TRAIN_METRIC_TOL``
+    relative, every param within ``TRAIN_PARAM_TOL``; no kernel of the
+    port launched (training runs the plain ops)."""
+    from lambdipy_tpu_torch.runtime.handlers import kernel_launches
+
+    before = kernel_launches()
+    card = _train_trainer(cuda_device, 4)
+    card_rows = card.run().history
+    assert kernel_launches() == before
+    cpu = _train_trainer("cpu", 4)
+    cpu_rows = cpu.run().history
+    for got, want in zip(card_rows, cpu_rows):
+        for k in ("loss", "ce_loss", "grad_norm"):
+            assert got[k] == pytest.approx(want[k], rel=TRAIN_METRIC_TOL), k
+    for k, p in cpu.state.params.items():
+        torch.testing.assert_close(card.state.params[k].cpu(), p,
+                                   rtol=TRAIN_PARAM_TOL, atol=TRAIN_PARAM_TOL)
+
+
+def test_train_resume_on_the_card_is_bitwise(cuda_device, tmp_path):
+    """8 steps on the card against 4, a checkpoint and a new ``Trainer``
+    resuming to 8 (its loader built with another seed): params,
+    optimizer state and the logged rows bitwise; the resumed tensors on
+    the card."""
+    solo = _train_trainer(cuda_device, 8)
+    solo_rows = solo.run().history
+    first_rows = _train_trainer(cuda_device, 4, tmp_path / "ck").run().history
+    second = _train_trainer(cuda_device, 8, tmp_path / "ck", seed=999)
+    assert second.resumed_from == 4
+    assert second.state.step.device.type == "cuda"
+    rows = second.run().history
+    assert first_rows + rows == solo_rows
+    for k, p in solo.state.params.items():
+        assert torch.equal(second.state.params[k], p), k
+    for name in ("mu", "nu"):
+        for k, m in solo.state.opt_state["1"]["0"][name].items():
+            assert torch.equal(second.state.opt_state["1"]["0"][name][k], m)
