@@ -1415,6 +1415,13 @@ def check_small_engine() -> dict:
 
 # ------------------------------------------------------------------ phase 4
 
+def _without_latency(body: dict) -> dict:
+    """An ``/invoke`` answer without its ``latency_ms``: the handler's wall
+    time, which ``HandlerState.invoke`` adds (as JAX's does) and no two
+    answers share."""
+    return {k: v for k, v in body.items() if k != "latency_ms"}
+
+
 def http_json(url: str, payload=None, timeout: float = 900.0) -> dict:
     data = None if payload is None else json.dumps(payload).encode()
     req = urllib.request.Request(url, data=data,
@@ -5522,8 +5529,12 @@ def serve_longctx_path(card: str) -> dict:
     finally:
         srv.stop()
     first, second, churned, replayed = outs
-    checks = {"(b) twice": second == first, "(c) churned": churned == first,
-              "(d) replayed": replayed == first}
+    first_ = _without_latency(first)
+    checks = {"(b) twice": _without_latency(second) == first_,
+              "(c) churned": _without_latency(churned) == first_,
+              "(d) replayed": _without_latency(replayed) == first_,
+              "latency_ms in every body": all("latency_ms" in o
+                                              for o in outs)}
     log(f"path J (b)-(d): the second run, the churned run and the replay "
         f"after a failed re-online bitwise the first (tokens and logprobs as "
         f"served): {checks}")
@@ -6310,9 +6321,10 @@ def serve_classify_path(card: str) -> dict:
         req = {"n": 64, "seed": 3}
         want = hello_handler({}, HandlerContext(device="cuda")).invoke(req)
         got = boot.state.invoke(req)
+        same = _without_latency(got) == _without_latency(want)
         log(f"path L (b) hello: stages {boot.stages}, the answer equal to "
-            f"a handler built directly: {got == want}")
-        if got != want or not got["ok"]:
+            f"a handler built directly: {same}")
+        if not same or not got["ok"]:
             raise SystemExit(f"path L (b) hello: {got} != {want}")
         out["hello"] = {"stages": boot.stages, "answer": got}
         if has_sklearn:
@@ -6440,7 +6452,9 @@ def _build_record(cli: Cli, recipe: str, bundle: Path, wall: float,
 
 def _answers_equal(recipe: str, got: dict, want: dict) -> tuple:
     """(top-1 equal, bitwise): ResNet's top-5 and largest logit, BERT's
-    labels and logits; hello's whole answer."""
+    labels and logits; hello's whole answer (each without its
+    ``latency_ms``)."""
+    got, want = _without_latency(got), _without_latency(want)
     if recipe == "jax-resnet50":
         return got["top1"] == want["top1"], got == want
     if recipe == "jax-bert":
@@ -6475,7 +6489,8 @@ def _deploy_checks(cli: Cli, recipe: str, dep: dict, card: str) -> dict:
         f"boot of the same bundle: {checks}")
     if not all(top and bits for top, bits in checks.values()):
         raise SystemExit(f"path M (d) {recipe}: answers differ: {checks}")
-    answers = {kind: http_json(ready["url"] + "/invoke", body)
+    answers = {kind: _without_latency(http_json(ready["url"] + "/invoke",
+                                                body))
                for kind, body in bodies.items()}
     del boot
     return {"deploy_wall_s": dep["wall_s"], "url": ready["url"],
@@ -6505,8 +6520,8 @@ def _watchdog(cli: Cli, dep: dict, card: str) -> dict:
             raise SystemExit("path M (e): the server was not respawned")
         time.sleep(0.05)
     recovery = time.perf_counter() - t0
-    same = {kind: http_json(url + "/invoke", body) == dep["answers"][kind]
-            for kind, body in dep["bodies"].items()}
+    same = {kind: _without_latency(http_json(url + "/invoke", body))
+            == dep["answers"][kind] for kind, body in dep["bodies"].items()}
     log(f"path M (e) watchdog: server {old} SIGKILLed, respawned as "
         f"{health['pid']} on the same port, /healthz ready after "
         f"{recovery:.3f} s; answers bitwise as before: {same} [{card}]")
@@ -6569,7 +6584,7 @@ def _prebuilt(cli: Cli, rel: dict, deps: dict, card: str) -> dict:
     dep = cli("deploy", "jax-resnet50", "--registry", fresh, "--name",
               "resnet-prebuilt")
     ready = json.loads(dep["stdout"].strip().splitlines()[-1])
-    same = {kind: http_json(ready["url"] + "/invoke", body)
+    same = {kind: _without_latency(http_json(ready["url"] + "/invoke", body))
             == deps["jax-resnet50"]["answers"][kind]
             for kind, body in deps["jax-resnet50"]["bodies"].items()}
     log(f"path M (f) a fresh registry's build: {fetched['wall_s']:.2f} s, "
@@ -8448,27 +8463,37 @@ R_LR = 3e-4
 # (c): the f32 llama-tiny on the card against the CPU, four steps; the
 # same f32 math (TF32 off) in another summation order
 R_TINY_TOL = 1e-4
+# (f): two gloo CPU ranks of llama-tiny at dp=2 under FSDP against one
+# process, each metric relative to max(1, |metric|) and each param to its
+# leaf's largest magnitude (tests/test_torch_distributed.py's SOLO_TOL:
+# the same f32 math, each rank's gradient reduced over the two)
+R_RANKS_TOL = 1e-6
+R_RANKS = Path(__file__).resolve().parent / "tests" / "torch_ranks.py"
 
 
 class _StepClock:
     """A trainer's step function, timed: each call synchronized and its
-    wall recorded (the script's instrumentation; the trainer syncs on its
-    logging steps anyway, and R logs every step)."""
+    wall and metrics recorded (the script's instrumentation; the trainer
+    syncs on its logging steps anyway, and R logs every step). Its
+    ``shardings`` and ``mesh`` are the step's."""
 
     def __init__(self, fn):
-        self.fn, self.walls = fn, []
+        self.fn, self.walls, self.metrics = fn, [], []
+        self.shardings, self.mesh = fn.shardings, fn.mesh
 
     def __call__(self, state, batch):
         t0 = time.perf_counter()
         out = self.fn(state, batch)
         torch.cuda.synchronize()
         self.walls.append(time.perf_counter() - t0)
+        self.metrics.append(out[1])
         return out
 
 
 def _r_trainer(adapter, weights, tokens_path: Path, total: int,
                ckpt_dir=None, *, device="cuda", seed: int = 0,
-               batch: int = R_BATCH, seq: int = R_SEQ, lr: float = R_LR):
+               batch: int = R_BATCH, seq: int = R_SEQ, lr: float = R_LR,
+               mesh=None, fsdp: bool = True):
     from lambdipy_tpu_torch.data import ShardedLoader, TokenSource
     from lambdipy_tpu_torch.models.params import train_params
     from lambdipy_tpu_torch.train.loop import Trainer, TrainerConfig
@@ -8477,9 +8502,11 @@ def _r_trainer(adapter, weights, tokens_path: Path, total: int,
     # one checkpoint kept: the directory's first offered step saves (orbax's
     # cadence), so (b) writes three, and at most two are on disk at once
     cfg = TrainerConfig(total_steps=total, log_every=1, ckpt_every=R_STEPS,
-                        keep_ckpts=1, learning_rate=lr, grad_clip=1.0)
+                        keep_ckpts=1, learning_rate=lr, grad_clip=1.0,
+                        fsdp=fsdp)
     trainer = Trainer(adapter.train_forward, train_params(weights), loader,
-                      cfg, device=device, ckpt_dir=ckpt_dir)
+                      cfg, device=device, mesh=mesh, rules=adapter.tp_rules,
+                      ckpt_dir=ckpt_dir)
     trainer.step_fn = _StepClock(trainer.step_fn)
     return trainer
 
@@ -8504,7 +8531,15 @@ def serve_train_path(card: str) -> dict:
     state and logged rows bitwise (a)'s; the checkpoint's bytes, save and
     restore times; (c) the f32 ``llama-tiny`` trained four steps on the
     card and on the CPU from one state: losses and grad norms within
-    ``R_TINY_TOL``; (d) every kernel's launch counter moves by 0."""
+    ``R_TINY_TOL``; (e) the one-device identities at (a)'s widths: four
+    steps under ``make_mesh({"dp": 1})`` with FSDP and no process group,
+    and under a one-rank NCCL group with ``make_mesh({"dp": -1})``, FSDP
+    on and off (every collective run), each bitwise (b)'s first four
+    steps: params, optimizer state, step and metrics; (f) host only, beside
+    (a)-(e): two gloo CPU ranks of ``llama-tiny`` at ``dp=2`` under FSDP,
+    four steps, within ``R_RANKS_TOL`` of one process (the host has one
+    card, so no multi-card figure is taken); (d) every kernel's launch
+    counter moves by 0."""
     import shutil
     import statistics
     import tempfile
@@ -8517,6 +8552,7 @@ def serve_train_path(card: str) -> dict:
     root = Path(tempfile.mkdtemp(prefix="lambdipy-train-"))
     log(f"path R: {shutil.disk_usage(root).free:,} B free where the "
         f"checkpoints go")
+    ranks = _start_r_ranks(root / "ranks")
     try:
         adapter = registry.get("llama3-8b").build(dtype="bfloat16",
                                                   quant=None, extra=R_EXTRA)
@@ -8581,6 +8617,8 @@ def serve_train_path(card: str) -> dict:
         try:
             first = _r_trainer(adapter, weights, tokens, R_STEPS // 2, ck)
             first_rows = first.run().history
+            # (e)'s reference: four steps without a mesh
+            ref_state, ref_metrics = first.state, first.step_fn.metrics
             del first
             second = _r_trainer(adapter, weights, tokens, R_STEPS, ck,
                                 seed=999)
@@ -8602,7 +8640,20 @@ def serve_train_path(card: str) -> dict:
         if not same:
             raise SystemExit("path R (b): the resumed run is not bitwise "
                              "the uninterrupted one")
-        del solo, second, weights
+        del solo, second
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        PROGRESS["stage"] = "(e) one-device identities"
+        t_e = time.perf_counter()
+        identities = _r_identities(adapter, weights, tokens, root,
+                                   ref_state, ref_metrics)
+        log(f"path R (e): {identities}; took "
+            f"{time.perf_counter() - t_e:.1f} s [{card}]")
+        if not all(identities.values()):
+            raise SystemExit("path R (e): a one-device mesh is not bitwise "
+                             "no mesh")
+        del weights, ref_state, ref_metrics
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -8628,7 +8679,26 @@ def serve_train_path(card: str) -> dict:
         if not worst <= R_TINY_TOL:
             raise SystemExit("path R (c): the card's training disagrees "
                              "with the CPU's")
+
+        PROGRESS["stage"] = "(f) two gloo ranks (host only)"
+        t_f = time.perf_counter()
+        rank_result = _wait_r_ranks(ranks)
+        ranks = None
+        log(f"path R (f), host only (the host has one card: no multi-card "
+            f"figure): two gloo CPU ranks of llama-tiny at dp=2 under FSDP, "
+            f"four steps against one process: {rank_result} (tolerance "
+            f"{R_RANKS_TOL}); waited {time.perf_counter() - t_f:.1f} s for "
+            f"them after (c)")
+        if not (rank_result["metric_rel_diff"] <= R_RANKS_TOL
+                and rank_result["param_rel_diff"] <= R_RANKS_TOL
+                and rank_result["sharded"]):
+            raise SystemExit("path R (f): two ranks disagree with one "
+                             "process")
     finally:
+        if ranks is not None:
+            for proc in ranks[0]:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(root, ignore_errors=True)
 
     launches = kernel_launches()
@@ -8640,7 +8710,97 @@ def serve_train_path(card: str) -> dict:
             "flop_per_step": flop, "peak_bytes": peak, "losses": losses,
             "ckpt_bytes": ck_bytes, "save_s": times["save"],
             "restore_s": times["restore"], "tiny_rel_diff": worst,
+            "identities": identities, "ranks": rank_result,
             "launches": launches}
+
+
+def _r_identities(adapter, weights, tokens: Path, root: Path, ref_state,
+                  ref_metrics) -> dict:
+    """R (e): four steps under each one-device mesh, bitwise the no-mesh
+    four steps (``ref_state``, ``ref_metrics``); each variant's state freed
+    before the next. The one-rank NCCL group meets through a file store
+    and is destroyed after."""
+    import torch.distributed as dist
+
+    from lambdipy_tpu_torch.parallel.mesh import make_mesh
+
+    def same(trainer) -> bool:
+        metrics = trainer.step_fn.metrics
+        return (_state_equal(trainer.state, ref_state)
+                and len(metrics) == len(ref_metrics)
+                and all(m.keys() == r.keys()
+                        and all(torch.equal(m[k], r[k]) for k in m)
+                        for m, r in zip(metrics, ref_metrics)))
+
+    def run(mesh, fsdp: bool) -> bool:
+        trainer = _r_trainer(adapter, weights, tokens, R_STEPS // 2,
+                             mesh=mesh, fsdp=fsdp)
+        trainer.run()
+        ok = same(trainer)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        return ok
+
+    log(f"path R (e): torch {torch.__version__}, NCCL "
+        f"{'.'.join(map(str, torch.cuda.nccl.version()))}")
+    out = {"dp=1, fsdp, no group": run(make_mesh({"dp": 1}), True)}
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{root}/nccl-pg",
+                            rank=0, world_size=1)
+    try:
+        for fsdp in (True, False):
+            out[f"dp=-1, fsdp {'on' if fsdp else 'off'}, one-rank NCCL "
+                f"group"] = run(make_mesh({"dp": -1}), fsdp)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def _start_r_ranks(workdir: Path):
+    """R (f)'s two gloo CPU ranks (``tests/torch_ranks.py train``: rank 0
+    trains one process first, then both train at dp=2 under FSDP),
+    started now to run beside the card phases; no card is visible to
+    them."""
+    workdir.mkdir(parents=True)
+    np.save(workdir / "tokens.npy", np.tile(np.arange(50, dtype=np.int32),
+                                            80))
+    cfg = json.dumps({"steps": 4, "variants": ["fsdp"]})
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": str(R_RANKS.parents[1])}
+    procs = [subprocess.Popen(
+        [sys.executable, str(R_RANKS), "train", str(workdir), str(rank), "2",
+         cfg], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for rank in range(2)]
+    return procs, workdir
+
+
+def _wait_r_ranks(ranks) -> dict:
+    """R (f)'s result: the largest metric difference over max(1, the
+    one-process metric) and the largest param difference over its leaf's
+    largest magnitude, two ranks against one process, whether FSDP split
+    the params, and rank 0's own seconds (imports, the one-process run,
+    joining the group, the dp=2 run)."""
+    procs, workdir = ranks
+    for proc in procs:
+        _, err = proc.communicate(timeout=300)
+        if proc.returncode:
+            raise SystemExit(f"path R (f): a rank exited "
+                             f"{proc.returncode}: {err[-2000:]}")
+    out = torch.load(workdir / "train.pt")
+    got, solo = out["fsdp"], out["solo"]
+    metric_diff = max(abs(g[k] - w[k]) / max(1.0, abs(w[k]))
+                      for g, w in zip(got["metrics"], solo["metrics"])
+                      for k in w)
+    param_diff = max(float((got["params"][k] - w).abs().max()
+                           / w.abs().max())
+                     for k, w in solo["params"].items())
+    per_rank, total = got["device_bytes"]
+    return {"metric_rel_diff": metric_diff, "param_rel_diff": param_diff,
+            "sharded": per_rank < total, "rank_bytes": per_rank,
+            "logical_bytes": total, "losses": [m["loss"]
+                                               for m in got["metrics"]],
+            "rank0_s": {k: round(v, 1) for k, v in out["timings"].items()}}
 
 
 def main() -> int:

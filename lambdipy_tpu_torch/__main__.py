@@ -66,10 +66,16 @@ ask for features the port does not have and exit before boot. ``POST
 ``--seq-len``, ``--lr``, ``--ckpt-dir`` (a re-run resumes), ``--ckpt-every``,
 ``--mesh`` and ``--seed``, with ``--device cpu`` as on the other commands;
 the last line holds JAX's keys (``model``, ``final_step``, ``steps_run``,
-``resumed_from``, ``mesh``, ``final_metrics``). One device: a ``--mesh``
-of more than one is refused. The weights are the port's seeded draws,
-not JAX's, and checkpoints are the port's own format
-(``train/checkpoint.py``).
+``resumed_from``, ``mesh``, ``final_metrics``). JAX drives N devices from
+one process; the port runs N processes of one device each: ``--mesh
+dp=N`` (FSDP over ``dp``) trains as one of N ranks started with the
+port's variables (``LAMBDIPY_COORDINATOR``, ``LAMBDIPY_NUM_PROCESSES``,
+``LAMBDIPY_PROCESS_ID``) or by torchrun, and a mesh that is not the
+process count raises, as do ``tp``, ``ep``, ``sp`` and ``pp`` above 1
+(ROADMAP queue 1, item 3 (c)-(f)). The default mesh is every rank on
+``dp``. The weights are the port's seeded draws, not JAX's, and
+checkpoints are the port's own format (``train/checkpoint.py``), written
+whole by rank 0.
 """
 
 from __future__ import annotations
@@ -883,12 +889,11 @@ def cmd_doctor(args) -> None:
 # -- the parser -------------------------------------------------------------
 
 
-def _mesh_shape(spec: str | None) -> dict:
+def _mesh_shape(spec: str | None, world: int) -> dict:
     """``--mesh`` as ``{axis: size}``, JAX's parse and message; the
-    default puts the one device on ``dp``. ``-1`` fills with the devices
-    left: one here. A mesh of more than one device raises."""
+    default puts every rank on ``dp`` (JAX: every device)."""
     if not spec:
-        return {"dp": 1}
+        return {"dp": world}
     shape = {}
     for part in spec.split(","):
         axis, eq, size = part.partition("=")
@@ -899,47 +904,61 @@ def _mesh_shape(spec: str | None) -> dict:
         except ValueError as e:
             raise CliError(f"bad --mesh entry {part!r} (want axis=size, e.g. "
                            f"dp=2,tp=4): {e}") from e
-    shape = {axis: 1 if size == -1 else size for axis, size in shape.items()}
-    if math.prod(shape.values()) != 1:
-        raise CliError(f"train: --mesh {spec!r} names "
-                       f"{math.prod(shape.values())} devices; a mesh of more "
-                       "than one device is not ported yet (ROADMAP queue 1, "
-                       "item 3: parallelism)")
     return shape
 
 
 def cmd_train(args) -> None:
     """JAX's ``train``: a registry model with seeded random weights (the
-    port's draws), trained on a token file by the resumable ``Trainer``
-    on one device; the last line is JAX's summary."""
+    port's draws), trained on a token file by the resumable ``Trainer``,
+    on one device or as one rank of a ``dp`` mesh; the last line is JAX's
+    summary."""
     if not Path(args.data).exists():
         raise CliError(f"--data: path {args.data!r} does not exist")
-    mesh = _mesh_shape(args.mesh)
+    from lambdipy_tpu_torch.parallel.distributed import (initialize_from_env,
+                                                         shutdown)
+
+    try:
+        ctx = initialize_from_env(device=args.device)
+    except (ValueError, RuntimeError) as e:
+        raise CliError(f"train: {e}") from None
+    try:
+        _train(args, ctx)
+    finally:
+        shutdown()
+
+
+def _train(args, ctx) -> None:
     from lambdipy_tpu_torch.data import ShardedLoader, TokenSource
     from lambdipy_tpu_torch.models import registry as model_registry
     from lambdipy_tpu_torch.models.params import train_params
+    from lambdipy_tpu_torch.parallel.mesh import job_mesh
     from lambdipy_tpu_torch.train.loop import Trainer, TrainerConfig
+    from lambdipy_tpu_torch.train.step import refuse_routing_over_ranks
     from lambdipy_tpu_torch.utils.platform import resolve_device
 
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as e:
-        raise CliError(f"train: {e}") from None
     adapter = model_registry.get(args.model).build()
+    try:
+        shape = _mesh_shape(args.mesh, ctx.process_count)
+        if adapter.train_forward_with_aux is not None:
+            refuse_routing_over_ranks(shape)
+        mesh = job_mesh(shape)
+        device = resolve_device(ctx.device or args.device)
+    except (ValueError, NotImplementedError, RuntimeError) as e:
+        raise CliError(f"train: {e}") from None
     params = train_params(adapter.init_params(seed=args.seed, device=device))
     loader = ShardedLoader(TokenSource(args.data, args.seq_len), args.batch,
                            seed=args.seed)
     cfg = TrainerConfig(total_steps=args.steps, learning_rate=args.lr,
                         ckpt_every=args.ckpt_every)
     with Trainer(adapter.train_forward, params, loader, cfg, device=device,
-                 mesh=mesh, ckpt_dir=args.ckpt_dir,
+                 mesh=mesh, rules=adapter.tp_rules, ckpt_dir=args.ckpt_dir,
                  model_apply_aux=adapter.train_forward_with_aux) as trainer:
         report = trainer.run()
     last = report.history[-1] if report.history else {}
     _echo(json.dumps({
         "model": args.model, "final_step": report.final_step,
         "steps_run": report.steps_run, "resumed_from": report.resumed_from,
-        "mesh": mesh, "final_metrics": last}))
+        "mesh": mesh.shape, "final_metrics": last}))
 
 
 def parser() -> argparse.ArgumentParser:
@@ -1238,8 +1257,11 @@ def parser() -> argparse.ArgumentParser:
                         "step")
     p.add_argument("--ckpt-every", type=int, default=50)
     p.add_argument("--mesh", default=None,
-                   help='mesh axes, e.g. "dp=1" (default: the one device on '
-                        'dp); more than one device is refused')
+                   help='mesh axes, e.g. "dp=2" (default: every rank on dp): '
+                        'one process per device, started with '
+                        'LAMBDIPY_COORDINATOR / LAMBDIPY_NUM_PROCESSES / '
+                        'LAMBDIPY_PROCESS_ID or torchrun; tp, ep, sp and pp '
+                        'are not ported yet')
     p.add_argument("--seed", type=int, default=0)
     device_flag(p, "train")
 

@@ -12,15 +12,16 @@
   the shift-by-one LM objective of ``train/step.py``); partial tail
   windows and a partial last batch are dropped.
 
-:meth:`ShardedLoader.place` puts a host batch on one device as an int64
-tensor. JAX's ``place(batch, mesh, batch_sharding)`` assembles a global
-array across a mesh; the port has no mesh yet, and a mesh or sharding
-that names more than one device raises.
+:meth:`ShardedLoader.place` puts this process's rows on its device as an
+int64 tensor. JAX's ``place(batch, mesh, batch_sharding)`` assembles one
+global array from every process's rows
+(``make_array_from_process_local_data``); the port runs one process per
+device, so each rank places its own rows and the global batch is the
+ranks' rows concatenated in rank order.
 """
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -31,15 +32,6 @@ from lambdipy_tpu_torch.parallel.distributed import (process_batch_slice,
                                                      process_count,
                                                      process_index)
 from lambdipy_tpu_torch.utils.platform import resolve_device
-
-MESH_REFUSED = ("a mesh of more than one device is not ported yet "
-                "(ROADMAP queue 1, item 3: parallelism)")
-
-
-def mesh_devices(mesh: dict | None) -> int:
-    """The devices a mesh names: ``None`` is one, a mapping of axis sizes
-    (``{"dp": 1}``, the CLI's ``--mesh``) their product."""
-    return 1 if mesh is None else math.prod(int(v) for v in mesh.values())
 
 
 class TokenSource:
@@ -155,15 +147,28 @@ class ShardedLoader:
 
     def place(self, batch: np.ndarray, mesh=None, batch_sharding=None, *,
               device=None) -> torch.Tensor:
-        """``batch`` as an int64 tensor on ``device`` (the card unless the
-        caller asks for the CPU). ``mesh`` and ``batch_sharding`` are JAX's
-        arguments: a mesh of one device is taken, a larger one raises, and
-        a ``batch_sharding`` may only name the one device itself."""
-        if mesh_devices(mesh) > 1 or self._pc > 1:
-            raise NotImplementedError(MESH_REFUSED)
+        """This process's rows ``batch`` as an int64 tensor on ``device``
+        (the card unless the caller asks for the CPU): its block of the
+        global batch, which is every process's rows in rank order. ``mesh``
+        and ``batch_sharding`` are JAX's arguments: a mesh
+        (:func:`~lambdipy_tpu_torch.parallel.mesh.job_mesh`) has as many
+        devices as the job has processes, the loader is sharded over them,
+        and a ``batch_sharding`` is a ``NamedSharding`` of that mesh or
+        the device itself."""
+        from lambdipy_tpu_torch.parallel.mesh import job_mesh
+        from lambdipy_tpu_torch.parallel.sharding import NamedSharding
+
+        if isinstance(batch_sharding, NamedSharding):
+            mesh = mesh if mesh is not None else batch_sharding.mesh
+            batch_sharding = None
+        job_mesh(mesh)
+        if self._pc != _count():
+            raise ValueError(f"this loader shards over {self._pc} processes; "
+                             f"the job has {_count()}")
         if batch_sharding is not None:
             if not isinstance(batch_sharding, (str, torch.device)):
-                raise NotImplementedError(MESH_REFUSED)
+                raise TypeError(f"batch_sharding {batch_sharding!r} is "
+                                "neither a NamedSharding nor a device")
             if device is not None and torch.device(batch_sharding) \
                     != torch.device(device):
                 raise ValueError(f"batch_sharding {batch_sharding} is not "

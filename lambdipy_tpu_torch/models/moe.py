@@ -22,8 +22,9 @@ Differences from JAX, none of them numerical:
   load-balance loss only when asked (``with_aux``), and ``LlamaModel``
   collects it only when its caller asks (``forward(..., with_aux=True)``).
   Serving computes none of it.
-- No expert parallelism: the ``ep`` sharding waits for the port's
-  parallelism (ROADMAP queue 1, item 3).
+- No expert parallelism: the ``ep`` rules exist
+  (``registry._llama_tp_rules``), and a mesh with ``ep`` above 1 raises
+  (ROADMAP queue 1, item 3 (d)).
 
 Int8 experts dequantize as JAX's do, ``w_i8.to(dtype) * scale.to(dtype)``
 (a product in the model dtype), then the einsum: the int8 matmul kernel

@@ -20,12 +20,13 @@ import numpy as np
 import torch
 
 from lambdipy_tpu_torch.models import params
-from lambdipy_tpu_torch.models.bert import BERT_BASE, BERT_TINY
+from lambdipy_tpu_torch.models.bert import BERT_BASE, BERT_TINY, BertConfig
 from lambdipy_tpu_torch.models.llama import (LLAMA3_8B, LLAMA_TINY,
                                              LlamaConfig, LlamaServer)
 from lambdipy_tpu_torch.models.resnet import (RESNET50, RESNET_TINY,
                                               ResNetConfig)
 from lambdipy_tpu_torch.models.torch_bert import TorchBertConfig
+from lambdipy_tpu_torch.parallel.sharding import P, ShardingRules
 from lambdipy_tpu_torch.utils.platform import resolve_device
 
 
@@ -90,6 +91,21 @@ class TorchModel:
                            **server_kw)
 
     @property
+    def tp_rules(self):
+        """JAX's ``tp_rules``: the sharding rules of the model's family
+        (:func:`_llama_tp_rules`, :func:`_bert_tp_rules`, none for a
+        ResNet), matched on JAX's paths; None for the torch BERT and
+        tabular, which JAX builds no rules for."""
+        cfg = self.config
+        if isinstance(cfg, LlamaConfig):
+            return _llama_tp_rules()
+        if isinstance(cfg, BertConfig):
+            return _bert_tp_rules()
+        if isinstance(cfg, ResNetConfig):
+            return ShardingRules(rules=())
+        return None
+
+    @property
     def forward_with_aux(self):
         """JAX's ``forward_with_aux`` (``registry.py:318-325``): for a
         Llama with ``moe_experts > 0``, ``fn(model, tokens) -> (logits,
@@ -131,7 +147,8 @@ class TorchModel:
         """JAX's ``forward`` for training: ``fn(params, tokens) ->
         logits``, the serving ``LlamaModel``'s prefill forward run by
         ``torch.func.functional_call`` over ``params`` (a dict keyed as the
-        ``state_dict``, :func:`models.params.train_params`), so autograd
+        ``state_dict``, :func:`models.params.train_params`; its
+        ``routes_tokens`` is true for an MoE model), so autograd
         reaches the tensors in ``params`` and the module keeps its weights
         as buffers. Raises for what cannot train (:meth:`_trainable`)."""
         model = self._trainable()
@@ -139,6 +156,9 @@ class TorchModel:
         def train_forward(weights, tokens):
             return torch.func.functional_call(model, weights, (tokens,))[0]
 
+        # an MoE model routes over the batch it is given: one device only
+        # (train/step.py refuse_routing_over_ranks)
+        train_forward.routes_tokens = bool(self.config.moe_experts)
         return train_forward
 
     @property
@@ -181,6 +201,43 @@ def get(name: str) -> ModelSpec:
 def _dtype(name: str):
     return {"bfloat16": torch.bfloat16, "float32": torch.float32,
             "float16": torch.float16}[name]
+
+
+def _bert_tp_rules() -> ShardingRules:
+    """JAX's ``_bert_tp_rules`` (``registry.py:139``), glob for glob."""
+    return ShardingRules(rules=(
+        ("*attn/query/kernel", P(None, "tp", None)),
+        ("*attn/key/kernel", P(None, "tp", None)),
+        ("*attn/value/kernel", P(None, "tp", None)),
+        ("*attn/out/kernel", P("tp", None, None)),
+        ("*mlp_in/kernel", P(None, "tp")),
+        ("*mlp_out/kernel", P("tp", None)),
+    ))
+
+
+def _llama_tp_rules() -> ShardingRules:
+    """JAX's ``_llama_tp_rules`` (``registry.py:201``), glob for glob:
+    heads, MLP and vocabulary over ``tp``, MoE experts over ``ep`` (their
+    hidden dim over ``tp``), the router replicated; a trailing ``*``
+    covers the int8 layout (``kernel_int8`` shards as its float
+    original)."""
+    return ShardingRules(rules=(
+        ("*embed/embedding", P("tp", None)),
+        ("*o_proj/kernel*", P("tp", None)),
+        ("*down_proj/kernel*", P("tp", None)),
+        ("*o_proj/scale", P()),
+        ("*down_proj/scale", P()),
+        ("*_proj/kernel*", P(None, "tp")),  # q/k/v/gate/up
+        ("*_proj/scale", P(None, "tp")),
+        ("*lm_head/kernel*", P(None, "tp")),
+        ("*lm_head/scale", P(None, "tp")),
+        ("*moe/experts_gate*", P("ep", None, "tp")),
+        ("*moe/experts_up*", P("ep", None, "tp")),
+        ("*moe/experts_down_int8", P("ep", "tp", None)),
+        ("*moe/experts_down_scale", P("ep", None, None)),
+        ("*moe/experts_down", P("ep", "tp", None)),
+        ("*moe/router", P()),
+    ))
 
 
 _ATTN_BACKENDS = ("blocked", "dense", "flash")
@@ -302,14 +359,16 @@ def draft_twin(adapter: TorchModel, *, layers: int = 2,
     :class:`~lambdipy_tpu_torch.runtime.continuous.AuxModelDraft` and hand
     it to the engine as ``draft_provider`` with ``draft_mode="aux"``.
     ``caps`` go to the server (e.g. ``prefix_cache_max``). A ``mesh``
-    raises: the port has no parallelism yet (ROADMAP)."""
+    raises: a serving mesh is tensor parallelism (ROADMAP queue 1, item 3
+    (c))."""
     cfg = adapter.config
     if not isinstance(cfg, LlamaConfig):
         raise ModelError("draft_twin needs a llama-family adapter "
                          "(adapter.config must be a LlamaConfig)")
     if mesh is not None:
-        raise ValueError("draft_twin: a mesh needs parallelism, which the "
-                         "port does not have yet")
+        raise ValueError("draft_twin: a serving mesh is tensor "
+                         "parallelism, not ported yet (ROADMAP queue 1, "
+                         "item 3 (c))")
     overrides: dict[str, Any] = {
         "layers": max(1, min(int(layers), cfg.layers)),
         "quant": None, "kv_quant": None}

@@ -40,6 +40,7 @@ import dataclasses
 import math
 import os
 import threading
+import time
 from collections.abc import Callable, Iterator
 from pathlib import Path
 from typing import Any
@@ -130,7 +131,12 @@ class HandlerState:
     forward: Any = None
 
     def invoke(self, request: dict) -> dict:
-        return self.invoke_fn(request)
+        """JAX's: the handler gets a copy of ``request`` (``{}`` for
+        None), and its result a ``latency_ms`` unless it set one."""
+        t0 = time.monotonic()
+        out = self.invoke_fn(dict(request or {}))
+        out.setdefault("latency_ms", round((time.monotonic() - t0) * 1e3, 3))
+        return out
 
     def invoke_stream(self, request: dict) -> Iterator[dict]:
         if self.invoke_stream_fn is None:
@@ -175,12 +181,16 @@ def kernel_launches() -> dict:
             "flash_attention": flash_attention.launches}
 
 
-# engine extras of the JAX handler whose features need a mesh, which the
-# port does not have yet (ROADMAP): the value each may take (the feature
-# off), anything else raises
+# engine extras of the JAX handler whose features need a serving mesh,
+# which the port does not have yet: the value each may take (the feature
+# off), anything else raises naming its ROADMAP item
 _UNPORTED_ENGINE_EXTRAS = {
     "prefill_mode": ("chunked",),
     "mesh": ("", "off"),
+}
+_UNPORTED_ITEM = {
+    "prefill_mode": "ROADMAP queue 1, item 3 (e): sequence parallelism",
+    "mesh": "ROADMAP queue 1, item 3 (c): tensor parallelism",
 }
 # the variables the JAX handler reads for those features when their extra
 # is unset (the extra wins): a value that turns the feature on raises too
@@ -193,7 +203,8 @@ def _check_unported_extras(extra: dict) -> None:
         if key in extra and str(extra[key]).strip().lower() not in off:
             raise ValueError(
                 f"extra {key}={extra[key]!r} needs a feature the port does "
-                f"not have yet; supported: {key} in {list(off)} or unset")
+                f"not have yet; supported: {key} in {list(off)} or unset "
+                f"({_UNPORTED_ITEM[key]})")
     for env, key in _UNPORTED_ENV.items():
         raw = os.environ.get(env)
         if key not in extra and raw is not None \
@@ -201,7 +212,7 @@ def _check_unported_extras(extra: dict) -> None:
             raise ValueError(
                 f"{env}={raw!r} needs a feature the port does not have "
                 f"yet; supported: {list(_UNPORTED_ENGINE_EXTRAS[key])} or "
-                f"unset")
+                f"unset ({_UNPORTED_ITEM[key]})")
 
 
 def _on(value) -> bool:
@@ -1217,7 +1228,8 @@ def _adapter_and_params(spec: dict, ctx: HandlerContext, device):
 
 
 def _single_device(spec: dict) -> None:
-    """A payload mesh needs more than the one device the port serves on:
+    """A payload mesh needs more than the one device the port serves on
+    (a serving mesh is tensor parallelism, ROADMAP queue 1, item 3 (c)):
     serve on one, loudly, as JAX does on a host with too few devices
     (``meta.sharded`` false)."""
     mesh = {k: v for k, v in (spec.get("mesh") or {}).items() if v > 1}

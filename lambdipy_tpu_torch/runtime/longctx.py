@@ -33,8 +33,9 @@ chunks run eagerly, not as graphs: at llama3-8b's 8,192-position window a
 4,096-token chunk's f32 scores are 4 GiB a layer, a peak a graph's pool
 would keep, and its ~1,000 launches are small against its compute. The
 decode step is a graph on the card.
-``long_prefill`` (ring attention over an ``sp`` mesh) has no mesh to run
-on in the port: asking for it stands down, counted (:func:`note_standdown`,
+``long_prefill`` (ring attention over an ``sp`` mesh) has no ``sp`` mesh
+to run on in the port (ROADMAP queue 1, item 3 (e)): asking for it stands
+down, counted (:func:`note_standdown`,
 the port's copy of the JAX counter), as JAX does without a ring mesh.
 
 ``resident_cap`` is the pressure-yield mode: after each segment's

@@ -21,6 +21,16 @@ oldest steps beyond ``max_to_keep`` are deleted. Saves are synchronous
 (orbax's are asynchronous): ``wait`` and ``close`` have nothing to wait
 for. ``restore`` reads onto the template's devices and raises where the
 template's keys, shapes or dtypes are not the checkpoint's.
+
+One rank of a mesh (``shardings``, the train step's): a save gathers
+each sharded leaf in turn over the process group, rank 0 moves it to the
+host at once and the other ranks drop it (a rank's device holds its
+blocks and one gathered leaf, not the whole state), rank 0 alone writes
+the whole state in the format above, and every rank meets the others at
+a barrier before the save returns; a restore reads the whole state and
+takes this rank's block of each sharded leaf. The format is one device's either
+way, so a checkpoint written by N ranks restores in one process and the
+reverse.
 """
 
 from __future__ import annotations
@@ -34,6 +44,8 @@ from pathlib import Path
 import torch
 
 from lambdipy_tpu_torch.bundle import flatpack
+from lambdipy_tpu_torch.parallel.distributed import barrier
+from lambdipy_tpu_torch.parallel.sharding import leaf_sharding
 from lambdipy_tpu_torch.utils.logs import get_logger, log_event
 
 log = get_logger("lambdipy.train.ckpt")
@@ -76,15 +88,22 @@ class TrainCheckpointer:
     holding a ``TrainState`` and the loader's state)."""
 
     def __init__(self, directory: Path | str, *, max_to_keep: int = 3,
-                 save_interval_steps: int = 1):
+                 save_interval_steps: int = 1,
+                 shardings: dict | None = None):
+        from lambdipy_tpu_torch.parallel.distributed import process_index
+
         self.directory = Path(directory).resolve()
         self.directory.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max_to_keep
         self.save_interval_steps = save_interval_steps
+        self.shardings = shardings
+        # the rank that writes (every rank keeps the same step list)
+        self.primary = shardings is None or process_index() == 0
         steps = []
         for p in self.directory.iterdir():
             if p.name.startswith(_TMP):
-                shutil.rmtree(p, ignore_errors=True)  # a save that died
+                if self.primary:  # a save that died
+                    shutil.rmtree(p, ignore_errors=True)
             elif p.is_dir() and p.name.isdigit():
                 steps.append(int(p.name))
         self._steps = sorted(steps)
@@ -107,22 +126,36 @@ class TrainCheckpointer:
         tensors, meta = {}, {}
         for path, leaf in tree_paths(state):
             key = "/".join(path)
-            if torch.is_tensor(leaf):
-                tensors[key] = leaf.detach()
-            else:
+            if not torch.is_tensor(leaf):
                 meta[key] = leaf
-        tmp = self.directory / f"{_TMP}{step}-{os.getpid()}"
-        shutil.rmtree(tmp, ignore_errors=True)
-        tmp.mkdir()
-        flatpack.save(tmp / STATE_FILE, tensors)
-        (tmp / META_FILE).write_text(json.dumps(meta, sort_keys=True))
-        os.replace(tmp, self.directory / str(step))
+                continue
+            sharding = leaf_sharding(path, leaf, self.shardings)
+            if sharding is None or sharding.replicated:
+                tensors[key] = leaf.detach()
+                continue
+            # a collective every rank joins, one leaf at a time: the whole
+            # leaf goes to the host at once on the writer and is dropped on
+            # the others, so no rank holds more than one gathered leaf
+            whole = sharding.gather(leaf.detach())
+            if self.primary:
+                tensors[key] = whole.cpu()
+            del whole
+        if self.primary:
+            tmp = self.directory / f"{_TMP}{step}-{os.getpid()}"
+            shutil.rmtree(tmp, ignore_errors=True)
+            tmp.mkdir()
+            flatpack.save(tmp / STATE_FILE, tensors)
+            (tmp / META_FILE).write_text(json.dumps(meta, sort_keys=True))
+            os.replace(tmp, self.directory / str(step))
         self._steps = sorted(self._steps + [step])
         excess = max(0, len(self._steps)
                      - (self.max_to_keep or len(self._steps)))
-        for old in self._steps[:excess]:
-            shutil.rmtree(self.directory / str(old), ignore_errors=True)
+        if self.primary:
+            for old in self._steps[:excess]:
+                shutil.rmtree(self.directory / str(old), ignore_errors=True)
         self._steps = self._steps[excess:]
+        if self.shardings is not None:
+            barrier()
         log_event(log, "checkpoint save", step=step, dir=str(self.directory))
         return True
 
@@ -145,7 +178,8 @@ class TrainCheckpointer:
         want = dict(tree_paths(state_template))
         meta = json.loads((where / META_FILE).read_text())
         devices = {v.device for v in want.values() if torch.is_tensor(v)}
-        card = next(iter(devices)) if len(devices) == 1 else None
+        card = (next(iter(devices))
+                if len(devices) == 1 and self.shardings is None else None)
         loaded = (flatpack.device_load(where / STATE_FILE, card)
                   if card is not None and card.type == "cuda"
                   else flatpack.load_state_dict(where / STATE_FILE))
@@ -166,6 +200,9 @@ class TrainCheckpointer:
             if not torch.is_tensor(ref):
                 continue
             t = loaded[key]
+            sharding = leaf_sharding(path, ref, self.shardings)
+            if sharding is not None:
+                t = sharding.shard(t)
             if tuple(t.shape) != tuple(ref.shape) or t.dtype != ref.dtype:
                 raise ValueError(
                     f"checkpoint {where}: {key} is {t.dtype} "

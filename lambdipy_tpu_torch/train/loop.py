@@ -10,9 +10,14 @@ state always saved, and a resume that replays the identical batch
 sequence. The step is enqueued on the card without a sync; only logging
 steps read the metrics on the host.
 
-One device in place of JAX's ``(mesh, rules)``: ``device`` (the card
-unless the caller asks for the CPU); a ``mesh`` of more than one device
-raises (``ROADMAP.md`` queue 1, item 3).
+JAX's ``(mesh, rules)`` are keywords here, beside ``device`` (the card
+unless the caller asks for the CPU): with no mesh the trainer runs on one
+device; over a mesh of N devices it runs as one of N processes, one per
+device (``parallel/distributed.py``), each stepping on its own rows
+(``train/step.py``). Its checkpoints are the one-device format: rank 0
+gathers the whole state and writes it, every rank then meets the others
+at a barrier, and a restore takes each rank's block, so a checkpoint
+written by N ranks restores in one process and the reverse.
 """
 
 from __future__ import annotations
@@ -61,18 +66,19 @@ class TrainerReport:
 
 
 class Trainer:
-    """Resumable training on one device.
+    """Resumable training on one device, or as one rank of a mesh.
 
     ``model_apply(params, tokens) -> logits`` (plus an optional
     ``model_apply_aux`` for MoE balance losses), e.g. a registry model's
     ``train_forward``; ``params`` is the INIT dict of float tensors
     (``models/params.py train_params``), copied onto ``device``. When
     ``ckpt_dir`` holds a checkpoint, training resumes from it instead
-    (the same keys, shapes and dtypes, or the restore raises).
+    (the same keys, shapes and dtypes, or the restore raises). ``mesh``
+    and ``rules`` are :func:`~lambdipy_tpu_torch.train.step.sharded_train_step`'s.
     """
 
     def __init__(self, model_apply: Callable, params: dict, loader,
-                 cfg: TrainerConfig, *, device=None, mesh=None,
+                 cfg: TrainerConfig, *, device=None, mesh=None, rules=None,
                  ckpt_dir: Path | str | None = None,
                  model_apply_aux: Callable | None = None):
         from lambdipy_tpu_torch.train.checkpoint import TrainCheckpointer
@@ -88,17 +94,19 @@ class Trainer:
             grad_clip=cfg.grad_clip, weight_decay=cfg.weight_decay,
             accum_steps=cfg.accum_steps)
         self.step_fn, self.state, self.device = sharded_train_step(
-            model_apply, params, mesh, device=device,
+            model_apply, params, mesh, rules, device=device,
             learning_rate=cfg.learning_rate, fsdp=cfg.fsdp,
             model_apply_aux=model_apply_aux, aux_weight=cfg.aux_weight,
             optimizer=optimizer)
+        self.mesh = self.step_fn.mesh
 
         self.ckpt: Any = None
         self.resumed_from: int | None = None
         if ckpt_dir is not None:
             self.ckpt = TrainCheckpointer(
                 ckpt_dir, max_to_keep=cfg.keep_ckpts,
-                save_interval_steps=cfg.ckpt_every)
+                save_interval_steps=cfg.ckpt_every,
+                shardings=self.step_fn.shardings)
             restored, at = self.ckpt.restore(
                 {"train": self.state, "loader": loader.state_dict()})
             if restored is not None:
@@ -125,7 +133,7 @@ class Trainer:
         start = self.step
         history: list[dict] = []
         for host_step in range(start + 1, self.cfg.total_steps + 1):
-            batch = self.loader.place(self.loader.next_batch(),
+            batch = self.loader.place(self.loader.next_batch(), self.mesh,
                                       device=self.device)
             self.state, metrics = self.step_fn(self.state, batch)
             # metrics reach the host only on logging steps
@@ -154,16 +162,24 @@ class Trainer:
                              resumed_from=self.resumed_from, history=history)
 
     def evaluate(self, eval_loader, *, batches: int = 8) -> float:
-        """Mean next-token CE over ``batches`` eval batches (no updates)."""
-        from lambdipy_tpu_torch.train.step import lm_loss
+        """Mean next-token CE over ``batches`` eval batches (no updates;
+        over a mesh, each rank's mean over its rows averaged)."""
+        from lambdipy_tpu_torch.train.step import DataParallel, lm_loss
 
+        shardings = self.step_fn.shardings
+        dp = DataParallel(shardings) if shardings is not None else None
         total = 0.0
         with torch.no_grad():
+            params = (dp.gather(self.state.params) if dp is not None
+                      else self.state.params)
             for _ in range(batches):
-                batch = eval_loader.place(eval_loader.next_batch(),
+                batch = eval_loader.place(eval_loader.next_batch(), self.mesh,
                                           device=self.device)
-                logits = self.model_apply(self.state.params, batch[:, :-1])
-                total += float(lm_loss(logits, batch[:, 1:]))
+                loss = lm_loss(self.model_apply(params, batch[:, :-1]),
+                               batch[:, 1:])
+                if dp is not None:
+                    (loss,) = dp.mean(loss)
+                total += float(loss)
         return total / batches
 
     # -- lifecycle ----------------------------------------------------------

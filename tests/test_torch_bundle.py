@@ -308,16 +308,19 @@ def test_invoke_status_and_body_are_jaxs(jax_server, port_server, body,
     "error", "kind"}``; the same status, the same body keys, and the same
     body where it does not hold generated tokens. The port's server
     counts the refusal as served and the exception as an error, as JAX's
-    ``stats.record`` / ``record_error`` do. JAX's ``HandlerState.invoke``
-    adds ``latency_ms`` to a handler's result and the port's does not
-    (ROADMAP §3), so that key is left out of the comparison."""
+    ``stats.record`` / ``record_error`` do. Both ``HandlerState.invoke``
+    add ``latency_ms`` to a handler's result: the key is required, its
+    value (a wall time) not compared."""
     want_code, want = _http(jax_server_url(jax_server) + "/invoke", body)
-    want.pop("latency_ms", None)
     before = port_server.stats.report()
     code, got = _http(port_server.url + "/invoke", body)
     after = port_server.stats.report()
     assert code == want_code
     assert set(got) == set(want)
+    if want_code == 200:
+        assert "latency_ms" in want and "latency_ms" in got
+        want.pop("latency_ms")
+        got.pop("latency_ms")
     if not want["ok"]:
         assert got == want
     assert want_code == status
@@ -412,6 +415,8 @@ def test_a_users_own_handler_runs_as_in_jax(bundle, tmp_path):
     try:
         assert srv.boot.warmup_result["echo"] is None
         code, got = _http(srv.url + "/invoke", {"x": 7})
+        # HandlerState.invoke adds latency_ms (a wall time), as JAX's does
+        assert isinstance(got.pop("latency_ms"), float)
         assert code == 200 and got == {"ok": True, "bundle": str(out),
                                        "model": "llama-tiny",
                                        "params": "params", "echo": 7}

@@ -3,8 +3,8 @@ process slice (``parallel/distributed.py``) against the JAX package's, on
 the CPU. Exact: the windows, the batches over two epochs (shuffled and
 not) and the slices are integers, and the port's must be bitwise JAX's;
 a resumed loader replays the sequence bitwise; ``place`` gives an int64
-tensor on the device asked for and refuses a mesh of more than one
-device."""
+tensor on the device asked for and refuses a mesh of more devices than
+the job has processes."""
 
 import numpy as np
 import pytest
@@ -142,8 +142,10 @@ def test_process_shards_are_jaxs_and_partition_the_batch():
 
 def test_place_gives_int64_on_the_device_and_refuses_a_mesh():
     """``place`` puts the batch on the asked device as int64 (one device
-    named by a mesh or a sharding is taken); more than one device, or a
-    sharded process, raises."""
+    named by a mesh or a sharding is taken); a mesh of more devices than
+    the job has processes, or a loader sharded over more processes than
+    the job has, raises, and so does an axis not ported yet, naming its
+    item (two ranks: ``tests/test_torch_distributed.py``)."""
     loader = ShardedLoader(TokenSource(_tokens(), 15), 4)
     batch = loader.next_batch()
     for kw in ({"device": "cpu"}, {"mesh": {"dp": 1}, "device": "cpu"},
@@ -151,9 +153,11 @@ def test_place_gives_int64_on_the_device_and_refuses_a_mesh():
         t = loader.place(batch, **kw)
         assert t.dtype == torch.int64 and t.device.type == "cpu"
         np.testing.assert_array_equal(t.numpy(), batch)
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(ValueError, match="needs 2 processes"):
         loader.place(batch, {"dp": 2, "tp": 1}, device="cpu")
+    with pytest.raises(NotImplementedError, match=r"item 3 \(c\)"):
+        loader.place(batch, {"tp": 2}, device="cpu")
     sharded = ShardedLoader(TokenSource(_tokens(), 15), 4, process_index=0,
                             process_count=2)
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(ValueError, match="shards over 2 processes"):
         sharded.place(sharded.next_batch(), device="cpu")

@@ -1961,7 +1961,8 @@ def test_capture_survives_device_calls_on_another_thread(cuda_device):
 
 # ------------------------------------------------------------- training
 
-def _train_trainer(device, total, ckpt_dir=None, seed=5):
+def _train_trainer(device, total, ckpt_dir=None, seed=5, mesh=None,
+                   fsdp=True):
     from lambdipy_tpu_torch.data import ShardedLoader, TokenSource
     from lambdipy_tpu_torch.models.params import train_params
     from lambdipy_tpu_torch.train.loop import Trainer, TrainerConfig
@@ -1971,9 +1972,11 @@ def _train_trainer(device, total, ckpt_dir=None, seed=5):
     tokens = np.random.default_rng(3).integers(0, 512, 8000).astype(np.int32)
     loader = ShardedLoader(TokenSource(tokens, 32), 4, seed=seed)
     cfg = TrainerConfig(total_steps=total, log_every=1, ckpt_every=2,
-                        learning_rate=3e-3, grad_clip=1.0, warmup_steps=2)
+                        learning_rate=3e-3, grad_clip=1.0, warmup_steps=2,
+                        fsdp=fsdp)
     return Trainer(adapter.train_forward, train_params(sd), loader, cfg,
-                   device=device, ckpt_dir=ckpt_dir)
+                   device=device, ckpt_dir=ckpt_dir, mesh=mesh,
+                   rules=adapter.tp_rules)
 
 
 # card against CPU: the same f32 math, other kernels and summation order
@@ -2021,3 +2024,39 @@ def test_train_resume_on_the_card_is_bitwise(cuda_device, tmp_path):
     for name in ("mu", "nu"):
         for k, m in solo.state.opt_state["1"]["0"][name].items():
             assert torch.equal(second.state.opt_state["1"]["0"][name][k], m)
+
+
+@pytest.mark.parametrize("fsdp", [True, False], ids=["fsdp", "dp"])
+def test_train_under_a_one_rank_nccl_group_is_bitwise_no_mesh(
+        cuda_device, tmp_path, fsdp):
+    """Four steps under a one-rank NCCL group over ``make_mesh({"dp":
+    -1})`` (every collective of the data-parallel step run) against four
+    without a mesh: params, optimizer state, step and logged rows
+    bitwise; a checkpoint written under the group restores without
+    one."""
+    import torch.distributed as dist
+
+    from lambdipy_tpu_torch.parallel.mesh import make_mesh
+    from lambdipy_tpu_torch.train.checkpoint import tree_paths
+
+    plain = _train_trainer(cuda_device, 4)
+    plain_rows = plain.run().history
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        grouped = _train_trainer(cuda_device, 4, tmp_path / "ck",
+                                 mesh=make_mesh({"dp": -1}), fsdp=fsdp)
+        assert grouped.step_fn.shardings is not None
+        rows = grouped.run().history
+        grouped.close()
+    finally:
+        dist.destroy_process_group()
+    assert rows == plain_rows
+    want = dict(tree_paths(plain.state))
+    got = dict(tree_paths(grouped.state))
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    restored = _train_trainer(cuda_device, 4, tmp_path / "ck")
+    assert restored.resumed_from == 4
+    assert all(torch.equal(v, want[k])
+               for k, v in dict(tree_paths(restored.state)).items())

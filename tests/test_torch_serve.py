@@ -158,7 +158,9 @@ def test_http_invoke_matches_jax_generate(weights, jax_server):
     assert out["n_new"] == 6 and out["n_prompt"] == 31
     assert len(out["logprobs"]) == 2 and len(out["logprobs"][0]) == 6
     assert warm["ok"] and warm["n_new"] == 16
-    # the handler's refusal is a 200, counted as served (JAX's /invoke)
+    # the handler's refusal is a 200, counted as served (JAX's /invoke);
+    # HandlerState.invoke adds latency_ms (a wall time), as JAX's does
+    assert isinstance(bad[1].pop("latency_ms"), float)
     assert bad == (200, {"ok": False, "error": "empty prompt"})
     assert metrics["server"]["requests"] == 3
     assert metrics["server"]["errors"] == 0

@@ -699,6 +699,8 @@ def test_handler_spec_extras_and_speculative_field(weights, monkeypatch):
             spec_block["draft_exit"]) == (4, "model", 2)
     assert spec_block["steps"] >= stats["spec"]["steps"]
     bad = state.invoke({**body, "tokens": [[1, 2], [3, 4]]})
+    # HandlerState.invoke adds latency_ms (a wall time), as JAX's does
+    assert isinstance(bad.pop("latency_ms"), float)
     assert bad == {"ok": False, "error": "speculative decoding is "
                                          "single-row"}
 

@@ -196,9 +196,43 @@ def test_flash_training_is_refused_as_jax_fails_on_it():
     tad = treg.get("llama-tiny").build(extra={"attn_backend": "flash"})
     with pytest.raises(NotImplementedError, match="no backward"):
         tad.train_forward
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(NotImplementedError, match=r"item 3 \(c\)"):
+        tstep.sharded_train_step(lambda p, t: t, {"w": torch.zeros(2)},
+                                 {"tp": 2}, device="cpu")
+    with pytest.raises(ValueError, match="needs 2 processes"):
         tstep.sharded_train_step(lambda p, t: t, {"w": torch.zeros(2)},
                                  {"dp": 2}, device="cpu")
+
+
+def test_moe_training_over_ranks_is_refused():
+    """JAX routes an MoE layer over the global batch; a rank of the port
+    holds its own rows, so its routing groups and capacities would differ
+    (at 4 x 16 tokens over two ranks, a group of 32 where JAX's is 64).
+    An MoE model on a mesh of more than one device raises, naming item 3
+    (d): through its aux forward, through its plain forward, on a dict or
+    a ``Mesh``; one device still trains."""
+    from lambdipy_tpu_torch.parallel.mesh import Mesh
+
+    tad = treg.get("llama-moe-tiny").build()
+    moe = tad.make_model(tad.init_params(seed=0, device="cpu"),
+                         device="cpu").layer_0.moe
+    assert moe.capacity(64)[0] == 64 and moe.capacity(32)[0] == 32
+    params = tparams.train_params(tad.init_params(seed=0, device="cpu"))
+    calls = [dict(model_apply_aux=tad.train_forward_with_aux), {}]
+    for mesh in ({"dp": 2}, {"dp": 2, "tp": 1},
+                 Mesh(np.arange(2), ("dp",))):
+        for kw in calls:
+            with pytest.raises(NotImplementedError,
+                               match=r"route.*item 3 \(d\)"):
+                tstep.sharded_train_step(tad.train_forward, params, mesh,
+                                         device="cpu", **kw)
+    assert tad.train_forward.routes_tokens
+    assert not treg.get("llama-tiny").build().train_forward.routes_tokens
+    for mesh in (None, {"dp": 1}, {"dp": -1}):
+        step, _, _ = tstep.sharded_train_step(
+            tad.train_forward, params, mesh, device="cpu",
+            model_apply_aux=tad.train_forward_with_aux)
+        assert step.shardings is None
 
 
 def test_train_forward_is_the_serving_forward_and_leaves_serving_frozen():

@@ -16,8 +16,10 @@ checkpoints (``train/checkpoint.py``), the numerics check
 - ``debug_numerics`` raises ``FloatingPointError`` naming the leaf on a
   NaN-poisoned weight.
 - ``python -m lambdipy_tpu_torch train --device cpu`` runs, resumes and
-  prints JAX's keys; a bad ``--mesh`` gets JAX's message, a larger mesh
-  is refused.
+  prints JAX's keys; a bad ``--mesh`` gets JAX's message; a mesh of more
+  devices than the job has processes raises, and so does each axis not
+  ported yet, naming its ROADMAP item (two ranks:
+  ``tests/test_torch_distributed.py``).
 """
 
 import json
@@ -270,13 +272,25 @@ def test_train_cli_runs_and_resumes_on_the_cpu(tmp_path, capsys):
     assert second["steps_run"] == 2
 
 
-@pytest.mark.parametrize("mesh,message", [
+@pytest.mark.parametrize("mesh,message,model", [
     ("dp2", "bad --mesh entry 'dp2' (want axis=size, e.g. dp=2,tp=4): "
-            "missing '='"),
-    ("dp=2,tp=1", "not ported yet"),
-], ids=["bad_entry", "two_devices"])
-def test_train_cli_rejects_a_mesh(tmp_path, capsys, mesh, message):
+            "missing '='", "llama-tiny"),
+    ("dp=2,tp=1", "needs 2 processes, one device each; this job has 1",
+     "llama-tiny"),
+    ("tp=2", "tensor parallelism is not ported yet (ROADMAP queue 1, item 3 "
+             "(c))", "llama-tiny"),
+    ("dp=1,ep=2", "item 3 (d)", "llama-tiny"),
+    ("sp=2", "item 3 (e)", "llama-tiny"),
+    ("pp=2", "item 3 (f)", "llama-tiny"),
+    # before it asks for two processes: JAX routes an MoE layer over the
+    # global batch, a rank over its own rows
+    ("dp=2", "each rank would route its own rows, with its own routing "
+             "groups, capacities and drops, where JAX routes the global "
+             "batch (ROADMAP queue 1, item 3 (d))", "llama-moe-tiny"),
+], ids=["bad_entry", "two_devices", "tp", "ep", "sp", "pp", "moe_dp"])
+def test_train_cli_rejects_a_mesh(tmp_path, capsys, mesh, message, model):
     np.save(tmp_path / "toks.npy", _patterned_tokens())
-    rc, out, err = _cli(capsys, "train", "--data", str(tmp_path / "toks.npy"),
-                        "--steps", "1", "--mesh", mesh, "--device", "cpu")
+    rc, out, err = _cli(capsys, "train", "--model", model, "--data",
+                        str(tmp_path / "toks.npy"), "--steps", "1", "--mesh",
+                        mesh, "--device", "cpu")
     assert rc != 0 and message in err and not out
