@@ -24,7 +24,11 @@ Phases, each of which fails the run with a non-zero exit:
    the faster rows of its tiled route and of flash attention also the
    device time per call, and each time's fraction of the bound; the
    GEMV's device time summed over one decode step's 225 calls at 1, 8
-   and 16 rows); then hold a small int8 model
+   and 16 rows); each kernel again at a tp=2 rank's shapes (path S: the
+   int8 matmul's GEMV and tiled route at each projection's half, decode
+   attention float and int8 and the paged kernel at 16 heads over 4 kv
+   heads, flash at 16 heads), against its plain version and timed; then
+   hold a small int8 model
    on the card against the same model on the CPU, under each path's
    backends and through the paged continuous engine;
 4. the main path: full-width ``llama3-8b`` (int8 weights, bf16,
@@ -217,7 +221,20 @@ Phases, each of which fails the run with a non-zero exit:
    to 8, bitwise (a) (params, optimizer state, logged rows), the
    checkpoint's bytes and its save and restore times; (c) the f32
    ``llama-tiny`` four steps on the card against the CPU within
-   ``R_TINY_TOL``; (d) no kernel launched. Last, M:
+   ``R_TINY_TOL``; (d) no kernel launched. Then S, tensor-parallel
+   serving (``parallel/tpserve.py``; the host has one card and NCCL
+   refuses two ranks on one GPU): (a) a one-rank NCCL group at tp=1 over
+   A's weights (graphs on) bitwise no mesh, tokens and logprobs; (b) two
+   processes on ``cuda:0`` over gloo at tp=2, llama3-8b's full width at
+   8 of its 32 layers, int8, ``blocked``: the last position's logits
+   against a tp=1 server of that depth (cosine >= 0.9995, max |diff| <= 5% of the peak), the
+   first greedy divergence, a paged engine's burst of 4 bitwise its
+   tp=2 solo rows, each rank's launches 225 x forwards and 32 x steps,
+   ``batching.mesh``'s KV per device <= 0.55 of the whole, every rank's
+   tokens equal, each rank's peak memory; (c) f32 ``llama-tiny`` at tp=2
+   on the card, greedy tokens equal tp=1's, and a stream of it stepped a
+   dispatched call a segment with tp=1's row; no follower left. S runs
+   under a ceiling of its own (90 s). Last, M:
    the bundle lifecycle through ``python -m lambdipy_tpu_torch``, every
    command a process under a fresh ``HOME`` and an empty kernel build
    cache (``LAMBDIPY_KERNEL_CACHE``): (b) ``recipes`` lists the ten
@@ -278,12 +295,11 @@ Phases, each of which fails the run with a non-zero exit:
    O runs under a ceiling of its own (120 s), checked at the end of each
    stage (boot, references, window, quiesce, teardown).
 
-   Cut for time: B, C, E, H, I and J serve llama3-8b at its published
-   widths with 8 of its 32 layers (``CUT_LAYERS``), every check kept, each
-   byte budget (store, offload arena, pins) scaled with the depth so that
-   it holds the same blocks; P, Q and R at 2 (``HF_LAYERS``,
-   ``R_LAYERS``); A, D-G and
-   K-O run at full depth. After each
+   Cut for time: B, C, E, H, I, J and S (b) serve llama3-8b at its
+   published widths with 8 of its 32 layers (``CUT_LAYERS``), every check
+   kept, each byte budget (store, offload arena, pins) scaled with the
+   depth so that it holds the same blocks; P, Q and R at 2 (``HF_LAYERS``,
+   ``R_LAYERS``); A, D-G, K-O and S (a) run at full depth. After each
    path the script prints the seconds since it started; at 1,150 s a
    guard prints the path and stage in progress, stops every process the
    script started and exits 3;
@@ -1321,6 +1337,200 @@ PATHS = {"A": {"attn_backend": "blocked"},
          "C": {"attn_backend": "flash"}}
 
 
+# the tp=2 shard shapes of llama3-8b (path S): each rank's projections,
+# (k, n) per QDense, the lm_head's vocabulary half in f32
+TP2_MATMUL_SHAPES = (
+    ("q_proj", 4096, 2048, torch.bfloat16),
+    ("k_proj, v_proj", 4096, 512, torch.bfloat16),
+    ("o_proj", 2048, 4096, torch.bfloat16),
+    ("gate_proj, up_proj", 4096, 7168, torch.bfloat16),
+    ("down_proj", 7168, 4096, torch.bfloat16),
+    ("lm_head", 4096, 64128, torch.float32),
+)
+TP2_MATMUL_MS = ((1, True), (8, True), (128, None))  # (m, the route word)
+TP2_HEADS = (16, 4, 128)  # a rank's h, kvh, d at tp=2
+TP2_DECODE_SHAPE = (4, 544, (1, 129, 300, 544))  # kernel 1's line shape
+TP2_FLASH_S = (128, 4096)
+
+
+def check_shard_shapes(gen) -> dict:
+    """Every kernel of path S at a tp=2 rank's shapes against its plain
+    version, with phase 3's tolerances, and timed beside it (CUDA events,
+    inputs past L2): the int8 matmul's GEMV (m=1, 8) and tiled route
+    (m=128) at each projection's half, decode attention (float and int8
+    K/V) and the paged kernel at 16 heads over 4 kv heads, flash at 16
+    heads. Fails on a disagreement."""
+    import torch.nn.functional as F
+
+    from lambdipy_tpu_torch.models.llama import _kv_quantize
+    from lambdipy_tpu_torch.ops.attention import (flash_attention,
+                                                  mha_reference)
+    from lambdipy_tpu_torch.ops.decode_attention import (
+        blocked_decode_attention, decode_attention_reference,
+        paged_decode_attention, paged_decode_attention_reference)
+    from lambdipy_tpu_torch.ops.quant import (int8_matmul,
+                                              int8_matmul_reference,
+                                              int8_route)
+
+    dev, out = "cuda", {"int8_matmul": [], "decode_attention": [],
+                        "paged_decode_attention": [], "flash_attention": []}
+
+    def record(kind, shape, ok, err, tol, kernel, n, plain_ms, library_ms,
+               nbytes, flops):
+        """``kernel(i)`` timed eagerly and on the device beside its plain
+        version's and the library's eager ms."""
+        ms, device_ms = cuda_time(kernel, n), device_time(kernel, n)
+        bound_ms, bound_by = bound(nbytes, flops)
+        out[kind].append({"shape": shape, "max_err": err, "tolerance": tol,
+                          "ms": ms, "device_ms": device_ms,
+                          "plain_ms": plain_ms,
+                          "library_ms": library_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by,
+                          "bound_fraction": bound_ms / device_ms})
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        log(f"tp=2 shard {kind} {shape}: err {err:.3e} (tol {tol:.3e}), "
+            f"kernel {ms:.4f} ms eager, {device_ms:.4f} ms device, plain "
+            f"{plain_ms:.4f} ms, library {lib}, bound {bound_ms:.4f} ms "
+            f"({bound_by}; the kernel's device time at "
+            f"{bound_ms / device_ms:.3f} of it)")
+        if not ok:
+            raise SystemExit(f"tp=2 shard {kind} {shape} disagrees with "
+                             f"its plain version: {err} > {tol}")
+
+    for name, k, n, xdtype in TP2_MATMUL_SHAPES:
+        n_copies = copies_for(k * n)
+        ws = [torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                            dtype=torch.int8) for _ in range(n_copies)]
+        scale = (torch.rand(1, n, generator=gen, device=dev) + 0.5) \
+            / (127.0 * k ** 0.5)
+        n_deq = copies_for(2 * k * n)
+        w_deq = [w.to(torch.bfloat16) * scale.to(torch.bfloat16)
+                 for w in ws[:n_deq]]
+        for m, alone in TP2_MATMUL_MS:
+            x = torch.randn(m, k, generator=gen, device=dev).to(xdtype)
+            got = int8_matmul(x, ws[0], scale, rows_alone=alone)
+            ref = int8_matmul_reference(x, ws[0], scale)
+            err = (got.float() - ref.float()).abs().max().item()
+            peak = ref.float().abs().max().item()
+            tol = (2.0 ** -7 if xdtype == torch.bfloat16 else 1e-5) * peak
+            xb = x.to(torch.bfloat16)
+            esize = x.element_size()
+            record("int8_matmul",
+                   f"{name} m={m} k={k} n={n} ({int8_route(m, alone)})",
+                   err <= tol, err, tol,
+                   lambda i: int8_matmul(x, ws[i], scale, rows_alone=alone),
+                   n_copies,
+                   cuda_time(lambda i: int8_matmul_reference(x, ws[i],
+                                                             scale),
+                             n_copies),
+                   cuda_time(lambda i: torch.matmul(xb, w_deq[i]), n_deq),
+                   m * k * esize + k * n + 4 * n + m * n * esize,
+                   2.0 * m * k * n)
+        del ws, w_deq
+        torch.cuda.empty_cache()
+
+    h, kvh, d = TP2_HEADS
+    b, t, active = TP2_DECODE_SHAPE
+    alen = torch.tensor(active, dtype=torch.int32, device=dev)
+    positions = sum(active)
+    for quant in (False, True):
+        per_pos = kvh * (d + 4 if quant else 2 * d)
+        n = copies_for(2 * positions * per_pos)
+        q = torch.randn(b, 1, h, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+        def kv_copy():
+            k_ = torch.randn(b, t, kvh, d, generator=gen, device=dev)
+            v_ = torch.randn(b, t, kvh, d, generator=gen, device=dev)
+            if not quant:
+                return {"k": k_.to(torch.bfloat16),
+                        "v": v_.to(torch.bfloat16)}
+            (k8, ks), (v8, vs) = _kv_quantize(k_), _kv_quantize(v_)
+            return {"k": k8, "v": v8, "k_scale": ks, "v_scale": vs}
+
+        kvs = [kv_copy() for _ in range(n)]
+
+        def kernel(i):
+            kv = kvs[i]
+            scales = ({"k_scale": kv["k_scale"], "v_scale": kv["v_scale"]}
+                      if quant else {})
+            return blocked_decode_attention(q, kv["k"], kv["v"], alen,
+                                            **scales)
+
+        def plain(i):
+            return decode_attention_reference(
+                q, *plain_kv(kvs[i], torch.bfloat16, quant), alen)
+
+        rel = row_rel_err(kernel(0), plain(0))
+        deq = [plain_kv(kv, torch.bfloat16, quant) for kv in kvs]
+        mask = (torch.arange(t, device=dev)[None, :]
+                < alen[:, None])[:, None, None]
+        qt = q.transpose(1, 2)
+        record("decode_attention",
+               f"b={b} h={h} kvh={kvh} d={d} t={t} active_len="
+               f"{list(active)} bf16" + (" int8 K/V" if quant else ""),
+               rel <= DECODE_TOL[torch.bfloat16], rel,
+               DECODE_TOL[torch.bfloat16], kernel, n, cuda_time(plain, n),
+               cuda_time(lambda i: F.scaled_dot_product_attention(
+                   qt, deq[i][0].transpose(1, 2), deq[i][1].transpose(1, 2),
+                   attn_mask=mask, enable_gqa=True), n),
+               2 * q.numel() * 2 + 2 * positions * per_pos + b * 4,
+               4.0 * positions * h * d)
+        del kvs, deq
+        torch.cuda.empty_cache()
+
+    # the paged kernel on a 16-head rank's arena of 4 kv heads
+    pages, rng = 1024, torch.Generator().manual_seed(7)
+    arena = {name: torch.randn(pages, PAGE, kvh, d, generator=gen,
+                               device=dev).to(torch.bfloat16)
+             for name in ("k", "v")}
+    nb = t // PAGE
+    perm = torch.randperm(pages - 1, generator=rng) + 1
+    tables = torch.zeros(b, nb, dtype=torch.int32)
+    for r, a in enumerate(active):
+        used = -(-a // PAGE)
+        tables[r, :used] = perm[r * nb:r * nb + used].to(torch.int32)
+    tables = tables.cuda()
+    q = torch.randn(b, 1, h, d, generator=gen, device=dev).to(torch.bfloat16)
+    got = paged_decode_attention(q, arena["k"], arena["v"], tables, alen)
+    ref = paged_decode_attention_reference(q, arena["k"], arena["v"],
+                                           tables, alen)
+    rel = row_rel_err(got, ref)
+    record("paged_decode_attention",
+           f"b={b} h={h} kvh={kvh} d={d} page={PAGE} active_len="
+           f"{list(active)} bf16", rel <= DECODE_TOL[torch.bfloat16], rel,
+           DECODE_TOL[torch.bfloat16],
+           lambda i: paged_decode_attention(q, arena["k"], arena["v"],
+                                            tables, alen), 1,
+           cuda_time(lambda i: paged_decode_attention_reference(
+               q, arena["k"], arena["v"], tables, alen)),
+           None, 2 * q.numel() * 2 + 2 * positions * kvh * 2 * d,
+           4.0 * positions * h * d)
+    del arena
+    torch.cuda.empty_cache()
+
+    for s in TP2_FLASH_S:
+        n = copies_for(s * (h + 2 * kvh) * d * 2)
+        ins = [tuple(torch.randn(1, s, heads, d, generator=gen,
+                                 device=dev).to(torch.bfloat16)
+                     for heads in (h, kvh, kvh)) for _ in range(n)]
+        rel = row_rel_err(flash_attention(*ins[0], causal=True),
+                          mha_reference(*ins[0], causal=True))
+        tins = [tuple(x.transpose(1, 2) for x in t3) for t3 in ins]
+        record("flash_attention",
+               f"b=1 s={s} h={h} kvh={kvh} d={d} bf16 causal",
+               rel <= FLASH_TOL["plain"], rel, FLASH_TOL["plain"],
+               lambda i: flash_attention(*ins[i], causal=True), n,
+               cuda_time(lambda i: mha_reference(*ins[i], causal=True), n),
+               cuda_time(lambda i: F.scaled_dot_product_attention(
+                   *tins[i], is_causal=True, enable_gqa=True), n),
+               s * (2 * h + 2 * kvh) * d * 2,
+               4.0 * h * d * s * (s + 1) / 2)
+        del ins, tins
+        torch.cuda.empty_cache()
+    return out
+
+
 def check_small_model() -> dict:
     """A small f32 int8-weight model (kernels on the card) against the
     same weights on the CPU (plain versions), under each path's
@@ -1438,7 +1648,8 @@ KERNELS = ("decode_attention", "decode_attention_int8kv",
 
 # Cut for time: these paths serve llama3-8b at its published widths with
 # CUT_LAYERS of its 32 layers, every check kept (the launch identities are
-# written in the model's layer count); A, D-G, K-O run at full depth
+# written in the model's layer count); A, D-G, K-O run at full depth (S
+# (b) takes the cut too, S (a) does not)
 CUT_LAYERS = 8
 FULL_LAYERS = 32
 CUT_PATHS = ("B", "C", "E", "H", "I", "J")
@@ -8803,6 +9014,322 @@ def _wait_r_ranks(ranks) -> dict:
             "rank0_s": {k: round(v, 1) for k, v in out["timings"].items()}}
 
 
+# ---------------------------------------------------------------- path S
+
+S_CEILING_S = 90.0  # path S's own ceiling, checked at each stage
+S_NEW = 16
+# (prompt tokens, knobs) of (a)'s requests and (b)'s engine burst
+S_ROWS = ((16, {}), (40, {"temperature": 0.8, "top_p": 0.9, "seed": 7}),
+          (100, {}), (200, {"temperature": 1.0, "top_k": 40, "seed": 3}))
+S_LOGIT_PROMPT = 64
+S_DIVERGE_NEW = 32
+# (b)'s logits against tp=1 on the same weights: A-C's standard
+S_COSINE_MIN = 0.9995
+S_REL_MAX = 0.05
+S_CACHE_LEN = 1024  # (b)'s engine window (its arena: 4 slots' worth)
+S_TINY_PROMPTS = ([1, 2, 3], [5, 6, 7, 8, 9], [11, 3, 250, 8, 41])
+JOIN_WAIT_S = 30.0  # at S's end, for a follower start still in flight
+
+
+def _s_stage(t0: float, stage: str) -> None:
+    PROGRESS["stage"] = stage
+    if time.perf_counter() - t0 > S_CEILING_S:
+        raise SystemExit(f"path S: past its {S_CEILING_S:.0f} s ceiling at "
+                         f"{stage}")
+
+
+def _same_rows(a, b) -> bool:
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def serve_tp_path(card: str) -> dict:
+    """S: tensor-parallel serving (``parallel/tpserve.py``). The host has
+    one card and NCCL refuses two ranks on one GPU, so (a) holds the
+    one-rank identity over NCCL and (b), (c) run two ranks as two
+    processes on ``cuda:0`` over gloo, which stages each gather through
+    host memory: (b)'s times report two ranks sharing one card, not a
+    multi-card figure.
+
+    (a) A one-rank NCCL group at tp=1 over A's ``llama3-8b`` int8 weights
+    (seed 0, ``blocked``, graphs on): (a)'s four requests bitwise (tokens
+    and logprobs) the same weights' server with no mesh.
+    (b) tp=2 at the full width and ``CUT_LAYERS`` of the 32 layers (a cut
+    for time: an eager tp=2 step on a shared card costs ~15x a replayed
+    one), each rank drawing the weights from seed 0 and keeping its
+    share, held against a tp=1 server of the same depth and seed. The last
+    position's logits of a 64-token prompt against (a)'s tp=1 server
+    (cosine, max |diff| over the peak); the first greedy divergence from
+    tp=1 in 32 tokens; a paged engine (4 slots) takes (a)'s four requests
+    at once: every row bitwise its tp=2 solo row, each rank's launches
+    over the burst 225 x forwards (int8) and 32 x steps (paged decode
+    attention), ``batching.mesh``'s KV bytes per device at most 0.55 of
+    the whole, every rank's token digest equal; each rank's peak memory.
+    (c) f32 ``llama-tiny`` at tp=2 on the same two ranks: greedy tokens
+    equal tp=1's; a stream's chunks are tp=1's row, one dispatched call a
+    segment. Then the group closes, and no follower is left."""
+    import shutil
+    import tempfile
+
+    from lambdipy_tpu_torch.models import registry
+    from lambdipy_tpu_torch.models.graphs import CudaGraph
+    from lambdipy_tpu_torch.models.llama import (init_page_arena,
+                                                 page_kv_bytes, whole_config)
+    from lambdipy_tpu_torch.parallel import tpserve
+    from lambdipy_tpu_torch.parallel.distributed import tp_group
+    from lambdipy_tpu_torch.parallel.mesh import make_mesh
+    from lambdipy_tpu_torch.runtime.continuous import ContinuousBatcher
+    from lambdipy_tpu_torch.runtime.handlers import kernel_launches
+    from lambdipy_tpu_torch.runtime.pagepool import PagePool
+
+    t0 = time.perf_counter()
+    set_launches_to_zero()
+    torch.cuda.reset_peak_memory_stats()
+    root = Path(tempfile.mkdtemp(prefix="lambdipy-s-"))
+    cuda0 = torch.device("cuda", 0)
+    mesh = make_mesh({"tp": 2}, devices=[0, 1])
+    dispatchers: list = []
+    started: dict = {}
+
+    def start(name):
+        """(b)'s and (c)'s followers, started beside (a): their imports
+        take no card time."""
+        try:
+            started[name] = tpserve.start_ranks(
+                2, devices=[cuda0, cuda0], backend="gloo")
+            dispatchers.append(started[name])
+        except BaseException as e:  # noqa: BLE001 — raised at its use
+            started[name] = e
+
+    starters = [threading.Thread(target=start, args=(name,), daemon=True,
+                                 name=f"s-ranks-{name}")
+                for name in ("b", "c")]
+    for th in starters:
+        th.start()
+
+    def two_ranks(name, config):
+        """``config`` at tp=2 as two processes on ``cuda:0`` over gloo,
+        each rank drawing the weights from seed 0; closed by S's end."""
+        starters[("b", "c").index(name)].join(timeout=max(
+            1.0, S_CEILING_S - (time.perf_counter() - t0)))
+        disp = started.get(name)
+        if not isinstance(disp, tpserve.Dispatcher):
+            raise SystemExit(f"path S ({name}): the ranks did not start: "
+                             f"{disp!r}")
+        return tpserve.serve_tp(config, None, mesh, devices=[cuda0, cuda0],
+                                backend="gloo", dispatcher=disp)
+
+    out: dict = {}
+    adapter = registry.get("llama3-8b").build(
+        dtype="bfloat16", quant="int8",
+        extra={"attn_backend": "blocked", "matmul_backend": "pallas"})
+    cfg = adapter.config
+    rng = np.random.default_rng(27)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n, _ in S_ROWS]
+    knobs = [kw for _, kw in S_ROWS]
+    try:
+        _s_stage(t0, "(a)")
+        weights = adapter.init_params(seed=0, device="cuda")
+        plain = adapter.make_server(weights)
+        group = tp_group(f"file://{root}/nccl", 0, 1, device=cuda0,
+                         backend="nccl")
+        try:
+            one = adapter.make_server(weights, mesh={"tp": 1}, group=group)
+            if one.graph_type is not CudaGraph or one.sharded:
+                raise SystemExit("path S (a): a one-rank group left CUDA "
+                                 "graphs or ran collectives")
+            plain_rows = [plain.generate(p, max_new_tokens=S_NEW,
+                                         return_logprobs=True, **kw)
+                          for p, kw in zip(prompts, knobs)]
+            same = all(_same_rows(r, one.generate(
+                p, max_new_tokens=S_NEW, return_logprobs=True, **kw))
+                       for r, p, kw in zip(plain_rows, prompts, knobs))
+            stats = one.program_stats()
+        finally:
+            group.close()
+        log(f"path S (a): a one-rank NCCL group ({group.backend}) at tp=1 "
+            f"over llama3-8b int8, {FULL_LAYERS} layers: {len(prompts)} "
+            f"requests bitwise no mesh (tokens and logprobs): {same}; "
+            f"{stats['replays']} graph replays, {stats['eager_steps']} "
+            f"eager steps")
+        if not same or not stats["replays"] or stats["eager_steps"]:
+            raise SystemExit("path S (a): a one-rank group is not bitwise "
+                             "no mesh, or did not replay its graphs")
+        out["a"] = {"bitwise": same, "replays": stats["replays"]}
+        del one, plain, weights
+        gc.collect()
+        torch.cuda.empty_cache()
+        took("path S (a)", t0)
+
+        t_b = time.perf_counter()
+        _s_stage(t0, "(b) the ranks")
+        cut_adapter = registry.get("llama3-8b").build(
+            dtype="bfloat16", quant="int8",
+            extra={"attn_backend": "blocked", "matmul_backend": "pallas",
+                   "layers": str(CUT_LAYERS)})
+        cfg = cut_adapter.config
+        log(f"path S (b): llama3-8b at {CUT_LAYERS} of its {FULL_LAYERS} "
+            f"layers, its published widths (a cut for time; every check "
+            f"kept)")
+        plain = cut_adapter.make_server(None)
+        tp2 = two_ranks("b", cfg)
+        disp = tp2.dispatcher
+        out["ranks_up_s"] = time.perf_counter() - t_b
+        log(f"path S (b): two ranks up with their shares in "
+            f"{out['ranks_up_s']:.1f} s")
+        _s_stage(t0, "(b) logits")
+        toks = rng.integers(1, cfg.vocab_size, (1, S_LOGIT_PROMPT))
+        l2 = tp2.prefill_logits(toks)[0, -1].astype(np.float64)
+        l1 = plain.prefill_logits(toks)[0, -1].astype(np.float64)
+        cos = float(l1 @ l2 / (np.linalg.norm(l1) * np.linalg.norm(l2)))
+        rel = float(np.abs(l1 - l2).max() / np.abs(l1).max())
+        t_g = time.perf_counter()
+        g1 = plain.generate(prompts[2], max_new_tokens=S_DIVERGE_NEW)
+        t_g1 = time.perf_counter() - t_g
+        t_g = time.perf_counter()
+        g2 = tp2.generate(prompts[2], max_new_tokens=S_DIVERGE_NEW)
+        t_g2 = time.perf_counter() - t_g
+        log(f"path S (b): {S_DIVERGE_NEW} tokens of a "
+            f"{len(prompts[2])}-token prompt, batch 1: tp=2 "
+            f"{t_g2 * 1e3 / S_DIVERGE_NEW:.1f} ms a token (eager, two "
+            f"ranks on one card, 66 gathers staged through the host "
+            f"a forward), tp=1 {t_g1 * 1e3 / S_DIVERGE_NEW:.1f} ms "
+            f"(CUDA graphs) [{card}]")
+        diverge = np.nonzero(g1[0] != g2[0])[0]
+        first = int(diverge[0]) if len(diverge) else None
+        log(f"path S (b): tp=2 (two processes on one card, gloo) "
+            f"against tp=1 on the same weights, the last position's "
+            f"logits of a {S_LOGIT_PROMPT}-token prompt: cosine "
+            f"{cos:.6f} (min {S_COSINE_MIN}), max |diff| / peak "
+            f"{rel:.4f} (max {S_REL_MAX}); first greedy divergence in "
+            f"{S_DIVERGE_NEW} tokens: "
+            + ("none" if first is None else f"token {first}"))
+        if cos < S_COSINE_MIN or rel > S_REL_MAX:
+            raise SystemExit("path S (b): tp=2's logits are not tp=1's")
+
+        _s_stage(t0, "(b) the engine burst")
+        page = 32
+        n_pages = 4 * (S_CACHE_LEN // page) + 1
+        share = tp2.model.cfg
+        pool = PagePool(
+            n_pages=n_pages, page=page,
+            page_bytes=page_kv_bytes(whole_config(share), page),
+            make_arena=lambda: init_page_arena(share, n_pages, page,
+                                               cuda0),
+            window_pages=S_CACHE_LEN // page)
+        cb = ContinuousBatcher(tp2, slots=4, segment=8,
+                               cache_len=S_CACHE_LEN, page_pool=pool)
+        disp.track()  # the ranks' token digests from here on
+        before = disp.each("lambdipy_tpu_torch.parallel.tpserve:"
+                           "rank_launches")
+        st0 = cb.stats()
+        t_burst = time.perf_counter()
+        results: list = [None] * len(prompts)
+
+        def row(i):
+            results[i] = cb.generate(prompts[i], max_new_tokens=S_NEW,
+                                     return_logprobs=True, **knobs[i])
+
+        threads = [threading.Thread(target=row, args=(i,))
+                   for i in range(len(prompts))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        burst_s = time.perf_counter() - t_burst
+        after = disp.each("lambdipy_tpu_torch.parallel.tpserve:"
+                          "rank_launches")
+        st1 = cb.stats()
+        steps = st1["steps"] - st0["steps"]
+        forwards = st1["forwards"] - st0["forwards"]
+        want = dict.fromkeys(after[0], 0)
+        want["int8_matmul"] = (7 * cfg.layers + 1) * forwards
+        want["paged_decode_attention"] = cfg.layers * steps
+        deltas = [{k: a[k] - b[k] for k in a}
+                  for a, b in zip(after, before)]
+        log(f"path S (b): the engine burst of {len(prompts)} rows, "
+            f"{burst_s:.2f} s ({steps} steps, {forwards} forwards, "
+            f"{burst_s / max(steps, 1) * 1e3:.1f} ms a step with its "
+            f"prefills); launches per rank {deltas}, implied {want}")
+        if any(d != want for d in deltas):
+            raise SystemExit("path S (b): a rank's launches are not "
+                             "the burst's")
+        if any(r is None for r in results):
+            raise SystemExit("path S (b): a row of the burst failed")
+        solo = [tp2.generate(p, max_new_tokens=S_NEW,
+                             return_logprobs=True, **kw)
+                for p, kw in zip(prompts, knobs)]
+        rows_ok = all(_same_rows(r, s) for r, s in zip(results, solo))
+        digests = disp.agree()
+        mesh_block = st1["mesh"]
+        kv_ratio = (mesh_block["kv_bytes_per_device"]
+                    / mesh_block["kv_bytes_replicated"])
+        memory = disp.each("lambdipy_tpu_torch.parallel.tpserve:"
+                           "rank_memory")
+        log(f"path S (b): engine rows bitwise their tp=2 solo rows "
+            f"(tokens and logprobs): {rows_ok}; the ranks' token "
+            f"digests {digests}; batching.mesh {mesh_block} (KV per "
+            f"device {kv_ratio:.4f} of the whole); peak memory per rank "
+            + ", ".join(f"{m['peak'] / 2**30:.2f} GiB"
+                        for m in memory) + f" [{card}]")
+        if not rows_ok or len(set(digests)) != 1 or kv_ratio > 0.55:
+            raise SystemExit("path S (b): engine rows, the ranks' "
+                             "tokens or the KV split are off")
+        out["b"] = {"cosine": cos, "max_rel_diff": rel,
+                    "first_divergence": first, "burst_s": burst_s,
+                    "ms_per_token": {"tp2": t_g2 * 1e3 / S_DIVERGE_NEW,
+                                     "tp1": t_g1 * 1e3 / S_DIVERGE_NEW},
+                    "steps": steps, "forwards": forwards,
+                    "rank_launches": deltas, "rows_bitwise": rows_ok,
+                    "mesh": mesh_block, "memory": memory}
+        disp.close()
+        del cb, tp2, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        took("path S (b)", t_b)
+
+        t_c = time.perf_counter()
+        _s_stage(t0, "(c)")
+        tiny = registry.get("llama-tiny").build()
+        t2 = two_ranks("c", tiny.config)
+        t1 = tiny.make_server(None)
+        tiny_ok = all(np.array_equal(
+            t2.generate(p, max_new_tokens=S_NEW),
+            t1.generate(p, max_new_tokens=S_NEW))
+            for p in S_TINY_PROMPTS)
+        # a stream at tp=2 is stepped: its prefill and each segment a
+        # dispatched call, its chunks tp=1's row
+        n0 = t2.dispatcher.commands
+        chunks = list(t2.generate_stream(S_TINY_PROMPTS[2],
+                                         max_new_tokens=S_NEW, segment=4))
+        calls = t2.dispatcher.commands - n0
+        stream_ok = (np.array_equal(np.concatenate(chunks, 1), t1.generate(
+            S_TINY_PROMPTS[2], max_new_tokens=S_NEW))
+            and len(chunks) == S_NEW // 4 and calls == len(chunks) + 2)
+        log(f"path S (c): f32 llama-tiny at tp=2 on the card: greedy "
+            f"tokens equal tp=1's: {tiny_ok}; a stream of {len(chunks)} "
+            f"chunks in {calls} dispatched calls (the prefill, each "
+            f"segment, the close), its row tp=1's: {stream_ok}")
+        if not tiny_ok or not stream_ok:
+            raise SystemExit("path S (c): tp=2's greedy tokens or its "
+                             "stream are not tp=1's")
+        out["c"] = {"greedy_equal": tiny_ok, "stream": stream_ok}
+        took("path S (c)", t_c)
+    finally:
+        for th in starters:
+            th.join(timeout=JOIN_WAIT_S)
+        for disp in dispatchers:
+            disp.close()
+        shutil.rmtree(root, ignore_errors=True)
+    left = [p.pid for disp in dispatchers for p in disp.procs
+            if p.poll() is None]
+    log(f"path S: the groups closed; follower processes left: {left}")
+    if left:
+        raise SystemExit(f"path S: followers left behind: {left}")
+    out["launches"] = kernel_launches()
+    return out
+
+
 def main() -> int:
     t_script = PROGRESS["t0"]
     if not torch.cuda.is_available():
@@ -8848,6 +9375,10 @@ def main() -> int:
                "int8_matmul": check_int8_matmul(gen),
                "flash_attention": check_flash_attention(gen)}
     small = check_small_model()
+    # path S's shapes: a tp=2 rank's share of each kernel's work
+    shards = check_shard_shapes(gen)
+    for name, rows in shards.items():
+        kernels[name]["tp2_shapes"] = rows
     took("kernel checks", t_phase)
 
     # path D first: its times come before any profiler session
@@ -8931,6 +9462,11 @@ def main() -> int:
     t_path = begin("R")
     paths["R"] = serve_train_path(card)
     took("path R", t_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_path = begin("S")
+    paths["S"] = serve_tp_path(card)
+    took("path S", t_path)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -58,9 +58,12 @@ whose device is not the card builds and warms on the CPU, as JAX keeps
 ``serve``'s flags are the JAX CLI's ``serve`` flags whose features are
 ported. The scheduler's reach the server; the others set the
 ``LAMBDIPY_*`` variables the handler reads, with JAX's precedence
-(``lambdipy_tpu/cli.py:584-612``). ``--mesh`` and ``--prefill-mode sp``
-ask for features the port does not have and exit before boot. ``POST
-/shutdown`` drains and stops the server.
+(``lambdipy_tpu/cli.py:584-612``). ``--mesh`` serves over a
+tensor-parallel mesh with JAX's grammar (``tp=2``, ``2``, ``2x2``,
+``off``), checked before boot and bridged to ``LAMBDIPY_MESH``: ``tp``
+ranks of one process per device (``--device cpu``: processes on the
+CPU). ``--prefill-mode sp`` asks for a feature the port does not have and
+exits before boot. ``POST /shutdown`` drains and stops the server.
 
 ``train`` is JAX's: ``--model``, ``--data``, ``--steps``, ``--batch``,
 ``--seq-len``, ``--lr``, ``--ckpt-dir`` (a re-run resumes), ``--ckpt-every``,
@@ -497,13 +500,18 @@ def apply_flags(args: argparse.Namespace) -> None:
     """Set the ``LAMBDIPY_*`` variable of every ``serve`` flag given; a
     flag that asks for an unported feature exits with the handler's
     message before boot."""
+    from lambdipy_tpu_torch.parallel.mesh import (parse_mesh_spec,
+                                                  serving_mesh)
     from lambdipy_tpu_torch.runtime.handlers import _check_unported_extras
 
     try:
         _check_unported_extras({k: getattr(args, k)
-                                for k in ("mesh", "prefill_mode")
+                                for k in ("prefill_mode",)
                                 if getattr(args, k) is not None})
-    except ValueError as e:
+        if args.mesh is not None:
+            # a typo'd or unserved mesh fails here, before the boot
+            serving_mesh(parse_mesh_spec(args.mesh))
+    except (ValueError, NotImplementedError) as e:
         raise SystemExit(f"serve: {e}") from None
     for flag, env in _ENV_FLAGS.items():
         value = getattr(args, flag)
@@ -1147,8 +1155,18 @@ def parser() -> argparse.ArgumentParser:
     serve.add_argument("--draft-exit", type=int, default=None,
                        help="layers the shallow-exit draft runs (default 1)")
     serve.add_argument("--mesh", default=None,
-                       help="tensor-parallel serving; not ported (only "
-                            "'off')")
+                       help="tensor-parallel sharded serving over a device "
+                            "mesh, e.g. 'tp=2' (Megatron layout: attention "
+                            "heads + MLP hidden sharded over tp, KV cache "
+                            "over kv_heads, per-device memory ~1/tp), one "
+                            "process per device. Accepts 'tp=2', bare "
+                            "'2' or 'off' ('2x2', dp x tp, is not ported). "
+                            "Tokens stay the single-device path's to the "
+                            "stated tolerance; layout and per-device bytes "
+                            "ride /metrics under batching.mesh. With "
+                            "--device cpu the ranks are CPU processes "
+                            "(default: bundle mesh extra, else "
+                            "single-device)")
 
     p = add("fleet", cmd_fleet, "serve a bundle from N supervised replicas "
                                 "behind one router")

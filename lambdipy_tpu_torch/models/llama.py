@@ -52,6 +52,18 @@ weights (``models/params.py from_jax_params``). Differences:
   one-token rows, so every accepted position is bitwise the one-token
   step (JAX runs the chunk through its scalar-index branch and admits a
   bf16 argmax difference on the solo path).
+- Tensor parallelism (a serving mesh's ``tp``): JAX runs one program over
+  N devices and XLA inserts the collectives; here each of N processes
+  holds one rank's share (:class:`ShardConfig`: ``heads``, ``kv_heads``,
+  ``mlp`` and the vocabulary over ``tp``) and the forward runs explicit
+  Megatron collectives (``parallel/distributed.py``): the masked
+  embedding and the row-parallel ``o_proj`` and ``down_proj`` are summed
+  over the ranks (a gather, then a sum in rank order), the lm_head's
+  vocabulary columns gathered. Every rank samples the same gathered
+  logits with the same streams. The ranks' calls come in one order
+  through the controller's dispatcher (``parallel/tpserve.py``), and
+  each rank runs the port's kernels on its share; at ``tp > 1`` the
+  server runs eagerly (a CUDA graph cannot hold a gloo collective).
 """
 
 from __future__ import annotations
@@ -82,6 +94,8 @@ from lambdipy_tpu_torch.ops.decode_attention import (blocked_decode_attention,
                                                      gather_pages,
                                                      paged_decode_attention)
 from lambdipy_tpu_torch.ops.quant import int8_matmul
+from lambdipy_tpu_torch.parallel.distributed import (tp_all_gather,
+                                                     tp_all_reduce)
 from lambdipy_tpu_torch.runtime.metrics import SpecDecodeStats
 from lambdipy_tpu_torch.utils.platform import resolve_device
 
@@ -126,6 +140,84 @@ class LlamaConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden // self.heads
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardConfig(LlamaConfig):
+    """One tensor-parallel rank's share of a model split over ``tp``
+    ranks: ``heads``, ``kv_heads``, ``mlp`` and ``vocab_size`` are the
+    rank's (the whole model's over ``tp``), ``head_dim`` the whole
+    model's, so every function that sizes from a config (the decode
+    cache, the page arena, program bytes) sizes this rank's share. The
+    JAX package has no twin: one JAX program holds every shard."""
+
+    tp: int = 1
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden // (self.heads * self.tp)
+
+
+# the fields a tensor-parallel rank holds a share of
+_SHARDED_FIELDS = ("heads", "kv_heads", "mlp", "vocab_size")
+
+# what a serving mesh cannot carry at tp > 1 yet
+TP_C2 = ("{} at tp > 1 is not ported yet (ROADMAP queue 1, item 3 (c2): "
+         "tensor-parallel serving's remaining features)")
+
+
+def shard_config(cfg: LlamaConfig, tp: int) -> LlamaConfig:
+    """The config of one of ``tp`` ranks' shares of ``cfg`` (``cfg``
+    itself at ``tp`` 1); :func:`validate_serving_mesh` first, and the
+    vocabulary must split evenly too."""
+    if tp <= 1 or isinstance(cfg, ShardConfig):
+        return cfg
+    if cfg.vocab_size % tp:
+        raise ValueError(f"mesh tp={tp} does not divide vocab_size="
+                         f"{cfg.vocab_size}: the embedding and the lm_head "
+                         "shard the vocabulary over tp")
+    fields = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(LlamaConfig)}
+    fields.update({name: fields[name] // tp for name in _SHARDED_FIELDS})
+    return ShardConfig(**fields, tp=tp)
+
+
+def whole_config(cfg: LlamaConfig) -> LlamaConfig:
+    """The whole model's config of a rank's :class:`ShardConfig` (``cfg``
+    itself otherwise)."""
+    if not isinstance(cfg, ShardConfig):
+        return cfg
+    fields = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(LlamaConfig)}
+    fields.update({name: fields[name] * cfg.tp
+                   for name in _SHARDED_FIELDS})
+    return LlamaConfig(**fields)
+
+
+def validate_serving_mesh(cfg: LlamaConfig, mesh) -> None:
+    """Reject serving meshes the TP layout cannot honor (JAX
+    ``llama.py:630-652``, its message): a ``tp`` that does not divide the
+    kv heads, the heads or the MLP hidden dim raises, rather than paying
+    N devices to replicate the KV cache. ``mesh``: a
+    ``parallel/mesh.py`` ``Mesh`` or ``{axis: size}``."""
+    shape = dict(getattr(mesh, "shape", mesh) or {})
+    tp = int(shape.get("tp", 1))
+    if tp <= 1:
+        return
+    cfg = whole_config(cfg)
+    bad = []
+    if cfg.kv_heads % tp:
+        bad.append(f"kv_heads={cfg.kv_heads}")
+    if cfg.heads % tp:
+        bad.append(f"heads={cfg.heads}")
+    if cfg.mlp % tp:
+        bad.append(f"mlp={cfg.mlp}")
+    if bad:
+        raise ValueError(
+            f"mesh tp={tp} does not divide {', '.join(bad)}: the "
+            "tensor-parallel layout shards attention heads and the MLP "
+            "hidden dim over tp, and the KV cache over kv_heads — pick "
+            "a tp that divides all three (or drop the mesh)")
 
 
 LLAMA3_8B = LlamaConfig()
@@ -319,6 +411,11 @@ def _device_index(index, s: int, width: int, device):
 
 
 class LlamaBlock(nn.Module):
+    # a tensor-parallel rank's group (``parallel/distributed.py``
+    # ``TPGroup``): o_proj's and down_proj's partial products are summed
+    # over it; None: the whole model
+    tp = None
+
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         self.cfg = cfg
@@ -511,10 +608,12 @@ class LlamaBlock(nn.Module):
                 out = _attend(q, ck, cv, valid)
 
         out = out.reshape(b, s, cfg.heads * d)
-        x = x + self.o_proj(out)
+        x = x + tp_all_reduce(self.o_proj(out), self.tp)
         h = self.mlp_norm(x)
         if not cfg.moe_experts:
-            y = self.down_proj(F.silu(self.gate_proj(h)) * self.up_proj(h))
+            y = tp_all_reduce(
+                self.down_proj(F.silu(self.gate_proj(h)) * self.up_proj(h)),
+                self.tp)
         elif aux is None:
             y = self.moe(h)
         else:
@@ -528,7 +627,14 @@ class LlamaModel(nn.Module):
     keeps its flax name, so ``state_dict`` keys are the flax param paths
     with ``/`` replaced by ``.`` (``layer_0.q_proj.kernel_int8``).
 
-    ``device`` defaults to the CUDA card and raises when there is none."""
+    ``device`` defaults to the CUDA card and raises when there is none.
+
+    A tensor-parallel rank's model (:meth:`set_tp`) holds a
+    :class:`ShardConfig`'s share: its embedding rows and lm_head columns
+    are its slice of the vocabulary."""
+
+    # the rank's TPGroup (:meth:`set_tp`); None: the whole model
+    tp = None
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
@@ -545,6 +651,42 @@ class LlamaModel(nn.Module):
 
     def blocks(self):
         return [getattr(self, f"layer_{i}") for i in range(self.cfg.layers)]
+
+    def set_tp(self, group) -> "LlamaModel":
+        """Make this model one rank of ``group`` (a ``TPGroup`` whose size
+        is its config's ``tp``; its weights are the rank's share). A
+        one-rank group runs no collective and serves bitwise as no
+        group."""
+        tp = getattr(self.cfg, "tp", 1)
+        if group is not None and group.size != tp:
+            raise ValueError(f"a {group.size}-rank group over a model "
+                             f"sharded {tp} ways")
+        if group is not None and group.size > 1 and self.cfg.moe_experts:
+            raise NotImplementedError(TP_C2.format("an MoE Llama"))
+        self.tp = group
+        for block in self.blocks():
+            block.tp = group
+        return self
+
+    def _embed(self, tokens):
+        """The embedding; a tensor-parallel rank looks up the tokens of
+        its vocabulary slice (zeros for the rest), summed over the ranks,
+        where exactly one rank holds each token's row."""
+        tp = self.tp
+        if tp is None or tp.size == 1:
+            return self.embed(tokens)
+        if not tp.active():
+            raise RuntimeError(
+                "a tensor-parallel forward outside the dispatcher would "
+                "pair its collectives with nothing: every call into a "
+                "sharded model goes through parallel/tpserve.py")
+        rows = self.cfg.vocab_size
+        local = tokens - tp.rank * rows
+        hit = (local >= 0) & (local < rows)
+        x = F.embedding(local.clamp(0, rows - 1), self.embed.embedding)
+        x = torch.where(hit[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
+        return tp_all_reduce(x, tp)
 
     def forward(self, tokens, positions=None, mask=None, cache=None,
                 logit_positions=None, exit_layer=None, with_aux=False):
@@ -570,7 +712,7 @@ class LlamaModel(nn.Module):
             mask = torch.ones(b, s, dtype=torch.bool, device=tokens.device)
         layers = self.cfg.layers if exit_layer is None else max(
             1, min(int(exit_layer), self.cfg.layers))
-        x = self.embed(tokens)
+        x = self._embed(tokens)
         new_cache = []
         aux = [] if with_aux else None
         for i, block in enumerate(self.blocks()[:layers]):
@@ -581,9 +723,10 @@ class LlamaModel(nn.Module):
         if logit_positions is not None:
             x = x[torch.arange(b, device=x.device), logit_positions.long()]
             x = x[:, None, :]
+        logits = tp_all_gather(self.lm_head(x), self.tp)
         if with_aux:
-            return self.lm_head(x), new_cache, moe_aux_loss(aux).to(x.device)
-        return self.lm_head(x), new_cache
+            return logits, new_cache, moe_aux_loss(aux).to(x.device)
+        return logits, new_cache
 
 
 def _quantize(w, axis: int) -> tuple:
@@ -711,8 +854,11 @@ def concat_cache_blocks(cfg: LlamaConfig, blocks, cache_len: int):
     is position-dependent (RoPE comes before the cache store), so blocks
     go back to the positions they were sliced from; a radix path does
     that by construction. Positions past the blocks hold the empty
-    cache's values."""
+    cache's values. Under an ambient tensor-parallel mesh
+    (``parallel/mesh.py use_mesh``) the blocks are this rank's kv heads,
+    and so is the assembled cache: the whole cache is never built."""
     first = next(iter(blocks[0][0].values()))
+    cfg = _ambient_share(cfg)
     out = []
     for i in range(cfg.layers):
         dest = _empty_cache_entry(cfg, 1, cache_len, first.device)
@@ -742,15 +888,69 @@ def cache_nbytes(cache) -> int:
                for val in _leaves(entry).values())
 
 
+def _mesh_tp(mesh) -> int:
+    return int(dict(getattr(mesh, "shape", mesh) or {}).get("tp", 1))
+
+
+def _ambient_share(cfg: LlamaConfig) -> LlamaConfig:
+    """``cfg``'s rank share under the ambient mesh's ``tp`` (``cfg`` as it
+    is without one, or when it is a share already)."""
+    from lambdipy_tpu_torch.parallel.mesh import current_mesh
+
+    mesh = current_mesh()
+    return shard_config(cfg, _mesh_tp(mesh)) if mesh is not None else cfg
+
+
+# a KV leaf's dims: [rows or pages, positions, kv heads, head_dim or 1];
+# the kv heads split over tp, JAX's _kv_leaf_sharding
+_KV_LEAVES = ("k", "v", "k_int8", "v_int8", "k_scale", "v_scale")
+
+
+def kv_shardings(mesh) -> dict:
+    """``{leaf name: NamedSharding}`` of a decode cache's or an arena's
+    K/V leaves over ``mesh`` (``parallel/sharding.py``: the kv-head dim
+    over ``tp``, the ``index`` replicated), keyed as ``device_bytes``
+    reads a cache's leaves; JAX's ``_kv_leaf_sharding``."""
+    from lambdipy_tpu_torch.parallel.sharding import P, named_sharding
+
+    return {name: named_sharding(mesh, *P(None, None, "tp", None))
+            for name in _KV_LEAVES}
+
+
+def shard_kv_cache(cache, mesh, rank: int | None = None):
+    """One rank's share of a whole decode cache (JAX ``shard_kv_cache``,
+    which places it over the mesh): the K/V leaves' kv heads of ``rank``
+    (default this process's), ``index`` leaves whole. A mesh without
+    ``tp`` gives the cache itself."""
+    shardings = kv_shardings(mesh)
+    return [{name: (shardings[name].shard(val, rank)
+                    if name in shardings else val)
+             for name, val in entry.items()}
+            for entry in cache]
+
+
+def shard_page_arena(arena, mesh, rank: int | None = None):
+    """One rank's share of a whole page arena (JAX ``shard_page_arena``):
+    :func:`shard_kv_cache`'s rule on the ``[n_pages, page, kv_heads, *]``
+    leaves."""
+    return shard_kv_cache(arena, mesh, rank)
+
+
 NULL_PAGE = 0  # the arena's reserved page (runtime/pagepool.py)
 
 
-def init_page_arena(cfg: LlamaConfig, n_pages: int, page: int, device):
+def init_page_arena(cfg: LlamaConfig, n_pages: int, page: int, device,
+                    mesh=None):
     """The paged KV arena: per layer, the decode cache's store-layout
     leaves page-major, ``[n_pages, page, kv_heads, head_dim]`` (int8
     scales ``[..., 1]`` starting at 1e-8), with no ``index`` leaf: row
-    positions live in the block tables. Page 0 is the null page."""
+    positions live in the block tables. Page 0 is the null page. With a
+    ``mesh`` whose ``tp`` is above 1 the arena is born one rank's share,
+    its kv heads over ``tp`` (JAX places it kv-head-sharded); a rank's
+    :class:`ShardConfig` sizes its share already."""
     device = resolve_device(device)
+    if mesh is not None:
+        cfg = shard_config(cfg, _mesh_tp(mesh))
     return [_empty_cache_entry(cfg, n_pages, page, device)
             for _ in range(cfg.layers)]
 
@@ -1851,7 +2051,15 @@ class LlamaServer:
     new tokens a request may ask for; default the window) and
     ``prefill_chunk`` (off by default; a prefix of at least that many
     tokens prefills in fixed-width chunks, :meth:`_chunked_prefill_cache`,
-    and so do the continuous engine's long joiners)."""
+    and so do the continuous engine's long joiners).
+
+    ``mesh``: the serving mesh (``parallel/mesh.py``), None without one.
+    Over a tensor-parallel model (``model.tp`` of more than one rank) the
+    server is one rank's: the controller's has ``dispatcher``
+    (``parallel/tpserve.py``), through which :meth:`generate` runs on
+    every rank at once; a follower's is driven by its follow loop. Such a
+    server runs eagerly, and the prefix cache, speculative decoding and
+    chunked prefill raise, naming ROADMAP queue 1, item 3 (c2)."""
 
     # decode steps per hold of the device lock in generate
     segment = 16
@@ -1861,8 +2069,17 @@ class LlamaServer:
                  program_cache_bytes: int | None = None,
                  prefix_cache_max: int = 4, min_bucket: int = MIN_BUCKET,
                  decode_cap: int | None = None,
-                 prefill_chunk: int | None = None):
+                 prefill_chunk: int | None = None, mesh=None,
+                 dispatcher=None):
         self.model = model
+        self.mesh = mesh
+        self.dispatcher = dispatcher
+        if self.sharded:
+            if prefill_chunk:
+                raise NotImplementedError(TP_C2.format("chunked prefill"))
+            # a CUDA graph cannot hold a gloo collective, and NCCL with
+            # more than one rank cannot run on a one-card host: eager
+            graphs = False
         self._lock = DEVICE_LOCK
         # the smallest prompt and decode-step bucket
         self.min_bucket = min_bucket
@@ -1929,6 +2146,16 @@ class LlamaServer:
     @property
     def device(self):
         return self.model.device
+
+    @property
+    def sharded(self) -> bool:
+        """One rank of a tensor-parallel model of more than one rank."""
+        tp = self.model.tp
+        return tp is not None and tp.size > 1
+
+    def _refuse_sharded(self, what: str) -> None:
+        if self.sharded:
+            raise NotImplementedError(TP_C2.format(what))
 
     def _validate(self, s: int, max_new_tokens: int) -> None:
         cfg = self.model.cfg
@@ -2005,6 +2232,7 @@ class LlamaServer:
         rows, lengths = self._normalize_prompts(prompt_tokens)
         b, s = len(rows), max(lengths)
         if prefix is not None:
+            self._refuse_sharded("the prefix cache")
             return self._generate_with_prefix(
                 prefix, rows, lengths, max_new_tokens, temperature, top_k,
                 top_p, seed, eos_id, return_logprobs)
@@ -2013,11 +2241,24 @@ class LlamaServer:
             return self._empty(b, return_logprobs)
         args = (rows, lengths, max_new_tokens, temperature, top_k, top_p,
                 seed, eos_id)
-        toks, lps = self._retry_on_oom(
-            lambda: self._generate(lambda: self._prefill(*args),
-                                   max_new_tokens))
+        if self.sharded:
+            # every rank runs it, in the dispatcher's order; no retry on
+            # running out of memory: a partner rank may be mid-collective
+            toks, lps = self.dispatcher.call("server", "rank_generate",
+                                             *args)
+        else:
+            toks, lps = self._retry_on_oom(lambda: self.rank_generate(*args))
         toks, lps = toks[:b], lps[:b]
         return (toks, lps) if return_logprobs else toks
+
+    def rank_generate(self, rows, lengths, max_new_tokens, temperature,
+                      top_k, top_p, seed, eos_id):
+        """:meth:`generate`'s device work on this rank, for validated host
+        rows: ``(tokens, logprobs)`` host arrays of the batch bucket's
+        rows."""
+        args = (rows, lengths, max_new_tokens, temperature, top_k, top_p,
+                seed, eos_id)
+        return self._generate(lambda: self._prefill(*args), max_new_tokens)
 
     @staticmethod
     def _empty(b: int, return_logprobs: bool):
@@ -2060,6 +2301,23 @@ class LlamaServer:
         finally:
             with self._lock:
                 self.programs.checkin(entry)
+
+    def prefill_logits(self, tokens):
+        """The f32 logits of one prefill forward over ``tokens`` (``[b,
+        s]`` host ints, every row whole), ``[b, s, vocab]`` host array:
+        what a served row's first token is selected from. Through the
+        dispatcher on every rank at ``tp > 1``."""
+        tokens = np.asarray(tokens, np.int64)
+        if self.sharded:
+            return self.dispatcher.call("server", "rank_prefill_logits",
+                                        tokens)
+        return self.rank_prefill_logits(tokens)
+
+    def rank_prefill_logits(self, tokens):
+        with self._lock, torch.inference_mode():
+            logits, _ = self.model(torch.as_tensor(tokens,
+                                                   device=self.device))
+            return logits.float().cpu().numpy()
 
     def prompt_bucket(self, s: int, max_new_tokens: int) -> int:
         """The padded prompt width ``generate`` prefills a prompt of ``s``
@@ -2193,6 +2451,12 @@ class LlamaServer:
         that runs out of device memory evicts every idle program and runs
         once more. ``prefix=`` streams from a cached prefix K/V (a single
         row), as :meth:`generate` does."""
+        if self.sharded:
+            yield from self._sharded_stream(
+                prompt_tokens, max_new_tokens, segment, eos_id,
+                return_logprobs, prefix=prefix, temperature=temperature,
+                top_k=top_k, top_p=top_p, seed=seed)
+            return
         rows, lengths = self._normalize_prompts(prompt_tokens)
         b, s = len(rows), max(lengths)
         if prefix is not None:
@@ -2214,6 +2478,68 @@ class LlamaServer:
                                 max_new_tokens, segment, eos_id,
                                 return_logprobs)
 
+    def _sharded_stream(self, prompt_tokens, max_new_tokens, segment,
+                        eos_id, return_logprobs, *, prefix, temperature,
+                        top_k, top_p, seed):
+        """:meth:`generate_stream` of a tensor-parallel controller: the
+        prefill and each segment are dispatched calls, so a chunk is
+        yielded as soon as its segment is decoded and other requests'
+        calls run between them. Every rank keeps its own entry under one
+        id from the prefill to :meth:`rank_stream_close`, which runs on
+        every rank when the stream ends, fails, or is closed by a consumer
+        that left mid-stream."""
+        if prefix is not None:
+            self._refuse_sharded("the prefix cache")
+        rows, lengths = self._normalize_prompts(prompt_tokens)
+        b, s = len(rows), max(lengths)
+        self._validate(s, max_new_tokens)
+        if max_new_tokens == 0:
+            return
+        segment = max(1, min(int(segment), max_new_tokens))
+        disp = self.dispatcher
+        opened = disp.call("server", "rank_stream_open", rows, lengths,
+                           max_new_tokens, temperature, top_k, top_p, seed,
+                           eos_id, keep=True)
+        try:
+            emitted = 0
+            while emitted < max_new_tokens:
+                k = min(segment, max_new_tokens - emitted)
+                chunk, lp_chunk, latched = disp.call(
+                    "server", "rank_stream_segment", opened, b, k,
+                    eos_id is not None)
+                emitted += k
+                yield (chunk, lp_chunk) if return_logprobs else chunk
+                if latched:
+                    return
+        finally:
+            if disp.live:
+                disp.call("server", "rank_stream_close", opened)
+
+    def rank_stream_open(self, rows, lengths, max_new_tokens, temperature,
+                         top_k, top_p, seed, eos_id):
+        """A stream's prefill on this rank: its checked-out ``(entry,
+        program)``, for :meth:`rank_stream_segment` and
+        :meth:`rank_stream_close`."""
+        with self._lock, torch.inference_mode():
+            return self._prefill(rows, lengths, max_new_tokens, temperature,
+                                 top_k, top_p, seed, eos_id)
+
+    def rank_stream_segment(self, opened, b: int, k: int, eos: bool):
+        """``k`` decode steps of an open stream on this rank: ``(tokens
+        [b, k] int32, logprobs [b, k] f32, every row latched eos)``, host
+        arrays (``eos`` false: never latched)."""
+        entry, prog = opened
+        with self._lock, torch.inference_mode():
+            toks, lps = _scan_decode(prog.run, entry.step, k, segment=True)
+            return (toks[:b].to(torch.int32).cpu().numpy(),
+                    lps[:b].float().cpu().numpy(),
+                    eos and bool(entry.step.done[:b].all()))
+
+    def rank_stream_close(self, opened) -> None:
+        """Check an open stream's entry back in on this rank."""
+        with self._lock:
+            self.programs.checkin(opened[0])
+
     def _stream(self, prefill, b, max_new_tokens, segment, eos_id,
                 return_logprobs):
         """:meth:`generate_stream`'s device work: ``prefill()`` under the
@@ -2221,29 +2547,23 @@ class LlamaServer:
         memory), then the decode a segment at a time."""
         with self._lock, torch.inference_mode():
             try:
-                entry, prog = prefill()
+                opened = prefill()
             except torch.OutOfMemoryError:
                 if not self.programs.drop_idle():
                     raise
-                entry, prog = prefill()
+                opened = prefill()
         try:
             emitted = 0
             while emitted < max_new_tokens:
                 k = min(segment, max_new_tokens - emitted)
-                with self._lock, torch.inference_mode():
-                    toks, lps = _scan_decode(prog.run, entry.step, k,
-                                             segment=True)
-                    chunk = toks[:b].to(torch.int32).cpu().numpy()
-                    lp_chunk = lps[:b].float().cpu().numpy()
-                    latched = (eos_id is not None
-                               and bool(entry.step.done[:b].all()))
+                chunk, lp_chunk, latched = self.rank_stream_segment(
+                    opened, b, k, eos_id is not None)
                 emitted += k
                 yield (chunk, lp_chunk) if return_logprobs else chunk
                 if latched:
                     return
         finally:
-            with self._lock:
-                self.programs.checkin(entry)
+            self.rank_stream_close(opened)
 
     # -- prefix caching ------------------------------------------------------
 
@@ -2259,6 +2579,7 @@ class LlamaServer:
         whole context window, so any suffix and decode the window allows
         can continue from it. Concurrent callers of one prefix wait for
         the one prefill; a wait that times out twice raises."""
+        self._refuse_sharded("the prefix cache")
         cfg = self.model.cfg
         rows, lengths = self._normalize_prompts(prefix_tokens)
         if len(rows) != 1:
@@ -2607,6 +2928,7 @@ class LlamaServer:
         the window's end (no room for a verify chunk) it streams plain
         decode instead, counted as a fallback. ``stats_out``: a dict that
         receives the request's counters."""
+        self._refuse_sharded("speculative decoding")
         row, pentry, plen, kb, fallback = self._spec_args(
             prompt_tokens, max_new_tokens, k, prefix)
         stats = {} if stats_out is None else stats_out
@@ -2664,6 +2986,7 @@ class LlamaServer:
         asked, plus the request's counters with ``return_stats``); the
         counters also land in :attr:`spec_stats` and, cumulative, in
         :attr:`spec_metrics`."""
+        self._refuse_sharded("speculative decoding")
         row, pentry, plen, kb, fallback = self._spec_args(
             prompt_tokens, max_new_tokens, k, prefix)
         if fallback:

@@ -81,14 +81,57 @@ class TorchModel:
     def make_model(self, state_dict=None, *, device=None):
         return params.build_model(self.config, state_dict, device=device)
 
-    def make_server(self, state_dict=None, *, device=None,
-                    **server_kw) -> LlamaServer:
+    def make_server(self, state_dict=None, *, device=None, mesh=None,
+                    group=None, **server_kw) -> LlamaServer:
         """A Llama's server; ``server_kw``: :class:`LlamaServer`'s
-        ``graphs``, ``program_cache_max`` and ``program_cache_bytes``."""
-        if not isinstance(self.config, LlamaConfig):
-            raise TypeError(f"{type(self.config).__name__} has no server")
+        ``graphs``, ``program_cache_max`` and ``program_cache_bytes``.
+
+        ``mesh``: a serving mesh (a ``parallel/mesh.py`` ``Mesh`` or
+        ``{axis: size}``), checked as JAX checks it
+        (``models/llama.py validate_serving_mesh``; a ``dp`` axis raises,
+        ROADMAP queue 1, item 3 (c2)). At ``tp`` above 1 the server is
+        the controller of ``tp`` ranks, one process per device
+        (``parallel/tpserve.py serve_tp``), each serving its share of
+        ``state_dict``, the whole model's weights (None: seeded); close
+        it with ``server.dispatcher.close()``. ``group``: this process is
+        one rank of that ``TPGroup`` instead, serving its share of
+        ``state_dict``. A one-device mesh serves as no mesh."""
+        cfg = self.config
+        if not isinstance(cfg, LlamaConfig):
+            raise TypeError(f"{type(cfg).__name__} has no server")
+        if mesh is None and group is None:
+            return LlamaServer(self.make_model(state_dict, device=device),
+                               **server_kw)
+        from lambdipy_tpu_torch.models.llama import validate_serving_mesh
+        from lambdipy_tpu_torch.parallel import tpserve
+        from lambdipy_tpu_torch.parallel.mesh import (Mesh, make_mesh,
+                                                      serving_mesh)
+
+        if mesh is None:
+            mesh = {"tp": group.size}
+        shape = serving_mesh(mesh.shape if isinstance(mesh, Mesh) else mesh)
+        validate_serving_mesh(cfg, shape)
+        tp = shape.get("tp", 1)
+        if tp > 1 and cfg.moe_experts:
+            from lambdipy_tpu_torch.models.llama import TP_C2
+
+            raise NotImplementedError(TP_C2.format("an MoE Llama"))
+        if not isinstance(mesh, Mesh):
+            mesh = make_mesh(shape, devices=range(tp))
+        if group is not None:
+            if group.size != tp:
+                raise ValueError(f"a mesh of tp={tp} over a {group.size}-"
+                                 "rank group")
+            whole = (state_dict if state_dict is not None
+                     else self.init_params(seed=0, device=device))
+            share = tpserve._share(cfg, whole, mesh, group.rank)
+            return tpserve.rank_server(cfg, share, group, mesh,
+                                       resolve_device(device), **server_kw)
+        if tp > 1:
+            return tpserve.serve_tp(cfg, state_dict, mesh, device=device,
+                                    **server_kw)
         return LlamaServer(self.make_model(state_dict, device=device),
-                           **server_kw)
+                           mesh=mesh, **server_kw)
 
     @property
     def tp_rules(self):

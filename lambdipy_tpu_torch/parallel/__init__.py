@@ -1,9 +1,13 @@
 """Parallelism of the port, the twin of ``lambdipy_tpu/parallel/``: meshes
 (``mesh.py``), sharding rules (``sharding.py``) and the process group with
 its data-loading contract and collectives (``distributed.py``), one
-process per device over ``torch.distributed``. Training runs ``dp`` and
-FSDP over ``dp``; tensor, expert, sequence and pipeline parallelism are
-ROADMAP queue 1, item 3 (c)-(f), and raise, each naming its item."""
+process per device over ``torch.distributed``; and tensor-parallel
+serving's controller and followers (``tpserve.py``, which has no JAX
+twin). Training runs ``dp`` and FSDP over ``dp``; serving runs ``tp``.
+Training's tensor parallelism and expert, sequence and pipeline
+parallelism are ROADMAP queue 1, item 3 (c)-(f), and what tensor-parallel
+serving does not carry yet is item 3 (c2); each raises, naming its
+item."""
 
 from lambdipy_tpu_torch.parallel.distributed import (DistributedContext,
                                                      initialize_from_env,

@@ -17,6 +17,12 @@ Each process reads an equal, contiguous share of every global batch
 (:func:`process_batch_slice`); the process count and index are the
 group's world size and rank once a group is up, one and zero otherwise
 (``jax.process_count`` and ``jax.process_index`` on one host).
+
+A serving mesh's tensor-parallel ranks are a :class:`TPGroup`
+(:func:`tp_group`), apart from the default group: the collectives the
+model runs over it (:func:`tp_all_reduce`, a gather and then a sum in
+rank order; :func:`tp_all_gather`) and a command channel of its own
+(``parallel/tpserve.py``).
 """
 
 from __future__ import annotations
@@ -191,11 +197,30 @@ def process_batch_slice(global_batch: int, *, process_index: int | None = None,
 _count, _index = process_count, process_index
 
 
-# -- collectives over the whole group (rank order) ---------------------------
+# -- collectives (rank order) -------------------------------------------------
+#
+# ``group=None`` is the whole process group (data-parallel training);
+# a :class:`TPGroup` is a serving mesh's tensor-parallel ranks, whose sum
+# is :func:`tp_all_reduce`.
 
-def all_gather(t):
-    """Every rank's ``t``, in rank order (each rank's of one shape)."""
+
+def all_gather(t, group: "TPGroup | None" = None):
+    """Every rank's ``t``, in rank order (each rank's of one shape). Over a
+    :class:`TPGroup` whose backend cannot gather a tensor where it lies
+    (gloo on the card), the gather is staged through host memory,
+    explicitly: down, gathered, and back to ``t``'s device."""
     import torch
+
+    if group is not None:
+        if group.size == 1:
+            return [t]
+        src = t.contiguous()
+        if group.staged(src):
+            src = src.cpu()
+        out = [torch.empty_like(src) for _ in range(group.size)]
+        group.wait(group.pg.allgather([out], [src]))
+        return [o.to(t.device, non_blocking=True) for o in out] \
+            if out[0].device != t.device else out
     import torch.distributed as dist
 
     t = t.contiguous()
@@ -224,7 +249,203 @@ def all_reduce(t):
     return t
 
 
+def tp_all_reduce(t, group: "TPGroup | None"):
+    """The sum of every tensor-parallel rank's ``t`` (a row-parallel
+    projection's partial product, a masked embedding's rows): the
+    partials gathered, then added in rank order in ``t``'s dtype. The sum
+    does not depend on the batch or on the backend's reduction algorithm,
+    so a row's result is bitwise its result alone, on gloo and NCCL
+    alike. One rank (or no group): ``t`` itself, no collective."""
+    if group is None or group.size == 1:
+        return t
+    parts = all_gather(t, group)
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out
+
+
+def tp_all_gather(t, group: "TPGroup | None"):
+    """Every tensor-parallel rank's ``t`` concatenated along the last dim,
+    in rank order (the vocabulary-parallel lm_head's logits). One rank (or
+    no group): ``t`` itself."""
+    import torch
+
+    if group is None or group.size == 1:
+        return t
+    return torch.cat(all_gather(t, group), dim=-1)
+
+
 def barrier() -> None:
     import torch.distributed as dist
 
     dist.barrier()
+
+
+# -- a serving mesh's tensor-parallel group ---------------------------------
+
+# collectives of a tensor-parallel group give up after this many seconds: a
+# rank that stopped answering fails the call instead of hanging it; a rank
+# that died fails it at once (its sockets close)
+TP_TIMEOUT_S = 300.0
+
+
+class TPGroup:
+    """The tensor-parallel ranks of a serving mesh, one process per device:
+    ``pg``, the backend the model's collectives run on (NCCL between
+    cards, gloo on the CPU, or gloo on the card when two ranks share one,
+    which NCCL refuses), and ``cmd``, the command channel, a CPU gloo
+    group beside it (``parallel/tpserve.py``). One rank has neither:
+    every collective is the identity, so a one-rank group serves bitwise
+    as no group. Both are bare backends on a store of their own, not the
+    process's default group: a serving mesh leaves ``torch.distributed``'s
+    global state alone (a test process may hold several in turn).
+
+    ``active()`` is true on a thread inside a dispatched call (and always
+    on a follower): a model forward outside one would pair its
+    collectives with nothing, so it raises instead."""
+
+    def __init__(self, rank: int, size: int, *, pg=None, cmd=None,
+                 backend: str | None = None, device=None, store=None):
+        import threading
+
+        self.rank, self.size = int(rank), int(size)
+        self.pg, self.cmd, self.backend = pg, cmd, backend
+        self.device = device
+        self.store = store
+        self._local = threading.local()
+        self.follower = False
+
+    def staged(self, t) -> bool:
+        """A gather of ``t`` goes through host memory (gloo on the card)."""
+        return self.backend == "gloo" and t.is_cuda
+
+    def wait(self, work) -> None:
+        import datetime
+
+        work.wait(datetime.timedelta(seconds=TP_TIMEOUT_S))
+
+    def active(self) -> bool:
+        return self.follower or getattr(self._local, "depth", 0) > 0
+
+    def enter(self) -> None:
+        self._local.depth = getattr(self._local, "depth", 0) + 1
+
+    def leave(self) -> None:
+        self._local.depth -= 1
+
+    # -- the command channel (rank 0 sends, every other rank receives) -----
+
+    def send_command(self, obj) -> None:
+        """Broadcast ``obj`` (pickled) from rank 0 on ``cmd``."""
+        import pickle
+
+        import torch
+
+        payload = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+        n = torch.tensor([len(payload)], dtype=torch.int64)
+        self.cmd.broadcast(n, 0).wait()
+        buf = torch.frombuffer(bytearray(payload), dtype=torch.uint8)
+        self.cmd.broadcast(buf, 0).wait()
+
+    def recv_command(self):
+        """The next object rank 0 broadcast on ``cmd`` (blocks while the
+        controller is idle; raises once it is gone)."""
+        import pickle
+
+        import torch
+
+        n = torch.zeros(1, dtype=torch.int64)
+        self.cmd.broadcast(n, 0).wait()
+        buf = torch.empty(int(n[0]), dtype=torch.uint8)
+        self.cmd.broadcast(buf, 0).wait()
+        return pickle.loads(buf.numpy().tobytes())
+
+    def send_to(self, rank: int, obj) -> None:
+        """``obj`` to one rank, point to point on ``cmd`` (torch.save:
+        tensors go as they are, a rank's weight shard)."""
+        import io
+
+        import torch
+
+        out = io.BytesIO()
+        torch.save(obj, out)
+        payload = out.getbuffer()
+        self.cmd.send([torch.tensor([len(payload)], dtype=torch.int64)],
+                      rank, 1).wait()
+        self.cmd.send([torch.frombuffer(payload, dtype=torch.uint8)],
+                      rank, 2).wait()
+
+    def recv_from(self, rank: int):
+        import io
+
+        import torch
+
+        n = torch.zeros(1, dtype=torch.int64)
+        self.cmd.recv([n], rank, 1).wait()
+        buf = torch.empty(int(n[0]), dtype=torch.uint8)
+        self.cmd.recv([buf], rank, 2).wait()
+        return torch.load(io.BytesIO(buf.numpy().tobytes()),
+                          weights_only=False)
+
+    def gather_ints(self, value: int) -> list[int]:
+        """Every rank's ``value`` (an int64) in rank order, on ``cmd``."""
+        import torch
+
+        if self.size == 1:
+            return [int(value)]
+        mine = torch.tensor([int(value)], dtype=torch.int64)
+        out = [torch.empty_like(mine) for _ in range(self.size)]
+        self.cmd.allgather([out], [mine]).wait()
+        return [int(o[0]) for o in out]
+
+    def close(self) -> None:
+        for pg in (self.pg, self.cmd):
+            if pg is not None:
+                try:
+                    pg.shutdown()
+                except Exception:  # noqa: BLE001 — a peer already gone
+                    pass
+        self.pg = self.cmd = None
+
+
+def tp_group(init: str, rank: int, size: int, *, device=None,
+             backend: str | None = None) -> TPGroup:
+    """Join the tensor-parallel group of ``size`` ranks that meets at
+    ``init`` (``file:///path``, a store on this host's disk) as
+    ``rank``. ``backend``: the collectives' (default: NCCL for a card
+    rank, gloo for a CPU one; ``"gloo"`` on the card stages its gathers
+    through host memory). The command channel is always gloo. Collectives
+    time out after :data:`TP_TIMEOUT_S`; the command channel waits as long
+    as the controller idles, and fails once it is gone."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    if not init.startswith("file://"):
+        raise ValueError(f"a tensor-parallel group meets at a file:// "
+                         f"store, got {init!r}")
+    device = torch.device(device) if device is not None else None
+    if backend is None:
+        backend = ("nccl" if device is not None and device.type == "cuda"
+                   else "gloo")
+    store = dist.FileStore(init[len("file://"):], size)
+    timeout = datetime.timedelta(seconds=TP_TIMEOUT_S)
+    pg = cmd = None
+    if backend == "nccl":
+        opts = dist.ProcessGroupNCCL.Options()
+        opts._timeout = timeout
+        pg = dist.ProcessGroupNCCL(dist.PrefixStore("tp", store), rank,
+                                   size, opts)
+    elif size > 1:
+        pg = dist.ProcessGroupGloo(dist.PrefixStore("tp", store), rank,
+                                   size, timeout)
+    if size > 1:
+        # an idle server's followers wait here for days; a controller
+        # that exits closes the sockets, which ends the wait at once
+        cmd = dist.ProcessGroupGloo(dist.PrefixStore("cmd", store), rank,
+                                    size, datetime.timedelta(days=30))
+    log_event(log, "tp group", rank=rank, size=size, backend=backend)
+    return TPGroup(rank, size, pg=pg, cmd=cmd, backend=backend,
+                   device=device, store=store)

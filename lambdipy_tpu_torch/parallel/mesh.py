@@ -16,8 +16,9 @@ its axis names, its shape and a numpy array of the global ranks
 is built without a process group (the tests compare it with JAX's on the
 host) and gives a ``torch.distributed.device_mesh.DeviceMesh`` only when
 asked, with a group up. Of the parallelisms the port trains ``dp`` (and
-FSDP over ``dp``); the others raise, each naming its ROADMAP item
-(:data:`MESH_REFUSED`).
+FSDP over ``dp``) and serves ``tp`` (:func:`serving_mesh`,
+``parallel/tpserve.py``); the others raise, each naming its ROADMAP item
+(:data:`MESH_REFUSED`, :data:`SERVING_REFUSED`).
 """
 
 from __future__ import annotations
@@ -31,16 +32,28 @@ import numpy as np
 
 MESH_AXES: tuple[str, ...] = ("dp", "fsdp", "pp", "tp", "sp", "ep")
 
-# the axes no port path runs yet, each with the ROADMAP item that ports it
+# the axes no training path runs yet, each with the ROADMAP item that
+# ports it
 MESH_REFUSED: dict[str, str] = {
-    "tp": "tensor parallelism is not ported yet (ROADMAP queue 1, item 3 "
-          "(c))",
+    "tp": "training's tensor parallelism is not ported yet (ROADMAP queue "
+          "1, item 3 (c))",
     "ep": "expert parallelism is not ported yet (ROADMAP queue 1, item 3 "
           "(d))",
     "sp": "sequence parallelism is not ported yet (ROADMAP queue 1, item 3 "
           "(e))",
     "pp": "pipeline parallelism is not ported yet (ROADMAP queue 1, item 3 "
           "(f))",
+}
+
+
+# the axes of a serving mesh no serving path runs yet: tensor parallelism
+# serves, replicas of a tp group (a dp axis) wait for item 3 (c2)
+SERVING_REFUSED: dict[str, str] = {
+    "dp": "a serving mesh's dp axis (replicas of a tensor-parallel group) "
+          "is not ported yet (ROADMAP queue 1, item 3 (c2))",
+    "ep": MESH_REFUSED["ep"],
+    "sp": MESH_REFUSED["sp"],
+    "pp": MESH_REFUSED["pp"],
 }
 
 
@@ -170,6 +183,23 @@ def refuse_unported(mesh: Mesh | dict) -> None:
         if int(shape.get(axis, 1)) > 1:
             raise NotImplementedError(f"mesh axis {axis}={shape[axis]}: "
                                       f"{text}")
+
+
+def serving_mesh(shape: dict) -> dict[str, int]:
+    """A serving mesh's ``{axis: size}`` (size-1 axes dropped), checked:
+    an unknown axis raises ``ValueError``, an axis above 1 that no serving
+    path runs ``NotImplementedError`` naming its ROADMAP item
+    (:data:`SERVING_REFUSED`); ``tp`` serves."""
+    shape = {str(a): int(n) for a, n in dict(shape or {}).items()
+             if int(n) > 1}
+    unknown = set(shape) - set(MESH_AXES)
+    if unknown:
+        raise ValueError(f"unknown mesh axes {sorted(unknown)}; known: "
+                         f"{MESH_AXES}")
+    for axis, text in SERVING_REFUSED.items():
+        if shape.get(axis, 1) > 1:
+            raise NotImplementedError(f"serving mesh {shape}: {text}")
+    return shape
 
 
 def job_mesh(mesh) -> Mesh | None:

@@ -222,16 +222,25 @@ def leaf_sharding(path: tuple, leaf, shardings: dict | None):
 
 
 def device_bytes(tree, shardings: dict | None = None) -> tuple[int, int]:
-    """``(per_rank_max, logical_total)`` bytes of a tree (dicts and
-    dataclasses, a ``TrainState``) of this rank's tensors, JAX's ``device_bytes``: ``logical_total`` is the unsharded
+    """``(per_rank_max, logical_total)`` bytes of a tree (dicts, lists
+    and dataclasses: a ``TrainState``, a decode cache) of this rank's
+    tensors, JAX's ``device_bytes``: ``logical_total`` is the unsharded
     footprint, a sharded leaf's bytes times its blocks (``shardings``,
     keyed as :func:`leaf_sharding` reads them; none: every leaf whole);
     ``per_rank_max`` the bytes this rank holds, which every rank holds
     alike, the shards being even. Metadata only: no device sync."""
     from lambdipy_tpu_torch.train.checkpoint import tree_paths
 
+    def lists_as_dicts(node):
+        # a decode cache or an arena is a list of per-layer dicts
+        if isinstance(node, (list, tuple)):
+            return {str(i): lists_as_dicts(v) for i, v in enumerate(node)}
+        if isinstance(node, dict):
+            return {k: lists_as_dicts(v) for k, v in node.items()}
+        return node
+
     per_rank = total = 0
-    for path, leaf in tree_paths(tree):
+    for path, leaf in tree_paths(lists_as_dicts(tree)):
         if not torch.is_tensor(leaf):
             continue
         nbytes = leaf.numel() * leaf.element_size()

@@ -192,7 +192,17 @@ boundaries, packed into a free slot.
   would otherwise capture at request time (the handler's background
   warm).
 
-Not ported yet (ROADMAP): meshes.
+- Tensor parallelism (a server over ``tp`` ranks, ``models/llama.py``,
+  ``parallel/tpserve.py``): the engine's device work is a handful of ops
+  of host arguments (``op_init_step``, ``op_reset_positions``,
+  ``op_prefill_rows``, ``op_pack``, ``op_segment``), which the server's
+  dispatcher runs on every rank in one order, each rank's engine mirror
+  (:func:`follower_engine`) over its own share of the step and arena;
+  the host logic above them (slots, block tables, windows, joiners,
+  the pipeline) runs on the controller alone. ``batching.mesh``
+  publishes JAX's ``MeshStats``. Speculative decoding, the long-context
+  tier, chunked prefill, prefix rows and the warm raise at ``tp > 1``,
+  naming ROADMAP queue 1, item 3 (c2).
 """
 
 from __future__ import annotations
@@ -209,28 +219,52 @@ import torch
 
 from lambdipy_tpu_torch.models.graphs import (DEVICE_LOCK, GraphStats,
                                               StepProgram, StepPrograms)
-from lambdipy_tpu_torch.models.llama import (DecodeStep, _kv_store,
+from lambdipy_tpu_torch.models.llama import (TP_C2, DecodeStep, _kv_store,
                                              _leaves, _mode, _next_bucket,
                                              _scan_decode, cache_width,
                                              init_decode_cache,
+                                             init_page_arena, kv_shardings,
                                              pack_prefill_into_pages,
-                                             row_streams, to_device,
-                                             verify_program)
+                                             page_kv_bytes, row_streams,
+                                             to_device, verify_program)
 from lambdipy_tpu_torch.models.spec import lookup_draft_hit
 from lambdipy_tpu_torch.runtime.faults import (EngineWatchdogTimeout,
                                                FaultPlan)
 from lambdipy_tpu_torch.runtime.metrics import (DecodeWindowStats,
                                                 EngineFaultStats,
-                                                EngineStats, PipelineStats,
-                                                PrefillStats,
+                                                EngineStats, MeshStats,
+                                                PipelineStats, PrefillStats,
                                                 SpecDecodeStats)
-from lambdipy_tpu_torch.runtime.pagepool import PagesExhausted
+from lambdipy_tpu_torch.runtime.pagepool import PagePool, PagesExhausted
 from lambdipy_tpu_torch.sched import (current_request_class,
                                       current_request_deadline_ms)
 
 log = logging.getLogger("lambdipy_tpu_torch.continuous")
 
 _entry_seq = itertools.count()
+_engine_ids = itertools.count()
+
+
+def follower_engine(targets, group, *, slots: int, segment: int,
+                    cache_len: int, window_bucketing: bool, pool):
+    """A follower's mirror of the controller's engine
+    (``parallel/tpserve.py``): an engine of the same geometry over the
+    follower's server and its own share of the arena (``pool``: ``(pages,
+    page)`` or None), whose device ops the controller's dispatcher calls;
+    it never starts a thread of its own."""
+    server = targets["server"]
+    page_pool = None
+    if pool is not None:
+        n_pages, page = pool
+        cfg = server.model.cfg
+        page_pool = PagePool(
+            n_pages=n_pages, page=page, page_bytes=page_kv_bytes(cfg, page),
+            make_arena=lambda: init_page_arena(cfg, n_pages, page,
+                                               server.device),
+            window_pages=cache_len // page)
+    return ContinuousBatcher(server, slots=slots, segment=segment,
+                             cache_len=cache_len, page_pool=page_pool,
+                             window_bucketing=window_bucketing)
 
 # prompts longer than this prefill alone on their request thread
 GROUP_PREFILL_MAX = 256
@@ -454,6 +488,47 @@ class ContinuousBatcher:
                         "long-context tier stands down",
                         self.max_logical_ctx)
             self.max_logical_ctx = 0
+        # -- tensor-parallel serving (JAX continuous.py:316-345) -----------
+        # a server over a mesh of more than one device publishes its layout
+        # and live per-device bytes as batching.mesh; over tp ranks every
+        # device op below goes through the server's dispatcher
+        self.mesh_stats = None
+        self._tp = getattr(server, "dispatcher", None)
+        self._tp_name = None
+        mesh = getattr(server, "mesh", None)
+        if mesh is not None and mesh.size > 1:
+            shape = {a: int(n) for a, n in mesh.shape.items() if int(n) > 1}
+            self.mesh_stats = MeshStats()
+            self.mesh_stats.set_layout(
+                shape=shape, devices=mesh.size,
+                # Megatron layout, per decoded token: the embedding's
+                # all-reduce, o_proj's and down_proj's per layer and the
+                # logits' all-gather (analytic; 0 without a tp axis)
+                collectives_per_segment=(
+                    self.segment * (2 * cfg.layers + 2)
+                    if shape.get("tp", 1) > 1 else 0))
+            from lambdipy_tpu_torch.models.registry import _llama_tp_rules
+            from lambdipy_tpu_torch.parallel.sharding import (
+                device_bytes, param_shardings)
+
+            weights = server.model.state_dict()
+            self.mesh_stats.set_param_bytes(*device_bytes(
+                weights, param_shardings(weights, mesh, _llama_tp_rules())))
+        if self._tp is not None:
+            for on, what in ((self.spec_k, "speculative decoding"),
+                             (self.max_logical_ctx, "the long-context tier"),
+                             (server.prefill_chunk, "chunked prefill")):
+                if on:
+                    raise NotImplementedError(TP_C2.format(what))
+            self._tp_name = f"engine:{next(_engine_ids)}"
+            self._tp.create(
+                self._tp_name,
+                "lambdipy_tpu_torch.runtime.continuous:follower_engine",
+                self, slots=self.slots, segment=self.segment,
+                cache_len=self.cache_len,
+                window_bucketing=self.window_bucketing,
+                pool=((page_pool.n_pages, page_pool.page)
+                      if page_pool is not None else None))
 
     # -- paged-KV helpers ----------------------------------------------------
 
@@ -517,6 +592,92 @@ class ContinuousBatcher:
         pids = (entry or {}).get("pages") or []
         row[:min(nb, len(pids))] = pids[:nb]
         return row
+
+    # -- device ops ------------------------------------------------------------
+    # The engine's device work, as calls of host arguments (and prefill
+    # handles): on one device a plain method call; over tensor-parallel
+    # ranks each goes through the server's dispatcher, which runs it on
+    # every rank's engine in one order (caller holds ``DEVICE_LOCK``).
+
+    def _dev(self, op: str, *args, keep: bool = False):
+        if self._tp is None:
+            return getattr(self, op)(*args)
+        return self._tp.call(self._tp_name, op, *args, keep=keep)
+
+    def op_init_step(self) -> None:
+        """A fresh all-empty step (a follower's old one, of a generation
+        the controller dropped, goes first)."""
+        if self._step is not None:
+            programs = self._detach()
+            if programs is not None:
+                programs.close()
+        self._step = self._init_step()
+
+    def op_reset_positions(self, slots: list) -> None:
+        """Empty slots restart at position 0: their garbage stays short."""
+        for slot in slots:
+            self._step.pos[slot] = 0
+
+    def op_prefill_rows(self, tokens, lengths, knobs, gens):
+        """A ragged prefill of host rows through the server's program of
+        their shape: ``(first, lp0, prefill cache)``."""
+        return self.server._rows_prefill(tokens, lengths, knobs, gens,
+                                         stats=self.stats_counters)
+
+    def op_pack(self, prefill, src: int, slot: int, pos0: int, stream,
+                pages) -> None:
+        """Row ``src`` of ``prefill`` into ``slot``: its first token,
+        logprob, position ``pos0`` and ``stream`` into the step, its K/V
+        into the slot's cache row (dense) or its ``pages`` (paged; none
+        for a paged prefix row, whose K/V is in its pages already)."""
+        step = self._step
+        first, lp0, cache = prefill
+        step.tok[slot] = first[src]
+        step.lp[slot] = lp0[src]
+        step.pos[slot] = pos0
+        step.set_stream(slot, stream)
+        cfg = self.server.model.cfg
+        if cache is None:
+            pass
+        elif self.pool is not None:
+            # the row's own pages: a prefill's positions past them (its
+            # bucket's padding, a chunked row's window) are never read
+            nb = self.cache_len // self.pool.page
+            table = torch.as_tensor(np.asarray(pages[:nb], np.int32),
+                                    device=self.server.device)
+            with self.pool.arena_lock:
+                pack_prefill_into_pages(cfg, self.pool.arena, table, cache,
+                                        src)
+        else:
+            for dest, pc in zip(step.cache, cache):
+                width = min(cache_width([pc]), self.cache_len)
+                rows = {name: val[src, :width]
+                        for name, val in _leaves(pc).items()}
+                if "k" in rows:  # float K/V: into the store layout
+                    rows = _kv_store(cfg, rows["k"], rows["v"])
+                for name, val in rows.items():
+                    dest[name][slot, :width] = val
+
+    def _load_segment(self, view, temp, top_k, top_p, tables) -> None:
+        """A segment's knobs, and (paged) every slot's block table, into
+        the step's buffers (from pinned memory: a pageable copy would wait
+        for the segments in flight)."""
+        self._step.set_knobs(temp, top_k, top_p)
+        if tables is not None:
+            to_device((view or self._step).tables, tables)
+
+    def op_segment(self, k: int, window, temp, top_k, top_p, tables,
+                   sampled: bool):
+        """``k`` decode steps of every slot at ``window`` (a narrowed view
+        of the step; None: the full step): ``(tokens [B, k], logprobs [B,
+        k])`` on the device."""
+        view = self._view(window) if window is not None else None
+        self._load_segment(view, temp, top_k, top_p, tables)
+        prog = self._program(sampled, view)
+        lock = (self.pool.arena_lock if self.pool is not None
+                else contextlib.nullcontext())
+        with lock:
+            return _scan_decode(prog.run, self._step, k, segment=True)
 
     # -- device helpers ------------------------------------------------------
 
@@ -613,8 +774,8 @@ class ContinuousBatcher:
             [e["top_k"] for e in entries], [e["top_p"] for e in entries],
             [e["seed"] for e in entries], None, b=bb)
         gens[:len(entries)] = [e["gen"] for e in entries]
-        return server._rows_prefill(tokens, lengths, (temp, tk, tp), gens,
-                                    stats=self.stats_counters)
+        return self._dev("op_prefill_rows", tokens, lengths, (temp, tk, tp),
+                         gens, keep=True)
 
     def _knobs(self, entry: dict):
         """A row's knobs as host arrays and whether it samples."""
@@ -630,34 +791,11 @@ class ContinuousBatcher:
         (paged). A paged prefix row's K/V is in its pages already (no
         cache); a plain prefill's float K/V is stored in the cache's
         layout, and a dense prefix row's continuation cache and a chunked
-        row's cache, in that layout already, are copied as they are."""
-        step, slot = self._step, entry["slot"]
-        first, lp0, cache = prefill
-        step.tok[slot] = first[src]
-        step.lp[slot] = lp0[src]
-        step.pos[slot] = entry["pos0"]
-        step.set_stream(slot, entry["gen"])
-        cfg = self.server.model.cfg
-        if cache is None:
-            pass
-        elif self.pool is not None:
-            # the row's own pages: a prefill's positions past them (its
-            # bucket's padding, a chunked row's window) are never read
-            nb = self.cache_len // self.pool.page
-            table = torch.as_tensor(np.asarray(entry["pages"][:nb], np.int32),
-                                    device=self.server.device)
-            with self.pool.arena_lock:
-                pack_prefill_into_pages(cfg, self.pool.arena, table, cache,
-                                        src)
-        else:
-            for dest, pc in zip(step.cache, cache):
-                width = min(cache_width([pc]), self.cache_len)
-                rows = {name: val[src, :width]
-                        for name, val in _leaves(pc).items()}
-                if "k" in rows:  # float K/V: into the store layout
-                    rows = _kv_store(cfg, rows["k"], rows["v"])
-                for name, val in rows.items():
-                    dest[name][slot, :width] = val
+        row's cache, in that layout already, are copied as they are (:meth:`op_pack`)."""
+        pages = (list(entry.get("pages") or [])
+                 if self.pool is not None else None)
+        self._dev("op_pack", prefill, src, entry["slot"], entry["pos0"],
+                  entry["gen"], pages)
         with self._lock:
             if gen != self._gen:
                 raise _StaleEngine()  # a failure reset the entry meanwhile
@@ -816,7 +954,7 @@ class ContinuousBatcher:
         decode kernels; the record carries JAX's window sums for
         ``decode_window``. Returns the in-flight record :meth:`_collect`
         books; the caller moves the rows' ``disp`` by its ``k``."""
-        step, b = self._step, self.slots
+        b = self.slots
         rows = [(slot, e) for slot, e in live
                 if not e["done"] and (self.spec_k or e["disp"] < e["n"])]
         kb = self._verify_width(rows)
@@ -838,17 +976,13 @@ class ContinuousBatcher:
             temp[slot] = e["temperature"] or 0.0
             top_k[slot] = e["top_k"] or 0
             top_p[slot] = 1.0 if e["top_p"] is None else e["top_p"]
-        # from pinned memory: a pageable copy would wait for the segments
-        # in flight before this dispatch could be enqueued
-        step.set_knobs(temp, top_k, top_p)
-        lock = contextlib.nullcontext()
+        tables = None
         if self.pool is not None:
             # every occupied slot's table, finished rows' too: their
             # garbage steps write into their own pages or the null page
-            tables = (view or step).tables
-            to_device(tables, np.stack(
-                [self._table_row(e, tables.shape[1]) for e in self._active]))
-            lock = self.pool.arena_lock
+            nb = (window if view is not None else self.cache_len) \
+                // self.pool.page
+            tables = np.stack([self._table_row(e, nb) for e in self._active])
         sampled = bool((temp > 0).any())
         rec = {"rows": live, "k": k, "event": None, "window": {
             "attended": sum(k * p + k * (k + 1) // 2 for p in positions),
@@ -856,6 +990,9 @@ class ContinuousBatcher:
             "full_window": len(positions) * k * self.cache_len,
             "window": window}}
         if kb:
+            self._load_segment(view, temp, top_k, top_p, tables)
+            lock = (self.pool.arena_lock if self.pool is not None
+                    else contextlib.nullcontext())
             draft, use_model, rec["assumed"] = self._drafts(rows, kb)
             exit_layer = self.draft_exit if use_model is not None else None
             prog = verify_program(self._entry(), kb, sampled,
@@ -874,10 +1011,12 @@ class ContinuousBatcher:
                 len(rows), kb, kb - 1 if exit_layer else 0,
                 beside_walk=self._walking > 0)
         else:
-            prog = self._program(sampled, view)
             rec["t_dispatch"] = time.monotonic()
-            with lock:
-                toks, lps = _scan_decode(prog.run, step, k, segment=True)
+            toks, lps = self._dev("op_segment", k,
+                                  window if view is not None else None,
+                                  temp, top_k, top_p, tables, sampled)
+            if self.mesh_stats is not None:
+                self.mesh_stats.record_segment()
             self.stats_counters.record_segment(
                 k, len(rows), beside_walk=self._walking > 0)
         need_lp = any(e["want_lp"] for _, e in rows)
@@ -1492,12 +1631,10 @@ class ContinuousBatcher:
                     self.release()  # its graphs hold the old arena's addresses
                 with DEVICE_LOCK:
                     if self._step is None:
-                        self._step = self._init_step()
-                    for slot, e in enumerate(self._active):
-                        if e is None:
-                            # an empty slot restarts at position 0: its
-                            # garbage stays short
-                            self._step.pos[slot] = 0
+                        self._dev("op_init_step")
+                    self._dev("op_reset_positions",
+                              [slot for slot, e in enumerate(self._active)
+                               if e is None])
                     self._pack_joiners([e for _, e in live
                                         if not e["packed"]], gen)
                 with self._lock:
@@ -1755,6 +1892,8 @@ class ContinuousBatcher:
                  # one-row request; it travels with the row's slot
                  "gen": row_streams([(seed, 0)])[0]}
         entry["draft_mode"], entry["k_row"] = self._spec_row_init()
+        if prefix is not None and self._tp is not None:
+            raise NotImplementedError(TP_C2.format("the prefix cache"))
         if prefix is not None:
             if not self._admit_prefix(entry, prefix, max_new_tokens):
                 return None
@@ -1985,6 +2124,8 @@ class ContinuousBatcher:
         ``DEVICE_LOCK`` for its run (on the card, its capture). Returns
         the programs run; meant for the handler's background warm. The
         port has no AOT store, so nothing is saved afterwards."""
+        if self._tp is not None:
+            raise NotImplementedError(TP_C2.format("the background warm"))
         counts, bb = [], 2
         while bb <= self.slots:
             counts.append(bb)
@@ -2046,8 +2187,29 @@ class ContinuousBatcher:
                    "faults": self.fault_stats.report(),
                    **({"fault_plan": self.faults.describe()}
                       if self.faults.active() else {})}
+            if self.mesh_stats is not None:
+                out["mesh"] = self._mesh_report_locked()
         if self._longctx is not None:
             out["long_context"] = self._longctx.report()
         if self.pool is not None:
             out["page_pool"] = self.pool.stats()
         return out
+
+    def _mesh_report_locked(self) -> dict:
+        """``batching.mesh``: the KV byte gauges refreshed from the live
+        engine state (the step's cache, or the paged arena), shard
+        metadata only, no device read (JAX ``continuous.py:2437-2455``);
+        caller holds the engine lock."""
+        from lambdipy_tpu_torch.parallel.sharding import device_bytes
+
+        kv = None
+        if self.pool is not None:
+            kv = self.pool.arena
+        elif self._step is not None:
+            kv = [{name: val for name, val in entry.items()
+                   if name in _leaves(entry) or name == "index"}
+                  for entry in self._step.cache]
+        if kv is not None:
+            self.mesh_stats.set_kv_bytes(*device_bytes(
+                kv, kv_shardings(self.server.mesh)))
+        return self.mesh_stats.report()

@@ -32,7 +32,18 @@ engine buckets its decode windows (``batch_window_bucketing``, on by
 default, as in JAX); without the engine, ``batch_window_ms > 0`` fuses
 concurrent single-row requests in the MicroBatcher
 (``runtime/batching.py``). Each extra the JAX handler also takes from a
-``LAMBDIPY_*`` variable is resolved with the JAX handler's precedence."""
+``LAMBDIPY_*`` variable is resolved with the JAX handler's precedence.
+
+Tensor-parallel serving: the ``mesh`` extra (or ``LAMBDIPY_MESH``; the
+extra wins, and ``off`` replaces a spec-level ``[payload.mesh]``) serves
+the model over ``tp`` ranks, one process per device
+(``parallel/tpserve.py``): the card's ``tp`` cards, or ``tp`` processes
+on the CPU with ``device="cpu"``; a card mesh that needs more cards than
+the host has degrades to one, loudly, as JAX does on too few devices
+(``meta.sharded`` false). At ``tp > 1`` the prefix store and the
+background warm raise, naming ROADMAP queue 1, item 3 (c2): such a
+bundle sets ``prefix_cache_mb = 0`` (and ``warm_group_prefill = 0`` with
+the engine)."""
 
 from __future__ import annotations
 
@@ -50,8 +61,9 @@ import torch
 
 from lambdipy_tpu_torch.models import registry
 from lambdipy_tpu_torch.models.graphs import ForwardProgram
-from lambdipy_tpu_torch.models.llama import (_next_bucket, init_page_arena,
-                                             page_kv_bytes)
+from lambdipy_tpu_torch.models.llama import (TP_C2, _next_bucket,
+                                             init_page_arena, page_kv_bytes,
+                                             whole_config)
 from lambdipy_tpu_torch.models.params import load_params
 from lambdipy_tpu_torch.ops.attention import flash_attention
 from lambdipy_tpu_torch.ops.decode_attention import (blocked_decode_attention,
@@ -129,6 +141,13 @@ class HandlerState:
     # ForwardProgram; its model is .model), for callers that drive it
     # directly
     forward: Any = None
+    # release what the handler holds beyond this process (a tensor-parallel
+    # server's follower ranks); the bundle server calls it when it stops
+    close_fn: Callable[[], None] | None = None
+
+    def close(self) -> None:
+        if self.close_fn is not None:
+            self.close_fn()
 
     def invoke(self, request: dict) -> dict:
         """JAX's: the handler gets a copy of ``request`` (``{}`` for
@@ -181,21 +200,59 @@ def kernel_launches() -> dict:
             "flash_attention": flash_attention.launches}
 
 
-# engine extras of the JAX handler whose features need a serving mesh,
-# which the port does not have yet: the value each may take (the feature
-# off), anything else raises naming its ROADMAP item
+# engine extras of the JAX handler whose features need a sequence-parallel
+# mesh, which the port does not have yet: the value each may take (the
+# feature off), anything else raises naming its ROADMAP item
 _UNPORTED_ENGINE_EXTRAS = {
     "prefill_mode": ("chunked",),
-    "mesh": ("", "off"),
 }
 _UNPORTED_ITEM = {
     "prefill_mode": "ROADMAP queue 1, item 3 (e): sequence parallelism",
-    "mesh": "ROADMAP queue 1, item 3 (c): tensor parallelism",
 }
 # the variables the JAX handler reads for those features when their extra
 # is unset (the extra wins): a value that turns the feature on raises too
-_UNPORTED_ENV = {"LAMBDIPY_MESH": "mesh",
-                 "LAMBDIPY_PREFILL_MODE": "prefill_mode"}
+_UNPORTED_ENV = {"LAMBDIPY_PREFILL_MODE": "prefill_mode"}
+
+
+def resolve_mesh(spec: dict) -> dict:
+    """``spec`` with its serving mesh resolved as the JAX handler resolves
+    it (``handlers.py:359-377``): the ``mesh`` extra (``"tp=2"``,
+    ``"2"``, ``"2x2"``, ``"off"``...), else ``LAMBDIPY_MESH`` (the ``serve
+    --mesh`` bridge), parsed; an explicit knob replaces any spec-level
+    ``[payload.mesh]``, ``off`` included, which then serves on one
+    device."""
+    raw = (spec.get("extra") or {}).get("mesh",
+                                        os.environ.get("LAMBDIPY_MESH"))
+    if raw is None:
+        return spec
+    from lambdipy_tpu_torch.parallel.mesh import parse_mesh_spec
+
+    return {**spec, "mesh": parse_mesh_spec(str(raw))}
+
+
+def serving_shape(spec: dict, device) -> dict | None:
+    """The payload mesh a Llama serves over (JAX's ``_maybe_shard``,
+    ``handlers.py:224-259``): None for none (or size-1 axes only); an
+    axis no serving path runs raises (``parallel/mesh.py
+    serving_mesh``: ``dp`` names item 3 (c2)); a card mesh that needs
+    more cards than the host has degrades to one device, LOUDLY, with
+    JAX's warning (``meta.sharded`` false). On the CPU the mesh's ranks
+    are processes of this host."""
+    from lambdipy_tpu_torch.parallel.mesh import serving_mesh
+
+    shape = serving_mesh({k: v for k, v in (spec.get("mesh") or {}).items()
+                          if int(v) > 1})
+    if not shape:
+        return None
+    needed = math.prod(shape.values())
+    if resolve_device(device).type == "cuda" \
+            and torch.cuda.device_count() < needed:
+        get_logger("lambdipy.handlers").warning(
+            "mesh %s needs %d devices but only %d are visible: "
+            "degrading to SINGLE-DEVICE serving (meta.sharded=false)",
+            shape, needed, torch.cuda.device_count())
+        return None
+    return shape
 
 
 def _check_unported_extras(extra: dict) -> None:
@@ -268,6 +325,9 @@ def make_prefix_store(server, engine, extra: dict,
     if not routable or (mb is not None and mb <= 0) \
             or (cfg.kv_quant is not None and mb is None):
         return None
+    if server.sharded:
+        raise ValueError(TP_C2.format("the prefix store") + "; set "
+                         "prefix_cache_mb = 0 (LAMBDIPY_PREFIX_CACHE_MB=0)")
     pool = engine.pool if engine is not None else None
     # the store's cold walks and the engine's chunked prefills report in
     # one prefill block, as in the JAX handler
@@ -535,8 +595,12 @@ def make_engine(server, extra: dict) -> ContinuousBatcher:
         raw = extra.get("kv_pages", os.environ.get("LAMBDIPY_KV_PAGES"))
         n_pages = max(2, int(raw) if raw not in (None, "")
                       else slots * window_pages + 1)
+        # page_bytes is the logical page's (JAX: the pool's accounting is
+        # mesh-agnostic); a tensor-parallel rank's arena is born its
+        # share, its kv heads over tp (its config is the share's)
         pool = PagePool(
-            n_pages=n_pages, page=page, page_bytes=page_kv_bytes(cfg, page),
+            n_pages=n_pages, page=page,
+            page_bytes=page_kv_bytes(whole_config(cfg), page),
             make_arena=lambda: init_page_arena(cfg, n_pages, page,
                                                server.device),
             window_pages=window_pages)
@@ -570,6 +634,7 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
     (the client's split is kept): the prompt's longest cached block head
     becomes the ``prefix=`` of a suffix-only request, and a response
     served from a cached prefix says ``"prefix_cached": true``."""
+    spec = resolve_mesh(spec)
     extra = dict(spec.get("extra") or {})
     _check_unported_extras(extra)
     # a converted checkpoint records its architecture in the manifest; it
@@ -606,9 +671,25 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
         server_kw["prefill_chunk"] = int(extra["prefill_chunk"])
     if extra.get("min_bucket") is not None:
         server_kw["min_bucket"] = int(extra["min_bucket"])
-    # on the card every decode step replays a captured CUDA graph
+    # on the card every decode step replays a captured CUDA graph; over a
+    # tensor-parallel mesh the server is rank 0 of tp ranks, eager
+    mesh = serving_shape(spec, ctx.device)
+    if mesh is not None:
+        server_kw["mesh"] = mesh
     server = adapter.make_server(state_dict, device=ctx.device,
                                  **server_kw)
+    try:
+        return _generate_state(spec, ctx, adapter, server, extra, mesh)
+    except BaseException:
+        if server.dispatcher is not None:
+            server.dispatcher.close()
+        raise
+
+
+def _generate_state(spec: dict, ctx: HandlerContext, adapter, server,
+                    extra: dict, mesh: dict | None) -> HandlerState:
+    """:func:`generate_handler` past its server: the engine or the
+    MicroBatcher, the prefix store, and the state's closures."""
     # batch formation as in JAX (handlers.py:460-650): batch_mode
     # continuous builds the engine; otherwise batch_window_ms > 0 builds
     # the MicroBatcher, whose ragged calls single-row requests share;
@@ -1062,6 +1143,9 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
     warm_started = False
     warm_group = (engine is not None
                   and str(extra.get("warm_group_prefill", "1")) != "0")
+    if server.sharded and (warm_state["requested"] or warm_group):
+        raise ValueError(TP_C2.format("the background warm") + "; set "
+                         "warm_group_prefill = 0 and no warm_buckets")
 
     def _maybe_start_warm():
         nonlocal warm_started
@@ -1108,6 +1192,11 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
         out = {"kernels": kernel_launches(), **server.program_stats()}
         if engine is not None or micro is not None:
             out["batching"] = (engine or micro).stats()
+        if server.dispatcher is not None:
+            # the tensor-parallel group beside JAX's mesh block: whether it
+            # can serve, the commands sent, what broke it
+            out.setdefault("batching", {}).setdefault("mesh", {})[
+                "group"] = server.dispatcher.stats()
         # the solo "speculative" path's cumulative counters (the engine's
         # batching.spec block reads the same object)
         out["spec"] = server.spec_metrics.report()
@@ -1130,12 +1219,25 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
                     for k, v in warm_state.items()}
         return out
 
+    def fault_state() -> dict:
+        """The engine's O(1) fault state; a tensor-parallel group that
+        cannot serve (broken, or a follower exited) is ``wedged``: the
+        process answers probes, every request fails, and the fleet routes
+        around it."""
+        out = engine.fault_state() if engine is not None else {}
+        if server.dispatcher is not None:
+            group = server.dispatcher.stats()
+            out = {**out, "wedged": bool(out.get("wedged"))
+                   or not group["ok"], "tp_group": group}
+        return out
+
     ship_stats = KvShipStats()
     ship = kv_ship_fns(store, ship_stats) if store is not None else {}
     cfg = adapter.config
     return HandlerState(
         invoke_fn=invoke,
-        meta={"model": spec["model"], "max_len": cfg.max_len,
+        meta={"model": spec["model"], "quant": spec.get("quant"),
+              "max_len": cfg.max_len,
               "device": str(server.device),
               "attn_backend": cfg.attn_backend,
               "matmul_backend": cfg.matmul_backend,
@@ -1146,18 +1248,23 @@ def generate_handler(spec: dict, ctx: HandlerContext) -> HandlerState:
               "prefix_cache": store is not None,
               "sessions": store is not None,
               "kv_ship": store is not None,
+              "sharded": mesh is not None,
+              "mesh": dict(mesh) if mesh is not None else None,
               "tokenizer": tokenizer is not None,
               **({"tokenizer_error": tok_err} if tok_err else {})},
         stats_fn=stats, server=server, invoke_stream_fn=invoke_stream,
         engine=engine, batcher=micro, prefix_store=store,
         prefix_probe=store.match_len if store is not None else None,
         extra=extra,
-        engine_fault_fn=engine.fault_state if engine is not None else None,
+        engine_fault_fn=(fault_state if engine is not None
+                         or server.dispatcher is not None else None),
         debug_invariants_fn=debug_invariants, faults_admin_fn=faults_admin,
         knobs_admin_fn=knobs_admin,
         # a bare dict read: what a health probe may cost
         warming_fn=lambda: bool(warm_state["in_flight"]),
         session_end_fn=store.end_session if store is not None else None,
+        close_fn=(server.dispatcher.close if server.dispatcher is not None
+                  else None),
         **ship)
 
 
@@ -1228,9 +1335,9 @@ def _adapter_and_params(spec: dict, ctx: HandlerContext, device):
 
 
 def _single_device(spec: dict) -> None:
-    """A payload mesh needs more than the one device the port serves on
-    (a serving mesh is tensor parallelism, ROADMAP queue 1, item 3 (c)):
-    serve on one, loudly, as JAX does on a host with too few devices
+    """A classify handler's payload mesh: the port serves it on one
+    device (a classify model over a mesh is ROADMAP queue 1, item 3
+    (c2)), loudly, as JAX does on a host with too few devices
     (``meta.sharded`` false)."""
     mesh = {k: v for k, v in (spec.get("mesh") or {}).items() if v > 1}
     if mesh:

@@ -2,7 +2,7 @@
 port's copies of ``LatencyStats``, ``PipelineStats``, ``PagePoolStats``
 and ``PrefixCacheStats`` (``lambdipy_tpu/runtime/metrics.py``),
 ``PrefillStats`` cut to the chunked walk, ``DecodeWindowStats``,
-``EngineFaultStats``, the
+``EngineFaultStats``, ``MeshStats`` (tensor-parallel serving), the
 prefix store's tiers (``KvOffloadStats``, ``KvShipStats``), the fleet's
 (``DisaggStats``, ``SessionStats``, ``RouterStats``, ``ControllerStats``:
 the router's ``fleet.disagg``, ``fleet.sessions``, ``router`` and
@@ -107,6 +107,81 @@ class DecodeWindowStats:
                 "segments": self.segments,
                 "buckets": {str(w): n
                             for w, n in sorted(self.buckets.items())},
+            }
+
+
+@dataclass
+class MeshStats:
+    """JAX's ``MeshStats`` (``metrics.py:114-175``), field for field:
+    gauges + counters for tensor-parallel sharded serving (the
+    ``batching.mesh`` block on ``/metrics``). ``shape`` is the serving
+    mesh ({axis: size}, size-1 axes omitted) over ``devices`` chips.
+    The byte gauges are refreshed from the LIVE engine state at scrape
+    time (host-only shard metadata, no device reads):
+    ``kv_bytes_per_device`` is the busiest device's share of the
+    engine's KV residency (B-slot carry, or the paged arena) vs
+    ``kv_bytes_replicated`` — the same object's single-device
+    footprint (the port: this rank's share against the whole, one
+    process per device); ``hbm_savings`` is their ratio (~1/tp when the head
+    sharding holds, 1.0 means the mesh is paying collectives for
+    nothing). ``param_bytes_per_device`` / ``param_bytes_total`` track
+    the weights the same way. ``collectives_per_segment`` is the
+    analytic Megatron-layout count for one engine segment — per decoded
+    token, one all-reduce for the vocab-sharded embedding lookup, one
+    after the row-parallel o_proj and one after down_proj per layer,
+    plus one lm_head logits all-gather per select — i.e.
+    ``segment * (2 * layers + 2)``; 0 on a tp-less mesh.
+    ``segments_sharded`` counts segments dispatched over the mesh."""
+
+    shape: dict = field(default_factory=dict)
+    devices: int = 1
+    kv_bytes_per_device: int = 0
+    kv_bytes_replicated: int = 0
+    param_bytes_per_device: int = 0
+    param_bytes_total: int = 0
+    collectives_per_segment: int = 0
+    segments_sharded: int = 0
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def set_layout(self, *, shape: dict, devices: int,
+                   collectives_per_segment: int) -> None:
+        with self._lock:
+            self.shape = {str(a): int(n) for a, n in shape.items()}
+            self.devices = int(devices)
+            self.collectives_per_segment = int(collectives_per_segment)
+
+    def set_kv_bytes(self, per_device: int, replicated: int) -> None:
+        with self._lock:
+            self.kv_bytes_per_device = int(per_device)
+            self.kv_bytes_replicated = int(replicated)
+
+    def set_param_bytes(self, per_device: int, total: int) -> None:
+        with self._lock:
+            self.param_bytes_per_device = int(per_device)
+            self.param_bytes_total = int(total)
+
+    def record_segment(self, n: int = 1) -> None:
+        with self._lock:
+            self.segments_sharded += int(n)
+
+    def report(self) -> dict:
+        with self._lock:
+            rep = self.kv_bytes_replicated
+            return {
+                "shape": dict(self.shape),
+                "devices": self.devices,
+                "kv_bytes_per_device": self.kv_bytes_per_device,
+                "kv_bytes_replicated": rep,
+                "hbm_savings": (round(self.kv_bytes_per_device / rep, 4)
+                                if rep else 1.0),
+                "param_bytes_per_device": self.param_bytes_per_device,
+                "param_bytes_total": self.param_bytes_total,
+                "param_savings": (
+                    round(self.param_bytes_per_device
+                          / self.param_bytes_total, 4)
+                    if self.param_bytes_total else 1.0),
+                "collectives_per_segment": self.collectives_per_segment,
+                "segments_sharded": self.segments_sharded,
             }
 
 

@@ -1076,7 +1076,9 @@ class BundleServer:
         """Drain, then stop: admission closes first (new invokes are shed
         503 ``draining`` by the server's gate and the scheduler), then the
         invokes in flight and those already queued finish, for at most
-        ``drain_grace`` seconds, then the socket closes."""
+        ``drain_grace`` seconds, then the socket closes and the handler
+        lets go of what it holds beyond this process
+        (``HandlerState.close``: a tensor-parallel server's followers)."""
         with self._inflight_lock:
             self.draining = True
             if self._stopped:
@@ -1091,6 +1093,10 @@ class BundleServer:
         if self._thread is not None \
                 and self._thread is not threading.current_thread():
             self._thread.join(timeout=10)
+        # a tensor-parallel handler's follower ranks stop with the server
+        close = getattr(self.state, "close", None)
+        if close is not None:
+            close()
 
 
 def serve_until_term(server: BundleServer, ready: dict) -> None:

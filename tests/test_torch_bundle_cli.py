@@ -9,8 +9,8 @@
   ``LAMBDIPY_PLATFORM=cpu``) prints JAX's server readiness line and exits
   0 on SIGTERM;
 - the JAX ``serve`` flags the port takes set the ``LAMBDIPY_*``
-  variables the JAX CLI sets, and ``--mesh`` / ``--prefill-mode sp`` exit
-  before boot.
+  variables the JAX CLI sets, and a ``--mesh`` with a ``dp`` axis and
+  ``--prefill-mode sp`` exit before boot.
 """
 
 import json
@@ -155,10 +155,14 @@ def test_cli_flags_set_the_handlers_environment(monkeypatch):
         "LAMBDIPY_DRAFT_EXIT": "2", "LAMBDIPY_MESH": "off"}
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "tp=2"],
-                                   ["--prefill-mode", "sp"]])
-def test_cli_refuses_unported_flags_before_boot(monkeypatch, flags):
+@pytest.mark.parametrize("flags,match", [
+    (["--mesh", "2x2"], r"dp axis .* item 3 \(c2\)"),
+    (["--prefill-mode", "sp"], "does not have yet")])
+def test_cli_refuses_unported_flags_before_boot(monkeypatch, flags, match):
+    """``--mesh tp=2`` serves; a mesh with a ``dp`` axis (ROADMAP queue 1,
+    item 3 (c2)) and ``--prefill-mode sp`` exit before boot, setting
+    nothing."""
     _clear(monkeypatch)
-    with pytest.raises(SystemExit, match="does not have yet"):
+    with pytest.raises(SystemExit, match=match):
         apply_flags(parser().parse_args(["serve", "b", *flags]))
     assert os.environ.get("LAMBDIPY_MESH") is None

@@ -345,8 +345,9 @@ def test_handler_wiring(weights):
     """``batch_mode=continuous`` + ``kv_paged`` build the engine and its
     arena; single rows ride the engine, multi-row requests run as one
     batch; ``/metrics`` carries the engine, its pool and the paged kernel
-    counters; a mesh raises; window bucketing and the MicroBatcher build
-    as in JAX; and ``prefix_cache_mb`` builds the prefix store."""
+    counters; a tp=2 mesh with the default prefix store raises, naming
+    ROADMAP queue 1, item 3 (c2); window bucketing and the MicroBatcher
+    build as in JAX; and ``prefix_cache_mb`` builds the prefix store."""
     state = generate_handler(
         {"model": "llama-tiny", "dtype": "float32",
          "extra": {**EXTRA, **ENGINES["paged"], "batch_mode": "continuous",
@@ -367,7 +368,7 @@ def test_handler_wiring(weights):
     assert stats["batching"]["page_pool"]["pages_total"] == 16
     assert {"paged_decode_attention", "paged_decode_attention_int8kv"} \
         <= set(stats["kernels"])
-    with pytest.raises(ValueError, match="not"):
+    with pytest.raises(ValueError, match=r"prefix store .* item 3 \(c2\)"):
         generate_handler({"model": "llama-tiny",
                           "extra": {"batch_mode": "continuous",
                                     "mesh": "tp=2"}},

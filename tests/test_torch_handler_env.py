@@ -9,8 +9,8 @@ over):
   ``LAMBDIPY_PREFIX_BLOCK``, ``LAMBDIPY_ATTN_BACKEND``,
   ``LAMBDIPY_MAX_LOGICAL_CTX``, ``LAMBDIPY_LONG_PREFILL``,
   ``LAMBDIPY_WINDOW_BUCKETING``), and the variables of features the port
-  lacks (``LAMBDIPY_MESH``, ``LAMBDIPY_PREFILL_MODE``) raise where their
-  value turns the feature on and the extra is unset;
+  lacks (``LAMBDIPY_MESH``'s ``dp`` axis, ``LAMBDIPY_PREFILL_MODE``)
+  raise where their value turns the feature on and the extra is unset;
 - a row the engine sends solo streams at the request's ``segment``
   clamped to a power of two in [4, 64], the JAX handler's chunks;
 - ``batching.segments_run`` and ``rows_in_segments`` count as JAX counts
@@ -154,17 +154,20 @@ def test_window_bucketing_variable(weights, monkeypatch, env, extra, want):
     assert state.stats()["batching"]["window_bucketing"] is want
 
 
-@pytest.mark.parametrize("var,on,off,key", [
-    ("LAMBDIPY_MESH", "tp=2", "off", "mesh"),
-    ("LAMBDIPY_PREFILL_MODE", "sp", "chunked", "prefill_mode"),
+@pytest.mark.parametrize("var,on,off,key,error,match", [
+    ("LAMBDIPY_MESH", "2x2", "off", "mesh", NotImplementedError,
+     r"item 3 \(c2\)"),
+    ("LAMBDIPY_PREFILL_MODE", "sp", "chunked", "prefill_mode", ValueError,
+     "not have yet"),
 ], ids=["mesh", "prefill-mode"])
 def test_unported_feature_variables_raise(weights, monkeypatch, var, on,
-                                          off, key):
-    """A value that turns the feature on raises, as the extra does; the
-    feature's off value builds, and an extra that turns it off wins over
-    the variable, as in JAX."""
+                                          off, key, error, match):
+    """A value that turns an unported feature on raises, as the extra
+    does (a serving mesh's ``dp`` axis: ROADMAP queue 1, item 3 (c2); tp
+    serves); the feature's off value builds, and an extra that turns it
+    off wins over the variable, as in JAX."""
     monkeypatch.setenv(var, on)
-    with pytest.raises(ValueError, match="not have yet"):
+    with pytest.raises(error, match=match):
         _handler(weights, BASE)
     assert _handler(weights, {**BASE, key: off}).engine is not None
     monkeypatch.setenv(var, off)

@@ -2060,3 +2060,140 @@ def test_train_under_a_one_rank_nccl_group_is_bitwise_no_mesh(
     assert restored.resumed_from == 4
     assert all(torch.equal(v, want[k])
                for k, v in dict(tree_paths(restored.state)).items())
+
+
+# -- tensor-parallel serving: a tp=2 rank's shapes and groups on the card ----
+
+# llama3-8b's projections at tp=2, a rank's (k, n); the lm_head's half in f32
+TP2_MATMUL = [(4096, 2048, torch.bfloat16), (4096, 512, torch.bfloat16),
+              (2048, 4096, torch.bfloat16), (4096, 7168, torch.bfloat16),
+              (7168, 4096, torch.bfloat16), (4096, 64128, torch.float32)]
+
+
+@pytest.mark.parametrize("m,rows_alone", [(1, True), (8, True), (128, None)],
+                         ids=["gemv1", "gemv8", "tiled128"])
+@pytest.mark.parametrize("k,n,dtype", TP2_MATMUL,
+                         ids=["q", "kv", "o", "gate-up", "down", "lm_head"])
+def test_int8_matmul_at_the_tp2_shard_shapes(cuda_device, m, rows_alone, k,
+                                             n, dtype):
+    """Each of a tp=2 rank's int8 projections (llama3-8b halved) on the
+    GEMV and the tiled route against the plain version; tolerances as
+    ``test_int8_matmul_kernel_matches_plain``. Every shape meets the
+    tiled contract (``n % 16``, ``k % 8``)."""
+    rng = np.random.default_rng(k + n + m)
+    x = torch.as_tensor(rng.normal(size=(m, k)).astype(np.float32)).to(dtype)
+    w = torch.as_tensor(rng.integers(-127, 128, (k, n)).astype(np.int8))
+    scale = torch.as_tensor(((rng.random((1, n)) + 0.5)
+                             / (127 * k ** 0.5)).astype(np.float32))
+    x, w, scale = x.to(cuda_device), w.to(cuda_device), scale.to(cuda_device)
+    assert tq.tiled_shape_error(k, n, dtype) is None
+    out = tq.int8_matmul(x, w, scale, rows_alone=rows_alone)
+    ref = tq.int8_matmul_reference(x, w, scale)
+    torch.cuda.synchronize()
+    peak = ref.float().abs().max().item()
+    tol = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * peak
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_decode_attention_at_a_tp2_ranks_heads(cuda_device, quant):
+    """Kernel 1 / 1b over a tp=2 rank's 16 query heads and 4 kv heads
+    (llama3-8b's group of 4 kept), contiguous and paged (kernel 3, bitwise
+    the contiguous kernel on the gathered K/V), against the plain
+    versions."""
+    rng = np.random.default_rng(16 + quant)
+    h, kvh, d, b, t = 16, 4, 128, 4, 544
+    alen = np.asarray([1, 129, 300, 544], np.int32)
+    q = torch.as_tensor(rng.normal(size=(b, 1, h, d)).astype(np.float32))
+    q = q.to(torch.bfloat16).to(cuda_device)
+    k, v = (torch.as_tensor(rng.normal(size=(b, t, kvh, d)).astype(
+        np.float32)).to(cuda_device) for _ in range(2))
+    lens = torch.as_tensor(alen, device=cuda_device)
+    if quant:
+        (k8, ks), (v8, vs) = _kv_quantize(k), _kv_quantize(v)
+        out = tda.blocked_decode_attention(q, k8, v8, lens, k_scale=ks,
+                                           v_scale=vs)
+        ref = tda.decode_attention_reference(
+            q, tda.dequantize_kv(k8, ks, torch.bfloat16),
+            tda.dequantize_kv(v8, vs, torch.bfloat16), lens)
+    else:
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        out = tda.blocked_decode_attention(q, k, v, lens)
+        ref = tda.decode_attention_reference(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert _row_rel_err(out, ref) <= ATTN_TOL[torch.bfloat16]
+    pages, tables = _paged_case(rng, b, 32, t // 32, kvh, d, quant, alen)
+    dev = {name: (x if quant else x.to(torch.bfloat16)).to(cuda_device)
+           for name, x in pages.items()}
+    _check_paged(q, dev, tables.to(cuda_device), lens, quant,
+                 torch.bfloat16)
+
+
+@pytest.mark.parametrize("s", [128, 4096])
+def test_flash_attention_at_a_tp2_ranks_heads(cuda_device, s):
+    """Kernel 4 over a tp=2 rank's 16 query heads and 4 kv heads, causal,
+    bf16, against the plain version (``FLASH_PLAIN_BF16_TOL``)."""
+    rng = np.random.default_rng(s)
+    q, k, v = (torch.as_tensor(rng.normal(size=(1, s, heads, 128)).astype(
+        np.float32)).to(torch.bfloat16).to(cuda_device)
+        for heads in (16, 4, 4))
+    out = tat.flash_attention(q, k, v, causal=True)
+    ref = tat.mha_reference(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert _row_rel_err(out, ref) <= FLASH_PLAIN_BF16_TOL
+
+
+def test_a_one_rank_tp_group_serves_bitwise_no_mesh(cuda_device, tmp_path):
+    """A one-rank NCCL tensor-parallel group keeps its CUDA graphs and
+    serves the small int8 model bitwise as no group (tokens and
+    logprobs, greedy and sampled)."""
+    from lambdipy_tpu_torch.parallel.distributed import tp_group
+
+    adapter = registry.get("llama-tiny").build(
+        dtype="bfloat16", quant="int8",
+        extra={"hidden": 256, "heads": 4, "kv_heads": 2, "mlp": 512})
+    weights = adapter.init_params(seed=0, device=cuda_device)
+    plain = adapter.make_server(weights)
+    group = tp_group(f"file://{tmp_path}/store", 0, 1, device=cuda_device,
+                     backend="nccl")
+    try:
+        one = adapter.make_server(weights, mesh={"tp": 1}, group=group)
+        assert one.graph_type is not None and not one.sharded
+        for kw in ({}, {"temperature": 0.8, "seed": 5}):
+            a = plain.generate([5, 6, 7], max_new_tokens=8,
+                               return_logprobs=True, **kw)
+            b = one.generate([5, 6, 7], max_new_tokens=8,
+                             return_logprobs=True, **kw)
+            assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+    finally:
+        group.close()
+
+
+def test_two_ranks_on_one_card_serve_tp1s_tokens(cuda_device):
+    """Two gloo ranks on one card (NCCL refuses two ranks on one GPU) at
+    tp=2 over the f32 ``llama-tiny``: greedy tokens equal tp=1's, solo
+    and through a paged engine, the ranks agree, and closing leaves no
+    follower."""
+    from lambdipy_tpu_torch.parallel import tpserve
+    from lambdipy_tpu_torch.parallel.mesh import make_mesh
+    from lambdipy_tpu_torch.runtime.continuous import ContinuousBatcher
+
+    adapter = registry.get("llama-tiny").build()
+    tp1 = adapter.make_server(None)
+    tp2 = tpserve.serve_tp(adapter.config, None,
+                           make_mesh({"tp": 2}, devices=[0, 1]),
+                           devices=[cuda_device, cuda_device],
+                           backend="gloo")
+    disp = tp2.dispatcher
+    disp.track()
+    try:
+        for p in ([1, 2, 3], [9, 8, 7, 6]):
+            assert np.array_equal(tp2.generate(p, max_new_tokens=8),
+                                  tp1.generate(p, max_new_tokens=8))
+        cb = ContinuousBatcher(tp2, slots=2, segment=4)
+        assert np.array_equal(cb.generate([4, 5, 6], max_new_tokens=8),
+                              tp1.generate([4, 5, 6], max_new_tokens=8))
+        assert len(set(disp.agree())) == 1
+    finally:
+        disp.close()
+    assert all(p.poll() is not None for p in disp.procs)

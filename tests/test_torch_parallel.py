@@ -309,8 +309,9 @@ def test_use_mesh_sets_the_ambient_mesh():
 
 
 @pytest.mark.parametrize("shape,error,message", [
-    ({"tp": 2}, NotImplementedError, "tensor parallelism is not ported yet "
-                                     "(ROADMAP queue 1, item 3 (c))"),
+    ({"tp": 2}, NotImplementedError, "training's tensor parallelism is not "
+                                     "ported yet (ROADMAP queue 1, item 3 "
+                                     "(c))"),
     ({"ep": 2}, NotImplementedError, "item 3 (d)"),
     ({"sp": 2}, NotImplementedError, "item 3 (e)"),
     ({"pp": 2}, NotImplementedError, "item 3 (f)"),
